@@ -1,0 +1,64 @@
+"""Carry the JAX package's data into the port.
+
+This system has no model weights: its parameters are the model fields and
+the precomputed sparse structures.  Each function takes plain numpy arrays
+(``np.asarray`` of the reference's `GriddedSources`, `GriddedReceivers`,
+`TileSourceTable` or `TileReceiverTable` fields) and returns the port's
+structure on `device`, so the reference's exact precompute can be fed to
+the port's propagators.  Nothing here imports the reference.
+"""
+from __future__ import annotations
+
+from typing import Optional, Sequence
+
+import numpy as np
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.core import sources as src_mod
+from repro_torch.core.propagators.acoustic import AcousticParams
+
+
+def acoustic_model_from_numpy(m, damp, device="cuda") -> AcousticParams:
+    """Squared slowness and damping fields as float tensors on `device`."""
+    dev = resolve_device(device)
+    return AcousticParams(m=torch.as_tensor(np.array(m), device=dev),
+                          damp=torch.as_tensor(np.array(damp), device=dev))
+
+
+def gridded_sources_from_numpy(sm, sid, points, src_dcmp,
+                               device="cuda") -> src_mod.GriddedSources:
+    """A `GriddedSources` from the reference's (sm, sid, points, src_dcmp)."""
+    dev = resolve_device(device)
+    return src_mod.GriddedSources(
+        sm=np.asarray(sm, np.uint8), sid=np.asarray(sid, np.int32),
+        points=torch.as_tensor(np.array(points, np.int32), device=dev),
+        src_dcmp=torch.as_tensor(np.array(src_dcmp), device=dev))
+
+
+def gridded_receivers_from_numpy(indices, weights,
+                                 device="cuda") -> src_mod.GriddedReceivers:
+    """A `GriddedReceivers` from the reference's (indices, weights)."""
+    dev = resolve_device(device)
+    return src_mod.GriddedReceivers(
+        indices=torch.as_tensor(np.array(indices, np.int32), device=dev),
+        weights=torch.as_tensor(np.array(weights), device=dev))
+
+
+def tile_tables_from_numpy(src: Optional[Sequence] = None,
+                           rec: Optional[Sequence] = None, device="cuda"):
+    """The port's (TileSourceTable | None, TileReceiverTable | None) from
+    the reference's tables, each given as its four fields in order:
+    src = (nnz, coords, sid, scale), rec = (nnz, coords, rid, weight) —
+    a reference table NamedTuple itself is such a sequence."""
+    dev = resolve_device(device)
+
+    def conv(fields, cls, dtypes):
+        if fields is None:
+            return None
+        return cls(*(torch.as_tensor(np.array(a, dt), device=dev)
+                     for a, dt in zip(fields, dtypes)))
+
+    i32, f32 = np.int32, np.float32
+    return (conv(src, src_mod.TileSourceTable, (i32, i32, i32, f32)),
+            conv(rec, src_mod.TileReceiverTable, (i32, i32, i32, f32)))

@@ -1,0 +1,301 @@
+"""Drivers of the temporally-blocked kernel (port of `repro.kernels.ops`).
+
+`acoustic_tb_propagate` is the production entry point: the outer time-tile
+loop of the paper's Listing 6 (depth-T time tiles plus one shallower
+``nt % T`` remainder tile, one kernel launch each), with the per-tile
+source/receiver tables precomputed once on the host from the paper's
+grid-aligned structures.  `acoustic_sb_propagate` (T = 1) is the
+spatially-blocked baseline the paper compares against.
+
+The driver is split at the host/device boundary as in the reference:
+`_tb_propagate` builds the tables; `tb_propagate_prepared` runs the tile
+loop on tensors.  Each time tile runs through one of two executors with
+the same window schedule: ``"cuda"`` (`stencil_tb.tb_time_tile`: the CUDA
+kernel on a card, its plain version on CPU tensors) or ``"torch"``
+(`stencil_tb.tb_time_tile_plain`, the plain version everywhere).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch._device import as_tensor, resolve_device
+from repro_torch.core import sources as src_mod
+from repro_torch.core.temporal_blocking import TBPlan
+from repro_torch.kernels import stencil_tb as ker
+from repro_torch.kernels import tb_physics as phys
+
+# executor name -> time-tile function (same window schedule)
+EXECUTORS = {"cuda": ker.tb_time_tile, "torch": ker.tb_time_tile_plain}
+
+
+def pad_xy(a: torch.Tensor, h: int, mode: str) -> torch.Tensor:
+    """Pad the leading two axes by `h`: zeros ("constant") or copies of the
+    edge values ("edge", numpy's mode of that name)."""
+    if mode == "constant":
+        return F.pad(a, (0, 0, h, h, h, h))
+    if mode == "edge":
+        ix = torch.arange(-h, a.shape[0] + h, device=a.device).clamp(
+            0, a.shape[0] - 1)
+        iy = torch.arange(-h, a.shape[1] + h, device=a.device).clamp(
+            0, a.shape[1] - 1)
+        return a.index_select(0, ix).index_select(1, iy)
+    raise ValueError(f"unknown pad mode {mode!r}")
+
+
+def _dummy_tables(ntiles: int, T: int, dev):
+    coords = torch.zeros((ntiles, 1, 3), dtype=torch.int32, device=dev)
+    vals = torch.zeros((ntiles, T, 1), dtype=torch.float32, device=dev)
+    return coords, vals
+
+
+def build_tables(spec: ker.TBKernelSpec,
+                 g: Optional[src_mod.GriddedSources],
+                 receivers: Optional[src_mod.GriddedReceivers],
+                 params: Dict[str, torch.Tensor],
+                 physics: phys.TBPhysics = phys.ACOUSTIC,
+                 src_cap: Optional[int] = None,
+                 rec_cap: Optional[int] = None):
+    """Host-side precompute of the per-tile tables (paper §II.A).
+
+    `params` maps physics.param_fields names to the (unpadded) model
+    tensors; the physics supplies the per-point injection factor.
+    `src_cap`/`rec_cap` bound entries per tile; None auto-sizes, a too-small
+    cap raises the overflow error naming the tile and the required cap.
+    The tables land on the device of the params.
+
+    Returns (src_tab | None, rec_tab | None).
+    """
+    shape = (spec.nx, spec.ny, spec.nz)
+    dev = params[physics.param_fields[0]].device
+    src_tab = rec_tab = None
+    if g is not None:
+        scale = physics.inject_scale(params, g, spec.dt)
+        src_tab = src_mod.tile_source_tables(g, shape, spec.tile, spec.halo,
+                                             scale=scale, cap=src_cap,
+                                             include_halo=spec.T > 1,
+                                             device=dev)
+    if receivers is not None:
+        rec_tab = src_mod.tile_receiver_tables(receivers, shape, spec.tile,
+                                               spec.halo, cap=rec_cap,
+                                               device=dev)
+    return src_tab, rec_tab
+
+
+def _src_vals_for_tile(src_dcmp: torch.Tensor, src_tab, t0: int, T: int):
+    """(ntiles, T, cap) injection values for the time tile starting at t0
+    (contiguous, as the kernel takes them)."""
+    vals = src_dcmp[t0:t0 + T]                             # (T, npts)
+    safe_sid = src_tab.sid.clamp(min=0).long()             # (ntiles, cap)
+    sv = vals[:, safe_sid]                                 # (T, ntiles, cap)
+    return (sv.permute(1, 0, 2) * src_tab.scale[:, None, :]).contiguous()
+
+
+def combine_rec_partials(rec_part: torch.Tensor, rec_tab, nrec: int):
+    """(ntx, nty, T, capr, nchan) partials -> (T, nrec, nchan) samples
+    (segment sum over receiver ids with `index_add_`; paper Fig. 3b)."""
+    ntx, nty, T, capr, nchan = rec_part.shape
+    ids = torch.where(rec_tab.rid < 0, nrec, rec_tab.rid).reshape(-1).long()
+    vals = rec_part.reshape(ntx * nty, T, capr, nchan)
+    vals = vals.permute(0, 2, 1, 3).reshape(-1, T, nchan)
+    seg = torch.zeros((nrec + 1, T, nchan), dtype=rec_part.dtype,
+                      device=rec_part.device).index_add_(0, ids, vals)
+    return seg[:nrec].permute(1, 0, 2)                     # (T, nrec, nchan)
+
+
+def tile_operands(spec: ker.TBKernelSpec, state, src_dcmp, src_tab,
+                  rec_tab, t0: int):
+    """What one time tile starting at step t0 hands the kernel: (zero-padded
+    state, src_coords, src_vals, rec_coords, rec_w) — dummy one-slot
+    tables stand in for missing sources or receivers."""
+    ntx, nty = spec.ntiles
+    ntiles = ntx * nty
+    dev = state[0].device
+    if src_tab is not None:
+        s_coords = src_tab.coords
+        s_vals = _src_vals_for_tile(src_dcmp, src_tab, t0, spec.T)
+    else:
+        s_coords, s_vals = _dummy_tables(ntiles, spec.T, dev)
+    s_vals = s_vals.to(spec.dtype)
+    if rec_tab is not None:
+        r_coords, r_w = rec_tab.coords, rec_tab.weight
+    else:
+        r_coords, _ = _dummy_tables(ntiles, 1, dev)
+        r_w = torch.zeros((ntiles, 1), dtype=torch.float32, device=dev)
+    r_w = r_w.to(spec.dtype)
+    state_pads = tuple(pad_xy(f, spec.halo, "constant") for f in state)
+    return state_pads, s_coords, s_vals, r_coords, r_w
+
+
+def _run_time_tile(spec: ker.TBKernelSpec, physics: phys.TBPhysics,
+                   state, param_pads, src_dcmp, src_tab, rec_tab, t0: int,
+                   nrec: int, executor: str):
+    state_pads, s_coords, s_vals, r_coords, r_w = tile_operands(
+        spec, state, src_dcmp, src_tab, rec_tab, t0)
+    new_state, rec_part = EXECUTORS[executor](
+        spec, physics, state_pads, param_pads, s_coords, s_vals, r_coords,
+        r_w)
+    if rec_tab is not None:
+        rec = combine_rec_partials(rec_part, rec_tab, nrec)
+    else:
+        rec = torch.zeros((spec.T, 0, physics.rec_channels),
+                          dtype=spec.dtype, device=state[0].device)
+    return new_state, rec
+
+
+def make_spec(shape: Tuple[int, int, int], plan: TBPlan, order: int,
+              dt: float, spacing: Tuple[float, float, float],
+              src_cap: int, rec_cap: int, dtype=torch.float32,
+              physics: phys.TBPhysics = phys.ACOUSTIC) -> ker.TBKernelSpec:
+    return ker.TBKernelSpec(
+        nx=shape[0], ny=shape[1], nz=shape[2], tile=plan.tile, T=plan.T,
+        order=order, dt=float(dt), spacing=tuple(float(s) for s in spacing),
+        src_cap=src_cap, rec_cap=rec_cap, dtype=dtype,
+        step_radius=physics.step_radius(order),
+        rec_channels=physics.rec_channels)
+
+
+def prepare_tiles(plan: TBPlan, physics: phys.TBPhysics,
+                  field: torch.Tensor, params: Dict[str, torch.Tensor],
+                  g: Optional[src_mod.GriddedSources],
+                  receivers: Optional[src_mod.GriddedReceivers],
+                  order: int, dt: float,
+                  spacing: Tuple[float, float, float]):
+    """Host-side setup of depth-plan.T time tiles on `field`'s grid, dtype
+    and device: (spec with caps sized to the tables, src_tab | None,
+    rec_tab | None, edge-padded param tuple)."""
+    shape, dtype = tuple(field.shape), field.dtype
+    spec = make_spec(shape, plan, order, dt, spacing, 1, 1, dtype, physics)
+    # the tables depend on tile/halo/dt only, so the caps come from them
+    src_tab, rec_tab = build_tables(spec, g, receivers, params, physics)
+    spec = dataclasses.replace(
+        spec, src_cap=src_tab.cap if src_tab is not None else 1,
+        rec_cap=rec_tab.coords.shape[1] if rec_tab is not None else 1)
+    param_pads = tuple(pad_xy(params[f], spec.halo, "edge")
+                       for f in physics.param_fields)
+    return spec, src_tab, rec_tab, param_pads
+
+
+def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
+                          spec: ker.TBKernelSpec,
+                          rspec: Optional[ker.TBKernelSpec],
+                          state: Tuple[torch.Tensor, ...],
+                          param_pads, rparam_pads,
+                          src_dcmp: torch.Tensor, src_tab, rec_tab,
+                          rsrc_tab, rrec_tab, nrec: int,
+                          executor: str = "cuda"):
+    """The device-side core of `_tb_propagate`: the loop over depth-T time
+    tiles plus the shallower `nt % T` remainder tile, after all host-side
+    table binning.  `rspec` is None when `nt % spec.T == 0`.
+
+    Returns (final state tuple, recs (nt, nrec, rec_channels)); recs are
+    shaped (nt, 0, chan) when no receiver tables were bound.
+    """
+    n_main = nt // spec.T
+    rem = nt - n_main * spec.T
+    if (rem > 0) != (rspec is not None):
+        raise ValueError(f"nt={nt} with T={spec.T} needs "
+                         f"{'a' if rem else 'no'} remainder spec")
+    carry = tuple(state)
+    recs = []
+    for i in range(n_main):
+        carry, rec = _run_time_tile(spec, physics, carry, param_pads,
+                                    src_dcmp, src_tab, rec_tab, i * spec.T,
+                                    nrec, executor)
+        recs.append(rec)
+    if rem > 0:
+        carry, rec = _run_time_tile(rspec, physics, carry, rparam_pads,
+                                    src_dcmp, rsrc_tab, rrec_tab,
+                                    n_main * spec.T, nrec, executor)
+        recs.append(rec)
+    if not recs:
+        return carry, torch.zeros((0, nrec, physics.rec_channels),
+                                  dtype=spec.dtype, device=state[0].device)
+    return carry, torch.cat(recs, dim=0)
+
+
+def _tb_propagate(physics: phys.TBPhysics, nt: int,
+                  state: Tuple[torch.Tensor, ...],
+                  params: Dict[str, torch.Tensor],
+                  g: Optional[src_mod.GriddedSources],
+                  receivers: Optional[src_mod.GriddedReceivers],
+                  plan: TBPlan, order: int, dt,
+                  spacing: Tuple[float, float, float],
+                  executor: str = "cuda"):
+    """Propagate nt timesteps of `physics` with the temporally-blocked
+    kernel: time tiles of depth plan.T, then a remainder tile of depth
+    nt % T.  `state` is ordered as physics.state_fields; `params` maps
+    physics.param_fields to (nx, ny, nz) tensors, on the state's device.
+
+    Returns (final state tuple, rec (nt, nrec, rec_channels) | None).
+    """
+    if g is not None and g.nt < nt:
+        raise ValueError(f"source wavelets cover {g.nt} steps < nt={nt}")
+    args = (physics, state[0], params, g, receivers, order, float(dt),
+            spacing)
+    spec, src_tab, rec_tab, param_pads = prepare_tiles(plan, *args)
+    nrec = receivers.num if receivers is not None else 0
+    src_dcmp = (g.src_dcmp if g is not None
+                else torch.zeros((max(nt, 1), 1), dtype=state[0].dtype,
+                                 device=state[0].device))
+    rspec = rsrc_tab = rrec_tab = rparam_pads = None
+    if nt % plan.T:
+        # the remainder tile's tables differ: its halo is shallower
+        rspec, rsrc_tab, rrec_tab, rparam_pads = prepare_tiles(
+            dataclasses.replace(plan, T=nt % plan.T), *args)
+
+    carry, recs = tb_propagate_prepared(
+        physics, nt, spec, rspec, state, param_pads, rparam_pads,
+        src_dcmp, src_tab, rec_tab, rsrc_tab, rrec_tab, nrec,
+        executor=executor)
+    if receivers is None:
+        recs = None
+    return carry, recs
+
+
+# ---------------------------------------------------------------------------
+# Entry points
+# ---------------------------------------------------------------------------
+
+def acoustic_tb_propagate(nt: int, u0, u1, m, damp,
+                          g: Optional[src_mod.GriddedSources],
+                          receivers: Optional[src_mod.GriddedReceivers],
+                          plan: TBPlan, order: int, dt,
+                          spacing: Tuple[float, float, float],
+                          executor: Optional[str] = None,
+                          device="cuda"):
+    """Acoustic TB propagation.  Returns ((u_prev, u), rec (nt, nrec) | None).
+
+    The fields (numpy arrays or tensors) are moved to `device` (default
+    ``"cuda"``, which raises without a card).  `executor` defaults to
+    ``"cuda"`` on a card and ``"torch"`` on the CPU.  Semantics identical
+    to `kernels.ref.acoustic_reference` (tested).
+    """
+    dev = resolve_device(device)
+    if executor is None:
+        executor = "cuda" if dev.type == "cuda" else "torch"
+    if executor not in EXECUTORS:
+        raise ValueError(f"unknown executor {executor!r}; "
+                         f"expected one of {tuple(EXECUTORS)}")
+    u0, u1, m, damp = (as_tensor(a, dev) for a in (u0, u1, m, damp))
+    g = g.to(dev) if g is not None else None
+    receivers = receivers.to(dev) if receivers is not None else None
+    (u0n, u1n), recs = _tb_propagate(
+        phys.ACOUSTIC, nt, (u0, u1), {"m": m, "damp": damp}, g, receivers,
+        plan, order, dt, spacing, executor=executor)
+    if recs is not None:
+        recs = recs[..., 0]
+    return (u0n, u1n), recs
+
+
+def acoustic_sb_propagate(nt: int, u0, u1, m, damp, g, receivers,
+                          tile: Tuple[int, int], order: int, dt, spacing,
+                          executor: Optional[str] = None, device="cuda"):
+    """The paper's baseline: spatially-blocked only (T = 1)."""
+    plan = TBPlan(tile=tile, T=1, radius=order // 2)
+    return acoustic_tb_propagate(nt, u0, u1, m, damp, g, receivers, plan,
+                                 order, dt, spacing, executor=executor,
+                                 device=device)

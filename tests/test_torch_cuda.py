@@ -1,0 +1,105 @@
+"""The CUDA TB kernel against its plain PyTorch version, on the card.
+
+Marked `cuda`; each test skips (inside its body) when no card is present,
+so the CPU runs collect the same tests on every worker.  This file imports
+neither JAX nor the JAX package, so it runs on a machine that has only the
+port's dependencies:
+
+    python -m pytest -q -m cuda tests/test_torch_cuda.py
+
+Tolerance: rtol 2e-4, atol 1e-6 (tests/test_kernel_stencil_tb.py).
+"""
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.temporal_blocking import TBPlan
+from repro_torch.kernels import ops, ref, stencil_tb as ker, \
+    tb_physics as phys
+from test_torch_case import acoustic_case, port_sparse
+
+RTOL, ATOL = 2e-4, 1e-6
+
+
+def _card():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card (the kernel has no CPU mode)")
+    return torch.device("cuda", 0)
+
+
+def _operands(c, T, tile, dev, sources=True, t0=1):
+    g, gr = port_sparse(c, device=dev) if sources else (None, None)
+    params = {"m": torch.as_tensor(c.m, device=dev),
+              "damp": torch.as_tensor(c.damp, device=dev)}
+    state = tuple(torch.as_tensor(a, device=dev) for a in (c.u0, c.u1))
+    spec, st, rt, ppads = ops.prepare_tiles(
+        TBPlan(tile, T, c.order // 2), phys.ACOUSTIC, state[0], params, g,
+        gr, c.order, c.dt, c.spacing)
+    pads, sc, sv, rc, rw = ops.tile_operands(
+        spec, state, g.src_dcmp if sources else None, st, rt, t0)
+    return spec, (pads, ppads, sc, sv, rc, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("T,tile,order,shape,sources", [
+    (1, (8, 8), 4, (16, 16, 40), True),
+    (2, (16, 8), 2, (32, 16, 37), True),
+    (3, (8, 8), 8, (16, 24, 33), True),
+    (4, (16, 16), 4, (32, 32, 45), True),
+    (2, (16, 16), 8, (32, 32, 29), False),
+])
+def test_kernel_matches_plain(T, tile, order, shape, sources):
+    dev = _card()
+    c = acoustic_case(shape=shape, order=order, nt=8, nsrc=3, nrec=4)
+    spec, args = _operands(c, T, tile, dev, sources)
+    before = ker.launches
+    (k0, k1), krec = ker.tb_time_tile(spec, phys.ACOUSTIC, *args)
+    assert ker.launches == before + 1
+    (p0, p1), prec = ker.tb_time_tile_plain(spec, phys.ACOUSTIC, *args)
+    torch.cuda.synchronize()
+    for k, p in ((k0, p0), (k1, p1), (krec, prec)):
+        assert k.shape == p.shape
+        torch.testing.assert_close(k, p, rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_propagate_on_card_matches_reference_and_cpu():
+    dev = _card()
+    c = acoustic_case(shape=(32, 16, 24), nt=7)
+    g, gr = port_sparse(c, device=dev)
+    plan = TBPlan((8, 8), 3, 2)
+    (u0, u1), rec = ops.acoustic_tb_propagate(
+        c.nt, c.u0, c.u1, c.m, c.damp, g, gr, plan, 4, c.dt, c.spacing)
+    (r0, r1), rrec = ref.acoustic_reference(
+        c.nt, c.u0, c.u1, c.m, c.damp, c.dt, c.spacing, 4, g=g,
+        receivers=gr)
+    cg, cgr = port_sparse(c, device="cpu")
+    (_, h1), hrec = ops.acoustic_tb_propagate(
+        c.nt, c.u0, c.u1, c.m, c.damp, cg, cgr, plan, 4, c.dt, c.spacing,
+        device="cpu")
+    assert u1.device.type == "cuda"
+    torch.testing.assert_close(u1, r1, rtol=RTOL, atol=ATOL)
+    torch.testing.assert_close(rec, rrec, rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(u1.cpu().numpy(), h1.numpy(), rtol=RTOL,
+                               atol=ATOL)
+    np.testing.assert_allclose(rec.cpu().numpy(), hrec.numpy(), rtol=RTOL,
+                               atol=ATOL)
+
+
+@pytest.mark.cuda
+def test_wrapper_rejects_what_the_kernel_does_not_take():
+    dev = _card()
+    c = acoustic_case(shape=(16, 16, 12), nt=4)
+    spec, (pads, ppads, sc, sv, rc, rw) = _operands(c, 2, (8, 8), dev)
+    bf = tuple(p.to(torch.bfloat16) for p in pads)
+    with pytest.raises(TypeError, match="B1a-bf16"):
+        ker.tb_time_tile(spec, phys.ACOUSTIC, bf, ppads, sc, sv, rc, rw)
+    strided = (pads[0].transpose(0, 1), pads[1])
+    with pytest.raises(ValueError, match="contiguous"):
+        ker.tb_time_tile(spec, phys.ACOUSTIC, strided, ppads, sc, sv, rc, rw)
+    with pytest.raises(ValueError, match="shape"):
+        ker.tb_time_tile(spec, phys.ACOUSTIC, pads, ppads, sc, sv[:, :1],
+                         rc, rw)
+    cpu = tuple(p.cpu() for p in ppads)
+    with pytest.raises(ValueError, match="cpu"):
+        ker.tb_time_tile(spec, phys.ACOUSTIC, pads, cpu, sc, sv, rc, rw)

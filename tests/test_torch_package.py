@@ -1,0 +1,67 @@
+"""Guards of the port's package boundary.
+
+The port must run on a machine without JAX: no module of
+`src/repro_torch/`, and not `chip_smoke.py`, may import `jax` or `repro`.
+And its entry points default to the card, with no CPU fallback.
+"""
+import ast
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from repro_torch.core.temporal_blocking import TBPlan
+from repro_torch.kernels import ops
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
+    ROOT / "chip_smoke.py"]
+BANNED = ("jax", "jaxlib", "repro")
+
+
+def _imported_roots(path: Path):
+    tree = ast.parse(path.read_text(), filename=str(path))
+    for node in ast.walk(tree):
+        if isinstance(node, ast.Import):
+            for alias in node.names:
+                yield alias.name.split(".")[0]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            yield node.module.split(".")[0]
+        elif (isinstance(node, ast.Call)
+              and getattr(node.func, "attr", getattr(node.func, "id", ""))
+              in ("import_module", "__import__") and node.args
+              and isinstance(node.args[0], ast.Constant)):
+            yield str(node.args[0].value).split(".")[0]
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=[str(p.relative_to(ROOT)) for p in PORT_FILES])
+def test_port_imports_no_jax_or_reference(path):
+    bad = sorted(set(_imported_roots(path)) & set(BANNED))
+    assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
+
+
+def test_guard_sees_the_files():
+    assert len(PORT_FILES) >= 15
+    assert (ROOT / "chip_smoke.py").is_file()
+    assert "jax" in set(_imported_roots(ROOT / "tests" / "test_torch_ops.py"))
+
+
+def test_default_device_raises_without_card():
+    if torch.cuda.is_available():
+        pytest.skip("a card is present: the default device is valid here")
+    z = np.zeros((8, 8, 4), np.float32)
+    with pytest.raises(RuntimeError, match="cuda"):
+        ops.acoustic_tb_propagate(2, z, z, z + 1.0, z, None, None,
+                                  TBPlan(tile=(8, 8), T=1, radius=2), 4,
+                                  1e-3, (10.0,) * 3)
+
+
+def test_cpu_runs_only_when_asked():
+    z = np.zeros((8, 8, 4), np.float32)
+    (u0, u1), rec = ops.acoustic_tb_propagate(
+        2, z, z, z + 1.0, z, None, None, TBPlan(tile=(8, 8), T=1, radius=2),
+        4, 1e-3, (10.0,) * 3, device="cpu")
+    assert rec is None and u1.device.type == "cpu"
+    assert not torch.any(u1)

@@ -1,0 +1,115 @@
+"""The port's TB time tile (CPU: the plain version) against the Pallas
+kernel `repro.kernels.stencil_tb.tb_time_tile` in interpret mode, on
+identical pads and tables (tolerance of the reference kernel tests:
+rtol 2e-4, atol 1e-6)."""
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from repro.core import sources as JS
+from repro.core.grid import Grid as JGrid
+from repro.core.temporal_blocking import TBPlan as JPlan
+from repro.kernels import ops as jops, stencil_tb as jker, \
+    tb_physics as jphys
+from repro_torch import interop
+from repro_torch.kernels import stencil_tb as tker, tb_physics as tphys
+from test_torch_case import acoustic_case
+
+RTOL, ATOL = 2e-4, 1e-6
+
+
+def _inputs(c, tile, T, sources=True):
+    """Reference spec, pads and per-tile inputs of one time tile at t0=1."""
+    grid = JGrid(shape=c.shape, spacing=c.spacing)
+    params = {"m": jnp.asarray(c.m), "damp": jnp.asarray(c.damp)}
+    plan = JPlan(tile=tile, T=T, radius=c.order // 2)
+    spec = jops.make_spec(c.shape, plan, c.order, c.dt, c.spacing, 1, 1)
+    g = JS.precompute(JS.SparseOperator(c.src), grid, c.wav)
+    gr = JS.precompute_receivers(JS.SparseOperator(c.rec), grid)
+    st, rt = jops.build_tables(spec, g if sources else None,
+                               gr if sources else None, params)
+    ntiles = spec.ntiles[0] * spec.ntiles[1]
+    if sources:
+        spec = jops.make_spec(c.shape, plan, c.order, c.dt, c.spacing,
+                              st.cap, rt.coords.shape[1])
+        sc, sv = st.coords, jops._src_vals_for_tile(g.src_dcmp, st, 1, T)
+        rc, rw = rt.coords, rt.weight
+    else:
+        sc, sv = jops._dummy_tables(ntiles, T)
+        rc, rw = jnp.zeros((ntiles, 1, 3), jnp.int32), jnp.zeros((ntiles, 1))
+    h = spec.halo
+    pads = [jops._pad_xy(jnp.asarray(a), h, "constant")
+            for a in (c.u0, c.u1)]
+    ppads = [jops._pad_xy(params[f], h, "edge") for f in ("m", "damp")]
+    return spec, pads, ppads, (sc, sv.astype(jnp.float32), rc,
+                               rw.astype(jnp.float32)), st, rt
+
+
+def _port_spec(spec):
+    return tker.TBKernelSpec(
+        nx=spec.nx, ny=spec.ny, nz=spec.nz, tile=spec.tile, T=spec.T,
+        order=spec.order, dt=spec.dt, spacing=spec.spacing,
+        src_cap=spec.src_cap, rec_cap=spec.rec_cap,
+        step_radius=spec.step_radius, rec_channels=spec.rec_channels)
+
+
+def _t(a):
+    return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("T,tile,order,shape,sources", [
+    (2, (8, 8), 4, (16, 16, 12), True),
+    (3, (16, 8), 2, (16, 16, 10), True),
+    (1, (8, 8), 8, (16, 8, 9), True),
+    (2, (8, 8), 4, (16, 16, 12), False),
+])
+def test_time_tile_matches_pallas_interpret(T, tile, order, shape, sources):
+    c = acoustic_case(shape=shape, order=order, nt=6, nsrc=1, nrec=2)
+    spec, pads, ppads, tabs, _, _ = _inputs(c, tile, T, sources)
+    (j0, j1), jrec = jker.tb_time_tile(spec, jphys.ACOUSTIC, pads, ppads,
+                                       *tabs, interpret=True)
+    tspec = _port_spec(spec)
+    targs = ((_t(pads[0]), _t(pads[1])), (_t(ppads[0]), _t(ppads[1])),
+             *(_t(a) for a in tabs))
+    before = tker.launches
+    (t0, t1), trec = tker.tb_time_tile(tspec, tphys.ACOUSTIC, *targs)
+    assert tker.launches == before        # CPU tensors: the plain version
+    for a, b in ((t0, j0), (t1, j1), (trec, jrec)):
+        assert tuple(a.shape) == tuple(b.shape)
+        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
+                                   atol=ATOL)
+    (p0, p1), prec = tker.tb_time_tile_plain(tspec, tphys.ACOUSTIC, *targs)
+    for a, b in ((p0, t0), (p1, t1), (prec, trec)):
+        assert torch.equal(a, b)
+
+
+def test_interop_tables_feed_the_port():
+    """The reference's tables cross through `interop` unchanged."""
+    c = acoustic_case()
+    spec, _, _, _, st, rt = _inputs(c, (8, 8), 2)
+    ts, tr = interop.tile_tables_from_numpy(st, rt, device="cpu")
+    for x, y in zip(ts + tr, st + rt):
+        np.testing.assert_array_equal(x.numpy(), np.asarray(y))
+    assert ts.coords.dtype == torch.int32 and tr.weight.dtype == torch.float32
+    assert interop.tile_tables_from_numpy(device="cpu") == (None, None)
+
+
+def test_spec_geometry_and_cost():
+    jspec = jker.TBKernelSpec(nx=64, ny=64, nz=64, tile=(32, 32), T=4,
+                              order=4, dt=1e-3, spacing=(10.0,) * 3,
+                              src_cap=8, rec_cap=8)
+    spec = _port_spec(jspec)
+    assert (spec.halo, spec.window, spec.ntiles) == \
+        (jspec.halo, jspec.window, jspec.ntiles)
+    assert spec.window_bytes() == jspec.vmem_bytes()
+    cost = tker.kernel_cost(spec)
+    jcost = jker.kernel_cost(jspec)
+    assert cost["useful_flops"] == jcost["useful_flops"]
+    assert cost["hbm_bytes"] == jcost["hbm_bytes"]
+    assert cost["min_bytes"] == 64 ** 3 * 6 * 4
+    assert cost["flops"] > cost["useful_flops"] > 0
+    with pytest.raises(ValueError):
+        _ = tker.TBKernelSpec(nx=10, ny=8, nz=4, tile=(4, 4), T=1, order=2,
+                              dt=1e-3, spacing=(1.0,) * 3, src_cap=1,
+                              rec_cap=1).ntiles
