@@ -2,25 +2,31 @@
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/`, holds
-each kernel against its plain PyTorch version, drives the port's main path
-(temporally-blocked acoustic propagation with an off-the-grid source and
-receivers) at the paper's full size, checks it against the port's
-Listing-1 reference, times it beside the spatially-blocked baseline, and
-prints one JSON line per kernel and a final JSON status line.  It needs a
-card: without one it exits non-zero before printing any result.  It
-imports neither JAX nor the JAX package.
+Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/` (one
+per physics: acoustic, TTI, elastic), holds each kernel against its plain
+PyTorch version on small cases, then drives the port's three main paths —
+temporally-blocked acoustic, TTI and elastic propagation with an
+off-the-grid source and receivers, through `ops.acoustic_tb_propagate`,
+`ops.tti_tb_propagate` and `ops.elastic_tb_propagate` — at the paper's full
+size, checks each against the port's Listing-1 reference, times it beside
+its spatially-blocked baseline (T = 1), and prints one JSON line listing
+every kernel and a final JSON status line.  It needs a card: without one
+it exits non-zero before printing any result.  It imports neither JAX nor
+the JAX package.
 
 Phases (one line each): environment, build, kernel vs plain on small
-cases, main path at full size, spatially-blocked baseline, kernel line.
-Any failed check raises, and the script exits non-zero.
+cases, then for each path: main path at full size, spatially-blocked
+baseline, kernel timing; then the kernel line.  Any failed check raises,
+and the script exits non-zero.
 """
+import dataclasses
 import json
 import math
 import subprocess
 import sys
 import time
 from pathlib import Path
+from typing import Callable
 
 import numpy as np
 import torch
@@ -29,27 +35,32 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import boundary, sources as S  # noqa: E402
 from repro_torch.core.grid import Grid  # noqa: E402
+from repro_torch.core.propagators import elastic, tti  # noqa: E402
 from repro_torch.core.temporal_blocking import TBPlan  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import stencil_tb as ker  # noqa: E402
 from repro_torch.kernels import tb_physics as phys  # noqa: E402
 
-RTOL, ATOL = 2e-4, 1e-6          # tests/test_kernel_stencil_tb.py:56
+RTOL = 2e-4
+# kernel vs plain: tests/test_kernel_stencil_tb.py:56 (acoustic),
+# tests/test_kernel_multiphysics.py:23-24 (TTI, elastic)
+ATOL = {"acoustic": 1e-6, "tti": 1e-5, "elastic": 1e-5}
 MAIN_TOL = 1e-4                  # max|diff| / max|ref|, fields and traces
 HBM_BW = 3.35e12                 # H100 SXM, bytes/s (data sheet)
 F32_PEAK = 67e12                 # H100 SXM float32 outside the tensor cores
 
-# The paper's own case (repro.configs.paper_stencil.full_case("acoustic", 4),
+# The paper's own cases (repro.configs.paper_stencil.full_case(p, 4),
 # values copied: the port imports nothing of the JAX package).
 SHAPE = (512, 512, 512)
-SPACING = (10.0, 10.0, 10.0)
 ORDER = 4
 TIME_MS = 512.0
 F0 = 10.0
 NBL = 10
 VMIN, VMAX = 1500.0, 3500.0
-PLAN = TBPlan(tile=(32, 32), T=4, radius=ORDER // 2)
+TILE = (32, 32)
+T_TB = 4
 NREC = 512
+SMALL_SPACING = (10.0, 10.0, 10.0)
 
 
 def say(phase, msg):
@@ -73,13 +84,17 @@ def max_rel(a, b):
     return float((a - b).abs().max()) / max(float(b.abs().max()), 1e-30)
 
 
-def check_close(name, got, want):
-    if not torch.allclose(got, want, rtol=RTOL, atol=ATOL):
+def check_close(name, got, want, atol):
+    if not torch.allclose(got, want, rtol=RTOL, atol=atol):
         err = float((got - want).abs().max())
         raise AssertionError(f"{name}: kernel disagrees with its plain "
                              f"version, max|diff| = {err:.3e} (rtol {RTOL}, "
-                             f"atol {ATOL})")
+                             f"atol {atol})")
     return float((got - want).abs().max())
+
+
+def plan_for(physics, T):
+    return TBPlan(TILE, T, physics.step_radius(ORDER))
 
 
 # ---------------------------------------------------------------------------
@@ -113,12 +128,18 @@ def phase_build():
             + " | ".join(ptxas))
 
 
-def _small_case(shape, order, nsrc, nrec, seed, dev):
-    grid = Grid(shape=shape, spacing=SPACING)
+# ---------------------------------------------------------------------------
+# Small cases: each kernel against its plain version
+# ---------------------------------------------------------------------------
+
+def small_case(name, shape, order, nsrc, nrec, seed, dev):
+    """(state tuple, params dict, g, gr, dt) of a small random case.  The
+    elastic moduli are in the reference tests' scaled units (x1e-6), which
+    keep the small fields near unit scale."""
+    grid = Grid(shape=shape, spacing=SMALL_SPACING)
     rng = np.random.RandomState(seed)
     vp = 1500.0 + 1000.0 * rng.rand(*shape)
-    m = torch.as_tensor((1.0 / vp ** 2).astype(np.float32), device=dev)
-    damp = boundary.damping_field(shape, 3, SPACING, device=dev)
+    damp = boundary.damping_field(shape, 3, SMALL_SPACING, device=dev)
     dt = grid.cfl_dt(2500.0, order)
     ext = np.asarray(grid.extent)
     g = gr = None
@@ -130,49 +151,294 @@ def _small_case(shape, order, nsrc, nrec, seed, dev):
         gr = S.precompute_receivers(
             S.SparseOperator(5.0 + rng.rand(nrec, 3) * (ext - 10.0)), grid,
             device=dev)
-    state = tuple(torch.as_tensor((0.01 * rng.randn(*shape))
-                                  .astype(np.float32), device=dev)
-                  for _ in range(2))
-    return state, {"m": m, "damp": damp}, g, gr, dt
+
+    def f32(a):
+        return torch.as_tensor(np.asarray(a, np.float32), device=dev)
+
+    if name == "acoustic":
+        params = {"m": f32(1.0 / vp ** 2), "damp": damp}
+    elif name == "tti":
+        params = {"m": f32(1.0 / vp ** 2), "damp": damp,
+                  "epsilon": f32(0.2 * rng.rand(*shape)),
+                  "delta": f32(0.1 * rng.rand(*shape)),
+                  "theta": f32(0.3 * rng.randn(*shape)),
+                  "phi": f32(0.3 * rng.randn(*shape))}
+    else:
+        rho = 2000.0 + 100.0 * rng.rand(*shape)
+        vs = vp / 1.9
+        params = {"lam": f32(rho * (vp ** 2 - 2 * vs ** 2) * 1e-6),
+                  "mu": f32(rho * vs ** 2 * 1e-6), "b": f32(1.0 / rho),
+                  "damp": damp}
+    nstate = len(phys.PHYSICS[name].state_fields)
+    state = tuple(f32(0.01 * rng.randn(*shape)) for _ in range(nstate))
+    return state, params, g, gr, dt
 
 
-def kernel_inputs(plan, state, params, g, gr, dt, t0, order=ORDER):
-    """The kernel's operands for the time tile at t0, as the main path
+def kernel_inputs(physics, plan, state, params, g, gr, dt, t0, spacing,
+                  order=ORDER):
+    """(spec, kernel operands) of the time tile at t0, as the main path
     builds them."""
     spec, st, rt, ppads = ops.prepare_tiles(
-        plan, phys.ACOUSTIC, state[0], params, g, gr, order, dt, SPACING)
+        plan, physics, state[0], params, g, gr, order, dt, spacing)
     src_dcmp = g.src_dcmp if g is not None else None
     pads, sc, sv, rc, rw = ops.tile_operands(spec, state, src_dcmp, st, rt,
                                              t0)
     return spec, (pads, ppads, sc, sv, rc, rw)
 
 
-def kernel_alone_ms(spec, args, reps=5):
-    """Device ms per launch of the kernel alone on `args` (not counted as
-    main-path launches)."""
+def uncounted(fn):
+    """fn() with the launch counter left as it was (launches made to time
+    or compare a kernel are not main-path launches)."""
     saved = ker.launches
-    ker.tb_time_tile(spec, phys.ACOUSTIC, *args)            # warm-up
-    ms, _ = cuda_ms(lambda: ker.tb_time_tile(spec, phys.ACOUSTIC, *args),
-                    reps)
+    out = fn()
     ker.launches = saved
-    return ms
+    return out
 
 
-def time_tile_pieces(plan, fc, state, t0):
+def compare_kernel(spec, physics, args):
+    """One kernel launch against the plain version on the same inputs."""
+    kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
+    pst, prec = ker.tb_time_tile_plain(spec, physics, *args)
+    torch.cuda.synchronize()
+    atol = ATOL[physics.name]
+    errs = [check_close(f"{physics.name} {f}", k, p, atol)
+            for f, k, p in zip(physics.state_fields, kst, pst)]
+    return max(errs + [check_close(f"{physics.name} rec", krec, prec, atol)])
+
+
+SMALL_CASES = [  # (T, tile, order, shape, sources)
+    (1, (8, 8), 4, (16, 16, 40), True),
+    (2, (16, 8), 2, (32, 16, 37), True),
+    (3, (8, 8), 8, (16, 24, 33), True),
+    (4, (16, 16), 4, (32, 32, 45), True),
+    (4, (8, 8), 2, (24, 16, 64), True),
+    (2, (16, 16), 8, (32, 32, 29), False),
+]
+# TTI and elastic (step radius = order): T in {1, 2, 4}, tiles (8, 8) and
+# (16, 8), orders 2/4/8, nz not a multiple of 32, one case without sources
+# or receivers
+SMALL_MP_CASES = [
+    (1, (8, 8), 4, (16, 16, 40), True),
+    (2, (16, 8), 2, (32, 16, 37), True),
+    (4, (8, 8), 4, (16, 24, 33), True),
+    (2, (8, 8), 8, (16, 16, 20), True),
+    (4, (16, 8), 2, (32, 16, 64), True),
+    (2, (16, 8), 4, (32, 16, 29), False),
+]
+
+
+def phase_kernel_vs_plain(dev):
+    for name, cases in (("acoustic", SMALL_CASES), ("tti", SMALL_MP_CASES),
+                        ("elastic", SMALL_MP_CASES)):
+        physics = phys.PHYSICS[name]
+        worst = 0.0
+        for i, (T, tile, order, shape, sources) in enumerate(cases):
+            state, params, g, gr, dt = small_case(
+                name, shape, order, 3 if sources else 0, 4, i, dev)
+            plan = TBPlan(tile, T, physics.step_radius(order))
+            spec, args = kernel_inputs(physics, plan, state, params, g,
+                                          gr, dt, 1, SMALL_SPACING,
+                                          order=order)
+            err = compare_kernel(spec, physics, args)
+            worst = max(worst, err)
+            say("kernel-vs-plain", f"{name} T={T} tile={tile} order={order} "
+                f"shape={shape} sources={sources}: max|diff| {err:.3e}")
+        say("kernel-vs-plain", f"{name}: {len(cases)} cases within rtol "
+            f"{RTOL} atol {ATOL[name]}; worst max|diff| {worst:.3e}")
+
+
+# ---------------------------------------------------------------------------
+# The three main paths at full size
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FullCase:
+    physics: phys.TBPhysics
+    spacing: tuple
+    nt: int
+    dt: float
+    state: tuple                  # in physics.state_fields order
+    params: dict                  # physics.param_fields -> tensor
+    g: S.GriddedSources
+    gr: S.GriddedReceivers
+    # run(plan) -> (final state tuple, traces); reference() -> the same
+    run: Callable = None
+    reference: Callable = None
+
+
+def _layered(shape, top, bottom, dev):
+    """A field of two layers in z (`top` above nz / 2), contiguous."""
+    col = np.where(np.arange(shape[2]) < shape[2] // 2, top, bottom)
+    return torch.as_tensor(col.astype(np.float32), device=dev) \
+        .expand(shape).contiguous()
+
+
+def _smooth_angle(shape, dev, fx, fy):
+    """Between 0 and 0.5 rad, varying smoothly in x and y."""
+    x = np.arange(shape[0])[:, None] / shape[0]
+    y = np.arange(shape[1])[None, :] / shape[1]
+    a = 0.25 * (1.0 + np.sin(2 * np.pi * fx * x) * np.cos(2 * np.pi * fy * y))
+    return torch.as_tensor(a.astype(np.float32)[:, :, None], device=dev) \
+        .expand(shape).contiguous()
+
+
+def full_case(name, dev):
+    """The paper's case for `name` (acoustic, tti or elastic): 512^3, space
+    order 4, 512 ms, two-layer 1500/3500 m/s model with a `nbl=10` sponge,
+    one off-the-grid 10 Hz Ricker source and 512 off-the-grid receivers on
+    a line, placed in grid units so each spacing sees the same geometry."""
+    physics = phys.PHYSICS[name]
+    h = 20.0 if name == "tti" else 10.0          # paper: 20 m for TTI
+    spacing = (h, h, h)
+    grid = Grid(shape=SHAPE, spacing=spacing)
+    # TTI's fastest speed is vmax sqrt(1 + 2 eps) with eps up to 0.2
+    vfast = VMAX * math.sqrt(1.0 + 2.0 * 0.2) if name == "tti" else VMAX
+    dt = grid.cfl_dt(vfast, ORDER)
+    nt = max(int(math.ceil(TIME_MS / 1000.0 / dt)), 1)
+    damp = boundary.damping_field(SHAPE, NBL, spacing, device=dev)
+    c = (np.asarray(SHAPE) - 1) / 2.0
+    src = S.SparseOperator(np.array([[c[0] + 0.37, c[1] - 0.41, 21.13]]) * h)
+    g = S.precompute(src, grid, S.ricker_wavelet(nt, dt, F0), device=dev)
+    rec = S.SparseOperator(np.stack(
+        [np.linspace(0.53, SHAPE[0] - 1.53, NREC), np.full(NREC, c[1] + 0.19),
+         np.full(NREC, 12.17)], axis=1) * h)
+    gr = S.precompute_receivers(rec, grid, device=dev)
+    state = tuple(torch.zeros(SHAPE, dtype=torch.float32, device=dev)
+                  for _ in physics.state_fields)
+    if name == "acoustic":
+        params = {"m": _layered(SHAPE, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
+                  "damp": damp}
+    elif name == "tti":
+        params = {"m": _layered(SHAPE, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
+                  "damp": damp,
+                  "epsilon": _layered(SHAPE, 0.10, 0.20, dev),
+                  "delta": _layered(SHAPE, 0.05, 0.10, dev),
+                  "theta": _smooth_angle(SHAPE, dev, 1.0, 1.0),
+                  "phi": _smooth_angle(SHAPE, dev, 2.0, 0.5)}
+    else:
+        # SI units: lam = rho (vp^2 - 2 vs^2), mu = rho vs^2, b = 1 / rho
+        rho = 2100.0
+        vp = np.array([VMIN, VMAX])
+        vs = vp / 1.9
+        lam = rho * (vp ** 2 - 2 * vs ** 2)
+        mu = rho * vs ** 2
+        params = {"lam": _layered(SHAPE, lam[0], lam[1], dev),
+                  "mu": _layered(SHAPE, mu[0], mu[1], dev),
+                  "b": _layered(SHAPE, 1 / rho, 1 / rho, dev),
+                  "damp": damp}
+    fc = FullCase(physics, spacing, nt, dt, state, params, g, gr)
+    args = (g, gr)
+    if name == "acoustic":
+        def run(plan):
+            (u0, u1), recs = ops.acoustic_tb_propagate(
+                nt, *state, params["m"], params["damp"], *args, plan, ORDER,
+                dt, spacing, executor="cuda", device=dev)
+            return (u0, u1), recs
+
+        def reference():
+            return ref.acoustic_reference(
+                nt, *state, params["m"], params["damp"], dt, spacing, ORDER,
+                g=g, receivers=gr, device=dev)
+    else:
+        mod, entry, oracle = {
+            "tti": (tti, ops.tti_tb_propagate, ref.tti_reference),
+            "elastic": (elastic, ops.elastic_tb_propagate,
+                        ref.elastic_reference)}[name]
+        pnt = (mod.TTIParams if name == "tti" else mod.ElasticParams)(
+            **params)
+
+        def run(plan):
+            final, recs = entry(nt, state, pnt, *args, plan, ORDER, dt,
+                                spacing, executor="cuda", device=dev)
+            return tuple(final), recs
+
+        def reference():
+            final, recs = oracle(nt, state, pnt, dt, spacing, ORDER, g=g,
+                                 receivers=gr, device=dev)
+            return tuple(final), recs
+    fc.run, fc.reference = run, reference
+    return fc
+
+
+def phase_main_path(fc, smi):
+    name = fc.physics.name
+    nt = fc.nt
+    n_main, rem = divmod(nt, T_TB)
+    expect = n_main + (1 if rem else 0)
+    plan = plan_for(fc.physics, T_TB)
+
+    ker.launches = 0
+    final, recs = fc.run(plan)
+    torch.cuda.synchronize()
+    launches = ker.launches
+    if launches != expect:
+        raise AssertionError(f"{name} main path made {launches} kernel "
+                             f"launches, expected {expect}")
+    say(f"main-{name}", f"{SHAPE} spacing {fc.spacing[0]:g} m nt={nt} "
+        f"dt={fc.dt:.6e} T={T_TB} tile={TILE}: {launches} kernel launches "
+        f"({n_main} depth-{T_TB} tiles + "
+        f"{'a depth-%d remainder' % rem if rem else 'no remainder'})")
+    if not (all(torch.isfinite(f).all() for f in final)
+            and torch.isfinite(recs).all()):
+        raise AssertionError(f"{name} main path produced non-finite values")
+    want = (nt, NREC) + ((2,) if fc.physics.rec_channels == 2 else ())
+    if tuple(recs.shape) != want:
+        raise AssertionError(f"{name} traces shaped {tuple(recs.shape)}, "
+                             f"expected {want}")
+
+    t0 = time.perf_counter()
+    rfinal, rrec = fc.reference()
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    errs = {f: max_rel(a, b)
+            for f, a, b in zip(fc.physics.state_fields, final, rfinal)}
+    err_f = max(errs.values())
+    # each receiver channel against its own scale (elastic: vz, pressure)
+    chans = [(recs[..., c], rrec[..., c]) for c in range(recs.shape[-1])] \
+        if recs.dim() == 3 else [(recs, rrec)]
+    err_ch = [max_rel(a, b) for a, b in chans]
+    err_tr = max(err_ch)
+    say(f"main-{name}", f"vs Listing-1 reference ({ref_s:.1f} s): "
+        f"max over fields of max|dfield|/max|field_ref| {err_f:.3e} ("
+        + ", ".join(f"{f} {e:.2e}" for f, e in errs.items())
+        + "), max|dtrace|/max|trace_ref| per channel "
+        + ", ".join(f"{e:.3e}" for e in err_ch)
+        + f" (limit {MAIN_TOL:g}); max|trace_ref| per channel "
+        + ", ".join(f"{float(b.abs().max()):.4e}" for _, b in chans))
+    if not (err_f <= MAIN_TOL and err_tr <= MAIN_TOL):
+        raise AssertionError(f"{name} main path disagrees with the "
+                             f"reference: {err_f:.3e}, {err_tr:.3e} > "
+                             f"{MAIN_TOL}")
+    del rfinal, rrec, recs
+
+    torch.cuda.reset_peak_memory_stats()
+    ms, _ = cuda_ms(lambda: fc.run(plan))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    mpts = SHAPE[0] * SHAPE[1] * SHAPE[2] * nt / (ms * 1e-3) / 1e6
+    say(f"main-{name}", f"TB run {ms:.1f} ms = {ms / launches:.3f} ms per "
+        f"time tile = {ms / nt:.3f} ms per step, {mpts:.1f} Mpt*steps/s, "
+        f"peak {peak:.2f} GiB [{smi}]")
+    return final, launches, ms
+
+
+def time_tile_pieces(fc, plan, state, t0):
     """Device ms of the three pieces of one main-path time tile at t0: its
-    operands (zero-padded state, source values), the kernel alone, and the
-    receivers' segment sum.  Returns (spec, kernel args, (ms, ms, ms))."""
+    operands (zero-padded state, source values), the kernel alone (after a
+    warm-up, the best of 3 means of 5 launches, so a stall of the host
+    between launches does not count), and the receivers' segment sum.
+    Returns (spec, kernel args, (ms, ms, ms))."""
+    physics = fc.physics
     spec, st, rt, ppads = ops.prepare_tiles(
-        plan, phys.ACOUSTIC, state[0], {"m": fc["m"], "damp": fc["damp"]},
-        fc["g"], fc["gr"], ORDER, fc["dt"], SPACING)
+        plan, physics, state[0], fc.params, fc.g, fc.gr, ORDER, fc.dt,
+        fc.spacing)
     op_ms, (pads, sc, sv, rc, rw) = cuda_ms(
-        lambda: ops.tile_operands(spec, state, fc["g"].src_dcmp, st, rt, t0),
+        lambda: ops.tile_operands(spec, state, fc.g.src_dcmp, st, rt, t0),
         reps=3)
     args = (pads, ppads, sc, sv, rc, rw)
-    k_ms = kernel_alone_ms(spec, args)
-    saved = ker.launches
-    _, rec_part = ker.tb_time_tile(spec, phys.ACOUSTIC, *args)
-    ker.launches = saved
+    launch = lambda: ker.tb_time_tile(spec, physics, *args)  # noqa: E731
+    _, rec_part = uncounted(launch)                         # warm-up
+    k_ms = min(uncounted(lambda: cuda_ms(launch, reps=5))[0]
+               for _ in range(3))
     rec_ms, _ = cuda_ms(lambda: ops.combine_rec_partials(rec_part, rt, NREC),
                         reps=3)
     return spec, args, (op_ms, k_ms, rec_ms)
@@ -186,168 +452,70 @@ def say_pieces(phase, what, pieces, measured_ms):
         f"ms per tile in the run")
 
 
-def compare_kernel(spec, args):
-    """One kernel launch against the plain version on the same inputs."""
-    (k0, k1), krec = ker.tb_time_tile(spec, phys.ACOUSTIC, *args)
-    (p0, p1), prec = ker.tb_time_tile_plain(spec, phys.ACOUSTIC, *args)
-    torch.cuda.synchronize()
-    return max(check_close("u_prev", k0, p0), check_close("u", k1, p1),
-               check_close("rec", krec, prec))
-
-
-def phase_kernel_vs_plain(dev):
-    cases = [  # (T, tile, order, shape, sources)
-        (1, (8, 8), 4, (16, 16, 40), True),
-        (2, (16, 8), 2, (32, 16, 37), True),
-        (3, (8, 8), 8, (16, 24, 33), True),
-        (4, (16, 16), 4, (32, 32, 45), True),
-        (4, (8, 8), 2, (24, 16, 64), True),
-        (2, (16, 16), 8, (32, 32, 29), False),
-    ]
-    worst = 0.0
-    for i, (T, tile, order, shape, sources) in enumerate(cases):
-        state, params, g, gr, dt = _small_case(
-            shape, order, 3 if sources else 0, 4, i, dev)
-        spec, args = kernel_inputs(TBPlan(tile, T, order // 2), state,
-                                   params, g, gr, dt, 1, order=order)
-        err = compare_kernel(spec, args)
-        worst = max(worst, err)
-        say("kernel-vs-plain", f"T={T} tile={tile} order={order} "
-            f"shape={shape} sources={sources}: max|diff| {err:.3e}")
-    say("kernel-vs-plain", f"{len(cases)} cases within rtol {RTOL} atol "
-        f"{ATOL}; worst max|diff| {worst:.3e}")
-
-
-def full_case(dev):
-    grid = Grid(shape=SHAPE, spacing=SPACING)
-    dt = grid.cfl_dt(VMAX, ORDER)
-    nt = max(int(math.ceil(TIME_MS / 1000.0 / dt)), 1)
-    nz = SHAPE[2]
-    vp = np.where(np.arange(nz) < nz // 2, VMIN, VMAX)   # two layers in z
-    m_col = torch.as_tensor((1.0 / vp ** 2).astype(np.float32), device=dev)
-    m = m_col.expand(SHAPE).contiguous()
-    damp = boundary.damping_field(SHAPE, NBL, SPACING, device=dev)
-    ext = np.asarray(grid.extent)
-    src = S.SparseOperator(np.array([[ext[0] / 2 + 3.7, ext[1] / 2 - 4.1,
-                                      211.3]]))
-    wav = S.ricker_wavelet(nt, dt, F0)
-    g = S.precompute(src, grid, wav, device=dev)
-    rec = S.SparseOperator(np.stack([np.linspace(5.3, ext[0] - 5.3, NREC),
-                                     np.full(NREC, ext[1] / 2 + 1.9),
-                                     np.full(NREC, 121.7)], axis=1))
-    gr = S.precompute_receivers(rec, grid, device=dev)
-    zeros = torch.zeros(SHAPE, dtype=torch.float32, device=dev)
-    return dict(nt=nt, dt=dt, m=m, damp=damp, g=g, gr=gr, u0=zeros,
-                u1=zeros.clone())
-
-
-def phase_main_path(fc, smi, dev):
-    nt, dt = fc["nt"], fc["dt"]
-    n_main, rem = divmod(nt, PLAN.T)
-    expect = n_main + (1 if rem else 0)
-
-    def run():
-        return ops.acoustic_tb_propagate(
-            nt, fc["u0"], fc["u1"], fc["m"], fc["damp"], fc["g"], fc["gr"],
-            PLAN, ORDER, dt, SPACING, executor="cuda", device=dev)
-
-    ker.launches = 0
-    (u0, u1), recs = run()
-    torch.cuda.synchronize()
-    launches = ker.launches
-    if launches != expect:
-        raise AssertionError(f"main path made {launches} kernel launches, "
-                             f"expected {expect}")
-    say("main", f"{SHAPE} nt={nt} dt={dt:.6e} T={PLAN.T} tile={PLAN.tile}: "
-        f"{launches} kernel launches ({n_main} depth-{PLAN.T} tiles + "
-        f"{'a depth-%d remainder' % rem if rem else 'no remainder'})")
-    if not (torch.isfinite(u1).all() and torch.isfinite(recs).all()):
-        raise AssertionError("main path produced non-finite values")
-    if tuple(recs.shape) != (nt, NREC):
-        raise AssertionError(f"traces shaped {tuple(recs.shape)}")
-
-    t0 = time.perf_counter()
-    (r0, r1), rrec = ref.acoustic_reference(
-        nt, fc["u0"], fc["u1"], fc["m"], fc["damp"], dt, SPACING, ORDER,
-        g=fc["g"], receivers=fc["gr"], device=dev)
-    torch.cuda.synchronize()
-    ref_s = time.perf_counter() - t0
-    err_u = max(max_rel(u1, r1), max_rel(u0, r0))
-    err_tr = max_rel(recs, rrec)
-    say("main", f"vs Listing-1 reference ({ref_s:.1f} s): "
-        f"max|du|/max|u_ref| {err_u:.3e}, max|dtrace|/max|trace_ref| "
-        f"{err_tr:.3e} (limit {MAIN_TOL:g}); max|u_ref| "
-        f"{float(r1.abs().max()):.4e}, max|trace_ref| "
-        f"{float(rrec.abs().max()):.4e}")
-    if not (err_u <= MAIN_TOL and err_tr <= MAIN_TOL):
-        raise AssertionError(f"main path disagrees with the reference: "
-                             f"{err_u:.3e}, {err_tr:.3e} > {MAIN_TOL}")
-    del r0, r1, rrec
-
-    torch.cuda.reset_peak_memory_stats()
-    ms, _ = cuda_ms(run)
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+def phase_sb(fc, smi, tb_ms, state):
+    name, nt = fc.physics.name, fc.nt
+    plan = plan_for(fc.physics, 1)
+    fc.run(plan)                                 # warm-up
+    ms, _ = cuda_ms(lambda: fc.run(plan))
     mpts = SHAPE[0] * SHAPE[1] * SHAPE[2] * nt / (ms * 1e-3) / 1e6
-    say("main", f"TB run {ms:.1f} ms = {ms / launches:.3f} ms per time tile "
-        f"= {ms / nt:.3f} ms per step, {mpts:.1f} Mpt*steps/s, peak "
-        f"{peak:.2f} GiB [{smi}]")
-    return (u0, u1), launches, ms
-
-
-def phase_sb(fc, smi, tb_ms, dev, state):
-    nt, dt = fc["nt"], fc["dt"]
-
-    def run():
-        return ops.acoustic_sb_propagate(
-            nt, fc["u0"], fc["u1"], fc["m"], fc["damp"], fc["g"], fc["gr"],
-            PLAN.tile, ORDER, dt, SPACING, executor="cuda", device=dev)
-
-    run()                                      # warm-up
-    ms, _ = cuda_ms(run)
-    mpts = SHAPE[0] * SHAPE[1] * SHAPE[2] * nt / (ms * 1e-3) / 1e6
-    say("sb", f"SB (T=1) run {ms:.1f} ms = {ms / nt:.3f} ms per step, "
-        f"{mpts:.1f} Mpt*steps/s; TB/SB time ratio {tb_ms / ms:.3f} "
+    say(f"sb-{name}", f"SB (T=1) run {ms:.1f} ms = {ms / nt:.3f} ms per "
+        f"step, {mpts:.1f} Mpt*steps/s; TB/SB time ratio {tb_ms / ms:.3f} "
         f"(no gain claimed) [{smi}]")
-    _, _, pieces = time_tile_pieces(TBPlan(PLAN.tile, 1, ORDER // 2), fc,
-                                    state, nt // 2)
-    say("sb", f"SB kernel alone {pieces[1]:.3f} ms per launch = "
+    _, _, pieces = time_tile_pieces(fc, plan, state, nt // 2)
+    say(f"sb-{name}", f"SB kernel alone {pieces[1]:.3f} ms per launch = "
         f"{100 * pieces[1] * nt / ms:.1f}% of the SB run")
-    say_pieces("sb", "one SB step", pieces, ms / nt)
+    say_pieces(f"sb-{name}", "one SB step", pieces, ms / nt)
 
 
-def phase_kernel_line(fc, state, launches, tb_ms):
-    t0 = (fc["nt"] // PLAN.T // 2) * PLAN.T     # a mid-run tile, live state
-    spec, args, pieces = time_tile_pieces(PLAN, fc, state, t0)
+KERNEL_FILES = {"acoustic": "stencil_tb", "tti": "stencil_tb_tti",
+                "elastic": "stencil_tb_elastic"}
+
+
+def kernel_entry(fc, state, launches, tb_ms, smi):
+    """The kernels-line entry of this path's kernel, timed on a mid-run
+    tile with live state."""
+    name = fc.physics.name
+    plan = plan_for(fc.physics, T_TB)
+    t0 = (fc.nt // T_TB // 2) * T_TB
+    spec, args, pieces = time_tile_pieces(fc, plan, state, t0)
     ms = pieces[1]
-    saved = ker.launches
-    err = compare_kernel(spec, args)
-    ker.launches = saved
-    say_pieces("kernels", f"one depth-{PLAN.T} TB tile", pieces,
+    err = compare_kernel(spec, fc.physics, args)
+    say_pieces(f"kernels-{name}", f"one depth-{T_TB} TB tile", pieces,
                tb_ms / launches)
     plain_ms, _ = cuda_ms(
-        lambda: ker.tb_time_tile_plain(spec, phys.ACOUSTIC, *args))
-    cost = ker.kernel_cost(spec)
+        lambda: ker.tb_time_tile_plain(spec, fc.physics, *args))
+    cost = ker.kernel_cost(spec, fc.physics)
     t_bytes = cost["min_bytes"] / HBM_BW * 1e3
     t_ops = cost["useful_flops"] / F32_PEAK * 1e3
-    line = {"kernels": [{
-        "name": "stencil_tb.tb_acoustic",
+    bound = max(t_bytes, t_ops)
+    say(f"kernels-{name}", f"tb_{name} at {SHAPE} T={T_TB}: {ms:.3f} ms per "
+        f"launch vs bound {bound:.3f} ms ({cost['min_bytes'] / 1e9:.2f} GB, "
+        f"{cost['useful_flops'] / 1e9:.1f} GFLOP), plain {plain_ms:.1f} ms; "
+        f"kernel = {100 * ms * launches / tb_ms:.1f}% of the TB run; "
+        f"max|diff| vs plain {err:.3e} [{smi}]")
+    return {
+        "name": f"stencil_tb.tb_{name}",
         "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/stencil_tb.cu",
+        "source": f"src/repro_torch/kernels/csrc/{KERNEL_FILES[name]}.cu",
         "replaces": "src/repro/kernels/stencil_tb.py:129",
         "launches": launches,
         "max_abs_err": err,
         "ms": ms,
         "plain_ms": plain_ms,
-        "bound_ms": max(t_bytes, t_ops),
+        "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
-    }]}
-    say("kernels", f"tb_acoustic at {SHAPE} T={PLAN.T}: {ms:.3f} ms per "
-        f"launch vs bound {max(t_bytes, t_ops):.3f} ms "
-        f"({cost['min_bytes'] / 1e9:.2f} GB, "
-        f"{cost['useful_flops'] / 1e9:.1f} GFLOP), plain {plain_ms:.1f} ms; "
-        f"kernel = {100 * ms * launches / tb_ms:.1f}% of the TB run")
-    print(json.dumps(line), flush=True)
+    }
+
+
+def run_path(name, smi, dev):
+    fc = full_case(name, dev)
+    state, launches, tb_ms = phase_main_path(fc, smi)
+    phase_sb(fc, smi, tb_ms, state)
+    entry = kernel_entry(fc, state, launches, tb_ms, smi)
+    del fc, state
+    torch.cuda.empty_cache()          # the next path's fields are larger
+    return entry
 
 
 def main():
@@ -355,10 +523,9 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     phase_kernel_vs_plain(dev)
-    fc = full_case(dev)
-    state, launches, tb_ms = phase_main_path(fc, smi, dev)
-    phase_sb(fc, smi, tb_ms, dev, state)
-    phase_kernel_line(fc, state, launches, tb_ms)
+    entries = [run_path(name, smi, dev)
+               for name in ("acoustic", "tti", "elastic")]
+    print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}), flush=True)

@@ -17,13 +17,43 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.core import sources as src_mod
 from repro_torch.core.propagators.acoustic import AcousticParams
+from repro_torch.core.propagators.elastic import ElasticParams, ElasticState
+from repro_torch.core.propagators.tti import TTIParams, TTIState
+
+
+def _fields(cls, arrays, device):
+    dev = resolve_device(device)
+    return cls(*(torch.as_tensor(np.array(a), device=dev) for a in arrays))
 
 
 def acoustic_model_from_numpy(m, damp, device="cuda") -> AcousticParams:
     """Squared slowness and damping fields as float tensors on `device`."""
-    dev = resolve_device(device)
-    return AcousticParams(m=torch.as_tensor(np.array(m), device=dev),
-                          damp=torch.as_tensor(np.array(damp), device=dev))
+    return _fields(AcousticParams, (m, damp), device)
+
+
+def tti_model_from_numpy(m, damp, epsilon, delta, theta, phi,
+                         device="cuda") -> TTIParams:
+    """The TTI model fields (a reference `TTIParams` unpacks into these
+    arguments in order) as tensors on `device`."""
+    return _fields(TTIParams, (m, damp, epsilon, delta, theta, phi), device)
+
+
+def tti_state_from_numpy(p, p_prev, r, r_prev, device="cuda") -> TTIState:
+    """A TTI wavefield state (the reference `TTIState`'s order)."""
+    return _fields(TTIState, (p, p_prev, r, r_prev), device)
+
+
+def elastic_model_from_numpy(lam, mu, b, damp,
+                             device="cuda") -> ElasticParams:
+    """The elastic model fields (a reference `ElasticParams`' order)."""
+    return _fields(ElasticParams, (lam, mu, b, damp), device)
+
+
+def elastic_state_from_numpy(vx, vy, vz, txx, tyy, tzz, txy, txz, tyz,
+                             device="cuda") -> ElasticState:
+    """An elastic wavefield state (the reference `ElasticState`'s order)."""
+    return _fields(ElasticState, (vx, vy, vz, txx, tyy, tzz, txy, txz, tyz),
+                   device)
 
 
 def gridded_sources_from_numpy(sm, sid, points, src_dcmp,

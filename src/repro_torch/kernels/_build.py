@@ -3,10 +3,11 @@
 Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 ``nvcc`` into its own shared library, loaded with `ctypes` (no PyTorch
 headers, so a build takes seconds).  Libraries go to ``build/repro_torch/``
-under the repository root, named by a digest of the source and the flags,
-so an edited source is rebuilt and an unchanged one is reused.  A build
-happens at first use, never at import.  There is no fallback: a missing
-``nvcc`` or a failed build raises.
+under the repository root, named by a digest of the source, the shared
+headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
+an unchanged one is reused.  A build happens at first use, never at
+import.  There is no fallback: a missing ``nvcc`` or a failed build
+raises.
 """
 from __future__ import annotations
 
@@ -21,9 +22,16 @@ from typing import Dict, Iterable, NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil_tb",)
+SOURCES = ("stencil_tb", "stencil_tb_tti", "stencil_tb_elastic")
+# IEEE division and square root (no fast math), and no multiply-add
+# contraction: every product is rounded before it is added, as the
+# reference rounds it.  With contraction the TTI and elastic 512^3 paths
+# drifted 1.7e-4 and 2.5e-4 (relative) from the Listing-1 reference over
+# their 236 and 399 steps; without it their fields match it bit for bit,
+# at the same speed (PERF.md).
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
+              "-Xptxas", "-v")
 
 
 class Built(NamedTuple):
@@ -51,6 +59,8 @@ def nvcc() -> str:
 
 def _target(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

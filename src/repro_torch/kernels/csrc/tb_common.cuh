@@ -1,0 +1,265 @@
+// Pieces shared by the temporally-blocked time-tile kernels for Hopper
+// (stencil_tb.cu: acoustic, stencil_tb_tti.cu: TTI, stencil_tb_elastic.cu:
+// elastic), which replace the Pallas TPU kernel `_tb_kernel` of
+// src/repro/kernels/stencil_tb.py for each physics it runs.
+//
+// One launch advances the whole grid by one depth-T time tile.  One thread
+// block takes one (x, y) tile with z kept whole; its window is the tile
+// plus a halo of H = T * step_radius points in x and y, held in a
+// per-block scratch in device memory that the wrapper allocates (a window
+// is megabytes, far beyond a block's shared memory).  Reads beyond the
+// window in x/y and beyond [0, nz) in z are zero, as in the reference's
+// zero-padded stencils on window-shaped arrays; points outside the
+// physical x/y domain are re-zeroed wherever the reference applies its
+// domain mask.  FD coefficients come from the host, computed in float64
+// and rounded to float32 as the reference rounds them, every stencil sums
+// its taps in the reference's order, and the build (kernels/_build.py)
+// keeps IEEE division and turns multiply-add contraction off, so a kernel
+// rounds as the reference's separate operations do.
+//
+// The sparse terms are indexed adds and reads driven by the per-tile
+// tables: the TPU's one-hot point masks exist only for its vector unit.
+// Within one tile the source slots are distinct grid points, so one thread
+// per slot needs no atomics; padding slots (value 0) are skipped, and a
+// slot outside the window matches no point, as the one-hot mask does.
+#pragma once
+
+#include <cuda_runtime.h>
+
+#include <type_traits>
+
+#define MAX_RADIUS 8       // space orders 2..16
+#define MAX_FIELDS 13      // elastic: 9 state + 4 param fields
+#define MAX_STATE 9
+#define THREADS 512
+
+struct Coefs {
+    // one axis stencil per axis (x, y, z), taps in order, rounded to
+    // float32 on the host; a zero weight of the reference's is a 0 here
+    float c[3][2 * MAX_RADIUS + 1];
+};
+
+struct TileArgs {
+    const float* in[MAX_FIELDS]; // state then param fields, each
+                                 // (nx + 2H, ny + 2H, nz): state zero-padded,
+                                 // params edge-padded
+    float* out[MAX_STATE];       // state fields, each (nx, ny, nz)
+    const int* src_coords;       // (ntiles, src_cap, 3) window-local
+    const float* src_vals;       // (ntiles, T, src_cap)
+    const int* rec_coords;       // (ntiles, rec_cap, 3)
+    const float* rec_w;          // (ntiles, rec_cap)
+    float* rec_out;              // (ntiles, T, rec_cap, channels)
+    float* scratch;              // (ntiles, windows, wx * wy * nz)
+    int nx, ny, nz, tx, ty, T, H, src_cap, rec_cap;
+    float dt, dt2;
+};
+
+// A field's window: element (x, y, z) at p[x * sx + y * nz + z].  The
+// padded inputs and the scratch windows differ only in the x-stride.
+struct View {
+    const float* p;
+    long long sx;
+};
+
+struct Pt {
+    int x, y, z;
+};
+
+struct Tile {
+    int ti, tj, tile, nx, ny, nz, tx, ty, H, wx, wy;
+    long long pad_sx, win_sx, org, npts;
+
+    __device__ explicit Tile(const TileArgs& a)
+        : ti(blockIdx.x), tj(blockIdx.y),
+          tile(blockIdx.x * gridDim.y + blockIdx.y), nx(a.nx), ny(a.ny),
+          nz(a.nz), tx(a.tx), ty(a.ty), H(a.H), wx(a.tx + 2 * a.H),
+          wy(a.ty + 2 * a.H), pad_sx((long long)(a.ny + 2 * a.H) * a.nz),
+          win_sx((long long)wy * a.nz),
+          org((long long)ti * a.tx * pad_sx + (long long)tj * a.ty * a.nz),
+          npts((long long)wx * wy * a.nz) {}
+
+    // this tile's window of a padded input field
+    __device__ View input(const float* pad) const { return {pad + org, pad_sx}; }
+
+    // scratch window w of this tile's `nwin`
+    __device__ float* scratch(const TileArgs& a, int w, int nwin) const {
+        return a.scratch + ((long long)tile * nwin + w) * npts;
+    }
+
+    __device__ View window(const float* buf) const { return {buf, win_sx}; }
+
+    __device__ long long at(Pt q) const {
+        return q.x * win_sx + (long long)q.y * nz + q.z;
+    }
+
+    __device__ float ld(const View& v, Pt q) const {
+        return v.p[q.x * v.sx + (long long)q.y * nz + q.z];
+    }
+
+    // a read-only input (a param field), through the read-only cache
+    __device__ float ro(const View& v, Pt q) const {
+        return __ldg(v.p + q.x * v.sx + (long long)q.y * nz + q.z);
+    }
+
+    __device__ bool in_domain(Pt q) const {
+        const int gx = ti * tx - H + q.x, gy = tj * ty - H + q.y;
+        return gx >= 0 && gx < nx && gy >= 0 && gy < ny;
+    }
+
+    __device__ bool in_window(const int* c) const {
+        return c[0] >= 0 && c[0] < wx && c[1] >= 0 && c[1] < wy && c[2] >= 0
+            && c[2] < nz;
+    }
+
+    // sum over k < NT of c[k] * v at q + (OFF0 + k) along `axis` (0 x, 1 y,
+    // 2 z), zero beyond the window.  NT and OFF0 are compile-time, so the
+    // loop unrolls and all loads of a point can be in flight at once.  The
+    // addresses are the column's (x, y) start plus z: the column is the
+    // same for all lanes of a warp (they run along z), which keeps the tap
+    // offsets warp-uniform
+    template <int NT, int OFF0>
+    __device__ __forceinline__ float taps(const View& v, int axis, Pt q,
+                                          const float* c) const {
+        const float* col = v.p + (long long)q.x * v.sx + (long long)q.y * nz;
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+            const int d = OFF0 + k;
+            float x;
+            if (axis == 0)
+                x = (q.x + d >= 0 && q.x + d < wx) ? col[d * v.sx + q.z] : 0.f;
+            else if (axis == 1)
+                x = (q.y + d >= 0 && q.y + d < wy)
+                    ? col[(long long)d * nz + q.z] : 0.f;
+            else
+                x = (q.z + d >= 0 && q.z + d < nz) ? col[q.z + d] : 0.f;
+            acc += x * c[k];
+        }
+        return acc;
+    }
+
+    // f(point, inside the domain) for every window point: one warp per
+    // (32-deep z chunk, (x, y) column) item, lanes along z, all columns of
+    // a chunk before the next chunk, so the window rows the x taps read
+    // stay in L1
+    template <class F>
+    __device__ __forceinline__ void for_each_point(F f) const {
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        const int nwarps = blockDim.x >> 5;
+        const int ncol = wx * wy, nzc = (nz + 31) / 32;
+        for (int item = warp; item < ncol * nzc; item += nwarps) {
+            const int zc = item / ncol, col = item - zc * ncol;
+            const int iz = zc * 32 + lane;
+            if (iz >= nz) continue;
+            const int ix = col / wy;
+            const Pt q = {ix, col - ix * wy, iz};
+            f(q, in_domain(q));
+        }
+    }
+
+    // fused grid-aligned injection of step k into the N window buffers
+    template <int N>
+    __device__ void inject(const TileArgs& a, int k, float* const (&f)[N]) const {
+        for (int p = threadIdx.x; p < a.src_cap; p += blockDim.x) {
+            const float v = a.src_vals[((long long)tile * a.T + k) * a.src_cap + p];
+            const int* c = a.src_coords + ((long long)tile * a.src_cap + p) * 3;
+            if (v == 0.f || !in_window(c)) continue;
+            const long long w = at({c[0], c[1], c[2]});
+#pragma unroll
+            for (int i = 0; i < N; ++i) f[i][w] += v;
+        }
+    }
+
+    // receiver partials of step k: rec_out[tile, k, slot, :] = rec_w[slot]
+    // * sample(window index), sample writing NCHAN channels
+    template <int NCHAN, class S>
+    __device__ void record(const TileArgs& a, int k, S sample) const {
+        for (int p = threadIdx.x; p < a.rec_cap; p += blockDim.x) {
+            const int* c = a.rec_coords + ((long long)tile * a.rec_cap + p) * 3;
+            float* o = a.rec_out
+                + (((long long)tile * a.T + k) * a.rec_cap + p) * NCHAN;
+            float s[NCHAN];
+            const bool in = in_window(c);
+            if (in) sample(at({c[0], c[1], c[2]}), s);
+            const float w = a.rec_w[(long long)tile * a.rec_cap + p];
+#pragma unroll
+            for (int ch = 0; ch < NCHAN; ++ch) o[ch] = in ? w * s[ch] : 0.f;
+        }
+    }
+
+    // write the valid centre of the N state views to a.out[0..N)
+    template <int N>
+    __device__ void write_back(const TileArgs& a, const View* v) const {
+        const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+        const int nwarps = blockDim.x >> 5;
+        for (int col = warp; col < tx * ty; col += nwarps) {
+            const int lx = col / ty, ly = col - (col / ty) * ty;
+            const long long dst = ((long long)(ti * tx + lx) * ny + (tj * ty + ly)) * nz;
+#pragma unroll
+            for (int f = 0; f < N; ++f) {
+                const float* src = v[f].p + (lx + H) * v[f].sx + (long long)(ly + H) * nz;
+                for (int iz = lane; iz < nz; iz += 32) a.out[f][dst + iz] = src[iz];
+            }
+        }
+    }
+};
+
+// Fills the launch arguments from the C entry point's; returns 0 or the
+// cudaError_t value of what is wrong.  `ntaps` coefficients per axis.
+static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
+                     const float* const* in, const int* src_coords,
+                     const float* src_vals, const int* rec_coords,
+                     const float* rec_w, float* const* out, float* rec_out,
+                     float* scratch, int nx, int ny, int nz, int tx, int ty,
+                     int T, int H, int src_cap, int rec_cap, int radius,
+                     const float* coefs, int ntaps, float dt, float dt2)
+{
+    cudaError_t e = cudaSetDevice(device);
+    if (e != cudaSuccess) return (int)e;
+    if (tx <= 0 || ty <= 0 || nx % tx || ny % ty || T < 1 || nz < 1
+        || radius < 1 || radius > MAX_RADIUS || nin > MAX_FIELDS
+        || nout > MAX_STATE || ntaps > 2 * MAX_RADIUS + 1)
+        return (int)cudaErrorInvalidValue;
+    *a = TileArgs{};
+    for (int i = 0; i < nin; ++i) a->in[i] = in[i];
+    for (int i = 0; i < nout; ++i) a->out[i] = out[i];
+    a->src_coords = src_coords;
+    a->src_vals = src_vals;
+    a->rec_coords = rec_coords;
+    a->rec_w = rec_w;
+    a->rec_out = rec_out;
+    a->scratch = scratch;
+    a->nx = nx; a->ny = ny; a->nz = nz; a->tx = tx; a->ty = ty;
+    a->T = T; a->H = H; a->src_cap = src_cap; a->rec_cap = rec_cap;
+    a->dt = dt; a->dt2 = dt2;
+    *cf = Coefs{};
+    for (int ax = 0; ax < 3; ++ax)
+        for (int q = 0; q < ntaps; ++q) cf->c[ax][q] = coefs[ax * ntaps + q];
+    return 0;
+}
+
+static dim3 tile_grid(const TileArgs& a) { return dim3(a.nx / a.tx, a.ny / a.ty); }
+
+// f(std::integral_constant<int, radius>{}): one kernel instantiation per
+// radius, so the tap loops unroll
+template <class F>
+static void with_radius(int radius, F f)
+{
+    switch (radius) {
+        case 1: f(std::integral_constant<int, 1>{}); break;
+        case 2: f(std::integral_constant<int, 2>{}); break;
+        case 3: f(std::integral_constant<int, 3>{}); break;
+        case 4: f(std::integral_constant<int, 4>{}); break;
+        case 5: f(std::integral_constant<int, 5>{}); break;
+        case 6: f(std::integral_constant<int, 6>{}); break;
+        case 7: f(std::integral_constant<int, 7>{}); break;
+        case 8: f(std::integral_constant<int, 8>{}); break;
+    }
+}
+
+extern "C" const char* repro_cuda_error_string(int e)
+{
+    return cudaGetErrorString((cudaError_t)e);
+}
+
+extern "C" int repro_max_radius(void) { return MAX_RADIUS; }

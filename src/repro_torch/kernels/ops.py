@@ -1,11 +1,12 @@
 """Drivers of the temporally-blocked kernel (port of `repro.kernels.ops`).
 
-`acoustic_tb_propagate` is the production entry point: the outer time-tile
-loop of the paper's Listing 6 (depth-T time tiles plus one shallower
-``nt % T`` remainder tile, one kernel launch each), with the per-tile
-source/receiver tables precomputed once on the host from the paper's
-grid-aligned structures.  `acoustic_sb_propagate` (T = 1) is the
-spatially-blocked baseline the paper compares against.
+`acoustic_tb_propagate`, `tti_tb_propagate` and `elastic_tb_propagate` are
+the production entry points: the outer time-tile loop of the paper's
+Listing 6 (depth-T time tiles plus one shallower ``nt % T`` remainder
+tile, one kernel launch each), with the per-tile source/receiver tables
+precomputed once on the host from the paper's grid-aligned structures.
+`acoustic_sb_propagate` (T = 1) is the spatially-blocked baseline the
+paper compares against.
 
 The driver is split at the host/device boundary as in the reference:
 `_tb_propagate` builds the tables; `tb_propagate_prepared` runs the tile
@@ -24,6 +25,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.core import sources as src_mod
+from repro_torch.core.propagators import elastic, tti
 from repro_torch.core.temporal_blocking import TBPlan
 from repro_torch.kernels import stencil_tb as ker
 from repro_torch.kernels import tb_physics as phys
@@ -260,6 +262,28 @@ def _tb_propagate(physics: phys.TBPhysics, nt: int,
 # Entry points
 # ---------------------------------------------------------------------------
 
+def _propagate_on(physics: phys.TBPhysics, nt: int, state, params, g,
+                  receivers, plan: TBPlan, order: int, dt, spacing,
+                  executor: Optional[str], device):
+    """`_tb_propagate` of `physics` with the fields (numpy arrays or
+    tensors, `state` ordered as physics.state_fields, `params` a mapping
+    over physics.param_fields) and the sparse structures moved to
+    `device`.  `executor` defaults to ``"cuda"`` on a card and ``"torch"``
+    on the CPU."""
+    dev = resolve_device(device)
+    if executor is None:
+        executor = "cuda" if dev.type == "cuda" else "torch"
+    if executor not in EXECUTORS:
+        raise ValueError(f"unknown executor {executor!r}; "
+                         f"expected one of {tuple(EXECUTORS)}")
+    state = tuple(as_tensor(a, dev) for a in state)
+    params = {f: as_tensor(params[f], dev) for f in physics.param_fields}
+    g = g.to(dev) if g is not None else None
+    receivers = receivers.to(dev) if receivers is not None else None
+    return _tb_propagate(physics, nt, state, params, g, receivers, plan,
+                         order, dt, spacing, executor=executor)
+
+
 def acoustic_tb_propagate(nt: int, u0, u1, m, damp,
                           g: Optional[src_mod.GriddedSources],
                           receivers: Optional[src_mod.GriddedReceivers],
@@ -274,21 +298,51 @@ def acoustic_tb_propagate(nt: int, u0, u1, m, damp,
     ``"cuda"`` on a card and ``"torch"`` on the CPU.  Semantics identical
     to `kernels.ref.acoustic_reference` (tested).
     """
-    dev = resolve_device(device)
-    if executor is None:
-        executor = "cuda" if dev.type == "cuda" else "torch"
-    if executor not in EXECUTORS:
-        raise ValueError(f"unknown executor {executor!r}; "
-                         f"expected one of {tuple(EXECUTORS)}")
-    u0, u1, m, damp = (as_tensor(a, dev) for a in (u0, u1, m, damp))
-    g = g.to(dev) if g is not None else None
-    receivers = receivers.to(dev) if receivers is not None else None
-    (u0n, u1n), recs = _tb_propagate(
+    (u0n, u1n), recs = _propagate_on(
         phys.ACOUSTIC, nt, (u0, u1), {"m": m, "damp": damp}, g, receivers,
-        plan, order, dt, spacing, executor=executor)
+        plan, order, dt, spacing, executor, device)
     if recs is not None:
         recs = recs[..., 0]
     return (u0n, u1n), recs
+
+
+def tti_tb_propagate(nt: int, state, params,
+                     g: Optional[src_mod.GriddedSources],
+                     receivers: Optional[src_mod.GriddedReceivers],
+                     plan: TBPlan, order: int, dt,
+                     spacing: Tuple[float, float, float],
+                     executor: Optional[str] = None, device="cuda"):
+    """TTI TB propagation from a `tti.TTIState` with `tti.TTIParams`
+    (numpy arrays or tensors, moved to `device` as in
+    `acoustic_tb_propagate`).
+
+    Returns (TTIState, rec (nt, nrec) | None) matching
+    `kernels.ref.tti_reference` (tested)."""
+    final, recs = _propagate_on(
+        phys.TTI, nt, tti.TTIState(*state), tti.TTIParams(*params)._asdict(),
+        g, receivers, plan, order, dt, spacing, executor, device)
+    if recs is not None:
+        recs = recs[..., 0]
+    return tti.TTIState(*final), recs
+
+
+def elastic_tb_propagate(nt: int, state, params,
+                         g: Optional[src_mod.GriddedSources],
+                         receivers: Optional[src_mod.GriddedReceivers],
+                         plan: TBPlan, order: int, dt,
+                         spacing: Tuple[float, float, float],
+                         executor: Optional[str] = None, device="cuda"):
+    """Elastic TB propagation from an `elastic.ElasticState` with
+    `elastic.ElasticParams` (moved to `device` as in
+    `acoustic_tb_propagate`).
+
+    Returns (ElasticState, rec (nt, nrec, 2) | None) — channels are (vz,
+    pressure proxy), matching `kernels.ref.elastic_reference` (tested)."""
+    final, recs = _propagate_on(
+        phys.ELASTIC, nt, elastic.ElasticState(*state),
+        elastic.ElasticParams(*params)._asdict(), g, receivers, plan, order,
+        dt, spacing, executor, device)
+    return elastic.ElasticState(*final), recs
 
 
 def acoustic_sb_propagate(nt: int, u0, u1, m, damp, g, receivers,

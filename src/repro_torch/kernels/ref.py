@@ -1,9 +1,10 @@
 """Plain oracles for the TB kernel (port of `repro.kernels.ref`).
 
-The wave-propagation oracle is the Listing-1 reference driver of
+The wave-propagation oracles are the Listing-1 reference drivers of
 `repro_torch.core.propagators` — naive full-grid timestepping with
-grid-aligned injection and receiver interpolation.  The temporally-blocked
-path must match it to float32 tolerance for every (shape, order, T, tile).
+grid-aligned injection and receiver interpolation, one per physics
+(acoustic, TTI, elastic).  The temporally-blocked path must match them to
+float32 tolerance for every (shape, order, T, tile).
 """
 from __future__ import annotations
 
@@ -12,7 +13,7 @@ from typing import Optional, Tuple
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.core import sources as src_mod
 from repro_torch.core.grid import Grid
-from repro_torch.core.propagators import acoustic
+from repro_torch.core.propagators import acoustic, elastic, tti
 
 
 def acoustic_reference(nt: int, u0, u1, m, damp, dt: float,
@@ -35,3 +36,46 @@ def acoustic_reference(nt: int, u0, u1, m, damp, dt: float,
     final, recs = acoustic.propagate(nt, state, params, g, dt, grid, order,
                                      receivers=receivers)
     return (final.u_prev, final.u), recs
+
+
+def _on_device(nt_tuple, dev):
+    return type(nt_tuple)(*(as_tensor(a, dev) for a in nt_tuple))
+
+
+def tti_reference(nt: int, state, params, dt: float,
+                  spacing: Tuple[float, ...], order: int,
+                  g: Optional[src_mod.GriddedSources] = None,
+                  receivers: Optional[src_mod.GriddedReceivers] = None,
+                  device="cuda"):
+    """Run nt TTI steps from a `tti.TTIState` with `tti.TTIParams` on
+    `device` (fields may be numpy arrays or tensors).
+
+    Returns (TTIState after nt steps, rec (nt, nrec) or None)."""
+    dev = resolve_device(device)
+    state = _on_device(tti.TTIState(*state), dev)
+    params = _on_device(tti.TTIParams(*params), dev)
+    g = g.to(dev) if g is not None else None
+    receivers = receivers.to(dev) if receivers is not None else None
+    grid = Grid(shape=tuple(state.p.shape), spacing=spacing)
+    return tti.propagate(nt, state, params, g, dt, grid, order,
+                         receivers=receivers)
+
+
+def elastic_reference(nt: int, state, params, dt: float,
+                      spacing: Tuple[float, ...], order: int,
+                      g: Optional[src_mod.GriddedSources] = None,
+                      receivers: Optional[src_mod.GriddedReceivers] = None,
+                      device="cuda"):
+    """Run nt elastic steps from an `elastic.ElasticState` with
+    `elastic.ElasticParams` on `device`.
+
+    Returns (ElasticState after nt steps, rec (nt, nrec, 2) or None) —
+    receiver channels are (vz, pressure proxy)."""
+    dev = resolve_device(device)
+    state = _on_device(elastic.ElasticState(*state), dev)
+    params = _on_device(elastic.ElasticParams(*params), dev)
+    g = g.to(dev) if g is not None else None
+    receivers = receivers.to(dev) if receivers is not None else None
+    grid = Grid(shape=tuple(state.vx.shape), spacing=spacing)
+    return elastic.propagate(nt, state, params, g, dt, grid, order,
+                             receivers=receivers)

@@ -9,19 +9,23 @@ values at window-local points, records ``rec_w``-weighted receiver
 samples, and writes back only its centre.
 
 `tb_time_tile` dispatches on where its tensors lie: CPU tensors run
-`tb_time_tile_plain`; CUDA tensors launch the kernel of
-``csrc/stencil_tb.cu`` (acoustic, float32) or raise.  `launches` counts
-kernel launches, so a run can show it went through the kernel.
+`tb_time_tile_plain`; CUDA tensors launch the physics' kernel
+(``csrc/stencil_tb.cu`` acoustic, ``csrc/stencil_tb_tti.cu`` TTI,
+``csrc/stencil_tb_elastic.cu`` elastic; float32) or raise.  `launches`
+counts kernel launches, so a run can show it went through the kernel.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Optional, Tuple
+from typing import Callable, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch.core import stencil as st
+from repro_torch.core.propagators import elastic as el
+from repro_torch.core.propagators import tti as tt
 from repro_torch.kernels import tb_physics as phys
 
 # kernel launches made by `tb_time_tile` (set it to 0 before a counted run)
@@ -91,13 +95,15 @@ def window_tile_plain(physics: phys.TBPhysics, sspec, T: int, h: int,
     """
     state = dict(zip(physics.state_fields, state_pads))
     params = dict(zip(physics.param_fields, param_pads))
+    mask_fn = lambda a: a * dom  # noqa: E731
     sidx = tuple(s_coords.long().T)
     ridx = tuple(r_coords.long().T)
     recs = []
     for k in range(T):
-        new = physics.update(state, params, sspec)
+        new = physics.update(state, params, sspec, mask_fn)
         for f in physics.evolved_fields:
-            new[f] = new[f] * dom
+            if f not in physics.premasked_fields:
+                new[f] = new[f] * dom
         # fused grid-aligned injection (paper Listing 4); padding slots
         # carry val = 0 and add harmlessly onto window point (0, 0, 0)
         for f in physics.inject_fields:
@@ -155,23 +161,42 @@ def tb_time_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
 # CUDA kernel wrapper
 # ---------------------------------------------------------------------------
 
-_MAX_RADIUS = 8         # MAX_RADIUS in csrc/stencil_tb.cu
+_MAX_RADIUS = 8         # MAX_RADIUS in csrc/tb_common.cuh
 
 
-def _bind():
+@dataclasses.dataclass(frozen=True)
+class _CudaKernel:
+    source: str                 # csrc/<source>.cu
+    scratch_windows: int        # window buffers per tile in its scratch
+    weights: Callable[[int], np.ndarray]   # order -> one axis' FD weights
+    deriv: int                  # derivative order of those weights
+
+
+# physics name -> its hand-written kernel; all share one C entry point
+_KERNELS = {
+    "acoustic": _CudaKernel("stencil_tb", 2, st.second_derivative_weights,
+                            2),
+    "tti": _CudaKernel("stencil_tb_tti", 7, st.first_derivative_weights, 1),
+    "elastic": _CudaKernel(
+        "stencil_tb_elastic", 9,
+        lambda order: st.staggered_first_derivative_weights(order)[1], 1),
+}
+
+
+def _bind(source: str):
     from repro_torch.kernels import _build
-    lib = _build.load("stencil_tb")
-    fn = lib.repro_tb_acoustic_tile
+    lib = _build.load(source)
+    fn = lib.repro_tb_tile
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] + [p] * 12 + [i] * 10 + [p]
+        fn.argtypes = ([i] + [p] * 8 + [i] * 10 + [p]
                        + [ctypes.c_float] * 2 + [p])
         fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         if lib.repro_max_radius() != _MAX_RADIUS:
-            raise RuntimeError("csrc/stencil_tb.cu MAX_RADIUS disagrees "
-                               "with the wrapper")
+            raise RuntimeError(f"csrc/{source}.cu MAX_RADIUS disagrees with "
+                               "the wrapper")
     return lib
 
 
@@ -194,12 +219,26 @@ def _check(name, t, shape, dtype, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
+def kernel_coefs(spec: TBKernelSpec, physics: phys.TBPhysics):
+    """The kernel's FD coefficients: each axis' taps in order (x, then y,
+    then z), ``w * h**-deriv`` computed in float64 and rounded to float32
+    as the reference's stencils round them (a zero weight stays 0)."""
+    k = _KERNELS[physics.name]
+    w = k.weights(spec.order)
+    return tuple(st.round_to(wk * float(h) ** -k.deriv, torch.float32)
+                 for h in spec.spacing for wk in w)
+
+
+def _ptrs(ts):
+    return (ctypes.c_void_p * len(ts))(*(t.data_ptr() for t in ts))
+
+
 def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
                        r_w):
-    if physics.name != "acoustic":
-        raise NotImplementedError(
-            f"no CUDA TB kernel for {physics.name!r} yet (ROADMAP B1b)")
+    if physics.name not in _KERNELS:
+        raise ValueError(f"no CUDA TB kernel for physics {physics.name!r}")
+    kern = _KERNELS[physics.name]
     dev = state_pads[0].device
     f32 = torch.float32
     h = spec.halo
@@ -208,50 +247,54 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     wx, wy, nz = spec.window
     if spec.dtype != f32:
         raise _dtype_error("spec.dtype", spec.dtype, f32)
+    if h != spec.T * physics.step_radius(spec.order):
+        raise ValueError(f"spec halo {h} is not T * {physics.name}'s step "
+                         f"radius {physics.step_radius(spec.order)}")
+    names = physics.state_fields + physics.param_fields
+    fields = (*state_pads, *param_pads)
+    if len(fields) != len(names):
+        raise ValueError(f"{physics.name} takes {len(names)} fields "
+                         f"{names}, got {len(fields)}")
     pad_shape = (spec.nx + 2 * h, spec.ny + 2 * h, spec.nz)
-    for name, t in zip(("u_prev", "u", "m", "damp"),
-                       (*state_pads, *param_pads)):
+    for name, t in zip(names, fields):
         _check(name, t, pad_shape, f32, dev)
     cap, capr = s_coords.shape[1], r_coords.shape[1]
+    chan = physics.rec_channels
     _check("src_coords", s_coords, (ntiles, cap, 3), torch.int32, dev)
     _check("src_vals", s_vals, (ntiles, spec.T, cap), f32, dev)
     _check("rec_coords", r_coords, (ntiles, capr, 3), torch.int32, dev)
     _check("rec_w", r_w, (ntiles, capr), f32, dev)
     if wx * wy * nz >= 2 ** 31:
         raise ValueError(f"window {spec.window} too large for the kernel")
-
     r = spec.radius
     if not 1 <= r <= _MAX_RADIUS:
         raise ValueError(f"order {spec.order}: the kernel takes space orders "
                          f"2..{2 * _MAX_RADIUS}")
-    # every tap, x then y then z, w * h**-2 rounded as apply_axis_stencil
-    w = st.second_derivative_weights(spec.order)
-    coefs = (ctypes.c_float * (3 * (2 * r + 1)))(
-        *(st.round_to(wk * float(hh) ** -2, f32)
-          for hh in spec.spacing for wk in w))
+    coefs = kernel_coefs(spec, physics)
     dt = st.round_to(spec.dt, f32)
     dt2 = st.round_to(dt * dt, f32)
 
-    out0 = torch.empty((spec.nx, spec.ny, spec.nz), dtype=f32, device=dev)
-    out1 = torch.empty_like(out0)
-    rec = torch.zeros((ntx, nty, spec.T, capr, 1), dtype=f32, device=dev)
-    scratch = torch.empty((ntiles, 2, wx * wy * nz), dtype=f32, device=dev)
-    lib = _bind()
+    outs = tuple(torch.empty((spec.nx, spec.ny, spec.nz), dtype=f32,
+                             device=dev) for _ in physics.state_fields)
+    rec = torch.zeros((ntx, nty, spec.T, capr, chan), dtype=f32, device=dev)
+    scratch = torch.empty((ntiles, kern.scratch_windows, wx * wy * nz),
+                          dtype=f32, device=dev)
+    lib = _bind(kern.source)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.repro_tb_acoustic_tile(
+    rc = lib.repro_tb_tile(
         dev.index if dev.index is not None else torch.cuda.current_device(),
-        ptr(state_pads[0]), ptr(state_pads[1]), ptr(param_pads[0]),
-        ptr(param_pads[1]), ptr(s_coords), ptr(s_vals), ptr(r_coords),
-        ptr(r_w), ptr(out0), ptr(out1), ptr(rec), ptr(scratch),
+        _ptrs(fields), ptr(s_coords), ptr(s_vals), ptr(r_coords), ptr(r_w),
+        _ptrs(outs), ptr(rec), ptr(scratch),
         spec.nx, spec.ny, spec.nz, spec.tile[0], spec.tile[1], spec.T, h,
-        cap, capr, r, coefs, dt, dt2, ctypes.c_void_p(stream))
+        cap, capr, r, (ctypes.c_float * len(coefs))(*coefs), dt, dt2,
+        ctypes.c_void_p(stream))
     if rc != 0:
-        raise RuntimeError("stencil_tb CUDA launch failed: "
+        raise RuntimeError(f"{kern.source} CUDA launch failed: "
                            + lib.repro_cuda_error_string(rc).decode())
     global launches
     launches += 1
-    return (out0, out1), rec
+    return outs, rec
 
 
 def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
@@ -269,8 +312,8 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
     Returns (new_states tuple, rec_partials) with fields (nx, ny, nz) and
     rec_partials (ntx, nty, T, capr, rec_channels).
 
-    CPU tensors run `tb_time_tile_plain`; CUDA tensors launch the kernel
-    (acoustic, float32, contiguous) or raise.  The launch goes on the
+    CPU tensors run `tb_time_tile_plain`; CUDA tensors launch the
+    physics' kernel (float32, contiguous) or raise.  The launch goes on the
     current stream and does not synchronise.
     """
     dev = state_pads[0].device
@@ -294,11 +337,13 @@ def kernel_cost(spec: TBKernelSpec,
     field read once, each output field written once) — the numerator of
     the roofline bound.
     """
-    if physics.name != "acoustic":
-        raise NotImplementedError(f"no cost model for {physics.name!r} yet")
     ntx, nty = spec.ntiles
     wx, wy, wz = spec.window
-    stencil_flops = st.stencil_flops_per_point(spec.order, 3) + 9
+    if physics.name == "acoustic":
+        stencil_flops = st.stencil_flops_per_point(spec.order, 3) + 9
+    else:
+        mod = {"elastic": el, "tti": tt}[physics.name]
+        stencil_flops = mod.model_flops_per_step((1, 1, 1), spec.order)
     window_pts = wx * wy * wz
     sparse_flops = (len(physics.inject_fields) * spec.src_cap
                     + 2 * physics.rec_channels * spec.rec_cap)

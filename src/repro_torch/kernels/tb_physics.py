@@ -1,12 +1,17 @@
 """Per-physics step specs for the temporally-blocked kernel (port of
-`repro.kernels.tb_physics`; acoustic only so far — TTI and elastic are
-the next slice of the port).
+`repro.kernels.tb_physics`: acoustic, TTI and elastic).
 
 The schedule (window, T in-window steps, fused injection, receiver
 partials, centre write-back) is physics-agnostic; a :class:`TBPhysics`
 value carries what is physics-specific.  `update` works on window-shaped
 tensors and calls the same update formula as the Listing-1 propagator in
-`core/propagators/`.
+`core/propagators/`, with a domain-mask hook (`mask_fn`) that re-zeroes
+intermediate fields on the window's out-of-domain rim — on a tile window
+the counterpart of the zero padding the reference applies at the physical
+boundary.
+
+The reference's `param_fills` and `halo_lags` serve only its sharded
+driver; they come with that slice of the port.
 """
 from __future__ import annotations
 
@@ -18,6 +23,8 @@ import numpy as np
 from repro_torch.core import sources as src_mod
 from repro_torch.core import stencil as st
 from repro_torch.core.propagators import acoustic as ac
+from repro_torch.core.propagators import elastic as el
+from repro_torch.core.propagators import tti as tt
 
 
 @dataclasses.dataclass(frozen=True)
@@ -32,12 +39,15 @@ class TBPhysics:
     inject_fields: Tuple[str, ...]
     rec_channels: int
     radius_mult: int
-    # update(state, params, spec) -> new state (same keys)
-    update: Callable[[Dict, Dict, object], Dict]
+    # update(state, params, spec, mask_fn) -> new state (same keys)
+    update: Callable[[Dict, Dict, object, Callable], Dict]
     # record(state) -> rec_channels window-shaped tensors
     record: Callable[[Dict], Tuple]
     # inject_scale(params, g, dt) -> (npts,) per-point injection factor
     inject_scale: Callable[[Dict, src_mod.GriddedSources, float], np.ndarray]
+    # evolved fields the update already domain-masked itself (via mask_fn);
+    # the driver skips its own mask for these
+    premasked_fields: Tuple[str, ...] = ()
 
     @property
     def num_windows(self) -> int:
@@ -48,7 +58,8 @@ class TBPhysics:
         return self.radius_mult * (order // 2)
 
 
-def _acoustic_update(state, params, spec):
+def _acoustic_update(state, params, spec, mask_fn):
+    # no intermediate field: the driver's mask after the step is enough
     u = state["u"]
     u_next = ac.update_terms(u, state["u_prev"], params["m"], params["damp"],
                              spec.dt, spec.spacing, spec.order)
@@ -75,3 +86,73 @@ ACOUSTIC = TBPhysics(
     record=lambda s: (s["u"],),
     inject_scale=_acoustic_scale,
 )
+
+
+# ---------------------------------------------------------------------------
+# TTI pseudo-acoustic (paper §III.B): coupled p/r, rotated Laplacian
+# ---------------------------------------------------------------------------
+
+_TTI_PARAMS = ("m", "damp", "epsilon", "delta", "theta", "phi")
+
+
+def _tti_update(state, params, spec, mask_fn):
+    tst = tt.TTIState(p=state["p"], p_prev=state["p_prev"],
+                      r=state["r"], r_prev=state["r_prev"])
+    tpar = tt.TTIParams(**{k: params[k] for k in _TTI_PARAMS})
+    p_next, r_next = tt.stencil_update(tst, tpar, spec.dt, spec.spacing,
+                                       spec.order, mask_fn=mask_fn)
+    return {"p": p_next, "p_prev": state["p"],
+            "r": r_next, "r_prev": state["r"]}
+
+
+TTI = TBPhysics(
+    name="tti",
+    state_fields=("p", "p_prev", "r", "r_prev"),
+    param_fields=_TTI_PARAMS,
+    evolved_fields=("p", "r"),
+    inject_fields=("p", "r"),
+    rec_channels=1,
+    radius_mult=2,   # rotated Laplacian: two first-derivative passes
+    update=_tti_update,
+    record=lambda s: (s["p"],),
+    inject_scale=_acoustic_scale,   # same dt^2/m factor as acoustic
+)
+
+
+# ---------------------------------------------------------------------------
+# Isotropic elastic (paper §III.C): 9-field velocity-stress, staggered
+# ---------------------------------------------------------------------------
+
+_EL_STATE = ("vx", "vy", "vz", "txx", "tyy", "tzz", "txy", "txz", "tyz")
+_EL_PARAMS = ("lam", "mu", "b", "damp")
+
+
+def _elastic_update(state, params, spec, mask_fn):
+    est = el.ElasticState(**{k: state[k] for k in _EL_STATE})
+    epar = el.ElasticParams(**{k: params[k] for k in _EL_PARAMS})
+    nxt = el.stencil_update(est, epar, spec.dt, spec.spacing, spec.order,
+                            mask_fn=mask_fn)
+    return dict(zip(_EL_STATE, nxt))
+
+
+def _elastic_scale(params, g, dt):
+    # explosive source: wavelet * dt into the diagonal stresses
+    return np.full((g.npts,), float(dt), np.float32)
+
+
+ELASTIC = TBPhysics(
+    name="elastic",
+    state_fields=_EL_STATE,
+    param_fields=_EL_PARAMS,
+    evolved_fields=_EL_STATE,   # 1st order in time: every field is new
+    inject_fields=("txx", "tyy", "tzz"),
+    rec_channels=2,  # vz and the pressure proxy -(txx+tyy+tzz)/3
+    radius_mult=2,   # stress update reads the new velocities
+    update=_elastic_update,
+    record=lambda s: (s["vz"], el.pressure(s["txx"], s["tyy"], s["tzz"])),
+    inject_scale=_elastic_scale,
+    premasked_fields=("vx", "vy", "vz"),  # stencil_update masks mid-step
+)
+
+
+PHYSICS = {p.name: p for p in (ACOUSTIC, TTI, ELASTIC)}

@@ -1,8 +1,11 @@
-"""One acoustic test case built in numpy, fed to both packages.
+"""Test cases built in numpy, fed to both packages.
 
-The random draws follow `tests/test_kernel_stencil_tb.py::_setup` in order
-(velocity, source coordinates, wavelet noise, receiver coordinates, u0,
-u1), so a seed gives that file's inputs (pinned by the test below).  At
+`acoustic_case` draws as `tests/test_kernel_stencil_tb.py::_setup` does,
+in order (velocity, source coordinates, wavelet noise, receiver
+coordinates, u0, u1); `tti_case` and `elastic_case` as
+`tests/test_kernel_multiphysics.py`'s `_tti_setup` / `_elastic_setup` do
+(its `_geometry`, then the model and the state).  So a seed gives those
+files' inputs (pinned by the tests below).  At
 module level only numpy and the port are imported, so the CUDA-only tests
 (which run where JAX is not installed) can build the same cases.
 """
@@ -11,6 +14,7 @@ from __future__ import annotations
 from typing import NamedTuple, Tuple
 
 import numpy as np
+import pytest
 
 
 class AcousticCase(NamedTuple):
@@ -51,8 +55,73 @@ def acoustic_case(shape=(16, 16, 12), order=4, nt=8, nsrc=2, nrec=3,
                         src, wav, rec, u0, u1)
 
 
-def port_sparse(case: AcousticCase, device="cpu", interp=None):
-    """The port's (GriddedSources, GriddedReceivers) for `case`."""
+class MultiCase(NamedTuple):
+    physics: str         # "tti" | "elastic"
+    shape: Tuple[int, int, int]
+    spacing: Tuple[float, float, float]
+    order: int
+    nt: int
+    dt: float
+    state: Tuple[np.ndarray, ...]    # float32, the state NamedTuple's order
+    params: Tuple[np.ndarray, ...]   # float32, the params NamedTuple's order
+    src: np.ndarray
+    wav: np.ndarray
+    rec: np.ndarray
+
+
+def _geometry(shape, order, nt, nsrc, nrec, seed):
+    from repro_torch.core import boundary
+    from repro_torch.core.grid import Grid
+    from repro_torch.core.sources import ricker_wavelet
+
+    grid = Grid(shape=shape, spacing=(10.0,) * 3)
+    rng = np.random.RandomState(seed)
+    vp = 2000.0 + 500.0 * rng.rand(*shape)
+    damp = boundary.damping_field(shape, nbl=3, spacing=grid.spacing,
+                                  device="cpu").numpy()
+    dt = grid.cfl_dt(3000.0, order)
+    ext = np.asarray(grid.extent)
+    src = 5.0 + rng.rand(nsrc, 3) * (ext - 10.0)
+    wav = ricker_wavelet(nt, dt, f0=12.0, num=nsrc) + 0.1 * rng.randn(nt, nsrc)
+    rec = 5.0 + rng.rand(nrec, 3) * (ext - 10.0)
+    return grid, rng, vp, damp, dt, src, wav, rec
+
+
+def _f32(a):
+    return np.asarray(a, np.float32)
+
+
+def tti_case(shape=(12, 12, 8), order=4, nt=4, nsrc=2, nrec=3,
+             seed=0) -> MultiCase:
+    grid, rng, vp, damp, dt, src, wav, rec = _geometry(shape, order, nt,
+                                                       nsrc, nrec, seed)
+    params = (_f32(1.0 / vp ** 2), damp, _f32(0.2 * rng.rand(*shape)),
+              _f32(0.1 * rng.rand(*shape)), _f32(0.3 * rng.randn(*shape)),
+              _f32(0.3 * rng.randn(*shape)))
+    state = tuple(_f32(0.01 * rng.randn(*shape)) for _ in range(4))
+    return MultiCase("tti", tuple(shape), grid.spacing, order, nt, dt, state,
+                     params, src, wav, rec)
+
+
+def elastic_case(shape=(12, 12, 8), order=4, nt=4, nsrc=2, nrec=3,
+                 seed=0) -> MultiCase:
+    grid, rng, vp, damp, dt, src, wav, rec = _geometry(shape, order, nt,
+                                                       nsrc, nrec, seed)
+    rho = 2000.0 + 100.0 * rng.rand(*shape)
+    vs = vp / 1.9
+    params = (_f32(rho * (vp ** 2 - 2 * vs ** 2) * 1e-6),
+              _f32(rho * vs ** 2 * 1e-6), _f32(1.0 / rho), damp)
+    state = tuple(_f32(0.01 * rng.randn(*shape)) for _ in range(9))
+    return MultiCase("elastic", tuple(shape), grid.spacing, order, nt, dt,
+                     state, params, src, wav, rec)
+
+
+MULTI_CASES = {"tti": tti_case, "elastic": elastic_case}
+
+
+def port_sparse(case, device="cpu", interp=None):
+    """The port's (GriddedSources, GriddedReceivers) for `case` (an
+    `AcousticCase` or a `MultiCase`)."""
     from repro_torch.core import sources as TS
     from repro_torch.core.grid import Grid
     from repro_torch.core.interp import LINEAR
@@ -83,3 +152,20 @@ def test_case_reproduces_reference_setup():
     np.testing.assert_array_equal(g2.src_dcmp.numpy(), np.asarray(g.src_dcmp))
     np.testing.assert_array_equal(gr2.weights.numpy(),
                                   np.asarray(gr.weights.astype(jnp.float32)))
+
+
+@pytest.mark.parametrize("physics", ["tti", "elastic"])
+def test_multi_case_reproduces_reference_setup(physics):
+    """`tti_case`/`elastic_case` draw exactly the reference multiphysics
+    test's inputs."""
+    from test_kernel_multiphysics import _elastic_setup, _tti_setup
+
+    setup = {"tti": _tti_setup, "elastic": _elastic_setup}[physics]
+    c = MULTI_CASES[physics](shape=(12, 8, 10), nt=5, seed=4)
+    grid, params, state, dt, g, gr = setup(shape=(12, 8, 10), nt=5, seed=4)
+    for got, want in zip(c.params + c.state, tuple(params) + tuple(state)):
+        np.testing.assert_array_equal(got, np.asarray(want))
+    assert c.dt == dt and c.spacing == grid.spacing
+    g2, gr2 = port_sparse(c)
+    np.testing.assert_array_equal(g2.src_dcmp.numpy(), np.asarray(g.src_dcmp))
+    np.testing.assert_array_equal(gr2.indices.numpy(), np.asarray(gr.indices))

@@ -7,7 +7,8 @@ port's dependencies:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
-Tolerance: rtol 2e-4, atol 1e-6 (tests/test_kernel_stencil_tb.py).
+Tolerance: rtol 2e-4, atol 1e-6 for acoustic (tests/test_kernel_stencil_tb.py),
+rtol 2e-4, atol 1e-5 for TTI and elastic (tests/test_kernel_multiphysics.py).
 """
 import numpy as np
 import pytest
@@ -16,9 +17,10 @@ import torch
 from repro_torch.core.temporal_blocking import TBPlan
 from repro_torch.kernels import ops, ref, stencil_tb as ker, \
     tb_physics as phys
-from test_torch_case import acoustic_case, port_sparse
+from test_torch_case import MULTI_CASES, acoustic_case, port_sparse
 
 RTOL, ATOL = 2e-4, 1e-6
+MP_ATOL = 1e-5
 
 
 def _card():
@@ -103,3 +105,77 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     cpu = tuple(p.cpu() for p in ppads)
     with pytest.raises(ValueError, match="cpu"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, pads, cpu, sc, sv, rc, rw)
+
+
+def _mp_operands(c, T, tile, dev, sources=True, t0=1):
+    """A TTI or elastic case's kernel operands for the time tile at t0."""
+    physics = phys.PHYSICS[c.physics]
+    g, gr = port_sparse(c, device=dev) if sources else (None, None)
+    params = {f: torch.as_tensor(a, device=dev)
+              for f, a in zip(physics.param_fields, c.params)}
+    state = tuple(torch.as_tensor(a, device=dev) for a in c.state)
+    spec, st, rt, ppads = ops.prepare_tiles(
+        TBPlan(tile, T, physics.step_radius(c.order)), physics, state[0],
+        params, g, gr, c.order, c.dt, c.spacing)
+    pads, sc, sv, rc, rw = ops.tile_operands(
+        spec, state, g.src_dcmp if sources else None, st, rt, t0)
+    return physics, spec, (pads, ppads, sc, sv, rc, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["tti", "elastic"])
+@pytest.mark.parametrize("T,tile,order,shape,sources", [
+    (1, (8, 8), 4, (16, 16, 40), True),
+    (2, (16, 8), 2, (32, 16, 37), True),
+    (4, (8, 8), 4, (16, 24, 33), True),
+    (2, (8, 8), 8, (16, 16, 29), False),
+])
+def test_multiphysics_kernel_matches_plain(physics, T, tile, order, shape,
+                                           sources):
+    dev = _card()
+    c = MULTI_CASES[physics](shape=shape, order=order, nt=8, nsrc=3, nrec=4)
+    p, spec, args = _mp_operands(c, T, tile, dev, sources)
+    before = ker.launches
+    kst, krec = ker.tb_time_tile(spec, p, *args)
+    assert ker.launches == before + 1
+    pst, prec = ker.tb_time_tile_plain(spec, p, *args)
+    torch.cuda.synchronize()
+    assert krec.shape == prec.shape == (*spec.ntiles, T, spec.rec_cap,
+                                        p.rec_channels)
+    for k, q in zip((*kst, krec), (*pst, prec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["tti", "elastic"])
+def test_multiphysics_propagate_on_card_matches_reference(physics):
+    dev = _card()
+    c = MULTI_CASES[physics](shape=(32, 16, 24), nt=7)
+    g, gr = port_sparse(c, device=dev)
+    entry, oracle = {"tti": (ops.tti_tb_propagate, ref.tti_reference),
+                     "elastic": (ops.elastic_tb_propagate,
+                                 ref.elastic_reference)}[physics]
+    plan = TBPlan((8, 8), 3, phys.PHYSICS[physics].step_radius(4))
+    st, rec = entry(c.nt, c.state, c.params, g, gr, plan, 4, c.dt, c.spacing)
+    rst, rrec = oracle(c.nt, c.state, c.params, c.dt, c.spacing, 4, g=g,
+                       receivers=gr)
+    cg, cgr = port_sparse(c, device="cpu")
+    hst, hrec = entry(c.nt, c.state, c.params, cg, cgr, plan, 4, c.dt,
+                      c.spacing, device="cpu")
+    assert rec.device.type == "cuda"
+    for a, b, h in zip((*st, rec), (*rst, rrec), (*hst, hrec)):
+        torch.testing.assert_close(a, b, rtol=RTOL, atol=MP_ATOL)
+        np.testing.assert_allclose(a.cpu().numpy(), h.numpy(), rtol=RTOL,
+                                   atol=MP_ATOL)
+
+
+@pytest.mark.cuda
+def test_multiphysics_wrapper_rejects_wrong_fields():
+    dev = _card()
+    c = MULTI_CASES["tti"](shape=(16, 16, 12), nt=4)
+    p, spec, (pads, ppads, sc, sv, rc, rw) = _mp_operands(c, 2, (8, 8), dev)
+    with pytest.raises(ValueError, match="takes 10 fields"):
+        ker.tb_time_tile(spec, p, pads, ppads[:5], sc, sv, rc, rw)
+    with pytest.raises(ValueError, match="step radius"):
+        ker.tb_time_tile(spec, phys.ACOUSTIC, pads[:2], ppads[:2], sc, sv,
+                         rc, rw)

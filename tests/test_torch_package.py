@@ -65,3 +65,24 @@ def test_cpu_runs_only_when_asked():
         4, 1e-3, (10.0,) * 3, device="cpu")
     assert rec is None and u1.device.type == "cpu"
     assert not torch.any(u1)
+
+
+@pytest.mark.parametrize("physics", ["tti", "elastic"])
+def test_multiphysics_entry_points_default_to_the_card(physics):
+    """TTI and elastic raise without a card unless the CPU is asked for."""
+    from repro_torch.core.propagators import elastic, tti
+
+    mod, entry, nstate = {
+        "tti": (tti, ops.tti_tb_propagate, 4),
+        "elastic": (elastic, ops.elastic_tb_propagate, 9)}[physics]
+    state = mod.init_state((8, 8, 4))
+    params = tuple(torch.ones((8, 8, 4)) for _ in range(6 if nstate == 4
+                                                         else 4))
+    plan = TBPlan(tile=(8, 8), T=1, radius=4)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            entry(2, state, params, None, None, plan, 4, 1e-3, (10.0,) * 3)
+    final, rec = entry(2, state, params, None, None, plan, 4, 1e-3,
+                       (10.0,) * 3, device="cpu")
+    assert rec is None and len(final) == nstate
+    assert all(f.device.type == "cpu" and not torch.any(f) for f in final)
