@@ -22,11 +22,11 @@ and the script exits non-zero.
 import dataclasses
 import json
 import math
+import statistics
 import subprocess
 import sys
 import time
 from pathlib import Path
-from typing import Callable
 
 import numpy as np
 import torch
@@ -35,7 +35,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch.core import boundary, sources as S  # noqa: E402
 from repro_torch.core.grid import Grid  # noqa: E402
-from repro_torch.core.propagators import elastic, tti  # noqa: E402
+from repro_torch.core.propagators import acoustic, elastic, tti  # noqa: E402
 from repro_torch.core.temporal_blocking import TBPlan  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import stencil_tb as ker  # noqa: E402
@@ -45,6 +45,10 @@ RTOL = 2e-4
 # kernel vs plain: tests/test_kernel_stencil_tb.py:56 (acoustic),
 # tests/test_kernel_multiphysics.py:23-24 (TTI, elastic)
 ATOL = {"acoustic": 1e-6, "tti": 1e-5, "elastic": 1e-5}
+# kernel vs plain, besides: max|diff| / max|plain| per field and per
+# receiver channel, since an absolute tolerance cannot see a field whose
+# values are 1e-9 (the elastic velocities in SI units)
+FIELD_RTOL = 1e-5
 MAIN_TOL = 1e-4                  # max|diff| / max|ref|, fields and traces
 HBM_BW = 3.35e12                 # H100 SXM, bytes/s (data sheet)
 F32_PEAK = 67e12                 # H100 SXM float32 outside the tensor cores
@@ -85,12 +89,18 @@ def max_rel(a, b):
 
 
 def check_close(name, got, want, atol):
-    if not torch.allclose(got, want, rtol=RTOL, atol=atol):
-        err = float((got - want).abs().max())
+    """(max|diff|, max|diff| / max|want|) of a kernel's output `got` against
+    its plain version's `want`; raises past rtol/atol or FIELD_RTOL."""
+    err = float((got - want).abs().max()) if want.numel() else 0.0
+    scale = float(want.abs().max()) if want.numel() else 0.0
+    rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+    if not (torch.allclose(got, want, rtol=RTOL, atol=atol)
+            and rel <= FIELD_RTOL):
         raise AssertionError(f"{name}: kernel disagrees with its plain "
-                             f"version, max|diff| = {err:.3e} (rtol {RTOL}, "
-                             f"atol {atol})")
-    return float((got - want).abs().max())
+                             f"version, max|diff| = {err:.3e}, max|diff| / "
+                             f"max|plain| = {rel:.3e} (rtol {RTOL}, atol "
+                             f"{atol}, field rtol {FIELD_RTOL})")
+    return err, rel
 
 
 def plan_for(physics, T):
@@ -134,8 +144,9 @@ def phase_build():
 
 def small_case(name, shape, order, nsrc, nrec, seed, dev):
     """(state tuple, params dict, g, gr, dt) of a small random case.  The
-    elastic moduli are in the reference tests' scaled units (x1e-6), which
-    keep the small fields near unit scale."""
+    elastic moduli are in SI units and its velocities 0.01 randn / (rho vp),
+    so every term of the velocity and stress updates moves its field by a
+    visible fraction of the field's scale."""
     grid = Grid(shape=shape, spacing=SMALL_SPACING)
     rng = np.random.RandomState(seed)
     vp = 1500.0 + 1000.0 * rng.rand(*shape)
@@ -166,11 +177,13 @@ def small_case(name, shape, order, nsrc, nrec, seed, dev):
     else:
         rho = 2000.0 + 100.0 * rng.rand(*shape)
         vs = vp / 1.9
-        params = {"lam": f32(rho * (vp ** 2 - 2 * vs ** 2) * 1e-6),
-                  "mu": f32(rho * vs ** 2 * 1e-6), "b": f32(1.0 / rho),
+        params = {"lam": f32(rho * (vp ** 2 - 2 * vs ** 2)),
+                  "mu": f32(rho * vs ** 2), "b": f32(1.0 / rho),
                   "damp": damp}
-    nstate = len(phys.PHYSICS[name].state_fields)
-    state = tuple(f32(0.01 * rng.randn(*shape)) for _ in range(nstate))
+    fields = phys.PHYSICS[name].state_fields
+    state = tuple(f32(0.01 * rng.randn(*shape)
+                      / (rho * vp if f in ("vx", "vy", "vz") else 1.0))
+                  for f in fields)
     return state, params, g, gr, dt
 
 
@@ -196,14 +209,19 @@ def uncounted(fn):
 
 
 def compare_kernel(spec, physics, args):
-    """One kernel launch against the plain version on the same inputs."""
+    """One kernel launch against the plain version on the same inputs:
+    (max|diff|, max over fields and receiver channels of max|diff| /
+    max|plain|)."""
     kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
     pst, prec = ker.tb_time_tile_plain(spec, physics, *args)
     torch.cuda.synchronize()
     atol = ATOL[physics.name]
+    pairs = [(f, k, p) for f, k, p in zip(physics.state_fields, kst, pst)]
+    pairs += [(f"rec[{c}]", krec[..., c], prec[..., c])
+              for c in range(prec.shape[-1])]
     errs = [check_close(f"{physics.name} {f}", k, p, atol)
-            for f, k, p in zip(physics.state_fields, kst, pst)]
-    return max(errs + [check_close(f"{physics.name} rec", krec, prec, atol)])
+            for f, k, p in pairs]
+    return max(e for e, _ in errs), max(r for _, r in errs)
 
 
 SMALL_CASES = [  # (T, tile, order, shape, sources)
@@ -231,25 +249,41 @@ def phase_kernel_vs_plain(dev):
     for name, cases in (("acoustic", SMALL_CASES), ("tti", SMALL_MP_CASES),
                         ("elastic", SMALL_MP_CASES)):
         physics = phys.PHYSICS[name]
-        worst = 0.0
+        worst = worst_rel = 0.0
         for i, (T, tile, order, shape, sources) in enumerate(cases):
             state, params, g, gr, dt = small_case(
                 name, shape, order, 3 if sources else 0, 4, i, dev)
             plan = TBPlan(tile, T, physics.step_radius(order))
             spec, args = kernel_inputs(physics, plan, state, params, g,
-                                          gr, dt, 1, SMALL_SPACING,
-                                          order=order)
-            err = compare_kernel(spec, physics, args)
-            worst = max(worst, err)
+                                       gr, dt, 1, SMALL_SPACING, order=order)
+            err, rel = compare_kernel(spec, physics, args)
+            worst, worst_rel = max(worst, err), max(worst_rel, rel)
             say("kernel-vs-plain", f"{name} T={T} tile={tile} order={order} "
-                f"shape={shape} sources={sources}: max|diff| {err:.3e}")
+                f"shape={shape} sources={sources}: max|diff| {err:.3e}, "
+                f"max|diff|/max|plain| {rel:.3e}")
         say("kernel-vs-plain", f"{name}: {len(cases)} cases within rtol "
-            f"{RTOL} atol {ATOL[name]}; worst max|diff| {worst:.3e}")
+            f"{RTOL} atol {ATOL[name]} and field rtol {FIELD_RTOL}; worst "
+            f"max|diff| {worst:.3e}, max|diff|/max|plain| {worst_rel:.3e}")
 
 
 # ---------------------------------------------------------------------------
 # The three main paths at full size
 # ---------------------------------------------------------------------------
+
+# physics -> (params type, TB entry point, Listing-1 oracle), each called
+# as (nt, state, params, ...); acoustic's take their fields one by one
+PATHS = {
+    "acoustic": (
+        acoustic.AcousticParams,
+        lambda nt, s, p, *a, **k: ops.acoustic_tb_propagate(nt, *s, *p, *a,
+                                                            **k),
+        lambda nt, s, p, *a, **k: ref.acoustic_reference(nt, *s, *p, *a,
+                                                         **k)),
+    "tti": (tti.TTIParams, ops.tti_tb_propagate, ref.tti_reference),
+    "elastic": (elastic.ElasticParams, ops.elastic_tb_propagate,
+                ref.elastic_reference),
+}
+
 
 @dataclasses.dataclass
 class FullCase:
@@ -258,12 +292,24 @@ class FullCase:
     nt: int
     dt: float
     state: tuple                  # in physics.state_fields order
-    params: dict                  # physics.param_fields -> tensor
+    params: tuple                 # the physics' params NamedTuple
     g: S.GriddedSources
     gr: S.GriddedReceivers
-    # run(plan) -> (final state tuple, traces); reference() -> the same
-    run: Callable = None
-    reference: Callable = None
+
+    def run(self, plan):
+        """The TB entry point: (final state tuple, traces)."""
+        final, recs = PATHS[self.physics.name][1](
+            self.nt, self.state, self.params, self.g, self.gr, plan, ORDER,
+            self.dt, self.spacing, executor="cuda",
+            device=self.state[0].device)
+        return tuple(final), recs
+
+    def reference(self):
+        """The Listing-1 oracle: (final state tuple, traces)."""
+        final, recs = PATHS[self.physics.name][2](
+            self.nt, self.state, self.params, self.dt, self.spacing, ORDER,
+            g=self.g, receivers=self.gr, device=self.state[0].device)
+        return tuple(final), recs
 
 
 def _layered(shape, top, bottom, dev):
@@ -326,38 +372,8 @@ def full_case(name, dev):
                   "mu": _layered(SHAPE, mu[0], mu[1], dev),
                   "b": _layered(SHAPE, 1 / rho, 1 / rho, dev),
                   "damp": damp}
-    fc = FullCase(physics, spacing, nt, dt, state, params, g, gr)
-    args = (g, gr)
-    if name == "acoustic":
-        def run(plan):
-            (u0, u1), recs = ops.acoustic_tb_propagate(
-                nt, *state, params["m"], params["damp"], *args, plan, ORDER,
-                dt, spacing, executor="cuda", device=dev)
-            return (u0, u1), recs
-
-        def reference():
-            return ref.acoustic_reference(
-                nt, *state, params["m"], params["damp"], dt, spacing, ORDER,
-                g=g, receivers=gr, device=dev)
-    else:
-        mod, entry, oracle = {
-            "tti": (tti, ops.tti_tb_propagate, ref.tti_reference),
-            "elastic": (elastic, ops.elastic_tb_propagate,
-                        ref.elastic_reference)}[name]
-        pnt = (mod.TTIParams if name == "tti" else mod.ElasticParams)(
-            **params)
-
-        def run(plan):
-            final, recs = entry(nt, state, pnt, *args, plan, ORDER, dt,
-                                spacing, executor="cuda", device=dev)
-            return tuple(final), recs
-
-        def reference():
-            final, recs = oracle(nt, state, pnt, dt, spacing, ORDER, g=g,
-                                 receivers=gr, device=dev)
-            return tuple(final), recs
-    fc.run, fc.reference = run, reference
-    return fc
+    return FullCase(physics, spacing, nt, dt, state,
+                    PATHS[name][0](**params), g, gr)
 
 
 def phase_main_path(fc, smi):
@@ -424,24 +440,25 @@ def phase_main_path(fc, smi):
 def time_tile_pieces(fc, plan, state, t0):
     """Device ms of the three pieces of one main-path time tile at t0: its
     operands (zero-padded state, source values), the kernel alone (after a
-    warm-up, the best of 3 means of 5 launches, so a stall of the host
-    between launches does not count), and the receivers' segment sum.
-    Returns (spec, kernel args, (ms, ms, ms))."""
+    warm-up, the median of 3 means of 5 launches; the least and the most of
+    the 3 are returned too), and the receivers' segment sum.
+    Returns (spec, kernel args, (ms, ms, ms), (min ms, max ms))."""
     physics = fc.physics
     spec, st, rt, ppads = ops.prepare_tiles(
-        plan, physics, state[0], fc.params, fc.g, fc.gr, ORDER, fc.dt,
-        fc.spacing)
+        plan, physics, state[0], fc.params._asdict(), fc.g, fc.gr, ORDER,
+        fc.dt, fc.spacing)
     op_ms, (pads, sc, sv, rc, rw) = cuda_ms(
         lambda: ops.tile_operands(spec, state, fc.g.src_dcmp, st, rt, t0),
         reps=3)
     args = (pads, ppads, sc, sv, rc, rw)
     launch = lambda: ker.tb_time_tile(spec, physics, *args)  # noqa: E731
     _, rec_part = uncounted(launch)                         # warm-up
-    k_ms = min(uncounted(lambda: cuda_ms(launch, reps=5))[0]
-               for _ in range(3))
+    means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
+             for _ in range(3)]
     rec_ms, _ = cuda_ms(lambda: ops.combine_rec_partials(rec_part, rt, NREC),
                         reps=3)
-    return spec, args, (op_ms, k_ms, rec_ms)
+    return (spec, args, (op_ms, statistics.median(means), rec_ms),
+            (min(means), max(means)))
 
 
 def say_pieces(phase, what, pieces, measured_ms):
@@ -461,8 +478,9 @@ def phase_sb(fc, smi, tb_ms, state):
     say(f"sb-{name}", f"SB (T=1) run {ms:.1f} ms = {ms / nt:.3f} ms per "
         f"step, {mpts:.1f} Mpt*steps/s; TB/SB time ratio {tb_ms / ms:.3f} "
         f"(no gain claimed) [{smi}]")
-    _, _, pieces = time_tile_pieces(fc, plan, state, nt // 2)
-    say(f"sb-{name}", f"SB kernel alone {pieces[1]:.3f} ms per launch = "
+    _, _, pieces, (lo, hi) = time_tile_pieces(fc, plan, state, nt // 2)
+    say(f"sb-{name}", f"SB kernel alone {pieces[1]:.3f} ms per launch "
+        f"(median of 3 means of 5; least {lo:.3f}, most {hi:.3f}) = "
         f"{100 * pieces[1] * nt / ms:.1f}% of the SB run")
     say_pieces(f"sb-{name}", "one SB step", pieces, ms / nt)
 
@@ -477,22 +495,25 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
     name = fc.physics.name
     plan = plan_for(fc.physics, T_TB)
     t0 = (fc.nt // T_TB // 2) * T_TB
-    spec, args, pieces = time_tile_pieces(fc, plan, state, t0)
+    spec, args, pieces, (lo, hi) = time_tile_pieces(fc, plan, state, t0)
     ms = pieces[1]
-    err = compare_kernel(spec, fc.physics, args)
+    err, rel = compare_kernel(spec, fc.physics, args)
     say_pieces(f"kernels-{name}", f"one depth-{T_TB} TB tile", pieces,
                tb_ms / launches)
     plain_ms, _ = cuda_ms(
         lambda: ker.tb_time_tile_plain(spec, fc.physics, *args))
     cost = ker.kernel_cost(spec, fc.physics)
     t_bytes = cost["min_bytes"] / HBM_BW * 1e3
-    t_ops = cost["useful_flops"] / F32_PEAK * 1e3
+    t_ops = cost["needed_flops"] / F32_PEAK * 1e3
     bound = max(t_bytes, t_ops)
     say(f"kernels-{name}", f"tb_{name} at {SHAPE} T={T_TB}: {ms:.3f} ms per "
-        f"launch vs bound {bound:.3f} ms ({cost['min_bytes'] / 1e9:.2f} GB, "
-        f"{cost['useful_flops'] / 1e9:.1f} GFLOP), plain {plain_ms:.1f} ms; "
-        f"kernel = {100 * ms * launches / tb_ms:.1f}% of the TB run; "
-        f"max|diff| vs plain {err:.3e} [{smi}]")
+        f"launch (median of 3 means of 5; least {lo:.3f}, most {hi:.3f}) "
+        f"vs bound {bound:.3f} ms ({cost['min_bytes'] / 1e9:.2f} GB in "
+        f"{t_bytes:.3f} ms; {cost['needed_flops'] / 1e9:.1f} GFLOP needed "
+        f"in {t_ops:.3f} ms, of {cost['useful_flops'] / 1e9:.1f} GFLOP the "
+        f"reference counts), plain {plain_ms:.1f} ms; kernel = "
+        f"{100 * ms * launches / tb_ms:.1f}% of the TB run; max|diff| vs "
+        f"plain {err:.3e}, max|diff|/max|plain| {rel:.3e} [{smi}]")
     return {
         "name": f"stencil_tb.tb_{name}",
         "route": "cuda",

@@ -147,12 +147,26 @@ def propagate(nt: int, state: TTIState, params: TTIParams,
     return state, torch.stack(recs)
 
 
-def model_flops_per_step(shape: Tuple[int, ...], order: int) -> int:
+_POINTWISE_FLOPS = 40
+
+
+def _flops_per_g(order: int) -> int:
+    """One rotated second derivative (Gxx, Gyy or Gzz): 2 passes x 3
+    dir-derivs x (stencil + 2 muladd for direction weights)."""
     taps = order + 1
     d1 = 2 * taps - 1                       # one first-derivative stencil
-    # per field: 2 rotated laplacians, each = 2 passes x 3 dir-derivs x
-    # (stencil + 2 muladd for direction weights); 2 fields + pointwise.
-    per_g = 2 * 3 * (d1 + 4)
-    per_field = 3 * per_g
-    pointwise = 40
-    return int(np.prod(shape)) * (2 * per_field + pointwise)
+    return 2 * 3 * (d1 + 4)
+
+
+def model_flops_per_step(shape: Tuple[int, ...], order: int) -> int:
+    """The reference's count: per field, the 3 rotated second derivatives
+    of `rotated_laplacians`; 2 fields + pointwise."""
+    per_field = 3 * _flops_per_g(order)
+    return int(np.prod(shape)) * (2 * per_field + _POINTWISE_FLOPS)
+
+
+def needed_flops_per_step(shape: Tuple[int, ...], order: int) -> int:
+    """The operations the update's output needs: Gxx(p), Gyy(p), Gzz(r)
+    and the pointwise terms.  `model_flops_per_step` also prices Gzz(p) and
+    Gxx(r) + Gyy(r), which `stencil_update` computes and discards."""
+    return int(np.prod(shape)) * (3 * _flops_per_g(order) + _POINTWISE_FLOPS)

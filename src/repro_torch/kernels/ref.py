@@ -16,6 +16,20 @@ from repro_torch.core.grid import Grid
 from repro_torch.core.propagators import acoustic, elastic, tti
 
 
+def _reference(mod, state, params, nt, dt, spacing, order, g, receivers,
+               device):
+    """`mod.propagate` of nt steps from `state` with `params` (NamedTuples
+    whose fields may be numpy arrays or tensors) on `device`."""
+    dev = resolve_device(device)
+    state = type(state)(*(as_tensor(a, dev) for a in state))
+    params = type(params)(*(as_tensor(a, dev) for a in params))
+    g = g.to(dev) if g is not None else None
+    receivers = receivers.to(dev) if receivers is not None else None
+    grid = Grid(shape=tuple(state[0].shape), spacing=spacing)
+    return mod.propagate(nt, state, params, g, dt, grid, order,
+                         receivers=receivers)
+
+
 def acoustic_reference(nt: int, u0, u1, m, damp, dt: float,
                        spacing: Tuple[float, ...], order: int,
                        g: Optional[src_mod.GriddedSources] = None,
@@ -26,20 +40,11 @@ def acoustic_reference(nt: int, u0, u1, m, damp, dt: float,
 
     Returns ((u_prev, u) after nt steps, rec (nt, nrec) or None).
     """
-    dev = resolve_device(device)
-    u0, u1, m, damp = (as_tensor(a, dev) for a in (u0, u1, m, damp))
-    g = g.to(dev) if g is not None else None
-    receivers = receivers.to(dev) if receivers is not None else None
-    grid = Grid(shape=tuple(u1.shape), spacing=spacing)
-    params = acoustic.AcousticParams(m=m, damp=damp)
-    state = acoustic.AcousticState(u=u1, u_prev=u0)
-    final, recs = acoustic.propagate(nt, state, params, g, dt, grid, order,
-                                     receivers=receivers)
+    final, recs = _reference(
+        acoustic, acoustic.AcousticState(u=u1, u_prev=u0),
+        acoustic.AcousticParams(m=m, damp=damp), nt, dt, spacing, order, g,
+        receivers, device)
     return (final.u_prev, final.u), recs
-
-
-def _on_device(nt_tuple, dev):
-    return type(nt_tuple)(*(as_tensor(a, dev) for a in nt_tuple))
 
 
 def tti_reference(nt: int, state, params, dt: float,
@@ -51,14 +56,8 @@ def tti_reference(nt: int, state, params, dt: float,
     `device` (fields may be numpy arrays or tensors).
 
     Returns (TTIState after nt steps, rec (nt, nrec) or None)."""
-    dev = resolve_device(device)
-    state = _on_device(tti.TTIState(*state), dev)
-    params = _on_device(tti.TTIParams(*params), dev)
-    g = g.to(dev) if g is not None else None
-    receivers = receivers.to(dev) if receivers is not None else None
-    grid = Grid(shape=tuple(state.p.shape), spacing=spacing)
-    return tti.propagate(nt, state, params, g, dt, grid, order,
-                         receivers=receivers)
+    return _reference(tti, tti.TTIState(*state), tti.TTIParams(*params), nt,
+                      dt, spacing, order, g, receivers, device)
 
 
 def elastic_reference(nt: int, state, params, dt: float,
@@ -71,11 +70,6 @@ def elastic_reference(nt: int, state, params, dt: float,
 
     Returns (ElasticState after nt steps, rec (nt, nrec, 2) or None) —
     receiver channels are (vz, pressure proxy)."""
-    dev = resolve_device(device)
-    state = _on_device(elastic.ElasticState(*state), dev)
-    params = _on_device(elastic.ElasticParams(*params), dev)
-    g = g.to(dev) if g is not None else None
-    receivers = receivers.to(dev) if receivers is not None else None
-    grid = Grid(shape=tuple(state.vx.shape), spacing=spacing)
-    return elastic.propagate(nt, state, params, g, dt, grid, order,
-                             receivers=receivers)
+    return _reference(elastic, elastic.ElasticState(*state),
+                      elastic.ElasticParams(*params), nt, dt, spacing, order,
+                      g, receivers, device)

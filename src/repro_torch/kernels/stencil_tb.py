@@ -332,10 +332,12 @@ def kernel_cost(spec: TBKernelSpec,
 
     ``flops``/``hbm_bytes`` price the kernel's schedule (every window
     computed in full, each field's window read once per call, as the
-    reference prices it); ``useful_flops`` is the stencil work on the grid;
-    ``min_bytes`` the least traffic of the function (each unpadded input
-    field read once, each output field written once) — the numerator of
-    the roofline bound.
+    reference prices it); ``useful_flops`` is the stencil work on the grid
+    as the reference counts it; ``needed_flops`` the work the output needs
+    (below ``useful_flops`` for TTI, whose reference count prices rotated
+    Laplacians it discards) and ``min_bytes`` the least traffic of the
+    function (each unpadded input field read once, each output field
+    written once) — the numerators of the roofline bound.
     """
     ntx, nty = spec.ntiles
     wx, wy, wz = spec.window
@@ -344,6 +346,8 @@ def kernel_cost(spec: TBKernelSpec,
     else:
         mod = {"elastic": el, "tti": tt}[physics.name]
         stencil_flops = mod.model_flops_per_step((1, 1, 1), spec.order)
+    needed = (tt.needed_flops_per_step((1, 1, 1), spec.order)
+              if physics.name == "tti" else stencil_flops)
     window_pts = wx * wy * wz
     sparse_flops = (len(physics.inject_fields) * spec.src_cap
                     + 2 * physics.rec_channels * spec.rec_cap)
@@ -357,5 +361,6 @@ def kernel_cost(spec: TBKernelSpec,
     return {"flops": float(flops),
             "hbm_bytes": float(hbm_read + hbm_write),
             "useful_flops": float(grid_pts * spec.T * stencil_flops),
+            "needed_flops": float(grid_pts * spec.T * needed),
             "min_bytes": float(grid_pts * (nw + ns) * itemsize),
             "window_bytes": spec.window_bytes(nw)}

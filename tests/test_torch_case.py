@@ -5,12 +5,14 @@ in order (velocity, source coordinates, wavelet noise, receiver
 coordinates, u0, u1); `tti_case` and `elastic_case` as
 `tests/test_kernel_multiphysics.py`'s `_tti_setup` / `_elastic_setup` do
 (its `_geometry`, then the model and the state).  So a seed gives those
-files' inputs (pinned by the tests below).  At
+files' inputs (pinned by the tests below); `elastic_case(si=True)`, which
+the port's elastic tests use, draws the same numbers and rescales them.  At
 module level only numpy and the port are imported, so the CUDA-only tests
 (which run where JAX is not installed) can build the same cases.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -104,19 +106,66 @@ def tti_case(shape=(12, 12, 8), order=4, nt=4, nsrc=2, nrec=3,
 
 
 def elastic_case(shape=(12, 12, 8), order=4, nt=4, nsrc=2, nrec=3,
-                 seed=0) -> MultiCase:
+                 seed=0, si=False) -> MultiCase:
+    """The reference test's elastic inputs: moduli x1e-6, every state field
+    0.01 randn.  There a velocity's stress term moves it by less than its
+    float32 rounding, so no comparison can see it.  With `si` the moduli
+    are in SI units and the velocities are divided by the impedance
+    rho vp, so each term of the velocity and stress updates moves its field
+    by a visible fraction of its scale."""
     grid, rng, vp, damp, dt, src, wav, rec = _geometry(shape, order, nt,
                                                        nsrc, nrec, seed)
     rho = 2000.0 + 100.0 * rng.rand(*shape)
     vs = vp / 1.9
-    params = (_f32(rho * (vp ** 2 - 2 * vs ** 2) * 1e-6),
-              _f32(rho * vs ** 2 * 1e-6), _f32(1.0 / rho), damp)
-    state = tuple(_f32(0.01 * rng.randn(*shape)) for _ in range(9))
+    unit = 1.0 if si else 1e-6
+    params = (_f32(rho * (vp ** 2 - 2 * vs ** 2) * unit),
+              _f32(rho * vs ** 2 * unit), _f32(1.0 / rho), damp)
+    vscale = 1.0 / (rho * vp) if si else 1.0
+    state = tuple(_f32(0.01 * rng.randn(*shape) * (vscale if i < 3 else 1.0))
+                  for i in range(9))
     return MultiCase("elastic", tuple(shape), grid.spacing, order, nt, dt,
                      state, params, src, wav, rec)
 
 
-MULTI_CASES = {"tti": tti_case, "elastic": elastic_case}
+# the port's multiphysics cases: elastic in SI units (see `elastic_case`)
+MULTI_CASES = {"tti": tti_case,
+               "elastic": functools.partial(elastic_case, si=True)}
+
+
+# max|diff| / max|ref| per field and per receiver channel: the port against
+# the JAX package on the CPU, and a CUDA kernel against its plain version
+# (both measure 1e-7 to 5e-7 on these cases)
+FIELD_RTOL = 1e-5
+
+
+def field_err(got, want) -> float:
+    """max|got - want| / max|want|: the error against the field's own scale
+    (an absolute tolerance cannot see a field whose values are 1e-9)."""
+    got = np.asarray(got, np.float64)
+    want = np.asarray(want, np.float64)
+    if want.size == 0:
+        return 0.0
+    diff, scale = np.abs(got - want).max(), np.abs(want).max()
+    return diff / scale if scale > 0 else (0.0 if diff == 0 else np.inf)
+
+
+def assert_fields_close(named, rtol, what=""):
+    """Each (name, got, want) within `rtol` of max|want|."""
+    for name, got, want in named:
+        assert np.shape(got) == np.shape(want), (what, name)
+        err = field_err(got, want)
+        assert err <= rtol, \
+            f"{what} {name}: max|diff|/max|ref| {err:.3e} > {rtol:g}"
+
+
+def trace_channels(got, want):
+    """(name, got, want) per receiver channel of traces shaped (nt, nrec)
+    or (nt, nrec, channels), so each channel is held to its own scale."""
+    got, want = np.asarray(got), np.asarray(want)
+    if want.ndim == 2:
+        return [("traces", got, want)]
+    return [(f"traces[{c}]", got[..., c], want[..., c])
+            for c in range(want.shape[-1])]
 
 
 def port_sparse(case, device="cpu", interp=None):
@@ -161,7 +210,8 @@ def test_multi_case_reproduces_reference_setup(physics):
     from test_kernel_multiphysics import _elastic_setup, _tti_setup
 
     setup = {"tti": _tti_setup, "elastic": _elastic_setup}[physics]
-    c = MULTI_CASES[physics](shape=(12, 8, 10), nt=5, seed=4)
+    c = {"tti": tti_case, "elastic": elastic_case}[physics](
+        shape=(12, 8, 10), nt=5, seed=4)
     grid, params, state, dt, g, gr = setup(shape=(12, 8, 10), nt=5, seed=4)
     for got, want in zip(c.params + c.state, tuple(params) + tuple(state)):
         np.testing.assert_array_equal(got, np.asarray(want))

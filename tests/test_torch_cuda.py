@@ -8,7 +8,9 @@ port's dependencies:
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
 Tolerance: rtol 2e-4, atol 1e-6 for acoustic (tests/test_kernel_stencil_tb.py),
-rtol 2e-4, atol 1e-5 for TTI and elastic (tests/test_kernel_multiphysics.py).
+rtol 2e-4, atol 1e-5 for TTI and elastic (tests/test_kernel_multiphysics.py),
+and for these each field and receiver channel within `FIELD_RTOL` of its own
+scale (the elastic cases are in SI units, with velocities near 1e-9).
 """
 import numpy as np
 import pytest
@@ -17,7 +19,8 @@ import torch
 from repro_torch.core.temporal_blocking import TBPlan
 from repro_torch.kernels import ops, ref, stencil_tb as ker, \
     tb_physics as phys
-from test_torch_case import MULTI_CASES, acoustic_case, port_sparse
+from test_torch_case import FIELD_RTOL, MULTI_CASES, acoustic_case, \
+    assert_fields_close, port_sparse, trace_channels
 
 RTOL, ATOL = 2e-4, 1e-6
 MP_ATOL = 1e-5
@@ -144,6 +147,10 @@ def test_multiphysics_kernel_matches_plain(physics, T, tile, order, shape,
                                         p.rec_channels)
     for k, q in zip((*kst, krec), (*pst, prec)):
         torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
+    assert_fields_close(
+        [(f, k.cpu(), q.cpu()) for f, k, q in zip(p.state_fields, kst, pst)]
+        + [(f"rec[{i}]", krec[..., i].cpu(), prec[..., i].cpu())
+           for i in range(p.rec_channels)], FIELD_RTOL, physics)
 
 
 @pytest.mark.cuda
@@ -167,6 +174,13 @@ def test_multiphysics_propagate_on_card_matches_reference(physics):
         torch.testing.assert_close(a, b, rtol=RTOL, atol=MP_ATOL)
         np.testing.assert_allclose(a.cpu().numpy(), h.numpy(), rtol=RTOL,
                                    atol=MP_ATOL)
+    names = phys.PHYSICS[physics].state_fields
+    for want, what in ((rst, rrec), "reference"), ((hst, hrec), "CPU run"):
+        assert_fields_close(zip(names, [a.cpu() for a in st],
+                                [b.cpu() for b in want[0]]), FIELD_RTOL,
+                            f"{physics} vs the {what}")
+        assert_fields_close(trace_channels(rec.cpu(), want[1].cpu()),
+                            FIELD_RTOL, f"{physics} vs the {what}")
 
 
 @pytest.mark.cuda

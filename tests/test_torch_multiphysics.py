@@ -5,9 +5,10 @@ package (mirrors tests/test_kernel_multiphysics.py).
 against the reference's own TB driver (`ops.*_tb_propagate`: the Pallas
 kernel in interpret mode for one case per physics, ``executor="jnp"`` for
 the rest) and against its Listing-1 oracle (`ref.*_reference`), every
-state field and every receiver channel, on the inputs of
-`_tti_setup`/`_elastic_setup`.  Tolerance: that file's, rtol 2e-4,
-atol 1e-5.
+state field and every receiver channel, on the inputs of `_tti_setup` and
+of `_elastic_setup` in SI units (`test_torch_case.elastic_case`).
+Tolerance: that file's, rtol 2e-4, atol 1e-5, and each field and receiver
+channel within `FIELD_RTOL` of its own scale.
 """
 import functools
 
@@ -25,7 +26,8 @@ from repro_torch import interop
 from repro_torch.core.temporal_blocking import TBPlan
 from repro_torch.kernels import ops, ref as tref, stencil_tb as tker, \
     tb_physics as tphys
-from test_torch_case import MULTI_CASES, port_sparse
+from test_torch_case import FIELD_RTOL, MULTI_CASES, \
+    assert_fields_close, port_sparse, trace_channels
 
 RTOL, ATOL = 2e-4, 1e-5
 
@@ -41,6 +43,18 @@ PORT = {"tti": (ops.tti_tb_propagate, tref.tti_reference),
 def _close(a, b, what):
     np.testing.assert_allclose(np.asarray(a), np.asarray(b), rtol=RTOL,
                                atol=ATOL, err_msg=what)
+
+
+def _all_close(names, got, want, rec, rec_want, what):
+    """Every field and receiver channel: the reference test's tolerance,
+    and each within `FIELD_RTOL` of its own scale."""
+    for name, t, r in zip(names, got, want):
+        _close(t, r, f"{what} {name}")
+    assert_fields_close(zip(names, got, want), FIELD_RTOL, what)
+    if rec_want is not None:
+        assert np.shape(rec) == np.shape(rec_want)
+        _close(rec, rec_want, f"{what} traces")
+        assert_fields_close(trace_channels(rec, rec_want), FIELD_RTOL, what)
 
 
 def _jax_inputs(c, sources):
@@ -95,20 +109,17 @@ def test_tb_matches_reference(physics, T, tile, nt, route):
         c.order, c.dt, c.spacing, executor=route)
     tst, trec = _port_tb(c, T, tile)
     names = JAX[physics][0]._fields
-    for name, t, j, r in zip(names, tst, jst, rst):
-        _close(t, j, f"{physics} {name} vs the reference's {route} TB")
-        _close(t, r, f"{physics} {name} vs the Listing-1 reference")
-    assert trec.shape == np.asarray(jrec).shape
-    _close(trec, jrec, f"{physics} traces vs the reference's {route} TB")
-    _close(trec, rrec, f"{physics} traces vs the Listing-1 reference")
+    _all_close(names, tst, jst, trec, jrec,
+               f"{physics} vs the reference's {route} TB:")
+    _all_close(names, tst, rst, trec, rrec,
+               f"{physics} vs the Listing-1 reference:")
 
 
 def test_elastic_no_sources_no_receivers():
     c, (rst, rrec) = _case_and_reference("elastic", 4, sources=False)
     tst, trec = _port_tb(c, 2, (6, 6), sources=False)
     assert trec is None and rrec is None
-    for name, t, r in zip(jel.ElasticState._fields, tst, rst):
-        _close(t, r, f"elastic {name}")
+    _all_close(jel.ElasticState._fields, tst, rst, None, None, "elastic")
 
 
 @pytest.mark.parametrize("physics", ["tti", "elastic"])
@@ -119,9 +130,8 @@ def test_port_reference_matches_reference(physics):
     g, gr = port_sparse(c)
     st, rec = PORT[physics][1](c.nt, c.state, c.params, c.dt, c.spacing,
                                c.order, g=g, receivers=gr, device="cpu")
-    for name, t, r in zip(JAX[physics][0]._fields, st, rst):
-        _close(t.numpy(), r, f"{physics} {name}")
-    _close(rec.numpy(), rrec, f"{physics} traces")
+    _all_close(JAX[physics][0]._fields, [t.numpy() for t in st], rst,
+               rec.numpy(), rrec, physics)
 
 
 def test_step_radius_per_physics():
@@ -159,6 +169,11 @@ def test_multiphysics_kernel_cost(physics):
     nfields = p.num_windows + len(p.state_fields)     # 10 + 4, 13 + 9
     assert c["min_bytes"] == 24 * 24 * 16 * nfields * 4
     assert c["flops"] > c["useful_flops"] > 0
+    # TTI's output needs 3 of the 6 rotated second derivatives priced
+    per_g = 2 * 3 * (2 * 5 - 1 + 4)
+    needed = {"tti": 24 * 24 * 16 * 2 * (3 * per_g + 40),
+              "elastic": c["useful_flops"]}[physics]
+    assert c["needed_flops"] == needed
     ca = tker.kernel_cost(spec, tphys.ACOUSTIC)
     assert c["hbm_bytes"] > ca["hbm_bytes"]  # more fields than acoustic
 

@@ -2,7 +2,9 @@
 against `repro.kernels.ref.acoustic_reference` (tolerance of the reference
 kernel tests: rtol 2e-4, atol 1e-6), TTI and elastic against
 `repro.core.propagators.{tti,elastic}` (tolerance of
-tests/test_kernel_multiphysics.py: rtol 2e-4, atol 1e-5)."""
+tests/test_kernel_multiphysics.py: rtol 2e-4, atol 1e-5, and each field and
+receiver channel within `FIELD_RTOL` of its own scale, on elastic inputs in
+SI units, where every term of the update is visible)."""
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -17,7 +19,8 @@ from repro_torch.core.grid import Grid as TGrid
 from repro_torch.core.propagators import acoustic as TA
 from repro_torch.core.propagators import elastic as TE, tti as TT
 from repro_torch.kernels import ref as tref
-from test_torch_case import MULTI_CASES, acoustic_case, port_sparse
+from test_torch_case import FIELD_RTOL, MULTI_CASES, acoustic_case, \
+    assert_fields_close, port_sparse, trace_channels
 
 RTOL, ATOL = 2e-4, 1e-6
 
@@ -121,9 +124,11 @@ def test_listing1_multiphysics_matches_reference(physics, order, sources):
                              receivers=tgr)
     for name, a, b in zip(type(js)._fields, tst, jst):
         _mp_close(a, b, f"{physics} {name}")
+    assert_fields_close(zip(type(js)._fields, tst, jst), FIELD_RTOL, physics)
     if sources:
         assert tuple(trec.shape) == np.asarray(jrec).shape
         _mp_close(trec, jrec, f"{physics} traces")
+        assert_fields_close(trace_channels(trec, jrec), FIELD_RTOL, physics)
     else:
         assert trec is None and jrec is None
 
@@ -144,6 +149,9 @@ def test_stencil_update_mask_fn_matches_reference(physics, masked):
                              mask_fn=(lambda a: a * tdom) if masked else None)
     for i, (a, b) in enumerate(zip(tout, jout)):
         _mp_close(a, b, f"{physics} output {i} (masked={masked})")
+    assert_fields_close(((f"output {i}", a, b)
+                         for i, (a, b) in enumerate(zip(tout, jout))),
+                        FIELD_RTOL, f"{physics} (masked={masked})")
 
 
 def test_model_flops_match_reference():

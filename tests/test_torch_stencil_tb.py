@@ -109,6 +109,7 @@ def test_spec_geometry_and_cost():
     assert cost["hbm_bytes"] == jcost["hbm_bytes"]
     assert cost["min_bytes"] == 64 ** 3 * 6 * 4
     assert cost["flops"] > cost["useful_flops"] > 0
+    assert cost["needed_flops"] == cost["useful_flops"]
     with pytest.raises(ValueError):
         _ = tker.TBKernelSpec(nx=10, ny=8, nz=4, tile=(4, 4), T=1, order=2,
                               dt=1e-3, spacing=(1.0,) * 3, src_cap=1,
