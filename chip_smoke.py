@@ -4,20 +4,25 @@
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/` (one
 per physics: acoustic, TTI, elastic), holds each kernel against its plain
-PyTorch version on small cases, then drives the port's three main paths —
+PyTorch version on small cases, one shot and a batch of shots (the shot
+axis in the kernel's grid), then drives the port's three main paths —
 temporally-blocked acoustic, TTI and elastic propagation with an
 off-the-grid source and receivers, through `ops.acoustic_tb_propagate`,
 `ops.tti_tb_propagate` and `ops.elastic_tb_propagate` — at the paper's full
-size, checks each against the port's Listing-1 reference, times it beside
-its spatially-blocked baseline (T = 1), and prints one JSON line listing
-every kernel and a final JSON status line.  It needs a card: without one
-it exits non-zero before printing any result.  It imports neither JAX nor
-the JAX package.
+size, checks each against the port's Listing-1 reference, and times it
+beside its spatially-blocked baseline (T = 1).  Then it drives the
+multi-shot survey engine (`survey.SurveyEngine.run`): 8 shots of the
+512^3 acoustic paper case in 2 batches of 4, and small surveys of every
+physics through the plan cache's sweep, each shot held against a
+sequential call.  It prints one JSON line listing every kernel and a
+final JSON status line.  It needs a card: without one it exits non-zero
+before printing any result.  It imports neither JAX nor the JAX package.
 
 Phases (one line each): environment, build, kernel vs plain on small
-cases, then for each path: main path at full size, spatially-blocked
-baseline, kernel timing; then the kernel line.  Any failed check raises,
-and the script exits non-zero.
+cases (kernel-vs-plain, kernels-batched), then for each path: main path
+at full size, spatially-blocked baseline, kernel timing, the batched
+kernel at the main path's shapes; then survey-acoustic, survey-small and
+the kernel line.  Any failed check raises, and the script exits non-zero.
 """
 import dataclasses
 import json
@@ -36,10 +41,14 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import boundary, sources as S  # noqa: E402
 from repro_torch.core.grid import Grid  # noqa: E402
 from repro_torch.core.propagators import acoustic, elastic, tti  # noqa: E402
-from repro_torch.core.temporal_blocking import TBPlan  # noqa: E402
+from repro_torch.core.temporal_blocking import (TBPlan,  # noqa: E402
+                                                plan_for_physics)
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import stencil_tb as ker  # noqa: E402
 from repro_torch.kernels import tb_physics as phys  # noqa: E402
+from repro_torch.launch import stencil_survey  # noqa: E402
+from repro_torch.survey import (PlanCache, Shot,  # noqa: E402
+                                SurveyEngine, bucket_shots)
 
 RTOL = 2e-4
 # kernel vs plain: tests/test_kernel_stencil_tb.py:56 (acoustic),
@@ -78,6 +87,7 @@ def cuda_ms(fn, reps=1):
     torch.cuda.synchronize()
     start.record()
     for _ in range(reps):
+        out = None                    # the last outputs go before the next
         out = fn()
     end.record()
     torch.cuda.synchronize()
@@ -190,12 +200,12 @@ def small_case(name, shape, order, nsrc, nrec, seed, dev):
 def kernel_inputs(physics, plan, state, params, g, gr, dt, t0, spacing,
                   order=ORDER):
     """(spec, kernel operands) of the time tile at t0, as the main path
-    builds them."""
+    builds them (one shot: a shot axis of 1)."""
     spec, st, rt, ppads = ops.prepare_tiles(
         plan, physics, state[0], params, g, gr, order, dt, spacing)
-    src_dcmp = g.src_dcmp if g is not None else None
-    pads, sc, sv, rc, rw = ops.tile_operands(spec, state, src_dcmp, st, rt,
-                                             t0)
+    src_dcmp = g.src_dcmp[None] if g is not None else None
+    pads, sc, sv, rc, rw = ops.tile_operands(
+        spec, tuple(f[None] for f in state), src_dcmp, st, rt, t0)
     return spec, (pads, ppads, sc, sv, rc, rw)
 
 
@@ -211,7 +221,7 @@ def uncounted(fn):
 def compare_kernel(spec, physics, args):
     """One kernel launch against the plain version on the same inputs:
     (max|diff|, max over fields and receiver channels of max|diff| /
-    max|plain|)."""
+    max|plain|, the kernel's (fields, partials))."""
     kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
     pst, prec = ker.tb_time_tile_plain(spec, physics, *args)
     torch.cuda.synchronize()
@@ -219,9 +229,10 @@ def compare_kernel(spec, physics, args):
     pairs = [(f, k, p) for f, k, p in zip(physics.state_fields, kst, pst)]
     pairs += [(f"rec[{c}]", krec[..., c], prec[..., c])
               for c in range(prec.shape[-1])]
+    del pst, prec
     errs = [check_close(f"{physics.name} {f}", k, p, atol)
             for f, k, p in pairs]
-    return max(e for e, _ in errs), max(r for _, r in errs)
+    return max(e for e, _ in errs), max(r for _, r in errs), (kst, krec)
 
 
 SMALL_CASES = [  # (T, tile, order, shape, sources)
@@ -256,7 +267,7 @@ def phase_kernel_vs_plain(dev):
             plan = TBPlan(tile, T, physics.step_radius(order))
             spec, args = kernel_inputs(physics, plan, state, params, g,
                                        gr, dt, 1, SMALL_SPACING, order=order)
-            err, rel = compare_kernel(spec, physics, args)
+            err, rel, _ = compare_kernel(spec, physics, args)
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
             say("kernel-vs-plain", f"{name} T={T} tile={tile} order={order} "
                 f"shape={shape} sources={sources}: max|diff| {err:.3e}, "
@@ -328,39 +339,53 @@ def _smooth_angle(shape, dev, fx, fy):
         .expand(shape).contiguous()
 
 
-def full_case(name, dev):
-    """The paper's case for `name` (acoustic, tti or elastic): 512^3, space
-    order 4, 512 ms, two-layer 1500/3500 m/s model with a `nbl=10` sponge,
-    one off-the-grid 10 Hz Ricker source and 512 off-the-grid receivers on
-    a line, placed in grid units so each spacing sees the same geometry."""
+def source_point(shape, x):
+    """One off-the-grid source at x near the surface, in grid units:
+    (1, 3)."""
+    return np.array([[x, (shape[1] - 1) / 2.0 - 0.41, 21.13]])
+
+
+def receiver_line(shape):
+    """NREC off-the-grid receivers along x near the surface, in grid
+    units: (NREC, 3)."""
+    return np.stack([np.linspace(0.53, shape[0] - 1.53, NREC),
+                     np.full(NREC, (shape[1] - 1) / 2.0 + 0.19),
+                     np.full(NREC, 12.17)], axis=1)
+
+
+def full_case(name, dev, shape=None):
+    """The paper's case for `name` (acoustic, tti or elastic): SHAPE (or
+    `shape`), space order 4, 512 ms, two-layer 1500/3500 m/s model with a
+    `nbl=10` sponge, one off-the-grid 10 Hz Ricker source and 512
+    off-the-grid receivers on a line, placed in grid units so each spacing
+    sees the same geometry."""
     physics = phys.PHYSICS[name]
+    shape = SHAPE if shape is None else shape
     h = 20.0 if name == "tti" else 10.0          # paper: 20 m for TTI
     spacing = (h, h, h)
-    grid = Grid(shape=SHAPE, spacing=spacing)
+    grid = Grid(shape=shape, spacing=spacing)
     # TTI's fastest speed is vmax sqrt(1 + 2 eps) with eps up to 0.2
     vfast = VMAX * math.sqrt(1.0 + 2.0 * 0.2) if name == "tti" else VMAX
     dt = grid.cfl_dt(vfast, ORDER)
     nt = max(int(math.ceil(TIME_MS / 1000.0 / dt)), 1)
-    damp = boundary.damping_field(SHAPE, NBL, spacing, device=dev)
-    c = (np.asarray(SHAPE) - 1) / 2.0
-    src = S.SparseOperator(np.array([[c[0] + 0.37, c[1] - 0.41, 21.13]]) * h)
+    damp = boundary.damping_field(shape, NBL, spacing, device=dev)
+    src = S.SparseOperator(source_point(shape, (shape[0] - 1) / 2.0 + 0.37)
+                           * h)
     g = S.precompute(src, grid, S.ricker_wavelet(nt, dt, F0), device=dev)
-    rec = S.SparseOperator(np.stack(
-        [np.linspace(0.53, SHAPE[0] - 1.53, NREC), np.full(NREC, c[1] + 0.19),
-         np.full(NREC, 12.17)], axis=1) * h)
-    gr = S.precompute_receivers(rec, grid, device=dev)
-    state = tuple(torch.zeros(SHAPE, dtype=torch.float32, device=dev)
+    gr = S.precompute_receivers(S.SparseOperator(receiver_line(shape) * h),
+                                grid, device=dev)
+    state = tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
                   for _ in physics.state_fields)
     if name == "acoustic":
-        params = {"m": _layered(SHAPE, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
+        params = {"m": _layered(shape, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
                   "damp": damp}
     elif name == "tti":
-        params = {"m": _layered(SHAPE, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
+        params = {"m": _layered(shape, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
                   "damp": damp,
-                  "epsilon": _layered(SHAPE, 0.10, 0.20, dev),
-                  "delta": _layered(SHAPE, 0.05, 0.10, dev),
-                  "theta": _smooth_angle(SHAPE, dev, 1.0, 1.0),
-                  "phi": _smooth_angle(SHAPE, dev, 2.0, 0.5)}
+                  "epsilon": _layered(shape, 0.10, 0.20, dev),
+                  "delta": _layered(shape, 0.05, 0.10, dev),
+                  "theta": _smooth_angle(shape, dev, 1.0, 1.0),
+                  "phi": _smooth_angle(shape, dev, 2.0, 0.5)}
     else:
         # SI units: lam = rho (vp^2 - 2 vs^2), mu = rho vs^2, b = 1 / rho
         rho = 2100.0
@@ -368,9 +393,9 @@ def full_case(name, dev):
         vs = vp / 1.9
         lam = rho * (vp ** 2 - 2 * vs ** 2)
         mu = rho * vs ** 2
-        params = {"lam": _layered(SHAPE, lam[0], lam[1], dev),
-                  "mu": _layered(SHAPE, mu[0], mu[1], dev),
-                  "b": _layered(SHAPE, 1 / rho, 1 / rho, dev),
+        params = {"lam": _layered(shape, lam[0], lam[1], dev),
+                  "mu": _layered(shape, mu[0], mu[1], dev),
+                  "b": _layered(shape, 1 / rho, 1 / rho, dev),
                   "damp": damp}
     return FullCase(physics, spacing, nt, dt, state,
                     PATHS[name][0](**params), g, gr)
@@ -447,18 +472,26 @@ def time_tile_pieces(fc, plan, state, t0):
     spec, st, rt, ppads = ops.prepare_tiles(
         plan, physics, state[0], fc.params._asdict(), fc.g, fc.gr, ORDER,
         fc.dt, fc.spacing)
+    state = tuple(f[None] for f in state)               # one shot
     op_ms, (pads, sc, sv, rc, rw) = cuda_ms(
-        lambda: ops.tile_operands(spec, state, fc.g.src_dcmp, st, rt, t0),
-        reps=3)
+        lambda: ops.tile_operands(spec, state, fc.g.src_dcmp[None], st, rt,
+                                  t0), reps=3)
     args = (pads, ppads, sc, sv, rc, rw)
-    launch = lambda: ker.tb_time_tile(spec, physics, *args)  # noqa: E731
-    _, rec_part = uncounted(launch)                         # warm-up
-    means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
-             for _ in range(3)]
+    k_ms, lo, hi, rec_part = time_kernel(spec, physics, args)
     rec_ms, _ = cuda_ms(lambda: ops.combine_rec_partials(rec_part, rt, NREC),
                         reps=3)
-    return (spec, args, (op_ms, statistics.median(means), rec_ms),
-            (min(means), max(means)))
+    return spec, args, (op_ms, k_ms, rec_ms), (lo, hi)
+
+
+def time_kernel(spec, physics, args):
+    """The kernel alone on `args`: after a warm-up, the median of 3 means of
+    5 launches, the least and the most of the 3, and the launch's receiver
+    partials."""
+    launch = lambda: ker.tb_time_tile(spec, physics, *args)  # noqa: E731
+    rec_part = uncounted(launch)[1]                         # warm-up
+    means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
+             for _ in range(3)]
+    return statistics.median(means), min(means), max(means), rec_part
 
 
 def say_pieces(phase, what, pieces, measured_ms):
@@ -497,7 +530,7 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
     t0 = (fc.nt // T_TB // 2) * T_TB
     spec, args, pieces, (lo, hi) = time_tile_pieces(fc, plan, state, t0)
     ms = pieces[1]
-    err, rel = compare_kernel(spec, fc.physics, args)
+    err, rel, _ = compare_kernel(spec, fc.physics, args)
     say_pieces(f"kernels-{name}", f"one depth-{T_TB} TB tile", pieces,
                tb_ms / launches)
     plain_ms, _ = cuda_ms(
@@ -529,14 +562,423 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
     }
 
 
+
+# ---------------------------------------------------------------------------
+# The batched kernel: B shots in one launch (the shot axis in the grid)
+# ---------------------------------------------------------------------------
+
+def batch_operands(physics, plan, order, dt, spacing, states, params,
+                   sparse, t0):
+    """(spec, kernel operands) of one batched time tile: shot b has state
+    `states[b]` and (g, gr) `sparse[b]`, or None for a null shot (the
+    previous shot's tables with zero source values, as the survey engine
+    pads a batch); the params are shared.  The table caps are the most any
+    shot needs, as the engine sizes them from its bucket key."""
+    real = [sp for sp in sparse if sp is not None]
+    src_cap = max(g.npts for g, _ in real)
+    rec_cap = max(gr.indices.shape[0] * gr.indices.shape[1]
+                  for _, gr in real)
+    shape = tuple(states[0][0].shape)
+    spec = ops.make_spec(shape, plan, order, dt, spacing, src_cap, rec_cap,
+                         physics=physics)
+    tabs, dcmps = [], []
+    for sp in sparse:
+        if sp is None:
+            tabs.append(tabs[-1])
+            dcmps.append(torch.zeros_like(dcmps[-1]))
+            continue
+        g, gr = sp
+        tabs.append(ops.build_tables(spec, g, gr, params, physics,
+                                     src_cap=src_cap, rec_cap=rec_cap))
+        d = torch.zeros((g.nt, src_cap), dtype=g.src_dcmp.dtype,
+                        device=g.src_dcmp.device)
+        d[:, :g.npts] = g.src_dcmp
+        dcmps.append(d)
+    st = ops.stack_tables([t[0] for t in tabs])
+    rt = ops.stack_tables([t[1] for t in tabs])
+    pads, sc, sv, rc, rw = ops.tile_operands(
+        spec, tuple(torch.stack(f) for f in zip(*states)),
+        torch.stack(dcmps), st, rt, t0)
+    ppads = tuple(ops.pad_xy(params[f], spec.halo, "edge")
+                  for f in physics.param_fields)
+    return spec, (pads, ppads, sc, sv, rc, rw)
+
+
+def compare_batched(spec, physics, args):
+    """The batched launch against the plain version (as `compare_kernel`)
+    and against B single-shot launches of the same kernel: (max|diff|,
+    max|diff|/max|plain|, whether every shot's fields and partials equal
+    its single launch's bit for bit)."""
+    err, rel, (kst, krec) = compare_kernel(spec, physics, args)
+    pads, ppads, sc, sv, rc, rw = args
+    same = True
+    for b in range(krec.shape[0]):
+        one = (tuple(p[b:b + 1] for p in pads), ppads, sc[b:b + 1],
+               sv[b:b + 1], rc[b:b + 1], rw[b:b + 1])
+        ost, orec = uncounted(lambda: ker.tb_time_tile(spec, physics, *one))
+        same = same and torch.equal(orec, krec[b:b + 1]) and all(
+            torch.equal(a, k[b:b + 1]) for a, k in zip(ost, kst))
+        del ost, orec
+    return err, rel, same
+
+
+BATCHED_CASES = [  # (T, tile, order, shape, sources of each shot; 0: null)
+    (2, (16, 8), 4, (32, 16, 37), (1, 2, 3)),
+    (4, (8, 8), 2, (16, 24, 33), (3, 1, 0)),
+]
+
+
+def phase_kernels_batched(dev):
+    for name in ("acoustic", "tti", "elastic"):
+        physics = phys.PHYSICS[name]
+        for i, (T, tile, order, shape, nsrcs) in enumerate(BATCHED_CASES):
+            states, sparse, params = [], [], None
+            for b, ns in enumerate(nsrcs):
+                st, prm, g, gr, dt = small_case(name, shape, order,
+                                                max(ns, 1), 4, 10 * i + b,
+                                                dev)
+                params = params or prm           # one model for the batch
+                states.append(st)
+                sparse.append((g, gr) if ns else None)
+            plan = TBPlan(tile, T, physics.step_radius(order))
+            spec, args = batch_operands(physics, plan, order, dt,
+                                        SMALL_SPACING, states, params,
+                                        sparse, 1)
+            err, rel, same = compare_batched(spec, physics, args)
+            say("kernels-batched", f"{name} B={len(nsrcs)} T={T} "
+                f"tile={tile} order={order} shape={shape} sources per shot "
+                f"{nsrcs} (0: null shot): max|diff| vs plain {err:.3e}, "
+                f"max|diff|/max|plain| {rel:.3e} (field rtol {FIELD_RTOL});"
+                f" equal to {len(nsrcs)} single-shot launches bit for bit: "
+                f"{same}")
+
+
+def phase_batched_main(fc, spec, args, smi):
+    """The batched kernel on one mid-run tile at the main path's shapes."""
+    name = fc.physics.name
+    B = args[0][0].shape[0]
+    ms, lo, hi, _ = time_kernel(spec, fc.physics, args)
+    err, rel, same = compare_batched(spec, fc.physics, args)
+    cost = ker.kernel_cost(spec, fc.physics, shots=B)
+    say(f"kernels-batched-{name}", f"B={B} at {SHAPE} T={spec.T} "
+        f"tile={spec.tile} (live state, and a shifted copy as a null shot):"
+        f" {ms:.3f} ms per launch (median of 3 means of 5; least {lo:.3f}, "
+        f"most {hi:.3f}), bound {bound_of(cost)[0]:.3f} ms; max|diff| vs "
+        f"plain {err:.3e}, max|diff|/max|plain| {rel:.3e}; equal to {B} "
+        f"single-shot launches bit for bit: {same} [{smi}]")
+
+
+def bound_of(cost):
+    """(bound ms, "bytes" | "operations") of a `kernel_cost`."""
+    t_bytes = cost["min_bytes"] / HBM_BW * 1e3
+    t_ops = cost["needed_flops"] / F32_PEAK * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                 else "operations")
+
+
+# ---------------------------------------------------------------------------
+# The survey engine
+# ---------------------------------------------------------------------------
+
+SURVEY_SHOTS = 8
+SURVEY_CAP = 4
+SMALL_SURVEY_SHAPE = (128, 128, 128)     # a reduction of the paper's 512^3
+SMALL_SURVEY_SHOTS = 6
+SMALL_SURVEY_CAP = 2
+# candidate tiles of the small surveys' sweep: with no window cap the
+# model's pick on a 128-wide grid would be one 128 x 128 tile per shot,
+# too few blocks for the card
+SMALL_SURVEY_TILES = (16, 32)
+
+
+def batched_entry(engine, bucket, wavefields, smi, phase):
+    """The kernels-line entry of the batched kernel, timed on one batch of
+    `bucket` (a `ShotBucket` of the survey, padded with null shots as the
+    engine pads it) at a mid-run tile; its state is the shots' final
+    wavefields."""
+    physics, B = engine.physics, engine.bucket_cap
+    ex = engine._executable(bucket.key)
+    spec = ex.spec
+    preps = [engine._prep_shot(s, bucket.key, spec, ex.rspec)
+             for s in bucket.shots[:B]]
+    batch = engine._stack_batch(preps, B)
+    fields = [wavefields[i] for i in bucket.indices[:B]]
+    fields += [tuple(torch.zeros_like(f) for f in fields[0])] * (
+        B - len(fields))
+    t0 = (engine.nt // spec.T // 2) * spec.T
+    pads, sc, sv, rc, rw = ops.tile_operands(
+        spec, tuple(torch.stack(f) for f in zip(*fields)), batch.src_dcmp,
+        batch.src_tab, batch.rec_tab, t0)
+    del fields
+    args = (pads, ex.param_pads, sc, sv, rc, rw)
+    ms, lo, hi, _ = time_kernel(spec, physics, args)
+    err, rel, _ = compare_kernel(spec, physics, args)
+    plain_ms, _ = cuda_ms(lambda: ker.tb_time_tile_plain(spec, physics,
+                                                         *args))
+    cost = ker.kernel_cost(spec, physics, shots=B)
+    bound, by = bound_of(cost)
+    single, _ = bound_of(ker.kernel_cost(spec, physics))
+    say(phase, f"batched tb_{physics.name}, B={B} at {engine.shape} "
+        f"T={spec.T} tile={spec.tile} caps ({spec.src_cap}, "
+        f"{spec.rec_cap}): {ms:.3f} ms per launch (median of 3 means of 5; "
+        f"least {lo:.3f}, most {hi:.3f}) vs bound {bound:.3f} ms by {by} "
+        f"({cost['min_bytes'] / 1e9:.2f} GB, params read once; B x the "
+        f"single-shot bound {B * single:.3f} ms), plain {plain_ms:.1f} ms; "
+        f"max|diff| vs plain {err:.3e}, max|diff|/max|plain| {rel:.3e} "
+        f"[{smi}]")
+    return {
+        "name": f"stencil_tb.tb_{physics.name} (shot-batched, B={B})",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/"
+                  f"{KERNEL_FILES[physics.name]}.cu",
+        "replaces": "src/repro/kernels/stencil_tb.py:129",
+        "launches": None,            # set from the survey's counted run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def survey_run(engine, shots, expect, phase, **kw):
+    """`engine.run(shots)` with the launch counter set to 0 just before
+    and read just after; raises unless it made `expect` launches."""
+    ker.launches = 0
+    res = engine.run(shots, **kw)
+    torch.cuda.synchronize()
+    launches = ker.launches
+    if launches != expect:
+        raise AssertionError(f"{phase}: the survey made {launches} kernel "
+                             f"launches, expected {expect}")
+    if not all(np.isfinite(t).all() for t in res.traces):
+        raise AssertionError(f"{phase}: non-finite traces")
+    return res, launches
+
+
+def say_memory_budget(phase):
+    """Per physics at the main paths' shapes and plans: the device bytes a
+    survey batch needs (`survey.engine.batch_bytes`), and the largest
+    bucket_cap this card holds beside the model and the zero state."""
+    from repro_torch.survey.engine import batch_bytes
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    for name, nt in (("acoustic", 399), ("tti", 236), ("elastic", 399)):
+        physics = phys.PHYSICS[name]
+        spec, rspec = (
+            ops.make_spec(SHAPE, TBPlan(TILE, T, physics.step_radius(ORDER)),
+                          ORDER, 1e-3, (10.0,) * 3, 1, 1, physics=physics)
+            for T in (T_TB, nt % T_TB or T_TB))
+        shared, per_shot = batch_bytes(physics, spec,
+                                       rspec if nt % T_TB else None)
+        model = (len(physics.param_fields) + len(physics.state_fields)) \
+            * spec.nx * spec.ny * spec.nz * 4
+        cap = (total - model - shared) // per_shot
+        say(phase, f"memory budget, {name} {SHAPE} tile {TILE} T={T_TB}: "
+            f"{per_shot / 1e9:.2f} GB a shot + {shared / 1e9:.2f} GB of "
+            f"padded params + {model / 1e9:.2f} GB of model and zero state; "
+            f"bucket_cap up to {cap} on this card's "
+            f"{total / 1e9:.2f} GB")
+
+
+def say_plan_picks(phase):
+    """What the plan model picks at the paper's depth with the H100's
+    figures (its defaults), without a window cap and under the
+    reference's 96 MiB one: it prices each window as read once per tile,
+    which the port's kernels do not do, so its pick is not timed here."""
+    for name in ("acoustic", "tti", "elastic"):
+        picks = [plan_for_physics(name, SHAPE[2], ORDER,
+                                  tiles=(4, 8, 16, 32, 64, 128),
+                                  depths=(1, 2, 4, 8), vmem_budget=cap)[0]
+                 for cap in (None, 96 * 2 ** 20)]
+        say(phase, f"plan model, {name} nz={SHAPE[2]}: picks tile "
+            f"{picks[0].tile} T={picks[0].T} with no window cap, tile "
+            f"{picks[1].tile} T={picks[1].T} under 96 MiB")
+
+
+def phase_survey_acoustic(smi, dev, tb_ms):
+    """8 shots of the 512^3 acoustic paper case (a source stepping along x
+    near the surface, the same 512 receivers) in 2 batches of 4."""
+    fc = full_case("acoustic", dev)
+    fc.state = None
+    h = fc.spacing[0]
+    grid = Grid(shape=SHAPE, spacing=fc.spacing)
+    wav = S.ricker_wavelet(fc.nt, fc.dt, F0)
+    rec = receiver_line(SHAPE) * h
+    shots = [Shot(src_coords=source_point(SHAPE, x) * h, wavelet=wav,
+                  rec_coords=rec, shot_id=i)
+             for i, x in enumerate(np.linspace(32.37, SHAPE[0] - 32.63,
+                                               SURVEY_SHOTS))]
+    plan = plan_for(fc.physics, T_TB)
+    engine = SurveyEngine("acoustic", grid, fc.params._asdict(), fc.nt,
+                          fc.dt, order=ORDER, plan=plan,
+                          plan_cache=PlanCache(), bucket_cap=SURVEY_CAP,
+                          device=dev)
+    per_batch = -(-fc.nt // T_TB)
+    expect = -(-SURVEY_SHOTS // SURVEY_CAP) * per_batch
+    phase = "survey-acoustic"
+    say_memory_budget(phase)
+    say_plan_picks(phase)
+
+    cold, launches = survey_run(engine, shots, expect, phase,
+                                return_wavefields=True)
+    s = cold.stats
+    say(phase, f"cold run: {SURVEY_SHOTS} shots {SHAPE} nt={fc.nt} "
+        f"plan {plan.to_dict()}: {s['buckets']} bucket(s) "
+        f"{s['bucket_keys']}, {s['batches']} batches of {SURVEY_CAP}, "
+        f"{launches} kernel launches; {s['seconds']:.3f} s, cold "
+        f"{s['cold_seconds']:.3f} s (plan {s['plan_seconds']:.3f} s, first "
+        f"dispatch {s['compile_seconds']:.3f} s), warm "
+        f"{s['warm_seconds']:.3f} s")
+    # shots 0 and 7 (one from each batch) against sequential calls
+    worst = 0.0
+    for i in (0, SURVEY_SHOTS - 1):
+        final, rec = stencil_survey.sequential_shot(
+            "acoustic", shots[i], grid, fc.params._asdict(), plan, ORDER,
+            fc.dt, fc.nt, device=dev)
+        errs = stencil_survey.channel_errors(cold.traces[i], rec.cpu().numpy())
+        worst = max(worst, max(errs))
+        same = all(torch.equal(a, b) for a, b in zip(cold.wavefields[i],
+                                                     final))
+        say(phase, f"shot {i} vs a sequential ops.acoustic_tb_propagate: "
+            f"max|dtrace|/max|trace| {max(errs):.3e} (limit {FIELD_RTOL:g}),"
+            f" final fields equal bit for bit: {same}")
+        del final, rec
+    if worst > FIELD_RTOL:
+        raise AssertionError(f"{phase}: batched traces differ from the "
+                             f"sequential ones by {worst:.3e}")
+    entry = batched_entry(engine, next(iter(bucket_shots(shots).values())),
+                          cold.wavefields, smi, "kernels-" + phase)
+    cold_traces = cold.traces
+    del cold
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    warm, launches = survey_run(engine, shots, expect, phase)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s = warm.stats
+    entry["launches"] = launches
+    if set(s["traces_per_bucket"].values()) != {1} or \
+            s["compile_seconds"] != 0.0:
+        raise AssertionError(f"{phase}: rerun rebuilt a bucket: "
+                             f"{s['traces_per_bucket']}, compile "
+                             f"{s['compile_seconds']}")
+    worst = max(max(stencil_survey.channel_errors(a, b))
+                for a, b in zip(warm.traces, cold_traces))
+    if worst > FIELD_RTOL:
+        raise AssertionError(f"{phase}: warm traces differ from cold by "
+                             f"{worst:.3e}")
+    batch_ms = [b for b, _ in engine.batch_times]
+    gaps = [g for _, g in engine.batch_times[1:]]
+    per_launch = [b / per_batch for b in batch_ms]
+    cost = ker.kernel_cost(engine._execs[(1, NREC)].spec, fc.physics,
+                           shots=SURVEY_CAP)
+    single, _ = bound_of(ker.kernel_cost(engine._execs[(1, NREC)].spec,
+                                         fc.physics))
+    say(phase, f"warm run: {launches} kernel launches, "
+        f"{s['shots_per_s']:.4f} shots/s, {s['mpoints_per_s']:.1f} "
+        f"Mpt*steps/s, {1e3 * s['warm_seconds'] / SURVEY_SHOTS:.1f} ms per "
+        f"shot (main-acoustic TB run: {tb_ms:.1f} ms); {s['seconds']:.3f} "
+        f"s, warm {s['warm_seconds']:.3f} s, compile "
+        f"{s['compile_seconds']:.3f} s; traces_per_bucket "
+        f"{s['traces_per_bucket']}; peak {peak:.2f} GiB [{smi}]")
+    say(phase, "per batch (CUDA events): "
+        + ", ".join(f"{b:.1f} ms = {p:.3f} ms per launch"
+                    for b, p in zip(batch_ms, per_launch))
+        + f" (bound {bound_of(cost)[0]:.3f} ms for {SURVEY_CAP} shots with "
+        f"the params read once, {SURVEY_CAP} x the single-shot bound "
+        f"{SURVEY_CAP * single:.3f} ms); device idle between batches "
+        + ", ".join(f"{g:.3f} ms" for g in gaps) + f" [{smi}]")
+    del warm, engine
+    torch.cuda.empty_cache()
+    return entry
+
+
+def phase_survey_small(smi, dev):
+    """6 shots of mixed (nsrc, nrec) per physics at 128^3, bucket_cap 2,
+    the plan from the plan cache's sweep; every shot against a sequential
+    call.  Returns the TTI and elastic batched kernels' entries."""
+    entries = []
+    for name in ("acoustic", "tti", "elastic"):
+        phase = f"survey-small-{name}"
+        fc = full_case(name, dev, shape=SMALL_SURVEY_SHAPE)
+        fc.state = None
+        grid = Grid(shape=SMALL_SURVEY_SHAPE, spacing=fc.spacing)
+        shots = stencil_survey.build_survey(grid, fc.dt, fc.nt,
+                                            SMALL_SURVEY_SHOTS,
+                                            np.random.RandomState(0))
+        cache = PlanCache()
+        params = fc.params._asdict()
+        engine = SurveyEngine(name, grid, params, fc.nt, fc.dt, order=ORDER,
+                              plan_cache=cache, bucket_cap=SMALL_SURVEY_CAP,
+                              plan_kwargs={"tiles": SMALL_SURVEY_TILES},
+                              device=dev)
+        buckets = bucket_shots(shots)
+        ragged = sum(len(b) % SMALL_SURVEY_CAP != 0 for b in
+                     buckets.values())
+        nbatch = sum(-(-len(b) // SMALL_SURVEY_CAP) for b in buckets.values())
+        expect = nbatch * -(-fc.nt // engine.plan.T)
+        res, launches = survey_run(engine, shots, expect, phase,
+                                   return_wavefields=True)
+        s = res.stats
+        if cache.sweeps != 1 or len(buckets) < 2 or not ragged or \
+                set(s["traces_per_bucket"].values()) != {1}:
+            raise AssertionError(f"{phase}: sweeps {cache.sweeps}, "
+                                 f"{len(buckets)} buckets, {ragged} ragged "
+                                 f"batches, {s['traces_per_bucket']}")
+        worst = 0.0
+        for i, shot in enumerate(shots):
+            _, rec = stencil_survey.sequential_shot(
+                name, shot, grid, params, engine.plan, ORDER, fc.dt, fc.nt,
+                device=dev)
+            worst = max(worst, max(stencil_survey.channel_errors(res.traces[i],
+                                                rec.cpu().numpy())))
+        if worst > FIELD_RTOL:
+            raise AssertionError(f"{phase}: batched traces differ from the "
+                                 f"sequential ones by {worst:.3e}")
+        say(phase, f"{SMALL_SURVEY_SHOTS} shots {SMALL_SURVEY_SHAPE} "
+            f"spacing {fc.spacing[0]:g} m nt={fc.nt}: plan "
+            f"{engine.plan.to_dict()} from the sweep (sweeps "
+            f"{cache.sweeps}, candidate tiles {SMALL_SURVEY_TILES}), "
+            f"{len(buckets)} buckets {s['bucket_keys']}, {s['batches']} "
+            f"batches of {SMALL_SURVEY_CAP} ({ragged} with a null shot), "
+            f"{launches} kernel launches, traces_per_bucket "
+            f"{s['traces_per_bucket']}; every shot vs a sequential call: "
+            f"max|dtrace|/max|trace| {worst:.3e} (limit {FIELD_RTOL:g}); "
+            f"warm {s['warm_seconds']:.3f} s, {s['shots_per_s']:.3f} "
+            f"shots/s [{smi}]")
+        if name != "acoustic":
+            entry = batched_entry(engine, next(iter(buckets.values())),
+                                  res.wavefields, smi, "kernels-" + phase)
+            entry["launches"] = launches
+            entries.append(entry)
+        del res, engine, fc
+        torch.cuda.empty_cache()
+    return entries
+
+
 def run_path(name, smi, dev):
+    """One main path; returns (its kernel entry, its TB run's ms)."""
     fc = full_case(name, dev)
     state, launches, tb_ms = phase_main_path(fc, smi)
     phase_sb(fc, smi, tb_ms, state)
     entry = kernel_entry(fc, state, launches, tb_ms, smi)
-    del fc, state
+    # the batched kernel at the main path's shapes, B = 2: the live state
+    # and, as a null shot, a copy shifted along x
+    fc.state = None
+    plan = plan_for(fc.physics, T_TB)
+    spec, args = batch_operands(
+        fc.physics, plan, ORDER, fc.dt, fc.spacing,
+        [state, tuple(torch.roll(f, 7, 0) for f in state)],
+        fc.params._asdict(), [(fc.g, fc.gr), None],
+        (fc.nt // T_TB // 2) * T_TB)
+    del state
+    torch.cuda.empty_cache()     # a 512^3 elastic batch needs 48 GB at once
+    phase_batched_main(fc, spec, args, smi)
+    del fc, spec, args
     torch.cuda.empty_cache()          # the next path's fields are larger
-    return entry
+    return entry, tb_ms
 
 
 def main():
@@ -544,8 +986,13 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     phase_kernel_vs_plain(dev)
-    entries = [run_path(name, smi, dev)
-               for name in ("acoustic", "tti", "elastic")]
+    phase_kernels_batched(dev)
+    entries, tb_ms = [], {}
+    for name in ("acoustic", "tti", "elastic"):
+        entry, tb_ms[name] = run_path(name, smi, dev)
+        entries.append(entry)
+    entries.append(phase_survey_acoustic(smi, dev, tb_ms["acoustic"]))
+    entries += phase_survey_small(smi, dev)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

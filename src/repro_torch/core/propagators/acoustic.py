@@ -13,6 +13,7 @@ is a Python loop over t (the reference's `lax.scan`).
 """
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Optional, Tuple
 
 import torch
@@ -98,3 +99,10 @@ def propagate(nt: int, state: AcousticState, params: AcousticParams,
         return state, torch.zeros((0, receivers.num), dtype=state.u.dtype,
                                   device=state.u.device)
     return state, torch.stack(recs)
+
+
+def model_flops_per_step(shape: Tuple[int, ...], order: int) -> int:
+    """FLOPs of one acoustic timestep as the reference counts them: the
+    Laplacian plus 9 for the update formula."""
+    return math.prod(shape) * (st.stencil_flops_per_point(order, len(shape))
+                               + 9)

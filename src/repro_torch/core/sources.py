@@ -267,7 +267,8 @@ class TileSourceTable(NamedTuple):
 
     @property
     def cap(self) -> int:
-        return self.coords.shape[1]
+        """Slots per tile (also of a table with a leading shot axis)."""
+        return self.coords.shape[-2]
 
 
 def tile_source_tables(g: GriddedSources, grid_shape: Tuple[int, int, int],

@@ -43,9 +43,9 @@ tb_acoustic_kernel(const TileArgs a, const Coefs cf)
 {
     const Tile t(a);
     float* buf[2] = {t.scratch(a, 0, 2), t.scratch(a, 1, 2)};
-    const float* m = a.in[2] + t.org;
-    const float* damp = a.in[3] + t.org;
-    View prev = t.input(a.in[0]), cur = t.input(a.in[1]);
+    const float* m = t.input(a, 2).p;
+    const float* damp = t.input(a, 3).p;
+    View prev = t.input(a, 0), cur = t.input(a, 1);
     const int nz = a.nz, wx = t.wx, wy = t.wy;
     const int ncol = wx * wy, nzc = (nz + 31) / 32;
     const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
@@ -112,16 +112,17 @@ tb_acoustic_kernel(const TileArgs a, const Coefs cf)
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, int nx, int ny, int nz,
-    int tx, int ty, int T, int H, int src_cap, int rec_cap, int radius,
-    const float* coefs, float dt, float dt2, void* stream)
+    float* const* out, float* rec_out, float* scratch, int nshots, int nx,
+    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
+    int radius, const float* coefs, float dt, float dt2, void* stream)
 {
     TileArgs a;
     Coefs cf;
-    const int e = tile_args(&a, &cf, device, 4, 2, in, src_coords, src_vals,
-                            rec_coords, rec_w, out, rec_out, scratch, nx, ny,
-                            nz, tx, ty, T, H, src_cap, rec_cap, radius, coefs,
-                            2 * radius + 1, dt, dt2);
+    const int e = tile_args(&a, &cf, device, 4, 2, in, src_coords,
+                            src_vals, rec_coords, rec_w, out, rec_out,
+                            scratch, nshots, nx, ny, nz, tx, ty, T, H,
+                            src_cap, rec_cap, radius, coefs, 2 * radius + 1,
+                            dt, dt2);
     if (e) return e;
     with_radius(radius, [&](auto r) {
         tb_acoustic_kernel<decltype(r)::value>

@@ -44,10 +44,10 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf)
 #pragma unroll
     for (int f = 0; f < 9; ++f) {
         buf[f] = t.scratch(a, f, 9);
-        s[f] = t.input(a.in[f]);
+        s[f] = t.input(a, f);
     }
-    const View lam = t.input(a.in[9]), mu = t.input(a.in[10]);
-    const View b = t.input(a.in[11]), damp = t.input(a.in[12]);
+    const View lam = t.input(a, 9), mu = t.input(a, 10);
+    const View b = t.input(a, 11), damp = t.input(a, 12);
     const float dt = a.dt;
 
     for (int k = 0; k < a.T; ++k) {
@@ -135,16 +135,17 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf)
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, int nx, int ny, int nz,
-    int tx, int ty, int T, int H, int src_cap, int rec_cap, int radius,
-    const float* coefs, float dt, float dt2, void* stream)
+    float* const* out, float* rec_out, float* scratch, int nshots, int nx,
+    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
+    int radius, const float* coefs, float dt, float dt2, void* stream)
 {
     TileArgs a;
     Coefs cf;
-    const int e = tile_args(&a, &cf, device, 13, 9, in, src_coords, src_vals,
-                            rec_coords, rec_w, out, rec_out, scratch, nx, ny,
-                            nz, tx, ty, T, H, src_cap, rec_cap, radius, coefs,
-                            2 * radius, dt, dt2);
+    const int e = tile_args(&a, &cf, device, 13, 9, in, src_coords,
+                            src_vals, rec_coords, rec_w, out, rec_out,
+                            scratch, nshots, nx, ny, nz, tx, ty, T, H,
+                            src_cap, rec_cap, radius, coefs, 2 * radius,
+                            dt, dt2);
     if (e) return e;
     with_radius(radius, [&](auto r) {
         tb_elastic_kernel<decltype(r)::value>

@@ -55,8 +55,11 @@ struct Dirs {
     }
 };
 
+// two blocks an SM up to radius 4 (at most 64 registers a thread), as
+// ptxas chose for the single-shot kernel; with the shot index it takes
+// 128 and one block an SM, 12% slower at radius 2 (PERF.md)
 template <int R>
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, R <= 4 ? 2 : 1)
 tb_tti_kernel(const TileArgs a, const Coefs cf)
 {
     constexpr int NT = 2 * R + 1;          // central first derivative taps
@@ -67,11 +70,11 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
     float* gy = t.scratch(a, 5, 7);        // Dy~p
     float* gz = t.scratch(a, 6, 7);        // Dz~r
     const View vgx = t.window(gx), vgy = t.window(gy), vgz = t.window(gz);
-    const View m = t.input(a.in[4]), damp = t.input(a.in[5]);
-    const View eps = t.input(a.in[6]), dlt = t.input(a.in[7]);
-    const View theta = t.input(a.in[8]), phi = t.input(a.in[9]);
-    View p = t.input(a.in[0]), p_prev = t.input(a.in[1]);
-    View r = t.input(a.in[2]), r_prev = t.input(a.in[3]);
+    const View m = t.input(a, 4), damp = t.input(a, 5);
+    const View eps = t.input(a, 6), dlt = t.input(a, 7);
+    const View theta = t.input(a, 8), phi = t.input(a, 9);
+    View p = t.input(a, 0), p_prev = t.input(a, 1);
+    View r = t.input(a, 2), r_prev = t.input(a, 3);
 
     for (int k = 0; k < a.T; ++k) {
         // phase A: the inner first-derivative fields, masked
@@ -148,16 +151,17 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, int nx, int ny, int nz,
-    int tx, int ty, int T, int H, int src_cap, int rec_cap, int radius,
-    const float* coefs, float dt, float dt2, void* stream)
+    float* const* out, float* rec_out, float* scratch, int nshots, int nx,
+    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
+    int radius, const float* coefs, float dt, float dt2, void* stream)
 {
     TileArgs a;
     Coefs cf;
-    const int e = tile_args(&a, &cf, device, 10, 4, in, src_coords, src_vals,
-                            rec_coords, rec_w, out, rec_out, scratch, nx, ny,
-                            nz, tx, ty, T, H, src_cap, rec_cap, radius, coefs,
-                            2 * radius + 1, dt, dt2);
+    const int e = tile_args(&a, &cf, device, 10, 4, in, src_coords,
+                            src_vals, rec_coords, rec_w, out, rec_out,
+                            scratch, nshots, nx, ny, nz, tx, ty, T, H,
+                            src_cap, rec_cap, radius, coefs, 2 * radius + 1,
+                            dt, dt2);
     if (e) return e;
     with_radius(radius, [&](auto r) {
         tb_tti_kernel<decltype(r)::value>

@@ -3,15 +3,22 @@
 // elastic), which replace the Pallas TPU kernel `_tb_kernel` of
 // src/repro/kernels/stencil_tb.py for each physics it runs.
 //
-// One launch advances the whole grid by one depth-T time tile.  One thread
-// block takes one (x, y) tile with z kept whole; its window is the tile
-// plus a halo of H = T * step_radius points in x and y, held in a
-// per-block scratch in device memory that the wrapper allocates (a window
-// is megabytes, far beyond a block's shared memory).  Reads beyond the
-// window in x/y and beyond [0, nz) in z are zero, as in the reference's
-// zero-padded stencils on window-shaped arrays; points outside the
-// physical x/y domain are re-zeroed wherever the reference applies its
-// domain mask.  FD coefficients come from the host, computed in float64
+// One launch advances the whole grid of each of B shots by one depth-T
+// time tile: the reference's `vmap` of `pallas_call` over the shot axis
+// becomes the grid's z dimension.  One thread block takes one (x, y) tile
+// of one shot with z kept whole; its window is the tile plus a halo of
+// H = T * step_radius points in x and y, held in a per-block scratch in
+// device memory that the wrapper allocates (a window is megabytes, far
+// beyond a block's shared memory).  Each shot has its own state, tables,
+// partials and scratch; the param fields are one copy, shared by all shots
+// (a survey is one model).  A shot's tables and partials are `ntiles` rows
+// of the (B, ntiles, ...) arrays, so they are indexed by the flat
+// (shot, tile) index, as the scratch is.
+//
+// Reads beyond the window in x/y and beyond [0, nz) in z are zero, as in
+// the reference's zero-padded stencils on window-shaped arrays; points
+// outside the physical x/y domain are re-zeroed wherever the reference
+// applies its domain mask.  FD coefficients come from the host, computed in float64
 // and rounded to float32 as the reference rounds them, every stencil sums
 // its taps in the reference's order, and the build (kernels/_build.py)
 // keeps IEEE division and turns multiply-add contraction off, so a kernel
@@ -40,17 +47,21 @@ struct Coefs {
 };
 
 struct TileArgs {
-    const float* in[MAX_FIELDS]; // state then param fields, each
-                                 // (nx + 2H, ny + 2H, nz): state zero-padded,
-                                 // params edge-padded
-    float* out[MAX_STATE];       // state fields, each (nx, ny, nz)
-    const int* src_coords;       // (ntiles, src_cap, 3) window-local
-    const float* src_vals;       // (ntiles, T, src_cap)
-    const int* rec_coords;       // (ntiles, rec_cap, 3)
-    const float* rec_w;          // (ntiles, rec_cap)
-    float* rec_out;              // (ntiles, T, rec_cap, channels)
-    float* scratch;              // (ntiles, windows, wx * wy * nz)
-    int nx, ny, nz, tx, ty, T, H, src_cap, rec_cap;
+    const float* in[MAX_FIELDS]; // state fields, each (B, nx + 2H, ny + 2H,
+                                 // nz), zero-padded; then param fields, each
+                                 // (nx + 2H, ny + 2H, nz), edge-padded
+    long long in_shot[MAX_FIELDS]; // elements from one shot's input to the
+                                 // next: a padded volume for a state field,
+                                 // 0 for a param field (shared)
+    float* out[MAX_STATE];       // state fields, each (B, nx, ny, nz)
+    long long out_shot;          // nx * ny * nz
+    const int* src_coords;       // (B, ntiles, src_cap, 3) window-local
+    const float* src_vals;       // (B, ntiles, T, src_cap)
+    const int* rec_coords;       // (B, ntiles, rec_cap, 3)
+    const float* rec_w;          // (B, ntiles, rec_cap)
+    float* rec_out;              // (B, ntiles, T, rec_cap, channels)
+    float* scratch;              // (B, ntiles, windows, wx * wy * nz)
+    int nshots, nx, ny, nz, tx, ty, T, H, src_cap, rec_cap;
     float dt, dt2;
 };
 
@@ -66,24 +77,29 @@ struct Pt {
 };
 
 struct Tile {
-    int ti, tj, tile, nx, ny, nz, tx, ty, H, wx, wy;
+    int shot, ti, tj, nx, ny, nz, tx, ty, H, wx, wy;
+    long long tile;              // flat (shot, tile) index
     long long pad_sx, win_sx, org, npts;
 
     __device__ explicit Tile(const TileArgs& a)
-        : ti(blockIdx.x), tj(blockIdx.y),
-          tile(blockIdx.x * gridDim.y + blockIdx.y), nx(a.nx), ny(a.ny),
+        : shot(blockIdx.z), ti(blockIdx.x), tj(blockIdx.y), nx(a.nx), ny(a.ny),
           nz(a.nz), tx(a.tx), ty(a.ty), H(a.H), wx(a.tx + 2 * a.H),
-          wy(a.ty + 2 * a.H), pad_sx((long long)(a.ny + 2 * a.H) * a.nz),
+          wy(a.ty + 2 * a.H),
+          tile(((long long)blockIdx.z * gridDim.x + blockIdx.x) * gridDim.y
+               + blockIdx.y),
+          pad_sx((long long)(a.ny + 2 * a.H) * a.nz),
           win_sx((long long)wy * a.nz),
           org((long long)ti * a.tx * pad_sx + (long long)tj * a.ty * a.nz),
           npts((long long)wx * wy * a.nz) {}
 
-    // this tile's window of a padded input field
-    __device__ View input(const float* pad) const { return {pad + org, pad_sx}; }
+    // this tile's window of padded input field i, in this shot's copy
+    __device__ View input(const TileArgs& a, int i) const {
+        return {a.in[i] + shot * a.in_shot[i] + org, pad_sx};
+    }
 
     // scratch window w of this tile's `nwin`
     __device__ float* scratch(const TileArgs& a, int w, int nwin) const {
-        return a.scratch + ((long long)tile * nwin + w) * npts;
+        return a.scratch + (tile * nwin + w) * npts;
     }
 
     __device__ View window(const float* buf) const { return {buf, win_sx}; }
@@ -161,8 +177,8 @@ struct Tile {
     template <int N>
     __device__ void inject(const TileArgs& a, int k, float* const (&f)[N]) const {
         for (int p = threadIdx.x; p < a.src_cap; p += blockDim.x) {
-            const float v = a.src_vals[((long long)tile * a.T + k) * a.src_cap + p];
-            const int* c = a.src_coords + ((long long)tile * a.src_cap + p) * 3;
+            const float v = a.src_vals[(tile * a.T + k) * a.src_cap + p];
+            const int* c = a.src_coords + (tile * a.src_cap + p) * 3;
             if (v == 0.f || !in_window(c)) continue;
             const long long w = at({c[0], c[1], c[2]});
 #pragma unroll
@@ -175,26 +191,27 @@ struct Tile {
     template <int NCHAN, class S>
     __device__ void record(const TileArgs& a, int k, S sample) const {
         for (int p = threadIdx.x; p < a.rec_cap; p += blockDim.x) {
-            const int* c = a.rec_coords + ((long long)tile * a.rec_cap + p) * 3;
-            float* o = a.rec_out
-                + (((long long)tile * a.T + k) * a.rec_cap + p) * NCHAN;
+            const int* c = a.rec_coords + (tile * a.rec_cap + p) * 3;
+            float* o = a.rec_out + ((tile * a.T + k) * a.rec_cap + p) * NCHAN;
             float s[NCHAN];
             const bool in = in_window(c);
             if (in) sample(at({c[0], c[1], c[2]}), s);
-            const float w = a.rec_w[(long long)tile * a.rec_cap + p];
+            const float w = a.rec_w[tile * a.rec_cap + p];
 #pragma unroll
             for (int ch = 0; ch < NCHAN; ++ch) o[ch] = in ? w * s[ch] : 0.f;
         }
     }
 
-    // write the valid centre of the N state views to a.out[0..N)
+    // write the valid centre of the N state views to this shot's a.out[0..N)
     template <int N>
     __device__ void write_back(const TileArgs& a, const View* v) const {
+        const long long base = shot * a.out_shot;
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
         const int nwarps = blockDim.x >> 5;
         for (int col = warp; col < tx * ty; col += nwarps) {
             const int lx = col / ty, ly = col - (col / ty) * ty;
-            const long long dst = ((long long)(ti * tx + lx) * ny + (tj * ty + ly)) * nz;
+            const long long dst =
+                base + ((long long)(ti * tx + lx) * ny + (tj * ty + ly)) * nz;
 #pragma unroll
             for (int f = 0; f < N; ++f) {
                 const float* src = v[f].p + (lx + H) * v[f].sx + (long long)(ly + H) * nz;
@@ -205,30 +222,40 @@ struct Tile {
 };
 
 // Fills the launch arguments from the C entry point's; returns 0 or the
-// cudaError_t value of what is wrong.  `ntaps` coefficients per axis.
+// cudaError_t value of what is wrong.  The first `nout` of the `nin` inputs
+// are the state fields (one copy a shot), the rest the shared params.
+// `ntaps` coefficients per axis.
 static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
                      const float* const* in, const int* src_coords,
                      const float* src_vals, const int* rec_coords,
                      const float* rec_w, float* const* out, float* rec_out,
-                     float* scratch, int nx, int ny, int nz, int tx, int ty,
-                     int T, int H, int src_cap, int rec_cap, int radius,
-                     const float* coefs, int ntaps, float dt, float dt2)
+                     float* scratch, int nshots, int nx, int ny, int nz,
+                     int tx, int ty, int T, int H, int src_cap, int rec_cap,
+                     int radius, const float* coefs, int ntaps, float dt,
+                     float dt2)
 {
     cudaError_t e = cudaSetDevice(device);
     if (e != cudaSuccess) return (int)e;
     if (tx <= 0 || ty <= 0 || nx % tx || ny % ty || T < 1 || nz < 1
-        || radius < 1 || radius > MAX_RADIUS || nin > MAX_FIELDS
-        || nout > MAX_STATE || ntaps > 2 * MAX_RADIUS + 1)
+        || nshots < 1 || nshots > 65535 || radius < 1 || radius > MAX_RADIUS
+        || nin > MAX_FIELDS || nout > MAX_STATE
+        || ntaps > 2 * MAX_RADIUS + 1)
         return (int)cudaErrorInvalidValue;
     *a = TileArgs{};
-    for (int i = 0; i < nin; ++i) a->in[i] = in[i];
+    const long long padded = (long long)(nx + 2 * H) * (ny + 2 * H) * nz;
+    for (int i = 0; i < nin; ++i) {
+        a->in[i] = in[i];
+        a->in_shot[i] = i < nout ? padded : 0;
+    }
     for (int i = 0; i < nout; ++i) a->out[i] = out[i];
+    a->out_shot = (long long)nx * ny * nz;
     a->src_coords = src_coords;
     a->src_vals = src_vals;
     a->rec_coords = rec_coords;
     a->rec_w = rec_w;
     a->rec_out = rec_out;
     a->scratch = scratch;
+    a->nshots = nshots;
     a->nx = nx; a->ny = ny; a->nz = nz; a->tx = tx; a->ty = ty;
     a->T = T; a->H = H; a->src_cap = src_cap; a->rec_cap = rec_cap;
     a->dt = dt; a->dt2 = dt2;
@@ -238,7 +265,11 @@ static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
     return 0;
 }
 
-static dim3 tile_grid(const TileArgs& a) { return dim3(a.nx / a.tx, a.ny / a.ty); }
+// one block per (x tile, y tile, shot)
+static dim3 tile_grid(const TileArgs& a)
+{
+    return dim3(a.nx / a.tx, a.ny / a.ty, a.nshots);
+}
 
 // f(std::integral_constant<int, radius>{}): one kernel instantiation per
 // radius, so the tap loops unroll

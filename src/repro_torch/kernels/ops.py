@@ -10,9 +10,12 @@ paper compares against.
 
 The driver is split at the host/device boundary as in the reference:
 `_tb_propagate` builds the tables; `tb_propagate_prepared` runs the tile
-loop on tensors.  Each time tile runs through one of two executors with
-the same window schedule: ``"cuda"`` (`stencil_tb.tb_time_tile`: the CUDA
-kernel on a card, its plain version on CPU tensors) or ``"torch"``
+loop on tensors.  The tile loop runs a batch of B shots at once (the
+survey engine's bucket; a single propagation is B = 1): state, source
+values and tables carry a leading shot axis, the padded params are shared.
+Each time tile runs through one of two executors with the same window
+schedule: ``"cuda"`` (`stencil_tb.tb_time_tile`: one CUDA kernel launch
+for the batch on a card, its plain version on CPU tensors) or ``"torch"``
 (`stencil_tb.tb_time_tile_plain`, the plain version everywhere).
 """
 from __future__ import annotations
@@ -29,28 +32,36 @@ from repro_torch.core.propagators import elastic, tti
 from repro_torch.core.temporal_blocking import TBPlan
 from repro_torch.kernels import stencil_tb as ker
 from repro_torch.kernels import tb_physics as phys
+from repro_torch.telemetry import spans as _spans
 
 # executor name -> time-tile function (same window schedule)
 EXECUTORS = {"cuda": ker.tb_time_tile, "torch": ker.tb_time_tile_plain}
 
 
 def pad_xy(a: torch.Tensor, h: int, mode: str) -> torch.Tensor:
-    """Pad the leading two axes by `h`: zeros ("constant") or copies of the
-    edge values ("edge", numpy's mode of that name)."""
+    """Pad the x and y axes of a (..., nx, ny, nz) tensor by `h`: zeros
+    ("constant") or copies of the edge values ("edge", numpy's mode of
+    that name)."""
     if mode == "constant":
         return F.pad(a, (0, 0, h, h, h, h))
     if mode == "edge":
-        ix = torch.arange(-h, a.shape[0] + h, device=a.device).clamp(
-            0, a.shape[0] - 1)
-        iy = torch.arange(-h, a.shape[1] + h, device=a.device).clamp(
-            0, a.shape[1] - 1)
-        return a.index_select(0, ix).index_select(1, iy)
+        nx, ny = a.shape[-3], a.shape[-2]
+        ix = torch.arange(-h, nx + h, device=a.device).clamp(0, nx - 1)
+        iy = torch.arange(-h, ny + h, device=a.device).clamp(0, ny - 1)
+        return a.index_select(-3, ix).index_select(-2, iy)
     raise ValueError(f"unknown pad mode {mode!r}")
 
 
-def _dummy_tables(ntiles: int, T: int, dev):
-    coords = torch.zeros((ntiles, 1, 3), dtype=torch.int32, device=dev)
-    vals = torch.zeros((ntiles, T, 1), dtype=torch.float32, device=dev)
+def stack_tables(tabs):
+    """Per-shot tables of one shape (a list of `TileSourceTable` or of
+    `TileReceiverTable`) as one table whose fields carry a leading shot
+    axis."""
+    return type(tabs[0])(*(torch.stack(f) for f in zip(*tabs)))
+
+
+def _dummy_tables(B: int, ntiles: int, T: int, dev):
+    coords = torch.zeros((B, ntiles, 1, 3), dtype=torch.int32, device=dev)
+    vals = torch.zeros((B, ntiles, T, 1), dtype=torch.float32, device=dev)
     return coords, vals
 
 
@@ -88,45 +99,56 @@ def build_tables(spec: ker.TBKernelSpec,
 
 
 def _src_vals_for_tile(src_dcmp: torch.Tensor, src_tab, t0: int, T: int):
-    """(ntiles, T, cap) injection values for the time tile starting at t0
-    (contiguous, as the kernel takes them)."""
-    vals = src_dcmp[t0:t0 + T]                             # (T, npts)
-    safe_sid = src_tab.sid.clamp(min=0).long()             # (ntiles, cap)
-    sv = vals[:, safe_sid]                                 # (T, ntiles, cap)
-    return (sv.permute(1, 0, 2) * src_tab.scale[:, None, :]).contiguous()
+    """(B, ntiles, T, cap) injection values for the time tile starting at
+    t0 (contiguous, as the kernel takes them), from `src_dcmp`
+    (B, nt, npts) and a table with a leading shot axis."""
+    B = src_dcmp.shape[0]
+    vals = src_dcmp[:, t0:t0 + T]                          # (B, T, npts)
+    safe_sid = src_tab.sid.clamp(min=0).long()             # (B, ntiles, cap)
+    ntiles, cap = safe_sid.shape[1:]
+    idx = safe_sid.reshape(B, 1, ntiles * cap).expand(B, vals.shape[1], -1)
+    sv = vals.gather(2, idx).reshape(B, -1, ntiles, cap)   # (B, T, ...)
+    return (sv.permute(0, 2, 1, 3)
+            * src_tab.scale[:, :, None, :]).contiguous()
 
 
 def combine_rec_partials(rec_part: torch.Tensor, rec_tab, nrec: int):
-    """(ntx, nty, T, capr, nchan) partials -> (T, nrec, nchan) samples
-    (segment sum over receiver ids with `index_add_`; paper Fig. 3b)."""
-    ntx, nty, T, capr, nchan = rec_part.shape
-    ids = torch.where(rec_tab.rid < 0, nrec, rec_tab.rid).reshape(-1).long()
-    vals = rec_part.reshape(ntx * nty, T, capr, nchan)
-    vals = vals.permute(0, 2, 1, 3).reshape(-1, T, nchan)
-    seg = torch.zeros((nrec + 1, T, nchan), dtype=rec_part.dtype,
+    """(B, ntx, nty, T, capr, nchan) partials -> (B, T, nrec, nchan)
+    samples (segment sum over receiver ids with `index_add_`, each shot's
+    ids offset into its own segment; paper Fig. 3b)."""
+    B, ntx, nty, T, capr, nchan = rec_part.shape
+    rid = rec_tab.rid.long()                               # (B, ntiles, capr)
+    shot = torch.arange(B, device=rid.device)[:, None, None]
+    ids = (torch.where(rid < 0, nrec, rid) + shot * (nrec + 1)).reshape(-1)
+    vals = rec_part.reshape(B, ntx * nty, T, capr, nchan)
+    vals = vals.permute(0, 1, 3, 2, 4).reshape(-1, T, nchan)
+    seg = torch.zeros((B * (nrec + 1), T, nchan), dtype=rec_part.dtype,
                       device=rec_part.device).index_add_(0, ids, vals)
-    return seg[:nrec].permute(1, 0, 2)                     # (T, nrec, nchan)
+    return seg.reshape(B, nrec + 1, T, nchan)[:, :nrec].permute(0, 2, 1, 3)
 
 
 def tile_operands(spec: ker.TBKernelSpec, state, src_dcmp, src_tab,
                   rec_tab, t0: int):
-    """What one time tile starting at step t0 hands the kernel: (zero-padded
-    state, src_coords, src_vals, rec_coords, rec_w) — dummy one-slot
-    tables stand in for missing sources or receivers."""
+    """What one time tile starting at step t0 hands the kernel for a batch
+    of shots (`state` fields (B, nx, ny, nz), `src_dcmp` (B, nt, npts),
+    tables with a leading shot axis): (zero-padded state, src_coords,
+    src_vals, rec_coords, rec_w) — dummy one-slot tables stand in for
+    missing sources or receivers."""
     ntx, nty = spec.ntiles
     ntiles = ntx * nty
+    B = state[0].shape[0]
     dev = state[0].device
     if src_tab is not None:
         s_coords = src_tab.coords
         s_vals = _src_vals_for_tile(src_dcmp, src_tab, t0, spec.T)
     else:
-        s_coords, s_vals = _dummy_tables(ntiles, spec.T, dev)
+        s_coords, s_vals = _dummy_tables(B, ntiles, spec.T, dev)
     s_vals = s_vals.to(spec.dtype)
     if rec_tab is not None:
         r_coords, r_w = rec_tab.coords, rec_tab.weight
     else:
-        r_coords, _ = _dummy_tables(ntiles, 1, dev)
-        r_w = torch.zeros((ntiles, 1), dtype=torch.float32, device=dev)
+        r_coords, _ = _dummy_tables(B, ntiles, 1, dev)
+        r_w = torch.zeros((B, ntiles, 1), dtype=torch.float32, device=dev)
     r_w = r_w.to(spec.dtype)
     state_pads = tuple(pad_xy(f, spec.halo, "constant") for f in state)
     return state_pads, s_coords, s_vals, r_coords, r_w
@@ -135,16 +157,21 @@ def tile_operands(spec: ker.TBKernelSpec, state, src_dcmp, src_tab,
 def _run_time_tile(spec: ker.TBKernelSpec, physics: phys.TBPhysics,
                    state, param_pads, src_dcmp, src_tab, rec_tab, t0: int,
                    nrec: int, executor: str):
-    state_pads, s_coords, s_vals, r_coords, r_w = tile_operands(
-        spec, state, src_dcmp, src_tab, rec_tab, t0)
-    new_state, rec_part = EXECUTORS[executor](
-        spec, physics, state_pads, param_pads, s_coords, s_vals, r_coords,
-        r_w)
-    if rec_tab is not None:
-        rec = combine_rec_partials(rec_part, rec_tab, nrec)
-    else:
-        rec = torch.zeros((spec.T, 0, physics.rec_channels),
-                          dtype=spec.dtype, device=state[0].device)
+    # a no-op unless telemetry is enabled; names the region on a
+    # torch.profiler timeline and records its host (enqueue) time
+    with _spans.annotate("ops.tile_pass", T=spec.T, tile=spec.tile,
+                         executor=executor):
+        state_pads, s_coords, s_vals, r_coords, r_w = tile_operands(
+            spec, state, src_dcmp, src_tab, rec_tab, t0)
+        new_state, rec_part = EXECUTORS[executor](
+            spec, physics, state_pads, param_pads, s_coords, s_vals,
+            r_coords, r_w)
+        if rec_tab is not None:
+            rec = combine_rec_partials(rec_part, rec_tab, nrec)
+        else:
+            rec = torch.zeros((state[0].shape[0], spec.T, 0,
+                               physics.rec_channels), dtype=spec.dtype,
+                              device=state[0].device)
     return new_state, rec
 
 
@@ -166,9 +193,11 @@ def prepare_tiles(plan: TBPlan, physics: phys.TBPhysics,
                   receivers: Optional[src_mod.GriddedReceivers],
                   order: int, dt: float,
                   spacing: Tuple[float, float, float]):
-    """Host-side setup of depth-plan.T time tiles on `field`'s grid, dtype
-    and device: (spec with caps sized to the tables, src_tab | None,
-    rec_tab | None, edge-padded param tuple)."""
+    """Host-side setup of depth-plan.T time tiles of one shot on `field`'s
+    grid, dtype and device: (spec with caps sized to the tables,
+    src_tab | None, rec_tab | None, edge-padded param tuple); the tables
+    carry a leading shot axis of 1, as `tb_propagate_prepared` takes
+    them."""
     shape, dtype = tuple(field.shape), field.dtype
     spec = make_spec(shape, plan, order, dt, spacing, 1, 1, dtype, physics)
     # the tables depend on tile/halo/dt only, so the caps come from them
@@ -178,6 +207,8 @@ def prepare_tiles(plan: TBPlan, physics: phys.TBPhysics,
         rec_cap=rec_tab.coords.shape[1] if rec_tab is not None else 1)
     param_pads = tuple(pad_xy(params[f], spec.halo, "edge")
                        for f in physics.param_fields)
+    src_tab, rec_tab = (None if t is None else stack_tables([t])
+                        for t in (src_tab, rec_tab))
     return spec, src_tab, rec_tab, param_pads
 
 
@@ -191,10 +222,15 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
                           executor: str = "cuda"):
     """The device-side core of `_tb_propagate`: the loop over depth-T time
     tiles plus the shallower `nt % T` remainder tile, after all host-side
-    table binning.  `rspec` is None when `nt % spec.T == 0`.
+    table binning, for a batch of B shots — one kernel launch per time
+    tile for the whole batch.  `state` fields are (B, nx, ny, nz),
+    `src_dcmp` (B, nt, npts), the tables carry a leading shot axis
+    (`stack_tables`), and the param pads are shared by the shots.
+    `rspec` is None when `nt % spec.T == 0`.
 
-    Returns (final state tuple, recs (nt, nrec, rec_channels)); recs are
-    shaped (nt, 0, chan) when no receiver tables were bound.
+    Returns (final state tuple (B, nx, ny, nz) each, recs
+    (B, nt, nrec, rec_channels)); recs are shaped (B, nt, 0, chan) when no
+    receiver tables were bound.
     """
     n_main = nt // spec.T
     rem = nt - n_main * spec.T
@@ -214,9 +250,10 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
                                     n_main * spec.T, nrec, executor)
         recs.append(rec)
     if not recs:
-        return carry, torch.zeros((0, nrec, physics.rec_channels),
-                                  dtype=spec.dtype, device=state[0].device)
-    return carry, torch.cat(recs, dim=0)
+        return carry, torch.zeros((state[0].shape[0], 0, nrec,
+                                   physics.rec_channels), dtype=spec.dtype,
+                                  device=state[0].device)
+    return carry, torch.cat(recs, dim=1)
 
 
 def _tb_propagate(physics: phys.TBPhysics, nt: int,
@@ -229,8 +266,9 @@ def _tb_propagate(physics: phys.TBPhysics, nt: int,
                   executor: str = "cuda"):
     """Propagate nt timesteps of `physics` with the temporally-blocked
     kernel: time tiles of depth plan.T, then a remainder tile of depth
-    nt % T.  `state` is ordered as physics.state_fields; `params` maps
-    physics.param_fields to (nx, ny, nz) tensors, on the state's device.
+    nt % T — `tb_propagate_prepared` on a batch of one shot.  `state` is
+    ordered as physics.state_fields; `params` maps physics.param_fields to
+    (nx, ny, nz) tensors, on the state's device.
 
     Returns (final state tuple, rec (nt, nrec, rec_channels) | None).
     """
@@ -238,24 +276,27 @@ def _tb_propagate(physics: phys.TBPhysics, nt: int,
         raise ValueError(f"source wavelets cover {g.nt} steps < nt={nt}")
     args = (physics, state[0], params, g, receivers, order, float(dt),
             spacing)
-    spec, src_tab, rec_tab, param_pads = prepare_tiles(plan, *args)
+    with _spans.span("ops.tables", physics=physics.name, nt=nt, T=plan.T):
+        spec, src_tab, rec_tab, param_pads = prepare_tiles(plan, *args)
+        rspec = rsrc_tab = rrec_tab = rparam_pads = None
+        if nt % plan.T:
+            # the remainder tile's tables differ: its halo is shallower
+            rspec, rsrc_tab, rrec_tab, rparam_pads = prepare_tiles(
+                dataclasses.replace(plan, T=nt % plan.T), *args)
     nrec = receivers.num if receivers is not None else 0
     src_dcmp = (g.src_dcmp if g is not None
                 else torch.zeros((max(nt, 1), 1), dtype=state[0].dtype,
                                  device=state[0].device))
-    rspec = rsrc_tab = rrec_tab = rparam_pads = None
-    if nt % plan.T:
-        # the remainder tile's tables differ: its halo is shallower
-        rspec, rsrc_tab, rrec_tab, rparam_pads = prepare_tiles(
-            dataclasses.replace(plan, T=nt % plan.T), *args)
 
-    carry, recs = tb_propagate_prepared(
-        physics, nt, spec, rspec, state, param_pads, rparam_pads,
-        src_dcmp, src_tab, rec_tab, rsrc_tab, rrec_tab, nrec,
-        executor=executor)
-    if receivers is None:
-        recs = None
-    return carry, recs
+    with _spans.span("ops.propagate", physics=physics.name, nt=nt,
+                     T=spec.T, executor=executor) as sp:
+        carry, recs = tb_propagate_prepared(
+            physics, nt, spec, rspec, tuple(f[None] for f in state),
+            param_pads, rparam_pads, src_dcmp[None], src_tab, rec_tab,
+            rsrc_tab, rrec_tab, nrec, executor=executor)
+        sp.sync((carry, recs))
+    carry = tuple(f[0] for f in carry)
+    return carry, (recs[0] if receivers is not None else None)
 
 
 # ---------------------------------------------------------------------------

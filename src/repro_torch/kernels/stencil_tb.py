@@ -1,12 +1,15 @@
 """Temporally-blocked time tile: the hand-written CUDA kernel for Hopper and
 its plain PyTorch version (port of `repro.kernels.stencil_tb`).
 
-One call advances the whole grid by one depth-T time tile on a grid of
-(ntx, nty) spatial tiles.  Each tile takes a ``(tx + 2H, ty + 2H, nz)``
-window of every state and param field (H = T * step_radius), runs T steps
-of the physics update with the x/y domain mask, adds the per-tile source
-values at window-local points, records ``rec_w``-weighted receiver
-samples, and writes back only its centre.
+One call advances the whole grid of each of B shots by one depth-T time
+tile on a grid of (ntx, nty) spatial tiles.  Each tile takes a
+``(tx + 2H, ty + 2H, nz)`` window of every state and param field
+(H = T * step_radius), runs T steps of the physics update with the x/y
+domain mask, adds the per-tile source values at window-local points,
+records ``rec_w``-weighted receiver samples, and writes back only its
+centre.  State, tables and outputs carry a leading shot axis; the params
+are one copy shared by every shot (the reference's ``vmap`` over
+`pallas_call` with ``in_axes=(None, None, 0)``).  A single shot is B = 1.
 
 `tb_time_tile` dispatches on where its tensors lie: CPU tensors run
 `tb_time_tile_plain`; CUDA tensors launch the physics' kernel
@@ -24,6 +27,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import stencil as st
+from repro_torch.core.propagators import acoustic as ac
 from repro_torch.core.propagators import elastic as el
 from repro_torch.core.propagators import tti as tt
 from repro_torch.kernels import tb_physics as phys
@@ -123,10 +127,23 @@ def tb_time_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
                        r_w):
     """Plain PyTorch version of `tb_time_tile`: the same per-window
-    trapezoid, looped over the (ti, tj) tiles.  Runs on any device.
+    trapezoid, looped over the shots and the (ti, tj) tiles.  Runs on any
+    device.
 
-    Returns (state tuple (nx, ny, nz), rec partials
-    (ntx, nty, T, capr, chan))."""
+    Returns (state tuple (B, nx, ny, nz), rec partials
+    (B, ntx, nty, T, capr, chan))."""
+    shots = [_shot_tile_plain(spec, physics, tuple(p[b] for p in state_pads),
+                              param_pads, s_coords[b], s_vals[b],
+                              r_coords[b], r_w[b])
+             for b in range(state_pads[0].shape[0])]
+    return (tuple(torch.stack(f) for f in zip(*(st for st, _ in shots))),
+            torch.stack([rec for _, rec in shots]))
+
+
+def _shot_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
+                     state_pads, param_pads, s_coords, s_vals, r_coords,
+                     r_w):
+    """One shot of `tb_time_tile_plain` (no shot axis)."""
     h = spec.halo
     tx, ty = spec.tile
     ntx, nty = spec.ntiles
@@ -189,7 +206,7 @@ def _bind(source: str):
     fn = lib.repro_tb_tile
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] + [p] * 8 + [i] * 10 + [p]
+        fn.argtypes = ([i] + [p] * 8 + [i] * 11 + [p]
                        + [ctypes.c_float] * 2 + [p])
         fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
@@ -255,15 +272,22 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     if len(fields) != len(names):
         raise ValueError(f"{physics.name} takes {len(names)} fields "
                          f"{names}, got {len(fields)}")
+    if state_pads[0].dim() != 4:
+        raise ValueError(f"state fields must be (B, nx + 2H, ny + 2H, nz), "
+                         f"got {tuple(state_pads[0].shape)}")
+    B = state_pads[0].shape[0]
+    if not 1 <= B <= 65535:
+        raise ValueError(f"{B} shots: the kernel takes 1..65535")
     pad_shape = (spec.nx + 2 * h, spec.ny + 2 * h, spec.nz)
-    for name, t in zip(names, fields):
-        _check(name, t, pad_shape, f32, dev)
-    cap, capr = s_coords.shape[1], r_coords.shape[1]
+    for i, (name, t) in enumerate(zip(names, fields)):
+        shot_axis = (B,) if i < len(state_pads) else ()
+        _check(name, t, shot_axis + pad_shape, f32, dev)
+    cap, capr = s_coords.shape[-2], r_coords.shape[-2]
     chan = physics.rec_channels
-    _check("src_coords", s_coords, (ntiles, cap, 3), torch.int32, dev)
-    _check("src_vals", s_vals, (ntiles, spec.T, cap), f32, dev)
-    _check("rec_coords", r_coords, (ntiles, capr, 3), torch.int32, dev)
-    _check("rec_w", r_w, (ntiles, capr), f32, dev)
+    _check("src_coords", s_coords, (B, ntiles, cap, 3), torch.int32, dev)
+    _check("src_vals", s_vals, (B, ntiles, spec.T, cap), f32, dev)
+    _check("rec_coords", r_coords, (B, ntiles, capr, 3), torch.int32, dev)
+    _check("rec_w", r_w, (B, ntiles, capr), f32, dev)
     if wx * wy * nz >= 2 ** 31:
         raise ValueError(f"window {spec.window} too large for the kernel")
     r = spec.radius
@@ -274,10 +298,11 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     dt = st.round_to(spec.dt, f32)
     dt2 = st.round_to(dt * dt, f32)
 
-    outs = tuple(torch.empty((spec.nx, spec.ny, spec.nz), dtype=f32,
+    outs = tuple(torch.empty((B, spec.nx, spec.ny, spec.nz), dtype=f32,
                              device=dev) for _ in physics.state_fields)
-    rec = torch.zeros((ntx, nty, spec.T, capr, chan), dtype=f32, device=dev)
-    scratch = torch.empty((ntiles, kern.scratch_windows, wx * wy * nz),
+    rec = torch.zeros((B, ntx, nty, spec.T, capr, chan), dtype=f32,
+                      device=dev)
+    scratch = torch.empty((B, ntiles, kern.scratch_windows, wx * wy * nz),
                           dtype=f32, device=dev)
     lib = _bind(kern.source)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
@@ -285,7 +310,7 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     rc = lib.repro_tb_tile(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         _ptrs(fields), ptr(s_coords), ptr(s_vals), ptr(r_coords), ptr(r_w),
-        _ptrs(outs), ptr(rec), ptr(scratch),
+        _ptrs(outs), ptr(rec), ptr(scratch), B,
         spec.nx, spec.ny, spec.nz, spec.tile[0], spec.tile[1], spec.T, h,
         cap, capr, r, (ctypes.c_float * len(coefs))(*coefs), dt, dt2,
         ctypes.c_void_p(stream))
@@ -297,24 +322,37 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     return outs, rec
 
 
+def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
+    """Device bytes one shot of a CUDA launch allocates: its output fields,
+    its receiver partials and its per-tile window scratch."""
+    ntx, nty = spec.ntiles
+    wx, wy, nz = spec.window
+    elems = (len(physics.state_fields) * spec.nx * spec.ny * spec.nz
+             + ntx * nty * spec.T * spec.rec_cap * physics.rec_channels
+             + ntx * nty * _KERNELS[physics.name].scratch_windows
+             * wx * wy * nz)
+    return elems * spec.dtype.itemsize
+
+
 def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
                  state_pads, param_pads, src_coords, src_vals, rec_coords,
                  rec_w):
-    """One depth-T time tile over the whole grid.
+    """One depth-T time tile over the whole grid of each of B shots.
 
     Args:
-      state_pads: one (nx + 2H, ny + 2H, nz) tensor per
+      state_pads: one (B, nx + 2H, ny + 2H, nz) tensor per
                   physics.state_fields (zero-padded).
-      param_pads: one padded tensor per physics.param_fields (edge-padded).
-      src_coords: (ntiles, cap, 3) window-local int32.
-      src_vals:   (ntiles, T, cap), scale folded in, 0 on padding.
-      rec_coords: (ntiles, capr, 3) int32; rec_w: (ntiles, capr).
-    Returns (new_states tuple, rec_partials) with fields (nx, ny, nz) and
-    rec_partials (ntx, nty, T, capr, rec_channels).
+      param_pads: one (nx + 2H, ny + 2H, nz) tensor per
+                  physics.param_fields (edge-padded), shared by the shots.
+      src_coords: (B, ntiles, cap, 3) window-local int32.
+      src_vals:   (B, ntiles, T, cap), scale folded in, 0 on padding.
+      rec_coords: (B, ntiles, capr, 3) int32; rec_w: (B, ntiles, capr).
+    Returns (new_states tuple, rec_partials) with fields (B, nx, ny, nz)
+    and rec_partials (B, ntx, nty, T, capr, rec_channels).
 
-    CPU tensors run `tb_time_tile_plain`; CUDA tensors launch the
-    physics' kernel (float32, contiguous) or raise.  The launch goes on the
-    current stream and does not synchronise.
+    CPU tensors run `tb_time_tile_plain`; CUDA tensors launch the physics'
+    kernel once for all B shots (float32, contiguous) or raise.  The launch
+    goes on the current stream and does not synchronise.
     """
     dev = state_pads[0].device
     if dev.type == "cpu":
@@ -327,8 +365,9 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 
 def kernel_cost(spec: TBKernelSpec,
-                physics: phys.TBPhysics = phys.ACOUSTIC) -> dict:
-    """Analytic per-call cost of one time tile.
+                physics: phys.TBPhysics = phys.ACOUSTIC,
+                shots: int = 1) -> dict:
+    """Analytic per-call cost of one time tile of `shots` shots.
 
     ``flops``/``hbm_bytes`` price the kernel's schedule (every window
     computed in full, each field's window read once per call, as the
@@ -337,15 +376,14 @@ def kernel_cost(spec: TBKernelSpec,
     (below ``useful_flops`` for TTI, whose reference count prices rotated
     Laplacians it discards) and ``min_bytes`` the least traffic of the
     function (each unpadded input field read once, each output field
-    written once) — the numerators of the roofline bound.
+    written once) — the numerators of the roofline bound.  Bytes and
+    FLOPs scale with the shots, except that the param fields, shared by
+    all shots, are read once.
     """
     ntx, nty = spec.ntiles
     wx, wy, wz = spec.window
-    if physics.name == "acoustic":
-        stencil_flops = st.stencil_flops_per_point(spec.order, 3) + 9
-    else:
-        mod = {"elastic": el, "tti": tt}[physics.name]
-        stencil_flops = mod.model_flops_per_step((1, 1, 1), spec.order)
+    mod = {"acoustic": ac, "elastic": el, "tti": tt}[physics.name]
+    stencil_flops = mod.model_flops_per_step((1, 1, 1), spec.order)
     needed = (tt.needed_flops_per_step((1, 1, 1), spec.order)
               if physics.name == "tti" else stencil_flops)
     window_pts = wx * wy * wz
@@ -358,9 +396,11 @@ def kernel_cost(spec: TBKernelSpec,
     grid_pts = spec.nx * spec.ny * spec.nz
     hbm_read = ntx * nty * window_pts * nw * itemsize
     hbm_write = grid_pts * ns * itemsize
-    return {"flops": float(flops),
-            "hbm_bytes": float(hbm_read + hbm_write),
-            "useful_flops": float(grid_pts * spec.T * stencil_flops),
-            "needed_flops": float(grid_pts * spec.T * needed),
-            "min_bytes": float(grid_pts * (nw + ns) * itemsize),
+    # per shot: its state in and out; once: the shared params
+    fields_moved = shots * 2 * ns + (nw - ns)
+    return {"flops": float(shots * flops),
+            "hbm_bytes": float(shots * (hbm_read + hbm_write)),
+            "useful_flops": float(shots * grid_pts * spec.T * stencil_flops),
+            "needed_flops": float(shots * grid_pts * spec.T * needed),
+            "min_bytes": float(grid_pts * fields_moved * itemsize),
             "window_bytes": spec.window_bytes(nw)}

@@ -7,6 +7,11 @@ port's dependencies:
 
     python -m pytest -q -m cuda tests/test_torch_cuda.py
 
+The batched launch (B shots, the shot axis in the kernel's grid) is held
+against the plain version and against B single-shot launches, which it
+must equal bit for bit, and a small survey on the card against sequential
+calls.
+
 Tolerance: rtol 2e-4, atol 1e-6 for acoustic (tests/test_kernel_stencil_tb.py),
 rtol 2e-4, atol 1e-5 for TTI and elastic (tests/test_kernel_multiphysics.py),
 and for these each field and receiver channel within `FIELD_RTOL` of its own
@@ -36,12 +41,13 @@ def _operands(c, T, tile, dev, sources=True, t0=1):
     g, gr = port_sparse(c, device=dev) if sources else (None, None)
     params = {"m": torch.as_tensor(c.m, device=dev),
               "damp": torch.as_tensor(c.damp, device=dev)}
-    state = tuple(torch.as_tensor(a, device=dev) for a in (c.u0, c.u1))
+    # one shot: a shot axis of 1
+    state = tuple(torch.as_tensor(a, device=dev)[None] for a in (c.u0, c.u1))
     spec, st, rt, ppads = ops.prepare_tiles(
-        TBPlan(tile, T, c.order // 2), phys.ACOUSTIC, state[0], params, g,
+        TBPlan(tile, T, c.order // 2), phys.ACOUSTIC, state[0][0], params, g,
         gr, c.order, c.dt, c.spacing)
     pads, sc, sv, rc, rw = ops.tile_operands(
-        spec, state, g.src_dcmp if sources else None, st, rt, t0)
+        spec, state, g.src_dcmp[None] if sources else None, st, rt, t0)
     return spec, (pads, ppads, sc, sv, rc, rw)
 
 
@@ -99,7 +105,7 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     bf = tuple(p.to(torch.bfloat16) for p in pads)
     with pytest.raises(TypeError, match="B1a-bf16"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, bf, ppads, sc, sv, rc, rw)
-    strided = (pads[0].transpose(0, 1), pads[1])
+    strided = (pads[0].transpose(1, 2), pads[1])
     with pytest.raises(ValueError, match="contiguous"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, strided, ppads, sc, sv, rc, rw)
     with pytest.raises(ValueError, match="shape"):
@@ -116,12 +122,12 @@ def _mp_operands(c, T, tile, dev, sources=True, t0=1):
     g, gr = port_sparse(c, device=dev) if sources else (None, None)
     params = {f: torch.as_tensor(a, device=dev)
               for f, a in zip(physics.param_fields, c.params)}
-    state = tuple(torch.as_tensor(a, device=dev) for a in c.state)
+    state = tuple(torch.as_tensor(a, device=dev)[None] for a in c.state)
     spec, st, rt, ppads = ops.prepare_tiles(
-        TBPlan(tile, T, physics.step_radius(c.order)), physics, state[0],
+        TBPlan(tile, T, physics.step_radius(c.order)), physics, state[0][0],
         params, g, gr, c.order, c.dt, c.spacing)
     pads, sc, sv, rc, rw = ops.tile_operands(
-        spec, state, g.src_dcmp if sources else None, st, rt, t0)
+        spec, state, g.src_dcmp[None] if sources else None, st, rt, t0)
     return physics, spec, (pads, ppads, sc, sv, rc, rw)
 
 
@@ -143,7 +149,7 @@ def test_multiphysics_kernel_matches_plain(physics, T, tile, order, shape,
     assert ker.launches == before + 1
     pst, prec = ker.tb_time_tile_plain(spec, p, *args)
     torch.cuda.synchronize()
-    assert krec.shape == prec.shape == (*spec.ntiles, T, spec.rec_cap,
+    assert krec.shape == prec.shape == (1, *spec.ntiles, T, spec.rec_cap,
                                         p.rec_channels)
     for k, q in zip((*kst, krec), (*pst, prec)):
         torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
@@ -193,3 +199,109 @@ def test_multiphysics_wrapper_rejects_wrong_fields():
     with pytest.raises(ValueError, match="step radius"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, pads[:2], ppads[:2], sc, sv,
                          rc, rw)
+
+
+def _batch_operands(physics, cases, T, tile, dev, t0=1):
+    """Operands of one batched time tile: shot b is `cases[b]`'s state and
+    sources, or its sources' tables with zero values (a null shot) where
+    `cases[b]` is (case, False); the params are the first case's."""
+    first = cases[0][0]
+    params = {f: torch.as_tensor(a, device=dev)
+              for f, a in zip(physics.param_fields, first.params)} \
+        if physics.name != "acoustic" else \
+        {"m": torch.as_tensor(first.m, device=dev),
+         "damp": torch.as_tensor(first.damp, device=dev)}
+    sparse = [port_sparse(c, device=dev) for c, _ in cases]
+    src_cap = max(g.npts for g, _ in sparse)
+    rec_cap = max(gr.indices.shape[0] * gr.indices.shape[1]
+                  for _, gr in sparse)
+    spec = ops.make_spec(first.shape, TBPlan(tile, T, physics.step_radius(
+        first.order)), first.order, first.dt, first.spacing, src_cap,
+        rec_cap, physics=physics)
+    tabs = [ops.build_tables(spec, g, gr, params, physics, src_cap=src_cap,
+                             rec_cap=rec_cap) for g, gr in sparse]
+    dcmp = torch.zeros((len(cases), first.nt, src_cap), device=dev)
+    for b, ((_, live), (g, _)) in enumerate(zip(cases, sparse)):
+        if live:
+            dcmp[b, :, :g.npts] = g.src_dcmp
+    states = [(c.u0, c.u1) if physics.name == "acoustic" else c.state
+              for c, _ in cases]
+    state = tuple(torch.stack([torch.as_tensor(s[i], device=dev)
+                               for s in states])
+                  for i in range(len(states[0])))
+    pads, sc, sv, rc, rw = ops.tile_operands(
+        spec, state, dcmp, ops.stack_tables([t[0] for t in tabs]),
+        ops.stack_tables([t[1] for t in tabs]), t0)
+    ppads = tuple(ops.pad_xy(params[f], spec.halo, "edge")
+                  for f in physics.param_fields)
+    return spec, (pads, ppads, sc, sv, rc, rw)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["acoustic", "tti", "elastic"])
+def test_batched_kernel_matches_plain_and_single_launches(physics):
+    """B = 3 in one launch, the third a null shot: equal to the plain
+    version within the tolerances, and to 3 single-shot launches bit for
+    bit (the arithmetic per point is the same)."""
+    dev = _card()
+    p = phys.PHYSICS[physics]
+    make = acoustic_case if physics == "acoustic" else MULTI_CASES[physics]
+    cases = [(make(shape=(32, 16, 29), order=4, nt=8, nsrc=n, nrec=4,
+                   seed=s), live)
+             for n, s, live in ((1, 1, True), (3, 2, True), (2, 3, False))]
+    spec, args = _batch_operands(p, cases, 2, (16, 8), dev)
+    before = ker.launches
+    kst, krec = ker.tb_time_tile(spec, p, *args)
+    assert ker.launches == before + 1
+    pst, prec = ker.tb_time_tile_plain(spec, p, *args)
+    torch.cuda.synchronize()
+    assert krec.shape == prec.shape == (3, *spec.ntiles, 2, spec.rec_cap,
+                                        p.rec_channels)
+    atol = ATOL if physics == "acoustic" else MP_ATOL
+    for k, q in zip((*kst, krec), (*pst, prec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=atol)
+    assert_fields_close(
+        [(f, k.cpu(), q.cpu()) for f, k, q in zip(p.state_fields, kst, pst)]
+        + [(f"rec[{i}]", krec[..., i].cpu(), prec[..., i].cpu())
+           for i in range(p.rec_channels)], FIELD_RTOL, physics)
+    pads, ppads, sc, sv, rc, rw = args
+    for b in range(3):
+        ost, orec = ker.tb_time_tile(
+            spec, p, tuple(f[b:b + 1] for f in pads), ppads, sc[b:b + 1],
+            sv[b:b + 1], rc[b:b + 1], rw[b:b + 1])
+        assert torch.equal(orec, krec[b:b + 1])
+        for a, k in zip(ost, kst):
+            assert torch.equal(a, k[b:b + 1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["acoustic", "tti", "elastic"])
+def test_survey_on_card_matches_sequential(physics):
+    """A small survey through the CUDA kernels: every shot's traces as a
+    sequential call's, one build per bucket, and the launches counted."""
+    from repro_torch.core.grid import Grid
+    from repro_torch.launch.stencil_survey import build_model, \
+        build_survey, sequential_traces
+    from repro_torch.survey import PlanCache, SurveyEngine
+
+    dev = _card()
+    shape = (32, 32, 24)
+    grid = Grid(shape, (10.0,) * 3)
+    dt = grid.cfl_dt(3000.0, 4)
+    rng = np.random.RandomState(0)
+    params = build_model(physics, shape, grid, rng, device=dev)
+    shots = build_survey(grid, dt, 7, 5, rng)
+    engine = SurveyEngine(physics, grid, params, 7, dt, bucket_cap=2,
+                          plan_cache=PlanCache(),
+                          plan_kwargs={"tiles": (8, 16)}, device=dev)
+    assert engine.executor == "cuda"
+    before = ker.launches
+    res = engine.run(shots)
+    assert ker.launches - before == res.stats["batches"] * -(
+        -7 // engine.plan.T)
+    assert set(res.stats["traces_per_bucket"].values()) == {1}
+    assert len(engine.batch_times) == res.stats["batches"]
+    seq = sequential_traces(physics, shots, grid, params, engine.plan, 4,
+                            dt, 7, device=dev)
+    for got, want in zip(res.traces, seq):
+        assert_fields_close(trace_channels(got, want), FIELD_RTOL, physics)

@@ -217,9 +217,12 @@ def test_prepared_core_on_reference_tables():
     jrspec = jops.make_spec(c.shape, JPlan((8, 8), nt % T, 2), 4, c.dt,
                             c.spacing, 1, 1)
     rst, rrt = jops.build_tables(jrspec, g, gr, params)
-    tst, trt = interop.tile_tables_from_numpy(st, rt, device="cpu")
-    trst, trrt = interop.tile_tables_from_numpy(rst, rrt, device="cpu")
-    caps = (tst.cap, trt.coords.shape[1])
+    # one shot: a shot axis of 1 on the tables, the state and src_dcmp
+    tst, trt, trst, trrt = (ops.stack_tables([t]) for t in
+                            interop.tile_tables_from_numpy(st, rt, "cpu")
+                            + interop.tile_tables_from_numpy(rst, rrt,
+                                                             "cpu"))
+    caps = (tst.cap, trt.coords.shape[2])
     spec = ops.make_spec(c.shape, TBPlan((8, 8), T, 2), 4, c.dt, c.spacing,
                          *caps)
     rspec = ops.make_spec(c.shape, TBPlan((8, 8), nt % T, 2), 4, c.dt,
@@ -229,11 +232,11 @@ def test_prepared_core_on_reference_tables():
     rpads = tuple(ops.pad_xy(p, rspec.halo, "edge") for p in (m, damp))
     (u0, u1), rec = ops.tb_propagate_prepared(
         tphys.ACOUSTIC, nt, spec, rspec,
-        (torch.from_numpy(c.u0), torch.from_numpy(c.u1)), pads, rpads,
-        torch.from_numpy(np.array(g.src_dcmp)), tst, trt, trst, trrt,
-        gr.indices.shape[0], executor="torch")
-    _close(u1.numpy(), r1)
-    _close(rec[..., 0].numpy(), rrec)
+        (torch.from_numpy(c.u0)[None], torch.from_numpy(c.u1)[None]), pads,
+        rpads, torch.from_numpy(np.array(g.src_dcmp))[None], tst, trt, trst,
+        trrt, gr.indices.shape[0], executor="torch")
+    _close(u1[0].numpy(), r1)
+    _close(rec[0, ..., 0].numpy(), rrec)
 
 
 def test_executors_agree_and_validate():

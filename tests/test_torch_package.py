@@ -16,7 +16,7 @@ from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"]
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -45,6 +45,10 @@ def test_port_imports_no_jax_or_reference(path):
 def test_guard_sees_the_files():
     assert len(PORT_FILES) >= 15
     assert (ROOT / "chip_smoke.py").is_file()
+    port = ROOT / "src" / "repro_torch"
+    for pkg in ("survey", "telemetry", "launch"):
+        assert port / pkg / "__init__.py" in PORT_FILES
+    assert port / "launch" / "stencil_survey.py" in PORT_FILES
     assert "jax" in set(_imported_roots(ROOT / "tests" / "test_torch_ops.py"))
 
 
@@ -86,3 +90,30 @@ def test_multiphysics_entry_points_default_to_the_card(physics):
                        (10.0,) * 3, device="cpu")
     assert rec is None and len(final) == nstate
     assert all(f.device.type == "cpu" and not torch.any(f) for f in final)
+
+
+def test_survey_engine_defaults_to_the_card():
+    """The survey engine and its launcher raise without a card unless the
+    CPU is asked for."""
+    from repro_torch.core.grid import Grid
+    from repro_torch.launch import stencil_survey
+    from repro_torch.survey import PlanCache, SurveyEngine
+
+    grid = Grid((8, 8, 4), (10.0,) * 3)
+    params = {"m": np.ones((8, 8, 4), np.float32),
+              "damp": np.zeros((8, 8, 4), np.float32)}
+    plan = TBPlan(tile=(8, 8), T=1, radius=2)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            SurveyEngine("acoustic", grid, params, 2, 1e-3, plan=plan,
+                         plan_cache=PlanCache())
+        with pytest.raises(RuntimeError, match="cuda"):
+            SurveyEngine("acoustic", grid, params, 2, 1e-3, plan=plan,
+                         plan_cache=PlanCache(), device="cuda")
+        with pytest.raises(RuntimeError, match="cuda"):
+            stencil_survey.build_model("acoustic", (8, 8, 4), grid,
+                                       np.random.RandomState(0))
+    engine = SurveyEngine("acoustic", grid, params, 2, 1e-3, plan=plan,
+                          plan_cache=PlanCache(), device="cpu")
+    assert engine.device.type == "cpu" and engine.executor == "torch"
+    assert engine.params["m"].device.type == "cpu"

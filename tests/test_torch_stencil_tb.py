@@ -70,14 +70,15 @@ def test_time_tile_matches_pallas_interpret(T, tile, order, shape, sources):
     (j0, j1), jrec = jker.tb_time_tile(spec, jphys.ACOUSTIC, pads, ppads,
                                        *tabs, interpret=True)
     tspec = _port_spec(spec)
-    targs = ((_t(pads[0]), _t(pads[1])), (_t(ppads[0]), _t(ppads[1])),
-             *(_t(a) for a in tabs))
+    # one shot: a shot axis of 1 on the state, the tables and the outputs
+    targs = ((_t(pads[0])[None], _t(pads[1])[None]),
+             (_t(ppads[0]), _t(ppads[1])), *(_t(a)[None] for a in tabs))
     before = tker.launches
     (t0, t1), trec = tker.tb_time_tile(tspec, tphys.ACOUSTIC, *targs)
     assert tker.launches == before        # CPU tensors: the plain version
     for a, b in ((t0, j0), (t1, j1), (trec, jrec)):
-        assert tuple(a.shape) == tuple(b.shape)
-        np.testing.assert_allclose(a.numpy(), np.asarray(b), rtol=RTOL,
+        assert tuple(a.shape) == (1,) + tuple(b.shape)
+        np.testing.assert_allclose(a[0].numpy(), np.asarray(b), rtol=RTOL,
                                    atol=ATOL)
     (p0, p1), prec = tker.tb_time_tile_plain(tspec, tphys.ACOUSTIC, *targs)
     for a, b in ((p0, t0), (p1, t1), (prec, trec)):
