@@ -14,15 +14,22 @@ beside its spatially-blocked baseline (T = 1).  Then it drives the
 multi-shot survey engine (`survey.SurveyEngine.run`): 8 shots of the
 512^3 acoustic paper case in 2 batches of 4, and small surveys of every
 physics through the plan cache's sweep, each shot held against a
-sequential call.  It prints one JSON line listing every kernel and a
-final JSON status line.  It needs a card: without one it exits non-zero
+sequential call.  Then the sharded path (`distributed.halo`, kernel B1c):
+each kernel on sharded passes against its plain version, the 512^3
+acoustic case as a 2x2 mesh of shards on the card against the
+single-device run, TTI and elastic at 256^3 and acoustic schedules
+(time-nested, overlapped, uniform halo, autotuned) at 128^3, and the
+survey engine's sharded route.  It prints one JSON line listing every
+kernel and a final JSON status line.  It needs a card: without one it exits non-zero
 before printing any result.  It imports neither JAX nor the JAX package.
 
 Phases (one line each): environment, build, kernel vs plain on small
-cases (kernel-vs-plain, kernels-batched), then for each path: main path
-at full size, spatially-blocked baseline, kernel timing, the batched
-kernel at the main path's shapes; then survey-acoustic, survey-small and
-the kernel line.  Any failed check raises, and the script exits non-zero.
+cases (kernel-vs-plain, kernels-batched, kernel-vs-plain-dom), then for
+each path: main path at full size, spatially-blocked baseline, kernel
+timing, the batched kernel at the main path's shapes (after acoustic:
+sharded-acoustic); then survey-acoustic, survey-small, sharded-small-*,
+survey-sharded and the kernel line.  Any failed check raises, and the
+script exits non-zero.
 """
 import dataclasses
 import json
@@ -41,14 +48,17 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.core import boundary, sources as S  # noqa: E402
 from repro_torch.core.grid import Grid  # noqa: E402
 from repro_torch.core.propagators import acoustic, elastic, tti  # noqa: E402
-from repro_torch.core.temporal_blocking import (TBPlan,  # noqa: E402
-                                                plan_for_physics)
+from repro_torch.core.temporal_blocking import (  # noqa: E402
+    TBPlan, nested_pass_geometry, plan_for_physics)
+from repro_torch.distributed import halo as H  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
 from repro_torch.kernels import stencil_tb as ker  # noqa: E402
 from repro_torch.kernels import tb_physics as phys  # noqa: E402
 from repro_torch.launch import stencil_survey  # noqa: E402
+from repro_torch.launch.mesh import ShardMesh  # noqa: E402
 from repro_torch.survey import (PlanCache, Shot,  # noqa: E402
-                                SurveyEngine, bucket_shots)
+                                SurveyEngine, bucket_shots,
+                                cached_plan_hierarchy)
 
 RTOL = 2e-4
 # kernel vs plain: tests/test_kernel_stencil_tb.py:56 (acoustic),
@@ -218,12 +228,13 @@ def uncounted(fn):
     return out
 
 
-def compare_kernel(spec, physics, args):
+def compare_kernel(spec, physics, args, dom=None):
     """One kernel launch against the plain version on the same inputs:
     (max|diff|, max over fields and receiver channels of max|diff| /
     max|plain|, the kernel's (fields, partials))."""
-    kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
-    pst, prec = ker.tb_time_tile_plain(spec, physics, *args)
+    kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args,
+                                                   dom=dom))
+    pst, prec = ker.tb_time_tile_plain(spec, physics, *args, dom=dom)
     torch.cuda.synchronize()
     atol = ATOL[physics.name]
     pairs = [(f, k, p) for f, k, p in zip(physics.state_fields, kst, pst)]
@@ -450,6 +461,8 @@ def phase_main_path(fc, smi):
         raise AssertionError(f"{name} main path disagrees with the "
                              f"reference: {err_f:.3e}, {err_tr:.3e} > "
                              f"{MAIN_TOL}")
+    # acoustic's run and reference stay for the sharded run to meet
+    kept = (recs, rfinal, rrec) if name == "acoustic" else None
     del rfinal, rrec, recs
 
     torch.cuda.reset_peak_memory_stats()
@@ -459,7 +472,7 @@ def phase_main_path(fc, smi):
     say(f"main-{name}", f"TB run {ms:.1f} ms = {ms / launches:.3f} ms per "
         f"time tile = {ms / nt:.3f} ms per step, {mpts:.1f} Mpt*steps/s, "
         f"peak {peak:.2f} GiB [{smi}]")
-    return final, launches, ms
+    return final, launches, ms, kept
 
 
 def time_tile_pieces(fc, plan, state, t0):
@@ -483,11 +496,12 @@ def time_tile_pieces(fc, plan, state, t0):
     return spec, args, (op_ms, k_ms, rec_ms), (lo, hi)
 
 
-def time_kernel(spec, physics, args):
+def time_kernel(spec, physics, args, dom=None):
     """The kernel alone on `args`: after a warm-up, the median of 3 means of
     5 launches, the least and the most of the 3, and the launch's receiver
     partials."""
-    launch = lambda: ker.tb_time_tile(spec, physics, *args)  # noqa: E731
+    launch = lambda: ker.tb_time_tile(spec, physics, *args,  # noqa: E731
+                                      dom=dom)
     rec_part = uncounted(launch)[1]                         # warm-up
     means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
              for _ in range(3)]
@@ -958,10 +972,367 @@ def phase_survey_small(smi, dev):
     return entries
 
 
+# ---------------------------------------------------------------------------
+# The sharded path (kernel B1c): a ShardMesh of shards on this card
+# ---------------------------------------------------------------------------
+
+MESH = (2, 2)
+SHARDED_SMALL_SHAPE = (256, 256, 256)   # TTI, elastic: a reduction of 512^3
+NESTED_SHAPE = (128, 128, 128)          # acoustic schedules: a reduction
+DOM_SHAPE = (48, 48, 37)                # 24-point shard blocks
+SHARDED_SURVEY_SHOTS = 2
+
+
+def dist_plan(physics, shape, dt, spacing, dev, T=T_TB, tile=TILE,
+              inner_T=None, order=ORDER, **kw):
+    """A `DistTBPlan` of the 2x2 mesh on `dev` with the CUDA inner
+    executor: exchange depth T, inner tile `tile`, inner depth `inner_T`
+    (default T: the flat schedule)."""
+    r = physics.step_radius(order)
+    return H.DistTBPlan(
+        mesh=ShardMesh(MESH, devices=(dev,)), grid_shape=tuple(shape),
+        physics=physics, order=order, T=T, dt=dt, spacing=spacing,
+        inner="cuda", inner_plan=TBPlan(tile, inner_T or T, r), **kw)
+
+
+def expected_launches(plan, nt):
+    """One launch a pass a time tile (all shards on one card), the
+    remainder's passes included."""
+    n_main, rem = divmod(nt, plan.T)
+    r, tile = plan.r_step, plan.inner_tile
+
+    def passes(T_depth):
+        rest = T_depth - 1 if plan.overlap else T_depth
+        return len(nested_pass_geometry(plan.block, tile, rest,
+                                        min(plan.inner_T, T_depth,
+                                            max(rest, 1)), r))
+    return n_main * passes(plan.T) + (passes(rem) if rem else 0)
+
+
+def expected_rounds(plan, nt):
+    """Exchange rounds: the params once, then one a tile for every state
+    field of nonzero depth (none for the remainder's params)."""
+    n_main, rem = divmod(nt, plan.T)
+    rounds = len(plan.physics.param_fields)
+    rounds += n_main * sum(d > 0 for d in plan.field_depths(plan.T))
+    if rem:
+        rounds += sum(d > 0 for d in plan.field_depths(rem))
+    return rounds
+
+
+def sharded_run(plan, nt, state, params, g, gr, phase):
+    """`sharded_tb_propagate` with the launch and exchange counters set to
+    0 just before and read just after; raises unless they are what the
+    plan needs."""
+    ker.launches = 0
+    plan.mesh.exchange_rounds = 0
+    out = H.sharded_tb_propagate(plan, nt, state, params, g, gr)
+    torch.cuda.synchronize()
+    launches, rounds = ker.launches, plan.mesh.exchange_rounds
+    want = (expected_launches(plan, nt), expected_rounds(plan, nt))
+    if (launches, rounds) != want:
+        raise AssertionError(f"{phase}: {launches} launches and {rounds} "
+                             f"exchange rounds, expected {want}")
+    return out, launches, rounds
+
+
+def field_errors(physics, got, want):
+    """max|diff| / max|want| per state field and per receiver channel,
+    and whether everything is equal bit for bit."""
+    (st, rec), (wst, wrec) = got, want
+    rec, wrec = (r if r.dim() == 3 else r[..., None] for r in (rec, wrec))
+    errs = {f: max_rel(a, b) for f, a, b in
+            zip(physics.state_fields, st, wst)}
+    errs.update({f"rec[{c}]": max_rel(rec[..., c], wrec[..., c])
+                 for c in range(rec.shape[-1])})
+    same = torch.equal(rec, wrec) and all(torch.equal(a, b)
+                                          for a, b in zip(st, wst))
+    return errs, same
+
+
+def check_errors(phase, errs, limit, what):
+    worst = max(errs.values())
+    if not worst <= limit:
+        raise AssertionError(f"{phase}: {what}: " + ", ".join(
+            f"{k} {v:.3e}" for k, v in errs.items()) + f" > {limit:g}")
+    return worst
+
+
+def phase_kernel_vs_plain_dom(dev):
+    """Kernel B1c on small sharded passes of a 2x2 mesh (4 shard rows a
+    launch, each its own params and mask), every launch against the plain
+    version: flat passes, time-nested passes (the first with d_out > 0
+    on a grid rounded up to the tile, 24 + 2 * 4 to 36 for tile 12), the
+    remainder depth.  Then the grid's own mask as `dom` against the
+    single-device launch, bit for bit."""
+    for name in ("acoustic", "tti", "elastic"):
+        physics = phys.PHYSICS[name]
+        T = 4 if name == "acoustic" else 2
+        nt = 2 * T - 1              # a tile and a depth T - 1 remainder
+        for i, nested in enumerate((False, True)):
+            state, params, g, gr, dt = small_case(name, DOM_SHAPE, ORDER, 3,
+                                                  4, 20 + i, dev)
+            plan = dist_plan(physics, DOM_SHAPE, dt, SMALL_SPACING, dev, T=T,
+                             tile=(12, 12) if nested else (24, 24),
+                             inner_T=T // 2 if nested else T)
+            seen = []
+
+            def check(spec, p, *args, dom=None):
+                err, rel, out = compare_kernel(spec, p, args, dom=dom)
+                seen.append((spec.nx, spec.T, spec.ntiles, err, rel))
+                return out
+
+            ops.EXECUTORS["cuda"] = check
+            try:
+                H.sharded_tb_propagate(plan, nt, state, params, g, gr)
+            finally:
+                ops.EXECUTORS["cuda"] = ker.tb_time_tile
+            if len(seen) != expected_launches(plan, nt):
+                raise AssertionError(f"{name}: {len(seen)} passes")
+            say("kernel-vs-plain-dom", f"{name} mesh {MESH} block (24, 24) "
+                f"T={T} nt={nt} tile {plan.inner_tile} inner T "
+                f"{plan.inner_T}: {len(seen)} launches of 4 shard rows, (grid,"
+                " depth): " + ", ".join(f"({nx}, {t})" for nx, t, *_ in seen)
+                + f"; worst max|diff| {max(e for *_, e, _ in seen):.3e}, "
+                f"max|diff|/max|plain| {max(r for *_, r in seen):.3e} "
+                f"(field rtol {FIELD_RTOL})")
+        state, params, g, gr, dt = small_case(name, (32, 16, 29), ORDER, 3, 4,
+                                              30, dev)
+        plan = TBPlan((16, 8), 2, physics.step_radius(ORDER))
+        spec, args = kernel_inputs(physics, plan, state, params, g, gr, dt,
+                                   1, SMALL_SPACING)
+        pads, ppads, sc, sv, rc, rw = args
+        h = spec.halo
+        gx = torch.arange(-h, spec.nx + h, device=dev)
+        gy = torch.arange(-h, spec.ny + h, device=dev)
+        dom = (((gx >= 0) & (gx < spec.nx))[:, None]
+               & ((gy >= 0) & (gy < spec.ny))).float()[None].contiguous()
+        a = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
+        b = uncounted(lambda: ker.tb_time_tile(
+            spec, physics, pads, tuple(q[None].contiguous() for q in ppads),
+            sc, sv, rc, rw, dom=dom))
+        torch.cuda.synchronize()
+        same = torch.equal(a[1], b[1]) and all(
+            torch.equal(x, y) for x, y in zip(a[0], b[0]))
+        if not same:
+            raise AssertionError(f"{name}: the grid's mask as dom differs "
+                                 "from the grid predicate")
+        say("kernel-vs-plain-dom", f"{name}: dom = the grid's mask, params "
+            f"one a row: equal to the single-device launch bit for bit: "
+            f"{same}")
+
+
+def phase_sharded_acoustic(fc, smi, kept, tb_ms):
+    """The 512^3 acoustic paper case as a 2x2 mesh of shards on this card,
+    T=4, inner tile 32 (flat): against main-acoustic's single-device run
+    (kept) and its Listing-1 reference; times, launches, exchange rounds,
+    and kernel B1c on a mid-run pass.  Returns B1c's kernels-line entry."""
+    phase = "sharded-acoustic"
+    final, recs, rfinal, rrec = kept
+    physics = fc.physics
+    plan = dist_plan(physics, SHAPE, fc.dt, fc.spacing, fc.state[0].device)
+    mid = (fc.nt // plan.T) // 2
+    captured = []
+
+    def capture(spec, p, *args, dom=None):
+        if len(captured) == mid:
+            captured.append((spec, args, dom))
+        else:
+            captured.append(None)
+        return ker.tb_time_tile(spec, p, *args, dom=dom)
+
+    ops.EXECUTORS["cuda"] = capture
+    try:
+        (st, rec), launches, rounds = sharded_run(
+            plan, fc.nt, fc.state, fc.params._asdict(), fc.g, fc.gr, phase)
+    finally:
+        ops.EXECUTORS["cuda"] = ker.tb_time_tile
+    errs, same = field_errors(physics, (st, rec), (final, recs))
+    worst = check_errors(phase, errs, FIELD_RTOL, "vs the single-device run")
+    rerrs, _ = field_errors(physics, (st, rec), (rfinal, rrec))
+    rworst = check_errors(phase, rerrs, MAIN_TOL, "vs the Listing-1 "
+                          "reference")
+    if not all(torch.isfinite(f).all() for f in st):
+        raise AssertionError(f"{phase}: non-finite fields")
+    say(phase, f"{SHAPE} nt={fc.nt} on a {MESH} mesh of {plan.block} blocks "
+        f"(one card), T={plan.T} tile {plan.inner_tile} flat, field depths "
+        f"{plan.field_depths(plan.T)}: {launches} kernel launches (4 shard "
+        f"rows each), {rounds} exchange rounds; vs the single-device TB run: "
+        + ", ".join(f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (max {worst:.3e}, limit {FIELD_RTOL:g}), bit-equal: {same}; vs "
+        f"the Listing-1 reference max {rworst:.3e} (limit {MAIN_TOL:g})")
+    del st, rec, final, recs, rfinal, rrec, kept
+    torch.cuda.empty_cache()
+
+    torch.cuda.reset_peak_memory_stats()
+    ms, out = cuda_ms(lambda: H.sharded_tb_propagate(
+        plan, fc.nt, fc.state, fc.params._asdict(), fc.g, fc.gr))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    state = out[0]
+    del out
+    # one deep exchange of the state's fields, as a tile starts it
+    blocks = [H._split_blocks(f, plan) for f in state]
+    depths = plan.field_depths(plan.T)
+    ex_ms, _ = cuda_ms(lambda: [H.exchange_to_depth(b, d, plan.halo)
+                                for b, d in zip(blocks, depths)], reps=5)
+    del blocks, state
+    spec, args, dom = next(c for c in captured if c is not None)
+    del captured
+    k_ms, lo, hi, _ = time_kernel(spec, physics, args, dom=dom)
+    err, rel, _ = compare_kernel(spec, physics, args, dom=dom)
+    plain_ms, _ = cuda_ms(lambda: ker.tb_time_tile_plain(spec, physics,
+                                                         *args, dom=dom))
+    rows = args[0][0].shape[0]
+    seq_ms = 0.0
+    for k in range(rows):
+        one = (tuple(f[k:k + 1] for f in args[0]),
+               tuple(f[k:k + 1] for f in args[1]),
+               *(a[k:k + 1] for a in args[2:]))
+        seq_ms += time_kernel(spec, physics, one, dom=dom[k:k + 1])[0]
+    cost = ker.kernel_cost(spec, physics, shots=rows, shard_rows=True)
+    bound, by = bound_of(cost)
+    say(phase, f"run {ms:.1f} ms = {ms / launches:.3f} ms per time tile "
+        f"(single-device TB run {tb_ms:.1f} ms), peak {peak:.2f} GiB; one "
+        f"deep exchange (CUDA events, mean of 5) {ex_ms:.3f} ms a tile, a "
+        f"device-local copy [{smi}]")
+    say(phase, f"kernel B1c, {rows} shard rows at grid ({spec.nx}, "
+        f"{spec.ny}, {spec.nz}) + halo {spec.halo}, tile {spec.tile}: "
+        f"{k_ms:.3f} ms per launch (median of 3 means of 5; least {lo:.3f}, "
+        f"most {hi:.3f}) vs bound {bound:.3f} ms by {by} "
+        f"({cost['min_bytes'] / 1e9:.2f} GB); the {rows} rows as {rows} "
+        f"sequential launches {seq_ms:.3f} ms; plain {plain_ms:.1f} ms; "
+        f"kernel = {100 * k_ms * launches / ms:.1f}% of the run; max|diff| "
+        f"vs plain {err:.3e}, max|diff|/max|plain| {rel:.3e} [{smi}]")
+    return {
+        "name": "stencil_tb.tb_acoustic (sharded pass: per-shard params "
+                f"and domain mask, {rows} shard rows)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stencil_tb.cu",
+        "replaces": "src/repro/kernels/stencil_tb.py:129",
+        "launches": launches,
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+def _against_single(phase, fc, single, plan, smi):
+    """One sharded run of `fc` on `plan` against `single`, the
+    single-device TB result; prints and returns its ms."""
+    out, launches, rounds = sharded_run(plan, fc.nt, fc.state,
+                                        fc.params._asdict(), fc.g, fc.gr,
+                                        phase)
+    errs, same = field_errors(fc.physics, out, single)
+    worst = check_errors(phase, errs, FIELD_RTOL, "vs the single-device run")
+    del out
+    ms, _ = cuda_ms(lambda: H.sharded_tb_propagate(
+        plan, fc.nt, fc.state, fc.params._asdict(), fc.g, fc.gr))
+    say(phase, f"{tuple(fc.state[0].shape)} nt={fc.nt} mesh {MESH}, T="
+        f"{plan.T} inner T {plan.inner_T} tile {plan.inner_tile} overlap "
+        f"{plan.overlap} per-field halo {plan.per_field_halo}: {launches} "
+        f"launches, {rounds} exchange rounds; vs the single-device TB run "
+        f"max {worst:.3e} (limit {FIELD_RTOL:g}), bit-equal: {same}; run "
+        f"{ms:.1f} ms [{smi}]")
+    return ms
+
+
+def phase_sharded_small(smi, dev):
+    """TTI and elastic at 256^3 (a reduction of 512^3: the single-device
+    512^3 paths already run) and the acoustic schedules at 128^3 on the
+    2x2 mesh, each against its own single-device TB run."""
+    for name in ("tti", "elastic"):
+        fc = full_case(name, dev, shape=SHARDED_SMALL_SHAPE)
+        single = fc.run(plan_for(fc.physics, T_TB))
+        single_ms, _ = cuda_ms(lambda: fc.run(plan_for(fc.physics, T_TB)))
+        say(f"sharded-small-{name}", f"single-device TB run {single_ms:.1f} "
+            f"ms")
+        _against_single(f"sharded-small-{name}", fc, single,
+                        dist_plan(fc.physics, SHARDED_SMALL_SHAPE, fc.dt,
+                                  fc.spacing, dev), smi)
+        del fc, single
+        torch.cuda.empty_cache()
+    fc = full_case("acoustic", dev, shape=NESTED_SHAPE)
+    single = fc.run(plan_for(fc.physics, T_TB))
+    args = (fc.physics, NESTED_SHAPE, fc.dt, fc.spacing, dev)
+    px, py = MESH
+    block = (NESTED_SHAPE[0] // px, NESTED_SHAPE[1] // py)
+    hier, entry, info = cached_plan_hierarchy(
+        "acoustic", NESTED_SHAPE[2], ORDER, block, cache=PlanCache(),
+        tiles=(16, 32, 64), depths=(1, 2, 4, 8))
+    auto = H.dist_plan_from_hier(ShardMesh(MESH, devices=(dev,)),
+                                 NESTED_SHAPE, fc.physics, ORDER, hier,
+                                 fc.dt, fc.spacing, inner="cuda")
+    say("sharded-small-acoustic", f"auto-plan (cached_plan_hierarchy, "
+        f"{'hit' if info.hit else 'sweep'}): outer T {hier.outer_T}, inner "
+        f"T {hier.inner.T}, tile {hier.inner.tile}, overlap {hier.overlap}, "
+        f"field depths {hier.field_depths}; modelled cost "
+        f"{entry['cost_s']:.3e} s per point-step")
+    for what, plan in (("time-nested", dist_plan(*args, inner_T=2)),
+                       ("overlap", dist_plan(*args, overlap=True)),
+                       ("uniform halo", dist_plan(*args,
+                                                  per_field_halo=False)),
+                       ("nt % T = 3, remainder", dist_plan(*args)),
+                       ("auto-plan", auto)):
+        say("sharded-small-acoustic", f"{what}:")
+        _against_single("sharded-small-acoustic", fc, single, plan, smi)
+    del fc, single
+    torch.cuda.empty_cache()
+
+
+def phase_survey_sharded(smi, dev):
+    """`SurveyEngine.run_sharded` for 2 shots at 128^3 on the 2x2 mesh
+    against `run` (the batched single-device route)."""
+    phase = "survey-sharded"
+    fc = full_case("acoustic", dev, shape=NESTED_SHAPE)
+    h = fc.spacing[0]
+    grid = Grid(shape=NESTED_SHAPE, spacing=fc.spacing)
+    wav = S.ricker_wavelet(fc.nt, fc.dt, F0)
+    rec = receiver_line(NESTED_SHAPE) * h
+    shots = [Shot(src_coords=source_point(NESTED_SHAPE, x) * h, wavelet=wav,
+                  rec_coords=rec, shot_id=i)
+             for i, x in enumerate((0.3 * NESTED_SHAPE[0] + 0.37,
+                                    0.7 * NESTED_SHAPE[0] - 0.63))]
+    engine = SurveyEngine("acoustic", grid, fc.params._asdict(), fc.nt,
+                          fc.dt, order=ORDER, plan=plan_for(fc.physics, T_TB),
+                          plan_cache=PlanCache(),
+                          bucket_cap=SHARDED_SURVEY_SHOTS, device=dev)
+    res = engine.run(shots)
+    plan = dist_plan(fc.physics, NESTED_SHAPE, fc.dt, fc.spacing, dev)
+    ker.launches = 0
+    sres = engine.run_sharded(shots, plan)
+    torch.cuda.synchronize()
+    launches = ker.launches
+    if launches != len(shots) * expected_launches(plan, fc.nt):
+        raise AssertionError(f"{phase}: {launches} launches")
+    worst = max(max(stencil_survey.channel_errors(a, b))
+                for a, b in zip(sres.traces, res.traces))
+    if not worst <= FIELD_RTOL:
+        raise AssertionError(f"{phase}: sharded traces differ from run's by "
+                             f"{worst:.3e}")
+    s = sres.stats
+    say(phase, f"{len(shots)} shots {NESTED_SHAPE} nt={fc.nt}: run_sharded "
+        f"on mesh {s['mesh']} (outer T {s['outer_T']}, inner {s['inner']}) "
+        f"{launches} launches, {s['seconds']:.3f} s, "
+        f"{s['shots_per_s']:.3f} shots/s; run (batched, one card) "
+        f"{res.stats['warm_seconds']:.3f} s warm; traces max|diff|/max|ref| "
+        f"{worst:.3e} (limit {FIELD_RTOL:g}) [{smi}]")
+    del res, sres, engine, fc
+    torch.cuda.empty_cache()
+
+
 def run_path(name, smi, dev):
-    """One main path; returns (its kernel entry, its TB run's ms)."""
+    """One main path; returns (its kernel entry, its TB run's ms, and for
+    acoustic the sharded path's kernel entry)."""
     fc = full_case(name, dev)
-    state, launches, tb_ms = phase_main_path(fc, smi)
+    state, launches, tb_ms, kept = phase_main_path(fc, smi)
+    sharded = None
+    if kept is not None:
+        sharded = phase_sharded_acoustic(fc, smi, (state, *kept), tb_ms)
+        del kept
+        torch.cuda.empty_cache()
     phase_sb(fc, smi, tb_ms, state)
     entry = kernel_entry(fc, state, launches, tb_ms, smi)
     # the batched kernel at the main path's shapes, B = 2: the live state
@@ -978,7 +1349,7 @@ def run_path(name, smi, dev):
     phase_batched_main(fc, spec, args, smi)
     del fc, spec, args
     torch.cuda.empty_cache()          # the next path's fields are larger
-    return entry, tb_ms
+    return entry, tb_ms, sharded
 
 
 def main():
@@ -987,12 +1358,17 @@ def main():
     phase_build()
     phase_kernel_vs_plain(dev)
     phase_kernels_batched(dev)
-    entries, tb_ms = [], {}
+    phase_kernel_vs_plain_dom(dev)
+    entries, tb_ms, sharded = [], {}, None
     for name in ("acoustic", "tti", "elastic"):
-        entry, tb_ms[name] = run_path(name, smi, dev)
+        entry, tb_ms[name], b1c = run_path(name, smi, dev)
         entries.append(entry)
+        sharded = sharded or b1c
     entries.append(phase_survey_acoustic(smi, dev, tb_ms["acoustic"]))
     entries += phase_survey_small(smi, dev)
+    entries.append(sharded)
+    phase_sharded_small(smi, dev)
+    phase_survey_sharded(smi, dev)
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

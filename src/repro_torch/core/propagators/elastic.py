@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import sources as src_mod
 from repro_torch.core import stencil as st
 from repro_torch.core.grid import Grid
@@ -46,8 +47,11 @@ class ElasticState(NamedTuple):
 
 
 def init_state(shape: Tuple[int, ...], dtype=torch.float32,
-               device="cpu") -> ElasticState:
-    return ElasticState(*(torch.zeros(shape, dtype=dtype, device=device)
+               device="cuda") -> ElasticState:
+    """Zero fields on `device` (default ``"cuda"``, which raises without a
+    card; pass ``"cpu"`` to build them on the CPU)."""
+    dev = resolve_device(device)
+    return ElasticState(*(torch.zeros(shape, dtype=dtype, device=dev)
                           for _ in range(9)))
 
 

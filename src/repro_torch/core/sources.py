@@ -293,7 +293,7 @@ def tile_source_tables(g: GriddedSources, grid_shape: Tuple[int, int, int],
     pts = to_numpy(g.points)
     npts = pts.shape[0]
     scl = (np.ones(npts, np.float32) if scale is None
-           else np.asarray(scale, np.float32))
+           else to_numpy(scale).astype(np.float32, copy=False))
 
     wg = tables_mod.WindowGrid(origin=(-halo, -halo), tile=(tx, ty),
                                ntiles=(ntx, nty), pad=halo)

@@ -106,14 +106,16 @@ def overflow_message(label: str, tile_id, cap: int, required: int) -> str:
 
 
 def pack_slots(pairs: Sequence[Tuple[int, int]], n_tiles: int,
-               cap: Optional[int],
-               label: str) -> Tuple[np.ndarray, np.ndarray, int]:
+               cap: Optional[int], label: str,
+               tile_name=None) -> Tuple[np.ndarray, np.ndarray, int]:
     """Assign each (tile_id, payload) pair a slot k in its tile's bin.
 
     Returns (fill (n_tiles,) int32 — entries per tile, slot (len(pairs),)
     int32 — k for each pair in order, cap).  ``cap=None`` auto-sizes to
     the fullest bin (>= 1 so downstream shapes never collapse); a
     supplied cap that any bin exceeds raises `overflow_message`.
+    `tile_name` maps a flat tile id to a display id for the error (the
+    sharded builders report (shard, tile) tuples).
     """
     tids = np.fromiter((t for t, _ in pairs), np.int64, len(pairs))
     counts = np.bincount(tids, minlength=n_tiles) if len(pairs) else \
@@ -123,7 +125,8 @@ def pack_slots(pairs: Sequence[Tuple[int, int]], n_tiles: int,
         cap = max(required, 1)
     elif required > cap:
         bad = int(np.argmax(counts))
-        raise ValueError(overflow_message(label, bad, cap,
+        disp = tile_name(bad) if tile_name is not None else bad
+        raise ValueError(overflow_message(label, disp, cap,
                                           int(counts[bad])))
     fill = np.zeros(n_tiles, np.int32)
     slot = np.zeros(len(pairs), np.int32)

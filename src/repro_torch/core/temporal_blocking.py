@@ -1,7 +1,7 @@
 """Temporal blocking plans and their cost model (port of
 `repro.core.temporal_blocking`: `TBPlan`, `SweepLog`, `autotune_plan`,
-`PhysicsCost`, `PHYSICS_COSTS`, `plan_for_physics`, and the pass geometry
-the time-nested terms price).
+`PhysicsCost`, `PHYSICS_COSTS`, `plan_for_physics`, `HierPlan`,
+`plan_hierarchy`, and the pass geometry the time-nested terms price).
 
 The model prices a depth-T trapezoidal time tile per grid-point-step:
 
@@ -16,8 +16,9 @@ H100 SXM data sheet (see `autotune_plan`).
 What the model does not predict: it prices each field's window as read
 once per time tile.  The port's CUDA kernels (`kernels/csrc/`) re-read
 every field at every in-window step, so the sweep's pick does not predict
-their time (PERF.md).  The hierarchical planner (`HierPlan`,
-`plan_hierarchy`) comes with the sharded slice of the port.
+their time (PERF.md).  `HierPlan` / `plan_hierarchy` are the two-level
+plan of the sharded layer (`distributed/halo.py`): an outer exchange depth
+over an inner (tile, T) per shard, searched jointly.
 """
 from __future__ import annotations
 
@@ -428,3 +429,114 @@ def plan_for_physics(physics: str, nz: int, order: int, **kwargs
                 flops_per_point=pc.flops_per_point(order))
     args.update(kwargs)
     return autotune_plan(nz, pc.step_radius(order), **args)
+
+
+# ---------------------------------------------------------------------------
+# Hierarchical two-level plan (outer shard trapezoid x inner kernel tile)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class HierPlan:
+    """Joint two-level temporal-blocking plan for one shard.
+
+    inner:         the kernel-tile plan inside the per-shard block;
+                   `inner.T` is the inner time depth (one kernel pass
+                   advances the exchanged block `inner.T` steps).
+    outer_T:       the exchange depth, a multiple of `inner.T`;
+                   `outer_T / inner.T` inner passes consume one deep
+                   exchange over pass-by-pass-shrinking windows
+                   (`nested_pass_geometry`).  `outer_T == inner.T` is the
+                   flat schedule.
+    block:         the per-shard (bx, by) block the outer trapezoid
+                   exchanges around.
+    overlap:       whether the first in-tile step runs as the split
+                   interior/rim schedule (pass 0 only).
+    field_depths:  per-state-field exchange depths (grid points); the
+                   uniform depth is `halo`.
+    """
+
+    inner: TBPlan
+    outer_T: int
+    block: Tuple[int, int]
+    overlap: bool
+    field_depths: Tuple[int, ...]
+
+    def to_dict(self) -> dict:
+        """JSON-safe form (the plan cache's on-disk format)."""
+        return {"inner": self.inner.to_dict(), "outer_T": int(self.outer_T),
+                "block": [int(b) for b in self.block],
+                "overlap": bool(self.overlap),
+                "field_depths": [int(d) for d in self.field_depths]}
+
+    @classmethod
+    def from_dict(cls, d: dict) -> "HierPlan":
+        return cls(inner=TBPlan.from_dict(d["inner"]),
+                   outer_T=int(d["outer_T"]),
+                   block=tuple(int(b) for b in d["block"]),
+                   overlap=bool(d["overlap"]),
+                   field_depths=tuple(int(x) for x in d["field_depths"]))
+
+    @property
+    def T(self) -> int:
+        """The exchange depth (what `DistTBPlan.T` executes)."""
+        return self.outer_T
+
+    @property
+    def outer(self) -> TBPlan:
+        """The outer trapezoid as a TBPlan (exchange-level pricing)."""
+        return TBPlan(self.inner.tile, self.outer_T, self.inner.radius)
+
+    @property
+    def halo(self) -> int:
+        """Exchange depth in grid points (outer_T * r_step)."""
+        return self.outer.halo
+
+    def vmem_bytes(self, nz: int, fields: int, dtype_bytes: int = 4) -> int:
+        """Bytes of the inner window: sized by `inner.T`, not the exchange
+        depth."""
+        return self.inner.vmem_bytes(nz, fields, dtype_bytes)
+
+    def exchange_bytes(self, nz: int, dtype_bytes: int = 4) -> int:
+        """Bytes per deep exchange with the per-field depths."""
+        return self.outer.exchange_bytes_per_tile(
+            self.block, nz, dtype_bytes=dtype_bytes,
+            depths=self.field_depths)
+
+    def exchange_bytes_uniform(self, nz: int, dtype_bytes: int = 4) -> int:
+        """The uniform-depth baseline the per-field scheme is priced
+        against."""
+        return self.outer.exchange_bytes_per_tile(
+            self.block, nz, fields=len(self.field_depths),
+            dtype_bytes=dtype_bytes)
+
+
+def plan_hierarchy(physics: str, nz: int, order: int,
+                   block: Tuple[int, int], **kwargs
+                   ) -> Tuple[HierPlan, dict]:
+    """Jointly autotune the outer exchange depth, inner (tile, T) and
+    overlap for one per-shard block: `plan_for_physics(...,
+    mesh_block=block, sweep_overlap=True, outer_depths=depths)` with the
+    winning sweep entry re-packaged as a `HierPlan` (log keys
+    `(tx, ty, inner_T, outer_T)`); `distributed.halo.dist_plan_from_hier`
+    turns it into a `DistTBPlan`."""
+    kwargs.setdefault("sweep_overlap", True)
+    kwargs.setdefault("outer_depths", kwargs.get("depths", (1, 2, 4, 8, 16)))
+    pc = PHYSICS_COSTS[physics]
+    plan, log = plan_for_physics(physics, nz, order, mesh_block=block,
+                                 **kwargs)
+    # the sweep's own winner over the full 4-tuple key space (the returned
+    # TBPlan carries only the inner level)
+    key = log.best_key
+    entry = log[key]
+    tx, ty, inner_T = key[0], key[1], key[2]
+    outer_T = entry.get("outer_T", inner_T)
+    inner = TBPlan((tx, ty), inner_T, pc.step_radius(order))
+    outer_halo = outer_T * pc.step_radius(order)
+    depths = entry.get("field_depths",
+                       tuple(max(outer_halo - lag, 0)
+                             for lag in pc.exchange_lags(order)))
+    return (HierPlan(inner=inner, outer_T=outer_T,
+                     block=(int(block[0]), int(block[1])),
+                     overlap=bool(entry.get("overlap_exchange", False)),
+                     field_depths=tuple(depths)),
+            log)

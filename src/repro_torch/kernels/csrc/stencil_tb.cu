@@ -37,7 +37,7 @@
 
 #include "tb_common.cuh"
 
-template <int R>
+template <int R, bool DOM>
 __global__ void __launch_bounds__(THREADS)
 tb_acoustic_kernel(const TileArgs a, const Coefs cf)
 {
@@ -63,7 +63,7 @@ tb_acoustic_kernel(const TileArgs a, const Coefs cf)
             if (iz >= nz) continue;
             const int ix = col / wy, iy = col - ix * wy;
             float* out = nxt + (long long)ix * t.win_sx + (long long)iy * nz;
-            if (!t.in_domain({ix, iy, iz})) {
+            if (!t.in_domain<DOM>({ix, iy, iz})) {
                 out[iz] = 0.f;
                 continue;
             }
@@ -112,20 +112,21 @@ tb_acoustic_kernel(const TileArgs a, const Coefs cf)
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, int nshots, int nx,
-    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
-    int radius, const float* coefs, float dt, float dt2, void* stream)
+    float* const* out, float* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, void* stream)
 {
     TileArgs a;
     Coefs cf;
     const int e = tile_args(&a, &cf, device, 4, 2, in, src_coords,
                             src_vals, rec_coords, rec_w, out, rec_out,
-                            scratch, nshots, nx, ny, nz, tx, ty, T, H,
-                            src_cap, rec_cap, radius, coefs, 2 * radius + 1,
-                            dt, dt2);
+                            scratch, dom, param_rows, nshots, nx, ny, nz,
+                            tx, ty, T, H, src_cap, rec_cap, radius, coefs,
+                            2 * radius + 1, dt, dt2);
     if (e) return e;
-    with_radius(radius, [&](auto r) {
-        tb_acoustic_kernel<decltype(r)::value>
+    with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+        tb_acoustic_kernel<decltype(r)::value, decltype(d)::value>
             <<<tile_grid(a), THREADS, 0, (cudaStream_t)stream>>>(a, cf);
     });
     return (int)cudaGetLastError();

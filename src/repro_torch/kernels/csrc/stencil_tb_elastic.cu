@@ -33,7 +33,7 @@
 
 #include "tb_common.cuh"
 
-template <int R>
+template <int R, bool DOM>
 __global__ void __launch_bounds__(THREADS)
 tb_elastic_kernel(const TileArgs a, const Coefs cf)
 {
@@ -53,7 +53,7 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf)
     for (int k = 0; k < a.T; ++k) {
         // phase V: velocities (vx, vy, vz = s[0..2]) from the stresses
         // (txx, tyy, tzz, txy, txz, tyz = s[3..8])
-        t.for_each_point([&](Pt q, bool inside) {
+        t.for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
                 buf[0][w] = 0.f;
@@ -84,7 +84,7 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf)
         __syncthreads();
 
         // phase S: stresses from the new velocities
-        t.for_each_point([&](Pt q, bool inside) {
+        t.for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
 #pragma unroll
@@ -135,20 +135,21 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf)
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, int nshots, int nx,
-    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
-    int radius, const float* coefs, float dt, float dt2, void* stream)
+    float* const* out, float* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, void* stream)
 {
     TileArgs a;
     Coefs cf;
     const int e = tile_args(&a, &cf, device, 13, 9, in, src_coords,
                             src_vals, rec_coords, rec_w, out, rec_out,
-                            scratch, nshots, nx, ny, nz, tx, ty, T, H,
-                            src_cap, rec_cap, radius, coefs, 2 * radius,
-                            dt, dt2);
+                            scratch, dom, param_rows, nshots, nx, ny, nz,
+                            tx, ty, T, H, src_cap, rec_cap, radius, coefs,
+                            2 * radius, dt, dt2);
     if (e) return e;
-    with_radius(radius, [&](auto r) {
-        tb_elastic_kernel<decltype(r)::value>
+    with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+        tb_elastic_kernel<decltype(r)::value, decltype(d)::value>
             <<<tile_grid(a), THREADS, 0, (cudaStream_t)stream>>>(a, cf);
     });
     return (int)cudaGetLastError();

@@ -58,7 +58,7 @@ struct Dirs {
 // two blocks an SM up to radius 4 (at most 64 registers a thread), as
 // ptxas chose for the single-shot kernel; with the shot index it takes
 // 128 and one block an SM, 12% slower at radius 2 (PERF.md)
-template <int R>
+template <int R, bool DOM>
 __global__ void __launch_bounds__(THREADS, R <= 4 ? 2 : 1)
 tb_tti_kernel(const TileArgs a, const Coefs cf)
 {
@@ -78,7 +78,7 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
 
     for (int k = 0; k < a.T; ++k) {
         // phase A: the inner first-derivative fields, masked
-        t.for_each_point([&](Pt q, bool inside) {
+        t.for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
                 gx[w] = 0.f;
@@ -103,7 +103,7 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
         // overwrite p_prev and r_prev, read only pointwise by this thread
         float* pn = pbuf[k & 1];
         float* rn = rbuf[k & 1];
-        t.for_each_point([&](Pt q, bool inside) {
+        t.for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
                 pn[w] = 0.f;
@@ -151,20 +151,21 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, int nshots, int nx,
-    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
-    int radius, const float* coefs, float dt, float dt2, void* stream)
+    float* const* out, float* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, void* stream)
 {
     TileArgs a;
     Coefs cf;
     const int e = tile_args(&a, &cf, device, 10, 4, in, src_coords,
                             src_vals, rec_coords, rec_w, out, rec_out,
-                            scratch, nshots, nx, ny, nz, tx, ty, T, H,
-                            src_cap, rec_cap, radius, coefs, 2 * radius + 1,
-                            dt, dt2);
+                            scratch, dom, param_rows, nshots, nx, ny, nz,
+                            tx, ty, T, H, src_cap, rec_cap, radius, coefs,
+                            2 * radius + 1, dt, dt2);
     if (e) return e;
-    with_radius(radius, [&](auto r) {
-        tb_tti_kernel<decltype(r)::value>
+    with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+        tb_tti_kernel<decltype(r)::value, decltype(d)::value>
             <<<tile_grid(a), THREADS, 0, (cudaStream_t)stream>>>(a, cf);
     });
     return (int)cudaGetLastError();

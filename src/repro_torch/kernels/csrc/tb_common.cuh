@@ -18,7 +18,25 @@
 // Reads beyond the window in x/y and beyond [0, nz) in z are zero, as in
 // the reference's zero-padded stencils on window-shaped arrays; points
 // outside the physical x/y domain are re-zeroed wherever the reference
-// applies its domain mask.  FD coefficients come from the host, computed in float64
+// applies its domain mask.
+//
+// Kernel B1c (the sharded layer, src/repro/distributed/halo.py, which runs
+// `_tb_kernel` with `external_dom`): a row of the z grid axis is then one
+// shard's pass over its exchanged block, not a shot.  The shards sharing a
+// card go in one launch, as the reference's shard_map'd `pallas_call` is
+// one launch per pass: each row has its own params (a per-row stride
+// instead of 0) and its own domain mask `dom`, a z-invariant
+// (nx + 2H, ny + 2H) plane — 1/nz of the reference's 3-D `dom_pad`, small
+// enough for L1 — read at the window's origin in place of the "inside the
+// grid" predicate.  The mask zeroes by predicate (dom != 0), as the
+// predicate does; for finite values that equals the reference's multiply
+// by dom.  Whether a launch reads `dom` is a template parameter (DOM) of
+// every kernel, so the single-device instantiations are the code they
+// were before it.  In a pass's round-up band the params carry the physics'
+// `param_fills`, so the update stays finite there and nothing here
+// assumes edge padding.  Bound: bytes, as B1a/B1b (each row's padded
+// fields and its plane read once); it inherits their re-read-every-step
+// traffic.  FD coefficients come from the host, computed in float64
 // and rounded to float32 as the reference rounds them, every stencil sums
 // its taps in the reference's order, and the build (kernels/_build.py)
 // keeps IEEE division and turns multiply-add contraction off, so a kernel
@@ -49,10 +67,11 @@ struct Coefs {
 struct TileArgs {
     const float* in[MAX_FIELDS]; // state fields, each (B, nx + 2H, ny + 2H,
                                  // nz), zero-padded; then param fields, each
-                                 // (nx + 2H, ny + 2H, nz), edge-padded
-    long long in_shot[MAX_FIELDS]; // elements from one shot's input to the
-                                 // next: a padded volume for a state field,
-                                 // 0 for a param field (shared)
+                                 // (nx + 2H, ny + 2H, nz), edge-padded, or
+                                 // (B, nx + 2H, ny + 2H, nz): one a row
+    long long in_shot[MAX_FIELDS]; // elements from one row's input to the
+                                 // next: a padded volume for a state field
+                                 // and a per-row param, 0 for a shared one
     float* out[MAX_STATE];       // state fields, each (B, nx, ny, nz)
     long long out_shot;          // nx * ny * nz
     const int* src_coords;       // (B, ntiles, src_cap, 3) window-local
@@ -61,6 +80,9 @@ struct TileArgs {
     const float* rec_w;          // (B, ntiles, rec_cap)
     float* rec_out;              // (B, ntiles, T, rec_cap, channels)
     float* scratch;              // (B, ntiles, windows, wx * wy * nz)
+    const float* dom;            // nullptr, or (B, nx + 2H, ny + 2H): each
+                                 // row's domain mask (nonzero = inside)
+    long long dom_row;           // (nx + 2H) * (ny + 2H)
     int nshots, nx, ny, nz, tx, ty, T, H, src_cap, rec_cap;
     float dt, dt2;
 };
@@ -80,6 +102,7 @@ struct Tile {
     int shot, ti, tj, nx, ny, nz, tx, ty, H, wx, wy;
     long long tile;              // flat (shot, tile) index
     long long pad_sx, win_sx, org, npts;
+    const float* dom;            // this row's domain mask, or nullptr
 
     __device__ explicit Tile(const TileArgs& a)
         : shot(blockIdx.z), ti(blockIdx.x), tj(blockIdx.y), nx(a.nx), ny(a.ny),
@@ -90,7 +113,8 @@ struct Tile {
           pad_sx((long long)(a.ny + 2 * a.H) * a.nz),
           win_sx((long long)wy * a.nz),
           org((long long)ti * a.tx * pad_sx + (long long)tj * a.ty * a.nz),
-          npts((long long)wx * wy * a.nz) {}
+          npts((long long)wx * wy * a.nz),
+          dom(a.dom ? a.dom + blockIdx.z * a.dom_row : nullptr) {}
 
     // this tile's window of padded input field i, in this shot's copy
     __device__ View input(const TileArgs& a, int i) const {
@@ -117,9 +141,17 @@ struct Tile {
         return __ldg(v.p + q.x * v.sx + (long long)q.y * nz + q.z);
     }
 
+    // inside the physical domain: the row's mask at the window point
+    // (DOM), or the grid predicate
+    template <bool DOM>
     __device__ bool in_domain(Pt q) const {
-        const int gx = ti * tx - H + q.x, gy = tj * ty - H + q.y;
-        return gx >= 0 && gx < nx && gy >= 0 && gy < ny;
+        if constexpr (DOM) {
+            return __ldg(dom + (long long)(ti * tx + q.x) * (ny + 2 * H)
+                         + (tj * ty + q.y)) != 0.f;
+        } else {
+            const int gx = ti * tx - H + q.x, gy = tj * ty - H + q.y;
+            return gx >= 0 && gx < nx && gy >= 0 && gy < ny;
+        }
     }
 
     __device__ bool in_window(const int* c) const {
@@ -158,7 +190,7 @@ struct Tile {
     // (32-deep z chunk, (x, y) column) item, lanes along z, all columns of
     // a chunk before the next chunk, so the window rows the x taps read
     // stay in L1
-    template <class F>
+    template <bool DOM, class F>
     __device__ __forceinline__ void for_each_point(F f) const {
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
         const int nwarps = blockDim.x >> 5;
@@ -169,7 +201,7 @@ struct Tile {
             if (iz >= nz) continue;
             const int ix = col / wy;
             const Pt q = {ix, col - ix * wy, iz};
-            f(q, in_domain(q));
+            f(q, in_domain<DOM>(q));
         }
     }
 
@@ -223,13 +255,15 @@ struct Tile {
 
 // Fills the launch arguments from the C entry point's; returns 0 or the
 // cudaError_t value of what is wrong.  The first `nout` of the `nin` inputs
-// are the state fields (one copy a shot), the rest the shared params.
-// `ntaps` coefficients per axis.
+// are the state fields (one copy a row), the rest the params (shared, or
+// one copy a row when `param_rows`).  `dom` is nullptr or the rows' domain
+// masks.  `ntaps` coefficients per axis.
 static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
                      const float* const* in, const int* src_coords,
                      const float* src_vals, const int* rec_coords,
                      const float* rec_w, float* const* out, float* rec_out,
-                     float* scratch, int nshots, int nx, int ny, int nz,
+                     float* scratch, const float* dom, int param_rows,
+                     int nshots, int nx, int ny, int nz,
                      int tx, int ty, int T, int H, int src_cap, int rec_cap,
                      int radius, const float* coefs, int ntaps, float dt,
                      float dt2)
@@ -245,7 +279,7 @@ static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
     const long long padded = (long long)(nx + 2 * H) * (ny + 2 * H) * nz;
     for (int i = 0; i < nin; ++i) {
         a->in[i] = in[i];
-        a->in_shot[i] = i < nout ? padded : 0;
+        a->in_shot[i] = (i < nout || param_rows) ? padded : 0;
     }
     for (int i = 0; i < nout; ++i) a->out[i] = out[i];
     a->out_shot = (long long)nx * ny * nz;
@@ -255,6 +289,8 @@ static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
     a->rec_w = rec_w;
     a->rec_out = rec_out;
     a->scratch = scratch;
+    a->dom = dom;
+    a->dom_row = (long long)(nx + 2 * H) * (ny + 2 * H);
     a->nshots = nshots;
     a->nx = nx; a->ny = ny; a->nz = nz; a->tx = tx; a->ty = ty;
     a->T = T; a->H = H; a->src_cap = src_cap; a->rec_cap = rec_cap;
@@ -271,20 +307,27 @@ static dim3 tile_grid(const TileArgs& a)
     return dim3(a.nx / a.tx, a.ny / a.ty, a.nshots);
 }
 
-// f(std::integral_constant<int, radius>{}): one kernel instantiation per
-// radius, so the tap loops unroll
+// f(std::integral_constant<int, radius>{}, std::bool_constant<dom>{}): one
+// kernel instantiation per radius, so the tap loops unroll, and per
+// whether the launch reads a domain mask
 template <class F>
-static void with_radius(int radius, F f)
+static void with_radius(int radius, bool dom, F f)
 {
+    const auto d = [&](auto r) {
+        if (dom)
+            f(r, std::true_type{});
+        else
+            f(r, std::false_type{});
+    };
     switch (radius) {
-        case 1: f(std::integral_constant<int, 1>{}); break;
-        case 2: f(std::integral_constant<int, 2>{}); break;
-        case 3: f(std::integral_constant<int, 3>{}); break;
-        case 4: f(std::integral_constant<int, 4>{}); break;
-        case 5: f(std::integral_constant<int, 5>{}); break;
-        case 6: f(std::integral_constant<int, 6>{}); break;
-        case 7: f(std::integral_constant<int, 7>{}); break;
-        case 8: f(std::integral_constant<int, 8>{}); break;
+        case 1: d(std::integral_constant<int, 1>{}); break;
+        case 2: d(std::integral_constant<int, 2>{}); break;
+        case 3: d(std::integral_constant<int, 3>{}); break;
+        case 4: d(std::integral_constant<int, 4>{}); break;
+        case 5: d(std::integral_constant<int, 5>{}); break;
+        case 6: d(std::integral_constant<int, 6>{}); break;
+        case 7: d(std::integral_constant<int, 7>{}); break;
+        case 8: d(std::integral_constant<int, 8>{}); break;
     }
 }
 

@@ -29,7 +29,7 @@ import torch.nn.functional as F
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.core import sources as src_mod
 from repro_torch.core.propagators import elastic, tti
-from repro_torch.core.temporal_blocking import TBPlan
+from repro_torch.core.temporal_blocking import TBPassGeom, TBPlan
 from repro_torch.kernels import stencil_tb as ker
 from repro_torch.kernels import tb_physics as phys
 from repro_torch.telemetry import spans as _spans
@@ -185,6 +185,42 @@ def make_spec(shape: Tuple[int, int, int], plan: TBPlan, order: int,
         src_cap=src_cap, rec_cap=rec_cap, dtype=dtype,
         step_radius=physics.step_radius(order),
         rec_channels=physics.rec_channels)
+
+
+def make_inner_spec(block: Tuple[int, int], nz: int,
+                    inner_tile: Tuple[int, int], T: int, order: int,
+                    dt: float, spacing: Tuple[float, float, float],
+                    src_cap: int, rec_cap: int, dtype,
+                    physics: phys.TBPhysics) -> ker.TBKernelSpec:
+    """Kernel spec for the inner trapezoid of one shard: the shard's
+    (bx, by) block plays the kernel's grid and the shard's exchanged halo
+    its zero padding; the kernel's grid is `block / inner_tile` tiles, each
+    a window `inner_tile + 2 * T * r_step` wide, sliced at the same
+    `(ti * tx, tj * ty)` origin from every field and the shard's domain
+    mask."""
+    bx, by = block
+    tx, ty = inner_tile
+    if bx % tx or by % ty:
+        raise ValueError(f"inner tile {inner_tile} must divide the shard "
+                         f"block {block}")
+    return ker.TBKernelSpec(
+        nx=bx, ny=by, nz=nz, tile=(tx, ty), T=T, order=order, dt=float(dt),
+        spacing=tuple(float(s) for s in spacing), src_cap=src_cap,
+        rec_cap=rec_cap, dtype=dtype, step_radius=physics.step_radius(order),
+        rec_channels=physics.rec_channels)
+
+
+def pass_inner_spec(geom: TBPassGeom, nz: int, order: int, dt: float,
+                    spacing: Tuple[float, float, float], src_cap: int,
+                    rec_cap: int, dtype,
+                    physics: phys.TBPhysics) -> ker.TBKernelSpec:
+    """Kernel spec for one pass of the time-nested inner schedule: its grid
+    is the shard block plus the halo still valid after the pass
+    (`geom.d_out`, rounded up to the inner tile), its halo the pass's
+    consumption `geom.T * r_step` — so the window, and the kernel's
+    scratch, are sized by the pass, whatever the exchange depth."""
+    return make_inner_spec(geom.grid, nz, geom.tile, geom.T, order, dt,
+                           spacing, src_cap, rec_cap, dtype, physics)
 
 
 def prepare_tiles(plan: TBPlan, physics: phys.TBPhysics,

@@ -11,6 +11,13 @@ centre.  State, tables and outputs carry a leading shot axis; the params
 are one copy shared by every shot (the reference's ``vmap`` over
 `pallas_call` with ``in_axes=(None, None, 0)``).  A single shot is B = 1.
 
+The sharded layer (`distributed/halo.py`) runs the same kernels on the
+passes of its shards (the reference's `_tb_kernel` with `external_dom`):
+each row of the leading axis is then one shard, with its own params
+(``(B, nx + 2H, ny + 2H, nz)``) and its own domain mask `dom`, a
+z-invariant ``(B, nx + 2H, ny + 2H)`` plane sliced per window at the same
+origin as the fields, in place of the spec's "inside the grid" predicate.
+
 `tb_time_tile` dispatches on where its tensors lie: CPU tensors run
 `tb_time_tile_plain`; CUDA tensors launch the physics' kernel
 (``csrc/stencil_tb.cu`` acoustic, ``csrc/stencil_tb_tti.cu`` TTI,
@@ -125,16 +132,19 @@ def window_tile_plain(physics: phys.TBPhysics, sspec, T: int, h: int,
 
 def tb_time_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
-                       r_w):
+                       r_w, dom=None):
     """Plain PyTorch version of `tb_time_tile`: the same per-window
     trapezoid, looped over the shots and the (ti, tj) tiles.  Runs on any
-    device.
+    device.  A param with a leading axis is one per row; `dom` (B,
+    nx + 2H, ny + 2H) replaces the grid predicate, as in `tb_time_tile`.
 
     Returns (state tuple (B, nx, ny, nz), rec partials
     (B, ntx, nty, T, capr, chan))."""
     shots = [_shot_tile_plain(spec, physics, tuple(p[b] for p in state_pads),
-                              param_pads, s_coords[b], s_vals[b],
-                              r_coords[b], r_w[b])
+                              tuple(p[b] if p.dim() == 4 else p
+                                    for p in param_pads),
+                              s_coords[b], s_vals[b], r_coords[b], r_w[b],
+                              None if dom is None else dom[b])
              for b in range(state_pads[0].shape[0])]
     return (tuple(torch.stack(f) for f in zip(*(st for st, _ in shots))),
             torch.stack([rec for _, rec in shots]))
@@ -142,7 +152,7 @@ def tb_time_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 def _shot_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
                      state_pads, param_pads, s_coords, s_vals, r_coords,
-                     r_w):
+                     r_w, dom_pad=None):
     """One shot of `tb_time_tile_plain` (no shot axis)."""
     h = spec.halo
     tx, ty = spec.tile
@@ -157,16 +167,19 @@ def _shot_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
             k = ti * nty + tj
             slx = slice(ti * tx, ti * tx + tx + 2 * h)
             sly = slice(tj * ty, tj * ty + ty + 2 * h)
-            gx = torch.arange(ti * tx - h, (ti + 1) * tx + h, device=dev)
-            gy = torch.arange(tj * ty - h, (tj + 1) * ty + h, device=dev)
-            dom = (((gx >= 0) & (gx < spec.nx))[:, None, None]
-                   & ((gy >= 0) & (gy < spec.ny))[None, :, None])
+            if dom_pad is None:
+                gx = torch.arange(ti * tx - h, (ti + 1) * tx + h, device=dev)
+                gy = torch.arange(tj * ty - h, (tj + 1) * ty + h, device=dev)
+                dom = (((gx >= 0) & (gx < spec.nx))[:, None]
+                       & ((gy >= 0) & (gy < spec.ny))[None, :])
+            else:
+                dom = dom_pad[slx, sly]
             out_w, rec = window_tile_plain(
                 physics, spec, spec.T, h,
                 tuple(p[slx, sly] for p in state_pads),
                 tuple(p[slx, sly] for p in param_pads),
-                dom.to(spec.dtype), s_coords[k], s_vals[k], r_coords[k],
-                r_w[k])
+                dom[:, :, None].to(spec.dtype), s_coords[k], s_vals[k],
+                r_coords[k], r_w[k])
             for i, centre in enumerate(out_w):
                 outs[i][ti * tx:(ti + 1) * tx, tj * ty:(tj + 1) * ty] = centre
             row.append(rec)
@@ -206,7 +219,7 @@ def _bind(source: str):
     fn = lib.repro_tb_tile
     if fn.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] + [p] * 8 + [i] * 11 + [p]
+        fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
                        + [ctypes.c_float] * 2 + [p])
         fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
@@ -252,7 +265,7 @@ def _ptrs(ts):
 
 def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
-                       r_w):
+                       r_w, dom):
     if physics.name not in _KERNELS:
         raise ValueError(f"no CUDA TB kernel for physics {physics.name!r}")
     kern = _KERNELS[physics.name]
@@ -279,9 +292,13 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     if not 1 <= B <= 65535:
         raise ValueError(f"{B} shots: the kernel takes 1..65535")
     pad_shape = (spec.nx + 2 * h, spec.ny + 2 * h, spec.nz)
+    # params: one copy for every row, or one a row (the sharded layer)
+    param_rows = param_pads[0].dim() == 4
     for i, (name, t) in enumerate(zip(names, fields)):
-        shot_axis = (B,) if i < len(state_pads) else ()
+        shot_axis = (B,) if i < len(state_pads) or param_rows else ()
         _check(name, t, shot_axis + pad_shape, f32, dev)
+    if dom is not None:
+        _check("dom", dom, (B,) + pad_shape[:2], f32, dev)
     cap, capr = s_coords.shape[-2], r_coords.shape[-2]
     chan = physics.rec_channels
     _check("src_coords", s_coords, (B, ntiles, cap, 3), torch.int32, dev)
@@ -310,7 +327,9 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     rc = lib.repro_tb_tile(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         _ptrs(fields), ptr(s_coords), ptr(s_vals), ptr(r_coords), ptr(r_w),
-        _ptrs(outs), ptr(rec), ptr(scratch), B,
+        _ptrs(outs), ptr(rec), ptr(scratch),
+        ctypes.c_void_p(dom.data_ptr() if dom is not None else None),
+        int(param_rows), B,
         spec.nx, spec.ny, spec.nz, spec.tile[0], spec.tile[1], spec.T, h,
         cap, capr, r, (ctypes.c_float * len(coefs))(*coefs), dt, dt2,
         ctypes.c_void_p(stream))
@@ -336,17 +355,22 @@ def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
 
 def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
                  state_pads, param_pads, src_coords, src_vals, rec_coords,
-                 rec_w):
+                 rec_w, dom=None):
     """One depth-T time tile over the whole grid of each of B shots.
 
     Args:
       state_pads: one (B, nx + 2H, ny + 2H, nz) tensor per
                   physics.state_fields (zero-padded).
       param_pads: one (nx + 2H, ny + 2H, nz) tensor per
-                  physics.param_fields (edge-padded), shared by the shots.
+                  physics.param_fields (edge-padded), shared by the shots;
+                  or one (B, nx + 2H, ny + 2H, nz) tensor each, one a row.
       src_coords: (B, ntiles, cap, 3) window-local int32.
       src_vals:   (B, ntiles, T, cap), scale folded in, 0 on padding.
       rec_coords: (B, ntiles, capr, 3) int32; rec_w: (B, ntiles, capr).
+      dom:        None, or (B, nx + 2H, ny + 2H) float32: each row's mask
+                  of the points inside the physical domain (nonzero), in
+                  place of the grid predicate — a shard's pass over its
+                  exchanged block (distributed/halo.py).
     Returns (new_states tuple, rec_partials) with fields (B, nx, ny, nz)
     and rec_partials (B, ntx, nty, T, capr, rec_channels).
 
@@ -357,16 +381,18 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
     dev = state_pads[0].device
     if dev.type == "cpu":
         return tb_time_tile_plain(spec, physics, state_pads, param_pads,
-                                  src_coords, src_vals, rec_coords, rec_w)
+                                  src_coords, src_vals, rec_coords, rec_w,
+                                  dom)
     if dev.type == "cuda":
         return _tb_time_tile_cuda(spec, physics, state_pads, param_pads,
-                                  src_coords, src_vals, rec_coords, rec_w)
+                                  src_coords, src_vals, rec_coords, rec_w,
+                                  dom)
     raise ValueError(f"no TB time tile for device {dev}")
 
 
 def kernel_cost(spec: TBKernelSpec,
                 physics: phys.TBPhysics = phys.ACOUSTIC,
-                shots: int = 1) -> dict:
+                shots: int = 1, shard_rows: bool = False) -> dict:
     """Analytic per-call cost of one time tile of `shots` shots.
 
     ``flops``/``hbm_bytes`` price the kernel's schedule (every window
@@ -378,7 +404,9 @@ def kernel_cost(spec: TBKernelSpec,
     function (each unpadded input field read once, each output field
     written once) — the numerators of the roofline bound.  Bytes and
     FLOPs scale with the shots, except that the param fields, shared by
-    all shots, are read once.
+    all shots, are read once.  With `shard_rows` the rows are shards of
+    the sharded layer: each reads its own padded state and params and its
+    domain-mask plane once and writes its state.
     """
     ntx, nty = spec.ntiles
     wx, wy, wz = spec.window
@@ -398,9 +426,14 @@ def kernel_cost(spec: TBKernelSpec,
     hbm_write = grid_pts * ns * itemsize
     # per shot: its state in and out; once: the shared params
     fields_moved = shots * 2 * ns + (nw - ns)
+    min_bytes = grid_pts * fields_moved * itemsize
+    if shard_rows:
+        pad_plane = (spec.nx + 2 * spec.halo) * (spec.ny + 2 * spec.halo)
+        min_bytes = shots * itemsize * (pad_plane * (nw * spec.nz + 1)
+                                        + ns * grid_pts)
     return {"flops": float(shots * flops),
             "hbm_bytes": float(shots * (hbm_read + hbm_write)),
             "useful_flops": float(shots * grid_pts * spec.T * stencil_flops),
             "needed_flops": float(shots * grid_pts * spec.T * needed),
-            "min_bytes": float(grid_pts * fields_moved * itemsize),
+            "min_bytes": float(min_bytes),
             "window_bytes": spec.window_bytes(nw)}

@@ -10,15 +10,16 @@ intermediate fields on the window's out-of-domain rim — on a tile window
 the counterpart of the zero padding the reference applies at the physical
 boundary.
 
-The reference's `param_fills` and `halo_lags` serve only its sharded
-driver; they come with that slice of the port.
+`param_fills` and `halo_lags` serve the sharded driver
+(`distributed/halo.py`): the values out-of-domain param cells take in an
+exchanged halo, and how much shallower each state field's exchange may be.
 """
 from __future__ import annotations
 
 import dataclasses
 from typing import Callable, Dict, Tuple
 
-import numpy as np
+import torch
 
 from repro_torch.core import sources as src_mod
 from repro_torch.core import stencil as st
@@ -43,11 +44,23 @@ class TBPhysics:
     update: Callable[[Dict, Dict, object, Callable], Dict]
     # record(state) -> rec_channels window-shaped tensors
     record: Callable[[Dict], Tuple]
-    # inject_scale(params, g, dt) -> (npts,) per-point injection factor
-    inject_scale: Callable[[Dict, src_mod.GriddedSources, float], np.ndarray]
+    # inject_scale(params, g, dt) -> (npts,) per-point injection factor,
+    # float32, on the params' device (read on the device, no host sync)
+    inject_scale: Callable[[Dict, src_mod.GriddedSources, float],
+                           torch.Tensor]
     # evolved fields the update already domain-masked itself (via mask_fn);
     # the driver skips its own mask for these
     premasked_fields: Tuple[str, ...] = ()
+    # (field, value) pairs: what out-of-domain param cells must hold so the
+    # update stays finite there (everything it computes is re-masked)
+    param_fills: Tuple[Tuple[str, float], ...] = ()
+    # per-state-field exchange-depth reduction in units of order // 2 for
+    # the sharded deep-halo exchange: a field the update reads only
+    # pointwise at the rim needs a shallower exchanged strip.  Depth per
+    # field is max(T * step_radius - lag * (order // 2), 0); () means every
+    # field ships the full depth.  Numeric mirror:
+    # core.temporal_blocking.PHYSICS_COSTS[...].halo_lag_units
+    halo_lags: Tuple[int, ...] = ()
 
     @property
     def num_windows(self) -> int:
@@ -56,6 +69,13 @@ class TBPhysics:
     def step_radius(self, order: int) -> int:
         """Per-in-window-step halo consumption (grid points per side)."""
         return self.radius_mult * (order // 2)
+
+    def field_halo_depths(self, T: int, order: int) -> Tuple[int, ...]:
+        """Per-state-field exchange depth for a depth-T outer tile."""
+        h = T * self.step_radius(order)
+        r0 = order // 2
+        lags = self.halo_lags or (0,) * len(self.state_fields)
+        return tuple(max(h - lag * r0, 0) for lag in lags)
 
 
 def _acoustic_update(state, params, spec, mask_fn):
@@ -67,11 +87,10 @@ def _acoustic_update(state, params, spec, mask_fn):
 
 
 def _acoustic_scale(params, g, dt):
-    # dt**2 / m at the affected points, in m's dtype, handed to the host
-    # table build as float32 numpy (as the reference's eager build does)
+    # dt**2 / m at the affected points, in m's dtype, then float32 (as the
+    # reference's table build rounds it)
     m_pts = src_mod.point_scale(params["m"], g)
-    return src_mod.to_numpy(
-        ac.divide_scalar(st.round_to(dt ** 2, m_pts.dtype), m_pts).float())
+    return ac.divide_scalar(st.round_to(dt ** 2, m_pts.dtype), m_pts).float()
 
 
 ACOUSTIC = TBPhysics(
@@ -85,6 +104,8 @@ ACOUSTIC = TBPhysics(
     update=_acoustic_update,
     record=lambda s: (s["u"],),
     inject_scale=_acoustic_scale,
+    param_fills=(("m", 1.0),),   # update divides by m + damp * dt
+    halo_lags=(1, 0),            # u_prev is only read pointwise
 )
 
 
@@ -116,6 +137,8 @@ TTI = TBPhysics(
     update=_tti_update,
     record=lambda s: (s["p"],),
     inject_scale=_acoustic_scale,   # same dt^2/m factor as acoustic
+    param_fills=(("m", 1.0),),   # update divides by m + damp * dt
+    halo_lags=(0, 2, 0, 2),      # p_prev / r_prev only read pointwise
 )
 
 
@@ -137,7 +160,8 @@ def _elastic_update(state, params, spec, mask_fn):
 
 def _elastic_scale(params, g, dt):
     # explosive source: wavelet * dt into the diagonal stresses
-    return np.full((g.npts,), float(dt), np.float32)
+    return torch.full((g.npts,), float(dt), dtype=torch.float32,
+                      device=params["b"].device)
 
 
 ELASTIC = TBPhysics(
@@ -152,6 +176,10 @@ ELASTIC = TBPhysics(
     record=lambda s: (s["vz"], el.pressure(s["txx"], s["tyy"], s["tzz"])),
     inject_scale=_elastic_scale,
     premasked_fields=("vx", "vy", "vz"),  # stencil_update masks mid-step
+    # v-first update order: the initial stresses feed the step-1 velocity
+    # derivatives (full depth); the initial velocities are read pointwise
+    # and first differentiated one half-step later, one r0 shallower
+    halo_lags=(1, 1, 1, 0, 0, 0, 0, 0, 0),
 )
 
 

@@ -13,14 +13,14 @@ amortizes everything shot-invariant across them:
                running a batch of shots through the TB tile loop
                (`kernels/ops.tb_propagate_prepared`) with one kernel launch
                per time tile, and receiver-trace readback double-buffered
-               against device compute.
-
-The reference's sharded route (`SurveyEngine.run_sharded`) comes with the
-sharded slice of the port.
+               against device compute; `run_sharded` instead runs the
+               shots one by one through the sharded layer
+               (`distributed/halo.py`), domain-parallel per shot.
 """
 from repro_torch.survey.plan_cache import (CacheInfo,  # noqa: F401
                                            PlanCache,
                                            cached_plan_for_physics,
+                                           cached_plan_hierarchy,
                                            default_cache, plan_cache_key)
 from repro_torch.survey.shots import Shot, Survey, bucket_shots  # noqa: F401
 from repro_torch.survey.engine import (RUN_STATS_KEYS,  # noqa: F401

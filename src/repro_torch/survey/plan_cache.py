@@ -10,11 +10,11 @@ order, dtype width, candidate tiles/depths, window budget, hardware
 constants, and the mesh block.  With the same sweep arguments and every
 default passed explicitly, a key equals the reference's.
 
-The cached value is JSON (`TBPlan.to_dict` plus the winning sweep-log
-entry), so the disk cache is a directory of small self-describing files —
-safe to delete at any time, shared across processes.  Consumer:
-`survey.engine.SurveyEngine`.  The cache of hierarchical (sharded) plans
-comes with the sharded slice of the port.
+The cached value is JSON (`TBPlan.to_dict` / `HierPlan.to_dict` plus the
+winning sweep-log entry), so the disk cache is a directory of small
+self-describing files — safe to delete at any time, shared across
+processes.  Consumers: `survey.engine.SurveyEngine` and
+`launch/stencil_dist.py --auto-plan`.
 
 Set ``REPRO_PLAN_CACHE_DIR`` to point the default cache's disk tier
 somewhere persistent (default: in-memory only, so tests and one-shot
@@ -30,8 +30,10 @@ import threading
 import warnings
 from typing import Optional, Tuple
 
-from repro_torch.core.temporal_blocking import (TBPlan, autotune_plan,
-                                                plan_for_physics)
+from repro_torch.core.temporal_blocking import (HierPlan, TBPlan,
+                                                autotune_plan,
+                                                plan_for_physics,
+                                                plan_hierarchy)
 from repro_torch.telemetry import metrics as _tm
 from repro_torch.telemetry import spans as _spans
 
@@ -280,5 +282,36 @@ def cached_plan_for_physics(physics: str, nz: int, order: int,
     return plan, entry, CacheInfo(key, False)
 
 
+def cached_plan_hierarchy(physics: str, nz: int, order: int,
+                          block: Tuple[int, int],
+                          cache: Optional[PlanCache] = None,
+                          dtype: str = "float32",
+                          key_extra: Optional[dict] = None, **kwargs
+                          ) -> Tuple[HierPlan, dict, CacheInfo]:
+    """`plan_hierarchy` behind the cache (two-level sharded plans).
+
+    Returns (hier, winning sweep-log entry, CacheInfo); the entry carries
+    the model terms (`compute_s`/`memory_s`/`comm_s`/`split_s`/`cost_s`),
+    so a cache hit rebuilds a plan report without re-sweeping.
+    """
+    cache = cache or default_cache()
+    key = plan_cache_key(physics, nz, order, block=tuple(block),
+                         dtype=dtype, key_extra=key_extra, **kwargs)
+    val = cache.lookup(key)
+    if val is not None:
+        try:
+            return (HierPlan.from_dict(val["hier"]), dict(val["entry"]),
+                    CacheInfo(key, True))
+        except (KeyError, TypeError, ValueError) as e:
+            cache.invalidate(key, e)  # schema-corrupt entry -> sweep
+    cache.count_sweep()
+    with _spans.span("plan.sweep", key=key):
+        hier, log = plan_hierarchy(physics, nz, order, block, **kwargs)
+    entry = _entry_jsonable(log[log.best_key])
+    cache.store(key, {"hier": hier.to_dict(), "entry": entry,
+                      "best_key": list(log.best_key)})
+    return hier, entry, CacheInfo(key, False)
+
+
 __all__ = ["PlanCache", "CacheInfo", "plan_cache_key", "default_cache",
-           "cached_plan_for_physics"]
+           "cached_plan_for_physics", "cached_plan_hierarchy"]

@@ -305,3 +305,117 @@ def test_survey_on_card_matches_sequential(physics):
                             dt, 7, device=dev)
     for got, want in zip(res.traces, seq):
         assert_fields_close(trace_channels(got, want), FIELD_RTOL, physics)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B1c: a sharded pass (per-row params and domain mask)
+# ---------------------------------------------------------------------------
+
+def _pass_case(physics, shape, nt, dev):
+    """A case's state, params dict and sparse structures on `dev`."""
+    p = phys.PHYSICS[physics]
+    if physics == "acoustic":
+        c = acoustic_case(shape=shape, nt=nt, nsrc=3, nrec=4, seed=7)
+        state, params = (c.u0, c.u1), (c.m, c.damp)
+    else:
+        c = MULTI_CASES[physics](shape=shape, nt=nt, nsrc=3, nrec=4, seed=7)
+        state, params = c.state, c.params
+    state = tuple(torch.as_tensor(a, device=dev) for a in state)
+    params = {f: torch.as_tensor(a, device=dev)
+              for f, a in zip(p.param_fields, params)}
+    return c, state, params, port_sparse(c, device=dev)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["acoustic", "tti", "elastic"])
+@pytest.mark.parametrize("nested", [False, True])
+def test_sharded_kernel_matches_plain_and_single_device(physics, nested,
+                                                        monkeypatch):
+    """A 2x2 mesh on the card (4 shard rows a launch, each with its own
+    params and mask): every pass's launch against the plain version on
+    the same operands — flat passes, time-nested passes (the first with
+    d_out > 0 on a grid rounded up to the tile: block 24 + 2 * 4 to 36 for
+    tile 12), the remainder depth — and the result against the
+    single-device run on the card."""
+    from repro_torch.distributed import halo as H
+    from repro_torch.launch.mesh import ShardMesh
+
+    dev = _card()
+    p = phys.PHYSICS[physics]
+    r = p.step_radius(4)
+    T = 4 if physics == "acoustic" else 2
+    nt = 2 * T + 1
+    c, state, params, (g, gr) = _pass_case(physics, (48, 48, 24), nt, dev)
+    inner = (TBPlan((12, 12), T // 2, r) if nested else None)
+    plan = H.DistTBPlan(mesh=ShardMesh((2, 2), devices=(dev,)),
+                        grid_shape=c.shape, physics=p, T=T, dt=c.dt,
+                        spacing=c.spacing, inner="cuda", inner_plan=inner)
+    seen = []
+
+    def compare(spec, physics_, *args, dom=None):
+        k = ker.tb_time_tile(spec, physics_, *args, dom=dom)
+        q = ker.tb_time_tile_plain(spec, physics_, *args, dom=dom)
+        seen.append((spec.nx, spec.T))
+        atol = ATOL if physics == "acoustic" else MP_ATOL
+        for a, b in zip((*k[0], k[1]), (*q[0], q[1])):
+            torch.testing.assert_close(a, b, rtol=RTOL, atol=atol)
+        assert_fields_close(
+            [(f, a.cpu(), b.cpu())
+             for f, a, b in zip(p.state_fields, k[0], q[0])]
+            + [(f"rec[{i}]", k[1][..., i].cpu(), q[1][..., i].cpu())
+               for i in range(p.rec_channels)], FIELD_RTOL, physics)
+        return k
+
+    monkeypatch.setitem(ops.EXECUTORS, "cuda", compare)
+    before = ker.launches
+    st, rec = H.sharded_tb_propagate(plan, nt, state, params, g, gr)
+    # (pass grid, pass depth): 2 tiles, then the depth-1 remainder
+    want = ([(36, T // 2), (24, T // 2)] * 2 + [(24, 1)] if nested
+            else [(24, T)] * 2 + [(24, 1)])
+    assert seen == want and ker.launches - before == len(want)
+    single = {"acoustic": lambda: ops.acoustic_tb_propagate(
+        nt, *state, params["m"], params["damp"], g, gr,
+        TBPlan((8, 8), T, r), 4, c.dt, c.spacing, device=dev),
+        "tti": lambda: ops.tti_tb_propagate(
+            nt, state, tuple(params.values()), g, gr, TBPlan((8, 8), T, r),
+            4, c.dt, c.spacing, device=dev),
+        "elastic": lambda: ops.elastic_tb_propagate(
+            nt, state, tuple(params.values()), g, gr, TBPlan((8, 8), T, r),
+            4, c.dt, c.spacing, device=dev)}[physics]
+    sst, srec = single()
+    if srec.dim() == 2:
+        srec = srec[..., None]
+    assert_fields_close(
+        [(f, a.cpu(), b.cpu()) for f, a, b in zip(p.state_fields, st, sst)]
+        + list(trace_channels(rec.cpu(), srec.cpu())), FIELD_RTOL,
+        f"{physics} sharded vs single device")
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["acoustic", "tti", "elastic"])
+def test_dom_grid_mask_equals_the_grid_predicate(physics):
+    """With `dom` the grid's own mask and the params given one a row, the
+    kernel equals the single-device launch bit for bit."""
+    dev = _card()
+    if physics == "acoustic":
+        c = acoustic_case(shape=(32, 16, 29), nt=8, nsrc=3, nrec=4)
+        spec, args = _operands(c, 2, (16, 8), dev)
+        p = phys.ACOUSTIC
+    else:
+        c = MULTI_CASES[physics](shape=(32, 16, 29), nt=8, nsrc=3, nrec=4)
+        p, spec, args = _mp_operands(c, 2, (16, 8), dev)
+    pads, ppads, sc, sv, rc, rw = args
+    h = spec.halo
+    gx = torch.arange(-h, spec.nx + h, device=dev)
+    gy = torch.arange(-h, spec.ny + h, device=dev)
+    dom = (((gx >= 0) & (gx < spec.nx))[:, None]
+           & ((gy >= 0) & (gy < spec.ny))).float()[None].contiguous()
+    a_st, a_rec = ker.tb_time_tile(spec, p, *args)
+    b_st, b_rec = ker.tb_time_tile(spec, p, pads,
+                                   tuple(q[None].contiguous() for q in ppads),
+                                   sc, sv, rc, rw, dom=dom)
+    torch.cuda.synchronize()
+    assert torch.equal(a_rec, b_rec)
+    assert all(torch.equal(x, y) for x, y in zip(a_st, b_st))
+    with pytest.raises(ValueError, match="dom"):
+        ker.tb_time_tile(spec, p, *args, dom=dom[:, 1:].contiguous())

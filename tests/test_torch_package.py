@@ -79,13 +79,15 @@ def test_multiphysics_entry_points_default_to_the_card(physics):
     mod, entry, nstate = {
         "tti": (tti, ops.tti_tb_propagate, 4),
         "elastic": (elastic, ops.elastic_tb_propagate, 9)}[physics]
-    state = mod.init_state((8, 8, 4))
+    state = mod.init_state((8, 8, 4), device="cpu")
     params = tuple(torch.ones((8, 8, 4)) for _ in range(6 if nstate == 4
                                                          else 4))
     plan = TBPlan(tile=(8, 8), T=1, radius=4)
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="cuda"):
             entry(2, state, params, None, None, plan, 4, 1e-3, (10.0,) * 3)
+        with pytest.raises(RuntimeError, match="cuda"):
+            mod.init_state((8, 8, 4))
     final, rec = entry(2, state, params, None, None, plan, 4, 1e-3,
                        (10.0,) * 3, device="cpu")
     assert rec is None and len(final) == nstate
