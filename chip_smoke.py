@@ -3,11 +3,11 @@
     python3 chip_smoke.py
 
 Builds the port's CUDA kernels from `src/repro_torch/kernels/csrc/` (one
-per physics: acoustic, TTI, elastic), holds each kernel against its plain
-PyTorch version on small cases, one shot and a batch of shots (the shot
-axis in the kernel's grid), then drives the port's three main paths —
-temporally-blocked acoustic, TTI and elastic propagation with an
-off-the-grid source and receivers, through `ops.acoustic_tb_propagate`,
+per physics: acoustic, TTI, elastic; and the SSD scan), holds each kernel
+against its plain PyTorch version on small cases, one shot and a batch of
+shots (the shot axis in the kernel's grid), then drives the port's three
+main paths — temporally-blocked acoustic, TTI and elastic propagation with
+an off-the-grid source and receivers, through `ops.acoustic_tb_propagate`,
 `ops.tti_tb_propagate` and `ops.elastic_tb_propagate` — at the paper's full
 size, checks each against the port's Listing-1 reference, and times it
 beside its spatially-blocked baseline (T = 1).  Then it drives the
@@ -19,17 +19,24 @@ each kernel on sharded passes against its plain version, the 512^3
 acoustic case as a 2x2 mesh of shards on the card against the
 single-device run, TTI and elastic at 256^3 and acoustic schedules
 (time-nested, overlapped, uniform halo, autotuned) at 128^3, and the
-survey engine's sharded route.  It prints one JSON line listing every
-kernel and a final JSON status line.  It needs a card: without one it exits non-zero
-before printing any result.  It imports neither JAX nor the JAX package.
+survey engine's sharded route.  Then the Mamba2 slice: kernel B2 (the SSD
+chunked scan) against its plain version, and mamba2-130m at its published
+widths and depth serving 16 requests through `serving.GenerationEngine`
+with random bf16 parameters from a seed (B2 counted, 24 launches a
+prefill), with a float32 batch held against the plain scan; and the bf16
+acoustic tile (B1a-bf16).  It prints one JSON line listing every kernel
+and a final JSON status line.  It needs a card: without one it exits
+non-zero before printing any result.  It imports neither JAX nor the JAX
+package.
 
 Phases (one line each): environment, build, kernel vs plain on small
-cases (kernel-vs-plain, kernels-batched, kernel-vs-plain-dom), then for
-each path: main path at full size, spatially-blocked baseline, kernel
-timing, the batched kernel at the main path's shapes (after acoustic:
-sharded-acoustic); then survey-acoustic, survey-small, sharded-small-*,
-survey-sharded and the kernel line.  Any failed check raises, and the
-script exits non-zero.
+cases (kernel-vs-plain, kernels-batched, kernel-vs-plain-dom,
+kernel-vs-plain-bf16, kernel-vs-plain-ssd with kernels-ssd), serve-mamba2,
+then for each path: main path at full size, spatially-blocked baseline,
+kernel timing, the batched kernel at the main path's shapes (after
+acoustic: sharded-acoustic and main-acoustic-bf16); then survey-acoustic,
+survey-small, sharded-small-*, survey-sharded and the kernel line.  Any
+failed check raises, and the script exits non-zero.
 """
 import dataclasses
 import json
@@ -45,6 +52,7 @@ import torch
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
+from repro_torch import configs  # noqa: E402
 from repro_torch.core import boundary, sources as S  # noqa: E402
 from repro_torch.core.grid import Grid  # noqa: E402
 from repro_torch.core.propagators import acoustic, elastic, tti  # noqa: E402
@@ -52,10 +60,13 @@ from repro_torch.core.temporal_blocking import (  # noqa: E402
     TBPlan, nested_pass_geometry, plan_for_physics)
 from repro_torch.distributed import halo as H  # noqa: E402
 from repro_torch.kernels import _build, ops, ref  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 from repro_torch.kernels import stencil_tb as ker  # noqa: E402
 from repro_torch.kernels import tb_physics as phys  # noqa: E402
 from repro_torch.launch import stencil_survey  # noqa: E402
 from repro_torch.launch.mesh import ShardMesh  # noqa: E402
+from repro_torch.models import api  # noqa: E402
+from repro_torch.serving import GenerationEngine, Request  # noqa: E402
 from repro_torch.survey import (PlanCache, Shot,  # noqa: E402
                                 SurveyEngine, bucket_shots,
                                 cached_plan_hierarchy)
@@ -220,11 +231,11 @@ def kernel_inputs(physics, plan, state, params, g, gr, dt, t0, spacing,
 
 
 def uncounted(fn):
-    """fn() with the launch counter left as it was (launches made to time
-    or compare a kernel are not main-path launches)."""
-    saved = ker.launches
+    """fn() with the launch counters left as they were (launches made to
+    time or compare a kernel are not main-path launches)."""
+    saved = ker.launches, ssd.launches
     out = fn()
-    ker.launches = saved
+    ker.launches, ssd.launches = saved
     return out
 
 
@@ -1323,18 +1334,453 @@ def phase_survey_sharded(smi, dev):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# The bf16 acoustic tile (kernel B1a-bf16)
+# ---------------------------------------------------------------------------
+
+BF16 = torch.bfloat16
+
+
+def bf16_bound(f32):
+    """The reference's bf16 bound (tests/test_kernel_stencil_tb.py:119) from
+    the float32 result: 0.1 max(max|f32|, 1e-3) + 1e-2."""
+    return 0.1 * max(float(f32.abs().max()), 1e-3) + 1e-2
+
+
+def compare_bf16(spec, physics, args, args32):
+    """The bf16 kernel on `args` against the plain bf16 version on them and
+    the float32 kernel on `args32` (the same values in float32), every
+    field and receiver channel within the reference's bf16 bound of the
+    float32 kernel's result.  Returns (max|diff| vs plain, vs float32,
+    the least margin: bound - diff)."""
+    kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
+    fst, frec = uncounted(lambda: ker.tb_time_tile(
+        dataclasses.replace(spec, dtype=torch.float32), physics, *args32))
+    pst, prec = ker.tb_time_tile_plain(spec, physics, *args)
+    torch.cuda.synchronize()
+    worst_p = worst_f = 0.0
+    margin = math.inf
+    for k, p, f in zip((*kst, krec), (*pst, prec), (*fst, frec)):
+        if k.dtype != BF16 or not torch.isfinite(k.float()).all():
+            raise AssertionError("bf16 kernel: wrong dtype or non-finite")
+        bound = bf16_bound(f)
+        dp = float((k.float() - p.float()).abs().max())
+        df = float((k.float() - f).abs().max())
+        worst_p, worst_f = max(worst_p, dp), max(worst_f, df)
+        margin = min(margin, bound - max(dp, df))
+        if max(dp, df) > bound:
+            raise AssertionError(f"bf16 kernel: max|diff| {dp:.3e} vs plain"
+                                 f" bf16, {df:.3e} vs float32 > bound "
+                                 f"{bound:.3e}")
+    return worst_p, worst_f, margin
+
+
+def to_bf16_args(args):
+    """Kernel operands in bf16: fields, params, source values and receiver
+    weights (coordinates stay int32)."""
+    pads, ppads, sc, sv, rc, rw = args
+    return (tuple(f.to(BF16) for f in pads), tuple(f.to(BF16) for f in ppads),
+            sc, sv.to(BF16), rc, rw.to(BF16))
+
+
+def phase_kernel_vs_plain_bf16(dev):
+    """Kernel B1a-bf16 on the small acoustic cases, one shot and a batch."""
+    physics = phys.ACOUSTIC
+    worst = (0.0, 0.0, math.inf)
+    for i, (T, tile, order, shape, sources) in enumerate(SMALL_CASES):
+        state, params, g, gr, dt = small_case("acoustic", shape, order,
+                                              3 if sources else 0, 4, i, dev)
+        plan = TBPlan(tile, T, physics.step_radius(order))
+        spec, args = kernel_inputs(physics, plan, state, params, g, gr, dt, 1,
+                                   SMALL_SPACING, order=order)
+        bspec = dataclasses.replace(spec, dtype=BF16)
+        dp, df, margin = compare_bf16(bspec, physics, to_bf16_args(args),
+                                      args)
+        worst = (max(worst[0], dp), max(worst[1], df), min(worst[2], margin))
+        say("kernel-vs-plain-bf16", f"acoustic T={T} tile={tile} "
+            f"order={order} shape={shape} sources={sources}: max|diff| vs "
+            f"plain bf16 {dp:.3e}, vs float32 kernel {df:.3e} (bound "
+            f"0.1 max|f32| + 1e-2; least margin {margin:.3e})")
+    T, tile, order, shape, nsrcs = BATCHED_CASES[0]
+    states, sparse, params = [], [], None
+    for b, ns in enumerate(nsrcs):
+        st, prm, g, gr, dt = small_case("acoustic", shape, order, ns, 4,
+                                        40 + b, dev)
+        params = params or prm
+        states.append(st)
+        sparse.append((g, gr))
+    spec, args = batch_operands(physics, TBPlan(tile, T, order // 2), order,
+                                dt, SMALL_SPACING, states, params, sparse, 1)
+    dp, df, margin = compare_bf16(dataclasses.replace(spec, dtype=BF16),
+                                  physics, to_bf16_args(args), args)
+    say("kernel-vs-plain-bf16", f"acoustic B={len(nsrcs)} T={T} tile={tile}:"
+        f" max|diff| vs plain bf16 {dp:.3e}, vs float32 kernel {df:.3e} "
+        f"(least margin {margin:.3e}); small cases worst {worst[0]:.3e} / "
+        f"{worst[1]:.3e}, least margin {worst[2]:.3e}")
+
+
+def phase_main_bf16(fc, smi, final32, tb_ms):
+    """The 512^3 acoustic paper case in bf16 through the entry point
+    (ops.acoustic_tb_propagate with bf16 fields: kernel B1a-bf16), launches
+    counted; then one mid-run tile of live state against the plain bf16
+    version and the float32 kernel.  Returns the bf16 kernel's entry."""
+    phase = "main-acoustic-bf16"
+    plan = plan_for(fc.physics, T_TB)
+    fcb = dataclasses.replace(
+        fc, state=tuple(f.to(BF16) for f in fc.state),
+        params=type(fc.params)(*(p.to(BF16) for p in fc.params)))
+    ker.launches = 0
+    final, recs = fcb.run(plan)
+    torch.cuda.synchronize()
+    launches = ker.launches
+    expect = -(-fc.nt // T_TB)
+    if launches != expect or final[0].dtype != BF16:
+        raise AssertionError(f"{phase}: {launches} launches (expected "
+                             f"{expect}), dtype {final[0].dtype}")
+    if not (all(torch.isfinite(f.float()).all() for f in final)
+            and torch.isfinite(recs.float()).all()):
+        raise AssertionError(f"{phase}: non-finite values")
+    drift = max(max_rel(a.float(), b) for a, b in zip(final, final32))
+    del final, recs
+    ms, _ = cuda_ms(lambda: fcb.run(plan))
+    say(phase, f"{SHAPE} nt={fc.nt} T={T_TB} in bf16: {launches} kernel "
+        f"launches, run {ms:.1f} ms (float32 {tb_ms:.1f} ms); final fields "
+        f"max|d|/max|f32| vs the float32 run {drift:.3e} ({fc.nt} steps of "
+        f"bf16 rounding; not held to a bound) [{smi}]")
+    t0 = (fc.nt // T_TB // 2) * T_TB
+    spec, args = kernel_inputs(fc.physics, plan, final32,
+                               fc.params._asdict(), fc.g, fc.gr, fc.dt, t0,
+                               fc.spacing)
+    bspec = dataclasses.replace(spec, dtype=BF16)
+    bargs = to_bf16_args(args)
+    dp, df, margin = compare_bf16(bspec, fc.physics, bargs, args)
+    del args
+    k_ms, lo, hi, _ = time_kernel(bspec, fc.physics, bargs)
+    plain_ms, _ = cuda_ms(lambda: ker.tb_time_tile_plain(bspec, fc.physics,
+                                                         *bargs))
+    cost = ker.kernel_cost(bspec, fc.physics)
+    bound, by = bound_of(cost)
+    say("kernel-vs-plain-bf16", f"tb_acoustic bf16 at {SHAPE} T={T_TB} "
+        f"(mid-run live state): max|diff| vs plain bf16 {dp:.3e}, vs float32"
+        f" kernel {df:.3e} (least margin to 0.1 max|f32| + 1e-2: "
+        f"{margin:.3e}); {k_ms:.3f} ms per launch (median of 3 means of 5; "
+        f"least {lo:.3f}, most {hi:.3f}) vs bound {bound:.3f} ms by {by} "
+        f"({cost['min_bytes'] / 1e9:.2f} GB), plain {plain_ms:.1f} ms "
+        f"[{smi}]")
+    return {
+        "name": "stencil_tb.tb_acoustic (bf16)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stencil_tb.cu",
+        "replaces": "src/repro/kernels/stencil_tb.py:129",
+        "launches": launches,
+        "max_abs_err": dp,
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+    }
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2 (the Mamba2 SSD chunked scan) and the Mamba2 serving path
+# ---------------------------------------------------------------------------
+
+SSD_RTOL, SSD_ATOL = 1e-4, 1e-5          # tests/test_kernel_ssd.py
+SSD_FIELD_RTOL = 1e-5                    # max|diff| / max|plain|
+# (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's shapes, then the serve
+# phase's (mamba2-130m: 24 heads of 64, state 128, chunk 64; 8 x 1024)
+SSD_CASES = [
+    (2, 16, 4, 2, 8, 8, 4), (2, 32, 4, 2, 8, 8, 8), (2, 32, 4, 2, 8, 8, 32),
+    (1, 16, 2, 1, 4, 4, 8), (2, 24, 6, 3, 5, 8, 4), (3, 8, 4, 4, 16, 16, 8),
+    (8, 1024, 24, 1, 128, 64, 64),
+]
+SERVE_SHAPE = SSD_CASES[-1]
+
+
+def ssd_case(shape, seed, dtype, with_h0, dev):
+    """(spec, (x, dt, B, C, A), h0) drawn as tests/test_kernel_ssd.py
+    draws: x, B, C in `dtype`; dt, A and h0 float32."""
+    Bsz, S_, Hh, G, N, P, Q = shape
+    gen = torch.Generator(device=dev).manual_seed(seed)
+
+    def randn(*shp, dt=torch.float32):
+        return torch.randn(shp, generator=gen, device=dev).to(dt)
+
+    x = randn(Bsz, S_, Hh, P, dt=dtype)
+    dtv = 0.1 + 0.5 * torch.rand((Bsz, S_, Hh), generator=gen, device=dev)
+    Bm, Cm = randn(Bsz, S_, G, N, dt=dtype), randn(Bsz, S_, G, N, dt=dtype)
+    A = -torch.exp(0.3 * randn(Hh))
+    h0 = randn(Bsz, Hh, N, P) if with_h0 else None
+    spec = ssd.SSDSpec(seq_len=S_, chunk=Q, nheads=Hh, ngroups=G, headdim=P,
+                       state=N)
+    return spec, (x, dtv, Bm, Cm, A), h0
+
+
+def check_ssd(name, got, want):
+    """(max|diff|, max|diff| / max|plain|, elements outside rtol 1e-4 /
+    atol 1e-5) of a kernel output against its plain version; raises past
+    rtol 1e-4 with atol 1e-5 x max(1, max|plain|) (as tests/test_torch_ssd.py
+    scales it) or past max|diff| / max|plain| = 1e-5."""
+    diff = (got - want).abs()
+    err, scale = float(diff.max()), float(want.abs().max())
+    outside = int((diff > SSD_ATOL + SSD_RTOL * want.abs()).sum())
+    rel = err / scale if scale > 0 else (0.0 if err == 0 else math.inf)
+    ok = bool((diff <= SSD_ATOL * max(1.0, scale)
+               + SSD_RTOL * want.abs()).all())
+    if not (ok and rel <= SSD_FIELD_RTOL):
+        raise AssertionError(f"{name}: kernel B2 disagrees with its plain "
+                             f"version: max|diff| {err:.3e}, max|diff|/"
+                             f"max|plain| {rel:.3e}, {outside} elements "
+                             f"outside rtol {SSD_RTOL} atol {SSD_ATOL}")
+    return err, rel, outside
+
+
+def phase_kernel_vs_plain_ssd(dev, smi):
+    """Kernel B2 against ssd_scan_plain on the reference test's shapes and
+    the serve phase's, float32 and bf16 inputs, h0 zero and given; then
+    timed at the serve shapes (bf16 inputs, float32 y: block_forward's
+    call).  Returns the kernels-line entry (launches set by serve-mamba2)."""
+    worst = 0.0
+    for shape in SSD_CASES:
+        for dtype in (torch.float32, BF16):
+            for with_h0 in (False, True):
+                spec, args, h0 = ssd_case(shape, 7, dtype, with_h0, dev)
+                y, h = uncounted(lambda: ssd.ssd_scan(spec, *args, h0=h0))
+                py, ph = ssd.ssd_scan_plain(spec, *args, h0=h0)
+                torch.cuda.synchronize()
+                ey = check_ssd(f"y {shape}", y, py)
+                eh = check_ssd(f"h_final {shape}", h, ph)
+                worst = max(worst, ey[1], eh[1])
+                say("kernel-vs-plain-ssd", f"(B,S,H,G,N,P,Q)={shape} "
+                    f"{str(dtype)[6:]} inputs, h0 "
+                    f"{'given' if with_h0 else 'zero'}: y max|diff| "
+                    f"{ey[0]:.3e} (/max|plain| {ey[1]:.2e}, {ey[2]} outside "
+                    f"rtol/atol), h_final {eh[0]:.3e} (/max|plain| "
+                    f"{eh[1]:.2e}, {eh[2]} outside)")
+                del y, h, py, ph
+    spec, args, h0 = ssd_case(SERVE_SHAPE, 7, BF16, False, dev)
+    bspec = dataclasses.replace(spec, dtype=BF16)
+    yb = uncounted(lambda: ssd.ssd_scan(bspec, *args))[0]
+    py, _ = ssd.ssd_scan_plain(spec, *args)
+    torch.cuda.synchronize()
+    err_b = float((yb.float() - py).abs().max())
+    ok = bool(((yb.float() - py).abs() <= 2 ** -8 * py.abs()
+               + SSD_ATOL * max(1.0, float(py.abs().max()))).all())
+    if not ok:
+        raise AssertionError(f"bf16 y: {err_b:.3e} beyond one bf16 rounding")
+    say("kernel-vs-plain-ssd", f"bf16 y at {SERVE_SHAPE}: within one bf16 "
+        f"rounding of the plain float32 y (max|diff| {err_b:.3e})")
+    del yb, py
+    launch = lambda: ssd.ssd_scan(spec, *args)  # noqa: E731
+    err = check_ssd("y serve", uncounted(launch)[0],
+                    ssd.ssd_scan_plain(spec, *args)[0])[0]
+    means = [uncounted(lambda: cuda_ms(launch, reps=5))[0] for _ in range(3)]
+    ms = statistics.median(means)
+    plain_ms, _ = cuda_ms(lambda: ssd.ssd_scan_plain(spec, *args))
+    cost = ssd.kernel_cost(spec, SERVE_SHAPE[0], in_dtype=BF16)
+    t_bytes = cost["min_bytes"] / HBM_BW * 1e3
+    t_ops = cost["flops"] / F32_PEAK * 1e3
+    bound = max(t_bytes, t_ops)
+    say("kernel-vs-plain-ssd", f"all cases within rtol {SSD_RTOL}, atol "
+        f"{SSD_ATOL} x max(1, max|plain|) and max|diff|/max|plain| "
+        f"{SSD_FIELD_RTOL} (worst {worst:.2e})")
+    say("kernels-ssd", f"ssd_scan at (B,S,H,G,N,P,Q)={SERVE_SHAPE}, bf16 "
+        f"x/B/C, float32 y: {ms:.3f} ms per launch (median of 3 means of 5;"
+        f" least {min(means):.3f}, most {max(means):.3f}) vs bound "
+        f"{bound:.3f} ms ({cost['flops'] / 1e9:.2f} GFLOP in {t_ops:.3f} ms "
+        f"at 67 TFLOP/s f32; {cost['min_bytes'] / 1e6:.1f} MB in "
+        f"{t_bytes:.3f} ms); plain {plain_ms:.1f} ms; no single PyTorch "
+        f"call computes a chunked scan, so no library time [{smi}]")
+    return {
+        "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:49",
+        "launches": None,              # set from serve-mamba2's counted run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "library_ms": None,
+    }
+
+
+SERVE_SEED = 0
+SERVE_REQUESTS = 16
+SERVE_BATCH = 8
+SERVE_NEW = 32
+SERVE_PROMPT = (256, 1024)           # prompt lengths drawn in this range
+
+
+def timed_steps(engine, events):
+    """Wrap the engine's step functions so each call is bracketed by CUDA
+    events, appended to `events` as (kind, start, end)."""
+    def wrap(fn, kind):
+        def call(*a):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = fn(*a)
+            end.record()
+            events.append((kind, start, end))
+            return out
+        return call
+    engine._prefill = wrap(engine._prefill, "prefill")
+    engine._decode = wrap(engine._decode, "decode")
+
+
+def with_plain_scan(fn):
+    """fn() with the model's scan running `ssd_scan_plain` (the model
+    itself never does)."""
+    kernel = ssd.ssd_scan
+    ssd.ssd_scan = ssd.ssd_scan_plain
+    try:
+        return fn()
+    finally:
+        ssd.ssd_scan = kernel
+
+
+def phase_serve_mamba2(dev, smi, entry):
+    """mamba2-130m at its published widths and depth through
+    serving.GenerationEngine on the card: random bf16 parameters from
+    SERVE_SEED, 16 requests in 2 batches of 8, prompt lengths drawn in
+    256-1024, 32 new tokens each; B2 counted (24 launches a prefill).
+    Then one batch in float32: prefill logits and cache with B2 against the
+    same call with ssd_scan_plain, and decode against the teacher-forced
+    forward."""
+    phase = "serve-mamba2"
+    cfg = configs.get("mamba2-130m")
+    t0 = time.perf_counter()
+    params = api.init(SERVE_SEED, cfg, device=dev)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    max_len = SERVE_PROMPT[1] + SERVE_NEW
+    engine = GenerationEngine(params, cfg, max_len=max_len,
+                              batch_size=SERVE_BATCH, device=dev)
+    rng = np.random.RandomState(SERVE_SEED)
+    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=rng.randint(
+        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)).astype(np.int32),
+        max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQUESTS)]
+    batches = [reqs[i:i + SERVE_BATCH]
+               for i in range(0, SERVE_REQUESTS, SERVE_BATCH)]
+    # warm-up: a short batch (cuBLAS handles, the kernel's library)
+    uncounted(lambda: engine.generate([Request(prompt=r.prompt[:64],
+                                               max_new_tokens=4)
+                                       for r in batches[0]]))
+    events = []
+    timed_steps(engine, events)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.launches = 0
+    walls, per_batch = [], []
+    t_all = time.perf_counter()
+    for batch in batches:
+        before = ssd.launches
+        t0 = time.perf_counter()
+        engine.generate(batch)            # ends in a copy to the host
+        walls.append(time.perf_counter() - t0)
+        per_batch.append(ssd.launches - before)
+    wall = time.perf_counter() - t_all
+    launches = ssd.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if per_batch != [cfg.num_layers] * len(batches):
+        raise AssertionError(f"{phase}: B2 launches per prefill {per_batch},"
+                             f" expected {cfg.num_layers}")
+    for r in reqs:
+        if r.output.shape != (SERVE_NEW,) or not np.all(
+                (r.output >= 0) & (r.output < cfg.vocab_size)):
+            raise AssertionError(f"{phase}: output {r.output} out of range")
+    torch.cuda.synchronize()
+    pre = [s.elapsed_time(e) for k, s, e in events if k == "prefill"]
+    dec = [s.elapsed_time(e) for k, s, e in events if k == "decode"]
+    tokens = SERVE_REQUESTS * SERVE_NEW
+    plens = [max(len(r.prompt) for r in b) for b in batches]
+    say(phase, f"mamba2-130m ({cfg.num_layers} layers, d_model "
+        f"{cfg.d_model}, vocab {cfg.vocab_size}, bf16, "
+        f"{cfg.param_count() / 1e6:.1f} M parameters, init {init_s:.2f} s): "
+        f"{SERVE_REQUESTS} requests in {len(batches)} batches of "
+        f"{SERVE_BATCH}, padded prompt lengths {plens}, {SERVE_NEW} new "
+        f"tokens each; B2 launches per prefill {per_batch} ({launches} in "
+        f"all)")
+    say(phase, f"prefill ms per batch (CUDA events) "
+        + ", ".join(f"{p:.2f}" for p in pre)
+        + f"; decode {statistics.mean(dec):.3f} ms per token step (mean of "
+        f"{len(dec)}; batch of {SERVE_BATCH}); wall {wall:.3f} s "
+        f"(per batch " + ", ".join(f"{w:.3f}" for w in walls)
+        + f" s), {tokens / wall:.1f} generated tok/s; prompt + generated "
+        f"{(sum(plens) * SERVE_BATCH + tokens) / wall:.0f} tok/s; peak "
+        f"{peak:.2f} GiB [{smi}]")
+    entry["launches"] = launches
+    toks = engine._make_batch(batches[0])
+    logits, _ = uncounted(lambda: api.prefill(params, cfg,
+                                              {"tokens": toks}, max_len))
+    if not torch.isfinite(logits).all():
+        raise AssertionError(f"{phase}: non-finite bf16 prefill logits")
+    del logits, engine, params
+    torch.cuda.empty_cache()
+    serve_f32_checks(cfg, toks, max_len, dev, phase)
+    return {"prefill_ms": pre, "decode_ms": statistics.mean(dec),
+            "tok_s": tokens / wall, "peak_gib": peak}
+
+
+def serve_f32_checks(cfg, toks, max_len, dev, phase):
+    """One batch in float32 (the same seed's parameters): prefill logits
+    and cache state with B2 against ssd_scan_plain (max|diff|/max|ref| <=
+    1e-4), and prefill + one decode step against the teacher-forced forward
+    (rtol 1e-3, atol 1e-4, tests/test_arch_smoke.py)."""
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    params = api.init(SERVE_SEED, cfg32, device=dev)
+    batch = {"tokens": toks}
+    f32 = torch.float32
+    got = uncounted(lambda: api.prefill(params, cfg32, batch, max_len,
+                                        cache_dtype=f32))
+    want = with_plain_scan(lambda: api.prefill(params, cfg32, batch,
+                                               max_len, cache_dtype=f32))
+    errs = {"logits": max_rel(got[0], want[0]),
+            "state": max_rel(got[1].state, want[1].state),
+            "conv": max_rel(got[1].conv, want[1].conv)}
+    del got, want
+    if max(errs.values()) > MAIN_TOL:
+        raise AssertionError(f"{phase}: float32 prefill with B2 vs plain: "
+                             f"{errs} > {MAIN_TOL}")
+    full, _ = uncounted(lambda: api.forward(params, cfg32, batch))
+    last = full[:, -1].clone()
+    del full
+    _, cache = uncounted(lambda: api.prefill(
+        params, cfg32, {"tokens": toks[:, :-1]}, max_len, cache_dtype=f32))
+    step, _ = api.decode_step(params, cfg32, toks[:, -1:], cache)
+    d = (step[:, 0] - last).abs()
+    ok = bool((d <= 1e-4 + 1e-3 * last.abs()).all())
+    say(phase, f"float32, batch {tuple(toks.shape)}: prefill with B2 vs "
+        f"ssd_scan_plain max|diff|/max|ref| logits {errs['logits']:.2e}, "
+        f"state {errs['state']:.2e}, conv {errs['conv']:.2e} (limit "
+        f"{MAIN_TOL:g}); decode step vs teacher-forced forward max|diff| "
+        f"{float(d.max()):.3e} (rtol 1e-3, atol 1e-4): "
+        f"{'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{phase}: decode disagrees with forward")
+    del params, cache, step
+    torch.cuda.empty_cache()
+
+
 def run_path(name, smi, dev):
     """One main path; returns (its kernel entry, its TB run's ms, and for
-    acoustic the sharded path's kernel entry)."""
+    acoustic the sharded path's and the bf16 tile's kernel entries)."""
     fc = full_case(name, dev)
     state, launches, tb_ms, kept = phase_main_path(fc, smi)
-    sharded = None
+    extra = []
     if kept is not None:
-        sharded = phase_sharded_acoustic(fc, smi, (state, *kept), tb_ms)
+        extra.append(phase_sharded_acoustic(fc, smi, (state, *kept), tb_ms))
         del kept
         torch.cuda.empty_cache()
     phase_sb(fc, smi, tb_ms, state)
     entry = kernel_entry(fc, state, launches, tb_ms, smi)
+    if name == "acoustic":
+        extra.append(phase_main_bf16(fc, smi, state, tb_ms))
+        torch.cuda.empty_cache()
     # the batched kernel at the main path's shapes, B = 2: the live state
     # and, as a null shot, a copy shifted along x
     fc.state = None
@@ -1349,7 +1795,7 @@ def run_path(name, smi, dev):
     phase_batched_main(fc, spec, args, smi)
     del fc, spec, args
     torch.cuda.empty_cache()          # the next path's fields are larger
-    return entry, tb_ms, sharded
+    return entry, tb_ms, extra
 
 
 def main():
@@ -1359,14 +1805,17 @@ def main():
     phase_kernel_vs_plain(dev)
     phase_kernels_batched(dev)
     phase_kernel_vs_plain_dom(dev)
-    entries, tb_ms, sharded = [], {}, None
+    phase_kernel_vs_plain_bf16(dev)
+    b2 = phase_kernel_vs_plain_ssd(dev, smi)
+    phase_serve_mamba2(dev, smi, b2)
+    entries, tb_ms, extra = [], {}, []
     for name in ("acoustic", "tti", "elastic"):
-        entry, tb_ms[name], b1c = run_path(name, smi, dev)
+        entry, tb_ms[name], more = run_path(name, smi, dev)
         entries.append(entry)
-        sharded = sharded or b1c
+        extra += more
     entries.append(phase_survey_acoustic(smi, dev, tb_ms["acoustic"]))
     entries += phase_survey_small(smi, dev)
-    entries.append(sharded)
+    entries += extra + [b2]
     phase_sharded_small(smi, dev)
     phase_survey_sharded(smi, dev)
     print(json.dumps({"kernels": entries}), flush=True)

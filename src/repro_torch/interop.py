@@ -1,11 +1,13 @@
 """Carry the JAX package's data into the port.
 
-This system has no model weights: its parameters are the model fields and
-the precomputed sparse structures.  Each function takes plain numpy arrays
-(``np.asarray`` of the reference's `GriddedSources`, `GriddedReceivers`,
-`TileSourceTable` or `TileReceiverTable` fields) and returns the port's
-structure on `device`, so the reference's exact precompute can be fed to
-the port's propagators.  Nothing here imports the reference.
+The stencil path has no model weights: its parameters are the model fields
+and the precomputed sparse structures.  Each function takes plain numpy
+arrays (``np.asarray`` of the reference's `GriddedSources`,
+`GriddedReceivers`, `TileSourceTable` or `TileReceiverTable` fields) and
+returns the port's structure on `device`, so the reference's exact
+precompute can be fed to the port's propagators.  The Mamba2 model's
+parameters come across the same way (`mamba2_params_from_numpy`).  Nothing
+here imports the reference.
 """
 from __future__ import annotations
 
@@ -15,10 +17,12 @@ import numpy as np
 import torch
 
 from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig
 from repro_torch.core import sources as src_mod
 from repro_torch.core.propagators.acoustic import AcousticParams
 from repro_torch.core.propagators.elastic import ElasticParams, ElasticState
 from repro_torch.core.propagators.tti import TTIParams, TTIState
+from repro_torch.models import mamba2
 
 
 def _fields(cls, arrays, device):
@@ -92,3 +96,36 @@ def tile_tables_from_numpy(src: Optional[Sequence] = None,
     i32, f32 = np.int32, np.float32
     return (conv(src, src_mod.TileSourceTable, (i32, i32, i32, f32)),
             conv(rec, src_mod.TileReceiverTable, (i32, i32, i32, f32)))
+
+
+def _param_tensor(a, dev) -> torch.Tensor:
+    """A numpy parameter as a tensor of the same dtype; a bfloat16 array
+    (ml_dtypes' type, which torch does not read) by its bits."""
+    a = np.asarray(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.uint16).astype(np.int16)).view(
+            torch.bfloat16).to(dev)
+    return torch.as_tensor(np.array(a), device=dev)
+
+
+def mamba2_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's Mamba2 parameters from the reference's, given as numpy
+    (``jax.tree.map(np.asarray, params)``): ``embed/embedding``,
+    ``blocks/*`` stacked over layers and ``final_norm``, each with its own
+    dtype.  Every shape is checked against `cfg` (a random init of the port
+    has the same tree)."""
+    dev = resolve_device(device)
+    out = {"embed": {k: _param_tensor(v, dev)
+                     for k, v in tree["embed"].items()},
+           "blocks": {k: _param_tensor(v, dev)
+                      for k, v in tree["blocks"].items()},
+           "final_norm": _param_tensor(tree["final_norm"], dev)}
+    shapes = mamba2.param_shapes(cfg)
+    got = {"embed/" + k: tuple(v.shape) for k, v in out["embed"].items()}
+    got.update({"blocks/" + k: tuple(v.shape)
+                for k, v in out["blocks"].items()})
+    got["final_norm"] = tuple(out["final_norm"].shape)
+    if got != shapes:
+        raise ValueError(f"parameters do not fit {cfg.name}: got {got}, "
+                         f"expected {shapes}")
+    return out

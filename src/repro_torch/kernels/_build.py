@@ -22,7 +22,7 @@ from typing import Dict, Iterable, NamedTuple
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("stencil_tb", "stencil_tb_tti", "stencil_tb_elastic")
+SOURCES = ("stencil_tb", "stencil_tb_tti", "stencil_tb_elastic", "ssd_scan")
 # IEEE division and square root (no fast math), and no multiply-add
 # contraction: every product is rounded before it is added, as the
 # reference rounds it.  With contraction the TTI and elastic 512^3 paths

@@ -47,8 +47,18 @@
 // Within one tile the source slots are distinct grid points, so one thread
 // per slot needs no atomics; padding slots (value 0) are skipped, and a
 // slot outside the window matches no point, as the one-hot mask does.
+//
+// Storage type (B1a-bf16): the pieces below are templates on the type S the
+// fields, tables, partials and scratch are stored in; TileArgs, View and
+// Tile name their float32 instances, which the TTI and elastic kernels
+// use.  A value is read as float (to_f: __bfloat162float for bf16) and
+// stored with from_f (__float2bfloat16), so a bf16 kernel computes in
+// float32 and rounds once a store, as the reference's bf16 tile rounds
+// each step's fields; for float32 both are the identity and the code is
+// the float32 kernels' own.  The domain mask `dom` stays float32.
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <type_traits>
@@ -64,47 +74,68 @@ struct Coefs {
     float c[3][2 * MAX_RADIUS + 1];
 };
 
-struct TileArgs {
-    const float* in[MAX_FIELDS]; // state fields, each (B, nx + 2H, ny + 2H,
+__device__ __forceinline__ float to_f(float v) { return v; }
+__device__ __forceinline__ float to_f(__nv_bfloat16 v)
+{
+    return __bfloat162float(v);
+}
+
+template <class S>
+__device__ __forceinline__ S from_f(float v);
+template <>
+__device__ __forceinline__ float from_f<float>(float v) { return v; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_f<__nv_bfloat16>(float v)
+{
+    return __float2bfloat16(v);
+}
+
+template <class S>
+struct TileArgsT {
+    const S* in[MAX_FIELDS];     // state fields, each (B, nx + 2H, ny + 2H,
                                  // nz), zero-padded; then param fields, each
                                  // (nx + 2H, ny + 2H, nz), edge-padded, or
                                  // (B, nx + 2H, ny + 2H, nz): one a row
     long long in_shot[MAX_FIELDS]; // elements from one row's input to the
                                  // next: a padded volume for a state field
                                  // and a per-row param, 0 for a shared one
-    float* out[MAX_STATE];       // state fields, each (B, nx, ny, nz)
+    S* out[MAX_STATE];           // state fields, each (B, nx, ny, nz)
     long long out_shot;          // nx * ny * nz
     const int* src_coords;       // (B, ntiles, src_cap, 3) window-local
-    const float* src_vals;       // (B, ntiles, T, src_cap)
+    const S* src_vals;           // (B, ntiles, T, src_cap)
     const int* rec_coords;       // (B, ntiles, rec_cap, 3)
-    const float* rec_w;          // (B, ntiles, rec_cap)
-    float* rec_out;              // (B, ntiles, T, rec_cap, channels)
-    float* scratch;              // (B, ntiles, windows, wx * wy * nz)
+    const S* rec_w;              // (B, ntiles, rec_cap)
+    S* rec_out;                  // (B, ntiles, T, rec_cap, channels)
+    S* scratch;                  // (B, ntiles, windows, wx * wy * nz)
     const float* dom;            // nullptr, or (B, nx + 2H, ny + 2H): each
                                  // row's domain mask (nonzero = inside)
     long long dom_row;           // (nx + 2H) * (ny + 2H)
     int nshots, nx, ny, nz, tx, ty, T, H, src_cap, rec_cap;
     float dt, dt2;
 };
+using TileArgs = TileArgsT<float>;
 
 // A field's window: element (x, y, z) at p[x * sx + y * nz + z].  The
 // padded inputs and the scratch windows differ only in the x-stride.
-struct View {
-    const float* p;
+template <class S>
+struct ViewT {
+    const S* p;
     long long sx;
 };
+using View = ViewT<float>;
 
 struct Pt {
     int x, y, z;
 };
 
-struct Tile {
+template <class S>
+struct TileT {
     int shot, ti, tj, nx, ny, nz, tx, ty, H, wx, wy;
     long long tile;              // flat (shot, tile) index
     long long pad_sx, win_sx, org, npts;
     const float* dom;            // this row's domain mask, or nullptr
 
-    __device__ explicit Tile(const TileArgs& a)
+    __device__ explicit TileT(const TileArgsT<S>& a)
         : shot(blockIdx.z), ti(blockIdx.x), tj(blockIdx.y), nx(a.nx), ny(a.ny),
           nz(a.nz), tx(a.tx), ty(a.ty), H(a.H), wx(a.tx + 2 * a.H),
           wy(a.ty + 2 * a.H),
@@ -117,28 +148,28 @@ struct Tile {
           dom(a.dom ? a.dom + blockIdx.z * a.dom_row : nullptr) {}
 
     // this tile's window of padded input field i, in this shot's copy
-    __device__ View input(const TileArgs& a, int i) const {
+    __device__ ViewT<S> input(const TileArgsT<S>& a, int i) const {
         return {a.in[i] + shot * a.in_shot[i] + org, pad_sx};
     }
 
     // scratch window w of this tile's `nwin`
-    __device__ float* scratch(const TileArgs& a, int w, int nwin) const {
+    __device__ S* scratch(const TileArgsT<S>& a, int w, int nwin) const {
         return a.scratch + (tile * nwin + w) * npts;
     }
 
-    __device__ View window(const float* buf) const { return {buf, win_sx}; }
+    __device__ ViewT<S> window(const S* buf) const { return {buf, win_sx}; }
 
     __device__ long long at(Pt q) const {
         return q.x * win_sx + (long long)q.y * nz + q.z;
     }
 
-    __device__ float ld(const View& v, Pt q) const {
-        return v.p[q.x * v.sx + (long long)q.y * nz + q.z];
+    __device__ float ld(const ViewT<S>& v, Pt q) const {
+        return to_f(v.p[q.x * v.sx + (long long)q.y * nz + q.z]);
     }
 
     // a read-only input (a param field), through the read-only cache
-    __device__ float ro(const View& v, Pt q) const {
-        return __ldg(v.p + q.x * v.sx + (long long)q.y * nz + q.z);
+    __device__ float ro(const ViewT<S>& v, Pt q) const {
+        return to_f(__ldg(v.p + q.x * v.sx + (long long)q.y * nz + q.z));
     }
 
     // inside the physical domain: the row's mask at the window point
@@ -166,21 +197,21 @@ struct Tile {
     // same for all lanes of a warp (they run along z), which keeps the tap
     // offsets warp-uniform
     template <int NT, int OFF0>
-    __device__ __forceinline__ float taps(const View& v, int axis, Pt q,
+    __device__ __forceinline__ float taps(const ViewT<S>& v, int axis, Pt q,
                                           const float* c) const {
-        const float* col = v.p + (long long)q.x * v.sx + (long long)q.y * nz;
+        const S* col = v.p + (long long)q.x * v.sx + (long long)q.y * nz;
         float acc = 0.f;
 #pragma unroll
         for (int k = 0; k < NT; ++k) {
             const int d = OFF0 + k;
             float x;
             if (axis == 0)
-                x = (q.x + d >= 0 && q.x + d < wx) ? col[d * v.sx + q.z] : 0.f;
+                x = (q.x + d >= 0 && q.x + d < wx) ? to_f(col[d * v.sx + q.z]) : 0.f;
             else if (axis == 1)
                 x = (q.y + d >= 0 && q.y + d < wy)
-                    ? col[(long long)d * nz + q.z] : 0.f;
+                    ? to_f(col[(long long)d * nz + q.z]) : 0.f;
             else
-                x = (q.z + d >= 0 && q.z + d < nz) ? col[q.z + d] : 0.f;
+                x = (q.z + d >= 0 && q.z + d < nz) ? to_f(col[q.z + d]) : 0.f;
             acc += x * c[k];
         }
         return acc;
@@ -207,36 +238,37 @@ struct Tile {
 
     // fused grid-aligned injection of step k into the N window buffers
     template <int N>
-    __device__ void inject(const TileArgs& a, int k, float* const (&f)[N]) const {
+    __device__ void inject(const TileArgsT<S>& a, int k, S* const (&f)[N]) const {
         for (int p = threadIdx.x; p < a.src_cap; p += blockDim.x) {
-            const float v = a.src_vals[(tile * a.T + k) * a.src_cap + p];
+            const float v = to_f(a.src_vals[(tile * a.T + k) * a.src_cap + p]);
             const int* c = a.src_coords + (tile * a.src_cap + p) * 3;
             if (v == 0.f || !in_window(c)) continue;
             const long long w = at({c[0], c[1], c[2]});
 #pragma unroll
-            for (int i = 0; i < N; ++i) f[i][w] += v;
+            for (int i = 0; i < N; ++i) f[i][w] = from_f<S>(to_f(f[i][w]) + v);
         }
     }
 
     // receiver partials of step k: rec_out[tile, k, slot, :] = rec_w[slot]
     // * sample(window index), sample writing NCHAN channels
-    template <int NCHAN, class S>
-    __device__ void record(const TileArgs& a, int k, S sample) const {
+    template <int NCHAN, class F>
+    __device__ void record(const TileArgsT<S>& a, int k, F sample) const {
         for (int p = threadIdx.x; p < a.rec_cap; p += blockDim.x) {
             const int* c = a.rec_coords + (tile * a.rec_cap + p) * 3;
-            float* o = a.rec_out + ((tile * a.T + k) * a.rec_cap + p) * NCHAN;
+            S* o = a.rec_out + ((tile * a.T + k) * a.rec_cap + p) * NCHAN;
             float s[NCHAN];
             const bool in = in_window(c);
             if (in) sample(at({c[0], c[1], c[2]}), s);
-            const float w = a.rec_w[tile * a.rec_cap + p];
+            const float w = to_f(a.rec_w[tile * a.rec_cap + p]);
 #pragma unroll
-            for (int ch = 0; ch < NCHAN; ++ch) o[ch] = in ? w * s[ch] : 0.f;
+            for (int ch = 0; ch < NCHAN; ++ch)
+                o[ch] = from_f<S>(in ? w * s[ch] : 0.f);
         }
     }
 
     // write the valid centre of the N state views to this shot's a.out[0..N)
     template <int N>
-    __device__ void write_back(const TileArgs& a, const View* v) const {
+    __device__ void write_back(const TileArgsT<S>& a, const ViewT<S>* v) const {
         const long long base = shot * a.out_shot;
         const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
         const int nwarps = blockDim.x >> 5;
@@ -246,23 +278,25 @@ struct Tile {
                 base + ((long long)(ti * tx + lx) * ny + (tj * ty + ly)) * nz;
 #pragma unroll
             for (int f = 0; f < N; ++f) {
-                const float* src = v[f].p + (lx + H) * v[f].sx + (long long)(ly + H) * nz;
+                const S* src = v[f].p + (lx + H) * v[f].sx + (long long)(ly + H) * nz;
                 for (int iz = lane; iz < nz; iz += 32) a.out[f][dst + iz] = src[iz];
             }
         }
     }
 };
+using Tile = TileT<float>;
 
 // Fills the launch arguments from the C entry point's; returns 0 or the
 // cudaError_t value of what is wrong.  The first `nout` of the `nin` inputs
 // are the state fields (one copy a row), the rest the params (shared, or
 // one copy a row when `param_rows`).  `dom` is nullptr or the rows' domain
 // masks.  `ntaps` coefficients per axis.
-static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
-                     const float* const* in, const int* src_coords,
-                     const float* src_vals, const int* rec_coords,
-                     const float* rec_w, float* const* out, float* rec_out,
-                     float* scratch, const float* dom, int param_rows,
+template <class S>
+static int tile_args(TileArgsT<S>* a, Coefs* cf, int device, int nin, int nout,
+                     const S* const* in, const int* src_coords,
+                     const S* src_vals, const int* rec_coords,
+                     const S* rec_w, S* const* out, S* rec_out,
+                     S* scratch, const float* dom, int param_rows,
                      int nshots, int nx, int ny, int nz,
                      int tx, int ty, int T, int H, int src_cap, int rec_cap,
                      int radius, const float* coefs, int ntaps, float dt,
@@ -275,7 +309,7 @@ static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
         || nin > MAX_FIELDS || nout > MAX_STATE
         || ntaps > 2 * MAX_RADIUS + 1)
         return (int)cudaErrorInvalidValue;
-    *a = TileArgs{};
+    *a = TileArgsT<S>{};
     const long long padded = (long long)(nx + 2 * H) * (ny + 2 * H) * nz;
     for (int i = 0; i < nin; ++i) {
         a->in[i] = in[i];
@@ -302,7 +336,8 @@ static int tile_args(TileArgs* a, Coefs* cf, int device, int nin, int nout,
 }
 
 // one block per (x tile, y tile, shot)
-static dim3 tile_grid(const TileArgs& a)
+template <class S>
+static dim3 tile_grid(const TileArgsT<S>& a)
 {
     return dim3(a.nx / a.tx, a.ny / a.ty, a.nshots);
 }

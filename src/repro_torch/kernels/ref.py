@@ -4,11 +4,14 @@ The wave-propagation oracles are the Listing-1 reference drivers of
 `repro_torch.core.propagators` — naive full-grid timestepping with
 grid-aligned injection and receiver interpolation, one per physics
 (acoustic, TTI, elastic).  The temporally-blocked path must match them to
-float32 tolerance for every (shape, order, T, tile).
+float32 tolerance for every (shape, order, T, tile).  The SSD scan's
+oracle is the naive per-step recurrence (`ssd_chunked_reference`).
 """
 from __future__ import annotations
 
 from typing import Optional, Tuple
+
+import torch
 
 from repro_torch._device import as_tensor, resolve_device
 from repro_torch.core import sources as src_mod
@@ -73,3 +76,20 @@ def elastic_reference(nt: int, state, params, dt: float,
     return _reference(elastic, elastic.ElasticState(*state),
                       elastic.ElasticParams(*params), nt, dt, spacing, order,
                       g, receivers, device)
+
+
+def ssd_chunked_reference(x, a, b, c, chunk: int = None):
+    """Oracle for the Mamba2 SSD scan kernel: the naive sequential linear
+    recurrence h[t] = a[t] * h[t-1] + b[t] * x[t]; y[t] = <c[t], h[t]>
+    (the reference's `lax.scan` as a loop over t).
+
+    Shapes: x (T, P), a (T,), b (T, N), c (T, N); h (N, P); y (T, P).
+    `chunk` is unused, as in the reference.
+    """
+    T, P = x.shape
+    h = torch.zeros((b.shape[1], P), dtype=x.dtype, device=x.device)
+    ys = []
+    for t in range(T):
+        h = a[t] * h + b[t][:, None] * x[t][None, :]
+        ys.append(c[t] @ h)
+    return torch.stack(ys)

@@ -21,7 +21,8 @@ origin as the fields, in place of the spec's "inside the grid" predicate.
 `tb_time_tile` dispatches on where its tensors lie: CPU tensors run
 `tb_time_tile_plain`; CUDA tensors launch the physics' kernel
 (``csrc/stencil_tb.cu`` acoustic, ``csrc/stencil_tb_tti.cu`` TTI,
-``csrc/stencil_tb_elastic.cu`` elastic; float32) or raise.  `launches`
+``csrc/stencil_tb_elastic.cu`` elastic; float32, and bf16 for acoustic
+without `dom`: kernel B1a-bf16) or raise.  `launches`
 counts kernel launches, so a run can show it went through the kernel.
 """
 from __future__ import annotations
@@ -216,12 +217,15 @@ _KERNELS = {
 def _bind(source: str):
     from repro_torch.kernels import _build
     lib = _build.load(source)
-    fn = lib.repro_tb_tile
-    if fn.argtypes is None:
+    if lib.repro_tb_tile.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
-                       + [ctypes.c_float] * 2 + [p])
-        fn.restype = i
+        entries = [lib.repro_tb_tile]
+        if source == _KERNELS["acoustic"].source:
+            entries.append(lib.repro_tb_tile_bf16)
+        for fn in entries:
+            fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
+                           + [ctypes.c_float] * 2 + [p])
+            fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         if lib.repro_max_radius() != _MAX_RADIUS:
@@ -230,18 +234,11 @@ def _bind(source: str):
     return lib
 
 
-def _dtype_error(name, got, want) -> TypeError:
-    if got == torch.bfloat16:
-        return TypeError(f"{name}: bfloat16 has no CUDA TB kernel yet "
-                         "(ROADMAP B1a-bf16); use float32")
-    return TypeError(f"{name} has dtype {got}, expected {want}")
-
-
 def _check(name, t, shape, dtype, dev):
     if t.device != dev:
         raise ValueError(f"{name} is on {t.device}, expected {dev}")
     if t.dtype != dtype:
-        raise _dtype_error(name, t.dtype, dtype)
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
     if tuple(t.shape) != tuple(shape):
         raise ValueError(f"{name} has shape {tuple(t.shape)}, expected "
                          f"{tuple(shape)}")
@@ -271,12 +268,23 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     kern = _KERNELS[physics.name]
     dev = state_pads[0].device
     f32 = torch.float32
+    dtype = spec.dtype
     h = spec.halo
     ntx, nty = spec.ntiles
     ntiles = ntx * nty
     wx, wy, nz = spec.window
-    if spec.dtype != f32:
-        raise _dtype_error("spec.dtype", spec.dtype, f32)
+    if dtype == torch.bfloat16:
+        # B1a-bf16 is the single-device and shot-batched acoustic tile
+        if physics.name != "acoustic":
+            raise TypeError(f"{physics.name}: the bfloat16 TB kernel is "
+                            "acoustic only (B1a-bf16); the TTI and elastic "
+                            "kernels take float32")
+        if dom is not None:
+            raise TypeError("the sharded path's kernel (B1c, with dom) "
+                            "takes float32, not bfloat16")
+    elif dtype != f32:
+        raise TypeError(f"spec.dtype {dtype}: the TB kernels take float32 "
+                        "(and bfloat16 for acoustic)")
     if h != spec.T * physics.step_radius(spec.order):
         raise ValueError(f"spec halo {h} is not T * {physics.name}'s step "
                          f"radius {physics.step_radius(spec.order)}")
@@ -296,15 +304,15 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     param_rows = param_pads[0].dim() == 4
     for i, (name, t) in enumerate(zip(names, fields)):
         shot_axis = (B,) if i < len(state_pads) or param_rows else ()
-        _check(name, t, shot_axis + pad_shape, f32, dev)
+        _check(name, t, shot_axis + pad_shape, dtype, dev)
     if dom is not None:
         _check("dom", dom, (B,) + pad_shape[:2], f32, dev)
     cap, capr = s_coords.shape[-2], r_coords.shape[-2]
     chan = physics.rec_channels
     _check("src_coords", s_coords, (B, ntiles, cap, 3), torch.int32, dev)
-    _check("src_vals", s_vals, (B, ntiles, spec.T, cap), f32, dev)
+    _check("src_vals", s_vals, (B, ntiles, spec.T, cap), dtype, dev)
     _check("rec_coords", r_coords, (B, ntiles, capr, 3), torch.int32, dev)
-    _check("rec_w", r_w, (B, ntiles, capr), f32, dev)
+    _check("rec_w", r_w, (B, ntiles, capr), dtype, dev)
     if wx * wy * nz >= 2 ** 31:
         raise ValueError(f"window {spec.window} too large for the kernel")
     r = spec.radius
@@ -315,16 +323,17 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     dt = st.round_to(spec.dt, f32)
     dt2 = st.round_to(dt * dt, f32)
 
-    outs = tuple(torch.empty((B, spec.nx, spec.ny, spec.nz), dtype=f32,
+    outs = tuple(torch.empty((B, spec.nx, spec.ny, spec.nz), dtype=dtype,
                              device=dev) for _ in physics.state_fields)
-    rec = torch.zeros((B, ntx, nty, spec.T, capr, chan), dtype=f32,
+    rec = torch.zeros((B, ntx, nty, spec.T, capr, chan), dtype=dtype,
                       device=dev)
     scratch = torch.empty((B, ntiles, kern.scratch_windows, wx * wy * nz),
-                          dtype=f32, device=dev)
+                          dtype=dtype, device=dev)
     lib = _bind(kern.source)
+    entry = lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.repro_tb_tile(
+    rc = entry(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         _ptrs(fields), ptr(s_coords), ptr(s_vals), ptr(r_coords), ptr(r_w),
         _ptrs(outs), ptr(rec), ptr(scratch),
@@ -375,7 +384,8 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
     and rec_partials (B, ntx, nty, T, capr, rec_channels).
 
     CPU tensors run `tb_time_tile_plain`; CUDA tensors launch the physics'
-    kernel once for all B shots (float32, contiguous) or raise.  The launch
+    kernel once for all B shots (contiguous; float32, or bfloat16 for
+    acoustic without `dom`) or raise.  The launch
     goes on the current stream and does not synchronise.
     """
     dev = state_pads[0].device

@@ -1,0 +1,61 @@
+"""Family-dispatched model API (port of `repro.models.api`, the ssm family).
+
+    init(seed, cfg, shape=None, device=)      -> params
+    forward(params, cfg, batch)               -> (logits, aux_loss)
+    prefill(params, cfg, batch, max_len)      -> (logits, cache)
+    decode_step(params, cfg, tokens, cache)   -> (logits, cache)
+    make_cache(cfg, batch_size, max_len)      -> cache
+
+Batches are dicts with ``tokens`` (B, S).  Only the ssm family (Mamba2)
+is ported; the others raise `NotImplementedError` naming ROADMAP A11.
+"""
+from __future__ import annotations
+
+from typing import Optional
+
+import torch
+
+from repro_torch._device import resolve_device
+from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import mamba2
+
+
+def _module(cfg: ModelConfig):
+    if cfg.family != "ssm":
+        raise NotImplementedError(
+            f"family {cfg.family!r} ({cfg.name}) is not ported to "
+            "repro_torch yet (ROADMAP A11)")
+    return mamba2
+
+
+def init(seed: int, cfg: ModelConfig, shape: Optional[ShapeConfig] = None,
+         device="cuda"):
+    """Random parameters on `device`, drawn from a `torch.Generator` there
+    seeded with `seed`.  The numbers differ from the reference's
+    `jax.random` ones (the tests carry the reference's parameters across
+    with `interop.mamba2_params_from_numpy`).  `shape` is unused by the
+    ssm family, as in the reference."""
+    mod = _module(cfg)
+    dev = resolve_device(device)
+    return mod.init(torch.Generator(device=dev).manual_seed(seed), cfg)
+
+
+def forward(params, cfg: ModelConfig, batch: dict):
+    return _module(cfg).forward(params, cfg, batch["tokens"])
+
+
+def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
+            cache_dtype=torch.bfloat16):
+    """The SSM cache has no length axis, so `max_len` is unused, as in the
+    reference."""
+    return _module(cfg).prefill(params, cfg, batch["tokens"],
+                                cache_dtype=cache_dtype)
+
+
+def decode_step(params, cfg: ModelConfig, tokens, cache):
+    return _module(cfg).decode_step(params, cfg, tokens, cache)
+
+
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda"):
+    return _module(cfg).SSMCache.zeros(cfg, batch, dtype, device=device)

@@ -1,4 +1,5 @@
-"""The CUDA TB kernel against its plain PyTorch version, on the card.
+"""The CUDA kernels against their plain PyTorch versions, on the card: the
+TB kernels (B1a-B1d, B1a-bf16) and the Mamba2 SSD scan (B2).
 
 Marked `cuda`; each test skips (inside its body) when no card is present,
 so the CPU runs collect the same tests on every worker.  This file imports
@@ -15,8 +16,15 @@ calls.
 Tolerance: rtol 2e-4, atol 1e-6 for acoustic (tests/test_kernel_stencil_tb.py),
 rtol 2e-4, atol 1e-5 for TTI and elastic (tests/test_kernel_multiphysics.py),
 and for these each field and receiver channel within `FIELD_RTOL` of its own
-scale (the elastic cases are in SI units, with velocities near 1e-9).
+scale (the elastic cases are in SI units, with velocities near 1e-9).  The
+bf16 acoustic tile: the reference's bf16 bound (0.1 max|f32| + 1e-2).  The
+SSD scan: rtol 1e-4 and atol 1e-5 x max(1, max|plain|)
+(tests/test_kernel_ssd.py; the atol scaled as in tests/test_torch_ssd.py),
+and max|diff| / max|plain| <= 1e-5; a bf16 y within one bf16 rounding
+(2^-8 relative) of the plain float32 y.
 """
+import dataclasses
+
 import numpy as np
 import pytest
 import torch
@@ -37,12 +45,13 @@ def _card():
     return torch.device("cuda", 0)
 
 
-def _operands(c, T, tile, dev, sources=True, t0=1):
+def _operands(c, T, tile, dev, sources=True, t0=1, dtype=torch.float32):
     g, gr = port_sparse(c, device=dev) if sources else (None, None)
-    params = {"m": torch.as_tensor(c.m, device=dev),
-              "damp": torch.as_tensor(c.damp, device=dev)}
+    params = {"m": torch.as_tensor(c.m, device=dev).to(dtype),
+              "damp": torch.as_tensor(c.damp, device=dev).to(dtype)}
     # one shot: a shot axis of 1
-    state = tuple(torch.as_tensor(a, device=dev)[None] for a in (c.u0, c.u1))
+    state = tuple(torch.as_tensor(a, device=dev).to(dtype)[None]
+                  for a in (c.u0, c.u1))
     spec, st, rt, ppads = ops.prepare_tiles(
         TBPlan(tile, T, c.order // 2), phys.ACOUSTIC, state[0][0], params, g,
         gr, c.order, c.dt, c.spacing)
@@ -97,14 +106,49 @@ def test_propagate_on_card_matches_reference_and_cpu():
                                atol=ATOL)
 
 
+def _bf16_bound(f32):
+    """tests/test_kernel_stencil_tb.py::test_bf16_runs_and_tracks_f32's
+    bound, from the float32 result: 0.1 max(max|f32|, 1e-3) + 1e-2."""
+    return 0.1 * max(float(f32.abs().max()), 1e-3) + 1e-2
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take():
+    """The acoustic kernel takes bf16 (B1a-bf16): held to the plain bf16
+    version and to the float32 kernel within the reference's bf16 bound.
+    A bf16 field under a float32 spec, bf16 TTI, bf16 with a domain mask,
+    a strided field, a wrong shape and a CPU field are refused."""
     dev = _card()
     c = acoustic_case(shape=(16, 16, 12), nt=4)
     spec, (pads, ppads, sc, sv, rc, rw) = _operands(c, 2, (8, 8), dev)
+    bspec, bargs = _operands(c, 2, (8, 8), dev, dtype=torch.bfloat16)
+    assert bspec.dtype == torch.bfloat16
+    before = ker.launches
+    kst, krec = ker.tb_time_tile(bspec, phys.ACOUSTIC, *bargs)
+    assert ker.launches == before + 1
+    pst, prec = ker.tb_time_tile_plain(bspec, phys.ACOUSTIC, *bargs)
+    fst, frec = ker.tb_time_tile(spec, phys.ACOUSTIC, pads, ppads, sc, sv,
+                                 rc, rw)
+    torch.cuda.synchronize()
+    for k, p, f in zip((*kst, krec), (*pst, prec), (*fst, frec)):
+        assert k.dtype == torch.bfloat16 and k.shape == f.shape
+        assert torch.isfinite(k.float()).all()
+        bound = _bf16_bound(f)
+        assert float((k.float() - p.float()).abs().max()) <= bound
+        assert float((k.float() - f).abs().max()) <= bound
     bf = tuple(p.to(torch.bfloat16) for p in pads)
-    with pytest.raises(TypeError, match="B1a-bf16"):
+    with pytest.raises(TypeError, match="dtype"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, bf, ppads, sc, sv, rc, rw)
+    mc = MULTI_CASES["tti"](shape=(16, 16, 12), nt=4)
+    tp, tspec, targs = _mp_operands(mc, 2, (8, 8), dev)
+    with pytest.raises(TypeError, match="acoustic only"):
+        ker.tb_time_tile(dataclasses.replace(tspec, dtype=torch.bfloat16),
+                         tp, *(tuple(a.to(torch.bfloat16) for a in t)
+                               for t in targs[:2]), *targs[2:])
+    dom = torch.ones((1, 16 + 2 * bspec.halo, 16 + 2 * bspec.halo),
+                     device=dev)
+    with pytest.raises(TypeError, match="B1c"):
+        ker.tb_time_tile(bspec, phys.ACOUSTIC, *bargs, dom=dom)
     strided = (pads[0].transpose(1, 2), pads[1])
     with pytest.raises(ValueError, match="contiguous"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, strided, ppads, sc, sv, rc, rw)
@@ -419,3 +463,182 @@ def test_dom_grid_mask_equals_the_grid_predicate(physics):
     assert all(torch.equal(x, y) for x, y in zip(a_st, b_st))
     with pytest.raises(ValueError, match="dom"):
         ker.tb_time_tile(spec, p, *args, dom=dom[:, 1:].contiguous())
+
+
+@pytest.mark.cuda
+def test_bf16_propagate_on_card_tracks_f32_and_cpu():
+    """ops.acoustic_tb_propagate with bf16 fields runs kernel B1a-bf16 and
+    tracks the float32 run and the plain bf16 run on the CPU within the
+    reference test's bound."""
+    dev = _card()
+    c = acoustic_case(nt=4)
+    plan = TBPlan(tile=(8, 8), T=2, radius=2)
+    g, gr = port_sparse(c, device=dev)
+    (_, f1), _ = ops.acoustic_tb_propagate(
+        c.nt, c.u0, c.u1, c.m, c.damp, g, gr, plan, 4, c.dt, c.spacing)
+    bf = [torch.from_numpy(a).to(torch.bfloat16)
+          for a in (c.u0, c.u1, c.m, c.damp)]
+    before = ker.launches
+    (_, b1), _ = ops.acoustic_tb_propagate(
+        c.nt, *(a.to(dev) for a in bf), g, gr, plan, 4, c.dt, c.spacing)
+    assert ker.launches == before + 2 and b1.dtype == torch.bfloat16
+    cg, cgr = port_sparse(c, device="cpu")
+    (_, h1), _ = ops.acoustic_tb_propagate(
+        c.nt, *bf, cg, cgr, plan, 4, c.dt, c.spacing, device="cpu")
+    bound = _bf16_bound(f1)
+    b = b1.float().cpu()
+    assert torch.isfinite(b).all()
+    assert float((b - f1.cpu()).abs().max()) <= bound
+    assert float((b - h1.float()).abs().max()) <= bound
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2: the Mamba2 SSD chunked scan
+# ---------------------------------------------------------------------------
+
+SSD_RTOL, SSD_ATOL, SSD_FIELD_RTOL = 1e-4, 1e-5, 1e-5
+
+
+def _ssd_inputs(shape, seed, dtype, with_h0, dev):
+    """tests/test_kernel_ssd.py's draws; x, B and C in `dtype`, dt and A
+    float32 (as block_forward makes them), h0 float32 or None."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    Bsz, S, H, G, N, P, Q = shape
+    rng = np.random.RandomState(seed)
+    x = rng.randn(Bsz, S, H, P)
+    dtv = 0.1 + 0.5 * rng.rand(Bsz, S, H)
+    Bm = rng.randn(Bsz, S, G, N)
+    Cm = rng.randn(Bsz, S, G, N)
+    A = -np.exp(0.3 * rng.randn(H))
+    h0 = rng.randn(Bsz, H, N, P) if with_h0 else None
+    t = lambda a, d=torch.float32: None if a is None else \
+        torch.as_tensor(a, dtype=torch.float32, device=dev).to(d)  # noqa
+    spec = ssd.SSDSpec(seq_len=S, chunk=Q, nheads=H, ngroups=G, headdim=P,
+                       state=N)
+    return spec, (t(x, dtype), t(dtv), t(Bm, dtype), t(Cm, dtype), t(A)), \
+        t(h0)
+
+
+def _ssd_close(got, want):
+    err = float((got - want).abs().max())
+    scale = float(want.abs().max())
+    torch.testing.assert_close(got, want, rtol=SSD_RTOL,
+                               atol=SSD_ATOL * max(1.0, scale))
+    assert err <= SSD_FIELD_RTOL * scale, (err, scale)
+
+
+SSD_SHAPES = [  # (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's, then
+    (2, 16, 4, 2, 8, 8, 4),         # mamba2-130m's head shape
+    (2, 32, 4, 2, 8, 8, 32),
+    (1, 16, 2, 1, 4, 4, 8),
+    (2, 24, 6, 3, 5, 8, 4),
+    (3, 8, 4, 4, 16, 16, 8),
+    (2, 256, 24, 1, 128, 64, 64),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_ssd_kernel_matches_plain(shape, dtype, with_h0):
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = _card()
+    spec, args, h0 = _ssd_inputs(shape, 3, dtype, with_h0, dev)
+    before = ssd.launches
+    y, h = ssd.ssd_scan(spec, *args, h0=h0)
+    assert ssd.launches == before + 1
+    py, ph = ssd.ssd_scan_plain(spec, *args, h0=h0)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and h.dtype == torch.float32
+    _ssd_close(y, py)
+    _ssd_close(h, ph)
+
+
+@pytest.mark.cuda
+def test_ssd_kernel_bf16_output():
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = _card()
+    spec, args, h0 = _ssd_inputs(SSD_SHAPES[3], 4, torch.bfloat16, True, dev)
+    y, _ = ssd.ssd_scan(dataclasses.replace(spec, dtype=torch.bfloat16),
+                        *args, h0=h0)
+    py, _ = ssd.ssd_scan_plain(spec, *args, h0=h0)
+    assert y.dtype == torch.bfloat16
+    torch.testing.assert_close(y.float(), py, rtol=2 ** -8,
+                               atol=SSD_ATOL * max(1.0, float(py.abs().max())))
+
+
+@pytest.mark.cuda
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take():
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = _card()
+    spec, (x, dtv, Bm, Cm, A), _ = _ssd_inputs(SSD_SHAPES[0], 0,
+                                               torch.float32, False, dev)
+    with pytest.raises(ValueError, match="cpu"):
+        ssd.ssd_scan(spec, x, dtv, Bm, Cm, A.cpu())
+    with pytest.raises(TypeError, match="dtype"):
+        ssd.ssd_scan(spec, x.half(), dtv, Bm, Cm, A)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd.ssd_scan(spec, x, dtv, Bm.bfloat16(), Cm, A)
+    with pytest.raises(TypeError, match="dtype"):
+        ssd.ssd_scan(spec, x, dtv.bfloat16(), Bm, Cm, A)
+    with pytest.raises(ValueError, match="shape"):
+        ssd.ssd_scan(spec, x, dtv, Bm[..., :-1].contiguous(), Cm, A)
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd.ssd_scan(spec, x, dtv, Bm.transpose(1, 2).contiguous()
+                     .transpose(1, 2), Cm, A)
+    with pytest.raises(ValueError, match="divide"):
+        ssd.ssd_scan(dataclasses.replace(spec, seq_len=15, chunk=4),
+                     x[:, :15].contiguous(), dtv[:, :15].contiguous(),
+                     Bm[:, :15].contiguous(), Cm[:, :15].contiguous(), A)
+    big = ssd.SSDSpec(seq_len=256, chunk=256, nheads=1, ngroups=1,
+                      headdim=64, state=128)
+    z = torch.zeros
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd.ssd_scan(big, z((1, 256, 1, 64), device=dev),
+                     z((1, 256, 1), device=dev),
+                     z((1, 256, 1, 128), device=dev),
+                     z((1, 256, 1, 128), device=dev), z((1,), device=dev))
+
+
+@pytest.mark.cuda
+def test_mamba2_on_card_launches_b2_and_matches_cpu():
+    """REDUCED float32 on the card: prefill launches B2 once a layer, its
+    logits and cache match the CPU run (plain scan), and the engine's
+    greedy tokens equal the CPU engine's."""
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import api
+    from repro_torch.serving import GenerationEngine, Request
+
+    dev = _card()
+    cfg = dataclasses.replace(configs.get_reduced("mamba2-130m"),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    cpu_params = api.init(0, cfg, device="cpu")
+    params = {k: ({n: t.to(dev) for n, t in v.items()}
+                  if isinstance(v, dict) else v.to(dev))
+              for k, v in cpu_params.items()}
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (3, 21)), dtype=torch.int32)
+    before = ssd.launches
+    logits, cache = api.prefill(params, cfg, {"tokens": toks.to(dev)}, 32,
+                                cache_dtype=torch.float32)
+    assert ssd.launches == before + cfg.num_layers
+    want, wcache = api.prefill(cpu_params, cfg, {"tokens": toks}, 32,
+                               cache_dtype=torch.float32)
+    for got, ref_ in ((logits, want), (cache.state, wcache.state),
+                      (cache.conv, wcache.conv)):
+        _ssd_close(got.cpu(), ref_)
+    prompts = [np.asarray(toks[i, :n]) for i, n in enumerate((21, 9, 14))]
+    outs = []
+    for p_, d in ((params, dev), (cpu_params, "cpu")):
+        eng = GenerationEngine(p_, cfg, max_len=32, batch_size=3, device=d)
+        outs.append([r.output for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)

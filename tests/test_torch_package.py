@@ -46,9 +46,12 @@ def test_guard_sees_the_files():
     assert len(PORT_FILES) >= 15
     assert (ROOT / "chip_smoke.py").is_file()
     port = ROOT / "src" / "repro_torch"
-    for pkg in ("survey", "telemetry", "launch"):
+    for pkg in ("survey", "telemetry", "launch", "configs", "models",
+                "serving"):
         assert port / pkg / "__init__.py" in PORT_FILES
     assert port / "launch" / "stencil_survey.py" in PORT_FILES
+    assert port / "launch" / "serve.py" in PORT_FILES
+    assert port / "kernels" / "ssd_scan.py" in PORT_FILES
     assert "jax" in set(_imported_roots(ROOT / "tests" / "test_torch_ops.py"))
 
 
@@ -119,3 +122,22 @@ def test_survey_engine_defaults_to_the_card():
                           plan_cache=PlanCache(), device="cpu")
     assert engine.device.type == "cpu" and engine.executor == "torch"
     assert engine.params["m"].device.type == "cpu"
+
+
+def test_package_data_ships_every_kernel_source():
+    """An installed package must carry every file the kernels build from:
+    the `.cu` sources and the shared `.cuh` headers they include."""
+    import fnmatch
+    import tomllib
+
+    from repro_torch.kernels import _build
+
+    data = tomllib.loads((ROOT / "pyproject.toml").read_text())
+    globs = data["tool"]["setuptools"]["package-data"]["repro_torch"]
+    port = ROOT / "src" / "repro_torch"
+    csrc = sorted(p.relative_to(port).as_posix()
+                  for p in (port / "kernels" / "csrc").iterdir())
+    assert any(c.endswith(".cuh") for c in csrc)
+    for rel in csrc:
+        assert any(fnmatch.fnmatch(rel, g) for g in globs), rel
+    assert {f"kernels/csrc/{n}.cu" for n in _build.SOURCES} <= set(csrc)
