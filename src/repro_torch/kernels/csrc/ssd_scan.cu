@@ -25,13 +25,16 @@
 // them hits 32 banks.  The four products are one block-wide routine: a
 // warp owns 8 rows (a broadcast read each) and its lanes 2 columns 32
 // apart (consecutive addresses), 16 fused multiply-adds per 10 shared
-// loads; the causal zeros of M are computed and discarded.
+// loads; the causal zeros of M are computed and discarded (work the bound
+// below does not count).
 //
 // What bounds it on this card: operations.  At the serve phase's shapes
-// (B 8, S 1024, H 24, G 1, N 128, P 64, Q 64) `kernel_cost` counts 11.3
-// GFLOP: 0.17 ms at 67 TFLOP/s float32 outside the tensor cores (0.023 ms
-// at TF32's 495), against ~0.03 ms for its ~90 MB of inputs and outputs
-// at 3.35 TB/s.  This first design is simple, not fast: it runs on the
+// (B 8, S 1024, H 24, G 1, N 128, P 64, Q 64) the reference's count is
+// 11.3 GFLOP with the full Q x Q products; the function needs 8.93 GFLOP
+// (`kernel_cost`'s needed_flops: the causal halves of C B^T and M x):
+// 0.133 ms at 67 TFLOP/s float32 outside the tensor cores (0.018 ms at
+// TF32's 495), against ~0.03 ms for its ~90 MB of inputs and outputs at
+// 3.35 TB/s.  This first design is simple, not fast: it runs on the
 // float32 cores, its shared-memory loads outnumber the multiply-adds'
 // share of issue slots, and 192 blocks of one per SM make 1.5 waves on 132
 // SMs.  Later work: tensor cores (mma.sync / wgmma on bf16 or TF32

@@ -20,7 +20,9 @@ thread block per (batch, head), the state resident in shared memory) or
 raise.  `launches` counts kernel launches, so a run can show it went
 through the kernel.  Unlike the reference's `ssd_scan`, both take an
 optional initial state `h0` (zeros when None), as the reference's
-`models.mamba2._ssd_chunked` does.
+`models.mamba2._ssd_chunked` does.  Both take M in float32 whatever the
+input dtype; the reference's `_ssd_chunked` rounds M to x's dtype before
+M x, so with bf16 inputs they differ from it by that rounding.
 """
 from __future__ import annotations
 
@@ -114,19 +116,22 @@ def ssd_scan_plain(spec: SSDSpec, x, dtv, Bm, Cm, A,
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 
+def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Set the C signatures of a library built from ``csrc/ssd_scan.cu``."""
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_ssd_scan.argtypes = [i] + [p] * 8 + [i] * 9 + [p]
+    lib.repro_ssd_scan.restype = i
+    lib.repro_ssd_smem_bytes.argtypes = [i, i, i]
+    lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
+    lib.repro_cuda_error_string.argtypes = [i]
+    lib.repro_cuda_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _bind():
     from repro_torch.kernels import _build
     lib = _build.load("ssd_scan")
-    fn = lib.repro_ssd_scan
-    if fn.argtypes is None:
-        p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [i] + [p] * 8 + [i] * 9 + [p]
-        fn.restype = i
-        lib.repro_ssd_smem_bytes.argtypes = [i, i, i]
-        lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
-        lib.repro_cuda_error_string.argtypes = [i]
-        lib.repro_cuda_error_string.restype = ctypes.c_char_p
-    return lib
+    return declare(lib) if lib.repro_ssd_scan.argtypes is None else lib
 
 
 def _check(name, t, shape, dtypes, dev):
@@ -217,14 +222,23 @@ def ssd_scan(spec: SSDSpec, x, dtv, Bm, Cm, A,
 def kernel_cost(spec: SSDSpec, batch: int, in_dtype=None) -> dict:
     """Per-call analytic cost.  ``flops``, ``hbm_bytes`` and
     ``state_bytes_resident`` are the reference's (every operand priced in
-    `spec.dtype`).  ``min_bytes`` is the least traffic of this port's call
-    without h0: x, B and C read once in `in_dtype` (default `spec.dtype`),
-    dt and A in float32, y written once in `spec.dtype` and h_final in
-    float32 — the bytes term of the roofline bound."""
+    `spec.dtype`; ``flops`` prices the full Q x Q products C B^T and M x).
+    ``needed_flops`` is the work the function needs, the operations term
+    of the roofline bound: only the causal (lower-triangle, diagonal
+    included) half of C B^T and of M x, and the reference's six
+    elementwise operations an entry of M on that half, Q(Q+1)/2 entries;
+    C h and the state update are full, 2QNP each.  ``min_bytes`` is the
+    least traffic of this port's call without h0: x, B and C read once in
+    `in_dtype` (default `spec.dtype`), dt and A in float32, y written once
+    in `spec.dtype` and h_final in float32 — the bytes term of the
+    bound."""
     Q, N, P = spec.chunk, spec.state, spec.headdim
-    nc = spec.nchunks
+    chunks = batch * spec.nheads * spec.nchunks
     per_chunk = 2 * Q * Q * N + 2 * Q * Q * P + 2 * Q * N * P * 2 + 6 * Q * Q
-    flops = batch * spec.nheads * nc * per_chunk
+    flops = chunks * per_chunk
+    causal = Q * (Q + 1) // 2
+    needed = chunks * (2 * causal * N + 2 * causal * P + 4 * Q * N * P
+                       + 6 * causal)
     itemsize = spec.dtype.itemsize
     hbm = batch * spec.seq_len * (
         spec.nheads * P * 2 + spec.nheads + 2 * spec.ngroups * N) * itemsize
@@ -234,6 +248,7 @@ def kernel_cost(spec: SSDSpec, batch: int, in_dtype=None) -> dict:
                  + tokens * spec.nheads * 4 + spec.nheads * 4
                  + tokens * spec.nheads * P * itemsize
                  + batch * spec.nheads * N * P * 4)
-    return {"flops": float(flops), "hbm_bytes": float(hbm),
+    return {"flops": float(flops), "needed_flops": float(needed),
+            "hbm_bytes": float(hbm),
             "state_bytes_resident": spec.nheads * N * P * 4,
             "min_bytes": float(min_bytes)}

@@ -100,13 +100,24 @@ def window_tile_plain(physics: phys.TBPhysics, sspec, T: int, h: int,
                       state_pads, param_pads, dom, s_coords, s_vals,
                       r_coords, r_w):
     """T in-window timesteps on one halo-padded window: the same
-    update / mask / inject / record sequence as the kernel.  `sspec`
-    exposes `dt`/`spacing`/`order`; `dom` broadcasts against the window.
+    update / mask / inject / record sequence as the kernel, in the
+    kernel's arithmetic: values are read as float32, a step is computed in
+    float32, and each store rounds to the fields' storage dtype (the
+    step's fields, again after the injection, and each receiver sample).
+    For float32 fields every rounding is the identity.  In bf16 this is
+    kernel B1a-bf16's function, not the reference's bf16 tile, which
+    computes op by op in bf16 with bf16 taps.  `sspec` exposes
+    `dt`/`spacing`/`order`; `dom` broadcasts against the window.
 
-    Returns (cropped centre tuple, rec partials (T, capr, rec_channels)).
+    Returns (cropped centre tuple in the storage dtype, rec partials
+    (T, capr, rec_channels)).
     """
-    state = dict(zip(physics.state_fields, state_pads))
-    params = dict(zip(physics.param_fields, param_pads))
+    f32 = torch.float32
+    store = state_pads[0].dtype
+    rnd = lambda a: a.to(store).to(f32)  # noqa: E731
+    state = {f: a.to(f32) for f, a in zip(physics.state_fields, state_pads)}
+    params = {f: a.to(f32) for f, a in zip(physics.param_fields, param_pads)}
+    dom = dom.to(f32)
     mask_fn = lambda a: a * dom  # noqa: E731
     sidx = tuple(s_coords.long().T)
     ridx = tuple(r_coords.long().T)
@@ -116,18 +127,19 @@ def window_tile_plain(physics: phys.TBPhysics, sspec, T: int, h: int,
         for f in physics.evolved_fields:
             if f not in physics.premasked_fields:
                 new[f] = new[f] * dom
+            new[f] = rnd(new[f])
         # fused grid-aligned injection (paper Listing 4); padding slots
         # carry val = 0 and add harmlessly onto window point (0, 0, 0)
         for f in physics.inject_fields:
-            new[f] = new[f].index_put(sidx, s_vals[k].to(new[f].dtype),
-                                      accumulate=True)
+            new[f] = rnd(new[f].index_put(sidx, s_vals[k].to(f32),
+                                          accumulate=True))
         recs.append(torch.stack(
-            [(arr[ridx] * r_w).to(arr.dtype) for arr in physics.record(new)],
-            dim=-1))
+            [rnd(arr[ridx] * r_w.to(f32)) for arr in physics.record(new)],
+            dim=-1).to(store))
         state = new
     wx, wy = state_pads[0].shape[0], state_pads[0].shape[1]
     crop = (slice(h, wx - h), slice(h, wy - h), slice(None))
-    return (tuple(state[f][crop] for f in physics.state_fields),
+    return (tuple(state[f][crop].to(store) for f in physics.state_fields),
             torch.stack(recs, dim=0))
 
 

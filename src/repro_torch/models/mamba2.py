@@ -5,10 +5,14 @@ chunk of Q timesteps is advanced while resident in fast memory, and only
 the per-chunk state crosses chunk boundaries.  `block_forward` (prefill
 and forward) runs the scan through `kernels.ssd_scan.ssd_scan`: kernel B2
 on a card, its plain version on CPU tensors.  The reference's model path
-calls its jnp `_ssd_chunked` there; with no initial state (prefill and
-forward never pass one) that is the function the kernel computes.
-`_ssd_chunked` is ported too, as a plain function, and is held against
-the reference's in the tests.
+calls its jnp `_ssd_chunked` there.  With no initial state (prefill and
+forward never pass one) and float32 activations, that is the function the
+kernel computes.  With bf16 activations (the config's own) they differ:
+`_ssd_chunked` rounds the score matrix M to bf16 before M x, while B2 and
+its plain version keep M in float32.  The bf16 models then differ by that
+rounding and by the frameworks' own bf16 rounding orders
+(`tests/test_torch_mamba2.py::test_bf16_model_tracks_reference` records
+the gap).
 
 Recurrence (per head h, state N x P):
     h_t = exp(dt_t A) h_{t-1} + dt_t B_t (x)_t^T
@@ -137,64 +141,6 @@ def _split_proj(p, x):
     """The separate z / x / BC / dt projections."""
     return (torch.matmul(x, p["in_z"]), torch.matmul(x, p["in_x"]),
             torch.matmul(x, p["in_bc"]), torch.matmul(x, p["in_dt"]))
-
-
-def _ssd_chunked(xh, dtv, Bm, Cm, A, chunk: int,
-                 h0: Optional[torch.Tensor] = None):
-    """Chunked SSD scan, as the reference's jnp version: all chunks' intra
-    terms and chunk states at once, then the inter-chunk scan.
-
-    xh: (B, S, H, P); dtv: (B, S, H) (post-softplus); Bm/Cm: (B, S, G, N);
-    A: (H,) negative.  Returns (y (B, S, H, P) float32, h_final (B, H, N, P)
-    float32).  S must be a multiple of `chunk` (caller pads).  The score
-    matrix M and its product with x are taken in x's dtype with a float32
-    result, as in the reference.
-    """
-    Bsz, S, H, P = xh.shape
-    G, N = Bm.shape[2], Bm.shape[3]
-    rep = H // G
-    Q = chunk
-    nc = S // Q
-    f32 = torch.float32
-
-    xr = xh.reshape(Bsz, nc, Q, H, P)
-    dtr = dtv.reshape(Bsz, nc, Q, H)
-    Br = Bm.reshape(Bsz, nc, Q, G, N)
-    Cr = Cm.reshape(Bsz, nc, Q, G, N)
-
-    Lc = torch.cumsum(dtr * A, dim=2)                     # (B, nc, Q, H)
-    LQ = Lc[:, :, -1]                                     # (B, nc, H)
-
-    CB = torch.einsum("bcqgn,bckgn->bcgqk", Cr, Br)       # (B, nc, G, Q, Q)
-    Ldiff = Lc[:, :, :, None, :] - Lc[:, :, None, :, :]   # (B, nc, Q, K, H)
-    mask = torch.ones((Q, Q), dtype=torch.bool, device=xh.device).tril()
-    decay = torch.where(mask[None, None, :, :, None], torch.exp(Ldiff), 0.0)
-    CBh = CB.repeat_interleave(rep, dim=2) if rep > 1 else CB
-    dtk = dtr.permute(0, 1, 3, 2)[:, :, :, None, :]       # dt_j on the k axis
-    M = CBh * decay.permute(0, 1, 4, 2, 3) * dtk          # (B, nc, H, Q, K)
-    # rounded to x's dtype, multiplied and summed in float32 (the
-    # reference's preferred_element_type=float32)
-    y_intra = torch.einsum("bchqk,bckhp->bcqhp", M.to(xh.dtype).to(f32),
-                           xr.to(f32))
-
-    sdecay = torch.exp(LQ[:, :, None, :] - Lc) * dtr      # (B, nc, Q, H)
-    Brep = Br.repeat_interleave(rep, dim=3) if rep > 1 else Br
-    S_c = torch.einsum("bcqh,bcqhn,bcqhp->bchnp", sdecay, Brep.to(f32),
-                       xr.to(f32))
-
-    h = (torch.zeros((Bsz, H, N, P), dtype=f32, device=xh.device)
-         if h0 is None else h0.to(f32))
-    starts = []
-    for c in range(nc):                                    # inter-chunk scan
-        starts.append(h)
-        h = torch.exp(LQ[:, c])[:, :, None, None] * h + S_c[:, c]
-    h_starts = torch.stack(starts, dim=1)                 # (B, nc, H, N, P)
-
-    Crep = Cr.repeat_interleave(rep, dim=3) if rep > 1 else Cr
-    y_inter = torch.einsum("bcqhn,bcqh,bchnp->bcqhp", Crep.to(f32),
-                           torch.exp(Lc), h_starts)
-    y = (y_intra + y_inter).reshape(Bsz, S, H, P)
-    return y, h
 
 
 def block_forward(p, cfg: ModelConfig, x,

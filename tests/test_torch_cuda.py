@@ -112,10 +112,28 @@ def _bf16_bound(f32):
     return 0.1 * max(float(f32.abs().max()), 1e-3) + 1e-2
 
 
+# bf16 kernel vs the plain bf16 version: both compute in float32 and round
+# at the same stores, so they differ by rounding flips of a few bf16
+# spacings (2^-8..2^-7 of a value)
+BF16_PLAIN_RTOL = 2 ** -6
+
+
+def _bf16_close(got, plain):
+    """max|diff| <= 2^-6 max|plain|, per receiver channel for partials
+    (B, ntx, nty, T, capr, chan) and over the whole of a field."""
+    pairs = ([(got[..., c], plain[..., c]) for c in range(got.shape[-1])]
+             if got.dim() == 6 else [(got, plain)])
+    for g, p in pairs:
+        g, p = g.float().cpu(), p.float().cpu()
+        assert float((g - p).abs().max()) <= \
+            BF16_PLAIN_RTOL * float(p.abs().max())
+
+
 @pytest.mark.cuda
 def test_wrapper_rejects_what_the_kernel_does_not_take():
     """The acoustic kernel takes bf16 (B1a-bf16): held to the plain bf16
-    version and to the float32 kernel within the reference's bf16 bound.
+    version within 2^-6 of each field's and receiver channel's scale, and
+    to the float32 kernel within the reference's bf16 bound.
     A bf16 field under a float32 spec, bf16 TTI, bf16 with a domain mask,
     a strided field, a wrong shape and a CPU field are refused."""
     dev = _card()
@@ -133,9 +151,8 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     for k, p, f in zip((*kst, krec), (*pst, prec), (*fst, frec)):
         assert k.dtype == torch.bfloat16 and k.shape == f.shape
         assert torch.isfinite(k.float()).all()
-        bound = _bf16_bound(f)
-        assert float((k.float() - p.float()).abs().max()) <= bound
-        assert float((k.float() - f).abs().max()) <= bound
+        _bf16_close(k, p)
+        assert float((k.float() - f).abs().max()) <= _bf16_bound(f)
     bf = tuple(p.to(torch.bfloat16) for p in pads)
     with pytest.raises(TypeError, match="dtype"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, bf, ppads, sc, sv, rc, rw)
@@ -467,9 +484,9 @@ def test_dom_grid_mask_equals_the_grid_predicate(physics):
 
 @pytest.mark.cuda
 def test_bf16_propagate_on_card_tracks_f32_and_cpu():
-    """ops.acoustic_tb_propagate with bf16 fields runs kernel B1a-bf16 and
-    tracks the float32 run and the plain bf16 run on the CPU within the
-    reference test's bound."""
+    """ops.acoustic_tb_propagate with bf16 fields runs kernel B1a-bf16,
+    tracks the float32 run within the reference test's bound, and the
+    plain bf16 run on the CPU within 2^-6 of its scale."""
     dev = _card()
     c = acoustic_case(nt=4)
     plan = TBPlan(tile=(8, 8), T=2, radius=2)
@@ -489,7 +506,7 @@ def test_bf16_propagate_on_card_tracks_f32_and_cpu():
     b = b1.float().cpu()
     assert torch.isfinite(b).all()
     assert float((b - f1.cpu()).abs().max()) <= bound
-    assert float((b - h1.float()).abs().max()) <= bound
+    _bf16_close(b, h1)
 
 
 # ---------------------------------------------------------------------------

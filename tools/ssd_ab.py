@@ -3,14 +3,15 @@ call and in turns (a, b, b, a, a, b), at the serve phase's shapes of
 `chip_smoke.py` (B 8, S 1024, H 24, G 1, N 128, P 64, Q 64; bf16 x, B and
 C, float32 y, no h0):
 
-    PYTHONPATH=src python3 tools/ssd_ab.py <a.cu> [<b.cu>]
+    python3 tools/ssd_ab.py <a.cu> [<b.cu>]
 
 <b.cu> defaults to this tree's `src/repro_torch/kernels/csrc/ssd_scan.cu`.
 Each source is built with the port's nvcc flags into its own library under
-`build/ssd_ab/`.  Prints, per version, whether y and h_final equal
-`ssd_scan_plain`'s bit for bit (and the largest difference), then the mean
-of 10 launches after a warm-up, by CUDA events, for each turn.  Needs a
-card.
+`build/ssd_ab/`, its C signatures set by `ssd_scan.declare`; the inputs
+are `chip_smoke.ssd_case`'s draw (seed 7).  Prints, per version, whether
+y and h_final equal `ssd_scan_plain`'s bit for bit (and the largest
+difference), then the mean of 10 launches after a warm-up, by CUDA
+events, for each turn.  Needs a card.
 """
 import ctypes
 import statistics
@@ -20,10 +21,11 @@ from pathlib import Path
 
 import torch
 
-from repro_torch.kernels import _build
-from repro_torch.kernels import ssd_scan as ssd
+sys.path.insert(0, str(Path(__file__).resolve().parent.parent))
 
-SHAPE = (8, 1024, 24, 1, 128, 64, 64)       # B, S, H, G, N, P, Q
+import chip_smoke  # noqa: E402  (puts src/ on the path)
+from repro_torch.kernels import _build  # noqa: E402
+from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 
 def build(src: Path, tag: str) -> ctypes.CDLL:
@@ -31,11 +33,7 @@ def build(src: Path, tag: str) -> ctypes.CDLL:
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True)
-    lib = ctypes.CDLL(str(out))
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_ssd_scan.argtypes = [i] + [p] * 8 + [i] * 9 + [p]
-    lib.repro_ssd_scan.restype = i
-    return lib
+    return ssd.declare(ctypes.CDLL(str(out)))
 
 
 def main(argv):
@@ -45,14 +43,9 @@ def main(argv):
             _build.CSRC / "ssd_scan.cu"]
     libs = {tag: build(src, tag) for tag, src in zip("ab", srcs)}
     dev = torch.device("cuda", 0)
-    B, S, H, G, N, P, Q = SHAPE
-    gen = torch.Generator(device=dev).manual_seed(7)
-    bf = torch.bfloat16
-    x = torch.randn((B, S, H, P), generator=gen, device=dev).to(bf)
-    dt = 0.1 + 0.5 * torch.rand((B, S, H), generator=gen, device=dev)
-    Bm = torch.randn((B, S, G, N), generator=gen, device=dev).to(bf)
-    Cm = torch.randn((B, S, G, N), generator=gen, device=dev).to(bf)
-    A = -torch.exp(0.3 * torch.randn((H,), generator=gen, device=dev))
+    B, S, H, G, N, P, Q = chip_smoke.SERVE_SHAPE
+    spec, (x, dt, Bm, Cm, A), _ = chip_smoke.ssd_case(
+        chip_smoke.SERVE_SHAPE, 7, torch.bfloat16, False, dev)
     y = torch.empty((B, S, H, P), device=dev)
     h = torch.empty((B, H, N, P), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -65,8 +58,6 @@ def main(argv):
         if rc:
             raise RuntimeError(f"{tag}: launch failed ({rc})")
 
-    spec = ssd.SSDSpec(seq_len=S, chunk=Q, nheads=H, ngroups=G, headdim=P,
-                       state=N)
     py, ph = ssd.ssd_scan_plain(spec, x, dt, Bm, Cm, A)
     for tag, src in zip("ab", srcs):
         run(tag)
