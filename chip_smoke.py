@@ -30,10 +30,14 @@ non-zero before printing any result.  It imports neither JAX nor the JAX
 package.
 
 Phases (one line each): environment, build, kernel vs plain on small
-cases (kernel-vs-plain, kernels-batched, kernel-vs-plain-dom,
-kernel-vs-plain-bf16, kernel-vs-plain-ssd with kernels-ssd), serve-mamba2,
+cases (kernel-vs-plain, kernel-vs-plain-edges: a source on a trapezoid
+boundary and a receiver on four tiles' corner, kernels-batched,
+kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-plain-ssd with
+kernels-ssd), serve-mamba2,
 then for each path: main path at full size, spatially-blocked baseline,
-kernel timing, the batched kernel at the main path's shapes (after
+kernel timing (for the z-streamed acoustic and elastic kernels also
+their design: registers, shared memory, blocks an SM, achieved GB/s), the
+batched kernel at the main path's shapes (after
 acoustic: sharded-acoustic and main-acoustic-bf16); then survey-acoustic,
 survey-small, sharded-small-*, survey-sharded and the kernel line.  Any
 failed check raises, and the script exits non-zero.
@@ -41,6 +45,7 @@ failed check raises, and the script exits non-zero.
 import dataclasses
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -173,11 +178,13 @@ def phase_build():
 # Small cases: each kernel against its plain version
 # ---------------------------------------------------------------------------
 
-def small_case(name, shape, order, nsrc, nrec, seed, dev):
+def small_case(name, shape, order, nsrc, nrec, seed, dev, points=None):
     """(state tuple, params dict, g, gr, dt) of a small random case.  The
     elastic moduli are in SI units and its velocities 0.01 randn / (rho vp),
     so every term of the velocity and stress updates moves its field by a
-    visible fraction of the field's scale."""
+    visible fraction of the field's scale.  `points` = (sources,
+    receivers), each (n, 3) in grid units, places them instead of the
+    random draw."""
     grid = Grid(shape=shape, spacing=SMALL_SPACING)
     rng = np.random.RandomState(seed)
     vp = 1500.0 + 1000.0 * rng.rand(*shape)
@@ -187,12 +194,14 @@ def small_case(name, shape, order, nsrc, nrec, seed, dev):
     g = gr = None
     if nsrc:
         wav = S.ricker_wavelet(8, dt, 12.0, nsrc) + 0.1 * rng.randn(8, nsrc)
-        g = S.precompute(S.SparseOperator(5.0 + rng.rand(nsrc, 3)
-                                          * (ext - 10.0)), grid, wav,
-                         device=dev)
-        gr = S.precompute_receivers(
-            S.SparseOperator(5.0 + rng.rand(nrec, 3) * (ext - 10.0)), grid,
-            device=dev)
+        src = 5.0 + rng.rand(nsrc, 3) * (ext - 10.0)
+        rec = 5.0 + rng.rand(nrec, 3) * (ext - 10.0)
+        if points is not None:
+            src, rec = (np.asarray(q, float) * SMALL_SPACING[0]
+                        for q in points)
+        g = S.precompute(S.SparseOperator(src), grid, wav, device=dev)
+        gr = S.precompute_receivers(S.SparseOperator(rec), grid,
+                                    device=dev)
 
     def f32(a):
         return torch.as_tensor(np.asarray(a, np.float32), device=dev)
@@ -264,10 +273,18 @@ SMALL_CASES = [  # (T, tile, order, shape, sources)
     (4, (16, 16), 4, (32, 32, 45), True),
     (4, (8, 8), 2, (24, 16, 64), True),
     (2, (16, 16), 8, (32, 32, 29), False),
+    # the z-streamed schedule's edges (csrc/tb_stream.cuh): nz below the z
+    # ring (order 8: 9 planes), the largest radius (order 16), H above the
+    # tile (and a sub-tile), nz not a multiple of the 8-plane output
+    # staging, T = 1 with it
+    (2, (8, 8), 8, (16, 16, 3), True),
+    (2, (8, 8), 16, (16, 16, 13), True),
+    (4, (8, 8), 8, (16, 16, 20), True),
+    (1, (16, 8), 4, (32, 16, 13), True),
 ]
 # TTI and elastic (step radius = order): T in {1, 2, 4}, tiles (8, 8) and
-# (16, 8), orders 2/4/8, nz not a multiple of 32, one case without sources
-# or receivers
+# (16, 8), orders 2/4/8/16, nz not a multiple of 32, nz below the z taps'
+# reach, H above the tile, one case without sources or receivers
 SMALL_MP_CASES = [
     (1, (8, 8), 4, (16, 16, 40), True),
     (2, (16, 8), 2, (32, 16, 37), True),
@@ -275,7 +292,11 @@ SMALL_MP_CASES = [
     (2, (8, 8), 8, (16, 16, 20), True),
     (4, (16, 8), 2, (32, 16, 64), True),
     (2, (16, 8), 4, (32, 16, 29), False),
+    (2, (8, 8), 8, (16, 16, 3), True),
+    (1, (8, 8), 16, (16, 16, 13), True),
 ]
+EDGE_TILE = (8, 8)
+EDGE_SHAPE = (24, 16, 13)
 
 
 def phase_kernel_vs_plain(dev):
@@ -297,6 +318,39 @@ def phase_kernel_vs_plain(dev):
         say("kernel-vs-plain", f"{name}: {len(cases)} cases within rtol "
             f"{RTOL} atol {ATOL[name]} and field rtol {FIELD_RTOL}; worst "
             f"max|diff| {worst:.3e}, max|diff|/max|plain| {worst_rel:.3e}")
+
+
+def edge_points(physics, T, tile=EDGE_TILE):
+    """(sources, receivers) in grid units: one source between two grid
+    points in tile 0's halo, the inner one on the boundary of the region
+    the first injection covers and the outer one just past it (skipped by
+    the trapezoid: it cannot reach the centre), and a receiver whose
+    footprint is the corner of four tiles' centres."""
+    edge = tile[0] - 1 + (T - 1) * physics.step_radius(ORDER) + 0.5
+    return ([[edge, 4.3, 6.4]],
+            [[tile[0] - 0.5, tile[1] - 0.5, 5.2], [3.2, 9.7, 7.6]])
+
+
+def phase_kernel_vs_plain_edges(dev):
+    """The trapezoid's edges: the boundary source and the corner receiver
+    for T = 2 and 3, each kernel against its plain version."""
+    for name in ("acoustic", "tti", "elastic"):
+        physics = phys.PHYSICS[name]
+        for T in (2, 3):
+            state, params, g, gr, dt = small_case(
+                name, EDGE_SHAPE, ORDER, 1, 2, 50 + T, dev,
+                points=edge_points(physics, T))
+            plan = TBPlan(EDGE_TILE, T, physics.step_radius(ORDER))
+            spec, args = kernel_inputs(physics, plan, state, params, g, gr,
+                                       dt, 1, SMALL_SPACING)
+            err, rel, (_, krec) = compare_kernel(spec, physics, args)
+            if not float(krec.abs().max()) > 0:
+                raise AssertionError(f"{name} T={T}: no receiver signal")
+            say("kernel-vs-plain-edges", f"{name} T={T} tile={EDGE_TILE} "
+                f"shape={EDGE_SHAPE}: source on the boundary of the first "
+                f"injection's region (its neighbour point just outside), "
+                f"receiver on four tiles' corner: max|diff| {err:.3e}, "
+                f"max|diff|/max|plain| {rel:.3e}")
 
 
 # ---------------------------------------------------------------------------
@@ -572,6 +626,8 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
         f"reference counts), plain {plain_ms:.1f} ms; kernel = "
         f"{100 * ms * launches / tb_ms:.1f}% of the TB run; max|diff| vs "
         f"plain {err:.3e}, max|diff|/max|plain| {rel:.3e} [{smi}]")
+    if ker._KERNELS[name].stream:
+        say_design(f"kernels-{name}", fc.physics, spec, ms, cost)
     return {
         "name": f"stencil_tb.tb_{name}",
         "route": "cuda",
@@ -586,6 +642,59 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
         "library_ms": None,
     }
 
+
+
+def ptxas_usage(log):
+    """{mangled entry: (registers, static shared bytes, spill store bytes)}
+    from nvcc's -Xptxas -v output."""
+    out, cur, spill = {}, None, 0
+    for ln in log.splitlines():
+        if "Compiling entry function" in ln:
+            cur, spill = ln.split("'")[1], 0
+        elif "spill stores" in ln:
+            spill = int(ln.split("bytes spill stores")[0].split(",")[-1])
+        elif "Used" in ln and "registers" in ln and cur:
+            regs = int(ln.split("Used")[1].split("registers")[0])
+            smem = (int(ln.split("bytes smem")[0].split(",")[-1])
+                    if "bytes smem" in ln else 0)
+            out[cur] = (regs, smem, spill)
+    return out
+
+
+def say_design(phase, physics, spec, ms, cost):
+    """The z-streamed kernel's design at this launch's shape: each
+    instantiation of its radius (ptxas registers, static shared memory,
+    spill stores; the plan's dynamic shared memory), blocks an SM, and the
+    launch's achieved GB/s: the least bytes (`kernel_cost`) and the bytes
+    its passes request (`stencil_tb.stream_bytes`) over its time."""
+    lib = KERNEL_FILES[physics.name]
+    usage = ptxas_usage(_build.build_all([lib])[lib].log)
+    bx, by, dyn = ker.stream_plan(spec, physics)
+    props = torch.cuda.get_device_properties(0)
+    sm_smem = getattr(props, "shared_memory_per_multiprocessor", 233472)
+    sm_regs = getattr(props, "regs_per_multiprocessor", 65536)
+    sm_threads = getattr(props, "max_threads_per_multi_processor", 2048)
+    threads = ker._STREAM_THREADS
+    parts = []
+    for entry, (regs, static, spill) in sorted(usage.items()):
+        if f"_kernelILi{spec.radius}E" not in entry:
+            continue
+        blocks = min(sm_smem // (dyn + static + 1024),
+                     sm_regs // (regs * threads), sm_threads // threads)
+        m = re.search(r"(tb_\w+?_kernel)ILi(\d+)ELb([01])E(\w*?)Ev", entry)
+        kind = "bf16" if "bfloat16" in m.group(4) else "f32"
+        parts.append(f"{m.group(1)}<R={m.group(2)}, DOM={m.group(3)}, "
+                     f"{kind}>: {regs} registers, {spill} B spill stores, "
+                     f"{dyn} + {static} B shared a block, {blocks} block(s) "
+                     "an SM")
+    design = ker.stream_bytes(spec, physics)
+    nblocks = (spec.nx // bx) * (spec.ny // by)
+    say(phase, f"design: sub-tile ({bx}, {by}) of tile {spec.tile}, "
+        f"{nblocks} blocks of {threads} threads; " + "; ".join(parts)
+        + f"; achieved {cost['min_bytes'] / ms / 1e6:.0f} GB/s of least "
+        f"bytes ({100 * cost['min_bytes'] / ms / 1e-3 / HBM_BW:.1f}% of "
+        f"{HBM_BW / 1e12:.2f} TB/s), {design / ms / 1e6:.0f} GB/s of the "
+        f"{design / 1e9:.2f} GB its passes request")
 
 
 # ---------------------------------------------------------------------------
@@ -1131,6 +1240,39 @@ def phase_kernel_vs_plain_dom(dev):
         say("kernel-vs-plain-dom", f"{name}: dom = the grid's mask, params "
             f"one a row: equal to the single-device launch bit for bit: "
             f"{same}")
+        # B = 3 rows with dom: against the batched launch without it (bit
+        # for bit) and the plain version
+        T, tile, order, shape, nsrcs = BATCHED_CASES[0]
+        states, sparse, params = [], [], None
+        for i, ns in enumerate(nsrcs):
+            st, prm, g, gr, dt = small_case(name, shape, order, ns, 4,
+                                            60 + i, dev)
+            params = params or prm
+            states.append(st)
+            sparse.append((g, gr))
+        spec, args = batch_operands(
+            physics, TBPlan(tile, T, physics.step_radius(order)), order, dt,
+            SMALL_SPACING, states, params, sparse, 1)
+        pads, ppads, sc, sv, rc, rw = args
+        B, h = len(nsrcs), spec.halo
+        gx = torch.arange(-h, spec.nx + h, device=dev)
+        gy = torch.arange(-h, spec.ny + h, device=dev)
+        dom = (((gx >= 0) & (gx < spec.nx))[:, None]
+               & ((gy >= 0) & (gy < spec.ny))).float()
+        dom = dom[None].expand(B, -1, -1).contiguous()
+        rows = tuple(q[None].expand(B, *q.shape).contiguous() for q in ppads)
+        a = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
+        err, rel, b = compare_kernel(spec, physics, (pads, rows, sc, sv, rc,
+                                                     rw), dom=dom)
+        same = torch.equal(a[1], b[1]) and all(
+            torch.equal(x, y) for x, y in zip(a[0], b[0]))
+        if not same:
+            raise AssertionError(f"{name}: B={B} with dom differs from the "
+                                 "batched launch without it")
+        say("kernel-vs-plain-dom", f"{name}: B={B} rows with dom (the grid's "
+            f"mask) and params one a row: max|diff| vs plain {err:.3e}, "
+            f"max|diff|/max|plain| {rel:.3e}; equal to the batched launch "
+            f"without dom bit for bit: {same}")
 
 
 def phase_sharded_acoustic(fc, smi, kept, tb_ms):
@@ -1822,6 +1964,7 @@ def main():
     dev = torch.device("cuda", 0)
     phase_build()
     phase_kernel_vs_plain(dev)
+    phase_kernel_vs_plain_edges(dev)
     phase_kernels_batched(dev)
     phase_kernel_vs_plain_dom(dev)
     phase_kernel_vs_plain_bf16(dev)

@@ -24,11 +24,20 @@ origin as the fields, in place of the spec's "inside the grid" predicate.
 ``csrc/stencil_tb_elastic.cu`` elastic; float32, and bf16 for acoustic
 without `dom`: kernel B1a-bf16) or raise.  `launches`
 counts kernel launches, so a run can show it went through the kernel.
+
+The acoustic and elastic kernels run the z-streamed trapezoid schedule of
+``csrc/tb_stream.cuh``: each launch makes float32 z-major copies of its
+padded state in the scratch, and takes the params as z-major copies that
+this module keeps across launches (`_param_cache`: a propagation passes
+the same param tensors every launch); a block may take a sub-tile of the
+spec tile, chosen by `stream_plan` as the kernel chooses it.  TTI keeps
+the first schedule (``csrc/tb_common.cuh``).
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
+import weakref
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -205,25 +214,106 @@ def _shot_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
 # ---------------------------------------------------------------------------
 
 _MAX_RADIUS = 8         # MAX_RADIUS in csrc/tb_common.cuh
+_MAX_T = 32             # MAX_T in csrc/tb_stream.cuh (acoustic level tables)
+# shared memory a block of the z-streamed kernels may take (STREAM_SMEM in
+# csrc/tb_stream.cuh: sm_90's 232,448 bytes less 8 KB), their threads, and
+# the acoustic kernel's output staging depth (OUT_CHUNK)
+_STREAM_SMEM = 232448 - 8192
+_STREAM_THREADS = 512
+_OUT_CHUNK = 8
 
 
 @dataclasses.dataclass(frozen=True)
 class _CudaKernel:
     source: str                 # csrc/<source>.cu
-    scratch_windows: int        # window buffers per tile in its scratch
+    scratch_windows: int        # window buffers per block in its scratch
     weights: Callable[[int], np.ndarray]   # order -> one axis' FD weights
     deriv: int                  # derivative order of those weights
+    # the z-streamed trapezoid schedule (csrc/tb_stream.cuh): float32
+    # z-major copies of the inputs, windows of the block's sub-tile;
+    # otherwise the first schedule (tb_common.cuh): spec windows in the
+    # storage dtype
+    stream: bool = False
 
 
 # physics name -> its hand-written kernel; all share one C entry point
 _KERNELS = {
-    "acoustic": _CudaKernel("stencil_tb", 2, st.second_derivative_weights,
-                            2),
+    "acoustic": _CudaKernel("stencil_tb", 0, st.second_derivative_weights,
+                            2, stream=True),
     "tti": _CudaKernel("stencil_tb_tti", 7, st.first_derivative_weights, 1),
     "elastic": _CudaKernel(
         "stencil_tb_elastic", 9,
-        lambda order: st.staggered_first_derivative_weights(order)[1], 1),
+        lambda order: st.staggered_first_derivative_weights(order)[1], 1,
+        stream=True),
 }
+
+
+def _stream_smem(physics: phys.TBPhysics, spec: TBKernelSpec, bx: int,
+                 by: int) -> int:
+    """Shared memory of one block of a z-streamed kernel on sub-tile
+    (bx, by) (`acoustic_smem` / `elastic_smem` in the .cu files)."""
+    H = spec.halo
+    if physics.name == "acoustic":
+        r, T = spec.radius, spec.T
+        pitch = (bx * by + 31) // 32 * 32 + 4
+        f = (2 * r + 2) * (bx + 2 * H) * (by + 2 * H)
+        f += sum((2 * r + 1) * (bx + 2 * (H - j * r)) * (by + 2 * (H - j * r))
+                 for j in range(1, T))
+        return 4 * (f + 2 * _OUT_CHUNK * pitch)
+    return max(4 * 2 * 5 * (bx + 2 * H) * (by + 2 * H),
+               4 * (_STREAM_THREADS // 32) * 32 * 33)
+
+
+def stream_plan(spec: TBKernelSpec,
+                physics: phys.TBPhysics) -> Tuple[int, int, int]:
+    """(bx, by, shared bytes): the sub-tile a block of the z-streamed kernel
+    takes (`pick_subtile` in csrc/tb_stream.cuh, mirrored): the largest of
+    the tile's divisors whose working set fits a block's shared memory,
+    among equal areas the most nearly square, then the larger bx.  Raises
+    ValueError when none fits."""
+    tx, ty = spec.tile
+    best = None
+    for bx in range(tx, 0, -1):
+        if tx % bx:
+            continue
+        for by in range(ty, 0, -1):
+            if ty % by:
+                continue
+            need = _stream_smem(physics, spec, bx, by)
+            if need > _STREAM_SMEM:
+                continue
+            key = (bx * by, -abs(bx - by))
+            if best is None or key > best[0]:
+                best = (key, (bx, by, need))
+    if best is None:
+        raise ValueError(
+            f"{physics.name}: T={spec.T} order {spec.order} (halo "
+            f"{spec.halo}) needs more shared memory than a block has even "
+            f"for a 1x1 sub-tile; use a smaller T or order")
+    return best[1]
+
+
+def _scratch_elems(spec: TBKernelSpec,
+                   physics: phys.TBPhysics) -> Tuple[int, int, torch.dtype]:
+    """(scratch elements a row of a launch needs, elements of the params'
+    kept copies (one row of params), the scratch's dtype).  The z-streamed
+    kernels' scratch is float32: z-major copies of the row's state and its
+    blocks' windows; their params' copies live in `_param_cache`, made once
+    a propagation.  TTI's scratch is its spec windows in the storage
+    dtype."""
+    ntx, nty = spec.ntiles
+    kern = _KERNELS[physics.name]
+    if not kern.stream:
+        wx, wy, nz = spec.window
+        return (ntx * nty * kern.scratch_windows * wx * wy * nz, 0,
+                spec.dtype)
+    bx, by, _ = stream_plan(spec, physics)
+    h = spec.halo
+    vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
+    blocks = (spec.nx // bx) * (spec.ny // by)
+    per_row = (len(physics.state_fields) * vol + blocks
+               * kern.scratch_windows * spec.nz * (bx + 2 * h) * (by + 2 * h))
+    return per_row, len(physics.param_fields) * vol, torch.float32
 
 
 def _bind(source: str):
@@ -238,12 +328,81 @@ def _bind(source: str):
             fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
                            + [ctypes.c_float] * 2 + [p])
             fn.restype = i
+        if hasattr(lib, "repro_tb_plan"):
+            lib.repro_tb_plan.argtypes = [i] * 4 + [p]
+            lib.repro_tb_plan.restype = i
+            copies = [lib.repro_tb_param_copies]
+            if hasattr(lib, "repro_tb_param_copies_bf16"):
+                copies.append(lib.repro_tb_param_copies_bf16)
+            for fn in copies:
+                fn.argtypes = [i, p] + [i] * 7 + [p, p]
+                fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         if lib.repro_max_radius() != _MAX_RADIUS:
             raise RuntimeError(f"csrc/{source}.cu MAX_RADIUS disagrees with "
                                "the wrapper")
     return lib
+
+
+# (physics, halo, ids of the param tensors) -> (weakrefs to them, their
+# versions, their z-major float32 copies (nparam, prow, X * Y * nz)): the
+# params of a propagation are the same tensors every launch, so their
+# copies are made once; an entry goes when a param tensor does, and a
+# param written in place (a new version) is copied again
+_param_cache: dict = {}
+
+
+def _param_copies(lib, spec: TBKernelSpec, physics: phys.TBPhysics,
+                  param_pads, param_rows: bool, B: int, dev) -> torch.Tensor:
+    key = (physics.name, spec.halo, spec.dtype,
+           tuple(id(p) for p in param_pads))
+    versions = tuple(p._version for p in param_pads)
+    hit = _param_cache.get(key)
+    if hit is not None and hit[1] == versions and all(
+            r() is p for r, p in zip(hit[0], param_pads)):
+        return hit[2]
+    h = spec.halo
+    vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
+    rows = B if param_rows else 1
+    copies = torch.empty((len(param_pads), rows, vol), dtype=torch.float32,
+                         device=dev)
+    entry = (lib.repro_tb_param_copies if spec.dtype == torch.float32
+             else lib.repro_tb_param_copies_bf16)
+    rc = entry(dev.index if dev.index is not None
+               else torch.cuda.current_device(), _ptrs(param_pads),
+               len(param_pads), int(param_rows), B, spec.nx, spec.ny,
+               spec.nz, h, ctypes.c_void_p(copies.data_ptr()),
+               ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    if rc != 0:
+        raise RuntimeError("param copies failed: "
+                           + lib.repro_cuda_error_string(rc).decode())
+    drop = lambda _ref: _param_cache.pop(key, None)  # noqa: E731
+    _param_cache[key] = (tuple(weakref.ref(p, drop) for p in param_pads),
+                         versions, copies)
+    return copies
+
+
+_card_plans = {}
+
+
+def card_stream_plan(spec: TBKernelSpec,
+                     physics: phys.TBPhysics) -> Tuple[int, int, int]:
+    """(bx, by, shared bytes) as the built kernel picks them
+    (`repro_tb_plan`), for a z-streamed kernel; builds it if needed."""
+    key = (physics.name, spec.tile, spec.T, spec.radius)
+    if key not in _card_plans:
+        lib = _bind(_KERNELS[physics.name].source)
+        out = (ctypes.c_longlong * 3)()
+        rc = lib.repro_tb_plan(spec.tile[0], spec.tile[1], spec.T,
+                               spec.radius, out)
+        if rc != 0:
+            raise ValueError(f"{physics.name}: no sub-tile of {spec.tile} "
+                             f"fits a block at T={spec.T} order "
+                             f"{spec.order}: "
+                             + lib.repro_cuda_error_string(rc).decode())
+        _card_plans[key] = tuple(int(v) for v in out)
+    return _card_plans[key]
 
 
 def _check(name, t, shape, dtype, dev):
@@ -335,22 +494,36 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     dt = st.round_to(spec.dt, f32)
     dt2 = st.round_to(dt * dt, f32)
 
+    lib = _bind(kern.source)
+    if kern.stream and card_stream_plan(spec, physics) != \
+            stream_plan(spec, physics):
+        raise RuntimeError(f"csrc/{kern.source}.cu picks another sub-tile "
+                           "than the wrapper sized the scratch for")
     outs = tuple(torch.empty((B, spec.nx, spec.ny, spec.nz), dtype=dtype,
                              device=dev) for _ in physics.state_fields)
     rec = torch.zeros((B, ntx, nty, spec.T, capr, chan), dtype=dtype,
                       device=dev)
-    scratch = torch.empty((B, ntiles, kern.scratch_windows, wx * wy * nz),
-                          dtype=dtype, device=dev)
-    lib = _bind(kern.source)
+    if physics.name == "acoustic" and spec.T > _MAX_T:
+        raise ValueError(f"T={spec.T}: the acoustic kernel takes depths up "
+                         f"to {_MAX_T}")
+    per_row, _, sdtype = _scratch_elems(spec, physics)
+    scratch = torch.empty(max(B * per_row, 1), dtype=sdtype, device=dev)
     entry = lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
+    rows_flag = int(param_rows)
+    if kern.stream:
+        # the params go in as their kept z-major copies (PARAMS_COPIED)
+        copies = _param_copies(lib, spec, physics, param_pads, param_rows,
+                               B, dev)
+        fields = (*state_pads, *copies)
+        rows_flag |= 2
     rc = entry(
         dev.index if dev.index is not None else torch.cuda.current_device(),
         _ptrs(fields), ptr(s_coords), ptr(s_vals), ptr(r_coords), ptr(r_w),
         _ptrs(outs), ptr(rec), ptr(scratch),
         ctypes.c_void_p(dom.data_ptr() if dom is not None else None),
-        int(param_rows), B,
+        rows_flag, B,
         spec.nx, spec.ny, spec.nz, spec.tile[0], spec.tile[1], spec.T, h,
         cap, capr, r, (ctypes.c_float * len(coefs))(*coefs), dt, dt2,
         ctypes.c_void_p(stream))
@@ -364,14 +537,61 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
     """Device bytes one shot of a CUDA launch allocates: its output fields,
-    its receiver partials and its per-tile window scratch."""
+    its receiver partials and its part of the scratch (for the z-streamed
+    kernels its state's float32 z-major copies and its blocks' windows,
+    none for acoustic; for TTI its spec windows).  The params' copies,
+    shared by the shots and kept across launches, are
+    `launch_shared_bytes`."""
     ntx, nty = spec.ntiles
-    wx, wy, nz = spec.window
     elems = (len(physics.state_fields) * spec.nx * spec.ny * spec.nz
-             + ntx * nty * spec.T * spec.rec_cap * physics.rec_channels
-             + ntx * nty * _KERNELS[physics.name].scratch_windows
-             * wx * wy * nz)
-    return elems * spec.dtype.itemsize
+             + ntx * nty * spec.T * spec.rec_cap * physics.rec_channels)
+    per_row, _, sdtype = _scratch_elems(spec, physics)
+    return elems * spec.dtype.itemsize + per_row * sdtype.itemsize
+
+
+def launch_shared_bytes(spec: TBKernelSpec,
+                        physics: phys.TBPhysics) -> int:
+    """Device bytes the z-streamed kernels keep for all shots of a
+    propagation: the float32 z-major copies of the shared params, made at
+    its first launch (0 for TTI)."""
+    _, params, _ = _scratch_elems(spec, physics)
+    return params * 4
+
+
+def stream_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
+                 shots: int = 1, param_rows: bool = False) -> float:
+    """Device bytes a launch of a z-streamed kernel moves by its design
+    (csrc/tb_stream.cuh), each region read once a pass and no L2 reuse
+    between blocks counted: the z-major copies (each padded input read in
+    the storage dtype, written in float32), then per block the planes its
+    passes read and the fields they write.  The yardstick of the kernels'
+    achieved GB/s beside `kernel_cost`'s least bytes."""
+    bx, by, _ = stream_plan(spec, physics)
+    h, nz = spec.halo, spec.nz
+    item = spec.dtype.itemsize
+    vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * nz
+    prow = shots if param_rows else 1
+    ns, npar = len(physics.state_fields), len(physics.param_fields)
+    copies = (ns * shots + npar * prow) * vol * (item + 4)
+    blocks = shots * (spec.nx // bx) * (spec.ny // by)
+
+    def area(margin):
+        return (bx + 2 * (h - margin)) * (by + 2 * (h - margin))
+
+    if physics.name == "acoustic":
+        r = spec.radius
+        lv = [area(j * r) for j in range(spec.T + 1)]
+        per_block = 4 * nz * (lv[0] + lv[1] + 2 * sum(lv[1:])) \
+            + 2 * item * bx * by * nz
+    else:
+        R = spec.radius
+        per_block = 0
+        for n in range(1, 2 * spec.T + 1):
+            prev, cur = area((n - 1) * R), area(n * R)
+            per_block += (5 * prev + 11 * cur) if n % 2 else \
+                (3 * prev + 18 * cur)
+        per_block = 4 * nz * (per_block + 2 * ns * bx * by)
+    return float(copies + blocks * per_block)
 
 
 def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,

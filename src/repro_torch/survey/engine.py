@@ -98,9 +98,10 @@ def batch_bytes(physics: phys.TBPhysics, spec: ker.TBKernelSpec,
                 rspec: Optional[ker.TBKernelSpec]) -> Tuple[int, int]:
     """(shared, per shot) device bytes a survey batch needs beside the model
     and the zero state: shared, the padded params of the main and the
-    remainder tile; per shot, its state, padded state, launch outputs and
-    window scratch (`stencil_tb.launch_bytes`).  The tables and receiver
-    partials, a few MB a shot, are not counted."""
+    remainder tile and a launch's copies of them
+    (`stencil_tb.launch_shared_bytes`); per shot, its state, padded state,
+    launch outputs and scratch (`stencil_tb.launch_bytes`).  The tables,
+    a few MB a shot, are not counted."""
     nx, ny, nz = spec.nx, spec.ny, spec.nz
     itemsize = spec.dtype.itemsize
 
@@ -109,6 +110,7 @@ def batch_bytes(physics: phys.TBPhysics, spec: ker.TBKernelSpec,
 
     shared = sum(len(physics.param_fields) * padded(s)
                  for s in (spec, rspec) if s is not None)
+    shared += ker.launch_shared_bytes(spec, physics)
     per_shot = (len(physics.state_fields)
                 * (nx * ny * nz * itemsize + padded(spec))
                 + ker.launch_bytes(spec, physics))

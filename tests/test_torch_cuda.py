@@ -67,6 +67,13 @@ def _operands(c, T, tile, dev, sources=True, t0=1, dtype=torch.float32):
     (3, (8, 8), 8, (16, 24, 33), True),
     (4, (16, 16), 4, (32, 32, 45), True),
     (2, (16, 16), 8, (32, 32, 29), False),
+    # the z-streamed schedule's edges: nz below the z ring (order 8: 9
+    # planes), the largest radius (order 16), H above the tile, nz not a
+    # multiple of the output staging's 8 planes, T = 1
+    (2, (8, 8), 8, (16, 16, 3), True),
+    (2, (8, 8), 16, (16, 16, 13), True),
+    (4, (8, 8), 8, (16, 16, 20), True),
+    (1, (16, 8), 4, (32, 16, 13), True),
 ])
 def test_kernel_matches_plain(T, tile, order, shape, sources):
     dev = _card()
@@ -199,6 +206,10 @@ def _mp_operands(c, T, tile, dev, sources=True, t0=1):
     (2, (16, 8), 2, (32, 16, 37), True),
     (4, (8, 8), 4, (16, 24, 33), True),
     (2, (8, 8), 8, (16, 16, 29), False),
+    # nz below the z taps' reach, the largest radius, H above the tile
+    (2, (8, 8), 8, (16, 16, 3), True),
+    (1, (8, 8), 16, (16, 16, 13), True),
+    (4, (8, 8), 2, (16, 16, 13), True),
 ])
 def test_multiphysics_kernel_matches_plain(physics, T, tile, order, shape,
                                            sources):
@@ -368,6 +379,51 @@ def test_survey_on_card_matches_sequential(physics):
         assert_fields_close(trace_channels(got, want), FIELD_RTOL, physics)
 
 
+def _edge_case(physics, T, tile, seed=5):
+    """A case whose source sits in a tile's halo with one grid point on the
+    boundary of the region the first injection covers (tile 0's last row
+    of it) and one just outside, and whose receiver's footprint is the
+    corner of four tiles' centres."""
+    make = acoustic_case if physics == "acoustic" else MULTI_CASES[physics]
+    c = make(shape=(24, 16, 13), order=4, nt=8, nsrc=1, nrec=2, seed=seed)
+    r = phys.PHYSICS[physics].step_radius(4)
+    h = c.spacing[0]
+    edge = tile[0] - 1 + (T - 1) * r + 0.5        # between two grid points
+    src = np.array([[edge, 4.3, 6.4]]) * h
+    rec = np.array([[tile[0] - 0.5, tile[1] - 0.5, 5.2], [3.2, 9.7, 7.6]]) * h
+    return c._replace(src=src, rec=rec)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["acoustic", "tti", "elastic"])
+@pytest.mark.parametrize("T", [2, 3])
+def test_trapezoid_edges_match_plain(physics, T):
+    """A source point on a trapezoid boundary in the halo, another just
+    outside it (the kernel skips it: it cannot reach the centre), and a
+    receiver on the corner of four tiles: the kernel against the plain
+    version, which injects everywhere in the window."""
+    dev = _card()
+    tile = (8, 8)
+    c = _edge_case(physics, T, tile)
+    if physics == "acoustic":
+        spec, args = _operands(c, T, tile, dev)
+        p = phys.ACOUSTIC
+    else:
+        p, spec, args = _mp_operands(c, T, tile, dev)
+    assert float(args[3].abs().sum()) > 0          # the source is live
+    kst, krec = ker.tb_time_tile(spec, p, *args)
+    pst, prec = ker.tb_time_tile_plain(spec, p, *args)
+    torch.cuda.synchronize()
+    atol = ATOL if physics == "acoustic" else MP_ATOL
+    for k, q in zip((*kst, krec), (*pst, prec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=atol)
+    assert_fields_close(
+        [(f, k.cpu(), q.cpu()) for f, k, q in zip(p.state_fields, kst, pst)]
+        + [(f"rec[{i}]", krec[..., i].cpu(), prec[..., i].cpu())
+           for i in range(p.rec_channels)], FIELD_RTOL, physics)
+    assert float(prec.abs().max()) > 0             # the receivers saw it
+
+
 # ---------------------------------------------------------------------------
 # Kernel B1c: a sharded pass (per-row params and domain mask)
 # ---------------------------------------------------------------------------
@@ -480,6 +536,62 @@ def test_dom_grid_mask_equals_the_grid_predicate(physics):
     assert all(torch.equal(x, y) for x, y in zip(a_st, b_st))
     with pytest.raises(ValueError, match="dom"):
         ker.tb_time_tile(spec, p, *args, dom=dom[:, 1:].contiguous())
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["acoustic", "tti", "elastic"])
+def test_dom_batch_of_three_equals_the_grid_predicate(physics):
+    """B = 3 rows with `dom` (each the grid's mask) and the params one a
+    row: bit for bit the batched launch without `dom`, and within the
+    tolerances of the plain version."""
+    dev = _card()
+    p = phys.PHYSICS[physics]
+    make = acoustic_case if physics == "acoustic" else MULTI_CASES[physics]
+    cases = [(make(shape=(32, 16, 29), order=4, nt=8, nsrc=n, nrec=4,
+                   seed=s), True) for n, s in ((1, 1), (3, 2), (2, 3))]
+    spec, args = _batch_operands(p, cases, 2, (16, 8), dev)
+    pads, ppads, sc, sv, rc, rw = args
+    h = spec.halo
+    gx = torch.arange(-h, spec.nx + h, device=dev)
+    gy = torch.arange(-h, spec.ny + h, device=dev)
+    dom = (((gx >= 0) & (gx < spec.nx))[:, None]
+           & ((gy >= 0) & (gy < spec.ny))).float()
+    dom = dom[None].expand(3, -1, -1).contiguous()
+    rows = tuple(q[None].expand(3, *q.shape).contiguous() for q in ppads)
+    a_st, a_rec = ker.tb_time_tile(spec, p, *args)
+    b_st, b_rec = ker.tb_time_tile(spec, p, pads, rows, sc, sv, rc, rw,
+                                   dom=dom)
+    q_st, q_rec = ker.tb_time_tile_plain(spec, p, pads, rows, sc, sv, rc,
+                                         rw, dom=dom)
+    torch.cuda.synchronize()
+    assert torch.equal(a_rec, b_rec)
+    assert all(torch.equal(x, y) for x, y in zip(a_st, b_st))
+    atol = ATOL if physics == "acoustic" else MP_ATOL
+    for k, q in zip((*b_st, b_rec), (*q_st, q_rec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=atol)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["acoustic", "elastic"])
+def test_stream_plan_matches_the_built_kernel(physics):
+    """The wrapper's mirror of the kernel's sub-tile choice (it sizes the
+    scratch by it) equals what the built kernel picks, over tiles, depths
+    and orders that fit whole, need a sub-tile, or fit no sub-tile."""
+    _card()
+    p = phys.PHYSICS[physics]
+    for tile in ((32, 32), (16, 8), (12, 12), (8, 8)):
+        for T in (1, 2, 4, 8):
+            for order in (2, 4, 8, 16):
+                spec = ops.make_spec((96, 96, 8), TBPlan(
+                    tile, T, p.step_radius(order)), order, 1e-3,
+                    (10.0,) * 3, 1, 1, physics=p)
+                try:
+                    want = ker.stream_plan(spec, p)
+                except ValueError:
+                    with pytest.raises(ValueError, match="sub-tile"):
+                        ker.card_stream_plan(spec, p)
+                    continue
+                assert ker.card_stream_plan(spec, p) == want
 
 
 @pytest.mark.cuda

@@ -115,3 +115,63 @@ def test_spec_geometry_and_cost():
         _ = tker.TBKernelSpec(nx=10, ny=8, nz=4, tile=(4, 4), T=1, order=2,
                               dt=1e-3, spacing=(1.0,) * 3, src_cap=1,
                               rec_cap=1).ntiles
+
+
+def _spec(physics, shape, tile, T, order):
+    from repro_torch.core.temporal_blocking import TBPlan
+    from repro_torch.kernels import ops
+    return ops.make_spec(shape, TBPlan(tile, T, physics.step_radius(order)),
+                         order, 1e-3, (10.0,) * 3, 1, 1, physics=physics)
+
+
+@pytest.mark.parametrize("name,tile,T,order,want", [
+    # the main plans fit a block whole (csrc/stencil_tb*.cu's notes)
+    ("acoustic", (32, 32), 4, 4, (32, 32, 217728)),
+    ("elastic", (32, 32), 4, 4, (32, 32, 163840)),
+    # deeper or wider stencils take the largest sub-tile that fits
+    ("acoustic", (32, 32), 4, 8, (16, 16, 224000)),
+    ("elastic", (16, 16), 4, 8, (8, 8, 207360)),
+])
+def test_stream_plan_picks_the_largest_fitting_subtile(name, tile, T, order,
+                                                       want):
+    p = tphys.PHYSICS[name]
+    spec = _spec(p, (64, 64, 16), tile, T, order)
+    assert tker.stream_plan(spec, p) == want
+    assert want[2] <= tker._STREAM_SMEM
+    # the next larger candidates do not fit
+    bx, by, _ = want
+    for cand in ((2 * bx, by), (bx, 2 * by)):
+        if tile[0] % cand[0] == 0 and tile[1] % cand[1] == 0:
+            assert tker._stream_smem(p, spec, *cand) > tker._STREAM_SMEM
+
+
+def test_stream_plan_refuses_what_fits_no_subtile():
+    p = tphys.ACOUSTIC
+    with pytest.raises(ValueError, match="1x1 sub-tile"):
+        tker.stream_plan(_spec(p, (64, 64, 16), (8, 8), 4, 16), p)
+
+
+@pytest.mark.parametrize("name", ["acoustic", "tti", "elastic"])
+def test_launch_bytes_follow_the_kernels(name):
+    """One shot's device bytes: outputs and partials, and the scratch the
+    kernel uses — for acoustic only the z-major copies of its two padded
+    state fields (no window scratch), for elastic those of its nine and
+    nine block windows, for TTI seven spec windows; the params' copies are
+    `launch_shared_bytes` (none for TTI)."""
+    p = tphys.PHYSICS[name]
+    spec = _spec(p, (64, 64, 16), (16, 16), 2, 4)
+    h = spec.halo
+    vol = (64 + 2 * h) ** 2 * 16
+    base = len(p.state_fields) * 64 * 64 * 16 * 4 \
+        + 16 * 2 * 1 * p.rec_channels * 4
+    if name == "tti":
+        scratch = 16 * 7 * (16 + 2 * h) ** 2 * 16 * 4
+        shared = 0
+    else:
+        bx, by, _ = tker.stream_plan(spec, p)
+        windows = 9 if name == "elastic" else 0
+        scratch = (len(p.state_fields) * vol + (64 // bx) * (64 // by)
+                   * windows * 16 * (bx + 2 * h) * (by + 2 * h)) * 4
+        shared = len(p.param_fields) * vol * 4
+    assert tker.launch_bytes(spec, p) == base + scratch
+    assert tker.launch_shared_bytes(spec, p) == shared

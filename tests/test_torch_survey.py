@@ -258,17 +258,65 @@ def test_stencil_survey_cli_check_passes():
 
 
 def test_batch_bytes_counts_what_a_batch_allocates():
+    """The elastic kernel (csrc/stencil_tb_elastic.cu) allocates, a shot:
+    its outputs and partials, float32 z-major copies of its padded state
+    and 9 z-major windows a block (here each block the whole 8x8 tile); the
+    params' copies are kept once for all shots."""
     from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_tb as ker
     from repro_torch.survey.engine import batch_bytes
 
     p = phys.ELASTIC
     plan = TBPlan((8, 8), 2, p.step_radius(ORDER))
     spec = ops.make_spec((16, 16, 8), plan, ORDER, 1e-3, (10.0,) * 3, 1, 1,
                          physics=p)
+    assert ker.stream_plan(spec, p)[:2] == (8, 8)
     shared, per_shot = batch_bytes(p, spec, None)
     padded = (16 + 16) ** 2 * 8 * 4                 # halo 8 a side
-    assert shared == 4 * padded
-    scratch = 4 * 9 * (8 + 16) ** 2 * 8 * 4         # 4 tiles x 9 windows
+    assert shared == 4 * padded + 4 * padded        # padded params + copies
+    copies = 9 * padded                             # the state, z-major
+    windows = 4 * 9 * (8 + 16) ** 2 * 8 * 4         # 4 blocks x 9 windows
     partials = 4 * 2 * 1 * 2 * 4                    # (ntiles, T, cap, chan)
     assert per_shot == 9 * (16 * 16 * 8 * 4 + padded) + 9 * 16 * 16 * 8 * 4 \
-        + partials + scratch
+        + partials + copies + windows
+
+
+@pytest.mark.parametrize("physics", ["acoustic", "elastic", "tti"])
+def test_memory_check_follows_launch_bytes(physics, monkeypatch):
+    """`SurveyEngine`'s bucket sizing (`_check_memory`) admits a batch
+    exactly when the card's free memory covers the shared bytes plus
+    bucket_cap times `batch_bytes`' per-shot bytes, which take the kernel's
+    allocations from `stencil_tb.launch_bytes` and
+    `launch_shared_bytes`."""
+    import torch
+
+    from repro_torch.kernels import stencil_tb as ker
+    from repro_torch.survey import engine as E
+
+    grid = Grid((16, 16, 8), (10.0,) * 3)
+    rng = np.random.RandomState(0)
+    params = build_model(physics, grid.shape, grid, rng, device="cpu")
+    p = phys.PHYSICS[physics]
+    eng = SurveyEngine(physics, grid, params, 5, 1e-3, bucket_cap=3,
+                       plan=TBPlan((8, 8), 2, p.step_radius(ORDER)),
+                       plan_cache=PlanCache(), device="cpu")
+    spec, rspec = eng._specs((1, 1))
+    shared, per_shot = E.batch_bytes(p, spec, rspec)
+    assert per_shot - ker.launch_bytes(spec, p) == len(p.state_fields) * (
+        16 * 16 * 8 + (16 + 2 * spec.halo) ** 2 * 8) * 4
+    assert shared - ker.launch_shared_bytes(spec, p) == len(
+        p.param_fields) * sum((16 + 2 * s.halo) ** 2 * 8 * 4
+                              for s in (spec, rspec))
+    need = shared + 3 * per_shot
+    for free, ok in ((need, True), (need - 1, False)):
+        monkeypatch.setattr(torch.cuda, "mem_get_info",
+                            lambda dev=None, f=free: (f, 2 * f))
+        monkeypatch.setattr(torch.cuda, "memory_reserved",
+                            lambda dev=None: 0)
+        monkeypatch.setattr(torch.cuda, "memory_allocated",
+                            lambda dev=None: 0)
+        if ok:
+            eng._check_memory()
+        else:
+            with pytest.raises(ValueError, match="bucket_cap=3"):
+                eng._check_memory()

@@ -8,7 +8,12 @@ Prints the registers ptxas gives each kernel instantiation, then, at the
 paper's 512^3 shapes (tile 32, T = 4, order 4, no sources), the kernel
 alone per physics — the median, least and most of 3 means of 5 launches
 after a warm-up, by CUDA events — for one shot and, where the checkout
-has the shot-batched launch, for two (acoustic and TTI).  Needs a card.
+has the shot-batched launch, for two (acoustic and TTI), and
+fingerprints of the one-shot launch's outputs (the sum and the xor of the
+float32 bit patterns): of the state fields bit for bit, and of the
+receiver partials with -0 read as +0 (a padding slot's partial is
+w * sample = 0 with either sign).  Two checkouts whose kernels compute
+the same function print the same fingerprints.  Needs a card.
 """
 import statistics
 import sys
@@ -36,6 +41,20 @@ def timed(launch):
         torch.cuda.synchronize()
         means.append(s.elapsed_time(e) / 5)
     return statistics.median(means), min(means), max(means)
+
+
+def fingerprint(tensors):
+    """(sum, xor) over the int32 bit patterns of every element."""
+    total, x = 0, 0
+    for t in tensors:
+        bits = t.contiguous().view(torch.int32).reshape(-1)
+        total += int(bits.to(torch.int64).sum())
+        while bits.numel() > 1:                 # xor by halving
+            if bits.numel() % 2:
+                bits = torch.cat([bits, bits.new_zeros(1)])
+            bits = bits[0::2] ^ bits[1::2]
+        x ^= int(bits[0])
+    return total, x
 
 
 def main(root):
@@ -77,8 +96,11 @@ def main(root):
         del state
         args = (pads, ppads, sc, sv, rc, rw)
         t = timed(lambda: ker.tb_time_tile(spec, p, *args))
+        out, rec = ker.tb_time_tile(spec, p, *args)
         print(f"{root} {name} B=1: {t[0]:.3f} ms (least {t[1]:.3f}, most "
-              f"{t[2]:.3f})", flush=True)
+              f"{t[2]:.3f}); fingerprints: fields {fingerprint(out)}, "
+              f"partials {fingerprint((rec + 0.0,))}", flush=True)
+        del out, rec
         if batched and name != "elastic":
             args2 = (tuple(torch.cat([x, x]) for x in pads), ppads,
                      *(torch.cat([x, x]) for x in (sc, sv, rc, rw)))

@@ -1,17 +1,20 @@
-"""Compare the machine code (SASS) of the float32 TB kernel instantiations
-of two copies of the port's kernel sources:
+"""Compare the machine code (SASS) of the kernels of two copies of the
+port's kernel sources:
 
-    python3 tools/sass_compare.py <csrc dir a> [<csrc dir b>]
+    python3 tools/sass_compare.py <csrc dir a> [<csrc dir b>] [--files f,..]
 
-<csrc dir b> defaults to this tree's `src/repro_torch/kernels/csrc`.  Each
-of `stencil_tb.cu`, `stencil_tb_tti.cu` and `stencil_tb_elastic.cu` is
-compiled to a cubin with the port's nvcc flags (under `build/sass/`) and
-disassembled with `cuobjdump -sass`; instantiations are matched by their
-(radius, DOM) template arguments, bf16 ones are skipped, and each pair's
-instructions are compared with the code offsets stripped.  Prints, per
-file, how many of the float32 instantiations are identical, and exits 1 if
-any differs.  Needs the CUDA toolkit (nvcc, cuobjdump), not a card.
+<csrc dir b> defaults to this tree's `src/repro_torch/kernels/csrc`;
+`--files` names the sources to compare (default: `stencil_tb_tti` and
+`ssd_scan`, the kernels the z-streamed redesign of the acoustic and
+elastic kernels must leave as they were).  Each source is compiled to a
+cubin with the port's nvcc flags (under `build/sass/`) and disassembled
+with `cuobjdump -sass`; every kernel function (each template
+instantiation, by its mangled name) is compared instruction by
+instruction with the code offsets stripped.  Prints, per file, how many
+functions are identical, and exits 1 if any differs or is missing on one
+side.  Needs the CUDA toolkit (nvcc, cuobjdump), not a card.
 """
+import argparse
 import re
 import subprocess
 import sys
@@ -21,14 +24,13 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 
-FILES = ("stencil_tb", "stencil_tb_tti", "stencil_tb_elastic")
-# the (radius, DOM) arguments of a kernel's mangled name, e.g.
-# _Z18tb_acoustic_kernelILi2ELb0EEv... or ..ILi2ELb0EfEv.. (storage float)
-ARGS = re.compile(r"_kernelILi(\d+)ELb([01])E")
+FILES = ("stencil_tb_tti", "ssd_scan")
 OFFSET = re.compile(r"^\s*/\*[0-9a-f]+\*/")      # an instruction's offset
 
 
-def instantiations(src: Path, tag: str):
+def functions(src: Path, tag: str):
+    """{mangled name: [instruction, ...]} of the kernels compiled from
+    `src`."""
     out = _build.BUILD_DIR.parent / "sass"
     out.mkdir(parents=True, exist_ok=True)
     cubin = out / f"{tag}.cubin"
@@ -41,27 +43,28 @@ def instantiations(src: Path, tag: str):
                           capture_output=True, text=True).stdout
     funcs = {}
     for block in text.split("Function : ")[1:]:
-        name = block.splitlines()[0].strip()
-        m = ARGS.search(name)
-        if m is None or "bfloat16" in name:
-            continue
-        funcs[m.groups()] = [OFFSET.sub("", ln).strip()
-                             for ln in block.splitlines()[1:]
-                             if ln.strip().startswith("/*")]
+        lines = block.splitlines()
+        funcs[lines[0].strip()] = [OFFSET.sub("", ln).strip()
+                                   for ln in lines[1:]
+                                   if ln.strip().startswith("/*")]
     return funcs
 
 
 def main(argv):
-    dirs = [Path(argv[0]), Path(argv[1]) if len(argv) > 1 else _build.CSRC]
+    ap = argparse.ArgumentParser()
+    ap.add_argument("a")
+    ap.add_argument("b", nargs="?", default=str(_build.CSRC))
+    ap.add_argument("--files", default=",".join(FILES))
+    args = ap.parse_args(argv)
+    dirs = [Path(args.a), Path(args.b)]
     ok = True
-    for f in FILES:
-        a, b = (instantiations(d / f"{f}.cu", f"{f}-{i}")
+    for f in args.files.split(","):
+        a, b = (functions(d / f"{f}.cu", f"{f}-{i}")
                 for i, d in enumerate(dirs))
         same = sum(a[k] == b.get(k) for k in a)
         ok = ok and same == len(a) == len(b)
-        print(f"{f}: {len(a)} float32 instantiations in {dirs[0]}, "
-              f"{len(b)} in {dirs[1]}; identical SASS: {same}/{len(a)}",
-              flush=True)
+        print(f"{f}: {len(a)} kernel functions in {dirs[0]}, {len(b)} in "
+              f"{dirs[1]}; identical SASS: {same}/{len(a)}", flush=True)
     return 0 if ok else 1
 
 
