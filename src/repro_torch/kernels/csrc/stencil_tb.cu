@@ -60,8 +60,9 @@
 // item a thread: ~520-770 instructions a thread (~190 floating-point:
 // no multiply-add contraction), at under one instruction a cycle a
 // scheduler with 16 warps an SM.  8-point items on 384 threads, 2-point
-// items on 1,024, and a second unclamped item path were all slower; 13%
-// fewer instructions an item did not move the time.  A depth-1 launch
+// items on 1,024, a second unclamped item path and 4-point row items read
+// with 16-byte loads were all slower; 13% fewer instructions an item did
+// not move the time.  A depth-1 launch
 // (the spatially-blocked baseline) is slower than the first design's:
 // one level cannot hide a plane-step's latency.
 
