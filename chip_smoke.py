@@ -42,6 +42,7 @@ acoustic: sharded-acoustic and main-acoustic-bf16); then survey-acoustic,
 survey-small, sharded-small-*, survey-sharded and the kernel line.  Any
 failed check raises, and the script exits non-zero.
 """
+import contextlib
 import dataclasses
 import json
 import math
@@ -248,22 +249,83 @@ def uncounted(fn):
     return out
 
 
+# launches held against the plain version, by schedule (`schedules`)
+COMPARED = {"first": 0, "z-streamed": 0}
+
+
+# grids up to this many points hold every schedule against the plain
+# version; larger ones (the 512^3 launches, whose two schedules' outputs
+# and scratch would not fit the card together) only the one picked, which
+# the main paths also hold to the Listing-1 reference end to end
+EVERY_SCHEDULE_POINTS = 256 ** 3
+
+
+def schedules(spec, physics):
+    """The schedules the physics' kernel can run at `spec`, the one
+    `stencil_tb.launch_plan` picks first: None for the first schedule,
+    else a z-streamed (bx, by, shared bytes).  TTI has the first only."""
+    chosen = ker.launch_plan(spec, physics)
+    if (ker._KERNELS[physics.name].stream_from_halo is None
+            or spec.nx * spec.ny * spec.nz > EVERY_SCHEDULE_POINTS):
+        return [chosen]
+    if chosen is not None:
+        return [chosen, None]
+    try:
+        return [None, ker.stream_plan(spec, physics)]
+    except ValueError:                  # no sub-tile fits a block
+        return [None]
+
+
+@contextlib.contextmanager
+def on_schedule(plan):
+    """Launches made inside take schedule `plan`, whatever `launch_plan`
+    would pick, so each schedule is held against the plain version."""
+    chosen = ker.launch_plan
+    ker.launch_plan = lambda spec, physics: plan
+    try:
+        yield
+    finally:
+        ker.launch_plan = chosen
+
+
+def schedule_name(plan):
+    return "first" if plan is None else "z-streamed"
+
+
 def compare_kernel(spec, physics, args, dom=None):
-    """One kernel launch against the plain version on the same inputs:
-    (max|diff|, max over fields and receiver channels of max|diff| /
-    max|plain|, the kernel's (fields, partials))."""
-    kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args,
-                                                   dom=dom))
-    pst, prec = ker.tb_time_tile_plain(spec, physics, *args, dom=dom)
-    torch.cuda.synchronize()
+    """The kernel against the plain version on the same inputs, once on
+    every schedule it has at this shape (`schedules`): (max|diff|, max
+    over fields and receiver channels of max|diff| / max|plain|, each the
+    worst over the schedules, the kernel's (fields, partials) on the
+    schedule `launch_plan` picks).  The picked schedule launches before
+    the plain version runs, so its scratch meets an unfragmented cache."""
+    plans = schedules(spec, physics)
     atol = ATOL[physics.name]
-    pairs = [(f, k, p) for f, k, p in zip(physics.state_fields, kst, pst)]
-    pairs += [(f"rec[{c}]", krec[..., c], prec[..., c])
-              for c in range(prec.shape[-1])]
-    del pst, prec
-    errs = [check_close(f"{physics.name} {f}", k, p, atol)
-            for f, k, p in pairs]
-    return max(e for e, _ in errs), max(r for _, r in errs), (kst, krec)
+    torch.cuda.empty_cache()        # a 512^3 launch's scratch is tens of GB
+
+    def launch(plan):
+        with on_schedule(plan):
+            return uncounted(lambda: ker.tb_time_tile(spec, physics, *args,
+                                                      dom=dom))
+
+    picked = launch(plans[0])
+    pst, prec = ker.tb_time_tile_plain(spec, physics, *args, dom=dom)
+    worst = worst_rel = 0.0
+    for plan in plans:
+        kst, krec = picked if plan is plans[0] else launch(plan)
+        torch.cuda.synchronize()
+        name = schedule_name(plan)
+        pairs = [(f, k, q) for f, k, q in zip(physics.state_fields, kst,
+                                              pst)]
+        pairs += [(f"rec[{c}]", krec[..., c], prec[..., c])
+                  for c in range(prec.shape[-1])]
+        errs = [check_close(f"{physics.name} {f} ({name} schedule)", k, q,
+                            atol) for f, k, q in pairs]
+        worst = max(worst, max(e for e, _ in errs))
+        worst_rel = max(worst_rel, max(r for _, r in errs))
+        COMPARED[name] += 1
+        del kst, krec, pairs
+    return worst, worst_rel, picked
 
 
 SMALL_CASES = [  # (T, tile, order, shape, sources)
@@ -564,9 +626,11 @@ def time_tile_pieces(fc, plan, state, t0):
 def time_kernel(spec, physics, args, dom=None):
     """The kernel alone on `args`: after a warm-up, the median of 3 means of
     5 launches, the least and the most of the 3, and the launch's receiver
-    partials."""
-    launch = lambda: ker.tb_time_tile(spec, physics, *args,  # noqa: E731
-                                      dom=dom)
+    partials.  The params' copies are made once beforehand
+    (`stencil_tb.param_copies`), as every path makes them once a run."""
+    copies = ker.param_copies(spec, physics, args[1])
+    launch = lambda: ker.tb_time_tile(  # noqa: E731
+        spec, physics, *args, dom=dom, param_copies=copies)
     rec_part = uncounted(launch)[1]                         # warm-up
     means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
              for _ in range(3)]
@@ -626,7 +690,7 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
         f"reference counts), plain {plain_ms:.1f} ms; kernel = "
         f"{100 * ms * launches / tb_ms:.1f}% of the TB run; max|diff| vs "
         f"plain {err:.3e}, max|diff|/max|plain| {rel:.3e} [{smi}]")
-    if ker._KERNELS[name].stream:
+    if ker._KERNELS[name].stream_from_halo is not None:
         say_design(f"kernels-{name}", fc.physics, spec, ms, cost)
     return {
         "name": f"stencil_tb.tb_{name}",
@@ -662,14 +726,16 @@ def ptxas_usage(log):
 
 
 def say_design(phase, physics, spec, ms, cost):
-    """The z-streamed kernel's design at this launch's shape: each
-    instantiation of its radius (ptxas registers, static shared memory,
-    spill stores; the plan's dynamic shared memory), blocks an SM, and the
-    launch's achieved GB/s: the least bytes (`kernel_cost`) and the bytes
-    its passes request (`stencil_tb.stream_bytes`) over its time."""
+    """The kernel's design at this launch's shape: the schedule
+    `stencil_tb.launch_plan` picks, each instantiation of it at this
+    radius (ptxas registers, static shared memory, spill stores; the
+    plan's dynamic shared memory), blocks an SM, and the launch's
+    achieved GB/s: the least bytes (`kernel_cost`) and the bytes its
+    schedule moves by design (`stencil_tb.design_bytes`) over its time."""
     lib = KERNEL_FILES[physics.name]
     usage = ptxas_usage(_build.build_all([lib])[lib].log)
-    bx, by, dyn = ker.stream_plan(spec, physics)
+    plan = ker.launch_plan(spec, physics)
+    bx, by, dyn = plan if plan is not None else (*spec.tile, 0)
     props = torch.cuda.get_device_properties(0)
     sm_smem = getattr(props, "shared_memory_per_multiprocessor", 233472)
     sm_regs = getattr(props, "regs_per_multiprocessor", 65536)
@@ -677,7 +743,8 @@ def say_design(phase, physics, spec, ms, cost):
     threads = ker._STREAM_THREADS
     parts = []
     for entry, (regs, static, spill) in sorted(usage.items()):
-        if f"_kernelILi{spec.radius}E" not in entry:
+        if (f"_kernelILi{spec.radius}E" not in entry
+                or ("StreamArgs" in entry) != (plan is not None)):
             continue
         blocks = min(sm_smem // (dyn + static + 1024),
                      sm_regs // (regs * threads), sm_threads // threads)
@@ -687,14 +754,17 @@ def say_design(phase, physics, spec, ms, cost):
                      f"{kind}>: {regs} registers, {spill} B spill stores, "
                      f"{dyn} + {static} B shared a block, {blocks} block(s) "
                      "an SM")
-    design = ker.stream_bytes(spec, physics)
+    design = ker.design_bytes(spec, physics)
     nblocks = (spec.nx // bx) * (spec.ny // by)
-    say(phase, f"design: sub-tile ({bx}, {by}) of tile {spec.tile}, "
-        f"{nblocks} blocks of {threads} threads; " + "; ".join(parts)
+    what = ("first schedule, one block a tile" if plan is None else
+            f"z-streamed schedule, sub-tile ({bx}, {by}) of tile "
+            f"{spec.tile}")
+    say(phase, f"design: {what}, {nblocks} blocks of {threads} threads; "
+        + "; ".join(parts)
         + f"; achieved {cost['min_bytes'] / ms / 1e6:.0f} GB/s of least "
         f"bytes ({100 * cost['min_bytes'] / ms / 1e-3 / HBM_BW:.1f}% of "
         f"{HBM_BW / 1e12:.2f} TB/s), {design / ms / 1e6:.0f} GB/s of the "
-        f"{design / 1e9:.2f} GB its passes request")
+        f"{design / 1e9:.2f} GB its schedule moves")
 
 
 # ---------------------------------------------------------------------------
@@ -1197,7 +1267,7 @@ def phase_kernel_vs_plain_dom(dev):
                              inner_T=T // 2 if nested else T)
             seen = []
 
-            def check(spec, p, *args, dom=None):
+            def check(spec, p, *args, dom=None, param_copies=None):
                 err, rel, out = compare_kernel(spec, p, args, dom=dom)
                 seen.append((spec.nx, spec.T, spec.ntiles, err, rel))
                 return out
@@ -1287,12 +1357,13 @@ def phase_sharded_acoustic(fc, smi, kept, tb_ms):
     mid = (fc.nt // plan.T) // 2
     captured = []
 
-    def capture(spec, p, *args, dom=None):
+    def capture(spec, p, *args, dom=None, param_copies=None):
         if len(captured) == mid:
             captured.append((spec, args, dom))
         else:
             captured.append(None)
-        return ker.tb_time_tile(spec, p, *args, dom=dom)
+        return ker.tb_time_tile(spec, p, *args, dom=dom,
+                                param_copies=param_copies)
 
     ops.EXECUTORS["cuda"] = capture
     try:
@@ -1502,34 +1573,40 @@ def compare_bf16(spec, physics, args, args32):
     reference's bf16 bound of its result).  Returns (max|diff| / max|plain|
     vs plain, max|diff| vs float32, the least margin to the reference's
     bound: bound - diff, max|diff| vs plain)."""
-    kst, krec = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
     fst, frec = uncounted(lambda: ker.tb_time_tile(
         dataclasses.replace(spec, dtype=torch.float32), physics, *args32))
     pst, prec = ker.tb_time_tile_plain(spec, physics, *args)
-    torch.cuda.synchronize()
     worst_p = worst_f = abs_p = 0.0
     margin = math.inf
-    for k, p, f in zip((*kst, krec), (*pst, prec), (*fst, frec)):
-        if k.dtype != BF16 or not torch.isfinite(k.float()).all():
-            raise AssertionError("bf16 kernel: wrong dtype or non-finite")
-        chans = ((k[..., c], p[..., c]) for c in range(k.shape[-1])) \
-            if k is krec else ((k, p),)
-        for kc, pc in chans:
-            dp = float((kc.float() - pc.float()).abs().max())
-            scale = float(pc.float().abs().max())
-            if dp > BF16_PLAIN_RTOL * scale:
-                raise AssertionError(
-                    f"bf16 kernel: max|diff| {dp:.3e} vs plain bf16 > 2^-6 "
-                    f"x max|plain| {scale:.3e}")
-            worst_p = max(worst_p, dp / scale if scale else 0.0)
-            abs_p = max(abs_p, dp)
-        bound = bf16_bound(f)
-        df = float((k.float() - f).abs().max())
-        worst_f = max(worst_f, df)
-        margin = min(margin, bound - df)
-        if df > bound:
-            raise AssertionError(f"bf16 kernel: max|diff| {df:.3e} vs "
-                                 f"float32 > bound {bound:.3e}")
+    outs = []
+    for plan in schedules(spec, physics):
+        with on_schedule(plan):
+            outs.append(uncounted(lambda: ker.tb_time_tile(spec, physics,
+                                                           *args)))
+        COMPARED[schedule_name(plan)] += 1
+    torch.cuda.synchronize()
+    for kst, krec in outs:
+        for k, p, f in zip((*kst, krec), (*pst, prec), (*fst, frec)):
+            if k.dtype != BF16 or not torch.isfinite(k.float()).all():
+                raise AssertionError("bf16 kernel: wrong dtype or non-finite")
+            chans = ((k[..., c], p[..., c])
+                     for c in range(k.shape[-1])) if k is krec else ((k, p),)
+            for kc, pc in chans:
+                dp = float((kc.float() - pc.float()).abs().max())
+                scale = float(pc.float().abs().max())
+                if dp > BF16_PLAIN_RTOL * scale:
+                    raise AssertionError(
+                        f"bf16 kernel: max|diff| {dp:.3e} vs plain bf16 > "
+                        f"2^-6 x max|plain| {scale:.3e}")
+                worst_p = max(worst_p, dp / scale if scale else 0.0)
+                abs_p = max(abs_p, dp)
+            bound = bf16_bound(f)
+            df = float((k.float() - f).abs().max())
+            worst_f = max(worst_f, df)
+            margin = min(margin, bound - df)
+            if df > bound:
+                raise AssertionError(f"bf16 kernel: max|diff| {df:.3e} vs "
+                                     f"float32 > bound {bound:.3e}")
     return worst_p, worst_f, margin, abs_p
 
 
@@ -1968,6 +2045,8 @@ def main():
     phase_kernels_batched(dev)
     phase_kernel_vs_plain_dom(dev)
     phase_kernel_vs_plain_bf16(dev)
+    say("kernel-vs-plain", f"launches held against the plain version by "
+        f"schedule (acoustic, elastic): {COMPARED}")
     b2 = phase_kernel_vs_plain_ssd(dev, smi)
     phase_serve_mamba2(dev, smi, b2)
     entries, tb_ms, extra = [], {}, []

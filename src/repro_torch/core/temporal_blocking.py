@@ -245,10 +245,15 @@ def autotune_plan(nz: int, radius: int, vmem_budget: Optional[int] = None,
     of a host over NVLink, not a measurement.
 
     `vmem_budget` caps the bytes of one tile's `fields` windows.  The
-    reference sizes it to the TPU's on-chip memory; the port's kernels keep
-    their windows in device-memory scratch, so no on-chip cap applies and
-    the default None means no cap.  A caller that wants the reference's cap
-    passes it (96 * 2**20).
+    reference sizes it to the TPU's on-chip memory.  The port's kernels
+    need no such cap: where a plan's working set does not fit a block's
+    shared memory, the launch takes the schedule that keeps its windows in
+    device-memory scratch (`kernels.stencil_tb.launch_plan`), so the
+    default None means no cap; a caller that wants the reference's cap
+    passes it (96 * 2**20).  What does bound a plan on the card is device
+    memory, which depends on the grid and the shots a launch takes, not
+    only on (tile, T): `plan_for_physics`'s `feasible` keeps the sweep to
+    the plans that fit.
     """
     read_fields = fields - 1 if read_fields is None else read_fields
     write_fields = 1 if write_fields is None else write_fields
@@ -415,12 +420,19 @@ PHYSICS_COSTS = {
 }
 
 
-def plan_for_physics(physics: str, nz: int, order: int, **kwargs
-                     ) -> Tuple[TBPlan, dict]:
+def plan_for_physics(physics: str, nz: int, order: int,
+                     feasible: Optional[Callable[[TBPlan], bool]] = None,
+                     **kwargs) -> Tuple[TBPlan, dict]:
     """`autotune_plan` priced for one physics: field counts, per-step halo
     radius, FLOP density and exchange lags from `PHYSICS_COSTS[physics]`;
     kwargs (vmem_budget, tiles, depths, peak_flops, hbm_bw, mesh_block,
-    link_bw, link_latency, ...) pass through and override."""
+    link_bw, link_latency, ...) pass through and override.
+
+    `feasible`, when given, is asked about the candidates (single-level
+    sweeps only) and the plan is the cheapest it accepts, first in sweep
+    order among equals as the sweep's own argmin; the log keeps every
+    candidate and its `best_key` names that plan.  The survey engine
+    passes whether a batch at the plan fits the card's memory."""
     pc = PHYSICS_COSTS[physics]
     args = dict(fields=pc.fields, read_fields=pc.read_fields,
                 write_fields=pc.write_fields,
@@ -428,7 +440,22 @@ def plan_for_physics(physics: str, nz: int, order: int, **kwargs
                 exchange_lags=pc.exchange_lags(order),
                 flops_per_point=pc.flops_per_point(order))
     args.update(kwargs)
-    return autotune_plan(nz, pc.step_radius(order), **args)
+    radius = pc.step_radius(order)
+    plan, log = autotune_plan(nz, radius, **args)
+    if feasible is None or feasible(plan):
+        return plan, log
+    if args.get("outer_depths") is not None:
+        raise ValueError("feasible takes single-level sweeps only")
+    best = None
+    for key, entry in log.items():
+        cand = TBPlan((key[0], key[1]), key[2], radius)
+        if (best is None or entry["cost_s"] < best[0]) and feasible(cand):
+            best = (entry["cost_s"], key, cand)
+    if best is None:
+        raise ValueError(f"no {physics} plan of the sweep passes the "
+                         "caller's feasibility check")
+    log.best_key = best[1]
+    return best[2], log
 
 
 # ---------------------------------------------------------------------------

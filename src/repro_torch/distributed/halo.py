@@ -58,6 +58,7 @@ from repro_torch.core import tables as tables_mod
 from repro_torch.core.temporal_blocking import (HierPlan, TBPassGeom, TBPlan,
                                                 nested_pass_geometry)
 from repro_torch.kernels import ops as ops_mod
+from repro_torch.kernels import stencil_tb
 from repro_torch.kernels import tb_physics as phys
 from repro_torch.launch.mesh import ShardMesh
 from repro_torch.telemetry import spans as _spans
@@ -276,7 +277,8 @@ def _local_domain_mask(plan: DistTBPlan, h: int, shard: Tuple[int, int],
 # ---------------------------------------------------------------------------
 
 def _run_pass(plan: DistTBPlan, geom: TBPassGeom, state_pads, param_pads,
-              dom_pad, h_full: int, s_coords, s_vals, r_coords, r_w):
+              dom_pad, h_full: int, s_coords, s_vals, r_coords, r_w,
+              kept: Optional[dict] = None):
     """Advance ONE inner pass of the time-nested schedule for S shard rows
     on one device, in one executor call (one kernel launch).
 
@@ -291,6 +293,9 @@ def _run_pass(plan: DistTBPlan, geom: TBPassGeom, state_pads, param_pads,
 
     Tables are per pass-local tile: s_coords (S, ntiles, cap, 3)
     window-local, s_vals (S, ntiles, geom.T, cap), r_coords/r_w likewise.
+    `kept`, a dict the caller keeps for this pass over its tiles, holds
+    the kernel's copies of the pass's params (`stencil_tb.param_copies`),
+    made at the first launch: the params do not change over a run.
     Returns (state tuple at depth d_out, rec partials
     (S, ntiles, geom.T, capr, chan)).
     """
@@ -318,8 +323,15 @@ def _run_pass(plan: DistTBPlan, geom: TBPassGeom, state_pads, param_pads,
         geom, nz, plan.order, float(plan.dt),
         tuple(float(s) for s in plan.spacing), s_coords.shape[-2],
         r_coords.shape[-2], spads[0].dtype, physics)
+    copies = None
+    if plan.inner == "cuda" and kept is not None:
+        if "param_copies" not in kept:
+            kept["param_copies"] = stencil_tb.param_copies(spec, physics,
+                                                           ppads)
+        copies = kept["param_copies"]
     new, rec = ops_mod.EXECUTORS[plan.inner](
-        spec, physics, spads, ppads, s_coords, s_vals, r_coords, r_w, dom=dom)
+        spec, physics, spads, ppads, s_coords, s_vals, r_coords, r_w, dom=dom,
+        param_copies=copies)
     new = tuple(a[:, :keep[0], :keep[1]] for a in new)
     rec = rec.reshape(S, -1, geom.T, rec.shape[-2], rec.shape[-1])
     return new, rec
@@ -690,6 +702,9 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
                 param_pads.append(tuple(fields))
                 dom_pads.append(torch.stack(doms))
 
+    # per (device group, pass): the kernel's copies of the pass's params
+    kept: Dict[Tuple[int, int], dict] = {}
+
     def run_tile(blocks, t0, src_dcmp, scale_vec):
         # ONE deep exchange per depth-T tile, per-field depths zero-padded
         # to the uniform window
@@ -738,7 +753,8 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
                         isid, ismask, scale_vec[gi], dtype)
                     state, rec = _run_pass(plan, geom, state,
                                            param_pads[gi], dom_pads[gi], h,
-                                           isc, sv, irc, irw)
+                                           isc, sv, irc, irw,
+                                           kept.setdefault((gi, ip), {}))
                 gparts.append(rec)
             for f, a in enumerate(state):
                 for row, k in enumerate(ks):

@@ -23,10 +23,23 @@
 // What bounds it: bytes.  The least traffic for one call is each input
 // read once and each output written once (4 fields in, 2 out: 3.2 GB at
 // 512^3, 0.96 ms at 3.35 TB/s); the arithmetic is ~36 flops a point-step,
-// far under the card's float32 rate.  The first design moved ~25 GB a
-// depth-4 launch (every window re-read at every step).  This one keeps all
-// T levels on chip, as a wavefront in z (tb_stream.cuh describes the
-// trapezoid, the z-major copies and the sub-tiles):
+// far under the card's float32 rate.
+//
+// Two schedules compute the same function; the wrapper picks one a launch
+// from its shape (`stencil_tb.launch_plan`) and passes the z-streamed
+// schedule's sub-tile, or (0, 0) for the first schedule:
+//
+// The first schedule (the port's first design, kept as it was): one block
+// a tile, the whole window computed at every step and ping-ponged through
+// a per-block scratch in device memory, every field re-read at every step
+// (~25 GB a depth-4 launch at 512^3).  It runs what the z-streamed
+// schedule cannot hold on chip (deep or wide stencils) and the depth-1
+// launches, where one level has no later level to hide its plane-steps
+// behind.
+//
+// The z-streamed schedule keeps all T levels on chip, as a wavefront in z
+// (tb_stream.cuh describes the trapezoid, the z-major copies and the
+// sub-tiles):
 //
 //   step t computes plane t - (k - 1) r of level k for k = 1..T, so level
 //   k + 1 runs r planes behind level k.  Level j < T keeps a ring of 2r + 1
@@ -49,8 +62,8 @@
 // inputs once to copy them (2.3 GB), the copies once over each block's
 // window (~2.25x overhang in x/y) and writes u_{T-1} and u_T once: ~9-10
 // GB against ~25 GB.  Configurations whose rings do not fit take a
-// sub-tile of the tile (pick_subtile); with no sub-tile fitting (very deep
-// or very wide stencils) the launch is refused.
+// sub-tile of the tile; where none fits, or the sub-tile's overhang costs
+// more than the first schedule, the launch takes the first schedule.
 //
 // Measured (PERF.md): 9.3-9.4 ms a depth-4 launch at the main plan and
 // 0.93 ms of state copies, against 15.1 ms for the first design in the
@@ -63,10 +76,90 @@
 // items on 1,024, a second unclamped item path and 4-point row items read
 // with 16-byte loads were all slower; 13% fewer instructions an item did
 // not move the time.  A depth-1 launch
-// (the spatially-blocked baseline) is slower than the first design's:
-// one level cannot hide a plane-step's latency.
+// (the spatially-blocked baseline) was slower than the first design's
+// (5.28 against 3.76 ms): one level cannot hide a plane-step's latency.
 
 #include "tb_stream.cuh"
+
+// ---------------------------------------------------------------------------
+// The first schedule (sub-tile (0, 0)): the first design's kernel, unchanged
+// ---------------------------------------------------------------------------
+
+template <int R, bool DOM, class S>
+__global__ void __launch_bounds__(THREADS)
+tb_acoustic_kernel(const TileArgsT<S> a, const Coefs cf)
+{
+    const TileT<S> t(a);
+    S* buf[2] = {t.scratch(a, 0, 2), t.scratch(a, 1, 2)};
+    const S* m = t.input(a, 2).p;
+    const S* damp = t.input(a, 3).p;
+    ViewT<S> prev = t.input(a, 0), cur = t.input(a, 1);
+    const int nz = a.nz, wx = t.wx, wy = t.wy;
+    const int ncol = wx * wy, nzc = (nz + 31) / 32;
+    const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+    const int nwarps = blockDim.x >> 5;
+
+    for (int k = 0; k < a.T; ++k) {
+        S* nxt = buf[k & 1];
+        // Tile::for_each_point's work order, written out with the taps
+        // addressed from the column start: on the 512^3 case this loop
+        // measured 16.2 ms a depth-4 launch, the same body through the
+        // shared Tile::for_each_point / Tile::taps helpers 18.4 ms (PERF.md)
+        for (int item = warp; item < ncol * nzc; item += nwarps) {
+            const int zc = item / ncol, col = item - zc * ncol;
+            const int iz = zc * 32 + lane;
+            if (iz >= nz) continue;
+            const int ix = col / wy, iy = col - ix * wy;
+            S* out = nxt + (long long)ix * t.win_sx + (long long)iy * nz;
+            if (!t.template in_domain<DOM>({ix, iy, iz})) {
+                out[iz] = from_f<S>(0.f);
+                continue;
+            }
+            const S* c0 = cur.p + (long long)ix * cur.sx + (long long)iy * nz;
+            const float u = to_f(c0[iz]);
+            float lx = 0.f, ly = 0.f, lz = 0.f;
+#pragma unroll
+            for (int q = 0; q <= 2 * R; ++q) {
+                const int xx = ix + q - R;
+                const float v = (xx >= 0 && xx < wx) ? to_f(c0[(q - R) * cur.sx + iz]) : 0.f;
+                lx += v * cf.c[0][q];
+            }
+#pragma unroll
+            for (int q = 0; q <= 2 * R; ++q) {
+                const int yy = iy + q - R;
+                const float v = (yy >= 0 && yy < wy) ? to_f(c0[(long long)(q - R) * nz + iz]) : 0.f;
+                ly += v * cf.c[1][q];
+            }
+#pragma unroll
+            for (int q = 0; q <= 2 * R; ++q) {
+                const int zz = iz + q - R;
+                const float v = (zz >= 0 && zz < nz) ? to_f(c0[zz]) : 0.f;
+                lz += v * cf.c[2][q];
+            }
+            const float lap = (lx + ly) + lz;
+            const long long pi = (long long)ix * t.pad_sx + (long long)iy * nz + iz;
+            const float mm = to_f(__ldg(m + pi)), dd = to_f(__ldg(damp + pi));
+            const float up = to_f(prev.p[(long long)ix * prev.sx + (long long)iy * nz + iz]);
+            const float num = a.dt2 * lap + mm * (2.f * u - up) + dd * a.dt * u;
+            out[iz] = from_f<S>(num / (mm + dd * a.dt));
+        }
+        __syncthreads();
+        S* const inj[1] = {nxt};
+        t.inject(a, k, inj);
+        __syncthreads();
+        t.template record<1>(a, k, [&](long long w, float* s) { s[0] = to_f(nxt[w]); });
+        // step k+1 writes buf[(k+1) & 1], which holds this step's u (its
+        // u_prev): read pointwise only, by the thread that overwrites it
+        prev = cur;
+        cur = t.window(nxt);
+    }
+    const ViewT<S> fin[2] = {prev, cur};
+    t.template write_back<2>(a, fin);
+}
+
+// ---------------------------------------------------------------------------
+// The z-streamed schedule (sub-tile (bx, by))
+// ---------------------------------------------------------------------------
 
 #define OUT_CHUNK 8
 // points a thread computes at a time (one item): at the main plan a level
@@ -353,15 +446,17 @@ tb_acoustic_kernel(const TileArgsT<S> a, const Coefs cf, const StreamArgs s)
     }
 }
 
-// fills the arguments and launches the copies and the instantiation of
-// `radius` (and of whether `dom` is given, where DOM_OK)
+// fills the arguments and launches, on sub-tile (bx, by), the copies and
+// the z-streamed instantiation of `radius` (and of whether `dom` is given,
+// where DOM_OK), or with bx = 0 the first schedule's
 template <class S, bool DOM_OK>
 static int launch(int device, const S* const* in, const int* src_coords,
                   const S* src_vals, const int* rec_coords, const S* rec_w,
                   S* const* out, S* rec_out, S* scratch, const float* dom,
                   int param_rows, int nshots, int nx, int ny, int nz, int tx,
                   int ty, int T, int H, int src_cap, int rec_cap, int radius,
-                  const float* coefs, float dt, float dt2, void* stream)
+                  const float* coefs, float dt, float dt2, int bx, int by,
+                  void* stream)
 {
     TileArgsT<S> a;
     Coefs cf;
@@ -372,48 +467,36 @@ static int launch(int device, const S* const* in, const int* src_coords,
                             tx, ty, T, H, src_cap, rec_cap, radius, coefs,
                             2 * radius + 1, dt, dt2);
     if (e) return e;
-    if (T > MAX_T || H != T * radius) return (int)cudaErrorInvalidValue;
-    int bx = 0, by = 0;
-    long long smem = 0;
-    if (!pick_subtile(tx, ty, [&](int x, int y) {
-            return acoustic_smem(T, radius, x, y); }, &bx, &by, &smem))
-        return (int)cudaErrorInvalidConfiguration;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (bx == 0) {
+        with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+            if constexpr (DOM_OK || !decltype(d)::value)
+                tb_acoustic_kernel<decltype(r)::value, decltype(d)::value, S>
+                    <<<tile_grid(a), THREADS, 0, st>>>(a, cf);
+        });
+        return (int)cudaGetLastError();
+    }
+    const long long smem = acoustic_smem(T, radius, bx, by);
+    if (T > MAX_T || H != T * radius || !subtile_ok(tx, ty, bx, by, smem))
+        return (int)cudaErrorInvalidValue;
     const StreamArgs s = stream_args(a, reinterpret_cast<float*>(scratch),
                                      2, 2, param_rows, bx, by, 0);
-    const cudaStream_t st = (cudaStream_t)stream;
     launch_to_zmajor(a, s, 2, param_rows, st);
     int rc = 0;
     with_radius(radius, dom != nullptr, [&](auto r, auto d) {
         constexpr int KR = decltype(r)::value;
         constexpr bool KD = decltype(d)::value;
         if constexpr (DOM_OK || !KD) {
+            void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs) =
+                tb_acoustic_kernel<KR, KD, S>;
             rc = (int)cudaFuncSetAttribute(
-                tb_acoustic_kernel<KR, KD, S>,
-                cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
             if (rc == 0)
-                tb_acoustic_kernel<KR, KD, S>
-                    <<<stream_grid(nx, ny, tx, ty, s, nshots), STREAM_THREADS,
+                kern<<<stream_grid(nx, ny, tx, ty, s, nshots), STREAM_THREADS,
                        smem, st>>>(a, cf, s);
         }
     });
     return rc ? rc : (int)cudaGetLastError();
-}
-
-// the schedule's sub-tile and shared memory for a launch of this shape:
-// out = {bx, by, shared bytes}; 0, or cudaErrorInvalidConfiguration when
-// no sub-tile fits (the wrapper mirrors this to size the scratch)
-extern "C" int repro_tb_plan(int tx, int ty, int T, int radius,
-                             long long* out)
-{
-    int bx = 0, by = 0;
-    long long smem = 0;
-    if (!pick_subtile(tx, ty, [&](int x, int y) {
-            return acoustic_smem(T, radius, x, y); }, &bx, &by, &smem))
-        return (int)cudaErrorInvalidConfiguration;
-    out[0] = bx;
-    out[1] = by;
-    out[2] = smem;
-    return 0;
 }
 
 // the params' z-major copies for `repro_tb_tile(_bf16)` with
@@ -435,23 +518,26 @@ extern "C" int repro_tb_param_copies_bf16(
                         H, out, stream);
 }
 
+// (bx, by): the z-streamed schedule's sub-tile, or (0, 0) for the first
+// schedule, whose scratch is then two windows a tile in the storage type
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
     float* const* out, float* rec_out, float* scratch, const float* dom,
     int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
     int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
-    float dt2, void* stream)
+    float dt2, int bx, int by, void* stream)
 {
     return launch<float, true>(device, in, src_coords, src_vals, rec_coords,
                                rec_w, out, rec_out, scratch, dom, param_rows,
                                nshots, nx, ny, nz, tx, ty, T, H, src_cap,
-                               rec_cap, radius, coefs, dt, dt2, stream);
+                               rec_cap, radius, coefs, dt, dt2, bx, by,
+                               stream);
 }
 
 // B1a-bf16: fields, params, source values, receiver weights and partials
-// in bf16 (the scratch, the float32 copies, is passed as it is); no domain
-// mask (a non-null `dom` is refused)
+// in bf16 (the z-streamed schedule's scratch, the float32 copies, is
+// passed as it is); no domain mask (a non-null `dom` is refused)
 extern "C" int repro_tb_tile_bf16(
     int device, const __nv_bfloat16* const* in, const int* src_coords,
     const __nv_bfloat16* src_vals, const int* rec_coords,
@@ -459,11 +545,11 @@ extern "C" int repro_tb_tile_bf16(
     __nv_bfloat16* rec_out, __nv_bfloat16* scratch, const float* dom,
     int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
     int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
-    float dt2, void* stream)
+    float dt2, int bx, int by, void* stream)
 {
     if (dom != nullptr) return (int)cudaErrorInvalidValue;
     return launch<__nv_bfloat16, false>(
         device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
         scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
-        rec_cap, radius, coefs, dt, dt2, stream);
+        rec_cap, radius, coefs, dt, dt2, bx, by, stream);
 }

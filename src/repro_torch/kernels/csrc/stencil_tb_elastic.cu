@@ -25,10 +25,22 @@
 // before.
 //
 // What bounds it: bytes — 13 fields in and 9 out, 11.8 GB at 512^3, 3.53
-// ms at 3.35 TB/s, against 165 flops a point-step.  The first design
-// re-read every field from device memory at every tap of every in-window
-// step, over the whole window (167.8 ms a depth-4 launch).  Here
-// (tb_stream.cuh: trapezoid, z-major copies, sub-tiles):
+// ms at 3.35 TB/s, against 165 flops a point-step.
+//
+// Two schedules compute the same function; the wrapper picks one a launch
+// from its shape (`stencil_tb.launch_plan`) and passes the z-streamed
+// schedule's sub-tile, or (0, 0) for the first schedule:
+//
+// The first schedule (the port's first design, kept as it was) re-reads
+// every field from device memory at every tap of every in-window step,
+// over the whole window, one block a tile with nine scratch windows
+// (167.8 ms a depth-4 launch).  It runs the launches of small halos
+// (depth 1 among them), where it is the faster, and the shapes whose
+// z-streamed sub-tile is small: the per-block windows then overhang the
+// sub-tile so far that the scratch outgrows the card.
+//
+// The z-streamed schedule (tb_stream.cuh: trapezoid, z-major copies,
+// sub-tiles):
 //
 //   each phase is one z-streamed pass over its trapezoid region (phase n
 //   of 2T computes the points within (2T - n) R of the centre).  A pass
@@ -61,6 +73,113 @@
 // chip, and the z taps from shared memory at a smaller block tile.
 
 #include "tb_stream.cuh"
+
+// ---------------------------------------------------------------------------
+// The first schedule (sub-tile (0, 0)): the first design's kernel, unchanged
+// ---------------------------------------------------------------------------
+
+template <int R, bool DOM>
+__global__ void __launch_bounds__(THREADS)
+tb_elastic_kernel(const TileArgs a, const Coefs cf)
+{
+    constexpr int NT = 2 * R;              // staggered taps
+    const Tile t(a);
+    float* buf[9];
+    View s[9];                             // the inputs, then the scratch
+#pragma unroll
+    for (int f = 0; f < 9; ++f) {
+        buf[f] = t.scratch(a, f, 9);
+        s[f] = t.input(a, f);
+    }
+    const View lam = t.input(a, 9), mu = t.input(a, 10);
+    const View b = t.input(a, 11), damp = t.input(a, 12);
+    const float dt = a.dt;
+
+    for (int k = 0; k < a.T; ++k) {
+        // phase V: velocities (vx, vy, vz = s[0..2]) from the stresses
+        // (txx, tyy, tzz, txy, txz, tyz = s[3..8])
+        t.for_each_point<DOM>([&](Pt q, bool inside) {
+            const long long w = t.at(q);
+            if (!inside) {
+                buf[0][w] = 0.f;
+                buf[1][w] = 0.f;
+                buf[2][w] = 0.f;
+                return;
+            }
+            const auto fw = [&](int f, int ax) {
+                return t.taps<NT, 1 - R>(s[f], ax, q, cf.c[ax]);
+            };
+            const auto bw = [&](int f, int ax) {
+                return t.taps<NT, -R>(s[f], ax, q, cf.c[ax]);
+            };
+            const float dmp = 1.f / (1.f + t.ro(damp, q) * dt);
+            const float bdt = dt * t.ro(b, q);
+            const float vx = dmp * (t.ld(s[0], q)
+                                    + bdt * ((fw(3, 0) + bw(6, 1)) + bw(7, 2)));
+            const float vy = dmp * (t.ld(s[1], q)
+                                    + bdt * ((bw(6, 0) + fw(4, 1)) + bw(8, 2)));
+            const float vz = dmp * (t.ld(s[2], q)
+                                    + bdt * ((bw(7, 0) + bw(8, 1)) + fw(5, 2)));
+            buf[0][w] = vx;
+            buf[1][w] = vy;
+            buf[2][w] = vz;
+        });
+#pragma unroll
+        for (int f = 0; f < 3; ++f) s[f] = t.window(buf[f]);
+        __syncthreads();
+
+        // phase S: stresses from the new velocities
+        t.for_each_point<DOM>([&](Pt q, bool inside) {
+            const long long w = t.at(q);
+            if (!inside) {
+#pragma unroll
+                for (int f = 3; f < 9; ++f) buf[f][w] = 0.f;
+                return;
+            }
+            const auto fw = [&](int f, int ax) {
+                return t.taps<NT, 1 - R>(s[f], ax, q, cf.c[ax]);
+            };
+            const auto bw = [&](int f, int ax) {
+                return t.taps<NT, -R>(s[f], ax, q, cf.c[ax]);
+            };
+            const float dmp = 1.f / (1.f + t.ro(damp, q) * dt);
+            const float l = t.ro(lam, q), mu_q = t.ro(mu, q);
+            const float dvx_dx = bw(0, 0), dvy_dy = bw(1, 1), dvz_dz = bw(2, 2);
+            const float div_v = (dvx_dx + dvy_dy) + dvz_dz;
+            const float mu2 = 2.f * mu_q, dtmu = dt * mu_q;
+            const float txx = dmp * (t.ld(s[3], q) + dt * (l * div_v + mu2 * dvx_dx));
+            const float tyy = dmp * (t.ld(s[4], q) + dt * (l * div_v + mu2 * dvy_dy));
+            const float tzz = dmp * (t.ld(s[5], q) + dt * (l * div_v + mu2 * dvz_dz));
+            const float txy = dmp * (t.ld(s[6], q) + dtmu * (fw(0, 1) + fw(1, 0)));
+            const float txz = dmp * (t.ld(s[7], q) + dtmu * (fw(0, 2) + fw(2, 0)));
+            const float tyz = dmp * (t.ld(s[8], q) + dtmu * (fw(1, 2) + fw(2, 1)));
+            buf[3][w] = txx;
+            buf[4][w] = tyy;
+            buf[5][w] = tzz;
+            buf[6][w] = txy;
+            buf[7][w] = txz;
+            buf[8][w] = tyz;
+        });
+#pragma unroll
+        for (int f = 3; f < 9; ++f) s[f] = t.window(buf[f]);
+        __syncthreads();
+
+        float* const inj[3] = {buf[3], buf[4], buf[5]};
+        t.inject(a, k, inj);
+        __syncthreads();
+        t.record<2>(a, k, [&](long long w, float* o) {
+            o[0] = buf[2][w];
+            o[1] = -((buf[3][w] + buf[4][w]) + buf[5][w]) / 3.f;
+        });
+        // the next phase V overwrites vz, which the record just read
+        __syncthreads();
+    }
+    t.write_back<9>(a, s);
+}
+
+// ---------------------------------------------------------------------------
+// The z-streamed schedule (sub-tile (bx, by))
+// ---------------------------------------------------------------------------
 
 // shared memory of sub-tile (bx, by) at halo H: two buffers of five planes
 // of the block window, and at least the write-back's warp tiles
@@ -293,23 +412,6 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
     }
 }
 
-// the schedule's sub-tile and shared memory for a launch of this shape:
-// out = {bx, by, shared bytes}; 0, or cudaErrorInvalidConfiguration when
-// no sub-tile fits (the wrapper mirrors this to size the scratch)
-extern "C" int repro_tb_plan(int tx, int ty, int T, int radius,
-                             long long* out)
-{
-    int bx = 0, by = 0;
-    long long smem = 0;
-    if (!pick_subtile(tx, ty, [&](int x, int y) {
-            return elastic_smem(2 * T * radius, x, y); }, &bx, &by, &smem))
-        return (int)cudaErrorInvalidConfiguration;
-    out[0] = bx;
-    out[1] = by;
-    out[2] = smem;
-    return 0;
-}
-
 // the params' z-major copies for `repro_tb_tile` with PARAMS_COPIED (see
 // tb_stream.cuh)
 extern "C" int repro_tb_param_copies(int device, const float* const* in,
@@ -321,13 +423,15 @@ extern "C" int repro_tb_param_copies(int device, const float* const* in,
                         H, out, stream);
 }
 
+// (bx, by): the z-streamed schedule's sub-tile, or (0, 0) for the first
+// schedule, whose scratch is then nine windows a tile
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
     float* const* out, float* rec_out, float* scratch, const float* dom,
     int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
     int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
-    float dt2, void* stream)
+    float dt2, int bx, int by, void* stream)
 {
     TileArgs a;
     Coefs cf;
@@ -338,25 +442,29 @@ extern "C" int repro_tb_tile(
                             tx, ty, T, H, src_cap, rec_cap, radius, coefs,
                             2 * radius, dt, dt2);
     if (e) return e;
-    if (H != 2 * T * radius) return (int)cudaErrorInvalidValue;
-    int bx = 0, by = 0;
-    long long smem = 0;
-    if (!pick_subtile(tx, ty, [&](int x, int y) {
-            return elastic_smem(H, x, y); }, &bx, &by, &smem))
-        return (int)cudaErrorInvalidConfiguration;
-    const StreamArgs s = stream_args(a, scratch, 9, 4, param_rows, bx, by, 9);
     const cudaStream_t st = (cudaStream_t)stream;
+    if (bx == 0) {
+        with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+            tb_elastic_kernel<decltype(r)::value, decltype(d)::value>
+                <<<tile_grid(a), THREADS, 0, st>>>(a, cf);
+        });
+        return (int)cudaGetLastError();
+    }
+    const long long smem = elastic_smem(H, bx, by);
+    if (H != 2 * T * radius || !subtile_ok(tx, ty, bx, by, smem))
+        return (int)cudaErrorInvalidValue;
+    const StreamArgs s = stream_args(a, scratch, 9, 4, param_rows, bx, by, 9);
     launch_to_zmajor(a, s, 4, param_rows, st);
     int rc = 0;
     with_radius(radius, dom != nullptr, [&](auto r, auto d) {
         constexpr int KR = decltype(r)::value;
         constexpr bool KD = decltype(d)::value;
+        void (*kern)(const TileArgs, const Coefs, const StreamArgs) =
+            tb_elastic_kernel<KR, KD>;
         rc = (int)cudaFuncSetAttribute(
-            tb_elastic_kernel<KR, KD>,
-            cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
         if (rc == 0)
-            tb_elastic_kernel<KR, KD>
-                <<<stream_grid(nx, ny, tx, ty, s, nshots), STREAM_THREADS,
+            kern<<<stream_grid(nx, ny, tx, ty, s, nshots), STREAM_THREADS,
                    smem, st>>>(a, cf, s);
     });
     return rc ? rc : (int)cudaGetLastError();

@@ -1,8 +1,11 @@
 // The z-streamed trapezoid schedule for Hopper, shared by the acoustic
 // (stencil_tb.cu) and elastic (stencil_tb_elastic.cu) time-tile kernels.
 // Both replace the Pallas TPU kernel `_tb_kernel` of
-// src/repro/kernels/stencil_tb.py; the TTI kernel keeps tb_common.cuh's
-// first schedule (a whole window per step, re-read from device memory).
+// src/repro/kernels/stencil_tb.py.  Each of the two also keeps
+// tb_common.cuh's first schedule (a whole window per step, re-read from
+// device memory), as the TTI kernel does: the wrapper
+// (`stencil_tb.launch_plan`) takes this schedule only where its working
+// set fits a block and it is measured faster (PERF.md).
 //
 // What bounds these kernels: bytes (PERF.md).  The TPU kernel holds a
 // (tx + 2H, ty + 2H, nz) window of every field in VMEM, 4.7 MB a field at
@@ -43,8 +46,9 @@
 // A block takes one (bx, by) sub-tile of a spec tile: the whole tile when
 // its working set fits the shared memory (the main plan, tile 32, T = 4,
 // order 4, does), else the largest sub-tile of the tile's divisors that
-// fits (`pick_subtile`; stencil_tb.py mirrors the choice to size the
-// scratch).  A sub-tile's window is the sub-tile plus the spec's halo H,
+// fits.  The wrapper picks it (`stencil_tb.stream_plan`), sizes the
+// scratch for it and passes it; a launch refuses a sub-tile that does not
+// divide the tile or does not fit (`subtile_ok`).  A sub-tile's window is the sub-tile plus the spec's halo H,
 // inside the spec tile's window; its trapezoid values are the spec's, so
 // the result does not depend on the choice.  Receiver partials go to the
 // spec tile's slots: a slot belongs to the sub-tile whose centre holds its
@@ -298,33 +302,12 @@ to_zmajor(const TileArgsT<S> a, const StreamArgs s, int nparam)
     }
 }
 
-// The largest (bx, by) sub-tile of (tx, ty) (divisors of each) whose
-// shared memory `smem(bx, by)` fits a block; among equal areas the most
-// nearly square, then the larger bx.  Returns false if none fits.
-template <class F>
-static bool pick_subtile(int tx, int ty, F smem, int* bx_out, int* by_out,
-                         long long* bytes)
+// whether sub-tile (bx, by), whose block takes `smem` bytes of shared
+// memory, is one the schedule can run for tile (tx, ty)
+static bool subtile_ok(int tx, int ty, int bx, int by, long long smem)
 {
-    long long best = 0;
-    for (int bx = tx; bx >= 1; --bx) {
-        if (tx % bx) continue;
-        for (int by = ty; by >= 1; --by) {
-            if (ty % by) continue;
-            const long long need = smem(bx, by);
-            if (need > STREAM_SMEM) continue;
-            const long long area = (long long)bx * by;
-            const int skew = bx > by ? bx - by : by - bx;
-            const int best_skew = *bx_out > *by_out ? *bx_out - *by_out
-                                                    : *by_out - *bx_out;
-            if (area > best || (area == best && skew < best_skew)) {
-                best = area;
-                *bx_out = bx;
-                *by_out = by;
-                *bytes = need;
-            }
-        }
-    }
-    return best > 0;
+    return bx >= 1 && by >= 1 && tx % bx == 0 && ty % by == 0
+        && smem <= STREAM_SMEM;
 }
 
 // Fills the schedule's arguments for sub-tile (bx, by): copies at the

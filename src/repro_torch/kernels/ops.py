@@ -156,7 +156,7 @@ def tile_operands(spec: ker.TBKernelSpec, state, src_dcmp, src_tab,
 
 def _run_time_tile(spec: ker.TBKernelSpec, physics: phys.TBPhysics,
                    state, param_pads, src_dcmp, src_tab, rec_tab, t0: int,
-                   nrec: int, executor: str):
+                   nrec: int, executor: str, param_copies=None):
     # a no-op unless telemetry is enabled; names the region on a
     # torch.profiler timeline and records its host (enqueue) time
     with _spans.annotate("ops.tile_pass", T=spec.T, tile=spec.tile,
@@ -165,7 +165,7 @@ def _run_time_tile(spec: ker.TBKernelSpec, physics: phys.TBPhysics,
             spec, state, src_dcmp, src_tab, rec_tab, t0)
         new_state, rec_part = EXECUTORS[executor](
             spec, physics, state_pads, param_pads, s_coords, s_vals,
-            r_coords, r_w)
+            r_coords, r_w, param_copies=param_copies)
         if rec_tab is not None:
             rec = combine_rec_partials(rec_part, rec_tab, nrec)
         else:
@@ -255,14 +255,19 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
                           param_pads, rparam_pads,
                           src_dcmp: torch.Tensor, src_tab, rec_tab,
                           rsrc_tab, rrec_tab, nrec: int,
-                          executor: str = "cuda"):
+                          executor: str = "cuda", param_copies=None,
+                          rparam_copies=None):
     """The device-side core of `_tb_propagate`: the loop over depth-T time
     tiles plus the shallower `nt % T` remainder tile, after all host-side
     table binning, for a batch of B shots — one kernel launch per time
     tile for the whole batch.  `state` fields are (B, nx, ny, nz),
     `src_dcmp` (B, nt, npts), the tables carry a leading shot axis
     (`stack_tables`), and the param pads are shared by the shots.
-    `rspec` is None when `nt % spec.T == 0`.
+    `rspec` is None when `nt % spec.T == 0`.  `param_copies` /
+    `rparam_copies` are the kernel's copies of the param pads for `spec` /
+    `rspec` (`stencil_tb.param_copies`): a caller that runs many
+    propagations on one model makes them once; otherwise they are made
+    here, once for the loop.
 
     Returns (final state tuple (B, nx, ny, nz) each, recs
     (B, nt, nrec, rec_channels)); recs are shaped (B, nt, 0, chan) when no
@@ -273,17 +278,22 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
     if (rem > 0) != (rspec is not None):
         raise ValueError(f"nt={nt} with T={spec.T} needs "
                          f"{'a' if rem else 'no'} remainder spec")
+    if executor == "cuda" and param_copies is None and n_main:
+        param_copies = ker.param_copies(spec, physics, param_pads)
+    if executor == "cuda" and rparam_copies is None and rem:
+        rparam_copies = ker.param_copies(rspec, physics, rparam_pads)
     carry = tuple(state)
     recs = []
     for i in range(n_main):
         carry, rec = _run_time_tile(spec, physics, carry, param_pads,
                                     src_dcmp, src_tab, rec_tab, i * spec.T,
-                                    nrec, executor)
+                                    nrec, executor, param_copies)
         recs.append(rec)
     if rem > 0:
         carry, rec = _run_time_tile(rspec, physics, carry, rparam_pads,
                                     src_dcmp, rsrc_tab, rrec_tab,
-                                    n_main * spec.T, nrec, executor)
+                                    n_main * spec.T, nrec, executor,
+                                    rparam_copies)
         recs.append(rec)
     if not recs:
         return carry, torch.zeros((state[0].shape[0], 0, nrec,

@@ -25,19 +25,20 @@ origin as the fields, in place of the spec's "inside the grid" predicate.
 without `dom`: kernel B1a-bf16) or raise.  `launches`
 counts kernel launches, so a run can show it went through the kernel.
 
-The acoustic and elastic kernels run the z-streamed trapezoid schedule of
-``csrc/tb_stream.cuh``: each launch makes float32 z-major copies of its
-padded state in the scratch, and takes the params as z-major copies that
-this module keeps across launches (`_param_cache`: a propagation passes
-the same param tensors every launch); a block may take a sub-tile of the
-spec tile, chosen by `stream_plan` as the kernel chooses it.  TTI keeps
-the first schedule (``csrc/tb_common.cuh``).
+The acoustic and elastic kernels have two schedules, and `launch_plan`
+picks one a launch from its shape: the first schedule
+(``csrc/tb_common.cuh``, one block a tile, every step re-reading the
+window from device-memory scratch; TTI has only this one) or the
+z-streamed trapezoid of ``csrc/tb_stream.cuh``, where a block takes a
+sub-tile of the spec tile (`stream_plan`), each launch makes float32
+z-major copies of its padded state in the scratch, and reads the params
+as z-major copies that the caller owning them makes once
+(`param_copies`) or the launch makes itself.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-import weakref
 from typing import Callable, Optional, Tuple
 
 import numpy as np
@@ -154,11 +155,12 @@ def window_tile_plain(physics: phys.TBPhysics, sspec, T: int, h: int,
 
 def tb_time_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
-                       r_w, dom=None):
+                       r_w, dom=None, param_copies=None):
     """Plain PyTorch version of `tb_time_tile`: the same per-window
     trapezoid, looped over the shots and the (ti, tj) tiles.  Runs on any
     device.  A param with a leading axis is one per row; `dom` (B,
-    nx + 2H, ny + 2H) replaces the grid predicate, as in `tb_time_tile`.
+    nx + 2H, ny + 2H) replaces the grid predicate, as in `tb_time_tile`;
+    `param_copies` (the kernel's copies of the params) is not read.
 
     Returns (state tuple (B, nx, ny, nz), rec partials
     (B, ntx, nty, T, capr, chan))."""
@@ -221,37 +223,48 @@ _MAX_T = 32             # MAX_T in csrc/tb_stream.cuh (acoustic level tables)
 _STREAM_SMEM = 232448 - 8192
 _STREAM_THREADS = 512
 _OUT_CHUNK = 8
+# the largest overhang (bx + 2H)(by + 2H) / (bx by) of a z-streamed
+# sub-tile that `launch_plan` takes (measured at 512^3, tile 32, PERF.md:
+# overhangs of 9 and 10 still beat the first schedule; at 81 the elastic
+# block windows need 370 GiB)
+_MAX_OVERHANG = 16
 
 
 @dataclasses.dataclass(frozen=True)
 class _CudaKernel:
     source: str                 # csrc/<source>.cu
-    scratch_windows: int        # window buffers per block in its scratch
+    scratch_windows: int        # first schedule: window buffers a tile
     weights: Callable[[int], np.ndarray]   # order -> one axis' FD weights
     deriv: int                  # derivative order of those weights
-    # the z-streamed trapezoid schedule (csrc/tb_stream.cuh): float32
-    # z-major copies of the inputs, windows of the block's sub-tile;
-    # otherwise the first schedule (tb_common.cuh): spec windows in the
-    # storage dtype
-    stream: bool = False
+    # the z-streamed trapezoid schedule (csrc/tb_stream.cuh), where the
+    # kernel has it: its block windows a block (float32, z-major, over the
+    # sub-tile's window), and the least halo at which `launch_plan` takes
+    # it (measured at 512^3, tile 32, PERF.md: below it the first
+    # schedule's window barely overhangs the tile, and the z-streamed
+    # launch's fixed costs, the state's z-major copies and one level's
+    # unhidden plane-steps, cost more than the re-reads they save); None
+    # for a kernel with the first schedule only
+    stream_windows: Optional[int] = None
+    stream_from_halo: Optional[int] = None
 
 
 # physics name -> its hand-written kernel; all share one C entry point
 _KERNELS = {
-    "acoustic": _CudaKernel("stencil_tb", 0, st.second_derivative_weights,
-                            2, stream=True),
+    "acoustic": _CudaKernel("stencil_tb", 2, st.second_derivative_weights,
+                            2, stream_windows=0, stream_from_halo=4),
     "tti": _CudaKernel("stencil_tb_tti", 7, st.first_derivative_weights, 1),
     "elastic": _CudaKernel(
         "stencil_tb_elastic", 9,
         lambda order: st.staggered_first_derivative_weights(order)[1], 1,
-        stream=True),
+        stream_windows=9, stream_from_halo=12),
 }
 
 
 def _stream_smem(physics: phys.TBPhysics, spec: TBKernelSpec, bx: int,
                  by: int) -> int:
     """Shared memory of one block of a z-streamed kernel on sub-tile
-    (bx, by) (`acoustic_smem` / `elastic_smem` in the .cu files)."""
+    (bx, by) (`acoustic_smem` / `elastic_smem` in the .cu files, which
+    size the launch; a launch refuses a sub-tile beyond STREAM_SMEM)."""
     H = spec.halo
     if physics.name == "acoustic":
         r, T = spec.radius, spec.T
@@ -266,11 +279,10 @@ def _stream_smem(physics: phys.TBPhysics, spec: TBKernelSpec, bx: int,
 
 def stream_plan(spec: TBKernelSpec,
                 physics: phys.TBPhysics) -> Tuple[int, int, int]:
-    """(bx, by, shared bytes): the sub-tile a block of the z-streamed kernel
-    takes (`pick_subtile` in csrc/tb_stream.cuh, mirrored): the largest of
-    the tile's divisors whose working set fits a block's shared memory,
-    among equal areas the most nearly square, then the larger bx.  Raises
-    ValueError when none fits."""
+    """(bx, by, shared bytes): the sub-tile a block of the z-streamed
+    schedule takes: the largest of the tile's divisors whose working set
+    fits a block's shared memory, among equal areas the most nearly
+    square, then the larger bx.  Raises ValueError when none fits."""
     tx, ty = spec.tile
     best = None
     for bx in range(tx, 0, -1):
@@ -293,26 +305,51 @@ def stream_plan(spec: TBKernelSpec,
     return best[1]
 
 
+def launch_plan(spec: TBKernelSpec, physics: phys.TBPhysics
+                ) -> Optional[Tuple[int, int, int]]:
+    """The schedule a CUDA launch of this shape takes: the z-streamed
+    schedule's (bx, by, shared bytes) (`stream_plan`), or None for the
+    first schedule.  The z-streamed one is taken where the kernel has it,
+    from its `stream_from_halo` up, where a sub-tile fits a block's shared
+    memory and its window overhangs it at most `_MAX_OVERHANG` times;
+    elsewhere the first schedule is the faster, or the only one that
+    runs."""
+    min_halo = _KERNELS[physics.name].stream_from_halo
+    if min_halo is None or spec.halo < min_halo:
+        return None
+    if physics.name == "acoustic" and spec.T > _MAX_T:
+        return None
+    try:
+        bx, by, smem = stream_plan(spec, physics)
+    except ValueError:
+        return None
+    h = spec.halo
+    if (bx + 2 * h) * (by + 2 * h) > _MAX_OVERHANG * bx * by:
+        return None
+    return bx, by, smem
+
+
 def _scratch_elems(spec: TBKernelSpec,
                    physics: phys.TBPhysics) -> Tuple[int, int, torch.dtype]:
     """(scratch elements a row of a launch needs, elements of the params'
-    kept copies (one row of params), the scratch's dtype).  The z-streamed
-    kernels' scratch is float32: z-major copies of the row's state and its
-    blocks' windows; their params' copies live in `_param_cache`, made once
-    a propagation.  TTI's scratch is its spec windows in the storage
-    dtype."""
+    float32 z-major copies (one row of params), the scratch's dtype).  The
+    first schedule's scratch is its tiles' windows in the storage dtype
+    and it takes no copies; the z-streamed schedule's is float32: z-major
+    copies of the row's state and its blocks' windows, and the params'
+    copies (`param_copies`, or made by the launch in its scratch)."""
     ntx, nty = spec.ntiles
     kern = _KERNELS[physics.name]
-    if not kern.stream:
+    plan = launch_plan(spec, physics)
+    if plan is None:
         wx, wy, nz = spec.window
         return (ntx * nty * kern.scratch_windows * wx * wy * nz, 0,
                 spec.dtype)
-    bx, by, _ = stream_plan(spec, physics)
+    bx, by, _ = plan
     h = spec.halo
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
     blocks = (spec.nx // bx) * (spec.ny // by)
     per_row = (len(physics.state_fields) * vol + blocks
-               * kern.scratch_windows * spec.nz * (bx + 2 * h) * (by + 2 * h))
+               * kern.stream_windows * spec.nz * (bx + 2 * h) * (by + 2 * h))
     return per_row, len(physics.param_fields) * vol, torch.float32
 
 
@@ -324,13 +361,13 @@ def _bind(source: str):
         entries = [lib.repro_tb_tile]
         if source == _KERNELS["acoustic"].source:
             entries.append(lib.repro_tb_tile_bf16)
+        # the two-schedule kernels take the z-streamed sub-tile (bx, by)
+        sub = [i, i] if hasattr(lib, "repro_tb_param_copies") else []
         for fn in entries:
             fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
-                           + [ctypes.c_float] * 2 + [p])
+                           + [ctypes.c_float] * 2 + sub + [p])
             fn.restype = i
-        if hasattr(lib, "repro_tb_plan"):
-            lib.repro_tb_plan.argtypes = [i] * 4 + [p]
-            lib.repro_tb_plan.restype = i
+        if sub:
             copies = [lib.repro_tb_param_copies]
             if hasattr(lib, "repro_tb_param_copies_bf16"):
                 copies.append(lib.repro_tb_param_copies_bf16)
@@ -345,64 +382,39 @@ def _bind(source: str):
     return lib
 
 
-# (physics, halo, ids of the param tensors) -> (weakrefs to them, their
-# versions, their z-major float32 copies (nparam, prow, X * Y * nz)): the
-# params of a propagation are the same tensors every launch, so their
-# copies are made once; an entry goes when a param tensor does, and a
-# param written in place (a new version) is copied again
-_param_cache: dict = {}
+def _device_index(dev) -> int:
+    return dev.index if dev.index is not None else \
+        torch.cuda.current_device()
 
 
-def _param_copies(lib, spec: TBKernelSpec, physics: phys.TBPhysics,
-                  param_pads, param_rows: bool, B: int, dev) -> torch.Tensor:
-    key = (physics.name, spec.halo, spec.dtype,
-           tuple(id(p) for p in param_pads))
-    versions = tuple(p._version for p in param_pads)
-    hit = _param_cache.get(key)
-    if hit is not None and hit[1] == versions and all(
-            r() is p for r, p in zip(hit[0], param_pads)):
-        return hit[2]
+def param_copies(spec: TBKernelSpec, physics: phys.TBPhysics,
+                 param_pads) -> Optional[torch.Tensor]:
+    """The params' float32 z-major copies ((nparam, rows, X * Y * nz)) that
+    a z-streamed launch of `spec` reads, made once by the caller that owns
+    the params (a propagation's tile loop, a survey executable) and passed
+    to each `tb_time_tile`; None where the launch takes none (the first
+    schedule, the plain version on the CPU).  A launch given none makes
+    them in its scratch every time."""
+    dev = param_pads[0].device
+    if dev.type != "cuda" or launch_plan(spec, physics) is None:
+        return None
+    lib = _bind(_KERNELS[physics.name].source)
+    param_rows = param_pads[0].dim() == 4
+    rows = param_pads[0].shape[0] if param_rows else 1
     h = spec.halo
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
-    rows = B if param_rows else 1
     copies = torch.empty((len(param_pads), rows, vol), dtype=torch.float32,
                          device=dev)
     entry = (lib.repro_tb_param_copies if spec.dtype == torch.float32
              else lib.repro_tb_param_copies_bf16)
-    rc = entry(dev.index if dev.index is not None
-               else torch.cuda.current_device(), _ptrs(param_pads),
-               len(param_pads), int(param_rows), B, spec.nx, spec.ny,
-               spec.nz, h, ctypes.c_void_p(copies.data_ptr()),
+    rc = entry(_device_index(dev), _ptrs(param_pads), len(param_pads),
+               int(param_rows), rows, spec.nx, spec.ny, spec.nz, h,
+               ctypes.c_void_p(copies.data_ptr()),
                ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     if rc != 0:
         raise RuntimeError("param copies failed: "
                            + lib.repro_cuda_error_string(rc).decode())
-    drop = lambda _ref: _param_cache.pop(key, None)  # noqa: E731
-    _param_cache[key] = (tuple(weakref.ref(p, drop) for p in param_pads),
-                         versions, copies)
     return copies
-
-
-_card_plans = {}
-
-
-def card_stream_plan(spec: TBKernelSpec,
-                     physics: phys.TBPhysics) -> Tuple[int, int, int]:
-    """(bx, by, shared bytes) as the built kernel picks them
-    (`repro_tb_plan`), for a z-streamed kernel; builds it if needed."""
-    key = (physics.name, spec.tile, spec.T, spec.radius)
-    if key not in _card_plans:
-        lib = _bind(_KERNELS[physics.name].source)
-        out = (ctypes.c_longlong * 3)()
-        rc = lib.repro_tb_plan(spec.tile[0], spec.tile[1], spec.T,
-                               spec.radius, out)
-        if rc != 0:
-            raise ValueError(f"{physics.name}: no sub-tile of {spec.tile} "
-                             f"fits a block at T={spec.T} order "
-                             f"{spec.order}: "
-                             + lib.repro_cuda_error_string(rc).decode())
-        _card_plans[key] = tuple(int(v) for v in out)
-    return _card_plans[key]
 
 
 def _check(name, t, shape, dtype, dev):
@@ -433,7 +445,7 @@ def _ptrs(ts):
 
 def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
-                       r_w, dom):
+                       r_w, dom, copies):
     if physics.name not in _KERNELS:
         raise ValueError(f"no CUDA TB kernel for physics {physics.name!r}")
     kern = _KERNELS[physics.name]
@@ -495,38 +507,42 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     dt2 = st.round_to(dt * dt, f32)
 
     lib = _bind(kern.source)
-    if kern.stream and card_stream_plan(spec, physics) != \
-            stream_plan(spec, physics):
-        raise RuntimeError(f"csrc/{kern.source}.cu picks another sub-tile "
-                           "than the wrapper sized the scratch for")
+    plan = launch_plan(spec, physics)
     outs = tuple(torch.empty((B, spec.nx, spec.ny, spec.nz), dtype=dtype,
                              device=dev) for _ in physics.state_fields)
     rec = torch.zeros((B, ntx, nty, spec.T, capr, chan), dtype=dtype,
                       device=dev)
-    if physics.name == "acoustic" and spec.T > _MAX_T:
-        raise ValueError(f"T={spec.T}: the acoustic kernel takes depths up "
-                         f"to {_MAX_T}")
-    per_row, _, sdtype = _scratch_elems(spec, physics)
-    scratch = torch.empty(max(B * per_row, 1), dtype=sdtype, device=dev)
+    per_row, pelems, sdtype = _scratch_elems(spec, physics)
+    rows_flag = int(param_rows)
+    extra = 0
+    if plan is None:
+        sub = [] if kern.stream_windows is None else [0, 0]
+    else:
+        sub = [plan[0], plan[1]]
+        prow = B if param_rows else 1
+        if copies is None:
+            extra = prow * pelems       # the launch copies the params
+        else:
+            # the caller's z-major copies (PARAMS_COPIED in tb_stream.cuh)
+            _check("param_copies", copies,
+                   (len(param_pads), prow, pelems // len(param_pads)), f32,
+                   dev)
+            fields = (*state_pads, *copies)
+            rows_flag |= 2
+    scratch = torch.empty(max(B * per_row + extra, 1), dtype=sdtype,
+                          device=dev)
     entry = lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rows_flag = int(param_rows)
-    if kern.stream:
-        # the params go in as their kept z-major copies (PARAMS_COPIED)
-        copies = _param_copies(lib, spec, physics, param_pads, param_rows,
-                               B, dev)
-        fields = (*state_pads, *copies)
-        rows_flag |= 2
     rc = entry(
-        dev.index if dev.index is not None else torch.cuda.current_device(),
+        _device_index(dev),
         _ptrs(fields), ptr(s_coords), ptr(s_vals), ptr(r_coords), ptr(r_w),
         _ptrs(outs), ptr(rec), ptr(scratch),
         ctypes.c_void_p(dom.data_ptr() if dom is not None else None),
         rows_flag, B,
         spec.nx, spec.ny, spec.nz, spec.tile[0], spec.tile[1], spec.T, h,
         cap, capr, r, (ctypes.c_float * len(coefs))(*coefs), dt, dt2,
-        ctypes.c_void_p(stream))
+        *sub, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{kern.source} CUDA launch failed: "
                            + lib.repro_cuda_error_string(rc).decode())
@@ -537,11 +553,11 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
     """Device bytes one shot of a CUDA launch allocates: its output fields,
-    its receiver partials and its part of the scratch (for the z-streamed
-    kernels its state's float32 z-major copies and its blocks' windows,
-    none for acoustic; for TTI its spec windows).  The params' copies,
-    shared by the shots and kept across launches, are
-    `launch_shared_bytes`."""
+    its receiver partials and its part of the scratch (`launch_plan`: the
+    first schedule's tile windows in the storage dtype; the z-streamed
+    schedule's float32 z-major copies of the shot's state and its blocks'
+    windows, none for acoustic).  The params' copies, shared by the shots,
+    are `launch_shared_bytes`."""
     ntx, nty = spec.ntiles
     elems = (len(physics.state_fields) * spec.nx * spec.ny * spec.nz
              + ntx * nty * spec.T * spec.rec_cap * physics.rec_channels)
@@ -551,27 +567,38 @@ def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
 
 def launch_shared_bytes(spec: TBKernelSpec,
                         physics: phys.TBPhysics) -> int:
-    """Device bytes the z-streamed kernels keep for all shots of a
-    propagation: the float32 z-major copies of the shared params, made at
-    its first launch (0 for TTI)."""
+    """Device bytes of the params' float32 z-major copies a z-streamed
+    launch reads, for all its shots (one copy of shared params; a launch
+    with one param row a shot needs this a row): `param_copies`, or the
+    launch's own scratch where the caller passes none.  0 for the first
+    schedule."""
     _, params, _ = _scratch_elems(spec, physics)
     return params * 4
 
 
-def stream_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
+def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
                  shots: int = 1, param_rows: bool = False) -> float:
-    """Device bytes a launch of a z-streamed kernel moves by its design
-    (csrc/tb_stream.cuh), each region read once a pass and no L2 reuse
-    between blocks counted: the z-major copies (each padded input read in
-    the storage dtype, written in float32), then per block the planes its
-    passes read and the fields they write.  The yardstick of the kernels'
-    achieved GB/s beside `kernel_cost`'s least bytes."""
-    bx, by, _ = stream_plan(spec, physics)
+    """Device bytes a launch moves by its schedule's design, no L2 reuse
+    between blocks counted: the yardstick of the kernels' achieved GB/s
+    beside `kernel_cost`'s least bytes.  The first schedule reads every
+    read field's window and writes every evolved field's window once a
+    step.  The z-streamed one makes the z-major copies (each padded input
+    read in the storage dtype, written in float32; the params' counted
+    as if the launch made them), then per block reads the planes its
+    passes read and writes the fields they write, each region once a
+    pass."""
     h, nz = spec.halo, spec.nz
     item = spec.dtype.itemsize
+    ns, npar = len(physics.state_fields), len(physics.param_fields)
+    plan = launch_plan(spec, physics)
+    if plan is None:
+        ntx, nty = spec.ntiles
+        wx, wy, _ = spec.window
+        return float(shots * spec.T * ntx * nty * wx * wy * nz * item
+                     * (physics.num_windows + len(physics.evolved_fields)))
+    bx, by, _ = plan
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * nz
     prow = shots if param_rows else 1
-    ns, npar = len(physics.state_fields), len(physics.param_fields)
     copies = (ns * shots + npar * prow) * vol * (item + 4)
     blocks = shots * (spec.nx // bx) * (spec.ny // by)
 
@@ -596,7 +623,7 @@ def stream_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
                  state_pads, param_pads, src_coords, src_vals, rec_coords,
-                 rec_w, dom=None):
+                 rec_w, dom=None, param_copies=None):
     """One depth-T time tile over the whole grid of each of B shots.
 
     Args:
@@ -612,6 +639,10 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
                   of the points inside the physical domain (nonzero), in
                   place of the grid predicate — a shard's pass over its
                   exchanged block (distributed/halo.py).
+      param_copies: None, or the params' copies from `param_copies` for
+                  this spec, which a z-streamed launch then reads instead
+                  of copying the params itself (the plain version reads
+                  the params).
     Returns (new_states tuple, rec_partials) with fields (B, nx, ny, nz)
     and rec_partials (B, ntx, nty, T, capr, rec_channels).
 
@@ -628,7 +659,7 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
     if dev.type == "cuda":
         return _tb_time_tile_cuda(spec, physics, state_pads, param_pads,
                                   src_coords, src_vals, rec_coords, rec_w,
-                                  dom)
+                                  dom, param_copies)
     raise ValueError(f"no TB time tile for device {dev}")
 
 

@@ -98,10 +98,11 @@ def batch_bytes(physics: phys.TBPhysics, spec: ker.TBKernelSpec,
                 rspec: Optional[ker.TBKernelSpec]) -> Tuple[int, int]:
     """(shared, per shot) device bytes a survey batch needs beside the model
     and the zero state: shared, the padded params of the main and the
-    remainder tile and a launch's copies of them
-    (`stencil_tb.launch_shared_bytes`); per shot, its state, padded state,
-    launch outputs and scratch (`stencil_tb.launch_bytes`).  The tables,
-    a few MB a shot, are not counted."""
+    remainder tile and the kernel's copies of each
+    (`stencil_tb.launch_shared_bytes`, which the engine makes once an
+    executable); per shot, its state, padded state, launch outputs and
+    scratch (`stencil_tb.launch_bytes`).  The tables, a few MB a shot,
+    are not counted."""
     nx, ny, nz = spec.nx, spec.ny, spec.nz
     itemsize = spec.dtype.itemsize
 
@@ -109,8 +110,8 @@ def batch_bytes(physics: phys.TBPhysics, spec: ker.TBKernelSpec,
         return (nx + 2 * s.halo) * (ny + 2 * s.halo) * nz * itemsize
 
     shared = sum(len(physics.param_fields) * padded(s)
+                 + ker.launch_shared_bytes(s, physics)
                  for s in (spec, rspec) if s is not None)
-    shared += ker.launch_shared_bytes(spec, physics)
     per_shot = (len(physics.state_fields)
                 * (nx * ny * nz * itemsize + padded(spec))
                 + ker.launch_bytes(spec, physics))
@@ -127,12 +128,16 @@ def _default_tiles(nx: int, ny: int) -> Tuple[int, ...]:
 @dataclasses.dataclass
 class _Executable:
     """One bucket's runnable: its kernel specs (caps from the bucket key),
-    the shared padded params, and the batched tile loop."""
+    the shared padded params and the kernel's copies of them
+    (`stencil_tb.param_copies`, None where the launch takes none), and
+    the batched tile loop."""
 
     spec: ker.TBKernelSpec
     rspec: Optional[ker.TBKernelSpec]
     param_pads: tuple
     rparam_pads: Optional[tuple]
+    param_copies: Optional[torch.Tensor]
+    rparam_copies: Optional[torch.Tensor]
     nrec_pad: int
     dispatches: int = 0
 
@@ -144,7 +149,9 @@ class _Executable:
             engine.physics, engine.nt, self.spec, self.rspec, zero,
             self.param_pads, self.rparam_pads, batch.src_dcmp,
             batch.src_tab, batch.rec_tab, batch.rsrc_tab, batch.rrec_tab,
-            self.nrec_pad, executor=engine.executor)
+            self.nrec_pad, executor=engine.executor,
+            param_copies=self.param_copies,
+            rparam_copies=self.rparam_copies)
 
 
 class SurveyEngine:
@@ -215,12 +222,19 @@ class SurveyEngine:
         if plan is None:
             kw = {"tiles": _default_tiles(*self.shape[:2]),
                   "depths": (1, 2, 4, 8), **(plan_kwargs or {})}
+            extra = {"grid_shape": list(self.shape),
+                     "use": "survey-single-device"}
+            if self.device.type == "cuda":
+                # a plan whose batch does not fit the card is no candidate
+                total = torch.cuda.get_device_properties(
+                    self.device).total_memory
+                extra["device_bytes"] = int(total)
+                kw["feasible"] = lambda p: self._fits(p, total)
             with _spans.span("survey.sweep", physics=physics):
                 plan, self.plan_entry, self.cache_info = \
                     cached_plan_for_physics(
                         physics, self.shape[2], self.order, cache=self.cache,
-                        key_extra={"grid_shape": list(self.shape),
-                                   "use": "survey-single-device"}, **kw)
+                        key_extra=extra, **kw)
         else:
             with _spans.span("survey.sweep", physics=physics, skipped=True):
                 pass
@@ -233,6 +247,7 @@ class SurveyEngine:
             for _ in self.physics.state_fields)
         self._execs: Dict[Tuple[int, int], _Executable] = {}
         self._param_pads: Dict[int, tuple] = {}
+        self._param_copies: Dict[int, Optional[torch.Tensor]] = {}
         self.trace_counts: Dict[Tuple[int, int], int] = {}
         # (device ms of the batch, device idle ms before it) per batch of
         # the last run, from CUDA events; empty on the CPU
@@ -251,15 +266,16 @@ class SurveyEngine:
         npts_cap = self._footprint * nsrc_pad
         return npts_cap, npts_cap, self._footprint * nrec_pad
 
-    def _specs(self, key: Tuple[int, int]):
+    def _specs(self, key: Tuple[int, int], plan: Optional[TBPlan] = None):
+        plan = self.plan if plan is None else plan
         _, src_cap, rec_cap = self._caps(key)
-        spec = ops_mod.make_spec(self.shape, self.plan, self.order, self.dt,
+        spec = ops_mod.make_spec(self.shape, plan, self.order, self.dt,
                                  self.grid.spacing, src_cap, rec_cap,
                                  physics=self.physics)
         rem = self.nt % spec.T
         rspec = None
         if rem > 0:
-            rplan = dataclasses.replace(self.plan, T=rem)
+            rplan = dataclasses.replace(plan, T=rem)
             rspec = ops_mod.make_spec(self.shape, rplan, self.order, self.dt,
                                       self.grid.spacing, src_cap, rec_cap,
                                       physics=self.physics)
@@ -272,12 +288,33 @@ class SurveyEngine:
                 for f in self.physics.param_fields)
         return self._param_pads[halo]
 
+    def _copies_for(self, spec: ker.TBKernelSpec):
+        """The kernel's copies of the params padded for `spec`, made once
+        (None for the plain executor or a launch that takes none)."""
+        if spec.halo not in self._param_copies:
+            self._param_copies[spec.halo] = (
+                ker.param_copies(spec, self.physics, self._pads_for(spec.halo))
+                if self.executor == "cuda" else None)
+        return self._param_copies[spec.halo]
+
+    def _batch_need(self, plan: TBPlan) -> int:
+        """Device bytes a batch of `bucket_cap` shots needs at `plan`
+        (`batch_bytes`)."""
+        shared, per_shot = batch_bytes(self.physics,
+                                       *self._specs((1, 1), plan))
+        return shared + self.bucket_cap * per_shot
+
+    def _fits(self, plan: TBPlan, budget: int) -> bool:
+        try:
+            return self._batch_need(plan) <= budget
+        except ValueError:          # a tile that does not divide the grid
+            return False
+
     def _check_memory(self):
         """Raise if one batch of `bucket_cap` shots cannot fit the card's
         free memory (`batch_bytes`), so a survey never fails halfway for
         want of memory."""
-        shared, per_shot = batch_bytes(self.physics, *self._specs((1, 1)))
-        need = shared + self.bucket_cap * per_shot
+        need = self._batch_need(self.plan)
         free, _ = torch.cuda.mem_get_info(self.device)
         free += (torch.cuda.memory_reserved(self.device)
                  - torch.cuda.memory_allocated(self.device))
@@ -357,6 +394,8 @@ class SurveyEngine:
             self._execs[key] = _Executable(
                 spec, rspec, self._pads_for(spec.halo),
                 self._pads_for(rspec.halo) if rspec is not None else None,
+                self._copies_for(spec),
+                self._copies_for(rspec) if rspec is not None else None,
                 key[1])
             # one build per bucket: the count the reference keeps per jit
             # trace

@@ -44,6 +44,12 @@ from repro_torch.telemetry import spans as _spans
 _KEY_SCHEMA = 1
 
 
+# `plan_for_physics` arguments that are the caller's checks, not values: a
+# key cannot hold them, so a caller that passes one folds what it checks
+# against into `key_extra`
+_CALLER_CHECKS = frozenset({"feasible"})
+
+
 def _resolved_defaults(sweep_kwargs: dict) -> dict:
     """The autotune parameters the caller did NOT pass, resolved from
     `autotune_plan`'s own signature defaults — folded into the key so a
@@ -94,7 +100,8 @@ def plan_cache_key(physics: str, nz: int, order: int,
                        for k, v in sorted((key_extra or {}).items())},
              "defaults": _resolved_defaults(sweep_kwargs),
              "kwargs": {k: _canonical(v)
-                        for k, v in sorted(sweep_kwargs.items())}}
+                        for k, v in sorted(sweep_kwargs.items())
+                        if k not in _CALLER_CHECKS}}
     digest = hashlib.sha256(
         json.dumps(canon, sort_keys=True).encode()).hexdigest()[:16]
     blk = "" if block is None else f"-b{int(block[0])}x{int(block[1])}"

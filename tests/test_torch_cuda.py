@@ -45,6 +45,19 @@ def _card():
     return torch.device("cuda", 0)
 
 
+def _schedules(spec, p):
+    """Every schedule the physics' kernel runs at `spec`: None for the
+    first, and the z-streamed sub-tile plan where one fits a block
+    (acoustic and elastic), whichever `launch_plan` would pick."""
+    out = [None]
+    if ker._KERNELS[p.name].stream_from_halo is not None:
+        try:
+            out.append(ker.stream_plan(spec, p))
+        except ValueError:
+            pass
+    return out
+
+
 def _operands(c, T, tile, dev, sources=True, t0=1, dtype=torch.float32):
     g, gr = port_sparse(c, device=dev) if sources else (None, None)
     params = {"m": torch.as_tensor(c.m, device=dev).to(dtype),
@@ -75,18 +88,20 @@ def _operands(c, T, tile, dev, sources=True, t0=1, dtype=torch.float32):
     (4, (8, 8), 8, (16, 16, 20), True),
     (1, (16, 8), 4, (32, 16, 13), True),
 ])
-def test_kernel_matches_plain(T, tile, order, shape, sources):
+def test_kernel_matches_plain(T, tile, order, shape, sources, monkeypatch):
     dev = _card()
     c = acoustic_case(shape=shape, order=order, nt=8, nsrc=3, nrec=4)
     spec, args = _operands(c, T, tile, dev, sources)
-    before = ker.launches
-    (k0, k1), krec = ker.tb_time_tile(spec, phys.ACOUSTIC, *args)
-    assert ker.launches == before + 1
     (p0, p1), prec = ker.tb_time_tile_plain(spec, phys.ACOUSTIC, *args)
-    torch.cuda.synchronize()
-    for k, p in ((k0, p0), (k1, p1), (krec, prec)):
-        assert k.shape == p.shape
-        torch.testing.assert_close(k, p, rtol=RTOL, atol=ATOL)
+    for plan in _schedules(spec, phys.ACOUSTIC):
+        monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
+        before = ker.launches
+        (k0, k1), krec = ker.tb_time_tile(spec, phys.ACOUSTIC, *args)
+        assert ker.launches == before + 1
+        torch.cuda.synchronize()
+        for k, p in ((k0, p0), (k1, p1), (krec, prec)):
+            assert k.shape == p.shape
+            torch.testing.assert_close(k, p, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda
@@ -212,23 +227,26 @@ def _mp_operands(c, T, tile, dev, sources=True, t0=1):
     (4, (8, 8), 2, (16, 16, 13), True),
 ])
 def test_multiphysics_kernel_matches_plain(physics, T, tile, order, shape,
-                                           sources):
+                                           sources, monkeypatch):
     dev = _card()
     c = MULTI_CASES[physics](shape=shape, order=order, nt=8, nsrc=3, nrec=4)
     p, spec, args = _mp_operands(c, T, tile, dev, sources)
-    before = ker.launches
-    kst, krec = ker.tb_time_tile(spec, p, *args)
-    assert ker.launches == before + 1
     pst, prec = ker.tb_time_tile_plain(spec, p, *args)
-    torch.cuda.synchronize()
-    assert krec.shape == prec.shape == (1, *spec.ntiles, T, spec.rec_cap,
-                                        p.rec_channels)
-    for k, q in zip((*kst, krec), (*pst, prec)):
-        torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
-    assert_fields_close(
-        [(f, k.cpu(), q.cpu()) for f, k, q in zip(p.state_fields, kst, pst)]
-        + [(f"rec[{i}]", krec[..., i].cpu(), prec[..., i].cpu())
-           for i in range(p.rec_channels)], FIELD_RTOL, physics)
+    for plan in _schedules(spec, p):
+        monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
+        before = ker.launches
+        kst, krec = ker.tb_time_tile(spec, p, *args)
+        assert ker.launches == before + 1
+        torch.cuda.synchronize()
+        assert krec.shape == prec.shape == (1, *spec.ntiles, T,
+                                            spec.rec_cap, p.rec_channels)
+        for k, q in zip((*kst, krec), (*pst, prec)):
+            torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
+        assert_fields_close(
+            [(f, k.cpu(), q.cpu())
+             for f, k, q in zip(p.state_fields, kst, pst)]
+            + [(f"rec[{i}]", krec[..., i].cpu(), prec[..., i].cpu())
+               for i in range(p.rec_channels)], FIELD_RTOL, physics)
 
 
 @pytest.mark.cuda
@@ -469,8 +487,9 @@ def test_sharded_kernel_matches_plain_and_single_device(physics, nested,
                         spacing=c.spacing, inner="cuda", inner_plan=inner)
     seen = []
 
-    def compare(spec, physics_, *args, dom=None):
-        k = ker.tb_time_tile(spec, physics_, *args, dom=dom)
+    def compare(spec, physics_, *args, dom=None, param_copies=None):
+        k = ker.tb_time_tile(spec, physics_, *args, dom=dom,
+                             param_copies=param_copies)
         q = ker.tb_time_tile_plain(spec, physics_, *args, dom=dom)
         seen.append((spec.nx, spec.T))
         atol = ATOL if physics == "acoustic" else MP_ATOL
@@ -573,25 +592,30 @@ def test_dom_batch_of_three_equals_the_grid_predicate(physics):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("physics", ["acoustic", "elastic"])
-def test_stream_plan_matches_the_built_kernel(physics):
-    """The wrapper's mirror of the kernel's sub-tile choice (it sizes the
-    scratch by it) equals what the built kernel picks, over tiles, depths
-    and orders that fit whole, need a sub-tile, or fit no sub-tile."""
-    _card()
-    p = phys.PHYSICS[physics]
-    for tile in ((32, 32), (16, 8), (12, 12), (8, 8)):
-        for T in (1, 2, 4, 8):
-            for order in (2, 4, 8, 16):
-                spec = ops.make_spec((96, 96, 8), TBPlan(
-                    tile, T, p.step_radius(order)), order, 1e-3,
-                    (10.0,) * 3, 1, 1, physics=p)
-                try:
-                    want = ker.stream_plan(spec, p)
-                except ValueError:
-                    with pytest.raises(ValueError, match="sub-tile"):
-                        ker.card_stream_plan(spec, p)
-                    continue
-                assert ker.card_stream_plan(spec, p) == want
+def test_launch_refuses_a_subtile_that_does_not_fit(physics, monkeypatch):
+    """The C entry sizes a z-streamed block from the sub-tile it is given
+    and refuses one whose shared memory exceeds a block's, or that does
+    not divide the tile; the first schedule (0, 0) runs the same shape."""
+    dev = _card()
+    c = (acoustic_case if physics == "acoustic" else MULTI_CASES[physics])(
+        shape=(16, 16, 13), order=16, nt=8, nsrc=3, nrec=4)
+    if physics == "acoustic":
+        spec, args = _operands(c, 4, (8, 8), dev)
+        p = phys.ACOUSTIC
+    else:
+        p, spec, args = _mp_operands(c, 4, (8, 8), dev)
+    with pytest.raises(ValueError):
+        ker.stream_plan(spec, p)
+    for bad in ((8, 8, 1), (3, 8, 1)):
+        monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=bad: x)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ker.tb_time_tile(spec, p, *args)
+    monkeypatch.setattr(ker, "launch_plan", lambda s, q: None)
+    kst, krec = ker.tb_time_tile(spec, p, *args)
+    pst, prec = ker.tb_time_tile_plain(spec, p, *args)
+    atol = ATOL if physics == "acoustic" else MP_ATOL
+    for k, q in zip((*kst, krec), (*pst, prec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=atol)
 
 
 @pytest.mark.cuda

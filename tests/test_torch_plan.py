@@ -176,3 +176,33 @@ def test_cached_plan_equals_reference_and_sweeps_once(tmp_path):
                                                        cache=again, **kw)
     assert info2.hit and again.sweeps == 0 and plan2 == plan
     assert entry2 == entry
+
+
+def test_plan_for_physics_skips_plans_the_caller_refuses():
+    """`feasible` keeps the sweep to the plans it accepts (the survey
+    engine refuses the plans whose batch does not fit the card): the
+    winner is the cheapest accepted candidate, the log keeps every one;
+    with none accepted the sweep raises."""
+    kw = dict(tiles=(16, 32), depths=(1, 2, 4))
+    plan, log = ttb.plan_for_physics("acoustic", 64, 4, **kw)
+    best = (plan.tile, plan.T)
+    plan2, log2 = ttb.plan_for_physics(
+        "acoustic", 64, 4, feasible=lambda p: (p.tile, p.T) != best, **kw)
+    assert (plan2.tile, plan2.T) != best
+    assert log2.best_key == (*plan2.tile, plan2.T)
+    assert log2[log2.best_key]["cost_s"] == min(
+        e["cost_s"] for k, e in log2.items() if (k[:2], k[2]) != best)
+    assert len(log2) == len(log)
+    with pytest.raises(ValueError, match="feasibility"):
+        ttb.plan_for_physics("acoustic", 64, 4, feasible=lambda p: False,
+                             **kw)
+
+
+def test_plan_cache_key_leaves_out_the_callers_check():
+    """A callable is no key component: the caller folds what it checks
+    against into `key_extra`."""
+    key = tpc.plan_cache_key("acoustic", 64, 4, tiles=(16,))
+    assert tpc.plan_cache_key("acoustic", 64, 4, tiles=(16,),
+                              feasible=lambda p: True) == key
+    assert tpc.plan_cache_key("acoustic", 64, 4, tiles=(16,),
+                              key_extra={"device_bytes": 1}) != key

@@ -151,27 +151,75 @@ def test_stream_plan_refuses_what_fits_no_subtile():
         tker.stream_plan(_spec(p, (64, 64, 16), (8, 8), 4, 16), p)
 
 
+def _launch_sizes(p, spec, nx):
+    """(scratch, shared) bytes of one shot of a launch by its schedule:
+    the first schedule's tile windows (2 acoustic, 7 TTI, 9 elastic) and
+    no copies; the z-streamed one's z-major copies of the state, 9 block
+    windows for elastic (none for acoustic) and the params' copies."""
+    h, nz = spec.halo, spec.nz
+    tx, ty = spec.tile
+    plan = tker.launch_plan(spec, p)
+    if plan is None:
+        windows = {"acoustic": 2, "tti": 7, "elastic": 9}[p.name]
+        return ((nx // tx) * (nx // ty) * windows * (tx + 2 * h)
+                * (ty + 2 * h) * nz * 4, 0)
+    bx, by, _ = plan
+    vol = (nx + 2 * h) ** 2 * nz
+    windows = 9 if p.name == "elastic" else 0
+    return ((len(p.state_fields) * vol + (nx // bx) * (nx // by) * windows
+             * nz * (bx + 2 * h) * (by + 2 * h)) * 4,
+            len(p.param_fields) * vol * 4)
+
+
 @pytest.mark.parametrize("name", ["acoustic", "tti", "elastic"])
 def test_launch_bytes_follow_the_kernels(name):
-    """One shot's device bytes: outputs and partials, and the scratch the
-    kernel uses — for acoustic only the z-major copies of its two padded
-    state fields (no window scratch), for elastic those of its nine and
-    nine block windows, for TTI seven spec windows; the params' copies are
-    `launch_shared_bytes` (none for TTI)."""
+    """One shot's device bytes: outputs and partials, and the scratch of
+    the schedule the launch takes — at T = 2, order 4 the acoustic launch
+    streams (only the z-major copies of its two padded state fields, no
+    window scratch), the elastic one (halo 8) and TTI take the first
+    schedule (9 and 7 tile windows); the params' copies are
+    `launch_shared_bytes` (none for the first schedule)."""
     p = tphys.PHYSICS[name]
     spec = _spec(p, (64, 64, 16), (16, 16), 2, 4)
-    h = spec.halo
-    vol = (64 + 2 * h) ** 2 * 16
+    assert (tker.launch_plan(spec, p) is None) == (name != "acoustic")
     base = len(p.state_fields) * 64 * 64 * 16 * 4 \
         + 16 * 2 * 1 * p.rec_channels * 4
-    if name == "tti":
-        scratch = 16 * 7 * (16 + 2 * h) ** 2 * 16 * 4
-        shared = 0
-    else:
-        bx, by, _ = tker.stream_plan(spec, p)
-        windows = 9 if name == "elastic" else 0
-        scratch = (len(p.state_fields) * vol + (64 // bx) * (64 // by)
-                   * windows * 16 * (bx + 2 * h) * (by + 2 * h)) * 4
-        shared = len(p.param_fields) * vol * 4
+    scratch, shared = _launch_sizes(p, spec, 64)
     assert tker.launch_bytes(spec, p) == base + scratch
     assert tker.launch_shared_bytes(spec, p) == shared
+
+
+# (physics, space order, T) -> the schedule a launch at 512^3, tile 32
+# takes: the z-streamed sub-tile, or None for the first schedule — where
+# each was measured the faster, or is the only one that runs (PERF.md)
+CHOICES = [
+    ("acoustic", 4, 1, None),                 # halo 2: first faster
+    ("acoustic", 4, 2, (32, 32)),
+    ("acoustic", 4, 4, (32, 32)),
+    ("acoustic", 8, 1, (32, 32)),
+    ("acoustic", 8, 4, (16, 16)),             # overhang 9, still faster
+    ("acoustic", 12, 2, (32, 16)),
+    ("acoustic", 12, 4, None),                # no sub-tile fits
+    ("acoustic", 4, 16, None),                # no sub-tile fits
+    ("elastic", 4, 1, None),                  # halo 4 and 8: first faster
+    ("elastic", 4, 2, None),
+    ("elastic", 8, 1, None),
+    ("elastic", 12, 1, (32, 32)),
+    ("elastic", 4, 4, (32, 32)),
+    ("elastic", 8, 2, (32, 32)),
+    ("elastic", 12, 2, (32, 16)),             # overhang 10, still faster
+    ("elastic", 8, 4, None),                  # 8x8: overhang 81
+    ("tti", 4, 4, None),                      # first schedule only
+]
+
+
+@pytest.mark.parametrize("name,order,T,want", CHOICES)
+def test_launch_plan_takes_the_measured_schedule(name, order, T, want):
+    p = tphys.PHYSICS[name]
+    spec = _spec(p, (512, 512, 512), (32, 32), T, order)
+    plan = tker.launch_plan(spec, p)
+    assert (None if plan is None else plan[:2]) == want
+    scratch, shared = _launch_sizes(p, spec, 512)
+    assert tker.launch_shared_bytes(spec, p) == shared
+    assert tker.launch_bytes(spec, p) - scratch == (
+        len(p.state_fields) * 512 ** 3 + 256 * T * p.rec_channels) * 4

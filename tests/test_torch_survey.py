@@ -258,27 +258,45 @@ def test_stencil_survey_cli_check_passes():
 
 
 def test_batch_bytes_counts_what_a_batch_allocates():
-    """The elastic kernel (csrc/stencil_tb_elastic.cu) allocates, a shot:
-    its outputs and partials, float32 z-major copies of its padded state
-    and 9 z-major windows a block (here each block the whole 8x8 tile); the
-    params' copies are kept once for all shots."""
+    """The elastic kernel (csrc/stencil_tb_elastic.cu) at T = 3, order 4
+    (halo 12: the z-streamed schedule) allocates, a shot: its outputs and
+    partials, float32 z-major copies of its padded state and 9 z-major
+    windows a block (here each block the whole 8x8 tile); the params'
+    copies are kept once for all shots."""
     from repro_torch.kernels import ops
     from repro_torch.kernels import stencil_tb as ker
     from repro_torch.survey.engine import batch_bytes
 
     p = phys.ELASTIC
-    plan = TBPlan((8, 8), 2, p.step_radius(ORDER))
+    plan = TBPlan((8, 8), 3, p.step_radius(ORDER))
     spec = ops.make_spec((16, 16, 8), plan, ORDER, 1e-3, (10.0,) * 3, 1, 1,
                          physics=p)
-    assert ker.stream_plan(spec, p)[:2] == (8, 8)
+    assert ker.launch_plan(spec, p)[:2] == (8, 8)
     shared, per_shot = batch_bytes(p, spec, None)
-    padded = (16 + 16) ** 2 * 8 * 4                 # halo 8 a side
+    padded = (16 + 24) ** 2 * 8 * 4                 # halo 12 a side
     assert shared == 4 * padded + 4 * padded        # padded params + copies
     copies = 9 * padded                             # the state, z-major
-    windows = 4 * 9 * (8 + 16) ** 2 * 8 * 4         # 4 blocks x 9 windows
-    partials = 4 * 2 * 1 * 2 * 4                    # (ntiles, T, cap, chan)
+    windows = 4 * 9 * (8 + 24) ** 2 * 8 * 4         # 4 blocks x 9 windows
+    partials = 4 * 3 * 1 * 2 * 4                    # (ntiles, T, cap, chan)
     assert per_shot == 9 * (16 * 16 * 8 * 4 + padded) + 9 * 16 * 16 * 8 * 4 \
         + partials + copies + windows
+
+
+def test_batch_bytes_counts_the_remainder_copies():
+    """With nt = 7 and T = 4 the acoustic remainder tile (T = 3, halo 6)
+    streams too, and reads its own copies of its own padded params: the
+    shared bytes count both tiles' pads and both sets of copies."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_tb as ker
+    from repro_torch.survey.engine import batch_bytes
+
+    p = phys.ACOUSTIC
+    specs = [ops.make_spec((16, 16, 8), TBPlan((8, 8), T, 2), ORDER, 1e-3,
+                           (10.0,) * 3, 1, 1, physics=p) for T in (4, 3)]
+    assert all(ker.launch_plan(s, p) is not None for s in specs)
+    shared, _ = batch_bytes(p, *specs)
+    assert shared == sum(2 * 2 * (16 + 2 * s.halo) ** 2 * 8 * 4
+                         for s in specs)
 
 
 @pytest.mark.parametrize("physics", ["acoustic", "elastic", "tti"])
@@ -304,7 +322,8 @@ def test_memory_check_follows_launch_bytes(physics, monkeypatch):
     shared, per_shot = E.batch_bytes(p, spec, rspec)
     assert per_shot - ker.launch_bytes(spec, p) == len(p.state_fields) * (
         16 * 16 * 8 + (16 + 2 * spec.halo) ** 2 * 8) * 4
-    assert shared - ker.launch_shared_bytes(spec, p) == len(
+    assert shared - sum(ker.launch_shared_bytes(s, p)
+                        for s in (spec, rspec)) == len(
         p.param_fields) * sum((16 + 2 * s.halo) ** 2 * 8 * 4
                               for s in (spec, rspec))
     need = shared + 3 * per_shot
@@ -320,3 +339,28 @@ def test_memory_check_follows_launch_bytes(physics, monkeypatch):
         else:
             with pytest.raises(ValueError, match="bucket_cap=3"):
                 eng._check_memory()
+
+def test_sweep_keeps_to_what_a_batch_can_hold():
+    """The engine's sweep on a card passes `_fits`: a plan whose batch
+    (`_batch_need`) exceeds the card's memory is not picked; the cheapest
+    that fits is.  Here the sweep is asked directly, with a budget just
+    below the unconstrained winner's need."""
+    from repro_torch.core.temporal_blocking import plan_for_physics
+
+    grid = Grid((32, 32, 8), (10.0,) * 3)
+    rng = np.random.RandomState(0)
+    params = build_model("acoustic", grid.shape, grid, rng, device="cpu")
+    eng = SurveyEngine("acoustic", grid, params, 9, 1e-3, bucket_cap=2,
+                       plan=TBPlan((8, 8), 2, 2), plan_cache=PlanCache(),
+                       device="cpu")
+    kw = dict(tiles=(8, 16, 32), depths=(1, 2, 4, 8))
+    best, _ = plan_for_physics("acoustic", 8, ORDER, **kw)
+    budget = eng._batch_need(best) - 1
+    plan, log = plan_for_physics(
+        "acoustic", 8, ORDER, feasible=lambda p: eng._fits(p, budget), **kw)
+    assert (plan.tile, plan.T) != (best.tile, best.T)
+    assert eng._batch_need(plan) <= budget
+    fits = [e["cost_s"] for k, e in log.items()
+            if eng._fits(TBPlan((k[0], k[1]), k[2], 2), budget)]
+    assert log[log.best_key]["cost_s"] == min(fits)
+    assert not eng._fits(TBPlan((12, 12), 2, 2), 10 ** 15)   # 12 ∤ 32

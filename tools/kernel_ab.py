@@ -2,18 +2,30 @@
 two versions in one call (run them in turns: parent, change, change,
 parent):
 
-    python3 tools/kernel_ab.py <checkout root>
+    python3 tools/kernel_ab.py <checkout root> [--grid]
 
 Prints the registers ptxas gives each kernel instantiation, then, at the
-paper's 512^3 shapes (tile 32, T = 4, order 4, no sources), the kernel
-alone per physics — the median, least and most of 3 means of 5 launches
-after a warm-up, by CUDA events — for one shot and, where the checkout
-has the shot-batched launch, for two (acoustic and TTI), and
-fingerprints of the one-shot launch's outputs (the sum and the xor of the
-float32 bit patterns): of the state fields bit for bit, and of the
-receiver partials with -0 read as +0 (a padding slot's partial is
-w * sample = 0 with either sign).  Two checkouts whose kernels compute
-the same function print the same fingerprints.  Needs a card.
+paper's 512^3 shapes (tile 32, T = 4, order 4), the kernel alone per
+physics — the median, least and most of 3 means of 5 launches after a
+warm-up, by CUDA events — for one shot and, where the checkout has the
+shot-batched launch, for two (acoustic and TTI), and fingerprints of the
+one-shot launch's outputs (the sum and the xor of the float32 bit
+patterns): of the state fields bit for bit, and of the receiver partials
+with -0 read as +0 (a padding slot's partial is w * sample = 0 with either
+sign).  The launch carries the paper case's off-the-grid source (its
+first T steps' values, binned to every tile whose window holds one of its
+points) and its 512 receivers (`chip_smoke.full_case`), so the partials
+and the injection are part of the fingerprint.  Two checkouts whose
+kernels compute the same function print the same fingerprints.
+
+`--grid` times the acoustic and elastic kernels instead at space orders 4,
+8 and 12 and depths T = 1, 2 and 4 (tile 32, one shot), with the same
+fingerprints and the launch plan where the checkout has one; a
+configuration the checkout refuses, or that does not fit the card's
+memory, prints why and the sweep goes on.  Where the checkout keeps the
+params' copies outside the launch (`stencil_tb.param_copies`), they are
+made once before the timed launches, as a propagation makes them.
+Needs a card.
 """
 import statistics
 import sys
@@ -25,6 +37,8 @@ import torch
 VAL = {"m": 2.5e-7, "damp": 0.0, "epsilon": 0.1, "delta": 0.05,
        "theta": 0.2, "phi": 0.3, "lam": 8e9, "mu": 6e9, "b": 4.8e-4}
 SHAPE = (512, 512, 512)
+GRID = [(name, order, T) for name in ("acoustic", "elastic")
+        for order in (4, 8, 12) for T in (1, 2, 4)]
 
 
 def timed(launch):
@@ -57,12 +71,8 @@ def fingerprint(tensors):
     return total, x
 
 
-def main(root):
-    sys.path.insert(0, root + "/src")
-    from repro_torch.core.temporal_blocking import TBPlan
-    from repro_torch.kernels import _build, ops, tb_physics as phys
-    from repro_torch.kernels import stencil_tb as ker
-
+def print_registers(root):
+    from repro_torch.kernels import _build
     for n, b in _build.build_all().items():
         regs, cur = [], None
         for ln in b.log.splitlines():
@@ -73,44 +83,87 @@ def main(root):
                             f"{ln.split('Used')[1].split(',')[0].strip()}")
         print(root, n, regs, flush=True)
 
+
+def launch_args(name, order, T, smoke, dev):
+    """(spec, physics, kernel arguments) of one shot at SHAPE: random
+    state, the VAL params, the paper case's source and receivers."""
+    from repro_torch.core.temporal_blocking import TBPlan
+    from repro_torch.kernels import ops, tb_physics as phys
+    p = phys.PHYSICS[name]
+    fc = smoke.full_case(name, dev)
+    plan = TBPlan((32, 32), T, p.step_radius(order))
+    gen = torch.Generator(device=dev).manual_seed(0)
+    state = tuple(torch.randn(SHAPE, generator=gen, device=dev) * 0.01
+                  for _ in p.state_fields)
+    if name == "elastic":          # velocities ~1e-6 of the stresses
+        state = tuple(s * (1e-6 if i < 3 else 1.0)
+                      for i, s in enumerate(state))
+    params = {f: torch.full(SHAPE, VAL[f], device=dev)
+              for f in p.param_fields}
+    spec, st, rt, ppads = ops.prepare_tiles(plan, p, state[0], params, fc.g,
+                                            fc.gr, order, fc.dt, fc.spacing)
     batched = hasattr(ops, "stack_tables")
+    if batched:
+        state = tuple(f[None] for f in state)
+    src_dcmp = fc.g.src_dcmp[None] if batched else fc.g.src_dcmp
+    pads, sc, sv, rc, rw = ops.tile_operands(spec, state, src_dcmp, st, rt,
+                                             0)
+    return spec, p, (pads, ppads, sc, sv, rc, rw)
+
+
+def plan_of(ker, spec, p):
+    for fn in ("launch_plan", "stream_plan"):
+        if hasattr(ker, fn):
+            try:
+                return f"plan {getattr(ker, fn)(spec, p)}"
+            except ValueError as e:
+                return f"plan refused ({e})"
+    return "first schedule"
+
+
+def main(argv):
+    root = argv[0]
+    grid = "--grid" in argv[1:]
+    sys.path.insert(0, root + "/src")
+    sys.path.insert(0, root)
+    import chip_smoke as smoke
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_tb as ker
+
+    print_registers(root)
     dev = torch.device("cuda")
-    for name in ("acoustic", "tti", "elastic"):
-        p = phys.PHYSICS[name]
-        plan = TBPlan((32, 32), 4, p.step_radius(4))
-        gen = torch.Generator(device=dev).manual_seed(0)
-        state = tuple(torch.randn(SHAPE, generator=gen, device=dev) * 0.01
-                      for _ in p.state_fields)
-        if name == "elastic":          # velocities ~1e-6 of the stresses
-            state = tuple(s * (1e-6 if i < 3 else 1.0)
-                          for i, s in enumerate(state))
-        params = {f: torch.full(SHAPE, VAL[f], device=dev)
-                  for f in p.param_fields}
-        spec, st, rt, ppads = ops.prepare_tiles(plan, p, state[0], params,
-                                                None, None, 4, 1e-3,
-                                                (10.0,) * 3)
-        if batched:
-            state = tuple(f[None] for f in state)
-        pads, sc, sv, rc, rw = ops.tile_operands(spec, state, None, st, rt,
-                                                 0)
-        del state
-        args = (pads, ppads, sc, sv, rc, rw)
-        t = timed(lambda: ker.tb_time_tile(spec, p, *args))
-        out, rec = ker.tb_time_tile(spec, p, *args)
-        print(f"{root} {name} B=1: {t[0]:.3f} ms (least {t[1]:.3f}, most "
-              f"{t[2]:.3f}); fingerprints: fields {fingerprint(out)}, "
-              f"partials {fingerprint((rec + 0.0,))}", flush=True)
-        del out, rec
-        if batched and name != "elastic":
+    configs = GRID if grid else [(n, 4, 4)
+                                 for n in ("acoustic", "tti", "elastic")]
+    for name, order, T in configs:
+        tag = f"{root} {name} order {order} T={T}"
+        try:
+            spec, p, args = launch_args(name, order, T, smoke, dev)
+            # the params' copies made once, as a propagation makes them
+            kw = ({"param_copies": ker.param_copies(spec, p, args[1])}
+                  if hasattr(ker, "param_copies") else {})
+            t = timed(lambda: ker.tb_time_tile(spec, p, *args, **kw))
+            out, rec = ker.tb_time_tile(spec, p, *args, **kw)
+            print(f"{tag} B=1: {t[0]:.3f} ms (least {t[1]:.3f}, most "
+                  f"{t[2]:.3f}); {plan_of(ker, spec, p)}; fingerprints: "
+                  f"fields {fingerprint(out)}, partials "
+                  f"{fingerprint((rec + 0.0,))}", flush=True)
+            del out, rec
+        except (ValueError, RuntimeError, torch.cuda.OutOfMemoryError) as e:
+            print(f"{tag}: not run: {type(e).__name__}: "
+                  f"{str(e).splitlines()[0][:200]}", flush=True)
+            args = None
+        if (args is not None and not grid and name != "elastic"
+                and hasattr(ops, "stack_tables")):
+            pads, ppads, sc, sv, rc, rw = args
             args2 = (tuple(torch.cat([x, x]) for x in pads), ppads,
                      *(torch.cat([x, x]) for x in (sc, sv, rc, rw)))
-            t = timed(lambda: ker.tb_time_tile(spec, p, *args2))
-            print(f"{root} {name} B=2: {t[0]:.3f} ms (least {t[1]:.3f}, "
+            t = timed(lambda: ker.tb_time_tile(spec, p, *args2, **kw))
+            print(f"{tag} B=2: {t[0]:.3f} ms (least {t[1]:.3f}, "
                   f"most {t[2]:.3f})", flush=True)
             del args2
-        del args, pads, ppads, params
+        args = None
         torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
-    main(sys.argv[1])
+    main(sys.argv[1:])

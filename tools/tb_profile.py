@@ -75,7 +75,7 @@ def main(argv):
                              ev.key))
         total = sum(r[0] for r in rows)
         print(f"{name} T={args.T} tile (32, 32) at {SHAPE}: {ms:.3f} ms a "
-              f"launch (CUDA events); plan {ker.stream_plan(spec, p)}",
+              f"launch (CUDA events); plan {ker.launch_plan(spec, p)}",
               flush=True)
         for t, n, key in sorted(rows, reverse=True):
             print(f"  {t:9.3f} ms  {100 * t / max(total, 1e-9):5.1f}%  "
