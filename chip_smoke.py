@@ -35,8 +35,8 @@ boundary and a receiver on four tiles' corner, kernels-batched,
 kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-plain-ssd with
 kernels-ssd), serve-mamba2,
 then for each path: main path at full size, spatially-blocked baseline,
-kernel timing (for the z-streamed acoustic and elastic kernels also
-their design: registers, shared memory, blocks an SM, achieved GB/s), the
+kernel timing (with its design: the schedule the launch takes,
+registers, shared memory, blocks an SM, achieved GB/s), the
 batched kernel at the main path's shapes (after
 acoustic: sharded-acoustic and main-acoustic-bf16); then survey-acoustic,
 survey-small, sharded-small-*, survey-sharded and the kernel line.  Any
@@ -263,10 +263,9 @@ EVERY_SCHEDULE_POINTS = 256 ** 3
 def schedules(spec, physics):
     """The schedules the physics' kernel can run at `spec`, the one
     `stencil_tb.launch_plan` picks first: None for the first schedule,
-    else a z-streamed (bx, by, shared bytes).  TTI has the first only."""
+    else a z-streamed (bx, by, shared bytes)."""
     chosen = ker.launch_plan(spec, physics)
-    if (ker._KERNELS[physics.name].stream_from_halo is None
-            or spec.nx * spec.ny * spec.nz > EVERY_SCHEDULE_POINTS):
+    if spec.nx * spec.ny * spec.nz > EVERY_SCHEDULE_POINTS:
         return [chosen]
     if chosen is not None:
         return [chosen, None]
@@ -290,6 +289,13 @@ def on_schedule(plan):
 
 def schedule_name(plan):
     return "first" if plan is None else "z-streamed"
+
+
+def schedule_of(spec, physics):
+    """The schedule a launch of `spec` takes, for the kernels line."""
+    plan = ker.launch_plan(spec, physics)
+    return ("first" if plan is None
+            else f"z-streamed, sub-tile ({plan[0]}, {plan[1]})")
 
 
 def compare_kernel(spec, physics, args, dom=None):
@@ -687,11 +693,11 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
         f"vs bound {bound:.3f} ms ({cost['min_bytes'] / 1e9:.2f} GB in "
         f"{t_bytes:.3f} ms; {cost['needed_flops'] / 1e9:.1f} GFLOP needed "
         f"in {t_ops:.3f} ms, of {cost['useful_flops'] / 1e9:.1f} GFLOP the "
-        f"reference counts), plain {plain_ms:.1f} ms; kernel = "
+        f"reference counts), {schedule_of(spec, fc.physics)} schedule, "
+        f"plain {plain_ms:.1f} ms; kernel = "
         f"{100 * ms * launches / tb_ms:.1f}% of the TB run; max|diff| vs "
         f"plain {err:.3e}, max|diff|/max|plain| {rel:.3e} [{smi}]")
-    if ker._KERNELS[name].stream_from_halo is not None:
-        say_design(f"kernels-{name}", fc.physics, spec, ms, cost)
+    say_design(f"kernels-{name}", fc.physics, spec, ms, cost)
     return {
         "name": f"stencil_tb.tb_{name}",
         "route": "cuda",
@@ -704,8 +710,8 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
         "bound_ms": bound,
         "bound_by": "bytes" if t_bytes >= t_ops else "operations",
         "library_ms": None,
+        "schedule": schedule_of(spec, fc.physics),
     }
-
 
 
 def ptxas_usage(log):
@@ -867,7 +873,8 @@ def phase_batched_main(fc, spec, args, smi):
     say(f"kernels-batched-{name}", f"B={B} at {SHAPE} T={spec.T} "
         f"tile={spec.tile} (live state, and a shifted copy as a null shot):"
         f" {ms:.3f} ms per launch (median of 3 means of 5; least {lo:.3f}, "
-        f"most {hi:.3f}), bound {bound_of(cost)[0]:.3f} ms; max|diff| vs "
+        f"most {hi:.3f}), bound {bound_of(cost)[0]:.3f} ms, "
+        f"{schedule_of(spec, fc.physics)} schedule; max|diff| vs "
         f"plain {err:.3e}, max|diff|/max|plain| {rel:.3e}; equal to {B} "
         f"single-shot launches bit for bit: {same} [{smi}]")
 
@@ -923,7 +930,8 @@ def batched_entry(engine, bucket, wavefields, smi, phase):
     bound, by = bound_of(cost)
     single, _ = bound_of(ker.kernel_cost(spec, physics))
     say(phase, f"batched tb_{physics.name}, B={B} at {engine.shape} "
-        f"T={spec.T} tile={spec.tile} caps ({spec.src_cap}, "
+        f"T={spec.T} tile={spec.tile} ({schedule_of(spec, physics)} "
+        f"schedule) caps ({spec.src_cap}, "
         f"{spec.rec_cap}): {ms:.3f} ms per launch (median of 3 means of 5; "
         f"least {lo:.3f}, most {hi:.3f}) vs bound {bound:.3f} ms by {by} "
         f"({cost['min_bytes'] / 1e9:.2f} GB, params read once; B x the "
@@ -943,6 +951,7 @@ def batched_entry(engine, bucket, wavefields, smi, phase):
         "bound_ms": bound,
         "bound_by": by,
         "library_ms": None,
+        "schedule": schedule_of(spec, physics),
     }
 
 
@@ -2046,7 +2055,7 @@ def main():
     phase_kernel_vs_plain_dom(dev)
     phase_kernel_vs_plain_bf16(dev)
     say("kernel-vs-plain", f"launches held against the plain version by "
-        f"schedule (acoustic, elastic): {COMPARED}")
+        f"schedule (acoustic, TTI, elastic): {COMPARED}")
     b2 = phase_kernel_vs_plain_ssd(dev, smi)
     phase_serve_mamba2(dev, smi, b2)
     entries, tb_ms, extra = [], {}, []

@@ -1,25 +1,26 @@
 // The z-streamed trapezoid schedule for Hopper, shared by the acoustic
-// (stencil_tb.cu) and elastic (stencil_tb_elastic.cu) time-tile kernels.
-// Both replace the Pallas TPU kernel `_tb_kernel` of
-// src/repro/kernels/stencil_tb.py.  Each of the two also keeps
-// tb_common.cuh's first schedule (a whole window per step, re-read from
-// device memory), as the TTI kernel does: the wrapper
-// (`stencil_tb.launch_plan`) takes this schedule only where its working
-// set fits a block and it is measured faster (PERF.md).
+// (stencil_tb.cu), TTI (stencil_tb_tti.cu) and elastic
+// (stencil_tb_elastic.cu) time-tile kernels, which replace the Pallas TPU
+// kernel `_tb_kernel` of src/repro/kernels/stencil_tb.py.  Each of them
+// also keeps tb_common.cuh's first schedule (a whole window per step,
+// re-read from device memory): the wrapper (`stencil_tb.launch_plan`)
+// takes this schedule only where its working set fits a block and it is
+// measured faster (PERF.md).
 //
-// What bounds these kernels: bytes (PERF.md).  The TPU kernel holds a
-// (tx + 2H, ty + 2H, nz) window of every field in VMEM, 4.7 MB a field at
-// tile 32, T = 4, order 4; a Hopper block has at most 227 KB of shared
-// memory.  The first design put the windows in device-memory scratch and
-// re-read every field at every tap of every in-window step, over the whole
-// window: ~25 GB a depth-4 acoustic launch at 512^3 against 3.2 GB at the
-// bound.  This schedule does three things about that:
+// What held the first schedule back: bytes (PERF.md).  The TPU kernel
+// holds a (tx + 2H, ty + 2H, nz) window of every field in VMEM, 4.7 MB a
+// field at tile 32, T = 4, order 4; a Hopper block has at most 227 KB of
+// shared memory.  The first design put the windows in device-memory
+// scratch and re-read every field at every tap of every in-window step,
+// over the whole window: ~25 GB a depth-4 acoustic launch at 512^3 against
+// 3.2 GB at the bound, ~85 loads a point-step for TTI.  This schedule does
+// three things about that:
 //
-// 1. Trapezoid.  Step k (phase k for elastic, two a step) computes only the
-//    points within (T - k) r of the tile's centre (r the step's radius).
-//    Those are exactly the window points whose value does not depend on
-//    the zero padding beyond the window, so they equal the first design's
-//    values bit for bit, and the centre after T steps is unchanged.  A
+// 1. Trapezoid.  Step k (phase k for TTI and elastic, two a step)
+//    computes only the points within (T - k) r of the tile's centre (r the
+//    step's radius).  Those are exactly the window points whose value
+//    does not depend on the zero padding beyond the window, so they equal
+//    the first design's values bit for bit, and the centre after T steps is unchanged.  A
 //    source injected outside that region cannot reach the centre within
 //    the tile, so it is skipped; receivers are binned to the centre, which
 //    every level covers.  The domain mask is applied where it always was.
@@ -48,8 +49,8 @@
 // order 4, does), else the largest sub-tile of the tile's divisors that
 // fits.  The wrapper picks it (`stencil_tb.stream_plan`), sizes the
 // scratch for it and passes it; a launch refuses a sub-tile that does not
-// divide the tile or does not fit (`subtile_ok`).  A sub-tile's window is the sub-tile plus the spec's halo H,
-// inside the spec tile's window; its trapezoid values are the spec's, so
+// divide the tile or does not fit (`subtile_ok`).  A sub-tile's window is
+// the sub-tile plus the spec's halo H, inside the spec tile's window; its trapezoid values are the spec's, so
 // the result does not depend on the choice.  Receiver partials go to the
 // spec tile's slots: a slot belongs to the sub-tile whose centre holds its
 // point, so each slot has one writer and no atomics are needed (a slot
@@ -79,7 +80,7 @@ __device__ __forceinline__ float rnd(float v) { return to_f(from_f<S>(v)); }
 // caller made them already (`PARAMS_COPIED`: the params do not change over
 // a propagation, so the wrapper keeps their copies and passes them as the
 // param inputs), then `blk_floats` a block for the kernels that keep
-// per-block windows (elastic).
+// per-block windows (TTI, elastic).
 struct StreamArgs {
     float* copy;
     const float* pcopy;         // the params' copies
@@ -312,7 +313,8 @@ static bool subtile_ok(int tx, int ty, int bx, int by, long long smem)
 
 // Fills the schedule's arguments for sub-tile (bx, by): copies at the
 // scratch's start (the params' unless PARAMS_COPIED: then a.in[nstate] is
-// theirs), then `windows` block windows a block (elastic)
+// theirs), then `windows` whole block windows a block (elastic; TTI sets
+// its own `blk_floats`)
 template <class S>
 static StreamArgs stream_args(const TileArgsT<S>& a, float* scratch,
                               int nstate, int nparam, int param_rows, int bx,

@@ -25,10 +25,9 @@ origin as the fields, in place of the spec's "inside the grid" predicate.
 without `dom`: kernel B1a-bf16) or raise.  `launches`
 counts kernel launches, so a run can show it went through the kernel.
 
-The acoustic and elastic kernels have two schedules, and `launch_plan`
-picks one a launch from its shape: the first schedule
-(``csrc/tb_common.cuh``, one block a tile, every step re-reading the
-window from device-memory scratch; TTI has only this one) or the
+Each kernel has two schedules, and `launch_plan` picks one a launch from
+its shape: the first schedule (``csrc/tb_common.cuh``, one block a tile,
+every step re-reading the window from device-memory scratch) or the
 z-streamed trapezoid of ``csrc/tb_stream.cuh``, where a block takes a
 sub-tile of the spec tile (`stream_plan`), each launch makes float32
 z-major copies of its padded state in the scratch, and reads the params
@@ -236,45 +235,61 @@ class _CudaKernel:
     scratch_windows: int        # first schedule: window buffers a tile
     weights: Callable[[int], np.ndarray]   # order -> one axis' FD weights
     deriv: int                  # derivative order of those weights
-    # the z-streamed trapezoid schedule (csrc/tb_stream.cuh), where the
-    # kernel has it: its block windows a block (float32, z-major, over the
-    # sub-tile's window), and the least halo at which `launch_plan` takes
-    # it (measured at 512^3, tile 32, PERF.md: below it the first
-    # schedule's window barely overhangs the tile, and the z-streamed
-    # launch's fixed costs, the state's z-major copies and one level's
-    # unhidden plane-steps, cost more than the re-reads they save); None
-    # for a kernel with the first schedule only
-    stream_windows: Optional[int] = None
-    stream_from_halo: Optional[int] = None
+    # the z-streamed trapezoid schedule (csrc/tb_stream.cuh): the block
+    # windows a block keeps (float32, z-major), each over the sub-tile's
+    # window less its margin (`stream_windows[i]` radii, order // 2, at
+    # each side), and the least halo at which `launch_plan` takes it
+    # (measured at 512^3, tile 32, PERF.md: below it the first schedule's
+    # window barely overhangs the tile, and the z-streamed launch's fixed
+    # costs, the state's z-major copies and one level's unhidden
+    # plane-steps, cost more than the re-reads they save)
+    stream_windows: Tuple[int, ...]
+    stream_from_halo: int
 
 
 # physics name -> its hand-written kernel; all share one C entry point
 _KERNELS = {
     "acoustic": _CudaKernel("stencil_tb", 2, st.second_derivative_weights,
-                            2, stream_windows=0, stream_from_halo=4),
-    "tti": _CudaKernel("stencil_tb_tti", 7, st.first_derivative_weights, 1),
+                            2, stream_windows=(), stream_from_halo=4),
+    # p and r twice (ping-pong) from the first step's region, the three
+    # inner first derivatives from the first phase A's (`tti_blk_floats`);
+    # streamed from the least halo measured, 4 (order 4, T = 1: 14.2
+    # against 15.5 ms), as its z taps come from shared memory
+    "tti": _CudaKernel("stencil_tb_tti", 7, st.first_derivative_weights, 1,
+                       stream_windows=(2, 2, 2, 2, 1, 1, 1),
+                       stream_from_halo=4),
     "elastic": _CudaKernel(
         "stencil_tb_elastic", 9,
         lambda order: st.staggered_first_derivative_weights(order)[1], 1,
-        stream_windows=9, stream_from_halo=12),
+        stream_windows=(0,) * 9, stream_from_halo=12),
 }
 
 
 def _stream_smem(physics: phys.TBPhysics, spec: TBKernelSpec, bx: int,
                  by: int) -> int:
     """Shared memory of one block of a z-streamed kernel on sub-tile
-    (bx, by) (`acoustic_smem` / `elastic_smem` in the .cu files, which
-    size the launch; a launch refuses a sub-tile beyond STREAM_SMEM)."""
-    H = spec.halo
+    (bx, by) (`acoustic_smem` / `tti_smem` / `elastic_smem` in the .cu
+    files, which size the launch; a launch refuses a sub-tile beyond
+    STREAM_SMEM)."""
+    H, r = spec.halo, spec.radius
+    tiles = 4 * (_STREAM_THREADS // 32) * 32 * 33    # write-back warp tiles
     if physics.name == "acoustic":
-        r, T = spec.radius, spec.T
+        T = spec.T
         pitch = (bx * by + 31) // 32 * 32 + 4
         f = (2 * r + 2) * (bx + 2 * H) * (by + 2 * H)
         f += sum((2 * r + 1) * (bx + 2 * (H - j * r)) * (by + 2 * (H - j * r))
                  for j in range(1, T))
         return 4 * (f + 2 * _OUT_CHUNK * pitch)
-    return max(4 * 2 * 5 * (bx + 2 * H) * (by + 2 * H),
-               4 * (_STREAM_THREADS // 32) * 32 * 33)
+    if physics.name == "tti":
+        # phase A: rings of 2r + 2 planes of p and r over the block window;
+        # phase B: rings of Dx~p and Dz~r and two planes of Dy~p over the
+        # window less r
+        ring = 2 * r + 2
+        return max(4 * 2 * ring * (bx + 2 * H) * (by + 2 * H),
+                   4 * (2 * ring + 2) * (bx + 2 * H - 2 * r)
+                   * (by + 2 * H - 2 * r), tiles)
+    # elastic: two buffers of five planes of the block window
+    return max(4 * 2 * 5 * (bx + 2 * H) * (by + 2 * H), tiles)
 
 
 def stream_plan(spec: TBKernelSpec,
@@ -309,13 +324,12 @@ def launch_plan(spec: TBKernelSpec, physics: phys.TBPhysics
                 ) -> Optional[Tuple[int, int, int]]:
     """The schedule a CUDA launch of this shape takes: the z-streamed
     schedule's (bx, by, shared bytes) (`stream_plan`), or None for the
-    first schedule.  The z-streamed one is taken where the kernel has it,
-    from its `stream_from_halo` up, where a sub-tile fits a block's shared
+    first schedule.  The z-streamed one is taken from the kernel's
+    `stream_from_halo` up, where a sub-tile fits a block's shared
     memory and its window overhangs it at most `_MAX_OVERHANG` times;
     elsewhere the first schedule is the faster, or the only one that
     runs."""
-    min_halo = _KERNELS[physics.name].stream_from_halo
-    if min_halo is None or spec.halo < min_halo:
+    if spec.halo < _KERNELS[physics.name].stream_from_halo:
         return None
     if physics.name == "acoustic" and spec.T > _MAX_T:
         return None
@@ -348,8 +362,10 @@ def _scratch_elems(spec: TBKernelSpec,
     h = spec.halo
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
     blocks = (spec.nx // bx) * (spec.ny // by)
-    per_row = (len(physics.state_fields) * vol + blocks
-               * kern.stream_windows * spec.nz * (bx + 2 * h) * (by + 2 * h))
+    r = spec.radius
+    windows = sum((bx + 2 * h - 2 * m * r) * (by + 2 * h - 2 * m * r)
+                  for m in kern.stream_windows)
+    per_row = len(physics.state_fields) * vol + blocks * windows * spec.nz
     return per_row, len(physics.param_fields) * vol, torch.float32
 
 
@@ -361,19 +377,18 @@ def _bind(source: str):
         entries = [lib.repro_tb_tile]
         if source == _KERNELS["acoustic"].source:
             entries.append(lib.repro_tb_tile_bf16)
-        # the two-schedule kernels take the z-streamed sub-tile (bx, by)
-        sub = [i, i] if hasattr(lib, "repro_tb_param_copies") else []
+        # the sub-tile (bx, by) of the z-streamed schedule, (0, 0) for
+        # the first
         for fn in entries:
             fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
-                           + [ctypes.c_float] * 2 + sub + [p])
+                           + [ctypes.c_float] * 2 + [i, i, p])
             fn.restype = i
-        if sub:
-            copies = [lib.repro_tb_param_copies]
-            if hasattr(lib, "repro_tb_param_copies_bf16"):
-                copies.append(lib.repro_tb_param_copies_bf16)
-            for fn in copies:
-                fn.argtypes = [i, p] + [i] * 7 + [p, p]
-                fn.restype = i
+        copies = [lib.repro_tb_param_copies]
+        if hasattr(lib, "repro_tb_param_copies_bf16"):
+            copies.append(lib.repro_tb_param_copies_bf16)
+        for fn in copies:
+            fn.argtypes = [i, p] + [i] * 7 + [p, p]
+            fn.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         if lib.repro_max_radius() != _MAX_RADIUS:
@@ -515,10 +530,9 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     per_row, pelems, sdtype = _scratch_elems(spec, physics)
     rows_flag = int(param_rows)
     extra = 0
-    if plan is None:
-        sub = [] if kern.stream_windows is None else [0, 0]
-    else:
-        sub = [plan[0], plan[1]]
+    # the z-streamed schedule's sub-tile, (0, 0) for the first schedule
+    sub = (0, 0) if plan is None else plan[:2]
+    if plan is not None:
         prow = B if param_rows else 1
         if copies is None:
             extra = prow * pelems       # the launch copies the params
@@ -605,19 +619,23 @@ def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
     def area(margin):
         return (bx + 2 * (h - margin)) * (by + 2 * (h - margin))
 
+    r = spec.radius
     if physics.name == "acoustic":
-        r = spec.radius
         lv = [area(j * r) for j in range(spec.T + 1)]
-        per_block = 4 * nz * (lv[0] + lv[1] + 2 * sum(lv[1:])) \
-            + 2 * item * bx * by * nz
-    else:
-        R = spec.radius
-        per_block = 0
-        for n in range(1, 2 * spec.T + 1):
-            prev, cur = area((n - 1) * R), area(n * R)
-            per_block += (5 * prev + 11 * cur) if n % 2 else \
-                (3 * prev + 18 * cur)
-        per_block = 4 * nz * (per_block + 2 * ns * bx * by)
+        return float(copies + blocks * (
+            4 * nz * (lv[0] + lv[1] + 2 * sum(lv[1:]))
+            + 2 * item * bx * by * nz))
+    # (tap planes read over the previous region, pointwise reads and
+    # writes over the region) of phases (A, B) / (V, S): TTI taps p, r,
+    # then Dx~p, Dy~p, Dz~r, reads theta, phi, then the 6 params and 4
+    # state fields, and writes 3, then 2 fields; elastic as its notes
+    terms = {"tti": ((2, 2 + 3), (3, 10 + 2)),
+             "elastic": ((5, 11), (3, 18))}[physics.name]
+    per_block = 0
+    for n in range(1, 2 * spec.T + 1):
+        taps, points = terms[1 - n % 2]
+        per_block += taps * area((n - 1) * r) + points * area(n * r)
+    per_block = 4 * nz * (per_block + 2 * ns * bx * by)
     return float(copies + blocks * per_block)
 
 

@@ -47,14 +47,13 @@ def _card():
 
 def _schedules(spec, p):
     """Every schedule the physics' kernel runs at `spec`: None for the
-    first, and the z-streamed sub-tile plan where one fits a block
-    (acoustic and elastic), whichever `launch_plan` would pick."""
+    first, and the z-streamed sub-tile plan where one fits a block,
+    whichever `launch_plan` would pick."""
     out = [None]
-    if ker._KERNELS[p.name].stream_from_halo is not None:
-        try:
-            out.append(ker.stream_plan(spec, p))
-        except ValueError:
-            pass
+    try:
+        out.append(ker.stream_plan(spec, p))
+    except ValueError:
+        pass
     return out
 
 
@@ -225,12 +224,16 @@ def _mp_operands(c, T, tile, dev, sources=True, t0=1):
     (2, (8, 8), 8, (16, 16, 3), True),
     (1, (8, 8), 16, (16, 16, 13), True),
     (4, (8, 8), 2, (16, 16, 13), True),
+    # TTI's launch takes its z-streamed schedule here (halo 8, overhang 4)
+    (2, (16, 16), 4, (32, 32, 20), True),
 ])
 def test_multiphysics_kernel_matches_plain(physics, T, tile, order, shape,
                                            sources, monkeypatch):
     dev = _card()
     c = MULTI_CASES[physics](shape=shape, order=order, nt=8, nsrc=3, nrec=4)
     p, spec, args = _mp_operands(c, T, tile, dev, sources)
+    if physics == "tti" and (T, tile, order) == (2, (16, 16), 4):
+        assert ker.launch_plan(spec, p) is not None
     pst, prec = ker.tb_time_tile_plain(spec, p, *args)
     for plan in _schedules(spec, p):
         monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
@@ -340,6 +343,8 @@ def test_batched_kernel_matches_plain_and_single_launches(physics):
                    seed=s), live)
              for n, s, live in ((1, 1, True), (3, 2, True), (2, 3, False))]
     spec, args = _batch_operands(p, cases, 2, (16, 8), dev)
+    if physics != "elastic":            # halo 8 (TTI): z-streamed
+        assert ker.launch_plan(spec, p) is not None
     before = ker.launches
     kst, krec = ker.tb_time_tile(spec, p, *args)
     assert ker.launches == before + 1
@@ -429,6 +434,8 @@ def test_trapezoid_edges_match_plain(physics, T):
     else:
         p, spec, args = _mp_operands(c, T, tile, dev)
     assert float(args[3].abs().sum()) > 0          # the source is live
+    if physics == "tti":                # halo 8 and 12: z-streamed
+        assert ker.launch_plan(spec, p) is not None
     kst, krec = ker.tb_time_tile(spec, p, *args)
     pst, prec = ker.tb_time_tile_plain(spec, p, *args)
     torch.cuda.synchronize()
@@ -485,13 +492,14 @@ def test_sharded_kernel_matches_plain_and_single_device(physics, nested,
     plan = H.DistTBPlan(mesh=ShardMesh((2, 2), devices=(dev,)),
                         grid_shape=c.shape, physics=p, T=T, dt=c.dt,
                         spacing=c.spacing, inner="cuda", inner_plan=inner)
-    seen = []
+    seen, streamed = [], []
 
     def compare(spec, physics_, *args, dom=None, param_copies=None):
         k = ker.tb_time_tile(spec, physics_, *args, dom=dom,
                              param_copies=param_copies)
         q = ker.tb_time_tile_plain(spec, physics_, *args, dom=dom)
         seen.append((spec.nx, spec.T))
+        streamed.append(ker.launch_plan(spec, physics_) is not None)
         atol = ATOL if physics == "acoustic" else MP_ATOL
         for a, b in zip((*k[0], k[1]), (*q[0], q[1])):
             torch.testing.assert_close(a, b, rtol=RTOL, atol=atol)
@@ -509,6 +517,8 @@ def test_sharded_kernel_matches_plain_and_single_device(physics, nested,
     want = ([(36, T // 2), (24, T // 2)] * 2 + [(24, 1)] if nested
             else [(24, T)] * 2 + [(24, 1)])
     assert seen == want and ker.launches - before == len(want)
+    if physics == "tti":                # the flat passes: halo 8
+        assert any(streamed)
     single = {"acoustic": lambda: ops.acoustic_tb_propagate(
         nt, *state, params["m"], params["damp"], g, gr,
         TBPlan((8, 8), T, r), 4, c.dt, c.spacing, device=dev),
@@ -591,7 +601,7 @@ def test_dom_batch_of_three_equals_the_grid_predicate(physics):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("physics", ["acoustic", "elastic"])
+@pytest.mark.parametrize("physics", ["acoustic", "tti", "elastic"])
 def test_launch_refuses_a_subtile_that_does_not_fit(physics, monkeypatch):
     """The C entry sizes a z-streamed block from the sub-tile it is given
     and refuses one whose shared memory exceeds a block's, or that does

@@ -128,9 +128,16 @@ def _spec(physics, shape, tile, T, order):
     # the main plans fit a block whole (csrc/stencil_tb*.cu's notes)
     ("acoustic", (32, 32), 4, 4, (32, 32, 217728)),
     ("elastic", (32, 32), 4, 4, (32, 32, 163840)),
+    # TTI: phase B's first pass (rings of Dx~p, Dz~r and two planes of
+    # Dy~p over 60^2) outgrows phase A's (rings of p, r over 64^2)
+    ("tti", (32, 32), 4, 4, (32, 32, 201600)),
     # deeper or wider stencils take the largest sub-tile that fits
     ("acoustic", (32, 32), 4, 8, (16, 16, 224000)),
     ("elastic", (16, 16), 4, 8, (8, 8, 207360)),
+    # TTI's phase A rings then outgrow phase B's: 10 planes of p and r
+    # over 48^2
+    ("tti", (32, 32), 2, 8, (16, 16, 184320)),
+    ("tti", (32, 32), 1, 12, (16, 16, 179200)),
 ])
 def test_stream_plan_picks_the_largest_fitting_subtile(name, tile, T, order,
                                                        want):
@@ -145,17 +152,37 @@ def test_stream_plan_picks_the_largest_fitting_subtile(name, tile, T, order,
             assert tker._stream_smem(p, spec, *cand) > tker._STREAM_SMEM
 
 
-def test_stream_plan_refuses_what_fits_no_subtile():
-    p = tphys.ACOUSTIC
+@pytest.mark.parametrize("name,T,order", [("acoustic", 4, 16),
+                                          ("tti", 4, 8), ("tti", 2, 12)])
+def test_stream_plan_refuses_what_fits_no_subtile(name, T, order):
+    p = tphys.PHYSICS[name]
     with pytest.raises(ValueError, match="1x1 sub-tile"):
-        tker.stream_plan(_spec(p, (64, 64, 16), (8, 8), 4, 16), p)
+        tker.stream_plan(_spec(p, (64, 64, 16), (8, 8), T, order), p)
+
+
+def test_tti_stream_smem_counts_its_rings():
+    """TTI's block: rings of 2R + 2 planes (the 2R + 1 z taps and the
+    plane in flight) of p and r over the block window, or of Dx~p and
+    Dz~r over the window less R beside two planes of Dy~p, and at least
+    the write-back's 16 warp tiles of 32 x 33 floats."""
+    p = tphys.TTI
+    # order 4 (R = 2), T = 1: H = 4; sub-tile 8 x 16 -> window 16 x 24
+    spec = _spec(p, (64, 64, 16), (8, 16), 1, 4)
+    assert tker._stream_smem(p, spec, 8, 16) == max(
+        4 * 2 * 6 * 16 * 24, 4 * 14 * 12 * 20, 67584) == 67584
+    # order 8 (R = 4), T = 1: H = 8; sub-tile 32 x 32 -> window 48 x 48
+    spec = _spec(p, (64, 64, 16), (32, 32), 1, 8)
+    assert tker._stream_smem(p, spec, 32, 32) == 4 * 2 * 10 * 48 * 48 \
+        == 184320
+    assert tker._stream_smem(p, spec, 32, 32) > 4 * 22 * 40 * 40
 
 
 def _launch_sizes(p, spec, nx):
     """(scratch, shared) bytes of one shot of a launch by its schedule:
     the first schedule's tile windows (2 acoustic, 7 TTI, 9 elastic) and
-    no copies; the z-streamed one's z-major copies of the state, 9 block
-    windows for elastic (none for acoustic) and the params' copies."""
+    no copies; the z-major copies of the state and the params, and the
+    block windows (none for acoustic; 7 TTI, over regions of its block
+    window; 9 elastic) of the z-streamed one."""
     h, nz = spec.halo, spec.nz
     tx, ty = spec.tile
     plan = tker.launch_plan(spec, p)
@@ -165,9 +192,15 @@ def _launch_sizes(p, spec, nx):
                 * (ty + 2 * h) * nz * 4, 0)
     bx, by, _ = plan
     vol = (nx + 2 * h) ** 2 * nz
-    windows = 9 if p.name == "elastic" else 0
-    return ((len(p.state_fields) * vol + (nx // bx) * (nx // by) * windows
-             * nz * (bx + 2 * h) * (by + 2 * h)) * 4,
+    r = spec.radius
+    windows = {"acoustic": 0,
+               # p, r twice over margin 2r; the three inner derivatives
+               # over margin r
+               "tti": (4 * (bx + 2 * h - 4 * r) * (by + 2 * h - 4 * r)
+                       + 3 * (bx + 2 * h - 2 * r) * (by + 2 * h - 2 * r)),
+               "elastic": 9 * (bx + 2 * h) * (by + 2 * h)}[p.name]
+    return ((len(p.state_fields) * vol
+             + (nx // bx) * (nx // by) * windows * nz) * 4,
             len(p.param_fields) * vol * 4)
 
 
@@ -176,12 +209,13 @@ def test_launch_bytes_follow_the_kernels(name):
     """One shot's device bytes: outputs and partials, and the scratch of
     the schedule the launch takes — at T = 2, order 4 the acoustic launch
     streams (only the z-major copies of its two padded state fields, no
-    window scratch), the elastic one (halo 8) and TTI take the first
-    schedule (9 and 7 tile windows); the params' copies are
+    window scratch), TTI (halo 8) streams too (the copies of its four
+    state fields and 7 block windows), the elastic one (halo 8) takes the
+    first schedule (9 tile windows); the params' copies are
     `launch_shared_bytes` (none for the first schedule)."""
     p = tphys.PHYSICS[name]
     spec = _spec(p, (64, 64, 16), (16, 16), 2, 4)
-    assert (tker.launch_plan(spec, p) is None) == (name != "acoustic")
+    assert (tker.launch_plan(spec, p) is None) == (name == "elastic")
     base = len(p.state_fields) * 64 * 64 * 16 * 4 \
         + 16 * 2 * 1 * p.rec_channels * 4
     scratch, shared = _launch_sizes(p, spec, 64)
@@ -209,7 +243,15 @@ CHOICES = [
     ("elastic", 8, 2, (32, 32)),
     ("elastic", 12, 2, (32, 16)),             # overhang 10, still faster
     ("elastic", 8, 4, None),                  # 8x8: overhang 81
-    ("tti", 4, 4, None),                      # first schedule only
+    ("tti", 4, 1, (32, 32)),                  # streamed even at depth 1
+    ("tti", 4, 2, (32, 32)),
+    ("tti", 4, 4, (32, 32)),
+    ("tti", 8, 1, (32, 32)),
+    ("tti", 8, 2, (16, 16)),                  # overhang 9, still faster
+    ("tti", 8, 4, None),                      # no sub-tile fits
+    ("tti", 12, 1, (16, 16)),                 # overhang 6.25
+    ("tti", 12, 2, None),                     # no sub-tile fits
+    ("tti", 12, 4, None),
 ]
 
 
@@ -223,3 +265,28 @@ def test_launch_plan_takes_the_measured_schedule(name, order, T, want):
     assert tker.launch_shared_bytes(spec, p) == shared
     assert tker.launch_bytes(spec, p) - scratch == (
         len(p.state_fields) * 512 ** 3 + 256 * T * p.rec_channels) * 4
+
+
+def test_tti_design_bytes_count_the_phase_areas():
+    """`design_bytes` of the main TTI plan (512^3, tile 32, T = 4, order
+    4: R = 2, halo 16, 256 blocks of a 64^2 window), counted by hand: the
+    z-major copies (4 state + 6 param fields, padded to 544^2, read in
+    float32 and written in float32), then per block and plane the 8
+    passes, phase n over the region of margin 2n (64^2, 60^2, ..., 32^2):
+    phase A taps p and r over the previous region and reads theta and phi
+    and writes Dx~p, Dy~p, Dz~r over its own; phase B taps the three over
+    the previous region and reads 6 params and 4 state fields and writes
+    p and r over its own; and the write-back reads and writes the 4
+    fields' 32^2 centre."""
+    p = tphys.TTI
+    spec = _spec(p, (512, 512, 512), (32, 32), 4, 4)
+    assert tker.launch_plan(spec, p)[:2] == (32, 32)
+    copies = 10 * 544 * 544 * 512 * (4 + 4)
+    phase_a = (2 * 4096 + 5 * 3600) + (2 * 3136 + 5 * 2704) \
+        + (2 * 2304 + 5 * 1936) + (2 * 1600 + 5 * 1296)
+    phase_b = (3 * 3600 + 12 * 3136) + (3 * 2704 + 12 * 2304) \
+        + (3 * 1936 + 12 * 1600) + (3 * 1296 + 12 * 1024)
+    assert (phase_a, phase_b) == (69952, 125376)
+    per_block = 4 * 512 * (phase_a + phase_b + 2 * 4 * 32 * 32)
+    assert tker.design_bytes(spec, p) == copies + 256 * per_block
+    assert round(tker.design_bytes(spec, p) / 1e9, 1) == 118.8

@@ -282,6 +282,33 @@ def test_batch_bytes_counts_what_a_batch_allocates():
         + partials + copies + windows
 
 
+def test_batch_bytes_counts_the_tti_param_copies():
+    """The TTI main plan at 512^3 (tile 32, T = 4, order 4: halo 16) takes
+    the z-streamed schedule: the survey keeps, for all shots, the 6 padded
+    params and their float32 z-major copies (3.64 GB); a shot needs its
+    state, padded state, outputs and partials, the z-major copies of its 4
+    state fields and 7 windows a block (p, r twice over 56^2, the three
+    inner derivatives over 60^2), 256 blocks."""
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_tb as ker
+    from repro_torch.survey.engine import batch_bytes
+
+    p = phys.TTI
+    plan = TBPlan((32, 32), 4, p.step_radius(ORDER))
+    spec = ops.make_spec((512,) * 3, plan, ORDER, 1e-3, (20.0,) * 3, 1, 1,
+                         physics=p)
+    assert ker.launch_plan(spec, p)[:2] == (32, 32)
+    shared, per_shot = batch_bytes(p, spec, None)
+    padded = 544 * 544 * 512 * 4
+    assert shared == 6 * padded + 6 * padded
+    assert 6 * padded == 3_636_461_568
+    grid = 512 ** 3 * 4
+    windows = 256 * (4 * 56 * 56 + 3 * 60 * 60) * 512 * 4
+    partials = 256 * 4 * 1 * 1 * 4
+    assert per_shot == 4 * (grid + padded) + 4 * grid + partials \
+        + 4 * padded + windows
+
+
 def test_batch_bytes_counts_the_remainder_copies():
     """With nt = 7 and T = 4 the acoustic remainder tile (T = 3, halo 6)
     streams too, and reads its own copies of its own padded params: the

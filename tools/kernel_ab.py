@@ -2,7 +2,8 @@
 two versions in one call (run them in turns: parent, change, change,
 parent):
 
-    python3 tools/kernel_ab.py <checkout root> [--grid]
+    python3 tools/kernel_ab.py <checkout root> [--grid] [--each-schedule]
+                               [--physics acoustic,tti,elastic]
 
 Prints the registers ptxas gives each kernel instantiation, then, at the
 paper's 512^3 shapes (tile 32, T = 4, order 4), the kernel alone per
@@ -18,15 +19,19 @@ points) and its 512 receivers (`chip_smoke.full_case`), so the partials
 and the injection are part of the fingerprint.  Two checkouts whose
 kernels compute the same function print the same fingerprints.
 
-`--grid` times the acoustic and elastic kernels instead at space orders 4,
-8 and 12 and depths T = 1, 2 and 4 (tile 32, one shot), with the same
-fingerprints and the launch plan where the checkout has one; a
-configuration the checkout refuses, or that does not fit the card's
-memory, prints why and the sweep goes on.  Where the checkout keeps the
-params' copies outside the launch (`stencil_tb.param_copies`), they are
-made once before the timed launches, as a propagation makes them.
-Needs a card.
+`--grid` times the kernels instead at space orders 4, 8 and 12 and depths
+T = 1, 2 and 4 (tile 32, one shot), with the same fingerprints and the
+launch plan where the checkout has one; a configuration the checkout
+refuses, or that does not fit the card's memory, prints why and the sweep
+goes on.  With `--each-schedule` every configuration runs once on each
+schedule the checkout's kernel has there (the first, and the z-streamed
+one where a sub-tile fits: `stencil_tb.stream_plan`), whatever
+`launch_plan` picks.  `--physics` names the kernels (default: all three).
+Where the checkout keeps the params' copies outside the launch
+(`stencil_tb.param_copies`), they are made once before the timed
+launches, as a propagation makes them.  Needs a card.
 """
+import contextlib
 import statistics
 import sys
 
@@ -37,8 +42,7 @@ import torch
 VAL = {"m": 2.5e-7, "damp": 0.0, "epsilon": 0.1, "delta": 0.05,
        "theta": 0.2, "phi": 0.3, "lam": 8e9, "mu": 6e9, "b": 4.8e-4}
 SHAPE = (512, 512, 512)
-GRID = [(name, order, T) for name in ("acoustic", "elastic")
-        for order in (4, 8, 12) for T in (1, 2, 4)]
+PHYSICS = ("acoustic", "tti", "elastic")
 
 
 def timed(launch):
@@ -121,9 +125,43 @@ def plan_of(ker, spec, p):
     return "first schedule"
 
 
+def forced_plans(ker, spec, p, each):
+    """The schedules to time: [None] for the one the checkout picks, or
+    with `each` the first schedule and the z-streamed sub-tile where the
+    checkout's kernel has one that fits (launch plans to force)."""
+    if not each or not hasattr(ker, "launch_plan"):
+        return [None]
+    plans = ["first"]
+    try:
+        if ker._KERNELS[p.name].stream_from_halo is not None:
+            plans.append(ker.stream_plan(spec, p))
+    except ValueError:
+        pass
+    return plans
+
+
+@contextlib.contextmanager
+def forcing(ker, plan):
+    """Launches inside take `plan` ("first": the first schedule; None:
+    whatever the checkout's `launch_plan` picks)."""
+    if plan is None:
+        yield
+        return
+    chosen = ker.launch_plan
+    ker.launch_plan = lambda spec, p: None if plan == "first" else plan
+    try:
+        yield
+    finally:
+        ker.launch_plan = chosen
+
+
 def main(argv):
     root = argv[0]
     grid = "--grid" in argv[1:]
+    each = "--each-schedule" in argv[1:]
+    names = PHYSICS
+    if "--physics" in argv:
+        names = tuple(argv[argv.index("--physics") + 1].split(","))
     sys.path.insert(0, root + "/src")
     sys.path.insert(0, root)
     import chip_smoke as smoke
@@ -132,37 +170,52 @@ def main(argv):
 
     print_registers(root)
     dev = torch.device("cuda")
-    configs = GRID if grid else [(n, 4, 4)
-                                 for n in ("acoustic", "tti", "elastic")]
+    configs = ([(n, order, T) for n in names for order in (4, 8, 12)
+                for T in (1, 2, 4)] if grid else [(n, 4, 4) for n in names])
     for name, order, T in configs:
         tag = f"{root} {name} order {order} T={T}"
         try:
             spec, p, args = launch_args(name, order, T, smoke, dev)
-            # the params' copies made once, as a propagation makes them
-            kw = ({"param_copies": ker.param_copies(spec, p, args[1])}
-                  if hasattr(ker, "param_copies") else {})
-            t = timed(lambda: ker.tb_time_tile(spec, p, *args, **kw))
-            out, rec = ker.tb_time_tile(spec, p, *args, **kw)
-            print(f"{tag} B=1: {t[0]:.3f} ms (least {t[1]:.3f}, most "
-                  f"{t[2]:.3f}); {plan_of(ker, spec, p)}; fingerprints: "
-                  f"fields {fingerprint(out)}, partials "
-                  f"{fingerprint((rec + 0.0,))}", flush=True)
-            del out, rec
         except (ValueError, RuntimeError, torch.cuda.OutOfMemoryError) as e:
             print(f"{tag}: not run: {type(e).__name__}: "
                   f"{str(e).splitlines()[0][:200]}", flush=True)
-            args = None
-        if (args is not None and not grid and name != "elastic"
-                and hasattr(ops, "stack_tables")):
+            continue
+        for forced in forced_plans(ker, spec, p, each):
+            with forcing(ker, forced):
+                run_one(ker, spec, p, args, tag)
+            torch.cuda.empty_cache()
+        if not grid and name != "elastic" and hasattr(ops, "stack_tables"):
             pads, ppads, sc, sv, rc, rw = args
             args2 = (tuple(torch.cat([x, x]) for x in pads), ppads,
                      *(torch.cat([x, x]) for x in (sc, sv, rc, rw)))
-            t = timed(lambda: ker.tb_time_tile(spec, p, *args2, **kw))
-            print(f"{tag} B=2: {t[0]:.3f} ms (least {t[1]:.3f}, "
-                  f"most {t[2]:.3f})", flush=True)
+            run_one(ker, spec, p, args2, tag, fingerprints=False)
             del args2
         args = None
         torch.cuda.empty_cache()
+
+
+def run_one(ker, spec, p, args, tag, fingerprints=True):
+    """Time one launch of `args` on the schedule the checkout's
+    `launch_plan` gives (B shots: the leading axis), print its time, plan
+    and (for one shot) fingerprints, or why it did not run."""
+    B = args[0][0].shape[0] if args[0][0].dim() == 4 else 1
+    try:
+        # the params' copies made once, as a propagation makes them
+        kw = ({"param_copies": ker.param_copies(spec, p, args[1])}
+              if hasattr(ker, "param_copies") else {})
+        t = timed(lambda: ker.tb_time_tile(spec, p, *args, **kw))
+        line = (f"{tag} B={B}: {t[0]:.3f} ms (least {t[1]:.3f}, most "
+                f"{t[2]:.3f}); {plan_of(ker, spec, p)}")
+        if fingerprints:
+            out, rec = ker.tb_time_tile(spec, p, *args, **kw)
+            line += (f"; fingerprints: fields {fingerprint(out)}, partials "
+                     f"{fingerprint((rec + 0.0,))}")
+            del out, rec
+        print(line, flush=True)
+    except (ValueError, RuntimeError, torch.cuda.OutOfMemoryError) as e:
+        print(f"{tag} B={B} ({plan_of(ker, spec, p)}): not run: "
+              f"{type(e).__name__}: {str(e).splitlines()[0][:200]}",
+              flush=True)
 
 
 if __name__ == "__main__":

@@ -6,13 +6,12 @@ port's kernel sources:
 
 <csrc dir b> defaults to this tree's `src/repro_torch/kernels/csrc`;
 `--files` names the sources whose kernels must be the same on both sides
-(default: `stencil_tb_tti` and `ssd_scan`, which the z-streamed redesign
-of the acoustic and elastic kernels leaves as they were); `--kept` names
-the sources where every kernel of <a> must be in <b> unchanged, and <b>
-may add kernels (default: `stencil_tb` and `stencil_tb_elastic`, which
-keep their first schedule beside the z-streamed one).  Each source is
-compiled to a
-cubin with the port's nvcc flags (under `build/sass/`) and disassembled
+(default: `ssd_scan`, which the z-streamed redesign of the TB kernels
+leaves as it was); `--kept` names the sources where every kernel of <a>
+must be in <b> unchanged, and <b> may add kernels (default: `stencil_tb`,
+`stencil_tb_elastic` and `stencil_tb_tti`, which keep their first
+schedule beside the z-streamed one).  Each source is compiled to a cubin
+with the port's nvcc flags (under `build/sass/`) and disassembled
 with `cuobjdump -sass`; every kernel function (each template
 instantiation, by its mangled name) is compared instruction by
 instruction (with its encoding) with the code offsets and the column
@@ -30,8 +29,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 
-FILES = ("stencil_tb_tti", "ssd_scan")
-KEPT = ("stencil_tb", "stencil_tb_elastic")
+FILES = ("ssd_scan",)
+KEPT = ("stencil_tb", "stencil_tb_elastic", "stencil_tb_tti")
 OFFSET = re.compile(r"^\s*/\*[0-9a-f]+\*/")      # an instruction's offset
 LABEL = re.compile(r"\.L_x_\d+")                 # a branch target's label
 

@@ -1,9 +1,10 @@
 """Split one TB kernel launch's device time by CUDA kernel, on the card:
 
-    python3 tools/tb_profile.py [--physics acoustic,elastic] [--T 4]
+    python3 tools/tb_profile.py [--physics acoustic,tti,elastic] [--T 4]
 
 At the paper's 512^3 shapes (tile 32, order 4, no sources) it runs each
-physics' launch (`stencil_tb.tb_time_tile`) a few times under
+physics' launch (`stencil_tb.tb_time_tile`, with the params' copies made
+once beforehand, as a propagation makes them) a few times under
 `torch.profiler` and prints, per CUDA kernel name (the z-major copies
 `to_zmajor` and the time-tile kernel), its device time per launch and
 share, beside the launch's wall time by CUDA events.  Needs a card.
@@ -42,14 +43,16 @@ def launch_args(name, T, dev):
 
 def main(argv):
     ap = argparse.ArgumentParser()
-    ap.add_argument("--physics", default="acoustic,elastic")
+    ap.add_argument("--physics", default="acoustic,tti,elastic")
     ap.add_argument("--T", type=int, default=4)
     ap.add_argument("--reps", type=int, default=3)
     args = ap.parse_args(argv)
     dev = torch.device("cuda")
     for name in args.physics.split(","):
         p, spec, kargs = launch_args(name, args.T, dev)
-        launch = lambda: ker.tb_time_tile(spec, p, *kargs)  # noqa: E731
+        copies = ker.param_copies(spec, p, kargs[1])
+        launch = lambda: ker.tb_time_tile(  # noqa: E731
+            spec, p, *kargs, param_copies=copies)
         launch()
         torch.cuda.synchronize()
         s, e = (torch.cuda.Event(enable_timing=True) for _ in range(2))
@@ -80,7 +83,7 @@ def main(argv):
         for t, n, key in sorted(rows, reverse=True):
             print(f"  {t:9.3f} ms  {100 * t / max(total, 1e-9):5.1f}%  "
                   f"x{n}  {key[:90]}", flush=True)
-        del kargs
+        del kargs, copies
         torch.cuda.empty_cache()
 
 
