@@ -76,15 +76,18 @@
 // block an SM, 256 blocks.  By design a depth-4 launch moves ~107 GB over
 // its 8 passes plus ~12 GB of copies (`stencil_tb.design_bytes`).
 //
-// Measured (PERF.md): 63.1 ms a depth-4 launch at 512^3 against 137.7 ms
-// for the first schedule, and faster at every configuration where a
-// sub-tile fits, depth 1 included.  Neither bytes nor operations hold it
-// (~1.9 TB/s of its design bytes, 3.6% of its roofline bound).  Its param
-// reads cost ~15 ms, one barrier a plane waits on the last of a
-// thread's points (a plane's region seldom divides the block), and the
-// IEEE division's slow path makes the time depend on the values: a field
-// of zeros costs +4 ms, one whose updates fall below float32's normal
-// range +10 ms (the live 512^3 wavefield: 68.6 ms).
+// Measured (PERF.md): 63-65 ms a depth-4 launch at 512^3 on a random
+// state against 137.7 ms for the first schedule, and faster at every
+// configuration where a sub-tile fits, depth 1 included.  Neither bytes
+// nor operations hold it (~1.9 TB/s of its design bytes, 3.6% of its
+// roofline bound).  Its param reads cost ~15 ms, one barrier a plane
+// waits on the last of a thread's points (a plane's region seldom divides
+// the block), and the IEEE division's slow path makes the time depend on
+// the values: with the `/` operator a field of zeros cost +4 ms and one
+// whose updates fall below float32's normal range +10 ms.  `qdiv` keeps
+// zeros and tiny normal numerators off that path: the live 512^3
+// wavefield's launch 69.0 → 66.3-66.8 ms, 1.2 ms more on a dense random
+// field.
 
 #include "tb_stream.cuh"
 
@@ -328,6 +331,24 @@ __device__ __forceinline__ void ring_pass(const Blk& b, float* sm,
     __syncthreads();
 }
 
+// n / d as the `/` operator rounds it, without its slow path where the
+// live wavefield sends it most: a zero over a positive finite d is that
+// zero, and a numerator below 2^-100 whose quotient may be normal is
+// scaled by 2^64 (exactly), divided and scaled back (exactly, when the
+// quotient is normal: rounding then commutes with the scaling)
+__device__ __forceinline__ float qdiv(float n, float d)
+{
+    const float an = fabsf(n);
+    if (an < 0x1p-100f) {
+        if (n == 0.f && d > 0.f && d <= 0x1.fffffep127f) return n;
+        if (an >= 0x1p-124f * fabsf(d)) {
+            const float q = (n * 0x1p64f) / d;
+            if (fabsf(q) >= 0x1p-61f) return q * 0x1p-64f;
+        }
+    }
+    return n / d;
+}
+
 // a point's pointwise reads in phase A (inside the domain, theta, phi)
 // and in phase B (and epsilon, delta, m, damp, p, p_prev, r, r_prev)
 struct OpsA {
@@ -490,10 +511,10 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
                 const float den = mm + dd * a.dt;
                 const float rhs_p = e_fac * h0_p + d_fac * hz_r;
                 const float rhs_r = d_fac * h0_p + hz_r;
-                pn[wi] = (a.dt2 * rhs_p + mm * (2.f * o.p - o.pp)
-                          + dd * a.dt * o.p) / den;
-                rn[wi] = (a.dt2 * rhs_r + mm * (2.f * o.r - o.rp)
-                          + dd * a.dt * o.r) / den;
+                pn[wi] = qdiv(a.dt2 * rhs_p + mm * (2.f * o.p - o.pp)
+                              + dd * a.dt * o.p, den);
+                rn[wi] = qdiv(a.dt2 * rhs_r + mm * (2.f * o.r - o.rp)
+                              + dd * a.dt * o.r, den);
             });
         }
 

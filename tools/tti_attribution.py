@@ -2,7 +2,7 @@
 launch's time by what it does and to pick its batching:
 
     python3 tools/tti_attribution.py [--T 4] [--order 4] [--only a,b]
-                                     [--state-scale 1,0,1e-36]
+                                     [--state-scale 1,0,1e-36] [--live]
 
 Builds variants of this tree's `src/repro_torch/kernels/csrc/
 stencil_tb_tti.cu`, each a text substitution (below), into
@@ -17,8 +17,11 @@ speed-ups; those that change the batching (threads a block, points a
 thread at a time) compute the same function, which their fingerprints
 show.  `--state-scale` times each variant again with the random state
 times each factor (0: a quiet field; 1e-36: values whose updates fall
-below float32's normal range), to show what the values cost.  Needs a
-card.
+below float32's normal range), to show what the values cost.  `--live`
+times each variant instead on the paper's TTI case as `chip_smoke.py`
+does (order 4): the whole TB propagation (`main-tti`), then the kernel
+alone on a mid-run tile with the propagation's final wavefield
+(`kernels-tti`).  Needs a card.
 """
 import argparse
 import ctypes
@@ -62,17 +65,10 @@ VARIANTS = {
     # the state's z-major copies, the write-back and the sparse terms
     "no passes": [("ring_pass<R, 2, 1>(", "if (0) ring_pass<R, 2, 1>("),
                   ("ring_pass<R, 2, 0>(", "if (0) ring_pass<R, 2, 0>(")],
-    # an exact zero over a positive finite m + damp dt returned as it is
-    # (the quotient's value, without the division)
-    "zero quotients": [
-        ("pn[wi] = (a.dt2 * rhs_p", "pn[wi] = zdiv(a.dt2 * rhs_p"),
-        ("rn[wi] = (a.dt2 * rhs_r", "rn[wi] = zdiv(a.dt2 * rhs_r"),
-        ("+ dd * a.dt * o.p) / den;", "+ dd * a.dt * o.p, den);"),
-        ("+ dd * a.dt * o.r) / den;", "+ dd * a.dt * o.r, den);"),
-        ("struct OpsA {",
-         "__device__ __forceinline__ float zdiv(float n, float d) {\n"
-         "    return n == 0.f && d > 0.f && d <= 3.402823466e38f ? n"
-         " : n / d;\n}\nstruct OpsA {")],
+    # the `/` operator in place of `qdiv` (its slow path for zeros and
+    # numerators below float32's normal range)
+    "plain division": [("return n / d;\n}", "return n / d;\n}\n"
+                        "#define qdiv(n, d) ((n) / (d))")],
     # the batching: points a thread reads and computes at a time, threads
     # a block
     "1 point": [(POINTS, "#define TTI_POINTS 1")],
@@ -127,10 +123,13 @@ def main(argv):
     ap.add_argument("--order", type=int, default=4)
     ap.add_argument("--only", default=",".join(VARIANTS))
     ap.add_argument("--state-scale", default="1")
+    ap.add_argument("--live", action="store_true")
     args = ap.parse_args(argv)
     libs = build_all(_build.BUILD_DIR.parent / "tti_attribution",
                      args.only.split(","))
     dev = torch.device("cuda")
+    if args.live:
+        return live(libs, args.T, dev)
     spec, p, kargs = kernel_ab.launch_args("tti", args.order, args.T, smoke,
                                            dev)
     plan = ker.launch_plan(spec, p)
@@ -156,6 +155,25 @@ def main(argv):
                   f"fields {kernel_ab.fingerprint(out)}, partials "
                   f"{kernel_ab.fingerprint((rec + 0.0,))}", flush=True)
             del out, rec
+
+
+def live(libs, T, dev):
+    """Each variant on the paper's TTI case: the TB propagation's time
+    (after a warm-up run) and the kernel's on a mid-run tile with the
+    final wavefield, as `chip_smoke.py` times them."""
+    fc = smoke.full_case("tti", dev)
+    plan = smoke.plan_for(fc.physics, T)
+    t0 = (fc.nt // T // 2) * T
+    for name, (lib, log) in libs.items():
+        _build._loaded["stencil_tb_tti"] = _build.Built(lib, Path(), 0.0, log)
+        final, _ = fc.run(plan)
+        run_ms, _ = smoke.cuda_ms(lambda: fc.run(plan))
+        _, _, pieces, (lo, hi) = smoke.time_tile_pieces(fc, plan, final, t0)
+        print(f"  {name:22s} live: TB run {run_ms:.1f} ms; kernel "
+              f"{pieces[1]:.3f} ms (least {lo:.3f}, most {hi:.3f}); final "
+              f"fields {kernel_ab.fingerprint(final)}", flush=True)
+        del final
+        torch.cuda.empty_cache()
 
 
 if __name__ == "__main__":
