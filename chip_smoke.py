@@ -12,15 +12,18 @@ an off-the-grid source and receivers, through `ops.acoustic_tb_propagate`,
 size, checks each against the port's Listing-1 reference, and times it
 beside its spatially-blocked baseline (T = 1).  Then it drives the
 multi-shot survey engine (`survey.SurveyEngine.run`): 8 shots of the
-512^3 acoustic paper case in 2 batches of 4, and small surveys of every
-physics through the plan cache's sweep, each shot held against a
-sequential call.  Then the sharded path (`distributed.halo`, kernel B1c):
+512^3 acoustic paper case in 2 batches of 4, 3 shots of the 512^3 TTI
+case in one batch at the bucket_cap the memory budget gives, and small
+surveys of every physics through the plan cache's sweep, each checked
+shot held against a sequential call.  Then the sharded path (`distributed.halo`, kernel B1c):
 each kernel on sharded passes against its plain version, the 512^3
 acoustic case as a 2x2 mesh of shards on the card against the
 single-device run, TTI and elastic at 256^3 and acoustic schedules
 (time-nested, overlapped, uniform halo, autotuned) at 128^3, and the
 survey engine's sharded route.  Then the Mamba2 slice: kernel B2 (the SSD
-chunked scan) against its plain version, and mamba2-130m at its published
+chunked scan) against its plain version on both of its schedules (tensor
+cores for bf16 inputs at mamba2-130m's head shape, float32 cores for the
+rest; each line names the one that ran), and mamba2-130m at its published
 widths and depth serving 16 requests through `serving.GenerationEngine`
 with random bf16 parameters from a seed (B2 counted, 24 launches a
 prefill), with a float32 batch held against the plain scan; and the bf16
@@ -39,7 +42,8 @@ kernel timing (with its design: the schedule the launch takes,
 registers, shared memory, blocks an SM, achieved GB/s), the
 batched kernel at the main path's shapes (after
 acoustic: sharded-acoustic and main-acoustic-bf16); then survey-acoustic,
-survey-small, sharded-small-*, survey-sharded and the kernel line.  Any
+survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
+line.  Any
 failed check raises, and the script exits non-zero.
 """
 import contextlib
@@ -88,6 +92,7 @@ FIELD_RTOL = 1e-5
 MAIN_TOL = 1e-4                  # max|diff| / max|ref|, fields and traces
 HBM_BW = 3.35e12                 # H100 SXM, bytes/s (data sheet)
 F32_PEAK = 67e12                 # H100 SXM float32 outside the tensor cores
+BF16_TC_PEAK = 989e12            # H100 SXM bf16 on the tensor cores, dense
 
 # The paper's own cases (repro.configs.paper_stencil.full_case(p, 4),
 # values copied: the port imports nothing of the JAX package).
@@ -973,9 +978,11 @@ def survey_run(engine, shots, expect, phase, **kw):
 def say_memory_budget(phase):
     """Per physics at the main paths' shapes and plans: the device bytes a
     survey batch needs (`survey.engine.batch_bytes`), and the largest
-    bucket_cap this card holds beside the model and the zero state."""
+    bucket_cap this card holds beside the model and the zero state;
+    returns those caps by physics."""
     from repro_torch.survey.engine import batch_bytes
 
+    caps = {}
     total = torch.cuda.get_device_properties(0).total_memory
     for name, nt in (("acoustic", 399), ("tti", 236), ("elastic", 399)):
         physics = phys.PHYSICS[name]
@@ -987,12 +994,13 @@ def say_memory_budget(phase):
                                        rspec if nt % T_TB else None)
         model = (len(physics.param_fields) + len(physics.state_fields)) \
             * spec.nx * spec.ny * spec.nz * 4
-        cap = (total - model - shared) // per_shot
+        cap = caps[name] = (total - model - shared) // per_shot
         say(phase, f"memory budget, {name} {SHAPE} tile {TILE} T={T_TB}: "
             f"{per_shot / 1e9:.2f} GB a shot + {shared / 1e9:.2f} GB of "
             f"padded params + {model / 1e9:.2f} GB of model and zero state; "
             f"bucket_cap up to {cap} on this card's "
             f"{total / 1e9:.2f} GB")
+    return caps
 
 
 def say_plan_picks(phase):
@@ -1106,6 +1114,79 @@ def phase_survey_acoustic(smi, dev, tb_ms):
     del warm, engine
     torch.cuda.empty_cache()
     return entry
+
+
+SURVEY_TTI_SHOTS = 3
+
+
+def phase_survey_tti(smi, dev, tb_ms):
+    """3 shots of the 512^3 TTI paper case (a source stepping along x near
+    the surface, the same 512 receivers) at the bucket_cap the memory
+    budget gives (3 on an 80 GB card: one batch, 59 launches), after
+    every phase that fragments the allocator's cache: a batch the engine
+    admits must run.  Shot 0 against a sequential ops.tti_tb_propagate."""
+    phase = "survey-tti"
+    cap = say_memory_budget(phase)["tti"]
+    fc = full_case("tti", dev)
+    fc.state = None
+    h = fc.spacing[0]
+    grid = Grid(shape=SHAPE, spacing=fc.spacing)
+    wav = S.ricker_wavelet(fc.nt, fc.dt, F0)
+    rec = receiver_line(SHAPE) * h
+    shots = [Shot(src_coords=source_point(SHAPE, x) * h, wavelet=wav,
+                  rec_coords=rec, shot_id=i)
+             for i, x in enumerate(np.linspace(32.37, SHAPE[0] - 32.63,
+                                               SURVEY_TTI_SHOTS))]
+    plan = plan_for(fc.physics, T_TB)
+    params = fc.params._asdict()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    engine = SurveyEngine("tti", grid, params, fc.nt, fc.dt, order=ORDER,
+                          plan=plan, plan_cache=PlanCache(), bucket_cap=cap,
+                          device=dev)
+    setup_s = time.perf_counter() - t0
+    per_batch = -(-fc.nt // T_TB)
+    expect = -(-SURVEY_TTI_SHOTS // cap) * per_batch
+    res, launches = survey_run(engine, shots, expect, phase,
+                               return_wavefields=True)
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    s = res.stats
+    batch_ms = [b for b, _ in engine.batch_times]
+    spec = engine._execs[(1, NREC)].spec
+    bound, by = bound_of(ker.kernel_cost(spec, fc.physics, shots=cap))
+    scratch_gib = engine._scratch.numel() / 2 ** 30
+    kept = tuple(f.clone() for f in res.wavefields[0])
+    trace = res.traces[0]
+    del res, engine
+    torch.cuda.empty_cache()
+    final, rec_seq = stencil_survey.sequential_shot(
+        "tti", shots[0], grid, params, plan, ORDER, fc.dt, fc.nt, device=dev)
+    errs = stencil_survey.channel_errors(trace, rec_seq.cpu().numpy())
+    ferr = max(max_rel(a, b) for a, b in zip(kept, final))
+    same = all(torch.equal(a, b) for a, b in zip(kept, final))
+    del final, rec_seq, kept
+    if max(errs) > FIELD_RTOL or ferr > FIELD_RTOL:
+        raise AssertionError(f"{phase}: shot 0 differs from a sequential "
+                             f"call: traces {max(errs):.3e}, fields "
+                             f"{ferr:.3e}")
+    ms = sum(batch_ms)
+    say(phase, f"{SURVEY_TTI_SHOTS} shots {SHAPE} nt={fc.nt} plan "
+        f"{plan.to_dict()} at bucket_cap {cap} (the budget's): "
+        f"{s['batches']} batch(es), {launches} kernel launches; engine "
+        f"set-up {setup_s:.3f} s (scratch {scratch_gib:.2f} GiB made "
+        f"once); {s['seconds']:.3f} s, {SURVEY_TTI_SHOTS / s['seconds']:.4f}"
+        f" shots/s; device {ms:.1f} ms (CUDA events) = "
+        f"{ms / SURVEY_TTI_SHOTS:.1f} ms a shot (main-tti TB run: "
+        f"{tb_ms:.1f} ms), {ms / launches:.3f} ms per "
+        f"batched launch vs bound {bound:.3f} ms by {by}; peak "
+        f"{peak:.2f} GiB [{smi}]")
+    say(phase, f"shot 0 vs a sequential ops.tti_tb_propagate: "
+        f"max|dtrace|/max|trace| {max(errs):.3e}, max|dfield|/max|field| "
+        f"{ferr:.3e} (limit {FIELD_RTOL:g}), final fields equal bit for "
+        f"bit: {same}")
+    del fc, params
+    torch.cuda.empty_cache()
 
 
 def phase_survey_small(smi, dev):
@@ -1735,11 +1816,14 @@ def phase_main_bf16(fc, smi, final32, tb_ms):
 
 SSD_RTOL, SSD_ATOL = 1e-4, 1e-5          # tests/test_kernel_ssd.py
 SSD_FIELD_RTOL = 1e-5                    # max|diff| / max|plain|
-# (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's shapes, then the serve
-# phase's (mamba2-130m: 24 heads of 64, state 128, chunk 64; 8 x 1024)
+# (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's shapes (B2's float32-core
+# schedule), then mamba2-130m's head shape (N 128, P 64, Q 64: the
+# tensor-core schedule with bf16 inputs) with one chunk and with two groups,
+# and the serve phase's (24 heads of 64, state 128, chunk 64; 8 x 1024)
 SSD_CASES = [
     (2, 16, 4, 2, 8, 8, 4), (2, 32, 4, 2, 8, 8, 8), (2, 32, 4, 2, 8, 8, 32),
     (1, 16, 2, 1, 4, 4, 8), (2, 24, 6, 3, 5, 8, 4), (3, 8, 4, 4, 16, 16, 8),
+    (2, 64, 4, 1, 128, 64, 64), (2, 256, 8, 2, 128, 64, 64),
     (8, 1024, 24, 1, 128, 64, 64),
 ]
 SERVE_SHAPE = SSD_CASES[-1]
@@ -1783,16 +1867,41 @@ def check_ssd(name, got, want):
     return err, rel, outside
 
 
+def ssd_design(spec, schedule):
+    """B2's design at this shape on `schedule`: ptxas registers and spill
+    stores of its float32-y kernel, dynamic shared memory a block, blocks
+    an SM (the occupancy API), and waves over the card's SMs."""
+    b = _build.build_all(["ssd_scan"])["ssd_scan"]
+    lib = ssd._bind()
+    sched = ssd.SCHEDULES.index(schedule)
+    name = ("ssd_scan_tc_kernelIfE" if schedule == "tensor cores"
+            else "ssd_scan_kernelI13__nv_bfloat16fE")
+    regs, _, spill = next(v for k, v in ptxas_usage(b.log).items()
+                          if name in k)
+    smem = lib.repro_ssd_smem_bytes(spec.state, spec.headdim, spec.chunk,
+                                    sched)
+    per_sm = lib.repro_ssd_blocks_per_sm(0, spec.state, spec.headdim,
+                                         spec.chunk, sched)
+    return regs, spill, smem, per_sm
+
+
 def phase_kernel_vs_plain_ssd(dev, smi):
     """Kernel B2 against ssd_scan_plain on the reference test's shapes and
-    the serve phase's, float32 and bf16 inputs, h0 zero and given; then
+    mamba2-130m's head shape (the serve phase's among them), float32 and
+    bf16 inputs, h0 zero and given, each on the schedule
+    `ssd.schedule_of` picks (each schedule on at least two shapes); then
     timed at the serve shapes (bf16 inputs, float32 y: block_forward's
-    call).  Returns the kernels-line entry (launches set by serve-mamba2)."""
+    call) on the tensor-core schedule, and the float32-core schedule on
+    the same inputs beside it.  Returns the kernels-line entry (launches
+    set by serve-mamba2)."""
     worst = 0.0
+    shapes = {name: set() for name in ssd.SCHEDULES}
     for shape in SSD_CASES:
         for dtype in (torch.float32, BF16):
             for with_h0 in (False, True):
                 spec, args, h0 = ssd_case(shape, 7, dtype, with_h0, dev)
+                schedule = ssd.schedule_of(spec, dtype)
+                shapes[schedule].add(shape)
                 y, h = uncounted(lambda: ssd.ssd_scan(spec, *args, h0=h0))
                 py, ph = ssd.ssd_scan_plain(spec, *args, h0=h0)
                 torch.cuda.synchronize()
@@ -1801,11 +1910,15 @@ def phase_kernel_vs_plain_ssd(dev, smi):
                 worst = max(worst, ey[1], eh[1])
                 say("kernel-vs-plain-ssd", f"(B,S,H,G,N,P,Q)={shape} "
                     f"{str(dtype)[6:]} inputs, h0 "
-                    f"{'given' if with_h0 else 'zero'}: y max|diff| "
-                    f"{ey[0]:.3e} (/max|plain| {ey[1]:.2e}, {ey[2]} outside "
-                    f"rtol/atol), h_final {eh[0]:.3e} (/max|plain| "
-                    f"{eh[1]:.2e}, {eh[2]} outside)")
+                    f"{'given' if with_h0 else 'zero'}, {schedule}: y "
+                    f"max|diff| {ey[0]:.3e} (/max|plain| {ey[1]:.2e}, "
+                    f"{ey[2]} outside rtol/atol), h_final {eh[0]:.3e} "
+                    f"(/max|plain| {eh[1]:.2e}, {eh[2]} outside); bit-equal "
+                    f"{torch.equal(y, py) and torch.equal(h, ph)}")
                 del y, h, py, ph
+    if min(len(v) for v in shapes.values()) < 2:
+        raise AssertionError(f"kernel-vs-plain-ssd: a B2 schedule ran on "
+                             f"fewer than two shapes: {shapes}")
     spec, args, h0 = ssd_case(SERVE_SHAPE, 7, BF16, False, dev)
     bspec = dataclasses.replace(spec, dtype=BF16)
     yb = uncounted(lambda: ssd.ssd_scan(bspec, *args))[0]
@@ -1816,29 +1929,58 @@ def phase_kernel_vs_plain_ssd(dev, smi):
                + SSD_ATOL * max(1.0, float(py.abs().max()))).all())
     if not ok:
         raise AssertionError(f"bf16 y: {err_b:.3e} beyond one bf16 rounding")
-    say("kernel-vs-plain-ssd", f"bf16 y at {SERVE_SHAPE}: within one bf16 "
-        f"rounding of the plain float32 y (max|diff| {err_b:.3e})")
+    say("kernel-vs-plain-ssd", f"bf16 y at {SERVE_SHAPE} "
+        f"({ssd.schedule_of(spec, BF16)}): within one bf16 rounding of the "
+        f"plain float32 y (max|diff| {err_b:.3e})")
     del yb, py
+    schedule = ssd.schedule_of(spec, BF16)
     launch = lambda: ssd.ssd_scan(spec, *args)  # noqa: E731
     err = check_ssd("y serve", uncounted(launch)[0],
                     ssd.ssd_scan_plain(spec, *args)[0])[0]
-    means = [uncounted(lambda: cuda_ms(launch, reps=5))[0] for _ in range(3)]
-    ms = statistics.median(means)
+
+    def timed():
+        means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
+                 for _ in range(3)]
+        return statistics.median(means), min(means), max(means)
+
+    ms, lo, hi = timed()
+    first = ssd.schedule_of
+    ssd.schedule_of = lambda *a: "float32 cores"
+    try:
+        ms_f32, _, _ = timed()
+    finally:
+        ssd.schedule_of = first
     plain_ms, _ = cuda_ms(lambda: ssd.ssd_scan_plain(spec, *args))
     cost = ssd.kernel_cost(spec, SERVE_SHAPE[0], in_dtype=BF16)
     t_bytes = cost["min_bytes"] / HBM_BW * 1e3
-    t_ops = cost["needed_flops"] / F32_PEAK * 1e3
-    bound = max(t_bytes, t_ops)
+    t_tc = cost["needed_flops"] / BF16_TC_PEAK * 1e3
+    t_f32 = cost["needed_flops"] / F32_PEAK * 1e3
+    bound, by = max(t_bytes, t_tc), ("bytes" if t_bytes >= t_tc
+                                     else "operations")
     say("kernel-vs-plain-ssd", f"all cases within rtol {SSD_RTOL}, atol "
         f"{SSD_ATOL} x max(1, max|plain|) and max|diff|/max|plain| "
-        f"{SSD_FIELD_RTOL} (worst {worst:.2e})")
+        f"{SSD_FIELD_RTOL} (worst {worst:.2e}); shapes by schedule: "
+        + "; ".join(f"{k}: {sorted(v)}" for k, v in shapes.items()))
     say("kernels-ssd", f"ssd_scan at (B,S,H,G,N,P,Q)={SERVE_SHAPE}, bf16 "
-        f"x/B/C, float32 y: {ms:.3f} ms per launch (median of 3 means of 5;"
-        f" least {min(means):.3f}, most {max(means):.3f}) vs bound "
-        f"{bound:.3f} ms ({cost['needed_flops'] / 1e9:.2f} GFLOP needed, "
-        f"causal halves only, in {t_ops:.3f} ms at 67 TFLOP/s f32; {cost['min_bytes'] / 1e6:.1f} MB in "
-        f"{t_bytes:.3f} ms); plain {plain_ms:.1f} ms; no single PyTorch "
-        f"call computes a chunked scan, so no library time [{smi}]")
+        f"x/B/C, float32 y, {schedule} schedule: {ms:.3f} ms per launch "
+        f"(median of 3 means of 5; least {lo:.3f}, most {hi:.3f}) vs bound "
+        f"{bound:.4f} ms by {by} ({cost['min_bytes'] / 1e6:.1f} MB in "
+        f"{t_bytes:.4f} ms; {cost['needed_flops'] / 1e9:.2f} GFLOP needed, "
+        f"causal halves only, in {t_tc:.4f} ms at 989 TFLOP/s bf16 on the "
+        f"tensor cores); the float32-core schedule's bound "
+        f"{max(t_bytes, t_f32):.3f} ms (the same work in {t_f32:.3f} ms at "
+        f"67 TFLOP/s); the float32-core schedule on the same inputs "
+        f"{ms_f32:.3f} ms ({ms_f32 / ms:.2f}x); plain {plain_ms:.1f} ms; no "
+        f"single PyTorch call computes a chunked scan, so no library time "
+        f"[{smi}]")
+    for name in ssd.SCHEDULES:
+        regs, spill, smem, per_sm = ssd_design(spec, name)
+        blocks = SERVE_SHAPE[0] * SERVE_SHAPE[2]
+        sms = torch.cuda.get_device_properties(0).multi_processor_count
+        say("kernels-ssd", f"design: {name} schedule, {blocks} blocks (one "
+            f"a (batch, head)): {regs} registers, {spill} B spill stores, "
+            f"{smem} B shared a block, {per_sm} block(s) an SM, "
+            f"{blocks / (per_sm * sms):.2f} waves on {sms} SMs")
     return {
         "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan)",
         "route": "cuda",
@@ -1849,8 +1991,10 @@ def phase_kernel_vs_plain_ssd(dev, smi):
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": bound,
-        "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+        "bound_by": by,
         "library_ms": None,
+        "schedule": schedule,
+        "float32_core_bound_ms": max(t_bytes, t_f32),
     }
 
 
@@ -2029,8 +2173,12 @@ def run_path(name, smi, dev):
         extra.append(phase_main_bf16(fc, smi, state, tb_ms))
         torch.cuda.empty_cache()
     # the batched kernel at the main path's shapes, B = 2: the live state
-    # and, as a null shot, a copy shifted along x
+    # and, as a null shot, a copy shifted along x.  Its operands go into
+    # segments of their own (an empty cache), so that once the state is
+    # gone the cache can give the launch's one large scratch block (48.4
+    # GiB for elastic) beside them
     fc.state = None
+    torch.cuda.empty_cache()
     plan = plan_for(fc.physics, T_TB)
     spec, args = batch_operands(
         fc.physics, plan, ORDER, fc.dt, fc.spacing,
@@ -2064,6 +2212,7 @@ def main():
         entries.append(entry)
         extra += more
     entries.append(phase_survey_acoustic(smi, dev, tb_ms["acoustic"]))
+    phase_survey_tti(smi, dev, tb_ms["tti"])
     entries += phase_survey_small(smi, dev)
     entries += extra + [b2]
     phase_sharded_small(smi, dev)

@@ -156,7 +156,8 @@ def tile_operands(spec: ker.TBKernelSpec, state, src_dcmp, src_tab,
 
 def _run_time_tile(spec: ker.TBKernelSpec, physics: phys.TBPhysics,
                    state, param_pads, src_dcmp, src_tab, rec_tab, t0: int,
-                   nrec: int, executor: str, param_copies=None):
+                   nrec: int, executor: str, param_copies=None,
+                   scratch=None):
     # a no-op unless telemetry is enabled; names the region on a
     # torch.profiler timeline and records its host (enqueue) time
     with _spans.annotate("ops.tile_pass", T=spec.T, tile=spec.tile,
@@ -165,7 +166,7 @@ def _run_time_tile(spec: ker.TBKernelSpec, physics: phys.TBPhysics,
             spec, state, src_dcmp, src_tab, rec_tab, t0)
         new_state, rec_part = EXECUTORS[executor](
             spec, physics, state_pads, param_pads, s_coords, s_vals,
-            r_coords, r_w, param_copies=param_copies)
+            r_coords, r_w, param_copies=param_copies, scratch=scratch)
         if rec_tab is not None:
             rec = combine_rec_partials(rec_part, rec_tab, nrec)
         else:
@@ -256,7 +257,7 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
                           src_dcmp: torch.Tensor, src_tab, rec_tab,
                           rsrc_tab, rrec_tab, nrec: int,
                           executor: str = "cuda", param_copies=None,
-                          rparam_copies=None):
+                          rparam_copies=None, scratch=None):
     """The device-side core of `_tb_propagate`: the loop over depth-T time
     tiles plus the shallower `nt % T` remainder tile, after all host-side
     table binning, for a batch of B shots — one kernel launch per time
@@ -267,7 +268,10 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
     `rparam_copies` are the kernel's copies of the param pads for `spec` /
     `rspec` (`stencil_tb.param_copies`): a caller that runs many
     propagations on one model makes them once; otherwise they are made
-    here, once for the loop.
+    here, once for the loop.  `scratch` is the kernel's working memory for
+    both tiles (`stencil_tb.make_scratch`), which a survey engine owns;
+    otherwise it is made here before the first launch and freed with the
+    loop.
 
     Returns (final state tuple (B, nx, ny, nz) each, recs
     (B, nt, nrec, rec_channels)); recs are shaped (B, nt, 0, chan) when no
@@ -282,18 +286,22 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
         param_copies = ker.param_copies(spec, physics, param_pads)
     if executor == "cuda" and rparam_copies is None and rem:
         rparam_copies = ker.param_copies(rspec, physics, rparam_pads)
+    if executor == "cuda" and scratch is None and (n_main or rem):
+        scratch = ker.make_scratch((spec if n_main else None, rspec),
+                                   physics, state[0].shape[0],
+                                   state[0].device)
     carry = tuple(state)
     recs = []
     for i in range(n_main):
         carry, rec = _run_time_tile(spec, physics, carry, param_pads,
                                     src_dcmp, src_tab, rec_tab, i * spec.T,
-                                    nrec, executor, param_copies)
+                                    nrec, executor, param_copies, scratch)
         recs.append(rec)
     if rem > 0:
         carry, rec = _run_time_tile(rspec, physics, carry, rparam_pads,
                                     src_dcmp, rsrc_tab, rrec_tab,
                                     n_main * spec.T, nrec, executor,
-                                    rparam_copies)
+                                    rparam_copies, scratch)
         recs.append(rec)
     if not recs:
         return carry, torch.zeros((state[0].shape[0], 0, nrec,

@@ -16,13 +16,19 @@ Per chunk (head h, state N x P, chunk Q):
 
 `ssd_scan` dispatches on where its tensors lie: CPU tensors run
 `ssd_scan_plain`; CUDA tensors launch kernel B2 (``csrc/ssd_scan.cu``: one
-thread block per (batch, head), the state resident in shared memory) or
-raise.  `launches` counts kernel launches, so a run can show it went
-through the kernel.  Unlike the reference's `ssd_scan`, both take an
-optional initial state `h0` (zeros when None), as the reference's
+thread block per (batch, head), the state resident on chip) or raise.
+B2 has two schedules, picked a launch by `schedule_of` from the input
+dtype and (N, P, Q): the tensor-core one for bf16 inputs at mamba2-130m's
+head shape, the float32-core one (the first design) for everything else.
+`launches` counts kernel launches, so a run can show it went through the
+kernel.  Unlike the reference's `ssd_scan`, both take an optional initial
+state `h0` (zeros when None), as the reference's
 `models.mamba2._ssd_chunked` does.  Both take M in float32 whatever the
 input dtype; the reference's `_ssd_chunked` rounds M to x's dtype before
-M x, so with bf16 inputs they differ from it by that rounding.
+M x, so with bf16 inputs they differ from it by that rounding.  The
+float32-core schedule equals `ssd_scan_plain` bit for bit; the tensor-core
+one sums in another order (and its float32 operands in three bf16
+pieces), so it is close to it, not equal.
 """
 from __future__ import annotations
 
@@ -115,14 +121,32 @@ def ssd_scan_plain(spec: SSDSpec, x, dtv, Bm, Cm, A,
 
 _IO_DTYPES = (torch.float32, torch.bfloat16)
 
+# kernel B2's schedules, by the index its C entry takes
+SCHEDULES = ("float32 cores", "tensor cores")
+# (N, P, Q) of the tensor-core schedule (csrc/ssd_scan.cu, namespace tc)
+TC_SHAPE = (128, 64, 64)
+
+
+def schedule_of(spec: SSDSpec, in_dtype: torch.dtype) -> str:
+    """The schedule a CUDA launch of kernel B2 takes: "tensor cores" for
+    bf16 x, B and C at (N, P, Q) = `TC_SHAPE` (the serving path's call,
+    `models.mamba2.block_forward`), "float32 cores" (the first design)
+    for float32 inputs and every other shape."""
+    if in_dtype == torch.bfloat16 and \
+            (spec.state, spec.headdim, spec.chunk) == TC_SHAPE:
+        return "tensor cores"
+    return "float32 cores"
+
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     """Set the C signatures of a library built from ``csrc/ssd_scan.cu``."""
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.repro_ssd_scan.argtypes = [i] + [p] * 8 + [i] * 9 + [p]
+    lib.repro_ssd_scan.argtypes = [i] + [p] * 8 + [i] * 10 + [p]
     lib.repro_ssd_scan.restype = i
-    lib.repro_ssd_smem_bytes.argtypes = [i, i, i]
+    lib.repro_ssd_smem_bytes.argtypes = [i] * 4
     lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
+    lib.repro_ssd_blocks_per_sm.argtypes = [i] * 5
+    lib.repro_ssd_blocks_per_sm.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib
@@ -173,7 +197,8 @@ def _ssd_scan_cuda(spec: SSDSpec, x, dtv, Bm, Cm, A, h0):
     if h0 is not None:
         _check("h0", h0, (Bsz, H, N, P), (f32,), dev)
     lib = _bind()
-    smem = lib.repro_ssd_smem_bytes(N, P, spec.chunk)
+    sched = SCHEDULES.index(schedule_of(spec, x.dtype))
+    smem = lib.repro_ssd_smem_bytes(N, P, spec.chunk, sched)
     optin = torch.cuda.get_device_properties(dev).shared_memory_per_block_optin
     if smem > optin:
         raise ValueError(f"(N, P, Q) = ({N}, {P}, {spec.chunk}) needs {smem} "
@@ -189,7 +214,7 @@ def _ssd_scan_cuda(spec: SSDSpec, x, dtv, Bm, Cm, A, h0):
         ptr(x), ptr(dtv), ptr(Bm), ptr(Cm), ptr(A), ptr(h0), ptr(y),
         ptr(h_final), int(x.dtype == torch.bfloat16),
         int(spec.dtype == torch.bfloat16), Bsz, S, H, G, N, P, spec.chunk,
-        ctypes.c_void_p(stream))
+        sched, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError("ssd_scan CUDA launch failed: "
                            + lib.repro_cuda_error_string(rc).decode())
@@ -207,8 +232,9 @@ def ssd_scan(spec: SSDSpec, x, dtv, Bm, Cm, A,
     (zeros) or (B, H, N, P) float32.  S must be a multiple of spec.chunk.
     Returns (y (B, S, H, P) in spec.dtype, h_final (B, H, N, P) float32).
 
-    CPU tensors run `ssd_scan_plain`; CUDA tensors launch kernel B2 once
-    (contiguous operands of those dtypes) or raise.  The launch goes on the
+    CPU tensors run `ssd_scan_plain`; CUDA tensors launch kernel B2 once,
+    on the schedule `schedule_of` picks (contiguous operands of those
+    dtypes), or raise.  The launch goes on the
     current stream and does not synchronise.
     """
     dev = x.device

@@ -154,12 +154,13 @@ def window_tile_plain(physics: phys.TBPhysics, sspec, T: int, h: int,
 
 def tb_time_tile_plain(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
-                       r_w, dom=None, param_copies=None):
+                       r_w, dom=None, param_copies=None, scratch=None):
     """Plain PyTorch version of `tb_time_tile`: the same per-window
     trapezoid, looped over the shots and the (ti, tj) tiles.  Runs on any
     device.  A param with a leading axis is one per row; `dom` (B,
     nx + 2H, ny + 2H) replaces the grid predicate, as in `tb_time_tile`;
-    `param_copies` (the kernel's copies of the params) is not read.
+    `param_copies` (the kernel's copies of the params) and `scratch` (the
+    kernel's working memory) are not read.
 
     Returns (state tuple (B, nx, ny, nz), rec partials
     (B, ntx, nty, T, capr, chan))."""
@@ -369,6 +370,47 @@ def _scratch_elems(spec: TBKernelSpec,
     return per_row, len(physics.param_fields) * vol, torch.float32
 
 
+def scratch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
+                  rows: int) -> int:
+    """Bytes of scratch a CUDA launch of `spec` on `rows` rows (shots, or
+    the sharded layer's shards) works in when it is given the params'
+    copies: each row's part (`_scratch_elems`)."""
+    per_row, _, sdtype = _scratch_elems(spec, physics)
+    return rows * per_row * sdtype.itemsize
+
+
+def make_scratch(specs, physics: phys.TBPhysics, rows: int,
+                 device) -> torch.Tensor:
+    """One scratch buffer (bytes) for launches of every spec of `specs`
+    (None entries skipped) on `rows` rows, given the params' copies, to
+    pass to each `tb_time_tile` as `scratch=`.  Its owner, a
+    propagation's tile loop or a survey engine, makes it once, before its
+    first launch, and keeps it no longer than it runs launches: it is the
+    largest block a launch needs."""
+    need = max(scratch_bytes(s, physics, rows)
+               for s in specs if s is not None)
+    return torch.empty(max(need, 1), dtype=torch.uint8, device=device)
+
+
+def check_scratch(scratch: torch.Tensor, need: int, dev) -> None:
+    """Raise unless `scratch` can be a launch's scratch of `need` bytes on
+    `dev`: a contiguous 1-D uint8 tensor there, 16-byte aligned, of at
+    least `need` bytes (the remainder tile's launch takes a larger
+    buffer made for the main tile's)."""
+    if scratch.device != dev:
+        raise ValueError(f"scratch is on {scratch.device}, expected {dev}")
+    if scratch.dtype != torch.uint8:
+        raise TypeError(f"scratch has dtype {scratch.dtype}, expected "
+                        "torch.uint8 (bytes, from make_scratch)")
+    if scratch.dim() != 1 or not scratch.is_contiguous() \
+            or scratch.data_ptr() % 16:
+        raise ValueError("scratch must be a contiguous, 16-byte aligned 1-D "
+                         "tensor")
+    if scratch.numel() < need:
+        raise ValueError(f"scratch has {scratch.numel()} bytes, the launch "
+                         f"needs {need}")
+
+
 def _bind(source: str):
     from repro_torch.kernels import _build
     lib = _build.load(source)
@@ -460,7 +502,7 @@ def _ptrs(ts):
 
 def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
                        state_pads, param_pads, s_coords, s_vals, r_coords,
-                       r_w, dom, copies):
+                       r_w, dom, copies, scratch):
     if physics.name not in _KERNELS:
         raise ValueError(f"no CUDA TB kernel for physics {physics.name!r}")
     kern = _KERNELS[physics.name]
@@ -543,8 +585,11 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
                    dev)
             fields = (*state_pads, *copies)
             rows_flag |= 2
-    scratch = torch.empty(max(B * per_row + extra, 1), dtype=sdtype,
-                          device=dev)
+    if scratch is None:
+        scratch = torch.empty(max(B * per_row + extra, 1), dtype=sdtype,
+                              device=dev)
+    else:
+        check_scratch(scratch, (B * per_row + extra) * sdtype.itemsize, dev)
     entry = lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -575,8 +620,7 @@ def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
     ntx, nty = spec.ntiles
     elems = (len(physics.state_fields) * spec.nx * spec.ny * spec.nz
              + ntx * nty * spec.T * spec.rec_cap * physics.rec_channels)
-    per_row, _, sdtype = _scratch_elems(spec, physics)
-    return elems * spec.dtype.itemsize + per_row * sdtype.itemsize
+    return elems * spec.dtype.itemsize + scratch_bytes(spec, physics, 1)
 
 
 def launch_shared_bytes(spec: TBKernelSpec,
@@ -641,7 +685,7 @@ def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
                  state_pads, param_pads, src_coords, src_vals, rec_coords,
-                 rec_w, dom=None, param_copies=None):
+                 rec_w, dom=None, param_copies=None, scratch=None):
     """One depth-T time tile over the whole grid of each of B shots.
 
     Args:
@@ -661,6 +705,10 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
                   this spec, which a z-streamed launch then reads instead
                   of copying the params itself (the plain version reads
                   the params).
+      scratch:    None (the launch allocates its own), or a buffer from
+                  `make_scratch` of at least `scratch_bytes` for this
+                  launch, which the caller makes once and passes to every
+                  launch (the plain version does not read it).
     Returns (new_states tuple, rec_partials) with fields (B, nx, ny, nz)
     and rec_partials (B, ntx, nty, T, capr, rec_channels).
 
@@ -677,7 +725,7 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
     if dev.type == "cuda":
         return _tb_time_tile_cuda(spec, physics, state_pads, param_pads,
                                   src_coords, src_vals, rec_coords, rec_w,
-                                  dom, param_copies)
+                                  dom, param_copies, scratch)
     raise ValueError(f"no TB time tile for device {dev}")
 
 

@@ -118,6 +118,22 @@ def batch_bytes(physics: phys.TBPhysics, spec: ker.TBKernelSpec,
     return shared, per_shot
 
 
+def free_device_bytes(device: torch.device) -> int:
+    """Bytes a new block can be given on `device`: the device's free memory
+    (`torch.cuda.mem_get_info`) and the caching allocator's segments that
+    hold no live block, which it releases before it gives up
+    (`torch.cuda.memory_snapshot`).  Free memory inside a segment that
+    also holds a live tensor does not count: the allocator cannot join it
+    with other memory into a larger block."""
+    free, _ = torch.cuda.mem_get_info(device)
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    whole = sum(seg["total_size"] for seg in torch.cuda.memory_snapshot()
+                if seg.get("device", index) == index
+                and seg["allocated_size"] == 0 and seg["active_size"] == 0)
+    return free + whole
+
+
 def _default_tiles(nx: int, ny: int) -> Tuple[int, ...]:
     """Candidate tiles that divide the grid."""
     cands = tuple(t for t in (4, 8, 16, 32, 64, 128)
@@ -129,8 +145,9 @@ def _default_tiles(nx: int, ny: int) -> Tuple[int, ...]:
 class _Executable:
     """One bucket's runnable: its kernel specs (caps from the bucket key),
     the shared padded params and the kernel's copies of them
-    (`stencil_tb.param_copies`, None where the launch takes none), and
-    the batched tile loop."""
+    (`stencil_tb.param_copies`, None where the launch takes none), the
+    kernel's scratch for both tiles (the engine's, None for the plain
+    executor), and the batched tile loop."""
 
     spec: ker.TBKernelSpec
     rspec: Optional[ker.TBKernelSpec]
@@ -138,6 +155,7 @@ class _Executable:
     rparam_pads: Optional[tuple]
     param_copies: Optional[torch.Tensor]
     rparam_copies: Optional[torch.Tensor]
+    scratch: Optional[torch.Tensor]
     nrec_pad: int
     dispatches: int = 0
 
@@ -151,7 +169,7 @@ class _Executable:
             batch.src_tab, batch.rec_tab, batch.rsrc_tab, batch.rrec_tab,
             self.nrec_pad, executor=engine.executor,
             param_copies=self.param_copies,
-            rparam_copies=self.rparam_copies)
+            rparam_copies=self.rparam_copies, scratch=self.scratch)
 
 
 class SurveyEngine:
@@ -173,7 +191,8 @@ class SurveyEngine:
       plan_cache: PlanCache instance (default: the process-wide cache).
       bucket_cap: shots per batch — every dispatch has exactly this many
                   (partial batches pad with null shots).  On a card, a cap
-                  whose batch does not fit the free device memory raises.
+                  whose batch does not fit the free device memory raises,
+                  at construction (`_check_memory`).
       interp:     an `interp.InterpSpec`, or a kernel name ("linear" /
                   "sinc") resolved with `interp_order` by `interp.spec_for`;
                   every precompute and all bucket caps derive from it.
@@ -254,6 +273,10 @@ class SurveyEngine:
         self.batch_times: List[Tuple[float, float]] = []
         self._side = (torch.cuda.Stream(self.device)
                       if self.device.type == "cuda" else None)
+        # the kernel's scratch, made once by `_check_memory` and shared by
+        # the buckets' executables (they run one after another on one
+        # stream, and their specs differ only in table caps)
+        self._scratch: Optional[torch.Tensor] = None
         if self.device.type == "cuda":
             self._check_memory()
 
@@ -312,18 +335,30 @@ class SurveyEngine:
 
     def _check_memory(self):
         """Raise if one batch of `bucket_cap` shots cannot fit the card's
-        free memory (`batch_bytes`), so a survey never fails halfway for
-        want of memory."""
+        memory, so a survey never fails halfway for want of memory: with
+        the allocator's cache emptied, the batch's bytes (`batch_bytes`)
+        against the memory a block can still be given
+        (`free_device_bytes`); then the kernel's scratch, the batch's
+        largest block, is made at once, and if the allocator cannot give
+        it, this raises the same."""
+        self._scratch = None
+        torch.cuda.empty_cache()
         need = self._batch_need(self.plan)
-        free, _ = torch.cuda.mem_get_info(self.device)
-        free += (torch.cuda.memory_reserved(self.device)
-                 - torch.cuda.memory_allocated(self.device))
+        free = free_device_bytes(self.device)
+        refuse = ValueError(
+            f"bucket_cap={self.bucket_cap}: a batch of {self.physics_name}"
+            f" {self.shape} with plan {self.plan.to_dict()} needs "
+            f"{need / 2 ** 30:.2f} GiB of device memory, "
+            f"{free / 2 ** 30:.2f} GiB is free; lower bucket_cap")
         if need > free:
-            raise ValueError(
-                f"bucket_cap={self.bucket_cap}: a batch of {self.physics_name}"
-                f" {self.shape} with plan {self.plan.to_dict()} needs "
-                f"{need / 2 ** 30:.2f} GiB of device memory, "
-                f"{free / 2 ** 30:.2f} GiB is free; lower bucket_cap")
+            raise refuse
+        if self.executor == "cuda":
+            try:
+                self._scratch = ker.make_scratch(
+                    self._specs((1, 1)), self.physics, self.bucket_cap,
+                    self.device)
+            except torch.cuda.OutOfMemoryError:
+                raise refuse from None
 
     # --- host-side per-shot precompute (paper §II) --------------------------
 
@@ -396,7 +431,7 @@ class SurveyEngine:
                 self._pads_for(rspec.halo) if rspec is not None else None,
                 self._copies_for(spec),
                 self._copies_for(rspec) if rspec is not None else None,
-                key[1])
+                self._scratch, key[1])
             # one build per bucket: the count the reference keeps per jit
             # trace
             self.trace_counts[key] = self.trace_counts.get(key, 0) + 1
@@ -606,4 +641,4 @@ class SurveyEngine:
 
 
 __all__ = ["RUN_STATS_KEYS", "SurveyEngine", "SurveyResult",
-           "batch_bytes"]
+           "batch_bytes", "free_device_bytes"]

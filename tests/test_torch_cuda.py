@@ -402,6 +402,41 @@ def test_survey_on_card_matches_sequential(physics):
         assert_fields_close(trace_channels(got, want), FIELD_RTOL, physics)
 
 
+@pytest.mark.cuda
+def test_survey_scratch_is_made_once_and_reused(monkeypatch):
+    """The engine makes the kernel's scratch once, when it is built, and
+    every launch of its executables gets that block: the same data_ptr
+    across batches (4 shots in 4 buckets, one executable each) and across
+    the remainder tile (nt = 5, T = 2)."""
+    from repro_torch.core.grid import Grid
+    from repro_torch.launch.stencil_survey import build_model, build_survey
+    from repro_torch.survey import PlanCache, SurveyEngine
+
+    dev = _card()
+    shape = (32, 32, 24)
+    grid = Grid(shape, (10.0,) * 3)
+    dt = grid.cfl_dt(3000.0, 4)
+    rng = np.random.RandomState(0)
+    params = build_model("tti", shape, grid, rng, device=dev)
+    shots = build_survey(grid, dt, 5, 4, rng)
+    engine = SurveyEngine("tti", grid, params, 5, dt, bucket_cap=2,
+                          plan=TBPlan((16, 16), 2, phys.TTI.step_radius(4)),
+                          plan_cache=PlanCache(), device=dev)
+    assert engine._scratch is not None
+    seen = []
+    launch = ops.EXECUTORS["cuda"]
+
+    def spy(spec, *args, scratch=None, **kw):
+        seen.append((spec.T, scratch.data_ptr()))
+        return launch(spec, *args, scratch=scratch, **kw)
+
+    monkeypatch.setitem(ops.EXECUTORS, "cuda", spy)
+    res = engine.run(shots)
+    assert res.stats["batches"] >= 2
+    assert [T for T, _ in seen] == [2, 2, 1] * res.stats["batches"]
+    assert {ptr for _, ptr in seen} == {engine._scratch.data_ptr()}
+
+
 def _edge_case(physics, T, tile, seed=5):
     """A case whose source sits in a tile's halo with one grid point on the
     boundary of the region the first injection covers (tile 0's last row
@@ -494,9 +529,10 @@ def test_sharded_kernel_matches_plain_and_single_device(physics, nested,
                         spacing=c.spacing, inner="cuda", inner_plan=inner)
     seen, streamed = [], []
 
-    def compare(spec, physics_, *args, dom=None, param_copies=None):
+    def compare(spec, physics_, *args, dom=None, param_copies=None,
+                scratch=None):
         k = ker.tb_time_tile(spec, physics_, *args, dom=dom,
-                             param_copies=param_copies)
+                             param_copies=param_copies, scratch=scratch)
         q = ker.tb_time_tile_plain(spec, physics_, *args, dom=dom)
         seen.append((spec.nx, spec.T))
         streamed.append(ker.launch_plan(spec, physics_) is not None)
@@ -692,12 +728,15 @@ def _ssd_close(got, want):
 
 
 SSD_SHAPES = [  # (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's, then
-    (2, 16, 4, 2, 8, 8, 4),         # mamba2-130m's head shape
-    (2, 32, 4, 2, 8, 8, 32),
+    (2, 16, 4, 2, 8, 8, 4),         # mamba2-130m's head shape, the serve
+    (2, 32, 4, 2, 8, 8, 32),        # call's, one chunk, two groups
     (1, 16, 2, 1, 4, 4, 8),
     (2, 24, 6, 3, 5, 8, 4),
     (3, 8, 4, 4, 16, 16, 8),
     (2, 256, 24, 1, 128, 64, 64),
+    (8, 1024, 24, 1, 128, 64, 64),
+    (2, 64, 4, 1, 128, 64, 64),
+    (2, 256, 8, 2, 128, 64, 64),
 ]
 
 
@@ -706,10 +745,16 @@ SSD_SHAPES = [  # (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's, then
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssd_kernel_matches_plain(shape, dtype, with_h0):
+    """Each schedule of B2 on the shapes it takes: tensor cores for bf16
+    inputs at (N, P, Q) = (128, 64, 64) (four shapes), float32 cores for
+    the rest (the float32 inputs at every shape, bf16 at the small ones)."""
     from repro_torch.kernels import ssd_scan as ssd
 
     dev = _card()
     spec, args, h0 = _ssd_inputs(shape, 3, dtype, with_h0, dev)
+    tc = dtype == torch.bfloat16 and shape[4:] == (128, 64, 64)
+    assert ssd.schedule_of(spec, dtype) == ("tensor cores" if tc
+                                            else "float32 cores")
     before = ssd.launches
     y, h = ssd.ssd_scan(spec, *args, h0=h0)
     assert ssd.launches == before + 1
@@ -722,16 +767,38 @@ def test_ssd_kernel_matches_plain(shape, dtype, with_h0):
 
 @pytest.mark.cuda
 def test_ssd_kernel_bf16_output():
+    """A bf16 y within one bf16 rounding of the plain float32 y, on both
+    schedules."""
     from repro_torch.kernels import ssd_scan as ssd
 
     dev = _card()
-    spec, args, h0 = _ssd_inputs(SSD_SHAPES[3], 4, torch.bfloat16, True, dev)
-    y, _ = ssd.ssd_scan(dataclasses.replace(spec, dtype=torch.bfloat16),
-                        *args, h0=h0)
-    py, _ = ssd.ssd_scan_plain(spec, *args, h0=h0)
-    assert y.dtype == torch.bfloat16
-    torch.testing.assert_close(y.float(), py, rtol=2 ** -8,
-                               atol=SSD_ATOL * max(1.0, float(py.abs().max())))
+    for shape in (SSD_SHAPES[3], SSD_SHAPES[7]):
+        spec, args, h0 = _ssd_inputs(shape, 4, torch.bfloat16, True, dev)
+        y, _ = ssd.ssd_scan(dataclasses.replace(spec, dtype=torch.bfloat16),
+                            *args, h0=h0)
+        py, _ = ssd.ssd_scan_plain(spec, *args, h0=h0)
+        assert y.dtype == torch.bfloat16
+        torch.testing.assert_close(
+            y.float(), py, rtol=2 ** -8,
+            atol=SSD_ATOL * max(1.0, float(py.abs().max())))
+
+
+@pytest.mark.cuda
+def test_ssd_tensor_core_schedule_refuses_other_shapes(monkeypatch):
+    """The C entry takes the tensor-core schedule only for bf16 inputs at
+    (N, P, Q) = (128, 64, 64): asked for it elsewhere, the launch is
+    refused and the wrapper raises (no fallback)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = _card()
+    monkeypatch.setattr(ssd, "schedule_of", lambda spec, dt: "tensor cores")
+    for shape, dtype in ((SSD_SHAPES[4], torch.bfloat16),
+                         (SSD_SHAPES[7], torch.float32)):
+        spec, args, _ = _ssd_inputs(shape, 0, dtype, False, dev)
+        before = ssd.launches
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ssd.ssd_scan(spec, *args)
+        assert ssd.launches == before
 
 
 @pytest.mark.cuda

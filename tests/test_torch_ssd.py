@@ -263,3 +263,114 @@ def test_plain_and_cuda_dispatch():
             (_t(a) for a in args[:5])]
     with pytest.raises(ValueError, match="device"):
         tssd.ssd_scan(spec, *meta)
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2's tensor-core schedule, replayed on the CPU
+# ---------------------------------------------------------------------------
+
+def _bf16(t):
+    """`t` rounded to bf16 (to nearest, ties to even: the kernel's
+    __float2bfloat16_rn), back in float32."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def _pieces(t, n):
+    """The kernel's split of a float32 operand into n bf16 pieces, each the
+    bf16 rounding of what the pieces before it left (n = 1: one unsplit
+    bf16 pass)."""
+    out, rest = [], t
+    for _ in range(n):
+        out.append(_bf16(rest))
+        rest = rest - out[-1]
+    return out
+
+
+def _tc_replay(spec, x, dtv, Bm, Cm, A, h0, pieces):
+    """`ssd_scan_plain`'s chunk loop with the rounding of B2's tensor-core
+    schedule (csrc/ssd_scan.cu, schedule 1): x, B and C exact (bf16 here),
+    C B^T in float32, and the float32 operand of each other product, M,
+    the state h and sd o x (the update as B^T (sd o x)), split into
+    `pieces` bf16 pieces whose products are summed in float32, the
+    smallest first.  What it does not replay is the order in which the
+    tensor cores sum within a product."""
+    Bsz, S, H, P = x.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep, Q = H // G, spec.chunk
+    xf = x.permute(0, 2, 1, 3)
+    dtf = dtv.permute(0, 2, 1)
+    Bh = Bm.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+    Ch = Cm.repeat_interleave(rep, dim=2).permute(0, 2, 1, 3)
+    a = A[None, :, None]
+    h = torch.zeros((Bsz, H, N, P)) if h0 is None else h0.clone()
+    causal = torch.ones((Q, Q), dtype=torch.bool).tril()
+    y = torch.empty((Bsz, H, S, P))
+
+    def product(left, right):
+        # sum of left x piece (or piece x right), smallest piece first
+        if isinstance(left, list):
+            parts = [p @ right for p in reversed(left)]
+        else:
+            parts = [left @ p for p in reversed(right)]
+        out = parts[0]
+        for p in parts[1:]:
+            out = out + p
+        return out
+
+    for c in range(spec.nchunks):
+        sl = slice(c * Q, (c + 1) * Q)
+        xq, dtq, Bq, Cq = xf[:, :, sl], dtf[:, :, sl], Bh[:, :, sl], \
+            Ch[:, :, sl]
+        Lc = tssd._cumsum(dtq * a)
+        LQ = Lc[..., -1:]
+        D = torch.where(causal, torch.exp(Lc[..., :, None]
+                                          - Lc[..., None, :]), 0.0)
+        M = (Cq @ Bq.transpose(-1, -2)) * D * dtq[..., None, :]
+        y[:, :, sl] = (product(_pieces(M, pieces), xq)
+                       + torch.exp(Lc)[..., None]
+                       * product(Cq, _pieces(h, pieces)))
+        sdx = (torch.exp(LQ - Lc) * dtq)[..., None] * xq
+        h = (torch.exp(LQ)[..., None] * h
+             + product(Bq.transpose(-1, -2), _pieces(sdx, pieces)))
+    return y.permute(0, 2, 1, 3).contiguous(), h
+
+
+def _replay_errors(with_h0, pieces):
+    """(max|diff| / max|plain|, elements outside rtol 1e-4 / atol 1e-5 x
+    max(1, max|plain|)) of the replay against `ssd_scan_plain`, for y and
+    h_final, at mamba2-130m's head shape (N 128, P 64, Q 64), S 256, four
+    heads of one group, bf16 x, B and C."""
+    x, dtv, Bm, Cm, A, h0 = _inputs(1, 256, 4, 1, 128, 64, seed=11,
+                                    with_h0=with_h0)
+    x, Bm, Cm = (_bf16(_t(v)) for v in (x, Bm, Cm))
+    spec = _spec(256, 64, 4, 1, 128, 64, tssd, torch.float32)
+    got = _tc_replay(spec, x, _t(dtv), Bm, Cm, _t(A), _t(h0), pieces)
+    want = tssd.ssd_scan_plain(spec, x, _t(dtv), Bm, Cm, _t(A), h0=_t(h0))
+    out = []
+    for g, w in zip(got, want):
+        diff, scale = (g - w).abs(), float(w.abs().max())
+        outside = int((diff > ATOL * max(1.0, scale) + RTOL * w.abs()).sum())
+        out.append((float(diff.max()) / scale, outside))
+    return out
+
+
+@pytest.mark.parametrize("with_h0", [False, True])
+def test_tensor_core_split_keeps_the_bounds(with_h0):
+    """B2's tensor-core schedule splits M, h and sd o x into three bf16
+    pieces (24 significant bits): replayed on the CPU it keeps the
+    kernel-vs-plain bounds (`chip_smoke.check_ssd`,
+    tests/test_torch_cuda.py): max|diff| / max|plain| <= 1e-5, and every
+    element within rtol 1e-4, atol 1e-5 x max(1, max|plain|)."""
+    for rel, outside in _replay_errors(with_h0, pieces=3):
+        assert rel <= 1e-5, rel
+        assert outside == 0
+
+
+def test_unsplit_single_pass_misses_the_bound():
+    """The reason for the split: one unsplit bf16 pass on M, h and sd o x
+    (8 significant bits) puts y and h_final far beyond max|diff| /
+    max|plain| = 1e-5 (about 2e-3 here, with elements outside the
+    per-element bound), so the schedule may not take it."""
+    (rel_y, out_y), (rel_h, out_h) = _replay_errors(True, pieces=1)
+    assert rel_y > 1e1 * 1e-5 and rel_h > 1e1 * 1e-5, (rel_y, rel_h)
+    assert out_y > 0 and out_h > 0

@@ -354,18 +354,95 @@ def test_memory_check_follows_launch_bytes(physics, monkeypatch):
         p.param_fields) * sum((16 + 2 * s.halo) ** 2 * 8 * 4
                               for s in (spec, rspec))
     need = shared + 3 * per_shot
+    monkeypatch.setattr(torch.cuda, "memory_snapshot", lambda: [])
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
     for free, ok in ((need, True), (need - 1, False)):
         monkeypatch.setattr(torch.cuda, "mem_get_info",
                             lambda dev=None, f=free: (f, 2 * f))
-        monkeypatch.setattr(torch.cuda, "memory_reserved",
-                            lambda dev=None: 0)
-        monkeypatch.setattr(torch.cuda, "memory_allocated",
-                            lambda dev=None: 0)
         if ok:
             eng._check_memory()
         else:
             with pytest.raises(ValueError, match="bucket_cap=3"):
                 eng._check_memory()
+
+def _segment(total, allocated):
+    """One entry of `torch.cuda.memory_snapshot()` (the keys read)."""
+    return {"device": 0, "total_size": total, "allocated_size": allocated,
+            "active_size": allocated}
+
+
+def test_memory_check_refuses_free_memory_in_split_segments(monkeypatch):
+    """`_check_memory` counts the device's free memory and the cached
+    segments that hold no live block, never the free memory inside a
+    segment that also holds a live tensor: a batch that fits only by
+    counting that is refused, at construction, with the usual message."""
+    import torch
+
+    from repro_torch.survey import engine as E
+
+    grid = Grid((16, 16, 8), (10.0,) * 3)
+    rng = np.random.RandomState(0)
+    params = build_model("tti", grid.shape, grid, rng, device="cpu")
+    eng = SurveyEngine("tti", grid, params, 5, 1e-3, bucket_cap=3,
+                       plan=TBPlan((8, 8), 2, phys.TTI.step_radius(ORDER)),
+                       plan_cache=PlanCache(), device="cpu")
+    need = eng._batch_need(eng.plan)
+    free, whole = need // 2, need // 4
+    split = [_segment(4 * need, need // 100)]        # mostly free, pinned
+    freed = [_segment(whole, 0)]                     # wholly free
+    monkeypatch.setattr(torch.cuda, "current_device", lambda: 0)
+    monkeypatch.setattr(torch.cuda, "mem_get_info",
+                        lambda dev=None: (free, 8 * need))
+    monkeypatch.setattr(torch.cuda, "memory_snapshot",
+                        lambda: split + freed + [{**freed[0], "device": 1}])
+    dev = torch.device("cuda", 0)
+    assert E.free_device_bytes(dev) == free + whole
+    with pytest.raises(ValueError, match="bucket_cap=3"):
+        eng._check_memory()
+    # the same free bytes, all in wholly free segments: admitted
+    monkeypatch.setattr(torch.cuda, "memory_snapshot",
+                        lambda: [_segment(need - free, 0)])
+    assert E.free_device_bytes(dev) == need
+    eng._check_memory()
+    assert eng._scratch is None        # the plain executor takes none
+
+
+def test_scratch_sizes_and_check():
+    """`stencil_tb.scratch_bytes` is a launch's scratch (B rows of
+    `launch_bytes`' scratch part), `make_scratch` the largest over the
+    main and remainder tiles, and the wrapper's `scratch=` check refuses a
+    buffer of the wrong dtype or too small, or not flat and contiguous."""
+    import torch
+
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_tb as ker
+
+    p = phys.TTI
+    specs = [ops.make_spec((32, 32, 8), TBPlan((16, 16), T, 4), ORDER,
+                           1e-3, (10.0,) * 3, 1, 1, physics=p)
+             for T in (2, 1)]
+    for s in specs:
+        per_row, _, sdtype = ker._scratch_elems(s, p)
+        assert ker.scratch_bytes(s, p, 3) == 3 * per_row * sdtype.itemsize
+        out_bytes = (len(p.state_fields) * 32 * 32 * 8
+                     + 4 * s.T * s.rec_cap * p.rec_channels) * 4
+        assert ker.scratch_bytes(s, p, 1) == ker.launch_bytes(s, p) \
+            - out_bytes
+    buf = ker.make_scratch(specs + [None], p, 3, "cpu")
+    need = max(ker.scratch_bytes(s, p, 3) for s in specs)
+    assert buf.dtype == torch.uint8 and buf.numel() == need
+    cpu = torch.device("cpu")
+    ker.check_scratch(buf, need, cpu)
+    ker.check_scratch(buf, need - 1, cpu)
+    with pytest.raises(ValueError, match="bytes"):
+        ker.check_scratch(buf, need + 1, cpu)
+    with pytest.raises(TypeError, match="dtype"):
+        ker.check_scratch(buf.view(torch.float32), 16, cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        ker.check_scratch(buf[: need // 2 * 2].view(2, -1), 16, cpu)
+    with pytest.raises(ValueError, match="contiguous"):
+        ker.check_scratch(buf[1:], 16, cpu)
+
 
 def test_sweep_keeps_to_what_a_batch_can_hold():
     """The engine's sweep on a card passes `_fits`: a plan whose batch

@@ -6,11 +6,12 @@ port's kernel sources:
 
 <csrc dir b> defaults to this tree's `src/repro_torch/kernels/csrc`;
 `--files` names the sources whose kernels must be the same on both sides
-(default: `ssd_scan`, which the z-streamed redesign of the TB kernels
-leaves as it was); `--kept` names the sources where every kernel of <a>
-must be in <b> unchanged, and <b> may add kernels (default: `stencil_tb`,
-`stencil_tb_elastic` and `stencil_tb_tti`, which keep their first
-schedule beside the z-streamed one).  Each source is compiled to a cubin
+(default: none); `--kept` names the sources where every kernel of <a>
+must be in <b> unchanged, and <b> may add kernels (default: `ssd_scan`,
+which keeps its float32-core schedule's four instantiations beside the
+tensor-core kernel, and `stencil_tb`, `stencil_tb_elastic` and
+`stencil_tb_tti`, which keep their first schedule beside the z-streamed
+one).  Each source is compiled to a cubin
 with the port's nvcc flags (under `build/sass/`) and disassembled
 with `cuobjdump -sass`; every kernel function (each template
 instantiation, by its mangled name) is compared instruction by
@@ -29,8 +30,8 @@ sys.path.insert(0, str(Path(__file__).resolve().parents[1] / "src"))
 
 from repro_torch.kernels import _build  # noqa: E402
 
-FILES = ("ssd_scan",)
-KEPT = ("stencil_tb", "stencil_tb_elastic", "stencil_tb_tti")
+FILES = ()
+KEPT = ("ssd_scan", "stencil_tb", "stencil_tb_elastic", "stencil_tb_tti")
 OFFSET = re.compile(r"^\s*/\*[0-9a-f]+\*/")      # an instruction's offset
 LABEL = re.compile(r"\.L_x_\d+")                 # a branch target's label
 

@@ -8,8 +8,10 @@ once on one device (`ops.acoustic_tb_propagate`) and once on a 2x2
 
 Prints, per run: the wall time (host clock around the run and a
 synchronise), the device time summed over every kernel, copy and fill the
-profiler saw on the card, the device's idle share of the wall time, and
-the device events with the most time.  Needs a card.
+profiler saw on the card, the device's idle share of the wall time, the
+caching allocator's segments made and freed (cudaMalloc / cudaFree) and
+its retries during the profiled run, and the device events with the most
+time.  Needs a card.
 """
 import argparse
 import sys
@@ -34,12 +36,16 @@ def profiled(fn, top=12):
 
     fn()                                   # warm-up: builds, allocator
     torch.cuda.synchronize()
+    keys = ("segment.all.allocated", "segment.all.freed", "num_alloc_retries")
+    before = torch.cuda.memory_stats()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall = (time.perf_counter() - t0) * 1e3
+    after = torch.cuda.memory_stats()
+    alloc = [after.get(k, 0) - before.get(k, 0) for k in keys]
     # the device's own events (kernels, copies, fills): an operator's
     # entry would count its kernels' time a second time
     events = [e for e in prof.key_averages()
@@ -48,7 +54,7 @@ def profiled(fn, top=12):
     device = sum(e.self_device_time_total for e in events) / 1e3
     rows = sorted(((e.key, e.self_device_time_total / 1e3, e.count)
                    for e in events), key=lambda r: -r[1])[:top]
-    return wall, device, rows
+    return wall, device, rows, alloc
 
 
 def main(argv=None):
@@ -71,12 +77,14 @@ def main(argv=None):
             dplan, fc.nt, fc.state, fc.params._asdict(), fc.g, fc.gr),
     }
     for what, fn in runs.items():
-        wall, device, rows = profiled(fn)
+        wall, device, rows, alloc = profiled(fn)
         tiles = args.tiles
         print(f"[profile] {what}, {cs.SHAPE} nt={fc.nt}: wall {wall:.1f} ms "
               f"({wall / tiles:.3f} a tile), device busy {device:.1f} ms "
               f"({device / tiles:.3f} a tile), idle share "
-              f"{max(wall - device, 0.0) / wall:.3f} [{smi}]", flush=True)
+              f"{max(wall - device, 0.0) / wall:.3f}; allocator segments "
+              f"made {alloc[0]}, freed {alloc[1]}, retries {alloc[2]} "
+              f"[{smi}]", flush=True)
         for name, ms, calls in rows:
             print(f"[profile]   {ms / tiles:9.3f} ms a tile  {calls:6d} "
                   f"calls  {name[:90]}", flush=True)

@@ -7,12 +7,20 @@ C, float32 y, no h0):
 
 <b.cu> defaults to this tree's `src/repro_torch/kernels/csrc/ssd_scan.cu`.
 Each source is built with the port's nvcc flags into its own library under
-`build/ssd_ab/`, its C signatures set by `ssd_scan.declare`; the inputs
-are `chip_smoke.ssd_case`'s draw (seed 7).  Prints, per version, whether
-y and h_final equal `ssd_scan_plain`'s bit for bit (and the largest
-difference), then the mean of 10 launches after a warm-up, by CUDA
-events, for each turn.  Needs a card.
+`build/ssd_ab/`.  A source with two schedules (it exports
+`repro_ssd_blocks_per_sm`) runs the one `ssd_scan.schedule_of` picks
+(tensor cores at these shapes); an older source (one schedule, no
+schedule argument) gets that signature.  The inputs are `chip_smoke.ssd_case`'s
+draw (seed 7).  Prints, per version, whether y and h_final equal
+`ssd_scan_plain`'s bit for bit, their largest difference and whether they
+keep `chip_smoke.check_ssd`'s bounds, then the mean of 10 launches after a
+warm-up, by CUDA events, for each turn, with the card's name and power
+limit.  Needs a card.  The parent commit's source against this tree's:
+
+    git archive HEAD^ src/repro_torch/kernels/csrc | tar -x -C build/parent
+    python3 tools/ssd_ab.py build/parent/src/repro_torch/kernels/csrc/ssd_scan.cu
 """
+import argparse
 import ctypes
 import statistics
 import subprocess
@@ -28,33 +36,46 @@ from repro_torch.kernels import _build  # noqa: E402
 from repro_torch.kernels import ssd_scan as ssd  # noqa: E402
 
 
-def build(src: Path, tag: str) -> ctypes.CDLL:
+def build(src: Path, tag: str):
+    """(library, whether it takes a schedule argument)."""
     out = _build.BUILD_DIR.parent / "ssd_ab" / f"libssd_{tag}.so"
     out.parent.mkdir(parents=True, exist_ok=True)
     subprocess.run([_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(out),
                     str(src)], check=True, capture_output=True)
-    return ssd.declare(ctypes.CDLL(str(out)))
+    lib = ctypes.CDLL(str(out))
+    if hasattr(lib, "repro_ssd_blocks_per_sm"):
+        return ssd.declare(lib), True
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.repro_ssd_scan.argtypes = [i] + [p] * 8 + [i] * 9 + [p]
+    lib.repro_ssd_scan.restype = i
+    return lib, False
 
 
 def main(argv):
+    ap = argparse.ArgumentParser()
+    ap.add_argument("a")
+    ap.add_argument("b", nargs="?", default=str(_build.CSRC / "ssd_scan.cu"))
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tools/ssd_ab.py needs a card")
-    srcs = [Path(argv[0]), Path(argv[1]) if len(argv) > 1 else
-            _build.CSRC / "ssd_scan.cu"]
+    srcs = [Path(args.a), Path(args.b)]
     libs = {tag: build(src, tag) for tag, src in zip("ab", srcs)}
     dev = torch.device("cuda", 0)
     B, S, H, G, N, P, Q = chip_smoke.SERVE_SHAPE
     spec, (x, dt, Bm, Cm, A), _ = chip_smoke.ssd_case(
         chip_smoke.SERVE_SHAPE, 7, torch.bfloat16, False, dev)
+    sched = ssd.SCHEDULES.index(ssd.schedule_of(spec, torch.bfloat16))
     y = torch.empty((B, S, H, P), device=dev)
     h = torch.empty((B, H, N, P), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
 
     def run(tag):
-        rc = libs[tag].repro_ssd_scan(
+        lib, two = libs[tag]
+        more = (sched,) if two else ()
+        rc = lib.repro_ssd_scan(
             0, x.data_ptr(), dt.data_ptr(), Bm.data_ptr(), Cm.data_ptr(),
             A.data_ptr(), None, y.data_ptr(), h.data_ptr(), 1, 0, B, S, H,
-            G, N, P, Q, stream)
+            G, N, P, Q, *more, stream)
         if rc:
             raise RuntimeError(f"{tag}: launch failed ({rc})")
 
@@ -64,8 +85,16 @@ def main(argv):
         torch.cuda.synchronize()
         same = torch.equal(y, py) and torch.equal(h, ph)
         err = max(float((y - py).abs().max()), float((h - ph).abs().max()))
-        print(f"{tag} ({src}): equal to ssd_scan_plain bit for bit: {same} "
-              f"(max|diff| {err:.3e})", flush=True)
+        try:
+            rel = max(chip_smoke.check_ssd("y", y, py)[1],
+                      chip_smoke.check_ssd("h_final", h, ph)[1])
+            bounds = f"within the bounds (max|diff|/max|plain| {rel:.2e})"
+        except AssertionError as e:
+            bounds = f"OUTSIDE the bounds: {e}"
+        name = (ssd.SCHEDULES[sched] if libs[tag][1]
+                else "the one schedule")
+        print(f"{tag} ({src}, {name}): equal to ssd_scan_plain bit for bit:"
+              f" {same} (max|diff| {err:.3e}); {bounds}", flush=True)
     ms = {"a": [], "b": []}
     for tag in "abbaab":
         run(tag)
@@ -77,10 +106,13 @@ def main(argv):
         e.record()
         torch.cuda.synchronize()
         ms[tag].append(s.elapsed_time(e) / 10)
-    name = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip()
     for tag in "ab":
         print(f"{tag}: ms per launch " + ", ".join(f"{m:.4f}" for m in ms[tag])
-              + f"; median {statistics.median(ms[tag]):.4f} [{name}]")
+              + f"; median {statistics.median(ms[tag]):.4f} [{smi}]")
 
 
 if __name__ == "__main__":
