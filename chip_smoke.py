@@ -63,6 +63,7 @@ import torch
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
 from repro_torch import configs  # noqa: E402
+from repro_torch.configs import paper_stencil  # noqa: E402
 from repro_torch.core import boundary, sources as S  # noqa: E402
 from repro_torch.core.grid import Grid  # noqa: E402
 from repro_torch.core.propagators import acoustic, elastic, tti  # noqa: E402
@@ -94,14 +95,11 @@ HBM_BW = 3.35e12                 # H100 SXM, bytes/s (data sheet)
 F32_PEAK = 67e12                 # H100 SXM float32 outside the tensor cores
 BF16_TC_PEAK = 989e12            # H100 SXM bf16 on the tensor cores, dense
 
-# The paper's own cases (repro.configs.paper_stencil.full_case(p, 4),
-# values copied: the port imports nothing of the JAX package).
-SHAPE = (512, 512, 512)
-ORDER = 4
-TIME_MS = 512.0
-F0 = 10.0
-NBL = 10
-VMIN, VMAX = 1500.0, 3500.0
+# The paper's cases come from configs/paper_stencil.py (`full_case`): they
+# share one grid, SHAPE, which a CPU rehearsal shrinks.  ORDER is the space
+# order of the main-*, survey, sharded and small phases: the paper's lowest.
+SHAPE = paper_stencil.PAPER_CASES[0].shape
+ORDER = min(c.space_order for c in paper_stencil.PAPER_CASES)
 TILE = (32, 32)
 T_TB = 4
 NREC = 512
@@ -308,8 +306,9 @@ def compare_kernel(spec, physics, args, dom=None):
     every schedule it has at this shape (`schedules`): (max|diff|, max
     over fields and receiver channels of max|diff| / max|plain|, each the
     worst over the schedules, the kernel's (fields, partials) on the
-    schedule `launch_plan` picks).  The picked schedule launches before
-    the plain version runs, so its scratch meets an unfragmented cache."""
+    schedule `launch_plan` picks, the plain version's ms: one call, by
+    CUDA events).  The picked schedule launches before the plain version
+    runs, so its scratch meets an unfragmented cache."""
     plans = schedules(spec, physics)
     atol = ATOL[physics.name]
     torch.cuda.empty_cache()        # a 512^3 launch's scratch is tens of GB
@@ -320,7 +319,8 @@ def compare_kernel(spec, physics, args, dom=None):
                                                       dom=dom))
 
     picked = launch(plans[0])
-    pst, prec = ker.tb_time_tile_plain(spec, physics, *args, dom=dom)
+    plain_ms, (pst, prec) = cuda_ms(lambda: ker.tb_time_tile_plain(
+        spec, physics, *args, dom=dom))
     worst = worst_rel = 0.0
     for plan in plans:
         kst, krec = picked if plan is plans[0] else launch(plan)
@@ -336,7 +336,7 @@ def compare_kernel(spec, physics, args, dom=None):
         worst_rel = max(worst_rel, max(r for _, r in errs))
         COMPARED[name] += 1
         del kst, krec, pairs
-    return worst, worst_rel, picked
+    return worst, worst_rel, picked, plain_ms
 
 
 SMALL_CASES = [  # (T, tile, order, shape, sources)
@@ -383,7 +383,7 @@ def phase_kernel_vs_plain(dev):
             plan = TBPlan(tile, T, physics.step_radius(order))
             spec, args = kernel_inputs(physics, plan, state, params, g,
                                        gr, dt, 1, SMALL_SPACING, order=order)
-            err, rel, _ = compare_kernel(spec, physics, args)
+            err, rel, _, _ = compare_kernel(spec, physics, args)
             worst, worst_rel = max(worst, err), max(worst_rel, rel)
             say("kernel-vs-plain", f"{name} T={T} tile={tile} order={order} "
                 f"shape={shape} sources={sources}: max|diff| {err:.3e}, "
@@ -416,7 +416,7 @@ def phase_kernel_vs_plain_edges(dev):
             plan = TBPlan(EDGE_TILE, T, physics.step_radius(ORDER))
             spec, args = kernel_inputs(physics, plan, state, params, g, gr,
                                        dt, 1, SMALL_SPACING)
-            err, rel, (_, krec) = compare_kernel(spec, physics, args)
+            err, rel, (_, krec), _ = compare_kernel(spec, physics, args)
             if not float(krec.abs().max()) > 0:
                 raise AssertionError(f"{name} T={T}: no receiver signal")
             say("kernel-vs-plain-edges", f"{name} T={T} tile={EDGE_TILE} "
@@ -447,7 +447,9 @@ PATHS = {
 
 @dataclasses.dataclass
 class FullCase:
+    case: paper_stencil.StencilCase
     physics: phys.TBPhysics
+    order: int
     spacing: tuple
     nt: int
     dt: float
@@ -459,16 +461,17 @@ class FullCase:
     def run(self, plan):
         """The TB entry point: (final state tuple, traces)."""
         final, recs = PATHS[self.physics.name][1](
-            self.nt, self.state, self.params, self.g, self.gr, plan, ORDER,
-            self.dt, self.spacing, executor="cuda",
+            self.nt, self.state, self.params, self.g, self.gr, plan,
+            self.order, self.dt, self.spacing, executor="cuda",
             device=self.state[0].device)
         return tuple(final), recs
 
     def reference(self):
         """The Listing-1 oracle: (final state tuple, traces)."""
         final, recs = PATHS[self.physics.name][2](
-            self.nt, self.state, self.params, self.dt, self.spacing, ORDER,
-            g=self.g, receivers=self.gr, device=self.state[0].device)
+            self.nt, self.state, self.params, self.dt, self.spacing,
+            self.order, g=self.g, receivers=self.gr,
+            device=self.state[0].device)
         return tuple(final), recs
 
 
@@ -502,34 +505,41 @@ def receiver_line(shape):
                      np.full(NREC, 12.17)], axis=1)
 
 
-def full_case(name, dev, shape=None):
-    """The paper's case for `name` (acoustic, tti or elastic): SHAPE (or
-    `shape`), space order 4, 512 ms, two-layer 1500/3500 m/s model with a
-    `nbl=10` sponge, one off-the-grid 10 Hz Ricker source and 512
-    off-the-grid receivers on a line, placed in grid units so each spacing
-    sees the same geometry."""
+def full_case(name, dev, shape=None, order=ORDER, time_ms=None):
+    """The paper's case for `name` (acoustic, tti or elastic) at space
+    order `order` (`paper_stencil.full_case`: 10 m spacing, 20 m for TTI,
+    512 ms, a 10 Hz Ricker source, an `nbl=10` sponge) on SHAPE (or
+    `shape`, and `time_ms` for a reduction): a two-layer vmin/vmax model,
+    the CFL time step at that order (so nt grows with the order), one
+    off-the-grid source and 512 off-the-grid receivers on a line, placed
+    in grid units so each spacing sees the same geometry."""
+    case = paper_stencil.full_case(name, order)
+    if time_ms is not None:
+        case = dataclasses.replace(case, time_ms=time_ms)
     physics = phys.PHYSICS[name]
     shape = SHAPE if shape is None else shape
-    h = 20.0 if name == "tti" else 10.0          # paper: 20 m for TTI
-    spacing = (h, h, h)
+    spacing = case.spacing
+    h = spacing[0]
     grid = Grid(shape=shape, spacing=spacing)
     # TTI's fastest speed is vmax sqrt(1 + 2 eps) with eps up to 0.2
-    vfast = VMAX * math.sqrt(1.0 + 2.0 * 0.2) if name == "tti" else VMAX
-    dt = grid.cfl_dt(vfast, ORDER)
-    nt = max(int(math.ceil(TIME_MS / 1000.0 / dt)), 1)
-    damp = boundary.damping_field(shape, NBL, spacing, device=dev)
+    vmin, vmax = case.vmin, case.vmax
+    vfast = vmax * math.sqrt(1.0 + 2.0 * 0.2) if name == "tti" else vmax
+    dt = grid.cfl_dt(vfast, order)
+    nt = case.nt(dt)
+    damp = boundary.damping_field(shape, case.nbl, spacing, device=dev)
     src = S.SparseOperator(source_point(shape, (shape[0] - 1) / 2.0 + 0.37)
                            * h)
-    g = S.precompute(src, grid, S.ricker_wavelet(nt, dt, F0), device=dev)
+    g = S.precompute(src, grid, S.ricker_wavelet(nt, dt, case.f0),
+                     device=dev)
     gr = S.precompute_receivers(S.SparseOperator(receiver_line(shape) * h),
                                 grid, device=dev)
     state = tuple(torch.zeros(shape, dtype=torch.float32, device=dev)
                   for _ in physics.state_fields)
     if name == "acoustic":
-        params = {"m": _layered(shape, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
+        params = {"m": _layered(shape, 1 / vmin ** 2, 1 / vmax ** 2, dev),
                   "damp": damp}
     elif name == "tti":
-        params = {"m": _layered(shape, 1 / VMIN ** 2, 1 / VMAX ** 2, dev),
+        params = {"m": _layered(shape, 1 / vmin ** 2, 1 / vmax ** 2, dev),
                   "damp": damp,
                   "epsilon": _layered(shape, 0.10, 0.20, dev),
                   "delta": _layered(shape, 0.05, 0.10, dev),
@@ -538,7 +548,7 @@ def full_case(name, dev, shape=None):
     else:
         # SI units: lam = rho (vp^2 - 2 vs^2), mu = rho vs^2, b = 1 / rho
         rho = 2100.0
-        vp = np.array([VMIN, VMAX])
+        vp = np.array([vmin, vmax])
         vs = vp / 1.9
         lam = rho * (vp ** 2 - 2 * vs ** 2)
         mu = rho * vs ** 2
@@ -546,7 +556,7 @@ def full_case(name, dev, shape=None):
                   "mu": _layered(shape, mu[0], mu[1], dev),
                   "b": _layered(shape, 1 / rho, 1 / rho, dev),
                   "damp": damp}
-    return FullCase(physics, spacing, nt, dt, state,
+    return FullCase(case, physics, order, spacing, nt, dt, state,
                     PATHS[name][0](**params), g, gr)
 
 
@@ -610,7 +620,7 @@ def phase_main_path(fc, smi):
     say(f"main-{name}", f"TB run {ms:.1f} ms = {ms / launches:.3f} ms per "
         f"time tile = {ms / nt:.3f} ms per step, {mpts:.1f} Mpt*steps/s, "
         f"peak {peak:.2f} GiB [{smi}]")
-    return final, launches, ms, kept
+    return final, launches, ms, kept, peak
 
 
 def time_tile_pieces(fc, plan, state, t0):
@@ -621,7 +631,7 @@ def time_tile_pieces(fc, plan, state, t0):
     Returns (spec, kernel args, (ms, ms, ms), (min ms, max ms))."""
     physics = fc.physics
     spec, st, rt, ppads = ops.prepare_tiles(
-        plan, physics, state[0], fc.params._asdict(), fc.g, fc.gr, ORDER,
+        plan, physics, state[0], fc.params._asdict(), fc.g, fc.gr, fc.order,
         fc.dt, fc.spacing)
     state = tuple(f[None] for f in state)               # one shot
     op_ms, (pads, sc, sv, rc, rw) = cuda_ms(
@@ -670,6 +680,7 @@ def phase_sb(fc, smi, tb_ms, state):
         f"(median of 3 means of 5; least {lo:.3f}, most {hi:.3f}) = "
         f"{100 * pieces[1] * nt / ms:.1f}% of the SB run")
     say_pieces(f"sb-{name}", "one SB step", pieces, ms / nt)
+    return ms
 
 
 KERNEL_FILES = {"acoustic": "stencil_tb", "tti": "stencil_tb_tti",
@@ -684,11 +695,9 @@ def kernel_entry(fc, state, launches, tb_ms, smi):
     t0 = (fc.nt // T_TB // 2) * T_TB
     spec, args, pieces, (lo, hi) = time_tile_pieces(fc, plan, state, t0)
     ms = pieces[1]
-    err, rel, _ = compare_kernel(spec, fc.physics, args)
+    err, rel, _, plain_ms = compare_kernel(spec, fc.physics, args)
     say_pieces(f"kernels-{name}", f"one depth-{T_TB} TB tile", pieces,
                tb_ms / launches)
-    plain_ms, _ = cuda_ms(
-        lambda: ker.tb_time_tile_plain(spec, fc.physics, *args))
     cost = ker.kernel_cost(spec, fc.physics)
     t_bytes = cost["min_bytes"] / HBM_BW * 1e3
     t_ops = cost["needed_flops"] / F32_PEAK * 1e3
@@ -779,6 +788,148 @@ def say_design(phase, physics, spec, ms, cost):
 
 
 # ---------------------------------------------------------------------------
+# The paper's other cases: every physics at space orders 8 and 12
+# ---------------------------------------------------------------------------
+
+# the TB plans tried in order (tile, T): the first whose propagation fits
+# the card.  A smaller tile does not make a launch smaller here (each
+# tile's window overhangs it by the same halo), so (16, 16) comes last.
+PAPER_PLANS = (((32, 32), 4), ((32, 32), 2), ((16, 16), 2))
+# device bytes a propagation may count on beyond `ops.propagation_bytes`
+# (its tables, receiver partials and traces, the allocator's rounding)
+PAPER_RESERVE = 2 * 2 ** 30
+
+
+def paper_plan(fc):
+    """(plan, [(tile, T, GiB) of the plans tried]): the first of
+    PAPER_PLANS whose propagation (`ops.propagation_bytes`) fits this
+    card's free memory less PAPER_RESERVE; raises if none does."""
+    from repro_torch.survey.engine import free_device_bytes
+
+    torch.cuda.empty_cache()
+    free = free_device_bytes(fc.state[0].device)
+    shape = tuple(fc.state[0].shape)
+    # the case's state and params, already made, count in each `need`
+    made = sum(f.numel() * f.element_size() for f in (*fc.state, *fc.params))
+    tried = []
+    for tile, T in PAPER_PLANS:
+        plan = TBPlan(tile, T, fc.physics.step_radius(fc.order))
+        need = ops.propagation_bytes(fc.physics, shape, fc.nt, plan,
+                                     fc.order)
+        tried.append((tile, T, need / 2 ** 30))
+        if need + PAPER_RESERVE <= free + made:
+            return plan, tried
+    raise AssertionError(f"{fc.case.name}: no plan of {PAPER_PLANS} fits "
+                         f"the card's {free / 2 ** 30:.2f} GiB free: " +
+                         ", ".join(f"tile {t} T={d} {g:.2f} GiB"
+                                   for t, d, g in tried))
+
+
+def counted_run(fc, plan):
+    """fc.run(plan) with the launch counter set to 0 just before and read
+    just after, CUDA events around the run and around each launch: (final,
+    recs, launches, run ms, ms of each full-depth launch, peak GiB)."""
+    events = []
+
+    def launch(spec, p, *args, **kw):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = ker.tb_time_tile(spec, p, *args, **kw)
+        end.record()
+        if spec.T == plan.T:
+            events.append((start, end))
+        return out
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ker.launches = 0
+    ops.EXECUTORS["cuda"] = launch
+    try:
+        ms, (final, recs) = cuda_ms(lambda: fc.run(plan))
+    finally:
+        ops.EXECUTORS["cuda"] = ker.tb_time_tile
+    launches = ker.launches
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    expect = -(-fc.nt // plan.T)
+    if launches != expect:
+        raise AssertionError(f"{fc.case.name} T={plan.T}: {launches} kernel "
+                             f"launches, expected {expect}")
+    per_launch = [a.elapsed_time(b) for a, b in events]
+    return final, recs, launches, ms, per_launch, peak
+
+
+def phase_paper_case(name, order, smi, dev):
+    """One of the paper's cases beyond order 4 at its full width and depth:
+    the Listing-1 reference once (kept on the host), then the TB run on
+    the first plan of PAPER_PLANS that fits and the SB run (T = 1), once
+    each through the entry point with the kernel counted, each held to
+    the reference within MAIN_TOL on every field and receiver channel.
+    Returns the case's record for the nine-case summary."""
+    phase = f"paper-{name}-O{order}"
+    fc = full_case(name, dev, order=order)
+    plan, tried = paper_plan(fc)
+    model = plan_for_physics(name, SHAPE[2], order,
+                             tiles=(4, 8, 16, 32, 64, 128),
+                             depths=(1, 2, 4, 8))[0]
+    spec = ops.make_spec(SHAPE, plan, order, fc.dt, fc.spacing, 1, 1,
+                         physics=fc.physics)
+    say(phase, f"{fc.case.name}: {SHAPE} spacing {fc.spacing[0]:g} m "
+        f"nt={fc.nt} dt={fc.dt:.6e}; plan tile {plan.tile} T={plan.T} "
+        f"(halo {spec.halo}; propagation bytes by plan tried: "
+        + ", ".join(f"tile {t} T={d} {g:.2f} GiB" for t, d, g in tried)
+        + f"), {schedule_of(spec, fc.physics)} schedule; the plan model "
+        f"(plan_for_physics, H100 figures) would pick tile {model.tile} "
+        f"T={model.T}, not run")
+    t0 = time.perf_counter()
+    rfinal, rrec = fc.reference()
+    rfinal = tuple(f.cpu() for f in rfinal)
+    ref_s = time.perf_counter() - t0
+    out = {"case": fc.case.name, "physics": name, "order": order,
+           "nt": fc.nt, "tile": list(plan.tile), "T": plan.T,
+           "schedule": schedule_of(spec, fc.physics),
+           "model_plan": {"tile": list(model.tile), "T": model.T}}
+    sb = TBPlan(TILE, 1, fc.physics.step_radius(order))
+    for what, p in (("TB", plan), ("SB", sb)):
+        final, recs, launches, ms, per_launch, peak = counted_run(fc, p)
+        if not (all(torch.isfinite(f).all() for f in final)
+                and torch.isfinite(recs).all()):
+            raise AssertionError(f"{phase}: {what} non-finite values")
+        errs, same = field_errors(fc.physics, (final, recs), (
+            tuple(f.to(dev) for f in rfinal), rrec))
+        del final, recs
+        worst = check_errors(phase, errs, MAIN_TOL,
+                             f"{what} vs the Listing-1 reference")
+        pspec = ops.make_spec(SHAPE, p, order, fc.dt, fc.spacing, 1, 1,
+                              physics=fc.physics)
+        k_ms = statistics.median(per_launch)
+        bound, by = bound_of(ker.kernel_cost(pspec, fc.physics))
+        say(phase, f"{what} tile {p.tile} T={p.T} "
+            f"({schedule_of(pspec, fc.physics)} schedule): {launches} "
+            f"kernel launches, run {ms:.1f} ms = {ms / fc.nt:.3f} ms per "
+            f"step (one run, after the reference); kernel {k_ms:.3f} ms per "
+            f"depth-{p.T} launch (median of {len(per_launch)} in the run; "
+            f"least {min(per_launch):.3f}, most {max(per_launch):.3f}) vs "
+            f"bound {bound:.3f} ms by {by}; peak {peak:.2f} GiB; vs the "
+            f"Listing-1 reference ({ref_s:.1f} s): " + ", ".join(
+                f"{k} {v:.2e}" for k, v in errs.items())
+            + f" (max {worst:.3e}, limit {MAIN_TOL:g}), bit-equal: {same} "
+            f"[{smi}]")
+        out[what] = {"ms": ms, "launches": launches, "kernel_ms": k_ms,
+                     "bound_ms": bound, "bound_by": by, "peak_gib": peak,
+                     "max_rel_err": worst, "bit_equal": same}
+    out["TB/SB"] = out["TB"]["ms"] / out["SB"]["ms"]
+    say(phase, f"TB/SB {out['TB/SB']:.3f} (no gain claimed) [{smi}]")
+    del fc, rfinal, rrec
+    torch.cuda.empty_cache()
+    return out
+
+
+PAPER_EXTRA = [(c.propagator, c.space_order) for c in
+               paper_stencil.PAPER_CASES if c.space_order != ORDER]
+
+
+# ---------------------------------------------------------------------------
 # The batched kernel: B shots in one launch (the shot axis in the grid)
 # ---------------------------------------------------------------------------
 
@@ -824,7 +975,7 @@ def compare_batched(spec, physics, args):
     and against B single-shot launches of the same kernel: (max|diff|,
     max|diff|/max|plain|, whether every shot's fields and partials equal
     its single launch's bit for bit)."""
-    err, rel, (kst, krec) = compare_kernel(spec, physics, args)
+    err, rel, (kst, krec), _ = compare_kernel(spec, physics, args)
     pads, ppads, sc, sv, rc, rw = args
     same = True
     for b in range(krec.shape[0]):
@@ -899,6 +1050,11 @@ def bound_of(cost):
 SURVEY_SHOTS = 8
 SURVEY_CAP = 4
 SMALL_SURVEY_SHAPE = (128, 128, 128)     # a reduction of the paper's 512^3
+# the reductions' depth (survey-small-*, sharded-small-*, survey-sharded):
+# about half the paper's 512 ms, so the script with the nine paper cases
+# keeps inside its time limit; 255 ms keeps a depth-3 remainder tile at
+# order 4 and T = 4 (acoustic and elastic nt 199, TTI 118)
+REDUCED_TIME_MS = 255.0
 SMALL_SURVEY_SHOTS = 6
 SMALL_SURVEY_CAP = 2
 # candidate tiles of the small surveys' sweep: with no window cap the
@@ -928,9 +1084,7 @@ def batched_entry(engine, bucket, wavefields, smi, phase):
     del fields
     args = (pads, ex.param_pads, sc, sv, rc, rw)
     ms, lo, hi, _ = time_kernel(spec, physics, args)
-    err, rel, _ = compare_kernel(spec, physics, args)
-    plain_ms, _ = cuda_ms(lambda: ker.tb_time_tile_plain(spec, physics,
-                                                         *args))
+    err, rel, _, plain_ms = compare_kernel(spec, physics, args)
     cost = ker.kernel_cost(spec, physics, shots=B)
     bound, by = bound_of(cost)
     single, _ = bound_of(ker.kernel_cost(spec, physics))
@@ -1025,7 +1179,7 @@ def phase_survey_acoustic(smi, dev, tb_ms):
     fc.state = None
     h = fc.spacing[0]
     grid = Grid(shape=SHAPE, spacing=fc.spacing)
-    wav = S.ricker_wavelet(fc.nt, fc.dt, F0)
+    wav = S.ricker_wavelet(fc.nt, fc.dt, fc.case.f0)
     rec = receiver_line(SHAPE) * h
     shots = [Shot(src_coords=source_point(SHAPE, x) * h, wavelet=wav,
                   rec_coords=rec, shot_id=i)
@@ -1131,7 +1285,7 @@ def phase_survey_tti(smi, dev, tb_ms):
     fc.state = None
     h = fc.spacing[0]
     grid = Grid(shape=SHAPE, spacing=fc.spacing)
-    wav = S.ricker_wavelet(fc.nt, fc.dt, F0)
+    wav = S.ricker_wavelet(fc.nt, fc.dt, fc.case.f0)
     rec = receiver_line(SHAPE) * h
     shots = [Shot(src_coords=source_point(SHAPE, x) * h, wavelet=wav,
                   rec_coords=rec, shot_id=i)
@@ -1196,7 +1350,8 @@ def phase_survey_small(smi, dev):
     entries = []
     for name in ("acoustic", "tti", "elastic"):
         phase = f"survey-small-{name}"
-        fc = full_case(name, dev, shape=SMALL_SURVEY_SHAPE)
+        fc = full_case(name, dev, shape=SMALL_SURVEY_SHAPE,
+                       time_ms=REDUCED_TIME_MS)
         fc.state = None
         grid = Grid(shape=SMALL_SURVEY_SHAPE, spacing=fc.spacing)
         shots = stencil_survey.build_survey(grid, fc.dt, fc.nt,
@@ -1358,7 +1513,7 @@ def phase_kernel_vs_plain_dom(dev):
             seen = []
 
             def check(spec, p, *args, dom=None, param_copies=None):
-                err, rel, out = compare_kernel(spec, p, args, dom=dom)
+                err, rel, out, _ = compare_kernel(spec, p, args, dom=dom)
                 seen.append((spec.nx, spec.T, spec.ntiles, err, rel))
                 return out
 
@@ -1422,8 +1577,8 @@ def phase_kernel_vs_plain_dom(dev):
         dom = dom[None].expand(B, -1, -1).contiguous()
         rows = tuple(q[None].expand(B, *q.shape).contiguous() for q in ppads)
         a = uncounted(lambda: ker.tb_time_tile(spec, physics, *args))
-        err, rel, b = compare_kernel(spec, physics, (pads, rows, sc, sv, rc,
-                                                     rw), dom=dom)
+        err, rel, b, _ = compare_kernel(
+            spec, physics, (pads, rows, sc, sv, rc, rw), dom=dom)
         same = torch.equal(a[1], b[1]) and all(
             torch.equal(x, y) for x, y in zip(a[0], b[0]))
         if not same:
@@ -1479,8 +1634,18 @@ def phase_sharded_acoustic(fc, smi, kept, tb_ms):
     torch.cuda.empty_cache()
 
     torch.cuda.reset_peak_memory_stats()
-    ms, out = cuda_ms(lambda: H.sharded_tb_propagate(
-        plan, fc.nt, fc.state, fc.params._asdict(), fc.g, fc.gr))
+
+    def run():
+        return H.sharded_tb_propagate(plan, fc.nt, fc.state,
+                                      fc.params._asdict(), fc.g, fc.gr)
+
+    # cold: right after emptying the cache, so the allocator's cudaMalloc
+    # calls fall inside it; then warm, as the main-* runs are timed
+    cold_ms, out = cuda_ms(run)
+    del out
+    say(phase, f"cold run {cold_ms:.1f} ms (right after emptying the "
+        f"allocator's cache: its device allocations inside) [{smi}]")
+    ms, out = cuda_ms(run)
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
     state = out[0]
     del out
@@ -1493,9 +1658,7 @@ def phase_sharded_acoustic(fc, smi, kept, tb_ms):
     spec, args, dom = next(c for c in captured if c is not None)
     del captured
     k_ms, lo, hi, _ = time_kernel(spec, physics, args, dom=dom)
-    err, rel, _ = compare_kernel(spec, physics, args, dom=dom)
-    plain_ms, _ = cuda_ms(lambda: ker.tb_time_tile_plain(spec, physics,
-                                                         *args, dom=dom))
+    err, rel, _, plain_ms = compare_kernel(spec, physics, args, dom=dom)
     rows = args[0][0].shape[0]
     seq_ms = 0.0
     for k in range(rows):
@@ -1505,10 +1668,10 @@ def phase_sharded_acoustic(fc, smi, kept, tb_ms):
         seq_ms += time_kernel(spec, physics, one, dom=dom[k:k + 1])[0]
     cost = ker.kernel_cost(spec, physics, shots=rows, shard_rows=True)
     bound, by = bound_of(cost)
-    say(phase, f"run {ms:.1f} ms = {ms / launches:.3f} ms per time tile "
-        f"(single-device TB run {tb_ms:.1f} ms), peak {peak:.2f} GiB; one "
-        f"deep exchange (CUDA events, mean of 5) {ex_ms:.3f} ms a tile, a "
-        f"device-local copy [{smi}]")
+    say(phase, f"warm run {ms:.1f} ms = {ms / launches:.3f} ms per time "
+        f"tile (single-device TB run {tb_ms:.1f} ms), peak {peak:.2f} GiB; "
+        f"one deep exchange (CUDA events, mean of 5) {ex_ms:.3f} ms a tile, "
+        f"a device-local copy [{smi}]")
     say(phase, f"kernel B1c, {rows} shard rows at grid ({spec.nx}, "
         f"{spec.ny}, {spec.nz}) + halo {spec.halo}, tile {spec.tile}: "
         f"{k_ms:.3f} ms per launch (median of 3 means of 5; least {lo:.3f}, "
@@ -1558,7 +1721,8 @@ def phase_sharded_small(smi, dev):
     512^3 paths already run) and the acoustic schedules at 128^3 on the
     2x2 mesh, each against its own single-device TB run."""
     for name in ("tti", "elastic"):
-        fc = full_case(name, dev, shape=SHARDED_SMALL_SHAPE)
+        fc = full_case(name, dev, shape=SHARDED_SMALL_SHAPE,
+                       time_ms=REDUCED_TIME_MS)
         single = fc.run(plan_for(fc.physics, T_TB))
         single_ms, _ = cuda_ms(lambda: fc.run(plan_for(fc.physics, T_TB)))
         say(f"sharded-small-{name}", f"single-device TB run {single_ms:.1f} "
@@ -1568,7 +1732,8 @@ def phase_sharded_small(smi, dev):
                                   fc.spacing, dev), smi)
         del fc, single
         torch.cuda.empty_cache()
-    fc = full_case("acoustic", dev, shape=NESTED_SHAPE)
+    fc = full_case("acoustic", dev, shape=NESTED_SHAPE,
+                   time_ms=REDUCED_TIME_MS)
     single = fc.run(plan_for(fc.physics, T_TB))
     args = (fc.physics, NESTED_SHAPE, fc.dt, fc.spacing, dev)
     px, py = MESH
@@ -1600,10 +1765,11 @@ def phase_survey_sharded(smi, dev):
     """`SurveyEngine.run_sharded` for 2 shots at 128^3 on the 2x2 mesh
     against `run` (the batched single-device route)."""
     phase = "survey-sharded"
-    fc = full_case("acoustic", dev, shape=NESTED_SHAPE)
+    fc = full_case("acoustic", dev, shape=NESTED_SHAPE,
+                   time_ms=REDUCED_TIME_MS)
     h = fc.spacing[0]
     grid = Grid(shape=NESTED_SHAPE, spacing=fc.spacing)
-    wav = S.ricker_wavelet(fc.nt, fc.dt, F0)
+    wav = S.ricker_wavelet(fc.nt, fc.dt, fc.case.f0)
     rec = receiver_line(NESTED_SHAPE) * h
     shots = [Shot(src_coords=source_point(NESTED_SHAPE, x) * h, wavelet=wav,
                   rec_coords=rec, shot_id=i)
@@ -2158,19 +2324,32 @@ def serve_f32_checks(cfg, toks, max_len, dev, phase):
 
 
 def run_path(name, smi, dev):
-    """One main path; returns (its kernel entry, its TB run's ms, and for
-    acoustic the sharded path's and the bf16 tile's kernel entries)."""
+    """One main path; returns (its kernel entry, its TB run's ms, for
+    acoustic the sharded path's and the bf16 tile's kernel entries, and
+    its order-4 case's record for the nine-case summary)."""
     fc = full_case(name, dev)
-    state, launches, tb_ms, kept = phase_main_path(fc, smi)
+    state, launches, tb_ms, kept, peak = timed(f"main-{name}",
+                                               phase_main_path, fc, smi)
     extra = []
     if kept is not None:
-        extra.append(phase_sharded_acoustic(fc, smi, (state, *kept), tb_ms))
+        extra.append(timed("sharded-acoustic", phase_sharded_acoustic, fc,
+                           smi, (state, *kept), tb_ms))
         del kept
         torch.cuda.empty_cache()
-    phase_sb(fc, smi, tb_ms, state)
-    entry = kernel_entry(fc, state, launches, tb_ms, smi)
+    sb_ms = timed(f"sb-{name}", phase_sb, fc, smi, tb_ms, state)
+    entry = timed(f"kernels-{name}", kernel_entry, fc, state, launches,
+                  tb_ms, smi)
+    record = {"case": fc.case.name, "physics": name, "order": ORDER,
+              "nt": fc.nt, "tile": list(TILE), "T": T_TB,
+              "schedule": entry["schedule"],
+              "TB": {"ms": tb_ms, "launches": launches,
+                     "kernel_ms": entry["ms"], "bound_ms": entry["bound_ms"],
+                     "bound_by": entry["bound_by"], "peak_gib": peak},
+              "SB": {"ms": sb_ms, "launches": fc.nt},
+              "TB/SB": tb_ms / sb_ms}
     if name == "acoustic":
-        extra.append(phase_main_bf16(fc, smi, state, tb_ms))
+        extra.append(timed("main-acoustic-bf16", phase_main_bf16, fc, smi,
+                           state, tb_ms))
         torch.cuda.empty_cache()
     # the batched kernel at the main path's shapes, B = 2: the live state
     # and, as a null shot, a copy shifted along x.  Its operands go into
@@ -2187,36 +2366,71 @@ def run_path(name, smi, dev):
         (fc.nt // T_TB // 2) * T_TB)
     del state
     torch.cuda.empty_cache()     # a 512^3 elastic batch needs 48 GB at once
-    phase_batched_main(fc, spec, args, smi)
+    timed(f"kernels-batched-{name}", phase_batched_main, fc, spec, args,
+          smi)
     del fc, spec, args
     torch.cuda.empty_cache()          # the next path's fields are larger
-    return entry, tb_ms, extra
+    return entry, tb_ms, extra, record
+
+
+SECONDS = {}                          # phase -> seconds
+
+
+def timed(phase, fn, *args):
+    """fn(*args), its seconds kept in SECONDS and printed."""
+    t0 = time.perf_counter()
+    out = fn(*args)
+    SECONDS[phase] = time.perf_counter() - t0
+    say("time", f"{phase} {SECONDS[phase]:.1f} s")
+    return out
+
+
+def say_paper_table(records, smi):
+    """The nine paper cases, TB against SB, one line each."""
+    for r in sorted(records, key=lambda r: (r["physics"], r["order"])):
+        tb, sb = r["TB"], r["SB"]
+        say("paper", f"{r['case']}: nt {r['nt']}, tile {tuple(r['tile'])} "
+            f"T={r['T']} ({r['schedule']}), {tb['launches']} launches, TB "
+            f"{tb['ms']:.1f} ms, SB {sb['ms']:.1f} ms, TB/SB "
+            f"{r['TB/SB']:.3f}; kernel {tb['kernel_ms']:.3f} ms per launch "
+            f"vs bound {tb['bound_ms']:.3f} ms by {tb['bound_by']}; peak "
+            f"{tb['peak_gib']:.2f} GiB [{smi}]")
+    print(json.dumps({"paper_cases": records}), flush=True)
 
 
 def main():
+    t_start = time.perf_counter()
     smi = phase_environment()
     dev = torch.device("cuda", 0)
-    phase_build()
-    phase_kernel_vs_plain(dev)
-    phase_kernel_vs_plain_edges(dev)
-    phase_kernels_batched(dev)
-    phase_kernel_vs_plain_dom(dev)
-    phase_kernel_vs_plain_bf16(dev)
+    timed("build", phase_build)
+    timed("kernel-vs-plain", phase_kernel_vs_plain, dev)
+    timed("kernel-vs-plain-edges", phase_kernel_vs_plain_edges, dev)
+    timed("kernels-batched", phase_kernels_batched, dev)
+    timed("kernel-vs-plain-dom", phase_kernel_vs_plain_dom, dev)
+    timed("kernel-vs-plain-bf16", phase_kernel_vs_plain_bf16, dev)
     say("kernel-vs-plain", f"launches held against the plain version by "
         f"schedule (acoustic, TTI, elastic): {COMPARED}")
-    b2 = phase_kernel_vs_plain_ssd(dev, smi)
-    phase_serve_mamba2(dev, smi, b2)
-    entries, tb_ms, extra = [], {}, []
+    b2 = timed("kernel-vs-plain-ssd", phase_kernel_vs_plain_ssd, dev, smi)
+    timed("serve-mamba2", phase_serve_mamba2, dev, smi, b2)
+    entries, tb_ms, extra, paper = [], {}, [], []
     for name in ("acoustic", "tti", "elastic"):
-        entry, tb_ms[name], more = run_path(name, smi, dev)
+        entry, tb_ms[name], more, record = run_path(name, smi, dev)
         entries.append(entry)
         extra += more
-    entries.append(phase_survey_acoustic(smi, dev, tb_ms["acoustic"]))
-    phase_survey_tti(smi, dev, tb_ms["tti"])
-    entries += phase_survey_small(smi, dev)
+        paper.append(record)
+    for name, order in PAPER_EXTRA:
+        paper.append(timed(f"paper-{name}-O{order}", phase_paper_case, name,
+                           order, smi, dev))
+    say_paper_table(paper, smi)
+    entries.append(timed("survey-acoustic", phase_survey_acoustic, smi, dev,
+                         tb_ms["acoustic"]))
+    timed("survey-tti", phase_survey_tti, smi, dev, tb_ms["tti"])
+    entries += timed("survey-small", phase_survey_small, smi, dev)
     entries += extra + [b2]
-    phase_sharded_small(smi, dev)
-    phase_survey_sharded(smi, dev)
+    timed("sharded-small", phase_sharded_small, smi, dev)
+    timed("survey-sharded", phase_survey_sharded, smi, dev)
+    say("time", f"total {time.perf_counter() - t_start:.1f} s: " + ", ".join(
+        f"{k} {v:.1f}" for k, v in SECONDS.items()))
     print(json.dumps({"kernels": entries}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

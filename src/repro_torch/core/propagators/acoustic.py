@@ -16,8 +16,10 @@ from __future__ import annotations
 import math
 from typing import NamedTuple, Optional, Tuple
 
+import numpy as np
 import torch
 
+from repro_torch._device import resolve_device
 from repro_torch.core import sources as src_mod
 from repro_torch.core import stencil as st
 from repro_torch.core.grid import Grid
@@ -33,6 +35,15 @@ class AcousticParams(NamedTuple):
 class AcousticState(NamedTuple):
     u: torch.Tensor       # u[t]
     u_prev: torch.Tensor  # u[t-1]
+
+
+def init_state(shape: Tuple[int, ...], dtype=torch.float32,
+               device="cuda") -> AcousticState:
+    """Zero fields on `device` (default ``"cuda"``, which raises without a
+    card; pass ``"cpu"`` to build them on the CPU)."""
+    dev = resolve_device(device)
+    return AcousticState(*(torch.zeros(shape, dtype=dtype, device=dev)
+                           for _ in range(2)))
 
 
 def update_terms(u: torch.Tensor, u_prev: torch.Tensor, m: torch.Tensor,
@@ -70,27 +81,37 @@ def injection_scale(m: torch.Tensor, g: src_mod.GriddedSources,
 
 def step(state: AcousticState, t: int, params: AcousticParams,
          g: Optional[src_mod.GriddedSources], dt: float,
-         spacing: Tuple[float, ...], order: int) -> AcousticState:
-    """Stencil update + grid-aligned injection (`sources.inject`) for
-    timestep `t`."""
+         spacing: Tuple[float, ...], order: int,
+         inject_fn=None) -> AcousticState:
+    """Stencil update + grid-aligned injection for timestep `t`.
+
+    `inject_fn(u_next, t)` defaults to the scatter form (`sources.inject`);
+    the z-compressed form (`sources.inject_zcompressed`) is a drop-in
+    equivalent (tested).
+    """
     u_next = stencil_update(state, params, dt, spacing, order)
     if g is not None:
-        scale = injection_scale(params.m, g, dt)
-        u_next = src_mod.inject(u_next, g, t, scale=scale)
+        if inject_fn is None:
+            scale = injection_scale(params.m, g, dt)
+            u_next = src_mod.inject(u_next, g, t, scale=scale)
+        else:
+            u_next = inject_fn(u_next, t)
     return AcousticState(u=u_next, u_prev=state.u)
 
 
 def propagate(nt: int, state: AcousticState, params: AcousticParams,
               g: Optional[src_mod.GriddedSources], dt: float, grid: Grid,
               order: int,
-              receivers: Optional[src_mod.GriddedReceivers] = None):
+              receivers: Optional[src_mod.GriddedReceivers] = None,
+              inject_fn=None):
     """Listing-1 reference driver: loop over timesteps, interpolate receivers.
 
     Returns (final_state, rec) with rec (nt, nrec) or None.
     """
     recs = []
     for t in range(nt):
-        state = step(state, t, params, g, dt, grid.spacing, order)
+        state = step(state, t, params, g, dt, grid.spacing, order,
+                     inject_fn=inject_fn)
         if receivers is not None:
             recs.append(src_mod.interpolate(state.u, receivers))
     if receivers is None:
@@ -101,8 +122,19 @@ def propagate(nt: int, state: AcousticState, params: AcousticParams,
     return state, torch.stack(recs)
 
 
+def max_velocity(params: AcousticParams) -> float:
+    """sqrt(1 / min m), in m's dtype as the reference computes it."""
+    return float(np.sqrt(1.0 / params.m.min().cpu().numpy()))
+
+
 def model_flops_per_step(shape: Tuple[int, ...], order: int) -> int:
     """FLOPs of one acoustic timestep as the reference counts them: the
     Laplacian plus 9 for the update formula."""
     return math.prod(shape) * (st.stencil_flops_per_point(order, len(shape))
                                + 9)
+
+
+def hbm_bytes_per_step(shape: Tuple[int, ...], dtype_bytes: int = 4) -> int:
+    """Minimum device-memory traffic per step without temporal blocking:
+    read u, u_prev, m, damp; write u+ (5 fields)."""
+    return math.prod(shape) * dtype_bytes * 5

@@ -68,12 +68,30 @@ def _rotated_dirs(params: TTIParams):
     return dx_w, dy_w, dz_w
 
 
-def _dir_derivative(u, w3, spacing, order):
+def _combine(w3, derivs):
+    """sum over axes of w * d, in axis order."""
     out = None
-    for ax, (wd, h) in enumerate(zip(w3, spacing)):
-        term = wd * st.first_derivative(u, ax, h, order)
+    for wd, d in zip(w3, derivs):
+        term = wd * d
         out = term if out is None else out + term
     return out
+
+
+def _dir_derivative(u, w3, spacing, order):
+    return _combine(w3, (st.first_derivative(u, ax, h, order)
+                         for ax, h in enumerate(spacing)))
+
+
+def _second_derivatives(u, dirs, spacing, order, mask_fn=None):
+    """The rotated second derivatives of `u` along each direction of
+    `dirs`: the outer directional derivative of the (masked) inner one.
+    The inner pass's three axis derivatives of `u` serve every direction
+    (the reference computes them once a direction: the same values)."""
+    mask = (lambda a: a) if mask_fn is None else mask_fn
+    du = [st.first_derivative(u, ax, h, order)
+          for ax, h in enumerate(spacing)]
+    return [_dir_derivative(mask(_combine(w, du)), w, spacing, order)
+            for w in dirs]
 
 
 def rotated_laplacians(u: torch.Tensor, params: TTIParams,
@@ -85,14 +103,8 @@ def rotated_laplacians(u: torch.Tensor, params: TTIParams,
     before the outer pass reads it: the TB driver passes a domain mask that
     re-zeroes the inner field on a window's out-of-domain rim.
     """
-    dx_w, dy_w, dz_w = _rotated_dirs(params)
-    mask = (lambda a: a) if mask_fn is None else mask_fn
-    gxx = _dir_derivative(mask(_dir_derivative(u, dx_w, spacing, order)),
-                          dx_w, spacing, order)
-    gyy = _dir_derivative(mask(_dir_derivative(u, dy_w, spacing, order)),
-                          dy_w, spacing, order)
-    gzz = _dir_derivative(mask(_dir_derivative(u, dz_w, spacing, order)),
-                          dz_w, spacing, order)
+    gxx, gyy, gzz = _second_derivatives(u, _rotated_dirs(params), spacing,
+                                        order, mask_fn)
     return gxx + gyy, gzz
 
 
@@ -104,10 +116,13 @@ def stencil_update(state: TTIState, params: TTIParams, dt: float,
     p, p_prev, r, r_prev = state
     dt = st.round_to(dt, p.dtype)
     dt2 = st.round_to(dt * dt, p.dtype)
-    h0_p, hz_p = rotated_laplacians(p, params, spacing, order,
-                                    mask_fn=mask_fn)
-    h0_r, hz_r = rotated_laplacians(r, params, spacing, order,
-                                    mask_fn=mask_fn)
+    # the update reads H0(p) and Hz(r) only: Hz(p) and H0(r), which the
+    # reference's compiler drops unread, are not computed
+    dx_w, dy_w, dz_w = _rotated_dirs(params)
+    gxx, gyy = _second_derivatives(p, (dx_w, dy_w), spacing, order,
+                                   mask_fn)
+    h0_p = gxx + gyy
+    hz_r, = _second_derivatives(r, (dz_w,), spacing, order, mask_fn)
     e_fac = 1.0 + 2.0 * params.epsilon
     d_fac = torch.sqrt(1.0 + 2.0 * params.delta)
     den = params.m + params.damp * dt
@@ -172,5 +187,6 @@ def model_flops_per_step(shape: Tuple[int, ...], order: int) -> int:
 def needed_flops_per_step(shape: Tuple[int, ...], order: int) -> int:
     """The operations the update's output needs: Gxx(p), Gyy(p), Gzz(r)
     and the pointwise terms.  `model_flops_per_step` also prices Gzz(p) and
-    Gxx(r) + Gyy(r), which `stencil_update` computes and discards."""
+    Gxx(r) + Gyy(r), which the reference's `stencil_update` computes and
+    its compiler drops (this port's does not compute them)."""
     return int(np.prod(shape)) * (3 * _flops_per_g(order) + _POINTWISE_FLOPS)

@@ -5,7 +5,10 @@ scheme (port of `repro.core.sources`, paper §II).
      `affected_points` / `affected_points_by_injection`;
   2. the binary source mask ``SM`` and unique-ID volume ``SID`` (Fig. 5b/5c);
   3. the per-affected-point wavelets ``src_dcmp`` (Listing 3, Fig. 5d);
-  4. the fused grid-aligned injection (Listing 4) — `inject`;
+  4. the fused grid-aligned injection (Listing 4) — `inject`, and its
+     dense form `dense_increment`;
+  5. the z-compressed iteration space (Listing 5, Fig. 6) — `z_compress`,
+     `inject_zcompressed`;
   plus the per-(x, y)-tile source/receiver tables the TB kernel consumes
   (`tile_source_tables`, `tile_receiver_tables`).
 
@@ -205,6 +208,85 @@ def inject(u: torch.Tensor, g: GriddedSources, t: int,
 def point_scale(field: torch.Tensor, g: GriddedSources) -> torch.Tensor:
     """Gather a per-grid-point factor (e.g. m) at the affected points."""
     return field[tuple(g.points.long().T)]
+
+
+def dense_increment(g: GriddedSources, t: int, shape: Tuple[int, ...],
+                    dtype=torch.float32) -> torch.Tensor:
+    """The full-grid injection increment for timestep `t` — the SM/SID-
+    masked read the fused loop in Listing 4 performs:
+    ``SM[p] ? src_dcmp[t, SID[p]] : 0``, on the sources' device.  Used by
+    oracles and tests; the production paths use `inject` (scatter) or the
+    per-tile tables."""
+    vals = g.src_dcmp[t]
+    dev = vals.device
+    safe_sid = torch.as_tensor(np.maximum(g.sid, 0), device=dev).long()
+    sm = torch.as_tensor(g.sm, device=dev).to(dtype)
+    return (vals[safe_sid] * sm).reshape(shape).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Step 5 (Listing 5 / Fig. 6): reduced iteration space along z
+# ---------------------------------------------------------------------------
+
+class ZCompressed(NamedTuple):
+    """The paper's nnz_mask / Sp_SID compression of SM/SID along z.
+
+    nnz_mask: (nx, ny) int32 — number of affected z's per column (Fig. 6).
+    sp_z:     (nx, ny, max_nnz) int32 — packed z indices (padded with -1).
+    sp_sid:   (nx, ny, max_nnz) int32 — packed SIDs (padded with -1).
+    """
+
+    nnz_mask: torch.Tensor
+    sp_z: torch.Tensor
+    sp_sid: torch.Tensor
+
+    @property
+    def max_nnz(self) -> int:
+        return self.sp_z.shape[-1]
+
+
+def z_compress(g: GriddedSources) -> ZCompressed:
+    """Aggregate non-zeros along z, cutting off all-zero z-slices
+    (§II.A.5).  Built in numpy from SM/SID, as the reference builds it;
+    the tables land on the sources' device."""
+    sm, sid = g.sm, g.sid
+    if sm.ndim != 3:
+        raise ValueError("z-compression is defined for 3-D grids")
+    nx, ny, nz = sm.shape
+    nnz = sm.astype(np.int32).sum(axis=2, dtype=np.int32)
+    max_nnz = max(int(nnz.max()), 1)
+    sp_z = np.full((nx, ny, max_nnz), -1, np.int32)
+    sp_sid = np.full((nx, ny, max_nnz), -1, np.int32)
+    xs, ys = np.nonzero(nnz)
+    for x, y in zip(xs, ys):
+        zz = np.nonzero(sm[x, y])[0]
+        sp_z[x, y, :zz.size] = zz
+        sp_sid[x, y, :zz.size] = sid[x, y, zz]
+    dev = g.src_dcmp.device
+    return ZCompressed(*(torch.as_tensor(a, device=dev)
+                         for a in (nnz, sp_z, sp_sid)))
+
+
+def inject_zcompressed(u: torch.Tensor, g: GriddedSources, zc: ZCompressed,
+                       t: int,
+                       scale: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Listing-5 semantics: iterate only the packed non-zero z entries,
+    IN PLACE as `inject`.  Vectorized over the packed slots; padding slots
+    (sid == -1) contribute 0.  Equivalent to `inject` (tested).  Returns
+    `u`."""
+    vals = g.src_dcmp[t]
+    if scale is not None:
+        vals = vals * scale
+    nx, ny, k = zc.sp_sid.shape
+    dev = zc.sp_sid.device
+    valid = zc.sp_sid >= 0
+    inc = torch.where(valid, vals[zc.sp_sid.clamp(min=0).long()],
+                      torch.zeros((), dtype=vals.dtype, device=dev))
+    xi = torch.arange(nx, device=dev)[:, None, None].expand(nx, ny, k)
+    yi = torch.arange(ny, device=dev)[None, :, None].expand(nx, ny, k)
+    zi = zc.sp_z.clamp(min=0).long()
+    return u.index_put_((xi.reshape(-1), yi.reshape(-1), zi.reshape(-1)),
+                        inc.reshape(-1).to(u.dtype), accumulate=True)
 
 
 # ---------------------------------------------------------------------------

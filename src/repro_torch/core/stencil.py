@@ -76,6 +76,10 @@ def staggered_first_derivative_weights(order: int
     return offs, fd_weights(tuple(offs), 1)
 
 
+def radius(order: int) -> int:
+    return order // 2
+
+
 def round_to(x: float, dtype: torch.dtype) -> float:
     """`x` rounded to `dtype`, as a Python float that holds it exactly —
     the torch counterpart of ``jnp.asarray(x, dtype)`` for a constant."""

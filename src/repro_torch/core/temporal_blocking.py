@@ -1,7 +1,8 @@
 """Temporal blocking plans and their cost model (port of
-`repro.core.temporal_blocking`: `TBPlan`, `SweepLog`, `autotune_plan`,
-`PhysicsCost`, `PHYSICS_COSTS`, `plan_for_physics`, `HierPlan`,
-`plan_hierarchy`, and the pass geometry the time-nested terms price).
+`repro.core.temporal_blocking`: `TimeTileSchedule`, `tiled_propagate`,
+`TBPlan`, `SweepLog`, `autotune_plan`, `PhysicsCost`, `PHYSICS_COSTS`,
+`plan_for_physics`, `HierPlan`, `plan_hierarchy`, and the pass geometry
+the time-nested terms price).
 
 The model prices a depth-T trapezoidal time tile per grid-point-step:
 
@@ -25,6 +26,9 @@ from __future__ import annotations
 import dataclasses
 import math
 from typing import Callable, List, NamedTuple, Optional, Tuple
+
+import numpy as np
+import torch
 
 
 class TBPassGeom(NamedTuple):
@@ -68,6 +72,59 @@ def nested_pass_geometry(block: Tuple[int, int], tile: Tuple[int, int],
             include_halo=Tp > 1))
         done += Tp
     return geoms
+
+
+@dataclasses.dataclass(frozen=True)
+class TimeTileSchedule:
+    """nt timesteps split into ceil(nt/T) tiles of depth <= T."""
+
+    nt: int
+    T: int
+
+    def __post_init__(self):
+        if self.T < 1:
+            raise ValueError("time tile depth must be >= 1")
+
+    @property
+    def num_tiles(self) -> int:
+        return -(-self.nt // self.T)
+
+    @property
+    def padded_nt(self) -> int:
+        return self.num_tiles * self.T
+
+    def tile_starts(self) -> np.ndarray:
+        return np.arange(self.num_tiles) * self.T
+
+
+def tiled_propagate(step_fn: Callable, nt: int, T: int, state,
+                    per_step_out: Callable = None):
+    """Run `state = step_fn(state, t)` for t in [0, nt) in depth-T time tiles
+    (the reference's two nested `lax.scan`s as Python loops).
+
+    `per_step_out(state, t)` optionally collects a per-timestep output (a
+    tensor or a tuple of them, e.g. receiver samples).  The last tile's
+    padded steps (t >= nt) leave the state as it is and output nothing, as
+    the reference's masked steps do, so results are independent of T;
+    `step_fn` is not called there (a source has no wavelet sample at
+    t >= nt).  Returns (final_state, outs) with outs stacked over the
+    steps (the padded time axis truncated to nt), or None.
+    """
+    sched = TimeTileSchedule(nt, T)
+    outs = []
+    for t0 in sched.tile_starts():
+        for t in range(int(t0), min(int(t0) + T, nt)):
+            state = step_fn(state, t)
+            if per_step_out is not None:
+                outs.append(per_step_out(state, t))
+    if per_step_out is None or not outs:
+        return state, None
+    if isinstance(outs[0], torch.Tensor):
+        return state, torch.stack(outs)
+    stacked = [torch.stack(o) for o in zip(*outs)]
+    kind = type(outs[0])
+    return state, kind(*stacked) if hasattr(kind, "_fields") else \
+        kind(stacked)
 
 
 @dataclasses.dataclass(frozen=True)

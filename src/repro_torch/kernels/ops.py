@@ -155,24 +155,30 @@ def tile_operands(spec: ker.TBKernelSpec, state, src_dcmp, src_tab,
 
 
 def _run_time_tile(spec: ker.TBKernelSpec, physics: phys.TBPhysics,
-                   state, param_pads, src_dcmp, src_tab, rec_tab, t0: int,
-                   nrec: int, executor: str, param_copies=None,
+                   carry: list, param_pads, src_dcmp, src_tab, rec_tab,
+                   t0: int, nrec: int, executor: str, param_copies=None,
                    scratch=None):
+    """One time tile from the state in `carry`, a one-element list that is
+    emptied once the state is zero-padded: the launch then does not hold
+    the unpadded state beside its padded copy and its outputs (the
+    caller's first state stays, held by the caller)."""
     # a no-op unless telemetry is enabled; names the region on a
     # torch.profiler timeline and records its host (enqueue) time
     with _spans.annotate("ops.tile_pass", T=spec.T, tile=spec.tile,
                          executor=executor):
+        state = carry.pop()
+        B, dev = state[0].shape[0], state[0].device
         state_pads, s_coords, s_vals, r_coords, r_w = tile_operands(
             spec, state, src_dcmp, src_tab, rec_tab, t0)
+        del state
         new_state, rec_part = EXECUTORS[executor](
             spec, physics, state_pads, param_pads, s_coords, s_vals,
             r_coords, r_w, param_copies=param_copies, scratch=scratch)
         if rec_tab is not None:
             rec = combine_rec_partials(rec_part, rec_tab, nrec)
         else:
-            rec = torch.zeros((state[0].shape[0], spec.T, 0,
-                               physics.rec_channels), dtype=spec.dtype,
-                              device=state[0].device)
+            rec = torch.zeros((B, spec.T, 0, physics.rec_channels),
+                              dtype=spec.dtype, device=dev)
     return new_state, rec
 
 
@@ -268,10 +274,11 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
     `rparam_copies` are the kernel's copies of the param pads for `spec` /
     `rspec` (`stencil_tb.param_copies`): a caller that runs many
     propagations on one model makes them once; otherwise they are made
-    here, once for the loop.  `scratch` is the kernel's working memory for
-    both tiles (`stencil_tb.make_scratch`), which a survey engine owns;
-    otherwise it is made here before the first launch and freed with the
-    loop.
+    here, once for the loop, the remainder's after the main tiles' are
+    let go.  `scratch` is the kernel's working memory for both tiles
+    (`stencil_tb.make_scratch`), which a survey engine owns; otherwise it
+    is made here before the first launch and freed with the loop.
+    `propagation_bytes` counts what a propagation holds at its peak.
 
     Returns (final state tuple (B, nx, ny, nz) each, recs
     (B, nt, nrec, rec_channels)); recs are shaped (B, nt, 0, chan) when no
@@ -284,30 +291,66 @@ def tb_propagate_prepared(physics: phys.TBPhysics, nt: int,
                          f"{'a' if rem else 'no'} remainder spec")
     if executor == "cuda" and param_copies is None and n_main:
         param_copies = ker.param_copies(spec, physics, param_pads)
-    if executor == "cuda" and rparam_copies is None and rem:
-        rparam_copies = ker.param_copies(rspec, physics, rparam_pads)
     if executor == "cuda" and scratch is None and (n_main or rem):
         scratch = ker.make_scratch((spec if n_main else None, rspec),
                                    physics, state[0].shape[0],
                                    state[0].device)
-    carry = tuple(state)
+    carry = [tuple(state)]
     recs = []
     for i in range(n_main):
-        carry, rec = _run_time_tile(spec, physics, carry, param_pads,
-                                    src_dcmp, src_tab, rec_tab, i * spec.T,
-                                    nrec, executor, param_copies, scratch)
+        new, rec = _run_time_tile(spec, physics, carry, param_pads,
+                                  src_dcmp, src_tab, rec_tab, i * spec.T,
+                                  nrec, executor, param_copies, scratch)
+        carry.append(new)
         recs.append(rec)
+        del new                       # the carry holds the only reference
     if rem > 0:
-        carry, rec = _run_time_tile(rspec, physics, carry, rparam_pads,
-                                    src_dcmp, rsrc_tab, rrec_tab,
-                                    n_main * spec.T, nrec, executor,
-                                    rparam_copies, scratch)
+        param_copies = None
+        if executor == "cuda" and rparam_copies is None:
+            rparam_copies = ker.param_copies(rspec, physics, rparam_pads)
+        new, rec = _run_time_tile(rspec, physics, carry, rparam_pads,
+                                  src_dcmp, rsrc_tab, rrec_tab,
+                                  n_main * spec.T, nrec, executor,
+                                  rparam_copies, scratch)
+        carry.append(new)
         recs.append(rec)
     if not recs:
-        return carry, torch.zeros((state[0].shape[0], 0, nrec,
-                                   physics.rec_channels), dtype=spec.dtype,
-                                  device=state[0].device)
-    return carry, torch.cat(recs, dim=1)
+        return carry[0], torch.zeros((state[0].shape[0], 0, nrec,
+                                      physics.rec_channels),
+                                     dtype=spec.dtype,
+                                     device=state[0].device)
+    return carry[0], torch.cat(recs, dim=1)
+
+
+def propagation_bytes(physics: phys.TBPhysics, shape: Tuple[int, int, int],
+                      nt: int, plan: TBPlan, order: int,
+                      dtype=torch.float32) -> int:
+    """Device bytes a single-shot propagation (`_tb_propagate` on the
+    ``"cuda"`` executor) holds at its peak, from sizes: the state it is
+    given and the params, the edge-padded params of the main and the
+    remainder tile, the kernel's scratch (one block for both,
+    `stencil_tb.make_scratch`) and, during the larger of the two tiles,
+    the kernel's copies of that tile's params, the zero-padded state and
+    the launch's outputs.  The tables and the receiver partials' caps
+    (a few MB) are left out.  The grid fits the card when this is below
+    its free memory."""
+    nx, ny, nz = shape
+    item = torch.tensor([], dtype=dtype).element_size()
+    ns, npar = len(physics.state_fields), len(physics.param_fields)
+    specs = [make_spec(shape, dataclasses.replace(plan, T=T), order, 1.0,
+                       (1.0,) * 3, 1, 1, dtype, physics)
+             for T in ((plan.T,) if nt >= plan.T else ()) + (
+                 (nt % plan.T,) if nt % plan.T else ())]
+
+    def padded(s):
+        return (nx + 2 * s.halo) * (ny + 2 * s.halo) * nz * item
+
+    scratch = max(ker.scratch_bytes(s, physics, 1) for s in specs)
+    held = (ns + npar) * nx * ny * nz * item + scratch
+    held += sum(npar * padded(s) for s in specs)
+    return held + max(ker.launch_shared_bytes(s, physics) + ns * padded(s)
+                      + ker.launch_bytes(s, physics)
+                      - ker.scratch_bytes(s, physics, 1) for s in specs)
 
 
 def _tb_propagate(physics: phys.TBPhysics, nt: int,

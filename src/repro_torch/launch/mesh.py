@@ -1,6 +1,5 @@
-"""Shard meshes for the sharded layer (port of `repro.launch.mesh`'s
-`make_xy_mesh`; `make_production_mesh` and the multi-pod dry-run are not
-ported yet).
+"""Shard meshes for the sharded layer (port of `repro.launch.mesh`:
+`make_production_mesh`, `make_mesh`, `make_host_mesh`, `make_xy_mesh`).
 
 The reference runs one program over a JAX device mesh (`shard_map`), one
 shard a device.  The port is single-controller too: one process holds
@@ -8,6 +7,8 @@ every shard as a tensor on its mesh device, and a neighbour exchange is a
 copy between shard tensors.  `ShardMesh` maps shard (i, j) of a
 (px, py) grid to ``devices[(i * py + j) % len(devices)]``: with one card
 every shard sits on it, with several the same code copies between cards.
+A mesh on the ``meta`` device holds shapes only: the production meshes
+of a dry run, built without a card.
 """
 from __future__ import annotations
 
@@ -18,32 +19,41 @@ import torch
 from repro_torch._device import resolve_device
 
 
+def _mesh_device(d) -> torch.device:
+    dev = torch.device(d)
+    return dev if dev.type == "meta" else resolve_device(dev)
+
+
 class ShardMesh:
-    """A (px, py) grid of shards over `devices`; grid x is the first axis
-    ("data"), grid y the second ("model").
+    """A (px, py) grid of shards over `devices`; grid x is the
+    second-to-last axis ("data"), grid y the last ("model").  Leading
+    axes (the multi-pod mesh's "pod") hold copies of that grid: the
+    stencil's sharded layer decomposes its grid over the last two only.
 
     `exchange_rounds` counts the 2-D halo exchanges of one field each
     (`distributed.halo.halo_exchange_2d`) run for this mesh; set it to 0
     before a counted run.
     """
 
-    def __init__(self, shape: Tuple[int, int],
-                 axes: Tuple[str, str] = ("data", "model"),
+    def __init__(self, shape: Tuple[int, ...],
+                 axes: Tuple[str, ...] = ("data", "model"),
                  devices: Sequence = ("cuda",)):
-        if len(shape) != 2 or min(shape) < 1:
-            raise ValueError(f"mesh shape {shape} must be two counts >= 1")
-        if len(axes) != 2:
-            raise ValueError(f"mesh axes {axes} must name the two grid axes")
+        if len(shape) < 2 or min(shape) < 1:
+            raise ValueError(f"mesh shape {shape} must be two or more "
+                             "counts >= 1")
+        if len(axes) != len(shape):
+            raise ValueError(f"mesh axes {axes} must name each of the "
+                             f"{len(shape)} axes of {shape}")
         if not devices:
             raise ValueError("a mesh needs at least one device")
-        self.shape = {axes[0]: int(shape[0]), axes[1]: int(shape[1])}
+        self.shape = {a: int(n) for a, n in zip(axes, shape)}
         self.axes = tuple(axes)
-        self.devices = tuple(resolve_device(d) for d in devices)
+        self.devices = tuple(_mesh_device(d) for d in devices)
         self.exchange_rounds = 0
 
     @property
     def pgrid(self) -> Tuple[int, int]:
-        return self.shape[self.axes[0]], self.shape[self.axes[1]]
+        return self.shape[self.axes[-2]], self.shape[self.axes[-1]]
 
     @property
     def size(self) -> int:
@@ -67,6 +77,38 @@ class ShardMesh:
                 f"devices={[str(d) for d in self.devices]})")
 
 
+def mesh_devices(device="cuda") -> List[torch.device]:
+    """The devices a mesh spreads its shards over: every visible card for
+    ``cuda``, else the one device named."""
+    dev = resolve_device(device)
+    if dev.type == "cuda" and dev.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [dev]
+
+
+def make_production_mesh(*, multi_pod: bool = False,
+                         devices: Sequence = ("meta",)) -> ShardMesh:
+    """16x16 = 256 shards a pod; multi_pod adds a leading pod=2 axis (512).
+    On the ``meta`` device by default: a shape-only mesh, which a dry run
+    builds without a card (one process cannot hold 256 cards' shards)."""
+    shape = (2, 16, 16) if multi_pod else (16, 16)
+    axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    return make_mesh(shape, axes, devices)
+
+
+def make_mesh(shape, axes, devices: Sequence = ("cuda",)) -> ShardMesh:
+    return ShardMesh(tuple(shape), tuple(axes), devices)
+
+
+def make_host_mesh(model: int = 1, device="cuda") -> ShardMesh:
+    """Tiny (data, model) mesh over however many devices this host has
+    (`mesh_devices`): tests, examples."""
+    devices = mesh_devices(device)
+    return make_mesh((len(devices) // model, model), ("data", "model"),
+                     devices)
+
+
 def make_xy_mesh(n_shards: int, devices: Sequence = ("cuda",)) -> ShardMesh:
     """(data, model) mesh of `n_shards` shards for the x/y grid
     decomposition, the reference's heuristic applied to the shard count
@@ -77,4 +119,5 @@ def make_xy_mesh(n_shards: int, devices: Sequence = ("cuda",)) -> ShardMesh:
     return ShardMesh((px, py), devices=devices)
 
 
-__all__ = ["ShardMesh", "make_xy_mesh"]
+__all__ = ["ShardMesh", "make_host_mesh", "make_mesh",
+           "make_production_mesh", "make_xy_mesh", "mesh_devices"]

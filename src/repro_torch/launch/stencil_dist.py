@@ -1,6 +1,5 @@
 """Sharded multi-physics stencil launcher and self-check (port of
-`repro.launch.stencil_dist`; the production-mesh dry-run is not ported
-yet).
+`repro.launch.stencil_dist`).
 
 Runs the sharded temporally-blocked layer (`distributed/halo.py`) for any
 registered physics on a `ShardMesh` of `--mesh PXxPY` shards and checks the
@@ -21,6 +20,10 @@ single-device Listing-1 reference.
 
   # the joint autotuner picks (T, inner tile, overlap) for the block:
   python -m repro_torch.launch.stencil_dist --device cpu --check --auto-plan
+
+  # dry run on the production mesh (16x16, or 2x16x16 with --multipod) for
+  # a 512^3 grid, shapes only: no card needed
+  python -m repro_torch.launch.stencil_dist --device cpu --dryrun --multipod
 """
 import argparse
 import json
@@ -89,18 +92,46 @@ def _build_case(physics_name, shape, order, dt, grid, rng, device):
     return physics, state, params, ref_fn
 
 
-def mesh_devices(device: str):
-    """The devices a mesh spreads its shards over: every visible card for
-    ``cuda``, else the one device named."""
+def dryrun_sizes(plan, nz: int) -> dict:
+    """What one shard of `plan` holds and moves, computed from sizes:
+    torch has no compile-time `memory_analysis` / `cost_analysis` (the
+    reference reads XLA's), so nothing here is measured or compiled.
+    ``shard_fields_bytes``: the state and params over the block padded by
+    the exchange halo, and the domain mask; ``launch_bytes``: the largest
+    inner pass's kernel launch on one shard row (outputs, receiver
+    partials, scratch, the params' copies; `stencil_tb.launch_bytes`);
+    ``exchange_bytes_per_tile``: the state fields' deep exchange of one
+    time tile at their per-field depths; ``flops_per_step``: the
+    propagator's model FLOPs a step over the shard's block."""
     import torch
 
-    from repro_torch._device import resolve_device
+    from repro_torch.core.temporal_blocking import (PHYSICS_COSTS,
+                                                    nested_pass_geometry)
+    from repro_torch.kernels import ops
+    from repro_torch.kernels import stencil_tb as ker
 
-    dev = resolve_device(device)
-    if dev.type == "cuda" and dev.index is None:
-        return [torch.device("cuda", i)
-                for i in range(torch.cuda.device_count())]
-    return [dev]
+    physics = plan.physics
+    bx, by = plan.block
+    h = plan.halo
+    item = 4
+    padded = (bx + 2 * h) * (by + 2 * h) * nz
+    nfields = len(physics.state_fields) + len(physics.param_fields)
+    launch = 0
+    for geom in nested_pass_geometry(plan.block, plan.inner_tile, plan.T,
+                                     plan.inner_T, plan.r_step):
+        spec = ops.pass_inner_spec(geom, nz, plan.order, plan.dt,
+                                   plan.spacing, 1, 1, torch.float32,
+                                   physics)
+        launch = max(launch, ker.launch_bytes(spec, physics)
+                     + ker.launch_shared_bytes(spec, physics))
+    exchange = sum(((bx + 2 * d) * (by + 2 * d) - bx * by) * nz * item
+                   for d in plan.field_depths(plan.T))
+    flops = PHYSICS_COSTS[physics.name].flops_per_point(plan.order)
+    return {"shard_fields_bytes": nfields * padded * item
+            + (bx + 2 * h) * (by + 2 * h) * item,
+            "launch_bytes": int(launch),
+            "exchange_bytes_per_tile": int(exchange),
+            "flops_per_step": float(flops * bx * by * nz)}
 
 
 def main(argv=None):
@@ -136,6 +167,12 @@ def main(argv=None):
     ap.add_argument("--sweep-T", default=None,
                     help="comma list of T depths; checks per-step receiver "
                          "traces agree across all of them")
+    ap.add_argument("--dryrun", action="store_true",
+                    help="report the autotuner's plan, the last-run drift "
+                         "and the plan for a 512^3 grid on the production "
+                         "mesh, with its sizes; shapes only, no card")
+    ap.add_argument("--multipod", action="store_true",
+                    help="with --dryrun: the 2x16x16 multi-pod mesh")
     ap.add_argument("--interp", default="linear",
                     choices=("linear", "sinc"),
                     help="source/receiver interpolation kernel: trilinear "
@@ -179,10 +216,16 @@ def main(argv=None):
     from repro_torch.core.temporal_blocking import TBPlan
     from repro_torch.distributed.halo import (DistTBPlan, dist_plan_from_hier,
                                               sharded_tb_propagate)
-    from repro_torch.launch.mesh import ShardMesh
+    from repro_torch.kernels import tb_physics as phys
+    from repro_torch.launch import mesh as mesh_lib
+    from repro_torch.launch.dryrun import stencil_plan_report
     from repro_torch.survey.plan_cache import cached_plan_hierarchy
 
-    mesh = ShardMesh(pgrid, devices=mesh_devices(args.device))
+    if args.dryrun:
+        mesh = mesh_lib.make_production_mesh(multi_pod=args.multipod)
+    else:
+        mesh = mesh_lib.ShardMesh(pgrid,
+                                  devices=mesh_lib.mesh_devices(args.device))
     on_card = mesh.devices[0].type == "cuda"
     inner = args.inner or ("cuda" if on_card else "torch")
     telemetry_path = None
@@ -225,6 +268,50 @@ def main(argv=None):
                           order=order, T=T_outer, dt=dt,
                           spacing=grid.spacing, inner_plan=inner_plan,
                           overlap=args.overlap, **common)
+
+    if args.dryrun:
+        n = 512
+        shape = (n, n, n)
+        grid = Grid(shape=shape, spacing=(10.0,) * 3)
+        px, py = mesh.pgrid
+        # the same candidate space as --auto-plan, so with --auto-plan the
+        # recommendation below is the plan built
+        report = stencil_plan_report(
+            args.physics, shape[2], args.order,
+            (shape[0] // px, shape[1] // py),
+            interp=interp_mod.spec_for(args.interp, args.interp_order),
+            tiles=AUTO_TILES, depths=AUTO_DEPTHS)
+        print("autotuner recommendation:", json.dumps(report))
+        ld = report.get("last_drift")
+        if ld:
+            ratios = {t: s["geomean_ratio"]
+                      for t, s in ld["summary"].items()
+                      if s.get("geomean_ratio") is not None}
+            print("last-run drift (measured/predicted, "
+                  f"{ld['n_records']} rec @ {ld['path']}):",
+                  " ".join(f"{t}={v:.3g}x"
+                           for t, v in sorted(ratios.items()))
+                  or "no finite ratios")
+        else:
+            print("last-run drift: none recorded — run --telemetry on a "
+                  "measured launch to populate it")
+        plan = build_plan(shape, grid, phys.PHYSICS[args.physics],
+                          args.order, 1e-3, args.T)
+        plan.validate()
+        print(f"plan: mesh {dict(mesh.shape)} (shard grid {mesh.pgrid}, "
+              f"block {plan.block}), outer_T={plan.T} "
+              f"inner_T={plan.inner_T} inner_tile={plan.inner_tile} "
+              f"overlap={plan.overlap} "
+              f"field_depths={plan.field_depths(plan.T)}")
+        print("sizes (computed from shapes; torch has no compile-time "
+              "memory or cost analysis):",
+              json.dumps(dryrun_sizes(plan, shape[2])))
+        if telemetry_path:
+            print("telemetry trace:",
+                  tele.collector().export(telemetry_path))
+        print(f"stencil distributed dry-run OK ({args.physics}, "
+              f"{'multi' if args.multipod else 'single'}-pod)")
+        return 0
 
     n, nt, order = args.n, args.nt, args.order
     shape = (n, n, n // 2)

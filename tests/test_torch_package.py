@@ -1,7 +1,8 @@
 """Guards of the port's package boundary.
 
 The port must run on a machine without JAX: no module of
-`src/repro_torch/`, and not `chip_smoke.py`, may import `jax` or `repro`.
+`src/repro_torch/`, and not `chip_smoke.py`, the tools or the port's
+examples (`examples/torch_*.py`), may import `jax` or `repro`.
 And its entry points default to the card, with no CPU fallback.
 """
 import ast
@@ -16,7 +17,8 @@ from repro_torch.kernels import ops
 
 ROOT = Path(__file__).resolve().parents[1]
 PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) + [
-    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py"))
+    ROOT / "chip_smoke.py"] + sorted((ROOT / "tools").glob("*.py")) + \
+    sorted((ROOT / "examples").glob("torch_*.py"))
 BANNED = ("jax", "jaxlib", "repro")
 
 
@@ -52,6 +54,9 @@ def test_guard_sees_the_files():
     assert port / "launch" / "stencil_survey.py" in PORT_FILES
     assert port / "launch" / "serve.py" in PORT_FILES
     assert port / "kernels" / "ssd_scan.py" in PORT_FILES
+    assert port / "launch" / "dryrun.py" in PORT_FILES
+    for name in ("torch_quickstart.py", "torch_seismic_imaging.py"):
+        assert ROOT / "examples" / name in PORT_FILES
     assert "jax" in set(_imported_roots(ROOT / "tests" / "test_torch_ops.py"))
 
 
