@@ -23,12 +23,16 @@ single-device run, TTI and elastic at 256^3 and acoustic schedules
 survey engine's sharded route.  Then the Mamba2 slice: kernel B2 (the SSD
 chunked scan) against its plain version on both of its schedules (tensor
 cores for bf16 inputs at mamba2-130m's head shape, float32 cores for the
-rest; each line names the one that ran), and mamba2-130m at its published
-widths and depth serving 16 requests through `serving.GenerationEngine`
-with random bf16 parameters from a seed (B2 counted, 24 launches a
-prefill), with a float32 batch held against the plain scan; and the bf16
-acoustic tile (B1a-bf16).  It prints one JSON line listing every kernel
-and a final JSON status line.  It needs a card: without one it exits
+rest, zamba2-2.7b's (N, P, Q) = (64, 64, 128) among them; each line names
+the one that ran), and three models at their published widths and depth,
+each serving 16 requests through `serving.GenerationEngine` with random
+bf16 parameters from a seed: mamba2-130m (B2 counted, 24 launches a
+prefill), zamba2-2.7b (Mamba2 plus a shared attention block; 54 B2
+launches a prefill) and the dense qwen3-1.7b (no TPU kernel on its path),
+each with a float32 batch: its prefill held against the plain scan where
+the model scans, and decode against the teacher-forced forward; and the
+bf16 acoustic tile (B1a-bf16).  It prints one JSON line listing every
+kernel and a final JSON status line.  It needs a card: without one it exits
 non-zero before printing any result.  It imports neither JAX nor the JAX
 package.
 
@@ -36,7 +40,7 @@ Phases (one line each): environment, build, kernel vs plain on small
 cases (kernel-vs-plain, kernel-vs-plain-edges: a source on a trapezoid
 boundary and a receiver on four tiles' corner, kernels-batched,
 kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-plain-ssd with
-kernels-ssd), serve-mamba2,
+kernels-ssd, kernels-ssd-zamba2), serve-mamba2, serve-zamba2, serve-qwen3,
 then for each path: main path at full size, spatially-blocked baseline,
 kernel timing (with its design: the schedule the launch takes,
 registers, shared memory, blocks an SM, achieved GB/s), the
@@ -1985,14 +1989,17 @@ SSD_FIELD_RTOL = 1e-5                    # max|diff| / max|plain|
 # (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's shapes (B2's float32-core
 # schedule), then mamba2-130m's head shape (N 128, P 64, Q 64: the
 # tensor-core schedule with bf16 inputs) with one chunk and with two groups,
-# and the serve phase's (24 heads of 64, state 128, chunk 64; 8 x 1024)
+# mamba2-130m's serve shape (24 heads of 64, state 128, chunk 64; 8 x 1024)
+# and zamba2-2.7b's (80 heads of 64, state 64, chunk 128: the float32-core
+# schedule for both dtypes)
+SERVE_SHAPE = (8, 1024, 24, 1, 128, 64, 64)
+ZAMBA2_SSD_SHAPE = (8, 1024, 80, 1, 64, 64, 128)
 SSD_CASES = [
     (2, 16, 4, 2, 8, 8, 4), (2, 32, 4, 2, 8, 8, 8), (2, 32, 4, 2, 8, 8, 32),
     (1, 16, 2, 1, 4, 4, 8), (2, 24, 6, 3, 5, 8, 4), (3, 8, 4, 4, 16, 16, 8),
     (2, 64, 4, 1, 128, 64, 64), (2, 256, 8, 2, 128, 64, 64),
-    (8, 1024, 24, 1, 128, 64, 64),
+    SERVE_SHAPE, ZAMBA2_SSD_SHAPE,
 ]
-SERVE_SHAPE = SSD_CASES[-1]
 
 
 def ssd_case(shape, seed, dtype, with_h0, dev):
@@ -2148,7 +2155,8 @@ def phase_kernel_vs_plain_ssd(dev, smi):
             f"{smem} B shared a block, {per_sm} block(s) an SM, "
             f"{blocks / (per_sm * sms):.2f} waves on {sms} SMs")
     return {
-        "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan)",
+        "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan), mamba2-130m's "
+                "head shape",
         "route": "cuda",
         "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
         "replaces": "src/repro/kernels/ssd_scan.py:49",
@@ -2161,6 +2169,67 @@ def phase_kernel_vs_plain_ssd(dev, smi):
         "library_ms": None,
         "schedule": schedule,
         "float32_core_bound_ms": max(t_bytes, t_f32),
+    }
+
+
+def phase_kernels_ssd_zamba2(dev, smi):
+    """Kernel B2 at zamba2-2.7b's serve shape (ZAMBA2_SSD_SHAPE; bf16
+    x/B/C, float32 y: block_forward's call) on the schedule
+    `ssd.schedule_of` picks (the float32-core one: the tensor-core schedule
+    covers only (N, P, Q) = ssd.TC_SHAPE): held against ssd_scan_plain
+    (its time is that call's), timed as the mamba2-130m shape is, its
+    bound from `ssd.kernel_cost` at the peak of the units that schedule
+    uses, and a `design:` line.  Returns the kernels-line entry (launches
+    set by serve-zamba2)."""
+    phase = "kernels-ssd"
+    shape = ZAMBA2_SSD_SHAPE
+    spec, args, _ = ssd_case(shape, 7, BF16, False, dev)
+    schedule = ssd.schedule_of(spec, BF16)
+    launch = lambda: ssd.ssd_scan(spec, *args)  # noqa: E731
+    plain_ms, (py, _) = cuda_ms(lambda: ssd.ssd_scan_plain(spec, *args))
+    err = check_ssd(f"y {shape}", uncounted(launch)[0], py)[0]
+    del py
+    means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
+             for _ in range(3)]
+    ms = statistics.median(means)
+    cost = ssd.kernel_cost(spec, shape[0], in_dtype=BF16)
+    t_bytes = cost["min_bytes"] / HBM_BW * 1e3
+    tc = schedule == "tensor cores"
+    t_ops = cost["needed_flops"] / (BF16_TC_PEAK if tc else F32_PEAK) * 1e3
+    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
+                                      else "operations")
+    say(phase, f"ssd_scan at (B,S,H,G,N,P,Q)={shape} (zamba2-2.7b), bf16 "
+        f"x/B/C, float32 y, {schedule} schedule: {ms:.3f} ms per launch "
+        f"(median of 3 means of 5; least {min(means):.3f}, most "
+        f"{max(means):.3f}) vs bound {bound:.4f} ms by {by} "
+        f"({cost['min_bytes'] / 1e6:.1f} MB in {t_bytes:.4f} ms; "
+        f"{cost['needed_flops'] / 1e9:.2f} GFLOP needed, causal halves "
+        f"only, in {t_ops:.4f} ms at "
+        f"{'989 TFLOP/s bf16 on the tensor cores' if tc else '67 TFLOP/s float32'}"
+        f"); y max|diff| {err:.3e} against plain ({plain_ms:.1f} ms); no "
+        f"single PyTorch call computes a chunked scan, so no library time "
+        f"[{smi}]")
+    regs, spill, smem, per_sm = ssd_design(spec, schedule)
+    blocks = shape[0] * shape[2]
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    say(phase, f"design: {schedule} schedule at zamba2-2.7b's shape, "
+        f"{blocks} blocks (one a (batch, head)): {regs} registers, {spill} "
+        f"B spill stores, {smem} B shared a block, {per_sm} block(s) an SM, "
+        f"{blocks / (per_sm * sms):.2f} waves on {sms} SMs")
+    return {
+        "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan), zamba2-2.7b's "
+                "head shape",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:49",
+        "launches": None,              # set from serve-zamba2's counted run
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "schedule": schedule,
     }
 
 
@@ -2199,16 +2268,48 @@ def with_plain_scan(fn):
         ssd.ssd_scan = kernel
 
 
-def phase_serve_mamba2(dev, smi, entry):
-    """mamba2-130m at its published widths and depth through
+# the serve phases: one model each, at its published widths and depth
+SERVE_ARCHS = {"serve-mamba2": "mamba2-130m", "serve-zamba2": "zamba2-2.7b",
+               "serve-qwen3": "qwen3-1.7b"}
+
+
+def scan_layers(cfg):
+    """B2 launches a prefill: one a Mamba2 layer (the ssm and hybrid
+    families); the dense family runs no TPU kernel's port (its attention is
+    plain PyTorch, as the reference's is outside Pallas)."""
+    return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+
+
+def widths(cfg):
+    """A config's widths, as the serve phases print them."""
+    if cfg.family == "dense":
+        out = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+               f"{cfg.num_heads} heads of {cfg.hd()} ({cfg.num_kv_heads} kv), "
+               f"d_ff {cfg.d_ff}")
+    else:
+        d_inner = cfg.ssm_expand * cfg.d_model
+        out = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
+               f"{d_inner // cfg.ssm_headdim} SSD heads of {cfg.ssm_headdim}"
+               f", state {cfg.ssm_state}, chunk {cfg.ssm_chunk}")
+        if cfg.family == "hybrid":
+            out += (f", {cfg.num_layers // cfg.shared_attn_every} "
+                    f"shared-attention applications of {cfg.num_heads} "
+                    f"heads of {cfg.hd()}")
+    return out + f", vocab {cfg.vocab_size}"
+
+
+def phase_serve(phase, dev, smi, entry):
+    """SERVE_ARCHS[phase] at its published widths and depth through
     serving.GenerationEngine on the card: random bf16 parameters from
     SERVE_SEED, 16 requests in 2 batches of 8, prompt lengths drawn in
-    256-1024, 32 new tokens each; B2 counted (24 launches a prefill).
+    256-1024, 32 new tokens each; B2 counted (`scan_layers` launches a
+    prefill: 24 for mamba2-130m, 54 for zamba2-2.7b, none for qwen3-1.7b).
     Then one batch in float32: prefill logits and cache with B2 against the
-    same call with ssd_scan_plain, and decode against the teacher-forced
-    forward."""
-    phase = "serve-mamba2"
-    cfg = configs.get("mamba2-130m")
+    same call with ssd_scan_plain (where the model scans), and decode
+    against the teacher-forced forward.  `entry` (B2's kernels-line entry
+    at this model's head shape, or None) gets the launches."""
+    arch = SERVE_ARCHS[phase]
+    cfg = configs.get(arch)
     t0 = time.perf_counter()
     params = api.init(SERVE_SEED, cfg, device=dev)
     torch.cuda.synchronize()
@@ -2242,9 +2343,9 @@ def phase_serve_mamba2(dev, smi, entry):
     wall = time.perf_counter() - t_all
     launches = ssd.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if per_batch != [cfg.num_layers] * len(batches):
+    if per_batch != [scan_layers(cfg)] * len(batches):
         raise AssertionError(f"{phase}: B2 launches per prefill {per_batch},"
-                             f" expected {cfg.num_layers}")
+                             f" expected {scan_layers(cfg)}")
     for r in reqs:
         if r.output.shape != (SERVE_NEW,) or not np.all(
                 (r.output >= 0) & (r.output < cfg.vocab_size)):
@@ -2254,8 +2355,7 @@ def phase_serve_mamba2(dev, smi, entry):
     dec = [s.elapsed_time(e) for k, s, e in events if k == "decode"]
     tokens = SERVE_REQUESTS * SERVE_NEW
     plens = [max(len(r.prompt) for r in b) for b in batches]
-    say(phase, f"mamba2-130m ({cfg.num_layers} layers, d_model "
-        f"{cfg.d_model}, vocab {cfg.vocab_size}, bf16, "
+    say(phase, f"{arch} ({widths(cfg)}, bf16, "
         f"{cfg.param_count() / 1e6:.1f} M parameters, init {init_s:.2f} s): "
         f"{SERVE_REQUESTS} requests in {len(batches)} batches of "
         f"{SERVE_BATCH}, padded prompt lengths {plens}, {SERVE_NEW} new "
@@ -2269,7 +2369,8 @@ def phase_serve_mamba2(dev, smi, entry):
         + f" s), {tokens / wall:.1f} generated tok/s; prompt + generated "
         f"{(sum(plens) * SERVE_BATCH + tokens) / wall:.0f} tok/s; peak "
         f"{peak:.2f} GiB [{smi}]")
-    entry["launches"] = launches
+    if entry is not None:
+        entry["launches"] = launches
     toks = engine._make_batch(batches[0])
     logits, _ = uncounted(lambda: api.prefill(params, cfg,
                                               {"tokens": toks}, max_len))
@@ -2283,26 +2384,33 @@ def phase_serve_mamba2(dev, smi, entry):
 
 
 def serve_f32_checks(cfg, toks, max_len, dev, phase):
-    """One batch in float32 (the same seed's parameters): prefill logits
-    and cache state with B2 against ssd_scan_plain (max|diff|/max|ref| <=
-    1e-4), and prefill + one decode step against the teacher-forced forward
-    (rtol 1e-3, atol 1e-4, tests/test_arch_smoke.py)."""
+    """One batch in float32 (the same seed's parameters): where the model
+    scans, prefill logits and every cache tensor with B2 against
+    ssd_scan_plain (max|diff|/max|ref| <= 1e-4); then prefill + one decode
+    step against the teacher-forced forward (rtol 1e-3, atol 1e-4,
+    tests/test_arch_smoke.py)."""
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
                                 activation_dtype="float32")
     params = api.init(SERVE_SEED, cfg32, device=dev)
     batch = {"tokens": toks}
     f32 = torch.float32
-    got = uncounted(lambda: api.prefill(params, cfg32, batch, max_len,
-                                        cache_dtype=f32))
-    want = with_plain_scan(lambda: api.prefill(params, cfg32, batch,
-                                               max_len, cache_dtype=f32))
-    errs = {"logits": max_rel(got[0], want[0]),
-            "state": max_rel(got[1].state, want[1].state),
-            "conv": max_rel(got[1].conv, want[1].conv)}
-    del got, want
-    if max(errs.values()) > MAIN_TOL:
-        raise AssertionError(f"{phase}: float32 prefill with B2 vs plain: "
-                             f"{errs} > {MAIN_TOL}")
+    against_plain = "no scan"
+    if scan_layers(cfg):
+        got = uncounted(lambda: api.prefill(params, cfg32, batch, max_len,
+                                            cache_dtype=f32))
+        want = with_plain_scan(lambda: api.prefill(
+            params, cfg32, batch, max_len, cache_dtype=f32))
+        errs = {"logits": max_rel(got[0], want[0])}
+        errs.update({f: max_rel(getattr(got[1], f), getattr(want[1], f))
+                     for f in got[1]._fields if f != "length"})
+        del got, want
+        if max(errs.values()) > MAIN_TOL:
+            raise AssertionError(f"{phase}: float32 prefill with B2 vs "
+                                 f"plain: {errs} > {MAIN_TOL}")
+        against_plain = ("prefill with B2 vs ssd_scan_plain max|diff|/"
+                         "max|ref| " + ", ".join(f"{k} {v:.2e}"
+                                                 for k, v in errs.items())
+                         + f" (limit {MAIN_TOL:g})")
     full, _ = uncounted(lambda: api.forward(params, cfg32, batch))
     last = full[:, -1].clone()
     del full
@@ -2311,10 +2419,8 @@ def serve_f32_checks(cfg, toks, max_len, dev, phase):
     step, _ = api.decode_step(params, cfg32, toks[:, -1:], cache)
     d = (step[:, 0] - last).abs()
     ok = bool((d <= 1e-4 + 1e-3 * last.abs()).all())
-    say(phase, f"float32, batch {tuple(toks.shape)}: prefill with B2 vs "
-        f"ssd_scan_plain max|diff|/max|ref| logits {errs['logits']:.2e}, "
-        f"state {errs['state']:.2e}, conv {errs['conv']:.2e} (limit "
-        f"{MAIN_TOL:g}); decode step vs teacher-forced forward max|diff| "
+    say(phase, f"float32, batch {tuple(toks.shape)}: {against_plain}; "
+        f"decode step vs teacher-forced forward max|diff| "
         f"{float(d.max()):.3e} (rtol 1e-3, atol 1e-4): "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2411,7 +2517,10 @@ def main():
     say("kernel-vs-plain", f"launches held against the plain version by "
         f"schedule (acoustic, TTI, elastic): {COMPARED}")
     b2 = timed("kernel-vs-plain-ssd", phase_kernel_vs_plain_ssd, dev, smi)
-    timed("serve-mamba2", phase_serve_mamba2, dev, smi, b2)
+    b2z = timed("kernels-ssd-zamba2", phase_kernels_ssd_zamba2, dev, smi)
+    timed("serve-mamba2", phase_serve, "serve-mamba2", dev, smi, b2)
+    timed("serve-zamba2", phase_serve, "serve-zamba2", dev, smi, b2z)
+    timed("serve-qwen3", phase_serve, "serve-qwen3", dev, smi, None)
     entries, tb_ms, extra, paper = [], {}, [], []
     for name in ("acoustic", "tti", "elastic"):
         entry, tb_ms[name], more, record = run_path(name, smi, dev)
@@ -2426,7 +2535,7 @@ def main():
                          tb_ms["acoustic"]))
     timed("survey-tti", phase_survey_tti, smi, dev, tb_ms["tti"])
     entries += timed("survey-small", phase_survey_small, smi, dev)
-    entries += extra + [b2]
+    entries += extra + [b2, b2z]
     timed("sharded-small", phase_sharded_small, smi, dev)
     timed("survey-sharded", phase_survey_sharded, smi, dev)
     say("time", f"total {time.perf_counter() - t_start:.1f} s: " + ", ".join(

@@ -4,17 +4,23 @@ architecture of the reference that is not ported yet raises `KeyError`
 naming ROADMAP A11."""
 from __future__ import annotations
 
-from repro_torch.configs import mamba2_130m
+from repro_torch.configs import (
+    granite_34b, mamba2_130m, qwen2_7b, qwen3_1p7b, stablelm_12b,
+    zamba2_2p7b)
 from repro_torch.configs.base import ModelConfig, ShapeConfig  # noqa: F401
 
 _MODULES = {
+    "granite-34b": granite_34b,
+    "qwen3-1.7b": qwen3_1p7b,
+    "qwen2-7b": qwen2_7b,
+    "stablelm-12b": stablelm_12b,
     "mamba2-130m": mamba2_130m,
+    "zamba2-2.7b": zamba2_2p7b,
 }
 
 # the reference's other architectures (repro.configs.ARCHS), not ported yet
-UNPORTED = ("llava-next-mistral-7b", "granite-34b", "qwen3-1.7b",
-            "qwen2-7b", "stablelm-12b", "qwen3-moe-30b-a3b", "dbrx-132b",
-            "zamba2-2.7b", "whisper-medium")
+UNPORTED = ("llava-next-mistral-7b", "qwen3-moe-30b-a3b", "dbrx-132b",
+            "whisper-medium")
 
 ARCHS = tuple(_MODULES)
 

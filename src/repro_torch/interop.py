@@ -5,8 +5,9 @@ and the precomputed sparse structures.  Each function takes plain numpy
 arrays (``np.asarray`` of the reference's `GriddedSources`,
 `GriddedReceivers`, `TileSourceTable` or `TileReceiverTable` fields) and
 returns the port's structure on `device`, so the reference's exact
-precompute can be fed to the port's propagators.  The Mamba2 model's
-parameters come across the same way (`mamba2_params_from_numpy`).  Nothing
+precompute can be fed to the port's propagators.  The language models'
+parameters come across the same way (`mamba2_params_from_numpy`,
+`zamba2_params_from_numpy`, `transformer_params_from_numpy`).  Nothing
 here imports the reference.
 """
 from __future__ import annotations
@@ -22,7 +23,7 @@ from repro_torch.core import sources as src_mod
 from repro_torch.core.propagators.acoustic import AcousticParams
 from repro_torch.core.propagators.elastic import ElasticParams, ElasticState
 from repro_torch.core.propagators.tti import TTIParams, TTIState
-from repro_torch.models import mamba2
+from repro_torch.models import mamba2, transformer, zamba2
 
 
 def _fields(cls, arrays, device):
@@ -108,24 +109,51 @@ def _param_tensor(a, dev) -> torch.Tensor:
     return torch.as_tensor(np.array(a), device=dev)
 
 
+def _model_params(tree, shapes: dict, cfg: ModelConfig, dev) -> dict:
+    """The nested dict `tree` of numpy arrays as tensors on `dev`, each
+    with its own dtype; every path's shape checked against `shapes` (keys
+    ``a/b/c``)."""
+    got = {}
+
+    def conv(node, prefix):
+        if isinstance(node, dict):
+            return {k: conv(v, f"{prefix}{k}/") for k, v in node.items()}
+        t = _param_tensor(node, dev)
+        got[prefix[:-1]] = tuple(t.shape)
+        return t
+
+    out = conv(tree, "")
+    if got != shapes:
+        raise ValueError(f"parameters do not fit {cfg.name}: got {got}, "
+                         f"expected {shapes}")
+    return out
+
+
 def mamba2_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
     """The port's Mamba2 parameters from the reference's, given as numpy
     (``jax.tree.map(np.asarray, params)``): ``embed/embedding``,
     ``blocks/*`` stacked over layers and ``final_norm``, each with its own
     dtype.  Every shape is checked against `cfg` (a random init of the port
     has the same tree)."""
-    dev = resolve_device(device)
-    out = {"embed": {k: _param_tensor(v, dev)
-                     for k, v in tree["embed"].items()},
-           "blocks": {k: _param_tensor(v, dev)
-                      for k, v in tree["blocks"].items()},
-           "final_norm": _param_tensor(tree["final_norm"], dev)}
-    shapes = mamba2.param_shapes(cfg)
-    got = {"embed/" + k: tuple(v.shape) for k, v in out["embed"].items()}
-    got.update({"blocks/" + k: tuple(v.shape)
-                for k, v in out["blocks"].items()})
-    got["final_norm"] = tuple(out["final_norm"].shape)
-    if got != shapes:
-        raise ValueError(f"parameters do not fit {cfg.name}: got {got}, "
-                         f"expected {shapes}")
-    return out
+    return _model_params(tree, mamba2.param_shapes(cfg), cfg,
+                         resolve_device(device))
+
+
+def zamba2_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's zamba2 parameters from the reference's (numpy leaves):
+    ``embed``, ``mamba_blocks`` (leaves (n_super, k_every, ...), the
+    Mamba2 block's split projections as in `mamba2_params_from_numpy`),
+    ``shared`` (``attn_norm``, ``attn``, ``mlp_norm``, ``mlp``) and
+    ``final_norm``, shapes checked against `cfg`."""
+    return _model_params(tree, zamba2.param_shapes(cfg), cfg,
+                         resolve_device(device))
+
+
+def transformer_params_from_numpy(tree, cfg: ModelConfig,
+                                  device="cuda") -> dict:
+    """The port's dense transformer parameters from the reference's (numpy
+    leaves): ``embed``, ``blocks`` (``attn_norm``, ``mlp_norm``, ``attn``,
+    ``mlp``, stacked over layers) and ``final_norm``, shapes checked
+    against `cfg`."""
+    return _model_params(tree, transformer.param_shapes(cfg), cfg,
+                         resolve_device(device))

@@ -1,7 +1,9 @@
 """Serving launcher: batched greedy generation with the family's cache
-(port of `repro.launch.serve`, the ssm family).
+(port of `repro.launch.serve`: the ssm, hybrid and dense families, i.e.
+mamba2-130m, zamba2-2.7b, qwen3-1.7b, qwen2-7b, granite-34b and
+stablelm-12b).
 
-    PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \
+    PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --reduced --num-requests 8 --max-new 16 --device cpu
 
 Without ``--device cpu`` it runs on the card (and raises without one).

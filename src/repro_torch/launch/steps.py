@@ -1,6 +1,8 @@
 """Serving step functions (port of the serving half of
 `repro.launch.steps`), single device: the reference's ``rules=None``
-case, with no sharding constraints."""
+case, with no sharding constraints.  Every family `models.api` runs (ssm,
+hybrid, dense) goes through them; the train and eval steps come with
+training (ROADMAP A11)."""
 from __future__ import annotations
 
 import torch

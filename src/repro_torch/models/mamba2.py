@@ -75,42 +75,34 @@ def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on the generator's device, blocks stacked over
     layers."""
     embed = L.init_embed(gen, cfg)
-    layers = [init_block(gen, cfg) for _ in range(cfg.num_layers)]
     return {
         "embed": embed,
-        "blocks": {k: torch.stack([b[k] for b in layers])
-                   for k in layers[0]},
+        "blocks": L.stacked(cfg.num_layers, lambda: init_block(gen, cfg)),
         "final_norm": torch.ones((cfg.d_model,), dtype=L.dtype_of(cfg),
                                  device=gen.device),
     }
 
 
+def block_shapes(cfg: ModelConfig) -> dict:
+    """One block's parameter shapes, by name (`init_block`'s tree)."""
+    D = cfg.d_model
+    d_inner, H, conv_ch = dims(cfg)
+    GN2, W = 2 * cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_conv_width
+    return {"norm": (D,), "in_z": (D, d_inner), "in_x": (D, d_inner),
+            "in_bc": (D, GN2), "in_dt": (D, H), "conv_x_w": (W, d_inner),
+            "conv_x_b": (d_inner,), "conv_bc_w": (W, GN2),
+            "conv_bc_b": (GN2,), "A_log": (H,), "D": (H,), "dt_bias": (H,),
+            "gate_norm": (d_inner,), "out_proj": (d_inner, D)}
+
+
 def param_shapes(cfg: ModelConfig) -> dict:
     """Every parameter's shape, keyed ``embed/<name>``, ``blocks/<name>``
     (leading axis L) and ``final_norm``: the tree `init` makes."""
-    D, V, Lyr = cfg.d_model, cfg.vocab_size, cfg.num_layers
-    d_inner, H, conv_ch = dims(cfg)
-    GN2, W = 2 * cfg.ssm_ngroups * cfg.ssm_state, cfg.ssm_conv_width
-    block = {"norm": (D,), "in_z": (D, d_inner), "in_x": (D, d_inner),
-             "in_bc": (D, GN2), "in_dt": (D, H), "conv_x_w": (W, d_inner),
-             "conv_x_b": (d_inner,), "conv_bc_w": (W, GN2),
-             "conv_bc_b": (GN2,), "A_log": (H,), "D": (H,), "dt_bias": (H,),
-             "gate_norm": (d_inner,), "out_proj": (d_inner, D)}
-    out = {"embed/embedding": (V, D)}
-    if not cfg.tie_embeddings:
-        out["embed/lm_head"] = (D, V)
-    out.update({f"blocks/{k}": (Lyr,) + v for k, v in block.items()})
-    out["final_norm"] = (D,)
+    out = L.embed_shapes(cfg)
+    out.update({f"blocks/{k}": (cfg.num_layers,) + v
+                for k, v in block_shapes(cfg).items()})
+    out["final_norm"] = (cfg.d_model,)
     return out
-
-
-def layer(params: dict, i: int) -> dict:
-    """Layer i's parameters (views into the stacked blocks)."""
-    return {k: v[i] for k, v in params["blocks"].items()}
-
-
-def _silu(x):
-    return x * torch.sigmoid(x)
 
 
 def _softplus(x):
@@ -134,7 +126,7 @@ def _causal_conv(xbc, w, b, init_state: Optional[torch.Tensor] = None):
     for k in range(W):
         out = out + full[:, k:k + S].float() * wf[k]
     out = out + b.float()
-    return _silu(out).to(xbc.dtype), full[:, S:]
+    return L.silu(out).to(xbc.dtype), full[:, S:]
 
 
 def _split_proj(p, x):
@@ -188,7 +180,7 @@ def block_forward(p, cfg: ModelConfig, x,
     y = y[:, :S]
     y = y + p["D"][None, None, :, None] * xh.float()
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
-    y = L.rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
+    y = L.rms_norm(y * L.silu(z), p["gate_norm"], cfg.norm_eps)
     out = torch.matmul(y, p["out_proj"])
     return x + out, (new_conv, h_final)
 
@@ -207,7 +199,7 @@ def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
         window = torch.cat([state, new_col[:, None]], dim=1)
         out = torch.einsum("bwc,wc->bc", window.float(), w.float()) \
             + b.float()
-        return _silu(out), window[:, 1:]
+        return L.silu(out), window[:, 1:]
 
     xi, new_conv_x = one_step_conv(conv_state[..., :d_inner], xi_t[:, 0],
                                    p["conv_x_w"], p["conv_x_b"])
@@ -229,7 +221,7 @@ def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     y = torch.einsum("bhn,bhnp->bhp", Crep, h_new)
     y = y + p["D"][None, :, None] * xh
     y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
-    y = L.rms_norm(y * _silu(z), p["gate_norm"], cfg.norm_eps)
+    y = L.rms_norm(y * L.silu(z), p["gate_norm"], cfg.norm_eps)
     out = torch.matmul(y, p["out_proj"])
     return x + out, (new_conv, h_new)
 
@@ -259,7 +251,7 @@ def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
     aux loss 0.0."""
     x = L.embed(params["embed"], cfg, tokens)
     for i in range(cfg.num_layers):
-        x, _ = block_forward(layer(params, i), cfg, x)
+        x, _ = block_forward(L.index(params["blocks"], i), cfg, x)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:
         return x, 0.0
@@ -272,7 +264,7 @@ def prefill(params, cfg: ModelConfig, tokens, cache_dtype=torch.bfloat16):
     B, S = tokens.shape
     convs, states = [], []
     for i in range(cfg.num_layers):
-        x, (conv, state) = block_forward(layer(params, i), cfg, x)
+        x, (conv, state) = block_forward(L.index(params["blocks"], i), cfg, x)
         convs.append(conv.to(cache_dtype))
         states.append(state)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -290,7 +282,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: SSMCache):
     for i in range(cfg.num_layers):
         conv = cache.conv[i]
         x, (new_conv, new_state) = block_decode(
-            layer(params, i), cfg, x, conv.to(x.dtype), cache.state[i])
+            L.index(params["blocks"], i), cfg, x, conv.to(x.dtype), cache.state[i])
         convs.append(new_conv.to(conv.dtype))
         states.append(new_state)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)

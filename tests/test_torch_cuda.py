@@ -737,6 +737,7 @@ SSD_SHAPES = [  # (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's, then
     (8, 1024, 24, 1, 128, 64, 64),
     (2, 64, 4, 1, 128, 64, 64),
     (2, 256, 8, 2, 128, 64, 64),
+    (2, 256, 8, 1, 64, 64, 128),    # zamba2-2.7b's head shape
 ]
 
 
@@ -864,6 +865,56 @@ def test_mamba2_on_card_launches_b2_and_matches_cpu():
     for got, ref_ in ((logits, want), (cache.state, wcache.state),
                       (cache.conv, wcache.conv)):
         _ssd_close(got.cpu(), ref_)
+    prompts = [np.asarray(toks[i, :n]) for i, n in enumerate((21, 9, 14))]
+    outs = []
+    for p_, d in ((params, dev), (cpu_params, "cpu")):
+        eng = GenerationEngine(p_, cfg, max_len=32, batch_size=3, device=d)
+        outs.append([r.output for r in eng.generate(
+            [Request(prompt=p, max_new_tokens=6) for p in prompts])])
+    for a, b in zip(*outs):
+        np.testing.assert_array_equal(a, b)
+
+
+def _to(tree, dev):
+    return {k: _to(v, dev) if isinstance(v, dict) else v.to(dev)
+            for k, v in tree.items()}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen3-1.7b"])
+def test_hybrid_and_dense_on_card_match_cpu(arch):
+    """REDUCED float32 on the card: zamba2's prefill launches B2 once a
+    Mamba2 layer (qwen3's none), logits and every cache tensor match the
+    CPU run (plain scan, the same attention), one decode step matches, and
+    the engine's greedy tokens equal the CPU engine's."""
+    from repro_torch import configs
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.models import api
+    from repro_torch.serving import GenerationEngine, Request
+
+    dev = _card()
+    cfg = dataclasses.replace(configs.get_reduced(arch),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    cpu_params = api.init(0, cfg, device="cpu")
+    params = _to(cpu_params, dev)
+    toks = torch.as_tensor(np.random.RandomState(0).randint(
+        0, cfg.vocab_size, (3, 21)), dtype=torch.int32)
+    before = ssd.launches
+    logits, cache = api.prefill(params, cfg, {"tokens": toks.to(dev)}, 32,
+                                cache_dtype=torch.float32)
+    scans = cfg.num_layers if cfg.family == "hybrid" else 0
+    assert ssd.launches == before + scans
+    want, wcache = api.prefill(cpu_params, cfg, {"tokens": toks}, 32,
+                               cache_dtype=torch.float32)
+    _ssd_close(logits.cpu(), want)
+    for f in cache._fields:
+        if f != "length":
+            _ssd_close(getattr(cache, f).cpu(), getattr(wcache, f))
+    nxt = torch.argmax(want[:, -1:], dim=-1).to(torch.int32)
+    step, _ = api.decode_step(params, cfg, nxt.to(dev), cache)
+    wstep, _ = api.decode_step(cpu_params, cfg, nxt, wcache)
+    _ssd_close(step.cpu(), wstep)
     prompts = [np.asarray(toks[i, :n]) for i, n in enumerate((21, 9, 14))]
     outs = []
     for p_, d in ((params, dev), (cpu_params, "cpu")):

@@ -239,11 +239,14 @@ def test_configs_and_families():
         "mamba2-130m").param_count()
     assert set(configs.UNPORTED) | set(configs.ARCHS) == set(jconfigs.ARCHS)
     with pytest.raises(KeyError, match="A11"):
-        configs.get("qwen3-1.7b")
+        configs.get("qwen3-moe-30b-a3b")
     with pytest.raises(KeyError, match="A11"):
-        configs.get_reduced("zamba2-2.7b")
-    dense = dataclasses.replace(cfg, family="dense")
-    with pytest.raises(NotImplementedError, match="A11"):
-        api.init(0, dense, device="cpu")
-    with pytest.raises(NotImplementedError, match="A11"):
-        api.make_cache(dense, 2, 16, device="cpu")
+        configs.get_reduced("whisper-medium")
+    for family in ("moe", "encdec", "vlm"):
+        other = dataclasses.replace(cfg, family=family)
+        with pytest.raises(NotImplementedError, match="A11"):
+            api.init(0, other, device="cpu")
+        with pytest.raises(NotImplementedError, match="A11"):
+            api.make_cache(other, 2, 16, device="cpu")
+        with pytest.raises(NotImplementedError, match="A11"):
+            other.param_count()

@@ -55,6 +55,9 @@ def test_guard_sees_the_files():
     assert port / "launch" / "serve.py" in PORT_FILES
     assert port / "kernels" / "ssd_scan.py" in PORT_FILES
     assert port / "launch" / "dryrun.py" in PORT_FILES
+    for mod in ("layers", "runtime", "mamba2", "zamba2", "transformer",
+                "api"):
+        assert port / "models" / f"{mod}.py" in PORT_FILES
     for name in ("torch_quickstart.py", "torch_seismic_imaging.py"):
         assert ROOT / "examples" / name in PORT_FILES
     assert "jax" in set(_imported_roots(ROOT / "tests" / "test_torch_ops.py"))
@@ -127,6 +130,35 @@ def test_survey_engine_defaults_to_the_card():
                           plan_cache=PlanCache(), device="cpu")
     assert engine.device.type == "cpu" and engine.executor == "torch"
     assert engine.params["m"].device.type == "cpu"
+
+
+@pytest.mark.parametrize("arch", ["zamba2-2.7b", "qwen3-1.7b"])
+def test_hybrid_and_dense_entry_points_default_to_the_card(arch):
+    """The hybrid and dense families' entry points raise without a card
+    unless the CPU is asked for."""
+    from repro_torch import configs
+    from repro_torch.launch import serve
+    from repro_torch.models import api, transformer, zamba2
+    from repro_torch.serving import GenerationEngine
+
+    cfg = configs.get_reduced(arch)
+    cache_cls = (zamba2.HybridCache if cfg.family == "hybrid"
+                 else transformer.KVCache)
+    if not torch.cuda.is_available():
+        with pytest.raises(RuntimeError, match="cuda"):
+            api.init(0, cfg)
+        with pytest.raises(RuntimeError, match="cuda"):
+            api.make_cache(cfg, 2, 16)
+        with pytest.raises(RuntimeError, match="cuda"):
+            cache_cls.zeros(cfg, 2, 16)
+        params = api.init(0, cfg, device="cpu")
+        with pytest.raises(RuntimeError, match="cuda"):
+            GenerationEngine(params, cfg, max_len=16, batch_size=2)
+        with pytest.raises(RuntimeError, match="cuda"):
+            serve.main(["--arch", arch, "--reduced"])
+    cache = api.make_cache(cfg, 2, 16, device="cpu")
+    assert isinstance(cache, cache_cls)
+    assert all(t.device.type == "cpu" for t in cache)
 
 
 def test_package_data_ships_every_kernel_source():

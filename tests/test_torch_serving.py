@@ -3,8 +3,9 @@
 reference's engine tests (`tests/test_serving.py`) on the port.
 
 mamba2-130m REDUCED in float32 (as the reference's serving tests run it),
-the reference's parameters carried across, the same requests: the greedy
-outputs must be equal token for token.  On the CPU the scan runs its plain
+and zamba2-2.7b and qwen3-1.7b REDUCED likewise, the reference's
+parameters carried across, the same requests: the greedy outputs must be
+equal token for token.  On the CPU the scan runs its plain
 version; on a card the same engine launches kernel B2 (`chip_smoke.py`).
 """
 import dataclasses
@@ -70,6 +71,58 @@ def test_greedy_outputs_equal_reference(lengths, max_new):
                            for p, m in zip(prompts, max_new)])
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.output, np.asarray(w.output))
+
+
+# the hybrid and dense families: zamba2's shared attention block and
+# qwen3's attention (qk-norm, GQA, tied embeddings) over a KV cache
+LM_ARCHS = ["zamba2-2.7b", "qwen3-1.7b"]
+_lm = {}
+
+
+def _lm_setup(arch):
+    """(reference engine, port engine, port cfg) for `arch` REDUCED in
+    float32, the reference's parameters (PRNGKey(0)) carried across."""
+    if arch not in _lm:
+        jcfg = dataclasses.replace(jconfigs.get_reduced(arch), **F32)
+        cfg = dataclasses.replace(configs.get_reduced(arch), **F32)
+        jparams = japi.init(jax.random.PRNGKey(0), jcfg)
+        conv = (interop.zamba2_params_from_numpy if cfg.family == "hybrid"
+                else interop.transformer_params_from_numpy)
+        params = conv(jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+        _lm[arch] = (JEngine(jparams, jcfg, max_len=48, batch_size=4),
+                     GenerationEngine(params, cfg, max_len=48, batch_size=4,
+                                      device="cpu"), cfg)
+    return _lm[arch]
+
+
+@pytest.mark.parametrize("lengths,max_new", [
+    ((4, 9, 16, 7), (3, 6, 2, 5)),      # left padding, ragged lengths
+    ((8, 8), (6, 6)),                   # equal lengths, one slot empty
+])
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_hybrid_and_dense_outputs_equal_reference(arch, lengths, max_new):
+    """The reference engine's greedy outputs token for token: prompts
+    left-padded with token 0, which real tokens attend to, positions from
+    0 on every row (no padding mask, as in the reference)."""
+    jengine, engine, cfg = _lm_setup(arch)
+    prompts = _prompts(sum(lengths), lengths, cfg.vocab_size)
+    want = jengine.generate([JRequest(prompt=p, max_new_tokens=m)
+                             for p, m in zip(prompts, max_new)])
+    got = engine.generate([Request(prompt=p, max_new_tokens=m)
+                           for p, m in zip(prompts, max_new)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.output, np.asarray(w.output))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS)
+def test_hybrid_and_dense_serve_cli_on_cpu(arch):
+    out = subprocess.run(
+        [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
+         "--arch", arch, "--reduced", "--num-requests", "3", "--batch", "2",
+         "--max-new", "4"], capture_output=True, text=True, timeout=300,
+        cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert out.returncode == 0, out.stderr
+    assert "served 3 requests, 12 tokens" in out.stdout
 
 
 def test_eos_outputs_equal_reference():
