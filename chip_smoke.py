@@ -2178,10 +2178,11 @@ def phase_kernels_ssd_zamba2(dev, smi):
     `ssd.schedule_of` picks (the float32-core one: the tensor-core schedule
     covers only (N, P, Q) = ssd.TC_SHAPE): held against ssd_scan_plain
     (its time is that call's), timed as the mamba2-130m shape is, its
-    bound from `ssd.kernel_cost` at the peak of the units that schedule
-    uses, and a `design:` line.  Returns the kernels-line entry (launches
-    set by serve-zamba2)."""
-    phase = "kernels-ssd"
+    bound as `phase_kernel_vs_plain_ssd`'s: from `ssd.kernel_cost` at the
+    card's rate for bf16 inputs (the tensor cores), whichever schedule
+    runs, with the float32-core bound beside it; and a `design:` line.
+    Returns the kernels-line entry (launches set by serve-zamba2)."""
+    phase = "kernels-ssd-zamba2"
     shape = ZAMBA2_SSD_SHAPE
     spec, args, _ = ssd_case(shape, 7, BF16, False, dev)
     schedule = ssd.schedule_of(spec, BF16)
@@ -2194,19 +2195,20 @@ def phase_kernels_ssd_zamba2(dev, smi):
     ms = statistics.median(means)
     cost = ssd.kernel_cost(spec, shape[0], in_dtype=BF16)
     t_bytes = cost["min_bytes"] / HBM_BW * 1e3
-    tc = schedule == "tensor cores"
-    t_ops = cost["needed_flops"] / (BF16_TC_PEAK if tc else F32_PEAK) * 1e3
-    bound, by = max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops
-                                      else "operations")
+    t_tc = cost["needed_flops"] / BF16_TC_PEAK * 1e3
+    t_f32 = cost["needed_flops"] / F32_PEAK * 1e3
+    bound, by = max(t_bytes, t_tc), ("bytes" if t_bytes >= t_tc
+                                     else "operations")
     say(phase, f"ssd_scan at (B,S,H,G,N,P,Q)={shape} (zamba2-2.7b), bf16 "
         f"x/B/C, float32 y, {schedule} schedule: {ms:.3f} ms per launch "
         f"(median of 3 means of 5; least {min(means):.3f}, most "
         f"{max(means):.3f}) vs bound {bound:.4f} ms by {by} "
         f"({cost['min_bytes'] / 1e6:.1f} MB in {t_bytes:.4f} ms; "
         f"{cost['needed_flops'] / 1e9:.2f} GFLOP needed, causal halves "
-        f"only, in {t_ops:.4f} ms at "
-        f"{'989 TFLOP/s bf16 on the tensor cores' if tc else '67 TFLOP/s float32'}"
-        f"); y max|diff| {err:.3e} against plain ({plain_ms:.1f} ms); no "
+        f"only, in {t_tc:.4f} ms at 989 TFLOP/s bf16 on the tensor cores); "
+        f"the float32-core bound {max(t_bytes, t_f32):.3f} ms (the same "
+        f"work in {t_f32:.3f} ms at 67 TFLOP/s); y max|diff| {err:.3e} "
+        f"against plain ({plain_ms:.1f} ms); no "
         f"single PyTorch call computes a chunked scan, so no library time "
         f"[{smi}]")
     regs, spill, smem, per_sm = ssd_design(spec, schedule)
@@ -2230,6 +2232,7 @@ def phase_kernels_ssd_zamba2(dev, smi):
         "bound_by": by,
         "library_ms": None,
         "schedule": schedule,
+        "float32_core_bound_ms": max(t_bytes, t_f32),
     }
 
 

@@ -58,15 +58,11 @@ def forward_features(params, cfg: ModelConfig, batch: dict):
 
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,
             cache_dtype=torch.bfloat16):
-    """The SSM cache has no length axis, so the ssm family does not use
-    `max_len`, as in the reference; the hybrid and dense caches hold
-    max_len positions."""
-    mod = _module(cfg)
-    if mod is mamba2:
-        return mamba2.prefill(params, cfg, batch["tokens"],
-                              cache_dtype=cache_dtype)
-    return mod.prefill(params, cfg, batch["tokens"], max_len,
-                       cache_dtype=cache_dtype)
+    """The hybrid and dense caches hold max_len positions; the SSM cache
+    has no length axis, so the ssm family ignores `max_len`, as in the
+    reference."""
+    return _module(cfg).prefill(params, cfg, batch["tokens"], max_len,
+                                cache_dtype=cache_dtype)
 
 
 def decode_step(params, cfg: ModelConfig, tokens, cache):
@@ -75,11 +71,4 @@ def decode_step(params, cfg: ModelConfig, tokens, cache):
 
 def make_cache(cfg: ModelConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device="cuda"):
-    mod = _module(cfg)
-    if mod is mamba2:
-        return mamba2.SSMCache.zeros(cfg, batch, dtype, device=device)
-    if mod is zamba2:
-        return zamba2.HybridCache.zeros(cfg, batch, max_len, dtype,
-                                        device=device)
-    return transformer.KVCache.zeros(cfg, batch, max_len, dtype,
-                                     device=device)
+    return _module(cfg).make_cache(cfg, batch, max_len, dtype, device=device)

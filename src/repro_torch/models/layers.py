@@ -1,8 +1,7 @@
 """Building blocks the ported models share (port of `repro.models.layers`):
 dtypes, the dense initialiser, RMSNorm, RoPE, attention (GQA, optional
-qk-norm and qkv bias; full, query-chunked or one token against a KV
-cache), the SwiGLU and GELU MLPs, and the token embedding with its (tied)
-unembedding.  `layer_norm`, `cross_attention_block` and `encoder_kv` come
+qk-norm and qkv bias; full, or one token against a KV cache), the SwiGLU
+and GELU MLPs, and the token embedding with its (tied) unembedding.  `layer_norm`, `cross_attention_block` and `encoder_kv` come
 with whisper (ROADMAP A11).
 
 Parameters are plain dicts of tensors, as the reference's are pytrees, in
@@ -25,7 +24,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models import runtime
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -198,23 +196,11 @@ def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_len=None):
     when given).  kv_len: (B,) valid prefix length of k/v (decode against
     a padded cache).  Softmax in float32.
 
-    When `runtime.ATTN_Q_CHUNK` is set and Sq exceeds it (and is a
-    multiple of it), queries go a chunk at a time, so the scores are
-    (B, H, chunk, Skv) instead of (B, H, Sq, Skv): the same math."""
-    B, Sq, H, hd = q.shape
-    qc = runtime.ATTN_Q_CHUNK
-    if qc and Sq > qc and Sq % qc == 0:
-        if q_positions is None:
-            q_positions = torch.arange(Sq, device=q.device).expand(B, Sq)
-        return torch.cat([
-            _sdpa_full(q[:, i:i + qc], k, v, causal=causal,
-                       q_positions=q_positions[:, i:i + qc], kv_len=kv_len)
-            for i in range(0, Sq, qc)], dim=1)
-    return _sdpa_full(q, k, v, causal=causal, q_positions=q_positions,
-                      kv_len=kv_len)
-
-
-def _sdpa_full(q, k, v, *, causal: bool, q_positions=None, kv_len=None):
+    The scores are (B, H, Sq, Skv) at once.  The reference's
+    query-chunked branch (`runtime.ATTN_Q_CHUNK`) is set only by its
+    language-model dry run (`launch/dryrun.run_cell`), which the port does
+    not have (ROADMAP A11).
+    """
     B, Sq, H, hd = q.shape
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv

@@ -258,8 +258,17 @@ def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
     return L.unembed(params["embed"], cfg, x), 0.0
 
 
-def prefill(params, cfg: ModelConfig, tokens, cache_dtype=torch.bfloat16):
-    """(logits (B, S, vocab) float32, SSMCache after the prompt)."""
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> SSMCache:
+    """An empty cache; the SSM cache has no length axis, so `max_len` is
+    unused, as in the reference."""
+    return SSMCache.zeros(cfg, batch, dtype, device=device)
+
+
+def prefill(params, cfg: ModelConfig, tokens, max_len: Optional[int] = None,
+            cache_dtype=torch.bfloat16):
+    """(logits (B, S, vocab) float32, SSMCache after the prompt).
+    `max_len` is unused: the SSM cache has no length axis."""
     x = L.embed(params["embed"], cfg, tokens)
     B, S = tokens.shape
     convs, states = [], []

@@ -40,6 +40,11 @@ class KVCache(NamedTuple):
                    torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> KVCache:
+    return KVCache.zeros(cfg, batch, max_len, dtype, device=device)
+
+
 def _dense_only(cfg: ModelConfig):
     if cfg.family != "dense":
         raise NotImplementedError(

@@ -120,6 +120,11 @@ def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
     return L.unembed(params["embed"], cfg, x), 0.0
 
 
+def make_cache(cfg: ModelConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device="cuda") -> HybridCache:
+    return HybridCache.zeros(cfg, batch, max_len, dtype, device=device)
+
+
 def prefill(params, cfg: ModelConfig, tokens, max_len: int,
             cache_dtype=torch.bfloat16):
     """(logits (B, S, vocab) float32, HybridCache of capacity max_len after

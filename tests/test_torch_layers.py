@@ -1,6 +1,6 @@
 """The port's attention half of `models.layers` (`repro_torch.models.layers`)
 against the reference's `repro.models.layers`, on the same inputs: RoPE,
-`sdpa` (causal, GQA, MQA, `kv_len`, query-chunked against full),
+`sdpa` (causal, GQA, MQA, `kv_len`, the real configs' head widths),
 `attention_block`, `attention_decode` and both MLPs, the reference's
 parameters carried across as numpy.  Float32, at the tolerances of
 `tests/test_attention.py` (rtol 1e-5, atol 1e-6).
@@ -15,11 +15,9 @@ import torch
 
 from repro import configs as jconfigs
 from repro.models import layers as JL
-from repro.models import runtime as jruntime
 
 from repro_torch import configs
 from repro_torch.models import layers as L
-from repro_torch.models import runtime
 
 RTOL, ATOL = 1e-5, 1e-6
 F32 = dict(param_dtype="float32", activation_dtype="float32")
@@ -84,25 +82,23 @@ def test_sdpa_kv_len_and_q_positions_match():
     _close(got, want)
 
 
+# (H, Hkv, hd) of zamba2's shared block, qwen3-1.7b and granite-34b (MQA)
+REAL_HEADS = [(32, 32, 80), (16, 8, 128), (48, 1, 128)]
+
+
 @pytest.mark.parametrize("causal", [True, False])
-@pytest.mark.parametrize("chunk", [4, 8, 16])
-def test_sdpa_chunked_equals_full(causal, chunk):
-    """Query chunks (`runtime.attn_q_chunk`) give the full computation's
-    result, and the reference's chunked result."""
-    B, S, H, Hkv, hd = 2, 32, 4, 2, 16
+@pytest.mark.parametrize("heads", REAL_HEADS,
+                         ids=["zamba2", "qwen3", "granite"])
+def test_sdpa_matches_at_real_head_widths(heads, causal):
+    """The full-width configs' head counts and widths, at a short
+    sequence."""
+    H, Hkv, hd = heads
+    B, S = 2, 24
     q, k, v = _rand((B, S, H, hd), 8), _rand((B, S, Hkv, hd), 9), \
         _rand((B, S, Hkv, hd), 10)
-    full = L.sdpa(_t(q), _t(k), _t(v), causal=causal)
-    with runtime.attn_q_chunk(chunk):
-        assert runtime.ATTN_Q_CHUNK == chunk
-        chunked = L.sdpa(_t(q), _t(k), _t(v), causal=causal)
-    assert runtime.ATTN_Q_CHUNK == 0
-    with jruntime.attn_q_chunk(chunk):
-        want = JL.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
-                       causal=causal)
-    np.testing.assert_allclose(chunked.numpy(), full.numpy(), rtol=RTOL,
-                               atol=ATOL)
-    _close(chunked, want)
+    want = JL.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v),
+                   causal=causal)
+    _close(L.sdpa(_t(q), _t(k), _t(v), causal=causal), want)
 
 
 # qk-norm + GQA (qwen3), qkv bias (qwen2), MQA (granite), MHA with

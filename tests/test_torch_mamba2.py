@@ -104,6 +104,25 @@ def test_prefill_logits_and_cache_match(name):
     np.testing.assert_array_equal(gc.length.numpy(), np.asarray(wc.length))
 
 
+def test_prefill_and_make_cache_ignore_max_len():
+    """The SSM cache has no length axis: `api.prefill` and
+    `api.make_cache` take `max_len` as for every family and ignore it,
+    as the reference's do."""
+    jcfg, tcfg, jp, tp, toks = _setup("reduced")
+    batch = {"tokens": torch.as_tensor(toks)}
+    short, sc = api.prefill(tp, tcfg, batch, 16)
+    long, lc = api.prefill(tp, tcfg, batch, 64)
+    assert torch.equal(short, long)
+    for a, b in zip(sc, lc):
+        assert torch.equal(a, b)
+    want = japi.make_cache(jcfg, 3, 40)
+    for cap in (1, 40):
+        got = api.make_cache(tcfg, 3, cap, device="cpu")
+        assert isinstance(got, mamba2.SSMCache)
+        for g, w in zip(got, want):
+            assert tuple(g.shape) == w.shape and not g.any()
+
+
 @pytest.mark.parametrize("name", list(CASES))
 def test_prefill_bf16_cache_dtype(name):
     """The default cache keeps the conv state in bf16, the SSM state in

@@ -55,7 +55,7 @@ def test_guard_sees_the_files():
     assert port / "launch" / "serve.py" in PORT_FILES
     assert port / "kernels" / "ssd_scan.py" in PORT_FILES
     assert port / "launch" / "dryrun.py" in PORT_FILES
-    for mod in ("layers", "runtime", "mamba2", "zamba2", "transformer",
+    for mod in ("layers", "mamba2", "zamba2", "transformer",
                 "api"):
         assert port / "models" / f"{mod}.py" in PORT_FILES
     for name in ("torch_quickstart.py", "torch_seismic_imaging.py"):

@@ -172,6 +172,10 @@ def test_decode_matches_own_forward(name):
 
 
 BF16_GAP = 2 ** -5
+# the port's bf16 logits against the reference's served ones, in units of
+# the reference's own gap between its layer scan and its blocks called one
+# by one (test_bf16_model_tracks_reference)
+REF_GAP_MULTIPLE = 2.0
 
 
 def _scan_rounding_as_reference(spec, x, dtv, Bm, Cm, A, h0=None):
@@ -251,7 +255,10 @@ def test_bf16_model_tracks_reference(S):
     state is within 2^-5 max|ref| of the reference's.  The logits are
     not held to 2^-5: on this CPU they are 2.7% / 4.4% of max|logits|
     apart (S 13 / 40), and the reference's own logits move 3.6% / 4.0%
-    between its layer scan and the same blocks called one by one (C2)."""
+    between its layer scan and the same blocks called one by one (C2).
+    So the port's logits are held to the reference's served logits (its
+    layer scan) within `REF_GAP_MULTIPLE` times that own gap, measured
+    here on the same tokens (0.75x / 1.11x of it on this CPU)."""
     from repro_torch.kernels import ssd_scan as ssd
 
     jcfg = jconfigs.get_reduced(ARCH)
@@ -278,6 +285,12 @@ def test_bf16_model_tracks_reference(S):
     _, gc = api.prefill(tp, tcfg, batch, S)
     _, wc = japi.prefill(jp, jcfg, {"tokens": jnp.asarray(toks)}, S)
     assert np.all(np.isfinite(got)) and got.shape == want.shape
+    served = japi.forward(jp, jcfg, {"tokens": jnp.asarray(toks)})[0]
+    served = np.asarray(served, np.float32)
+    ref_gap = np.abs(served - want).max() / np.abs(served).max()
+    port_gap = np.abs(got - served).max() / np.abs(served).max()
+    assert 0 < ref_gap and port_gap <= REF_GAP_MULTIPLE * ref_gap, \
+        (port_gap, ref_gap)
     g, w = gc.state.numpy(), np.asarray(wc.state)
     assert np.all(np.isfinite(g)) and g.shape == w.shape
     assert np.abs(g - w).max() <= BF16_GAP * np.abs(w).max()
