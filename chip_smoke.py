@@ -15,40 +15,44 @@ multi-shot survey engine (`survey.SurveyEngine.run`): 8 shots of the
 512^3 acoustic paper case in 2 batches of 4, 3 shots of the 512^3 TTI
 case in one batch at the bucket_cap the memory budget gives, and small
 surveys of every physics through the plan cache's sweep, each checked
-shot held against a sequential call.  Then the sharded path (`distributed.halo`, kernel B1c):
-each kernel on sharded passes against its plain version, the 512^3
-acoustic case as a 2x2 mesh of shards on the card against the
-single-device run, TTI and elastic at 256^3 and acoustic schedules
-(time-nested, overlapped, uniform halo, autotuned) at 128^3, and the
-survey engine's sharded route.  Then the Mamba2 slice: kernel B2 (the SSD
-chunked scan) against its plain version on both of its schedules (tensor
-cores for bf16 inputs at mamba2-130m's head shape, float32 cores for the
-rest, zamba2-2.7b's (N, P, Q) = (64, 64, 128) among them; each line names
-the one that ran), and three models at their published widths and depth,
-each serving 16 requests through `serving.GenerationEngine` with random
-bf16 parameters from a seed: mamba2-130m (B2 counted, 24 launches a
-prefill), zamba2-2.7b (Mamba2 plus a shared attention block; 54 B2
-launches a prefill) and the dense qwen3-1.7b (no TPU kernel on its path),
-each with a float32 batch: its prefill held against the plain scan where
-the model scans, and decode against the teacher-forced forward; and the
-bf16 acoustic tile (B1a-bf16).  It prints one JSON line listing every
-kernel and a final JSON status line.  It needs a card: without one it exits
-non-zero before printing any result.  It imports neither JAX nor the JAX
-package.
+shot held against a sequential call.  Then the sharded path
+(`distributed.halo`, kernel B1c): each kernel on sharded passes against
+its plain version, the 512^3 acoustic case as a 2x2 mesh of shards on the
+card against the single-device run, TTI and elastic at 256^3 and acoustic
+schedules (time-nested, overlapped, uniform halo, autotuned) at 128^3, and
+the survey engine's sharded route.  Then the language models: kernel B2
+(the SSD chunked scan) against its plain version on both of its schedules
+(tensor cores for bf16 inputs at mamba2-130m's head shape, float32 cores
+for the rest, zamba2-2.7b's (N, P, Q) = (64, 64, 128) among them; each
+line names the one that ran), and six models at their published widths
+and depth, each serving 16 requests with random bf16 parameters from a
+seed: through `serving.GenerationEngine` mamba2-130m (B2 counted, 24
+launches a prefill), zamba2-2.7b (Mamba2 plus a shared attention block;
+54 B2 launches a prefill), and with no TPU kernel on their paths the
+dense qwen3-1.7b and qwen3-moe-30b-a3b (128 experts, top 8, the
+sort-based capacity dispatch, its dropped entries counted); through
+`launch.steps`, with their stub embeddings in the batch, whisper-medium
+(24 + 24 layers over 1500 frames) and llava-next-mistral-7b (2880 image
+positions before the text).  Each has a float32 batch: its prefill held
+against the plain scan where the model scans, the MoE's layer against a
+dense top-k oracle, and decode against the teacher-forced forward.  Then
+the bf16 acoustic tile (B1a-bf16).  It prints one JSON line listing every
+kernel and a final JSON status line.  It needs a card: without one it
+exits non-zero before printing any result.  It imports neither JAX nor
+the JAX package.
 
 Phases (one line each): environment, build, kernel vs plain on small
 cases (kernel-vs-plain, kernel-vs-plain-edges: a source on a trapezoid
 boundary and a receiver on four tiles' corner, kernels-batched,
 kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-plain-ssd with
 kernels-ssd, kernels-ssd-zamba2), serve-mamba2, serve-zamba2, serve-qwen3,
-then for each path: main path at full size, spatially-blocked baseline,
-kernel timing (with its design: the schedule the launch takes,
-registers, shared memory, blocks an SM, achieved GB/s), the
-batched kernel at the main path's shapes (after
+serve-qwen3moe, serve-whisper, serve-llava, then for each path: main path
+at full size, spatially-blocked baseline, kernel timing (with its design:
+the schedule the launch takes, registers, shared memory, blocks an SM,
+achieved GB/s), the batched kernel at the main path's shapes (after
 acoustic: sharded-acoustic and main-acoustic-bf16); then survey-acoustic,
 survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
-line.  Any
-failed check raises, and the script exits non-zero.
+line.  Any failed check raises, and the script exits non-zero.
 """
 import contextlib
 import dataclasses
@@ -80,7 +84,10 @@ from repro_torch.kernels import stencil_tb as ker  # noqa: E402
 from repro_torch.kernels import tb_physics as phys  # noqa: E402
 from repro_torch.launch import stencil_survey  # noqa: E402
 from repro_torch.launch.mesh import ShardMesh  # noqa: E402
-from repro_torch.models import api  # noqa: E402
+from repro_torch.launch.steps import (  # noqa: E402
+    make_decode_step, make_prefill_step)
+from repro_torch.models import api, moe  # noqa: E402
+from repro_torch.models import layers as L  # noqa: E402
 from repro_torch.serving import GenerationEngine, Request  # noqa: E402
 from repro_torch.survey import (PlanCache, Shot,  # noqa: E402
                                 SurveyEngine, bucket_shots,
@@ -2241,23 +2248,48 @@ SERVE_REQUESTS = 16
 SERVE_BATCH = 8
 SERVE_NEW = 32
 SERVE_PROMPT = (256, 1024)           # prompt lengths drawn in this range
+# the stub families' text: whisper's decoder prompts (a few words of
+# context) and llava's questions about an image, lengths drawn in these
+# ranges; their embeddings: whisper's 30 s window of 1500 frames
+# (max_source_positions), llava's anyres 5 x 576 image positions
+STUB_PROMPT = {"encdec": (4, 64), "vlm": (32, 256)}
+STUB_KEY = {"encdec": "frame_embeds", "vlm": "image_embeds"}
+
+
+def stub_positions(cfg):
+    """Stub embedding positions a request carries (0 for text-in
+    families)."""
+    return {"encdec": cfg.max_source_positions,
+            "vlm": cfg.num_image_tokens}.get(cfg.family, 0)
+
+
+def serve_max_len(cfg):
+    """The cache capacity a serve phase asks for: the longest prompt (with
+    llava's image positions) and the new tokens."""
+    lo, hi = STUB_PROMPT.get(cfg.family, SERVE_PROMPT)
+    return hi + SERVE_NEW + (cfg.num_image_tokens if cfg.family == "vlm"
+                             else 0)
+
+
+def timed_fn(fn, kind, events):
+    """fn, each call bracketed by CUDA events appended to `events` as
+    (kind, start, end)."""
+    def call(*a):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = fn(*a)
+        end.record()
+        events.append((kind, start, end))
+        return out
+    return call
 
 
 def timed_steps(engine, events):
     """Wrap the engine's step functions so each call is bracketed by CUDA
     events, appended to `events` as (kind, start, end)."""
-    def wrap(fn, kind):
-        def call(*a):
-            start = torch.cuda.Event(enable_timing=True)
-            end = torch.cuda.Event(enable_timing=True)
-            start.record()
-            out = fn(*a)
-            end.record()
-            events.append((kind, start, end))
-            return out
-        return call
-    engine._prefill = wrap(engine._prefill, "prefill")
-    engine._decode = wrap(engine._decode, "decode")
+    engine._prefill = timed_fn(engine._prefill, "prefill", events)
+    engine._decode = timed_fn(engine._decode, "decode", events)
 
 
 def with_plain_scan(fn):
@@ -2273,22 +2305,39 @@ def with_plain_scan(fn):
 
 # the serve phases: one model each, at its published widths and depth
 SERVE_ARCHS = {"serve-mamba2": "mamba2-130m", "serve-zamba2": "zamba2-2.7b",
-               "serve-qwen3": "qwen3-1.7b"}
+               "serve-qwen3": "qwen3-1.7b",
+               "serve-qwen3moe": "qwen3-moe-30b-a3b",
+               "serve-whisper": "whisper-medium",
+               "serve-llava": "llava-next-mistral-7b"}
 
 
 def scan_layers(cfg):
     """B2 launches a prefill: one a Mamba2 layer (the ssm and hybrid
-    families); the dense family runs no TPU kernel's port (its attention is
-    plain PyTorch, as the reference's is outside Pallas)."""
+    families); the attention families run no TPU kernel's port (their
+    attention, MoE and MLPs are plain PyTorch, as the reference computes
+    them outside Pallas)."""
     return cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
 
 
 def widths(cfg):
     """A config's widths, as the serve phases print them."""
-    if cfg.family == "dense":
-        out = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
-               f"{cfg.num_heads} heads of {cfg.hd()} ({cfg.num_kv_heads} kv), "
+    if cfg.num_heads:
+        heads = (f"{cfg.num_heads} heads of {cfg.hd()} "
+                 f"({cfg.num_kv_heads} kv)"
+                 + (", qk-norm" if cfg.qk_norm else ""))
+    if cfg.family == "moe":
+        out = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {heads}, "
+               f"{cfg.num_experts} experts, top-{cfg.experts_per_tok}, "
+               f"d_ff {cfg.moe_d_ff}")
+    elif cfg.family == "encdec":
+        out = (f"{cfg.num_layers} + {cfg.num_decoder_layers} layers, "
+               f"d_model {cfg.d_model}, {heads}, d_ff {cfg.d_ff}, "
+               f"{cfg.max_source_positions} frames")
+    elif cfg.family in ("dense", "vlm"):
+        out = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, {heads}, "
                f"d_ff {cfg.d_ff}")
+        if cfg.family == "vlm":
+            out += f", {cfg.num_image_tokens} image positions"
     else:
         d_inner = cfg.ssm_expand * cfg.d_model
         out = (f"{cfg.num_layers} layers, d_model {cfg.d_model}, "
@@ -2301,103 +2350,287 @@ def widths(cfg):
     return out + f", vocab {cfg.vocab_size}"
 
 
+# whisper's parameters a decode step does not read (the encoder ran at
+# prefill) or only gathers rows of (the decoder positions)
+DECODE_UNREAD = {"encdec": ("enc_blocks", "enc_pos", "enc_final_norm",
+                            "dec_pos")}
+
+
+def decode_weight_bytes(params, cfg):
+    """Bytes of the parameters a decode step reads: all of them, but the
+    embedding table when it is not tied (a step gathers B of its rows) and
+    `DECODE_UNREAD`.  The MoE's capacity dispatch runs every expert on its
+    C slots, so a step reads every expert's weights."""
+    unread = DECODE_UNREAD.get(cfg.family, ())
+    leaves, stack = [], [{k: v for k, v in params.items()
+                          if k not in unread}]
+    while stack:
+        node = stack.pop()
+        for v in node.values():
+            (stack if isinstance(v, dict) else leaves).append(v)
+    total = sum(t.numel() * t.element_size() for t in leaves)
+    if not cfg.tie_embeddings:
+        emb = params["embed"]["embedding"]
+        total -= emb.numel() * emb.element_size()
+    return total
+
+
+@contextlib.contextmanager
+def counting_drops(records):
+    """Within, every MoE dispatch appends (entries, C, dropped entries as a
+    device tensor) to `records` (no read-back to the host)."""
+    dispatch = moe.dispatch
+
+    def counted(cfg, x2d, expert_idx, weights, C):
+        d = dispatch(cfg, x2d, expert_idx, weights, C)
+        records.append((d.keep.numel(), C, (~d.keep).sum()))
+        return d
+
+    moe.dispatch = counted
+    try:
+        yield
+    finally:
+        moe.dispatch = dispatch
+
+
+def say_drops(phase, cfg, per_batch_calls):
+    """The dropped (token, choice) entries of each prefill (its first
+    num_layers dispatches: the first is layer 0's, the last the last
+    layer's) and of the batches' decode steps."""
+    parts = []
+    for calls in per_batch_calls:
+        pre, dec = calls[:cfg.num_layers], calls[cfg.num_layers:]
+        for what, rs in (("prefill", pre), ("decode", dec)):
+            n = sum(r[0] for r in rs)
+            dropped = sum(int(r[2]) for r in rs)
+            parts.append(f"{what} {dropped} of {n} ({dropped / n:.4%}, "
+                         f"C {rs[0][1]} over {len(rs)} dispatches of "
+                         f"{rs[0][0]} entries; first / last dispatch "
+                         + " / ".join(f"{int(r[2]) / r[0]:.2%}"
+                                      for r in (rs[0], rs[-1])) + ")")
+    say(phase, "MoE dropped (token, choice) entries per batch: "
+        + "; ".join(parts))
+
+
+def stub_batches(cfg, dev):
+    """SERVE_REQUESTS requests of a stub family in batches of SERVE_BATCH,
+    each batch in `models.api`'s layout: text prompts (STUB_PROMPT
+    lengths, drawn from SERVE_SEED) left-padded with token 0 as the engine
+    pads, and random bf16 stub embeddings of `stub_positions` a request.
+    Returns (batches, each batch's prompt lengths)."""
+    rng = np.random.RandomState(SERVE_SEED)
+    gen = torch.Generator(device=dev).manual_seed(SERVE_SEED)
+    lo, hi = STUB_PROMPT[cfg.family]
+    batches, lengths = [], []
+    for _ in range(0, SERVE_REQUESTS, SERVE_BATCH):
+        prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(
+            lo, hi + 1)).astype(np.int32) for _ in range(SERVE_BATCH)]
+        plen = max(len(p) for p in prompts)
+        toks = np.zeros((SERVE_BATCH, plen), np.int32)
+        for i, p in enumerate(prompts):
+            toks[i, plen - len(p):] = p
+        emb = torch.randn((SERVE_BATCH, stub_positions(cfg), cfg.d_model),
+                          generator=gen, device=dev).to(torch.bfloat16)
+        batches.append({"tokens": torch.as_tensor(toks, device=dev),
+                        STUB_KEY[cfg.family]: emb})
+        lengths.append([len(p) for p in prompts])
+    return batches, lengths
+
+
+def stub_generate(prefill, decode, params, batch, n_new):
+    """Greedy generation through the step functions, as the engine runs
+    them: (B, n_new) tokens on the host."""
+    tok, cache = prefill(params, batch)
+    outs = [tok]
+    for _ in range(n_new - 1):
+        tok, cache = decode(params, tok, cache)
+        outs.append(tok)
+    return torch.cat(outs, dim=1).cpu().numpy()
+
+
 def phase_serve(phase, dev, smi, entry):
-    """SERVE_ARCHS[phase] at its published widths and depth through
-    serving.GenerationEngine on the card: random bf16 parameters from
-    SERVE_SEED, 16 requests in 2 batches of 8, prompt lengths drawn in
-    256-1024, 32 new tokens each; B2 counted (`scan_layers` launches a
-    prefill: 24 for mamba2-130m, 54 for zamba2-2.7b, none for qwen3-1.7b).
-    Then one batch in float32: prefill logits and cache with B2 against the
-    same call with ssd_scan_plain (where the model scans), and decode
-    against the teacher-forced forward.  `entry` (B2's kernels-line entry
-    at this model's head shape, or None) gets the launches."""
+    """SERVE_ARCHS[phase] at its published widths and depth on the card,
+    random bf16 parameters from SERVE_SEED, 16 requests in 2 batches of 8,
+    32 new tokens each.  The text-in families go through
+    serving.GenerationEngine with prompts of 256-1024 tokens; whisper and
+    llava through `launch.steps`' prefill and decode steps with their stub
+    embeddings in the batch (`stub_batches`).  B2 counted (`scan_layers`
+    launches a prefill: 24 for mamba2-130m, 54 for zamba2-2.7b, none for
+    the others); the MoE's dropped entries counted.  Then one batch in
+    float32 (`serve_f32_checks`).  `entry` (B2's kernels-line entry at
+    this model's head shape, or None) gets the launches."""
     arch = SERVE_ARCHS[phase]
     cfg = configs.get(arch)
     t0 = time.perf_counter()
     params = api.init(SERVE_SEED, cfg, device=dev)
     torch.cuda.synchronize()
     init_s = time.perf_counter() - t0
-    max_len = SERVE_PROMPT[1] + SERVE_NEW
-    engine = GenerationEngine(params, cfg, max_len=max_len,
-                              batch_size=SERVE_BATCH, device=dev)
-    rng = np.random.RandomState(SERVE_SEED)
-    reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=rng.randint(
-        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)).astype(np.int32),
-        max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQUESTS)]
-    batches = [reqs[i:i + SERVE_BATCH]
-               for i in range(0, SERVE_REQUESTS, SERVE_BATCH)]
-    # warm-up: a short batch (cuBLAS handles, the kernel's library)
-    uncounted(lambda: engine.generate([Request(prompt=r.prompt[:64],
-                                               max_new_tokens=4)
-                                       for r in batches[0]]))
+    max_len = serve_max_len(cfg)
     events = []
-    timed_steps(engine, events)
+    if cfg.family in STUB_KEY:
+        batches, lengths = stub_batches(cfg, dev)
+        prefill = timed_fn(make_prefill_step(cfg, max_len), "prefill",
+                           events)
+        decode = timed_fn(make_decode_step(cfg), "decode", events)
+
+        def generate(batch):
+            return stub_generate(prefill, decode, params, batch, SERVE_NEW)
+
+        # warm-up: the first batch, 4 new tokens (cuBLAS handles)
+        uncounted(lambda: stub_generate(prefill, decode, params, batches[0],
+                                        4))
+        first = batches[0]
+    else:
+        engine = GenerationEngine(params, cfg, max_len=max_len,
+                                  batch_size=SERVE_BATCH, device=dev)
+        rng = np.random.RandomState(SERVE_SEED)
+        reqs = [Request(prompt=rng.randint(0, cfg.vocab_size, size=rng.randint(
+            SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)).astype(np.int32),
+            max_new_tokens=SERVE_NEW) for _ in range(SERVE_REQUESTS)]
+        batches = [reqs[i:i + SERVE_BATCH]
+                   for i in range(0, SERVE_REQUESTS, SERVE_BATCH)]
+        lengths = [[len(r.prompt) for r in b] for b in batches]
+
+        def generate(batch):
+            return np.stack([r.output for r in engine.generate(batch)])
+
+        # warm-up: a short batch (cuBLAS handles, the kernel's library)
+        uncounted(lambda: engine.generate([Request(prompt=r.prompt[:64],
+                                                   max_new_tokens=4)
+                                           for r in batches[0]]))
+        timed_steps(engine, events)
+        first = {"tokens": engine._make_batch(batches[0])}
+    events.clear()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     ssd.launches = 0
-    walls, per_batch = [], []
+    walls, per_batch, outs, drops = [], [], [], []
     t_all = time.perf_counter()
-    for batch in batches:
-        before = ssd.launches
-        t0 = time.perf_counter()
-        engine.generate(batch)            # ends in a copy to the host
-        walls.append(time.perf_counter() - t0)
-        per_batch.append(ssd.launches - before)
+    with counting_drops(drops):
+        for batch in batches:
+            before, calls = ssd.launches, len(drops)
+            t0 = time.perf_counter()
+            outs.append(generate(batch))      # ends in a copy to the host
+            walls.append(time.perf_counter() - t0)
+            per_batch.append((ssd.launches - before, drops[calls:]))
     wall = time.perf_counter() - t_all
     launches = ssd.launches
     peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    if per_batch != [scan_layers(cfg)] * len(batches):
-        raise AssertionError(f"{phase}: B2 launches per prefill {per_batch},"
-                             f" expected {scan_layers(cfg)}")
-    for r in reqs:
-        if r.output.shape != (SERVE_NEW,) or not np.all(
-                (r.output >= 0) & (r.output < cfg.vocab_size)):
-            raise AssertionError(f"{phase}: output {r.output} out of range")
+    scans = [n for n, _ in per_batch]
+    if scans != [scan_layers(cfg)] * len(batches):
+        raise AssertionError(f"{phase}: B2 launches per prefill {scans}, "
+                             f"expected {scan_layers(cfg)}")
+    for out in outs:
+        if out.shape != (SERVE_BATCH, SERVE_NEW) or not np.all(
+                (out >= 0) & (out < cfg.vocab_size)):
+            raise AssertionError(f"{phase}: output {out} out of range")
     torch.cuda.synchronize()
     pre = [s.elapsed_time(e) for k, s, e in events if k == "prefill"]
     dec = [s.elapsed_time(e) for k, s, e in events if k == "decode"]
     tokens = SERVE_REQUESTS * SERVE_NEW
-    plens = [max(len(r.prompt) for r in b) for b in batches]
+    plens = [max(ls) for ls in lengths]
+    stub = stub_positions(cfg)
+    stub_say = (f", each with {stub} {STUB_KEY[cfg.family]} positions"
+                if stub else "")
     say(phase, f"{arch} ({widths(cfg)}, bf16, "
         f"{cfg.param_count() / 1e6:.1f} M parameters, init {init_s:.2f} s): "
         f"{SERVE_REQUESTS} requests in {len(batches)} batches of "
-        f"{SERVE_BATCH}, padded prompt lengths {plens}, {SERVE_NEW} new "
-        f"tokens each; B2 launches per prefill {per_batch} ({launches} in "
-        f"all)")
+        f"{SERVE_BATCH}, padded prompt lengths {plens}{stub_say}, "
+        f"{SERVE_NEW} new tokens each; B2 launches per prefill {scans} "
+        f"({launches} in all)")
+    read = decode_weight_bytes(params, cfg)
     say(phase, f"prefill ms per batch (CUDA events) "
         + ", ".join(f"{p:.2f}" for p in pre)
         + f"; decode {statistics.mean(dec):.3f} ms per token step (mean of "
-        f"{len(dec)}; batch of {SERVE_BATCH}); wall {wall:.3f} s "
+        f"{len(dec)}; batch of {SERVE_BATCH}; bound by the weights' bytes a "
+        f"step, {read / 1e9:.2f} GB at {HBM_BW / 1e12:.2f} TB/s: "
+        f"{read / HBM_BW * 1e3:.3f} ms); wall {wall:.3f} s "
         f"(per batch " + ", ".join(f"{w:.3f}" for w in walls)
         + f" s), {tokens / wall:.1f} generated tok/s; prompt + generated "
         f"{(sum(plens) * SERVE_BATCH + tokens) / wall:.0f} tok/s; peak "
         f"{peak:.2f} GiB [{smi}]")
+    if cfg.family == "moe":
+        say_drops(phase, cfg, [calls for _, calls in per_batch])
     if entry is not None:
         entry["launches"] = launches
-    toks = engine._make_batch(batches[0])
-    logits, _ = uncounted(lambda: api.prefill(params, cfg,
-                                              {"tokens": toks}, max_len))
+    logits, _ = uncounted(lambda: api.prefill(params, cfg, first, max_len))
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{phase}: non-finite bf16 prefill logits")
-    del logits, engine, params
+    del logits, params, generate, batches
+    if cfg.family not in STUB_KEY:
+        del engine
     torch.cuda.empty_cache()
-    serve_f32_checks(cfg, toks, max_len, dev, phase)
+    serve_f32_checks(cfg, first, max_len, dev, phase)
     return {"prefill_ms": pre, "decode_ms": statistics.mean(dec),
             "tok_s": tokens / wall, "peak_gib": peak}
 
 
-def serve_f32_checks(cfg, toks, max_len, dev, phase):
-    """One batch in float32 (the same seed's parameters): where the model
-    scans, prefill logits and every cache tensor with B2 against
-    ssd_scan_plain (max|diff|/max|ref| <= 1e-4); then prefill + one decode
-    step against the teacher-forced forward (rtol 1e-3, atol 1e-4,
-    tests/test_arch_smoke.py)."""
+# float32 checks of a serve phase: the rows of its first batch they take,
+# and the cuts its float32 model needs.  qwen3-moe's float32 parameters
+# are 122 GB: 4 of its 48 layers at full width, and a capacity factor of
+# E / K = 16, so that nothing drops and decode's routing matches the
+# forward's.  llava's scores for 8 x ~3100 positions in float32 take
+# 25 GB: 2 of its requests.
+F32_ROWS = {"moe": 2, "vlm": 2}
+F32_CUTS = {"moe": lambda cfg: dict(
+    num_layers=4, capacity_factor=cfg.num_experts / cfg.experts_per_tok)}
+
+
+def moe_oracle(p, cfg, x):
+    """The dense top-k mixture in float64: every expert's SwiGLU on every
+    token, each token keeping its top-k experts' outputs weighted by the
+    router (no capacity, no dispatch)."""
+    p = {k: v.double() for k, v in p.items()}
+    x2d = x.double().reshape(-1, x.shape[-1])
+    probs = torch.softmax(x2d @ p["router"], dim=-1)
+    w, top = torch.topk(probs, cfg.experts_per_tok, dim=-1)
+    w = w / w.sum(-1, keepdim=True)
+    y = torch.zeros_like(x2d)
+    for e in range(cfg.num_experts):
+        g = x2d @ p["w_gate"][e]
+        h = g * torch.sigmoid(g) * (x2d @ p["w_up"][e])
+        y += (w * (top == e)).sum(-1, keepdim=True) * (h @ p["w_down"][e])
+    return y.reshape(x.shape)
+
+
+def moe_oracle_check(params, cfg32, batch, phase):
+    """Layer 0's MoE FFN on its real input (the batch's hidden state after
+    the layer's attention) against `moe_oracle`: max|diff| within 1e-5 of
+    max|ref|."""
+    bp = L.index(params["blocks"], 0)
+    x = L.embed(params["embed"], cfg32, batch["tokens"])
+    pos = L.positions(*x.shape[:2], x.device)
+    x = x + L.attention_block(bp["attn"], cfg32, L.rms_norm(
+        x, bp["attn_norm"], cfg32.norm_eps), pos, causal=True)[0]
+    h = L.rms_norm(x, bp["mlp_norm"], cfg32.norm_eps)
+    got = moe.moe_block(bp["moe"], cfg32, h)[0].double()
+    want = moe_oracle(bp["moe"], cfg32, h)
+    err = max_rel(got, want)
+    if err > 1e-5:
+        raise AssertionError(f"{phase}: moe_block vs the dense oracle "
+                             f"{err:.3e} > 1e-5")
+    return (f"layer 0's moe_block ({h.shape[0] * h.shape[1]} tokens, C "
+            f"{moe.capacity(h.shape[0] * h.shape[1], cfg32)}) vs the dense "
+            f"float64 top-{cfg32.experts_per_tok} oracle max|diff|/max|ref| "
+            f"{err:.2e} (limit 1e-5)")
+
+
+def serve_f32_checks(cfg, batch, max_len, dev, phase):
+    """The first batch (its first F32_ROWS[family] rows) in float32, the
+    same seed's parameters (cut by F32_CUTS): where the model scans,
+    prefill logits and every cache tensor with B2 against ssd_scan_plain
+    (max|diff|/max|ref| <= 1e-4); for the MoE, `moe_oracle_check`; then
+    prefill + one decode step against the teacher-forced forward (rtol
+    1e-3, atol 1e-4, tests/test_arch_smoke.py)."""
+    cut = F32_CUTS.get(cfg.family, lambda c: {})(cfg)
     cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                activation_dtype="float32")
+                                activation_dtype="float32", **cut)
     params = api.init(SERVE_SEED, cfg32, device=dev)
-    batch = {"tokens": toks}
+    rows = F32_ROWS.get(cfg.family, SERVE_BATCH)
+    batch = {k: v[:rows] for k, v in batch.items()}
+    toks = batch["tokens"]
     f32 = torch.float32
-    against_plain = "no scan"
+    checks = []
     if scan_layers(cfg):
         got = uncounted(lambda: api.prefill(params, cfg32, batch, max_len,
                                             cache_dtype=f32))
@@ -2410,20 +2643,24 @@ def serve_f32_checks(cfg, toks, max_len, dev, phase):
         if max(errs.values()) > MAIN_TOL:
             raise AssertionError(f"{phase}: float32 prefill with B2 vs "
                                  f"plain: {errs} > {MAIN_TOL}")
-        against_plain = ("prefill with B2 vs ssd_scan_plain max|diff|/"
-                         "max|ref| " + ", ".join(f"{k} {v:.2e}"
-                                                 for k, v in errs.items())
-                         + f" (limit {MAIN_TOL:g})")
+        checks.append("prefill with B2 vs ssd_scan_plain max|diff|/"
+                      "max|ref| " + ", ".join(f"{k} {v:.2e}"
+                                              for k, v in errs.items())
+                      + f" (limit {MAIN_TOL:g})")
+    if cfg.family == "moe":
+        checks.append(moe_oracle_check(params, cfg32, batch, phase))
     full, _ = uncounted(lambda: api.forward(params, cfg32, batch))
     last = full[:, -1].clone()
     del full
-    _, cache = uncounted(lambda: api.prefill(
-        params, cfg32, {"tokens": toks[:, :-1]}, max_len, cache_dtype=f32))
+    prompt = dict(batch, tokens=toks[:, :-1])
+    _, cache = uncounted(lambda: api.prefill(params, cfg32, prompt, max_len,
+                                             cache_dtype=f32))
     step, _ = api.decode_step(params, cfg32, toks[:, -1:], cache)
     d = (step[:, 0] - last).abs()
     ok = bool((d <= 1e-4 + 1e-3 * last.abs()).all())
-    say(phase, f"float32, batch {tuple(toks.shape)}: {against_plain}; "
-        f"decode step vs teacher-forced forward max|diff| "
+    say(phase, f"float32 ({cut or 'full size'}), batch {tuple(toks.shape)}"
+        + "".join(f"; {c}" for c in checks)
+        + f"; decode step vs teacher-forced forward max|diff| "
         f"{float(d.max()):.3e} (rtol 1e-3, atol 1e-4): "
         f"{'ok' if ok else 'FAIL'}")
     if not ok:
@@ -2524,6 +2761,8 @@ def main():
     timed("serve-mamba2", phase_serve, "serve-mamba2", dev, smi, b2)
     timed("serve-zamba2", phase_serve, "serve-zamba2", dev, smi, b2z)
     timed("serve-qwen3", phase_serve, "serve-qwen3", dev, smi, None)
+    for phase in ("serve-qwen3moe", "serve-whisper", "serve-llava"):
+        timed(phase, phase_serve, phase, dev, smi, None)
     entries, tb_ms, extra, paper = [], {}, [], []
     for name in ("acoustic", "tti", "elastic"):
         entry, tb_ms[name], more, record = run_path(name, smi, dev)

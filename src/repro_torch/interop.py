@@ -7,7 +7,8 @@ arrays (``np.asarray`` of the reference's `GriddedSources`,
 returns the port's structure on `device`, so the reference's exact
 precompute can be fed to the port's propagators.  The language models'
 parameters come across the same way (`mamba2_params_from_numpy`,
-`zamba2_params_from_numpy`, `transformer_params_from_numpy`).  Nothing
+`zamba2_params_from_numpy`, `transformer_params_from_numpy` for the dense,
+MoE and llava models, `whisper_params_from_numpy`).  Nothing
 here imports the reference.
 """
 from __future__ import annotations
@@ -23,7 +24,7 @@ from repro_torch.core import sources as src_mod
 from repro_torch.core.propagators.acoustic import AcousticParams
 from repro_torch.core.propagators.elastic import ElasticParams, ElasticState
 from repro_torch.core.propagators.tti import TTIParams, TTIState
-from repro_torch.models import mamba2, transformer, zamba2
+from repro_torch.models import mamba2, transformer, whisper, zamba2
 
 
 def _fields(cls, arrays, device):
@@ -151,9 +152,23 @@ def zamba2_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
 
 def transformer_params_from_numpy(tree, cfg: ModelConfig,
                                   device="cuda") -> dict:
-    """The port's dense transformer parameters from the reference's (numpy
-    leaves): ``embed``, ``blocks`` (``attn_norm``, ``mlp_norm``, ``attn``,
-    ``mlp``, stacked over layers) and ``final_norm``, shapes checked
-    against `cfg`."""
+    """The port's transformer parameters from the reference's (numpy
+    leaves), for the dense, moe and vlm families (llava's parameters are
+    its backbone's): ``embed``, ``blocks`` (``attn_norm``, ``mlp_norm``,
+    ``attn``, and ``mlp`` or, for the moe family, ``moe`` (``router``,
+    ``w_gate``, ``w_up``, ``w_down``), stacked over layers) and
+    ``final_norm``, shapes checked against `cfg`."""
     return _model_params(tree, transformer.param_shapes(cfg), cfg,
                          resolve_device(device))
+
+
+def whisper_params_from_numpy(tree, cfg: ModelConfig, device="cuda") -> dict:
+    """The port's whisper parameters from the reference's (numpy leaves):
+    ``embed``, the position tables ``enc_pos`` and ``dec_pos``,
+    ``enc_blocks`` and ``dec_blocks`` (LayerNorms ``w``/``b``, attention,
+    the GELU MLP; stacked over layers) and the two final norms.  The
+    tables' lengths are the tree's (`api.init`'s shape sets them); every
+    other shape is checked against `cfg`."""
+    shapes = whisper.param_shapes(cfg, len(tree["enc_pos"]),
+                                  len(tree["dec_pos"]))
+    return _model_params(tree, shapes, cfg, resolve_device(device))

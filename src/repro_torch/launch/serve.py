@@ -1,7 +1,9 @@
 """Serving launcher: batched greedy generation with the family's cache
-(port of `repro.launch.serve`: the ssm, hybrid and dense families, i.e.
-mamba2-130m, zamba2-2.7b, qwen3-1.7b, qwen2-7b, granite-34b and
-stablelm-12b).
+(port of `repro.launch.serve`): the text-in families, ssm, hybrid, dense
+and moe (mamba2-130m, zamba2-2.7b, qwen3-1.7b, qwen2-7b, granite-34b,
+stablelm-12b, qwen3-moe-30b-a3b, dbrx-132b).  The vlm and encdec families
+need stub embeddings in their batches, which the engine does not take: the
+CLI refuses them, as the reference's does.
 
     PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \
         --reduced --num-requests 8 --max-new 16 --device cpu
@@ -40,6 +42,10 @@ def main(argv=None):
         torch.backends.cudnn.allow_tf32 = False
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get(args.arch))
+    if cfg.family in ("vlm", "encdec"):
+        raise SystemExit(f"{args.arch}: the serve CLI takes the text-in "
+                         "families; the vlm and encdec batches carry stub "
+                         "embeddings (launch.steps takes them)")
     shape = ShapeConfig("serve_cli", args.prompt_len + args.max_new,
                         args.batch, "prefill")
     params = api.init(args.seed, cfg, shape, device=dev)

@@ -1,7 +1,8 @@
 """Serving step functions (port of the serving half of
 `repro.launch.steps`), single device: the reference's ``rules=None``
-case, with no sharding constraints.  Every family `models.api` runs (ssm,
-hybrid, dense) goes through them; the train and eval steps come with
+case, with no sharding constraints.  Every family goes through them, its
+batch in `models.api`'s layout (the vlm and encdec batches carry their
+stub embeddings beside the tokens); the train and eval steps come with
 training (ROADMAP A11)."""
 from __future__ import annotations
 

@@ -1,8 +1,8 @@
 """Building blocks the ported models share (port of `repro.models.layers`):
-dtypes, the dense initialiser, RMSNorm, RoPE, attention (GQA, optional
-qk-norm and qkv bias; full, or one token against a KV cache), the SwiGLU
-and GELU MLPs, and the token embedding with its (tied) unembedding.  `layer_norm`, `cross_attention_block` and `encoder_kv` come
-with whisper (ROADMAP A11).
+dtypes, the dense initialiser, RMSNorm and LayerNorm, RoPE, attention
+(GQA, optional qk-norm and qkv bias; full, one token against a KV cache,
+or cross-attention to an encoder's k and v), the SwiGLU and GELU MLPs, and
+the token embedding with its (tied) unembedding.
 
 Parameters are plain dicts of tensors, as the reference's are pytrees, in
 the reference's layouts (``wq`` (D, H, hd), ``wo`` (H, hd, D)); the
@@ -87,6 +87,18 @@ def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
     return (y * w.float()).to(x.dtype)
+
+
+def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
+               eps: float) -> torch.Tensor:
+    """LayerNorm over the last axis in float32 (the population variance,
+    the mean of the centred squares, as `jnp.var`), cast back to x's
+    dtype once."""
+    xf = x.float()
+    centred = xf - torch.mean(xf, dim=-1, keepdim=True)
+    var = torch.mean(centred * centred, dim=-1, keepdim=True)
+    y = centred * torch.rsqrt(var + eps)
+    return (y * w.float() + b.float()).to(x.dtype)
 
 
 def sigmoid(x):
@@ -248,6 +260,27 @@ def attention_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos):
     return _out(p, o), k_cache, v_cache
 
 
+def cross_attention_block(p, cfg: ModelConfig, x, enc_kv):
+    """Cross-attention (whisper's decoder): x's queries against enc_kv =
+    (k, v), computed once from the encoder's output (`encoder_kv`); no
+    RoPE, no mask."""
+    q = _heads(x, p["wq"])
+    if cfg.qkv_bias:
+        q = q + p["bq"]
+    k, v = enc_kv
+    return _out(p, sdpa(q, k, v, causal=False))
+
+
+def encoder_kv(p, cfg: ModelConfig, enc_out):
+    """The cross-attention's (k, v), each (B, S_enc, Hkv, hd), from the
+    encoder's output (B, S_enc, D)."""
+    k, v = _heads(enc_out, p["wk"]), _heads(enc_out, p["wv"])
+    if cfg.qkv_bias:
+        k = k + p["bk"]
+        v = v + p["bv"]
+    return k, v
+
+
 # ---------------------------------------------------------------------------
 # MLPs: SwiGLU, and the classic 2-matrix GELU with biases (granite)
 # ---------------------------------------------------------------------------
@@ -265,11 +298,16 @@ def init_mlp(gen: torch.Generator, cfg: ModelConfig,
 def mlp_shapes(cfg: ModelConfig) -> dict:
     """The shapes of `init_mlp_gelu` when cfg.mlp_type is "gelu", else of
     `init_mlp`, by name."""
-    D, Fd = cfg.d_model, cfg.d_ff
     if cfg.mlp_type == "gelu":
-        return {"w_in": (D, Fd), "b_in": (Fd,), "w_out": (Fd, D),
-                "b_out": (D,)}
+        return mlp_gelu_shapes(cfg)
+    D, Fd = cfg.d_model, cfg.d_ff
     return {"w_gate": (D, Fd), "w_up": (D, Fd), "w_down": (Fd, D)}
+
+
+def mlp_gelu_shapes(cfg: ModelConfig) -> dict:
+    """`init_mlp_gelu`'s shapes, by name."""
+    D, Fd = cfg.d_model, cfg.d_ff
+    return {"w_in": (D, Fd), "b_in": (Fd,), "w_out": (Fd, D), "b_out": (D,)}
 
 
 def mlp_block(p, x):

@@ -1,7 +1,7 @@
-"""Decoder-only transformer LM, the dense family (port of
-`repro.models.transformer`): GQA, qk-norm, qkv bias, tied embeddings, the
-SwiGLU or GELU MLP, and an `inputs_embeds` path.  The MoE FFN comes with
-the moe family (ROADMAP A11); a moe config raises here.
+"""Decoder-only transformer LM, the dense and MoE families and llava's
+backbone (port of `repro.models.transformer`): GQA, qk-norm, qkv bias,
+tied embeddings, the SwiGLU or GELU MLP or the MoE FFN (`models.moe`),
+and an `inputs_embeds` path.
 
 Layer parameters are stacked on a leading axis, in the reference's
 layout; its layer scan is a Python loop over the layers.
@@ -20,6 +20,7 @@ import torch
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
 from repro_torch.models import layers as L
+from repro_torch.models import moe
 
 
 class KVCache(NamedTuple):
@@ -45,28 +46,29 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
     return KVCache.zeros(cfg, batch, max_len, dtype, device=device)
 
 
-def _dense_only(cfg: ModelConfig):
-    if cfg.family != "dense":
-        raise NotImplementedError(
-            f"the port's transformer runs the dense family; {cfg.name} is "
-            f"{cfg.family!r} (ROADMAP A11)")
+def _is_moe(cfg: ModelConfig) -> bool:
+    return cfg.family == "moe" and cfg.num_experts > 0
 
 
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     dt, dev = L.dtype_of(cfg), gen.device
-    return {
+    p = {
         "attn_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "mlp_norm": torch.ones((cfg.d_model,), dtype=dt, device=dev),
         "attn": L.init_attention(gen, cfg),
-        "mlp": (L.init_mlp_gelu(gen, cfg) if cfg.mlp_type == "gelu"
-                else L.init_mlp(gen, cfg)),
     }
+    if _is_moe(cfg):
+        p["moe"] = moe.init_moe(gen, cfg)
+    elif cfg.mlp_type == "gelu":
+        p["mlp"] = L.init_mlp_gelu(gen, cfg)
+    else:
+        p["mlp"] = L.init_mlp(gen, cfg)
+    return p
 
 
 def init(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """Random parameters on the generator's device; every leaf of
     ``blocks`` has leading dim num_layers."""
-    _dense_only(cfg)
     embed = L.init_embed(gen, cfg)
     return {
         "embed": embed,
@@ -85,16 +87,20 @@ def param_shapes(cfg: ModelConfig) -> dict:
     out["blocks/mlp_norm"] = Lyr + D
     out.update({f"blocks/attn/{k}": Lyr + v
                 for k, v in L.attention_shapes(cfg).items()})
-    out.update({f"blocks/mlp/{k}": Lyr + v
-                for k, v in L.mlp_shapes(cfg).items()})
+    ffn, shapes = (("moe", moe.moe_shapes(cfg)) if _is_moe(cfg)
+                   else ("mlp", L.mlp_shapes(cfg)))
+    out.update({f"blocks/{ffn}/{k}": Lyr + v for k, v in shapes.items()})
     out["final_norm"] = D
     return out
 
 
-def _mlp_apply(cfg: ModelConfig, bp: dict, h):
+def _ffn(cfg: ModelConfig, bp: dict, h):
+    """The block's FFN: (output, its aux loss; 0.0 but for the MoE)."""
+    if _is_moe(cfg):
+        return moe.moe_block(bp["moe"], cfg, h)
     if cfg.mlp_type == "gelu":
-        return L.mlp_gelu_block(bp["mlp"], h)
-    return L.mlp_block(bp["mlp"], h)
+        return L.mlp_gelu_block(bp["mlp"], h), 0.0
+    return L.mlp_block(bp["mlp"], h), 0.0
 
 
 def _embed(params, cfg, tokens, inputs_embeds):
@@ -104,30 +110,33 @@ def _embed(params, cfg, tokens, inputs_embeds):
 
 
 def _block(cfg: ModelConfig, bp: dict, x, positions):
-    """One pre-norm block: (output, (k, v) of its attention)."""
+    """One pre-norm block: (output, (k, v) of its attention, aux loss)."""
     h = L.rms_norm(x, bp["attn_norm"], cfg.norm_eps)
     attn_out, kv = L.attention_block(bp["attn"], cfg, h, positions,
                                      causal=True)
     x = x + attn_out
     h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-    return x + _mlp_apply(cfg, bp, h), kv
+    out, aux = _ffn(cfg, bp, h)
+    return x + out, kv, aux
 
 
 def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
             inputs_embeds: Optional[torch.Tensor] = None,
             features_only: bool = False):
     """Full causal forward.  tokens: (B, S) (or inputs_embeds (B, S, D)).
-    Returns (logits (B, S, V) float32, aux loss 0.0), or the final (B, S,
-    D) features when `features_only`."""
-    _dense_only(cfg)
+    Returns (logits (B, S, V) float32, the layers' aux losses summed: 0.0
+    but for the MoE), or the final (B, S, D) features when
+    `features_only`."""
     x = _embed(params, cfg, tokens, inputs_embeds)
     positions = L.positions(*x.shape[:2], x.device)
+    aux = 0.0
     for i in range(cfg.num_layers):
-        x, _ = _block(cfg, L.index(params["blocks"], i), x, positions)
+        x, _, a = _block(cfg, L.index(params["blocks"], i), x, positions)
+        aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:
-        return x, 0.0
-    return L.unembed(params["embed"], cfg, x), 0.0
+        return x, aux
+    return L.unembed(params["embed"], cfg, x), aux
 
 
 def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
@@ -135,13 +144,13 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             cache_dtype=torch.bfloat16):
     """Forward + a KV cache of capacity max_len holding the prompt's k and
     v: (logits (B, S, V) float32, KVCache)."""
-    _dense_only(cfg)
     x = _embed(params, cfg, tokens, inputs_embeds)
     B, S = x.shape[:2]
     positions = L.positions(B, S, x.device)
     cache = KVCache.zeros(cfg, B, max_len, cache_dtype, device=x.device)
     for i in range(cfg.num_layers):
-        x, (k, v) = _block(cfg, L.index(params["blocks"], i), x, positions)
+        x, (k, v), _ = _block(cfg, L.index(params["blocks"], i), x,
+                              positions)
         cache.k[i, :, :S] = k
         cache.v[i, :, :S] = v
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
@@ -154,7 +163,6 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                 cache: KVCache):
     """One decode step.  tokens: (B, 1).  Returns (logits (B, 1, V), the
     cache with k and v written in place and length + 1)."""
-    _dense_only(cfg)
     x = L.embed(params["embed"], cfg, tokens)
     pos = cache.length
     for i in range(cfg.num_layers):
@@ -164,7 +172,7 @@ def decode_step(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
                                             cache.v[i], pos)
         x = x + attn_out
         h = L.rms_norm(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + _mlp_apply(cfg, bp, h)
+        x = x + _ffn(cfg, bp, h)[0]
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)
     return logits, KVCache(k=cache.k, v=cache.v, length=cache.length + 1)

@@ -923,3 +923,65 @@ def test_hybrid_and_dense_on_card_match_cpu(arch):
             [Request(prompt=p, max_new_tokens=6) for p in prompts])])
     for a, b in zip(*outs):
         np.testing.assert_array_equal(a, b)
+
+
+def _moe_oracle(p, cfg, x):
+    """The dense top-k mixture in float64 on the CPU: every expert's
+    SwiGLU on every token, each token keeping its top-k experts' outputs
+    weighted by the router."""
+    p = {k: v.detach().cpu().double() for k, v in p.items()}
+    x2d = x.detach().cpu().double().reshape(-1, x.shape[-1])
+    probs = torch.softmax(x2d @ p["router"], dim=-1)
+    w, top = torch.topk(probs, cfg.experts_per_tok, dim=-1)
+    w = w / w.sum(-1, keepdim=True)
+    g = torch.einsum("nd,edf->enf", x2d, p["w_gate"])
+    u = torch.einsum("nd,edf->enf", x2d, p["w_up"])
+    out = torch.einsum("enf,efd->end", g * torch.sigmoid(g) * u,
+                       p["w_down"])
+    rows = torch.arange(len(x2d))
+    y = sum(w[:, k, None] * out[top[:, k], rows]
+            for k in range(cfg.experts_per_tok))
+    return y.reshape(x.shape)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("arch", ["qwen3-moe-30b-a3b", "dbrx-132b"])
+def test_moe_on_card_matches_dense_oracle_and_cpu(arch):
+    """The MoE's capacity dispatch on the card, float32: at capacity
+    factor E / K (nothing drops) `moe_block` within 1e-5 of max|ref| of
+    the dense top-k oracle; at the config's own factor with the router
+    biased to the last expert, which overflows (ROADMAP C5's case), the
+    dispatch equals the CPU's bit for bit (slots, keep, order, buffer:
+    only kept entries are written, so no write order can change it) and
+    the output is within 1e-5 of the CPU's max."""
+    from repro_torch import configs
+    from repro_torch.models import moe
+
+    dev = _card()
+    base = dataclasses.replace(configs.get_reduced(arch),
+                               param_dtype="float32",
+                               activation_dtype="float32")
+    E, K = base.num_experts, base.experts_per_tok
+    p = moe.init_moe(torch.Generator().manual_seed(0), base)
+    x = torch.randn((4, 16, base.d_model),
+                    generator=torch.Generator().manual_seed(1))
+    nodrop = dataclasses.replace(base, capacity_factor=E / K)
+    got = moe.moe_block(_to(p, dev), nodrop, x.to(dev))[0].cpu().double()
+    want = _moe_oracle(p, nodrop, x)
+    assert float((got - want).abs().max()) <= 1e-5 * float(want.abs().max())
+
+    x[..., 0] = 3.0
+    p["router"][0] = 0.0
+    p["router"][0, E - 1] = 2.0
+    x2d = x.reshape(-1, base.d_model)
+    idx, w, _ = moe.route(p, base, x2d)
+    C = moe.capacity(len(x2d), base)
+    assert int((idx == E - 1).sum()) > C
+    on_cpu = moe.dispatch(base, x2d, idx, w, C)
+    on_card = moe.dispatch(base, x2d.to(dev), idx.to(dev), w.to(dev), C)
+    for a, b in zip(on_card, on_cpu):
+        assert torch.equal(a.cpu(), b)
+    y_card = moe.moe_block(_to(p, dev), base, x.to(dev))[0].cpu()
+    y_cpu = moe.moe_block(p, base, x)[0]
+    assert float((y_card - y_cpu).abs().max()) <= 1e-5 * float(
+        y_cpu.abs().max())

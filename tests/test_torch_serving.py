@@ -3,9 +3,10 @@
 reference's engine tests (`tests/test_serving.py`) on the port.
 
 mamba2-130m REDUCED in float32 (as the reference's serving tests run it),
-and zamba2-2.7b and qwen3-1.7b REDUCED likewise, the reference's
-parameters carried across, the same requests: the greedy outputs must be
-equal token for token.  On the CPU the scan runs its plain
+and zamba2-2.7b, qwen3-1.7b and qwen3-moe-30b-a3b REDUCED likewise, the
+reference's parameters carried across, the same requests: the greedy
+outputs must be equal token for token (the MoE's against the reference
+with ROADMAP C5 repaired, `test_torch_moe._c5_free_dispatch`).  On the CPU the scan runs its plain
 version; on a card the same engine launches kernel B2 (`chip_smoke.py`).
 """
 import dataclasses
@@ -21,6 +22,7 @@ import torch
 
 from repro import configs as jconfigs
 from repro.models import api as japi
+from repro.models import moe as jmoe
 from repro.serving import GenerationEngine as JEngine
 from repro.serving import Request as JRequest
 
@@ -28,6 +30,7 @@ from repro_torch import configs, interop
 from repro_torch.launch import serve
 from repro_torch.models import api
 from repro_torch.serving import GenerationEngine, Request
+from test_torch_moe import _c5_free_dispatch
 
 ROOT = Path(__file__).resolve().parents[1]
 F32 = dict(param_dtype="float32", activation_dtype="float32")
@@ -114,7 +117,35 @@ def test_hybrid_and_dense_outputs_equal_reference(arch, lengths, max_new):
         np.testing.assert_array_equal(g.output, np.asarray(w.output))
 
 
-@pytest.mark.parametrize("arch", LM_ARCHS)
+@pytest.mark.parametrize("lengths,max_new", [
+    ((4, 9, 16, 7), (3, 6, 2, 5)),      # left padding, ragged lengths
+    ((8, 8), (6, 6)),                   # equal lengths, one slot empty
+])
+def test_moe_outputs_equal_reference(lengths, max_new, monkeypatch):
+    """REDUCED qwen3-moe at its capacity factor 1.25: prefill drops
+    entries and decode routes 4 tokens (empty slots among them) at
+    C = K.  The reference runs with its dispatch repaired (C5), patched in
+    before its engine traces."""
+    monkeypatch.setattr(jmoe, "_dispatch_group", _c5_free_dispatch)
+    arch = "qwen3-moe-30b-a3b"
+    jcfg = dataclasses.replace(jconfigs.get_reduced(arch), **F32)
+    cfg = dataclasses.replace(configs.get_reduced(arch), **F32)
+    jparams = japi.init(jax.random.PRNGKey(0), jcfg)
+    params = interop.transformer_params_from_numpy(
+        jax.tree.map(np.asarray, jparams), cfg, device="cpu")
+    jengine = JEngine(jparams, jcfg, max_len=48, batch_size=4)
+    engine = GenerationEngine(params, cfg, max_len=48, batch_size=4,
+                              device="cpu")
+    prompts = _prompts(sum(lengths), lengths, cfg.vocab_size)
+    want = jengine.generate([JRequest(prompt=p, max_new_tokens=m)
+                             for p, m in zip(prompts, max_new)])
+    got = engine.generate([Request(prompt=p, max_new_tokens=m)
+                           for p, m in zip(prompts, max_new)])
+    for g, w in zip(got, want):
+        np.testing.assert_array_equal(g.output, np.asarray(w.output))
+
+
+@pytest.mark.parametrize("arch", LM_ARCHS + ["qwen3-moe-30b-a3b"])
 def test_hybrid_and_dense_serve_cli_on_cpu(arch):
     out = subprocess.run(
         [sys.executable, "-m", "repro_torch.launch.serve", "--device", "cpu",
@@ -123,6 +154,15 @@ def test_hybrid_and_dense_serve_cli_on_cpu(arch):
         cwd=ROOT, env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
     assert out.returncode == 0, out.stderr
     assert "served 3 requests, 12 tokens" in out.stdout
+
+
+@pytest.mark.parametrize("arch", ["whisper-medium",
+                                  "llava-next-mistral-7b"])
+def test_serve_cli_refuses_stub_families(arch):
+    """The vlm and encdec batches carry stub embeddings the engine does not
+    take: the CLI refuses them, as the reference's does."""
+    with pytest.raises(SystemExit, match="text-in"):
+        serve.main(["--device", "cpu", "--arch", arch, "--reduced"])
 
 
 def test_eos_outputs_equal_reference():

@@ -180,10 +180,17 @@ def test_param_tree_and_init(name):
 
 
 def test_moe_is_not_ported():
+    """The moe family runs through the transformer and the api: a dense
+    REDUCED config given experts initialises an MoE FFN in every block and
+    returns a float32 aux loss beside its logits."""
     cfg = dataclasses.replace(configs.get_reduced("qwen3-1.7b"),
-                              family="moe")
-    gen = torch.Generator().manual_seed(0)
-    with pytest.raises(NotImplementedError, match="A11"):
-        transformer.init(gen, cfg)
-    with pytest.raises(NotImplementedError, match="A11"):
-        api.forward({}, cfg, {"tokens": torch.zeros((1, 2), dtype=int)})
+                              family="moe", num_experts=4,
+                              experts_per_tok=2, moe_d_ff=32)
+    params = transformer.init(torch.Generator().manual_seed(0), cfg)
+    assert "mlp" not in params["blocks"]
+    assert tuple(params["blocks"]["moe"]["w_gate"].shape) == (
+        cfg.num_layers, 4, cfg.d_model, 32)
+    logits, aux = api.forward(params, cfg,
+                              {"tokens": torch.zeros((1, 2), dtype=int)})
+    assert tuple(logits.shape) == (1, 2, cfg.vocab_size)
+    assert aux.dtype == torch.float32 and float(aux) > 0

@@ -1,10 +1,11 @@
 """The language-model phases of `chip_smoke.py` on the card, without the
 stencil phases: kernel B2 against its plain version
 (`kernel-vs-plain-ssd`, `kernels-ssd-zamba2`), then the serve phases
-(mamba2-130m, zamba2-2.7b, qwen3-1.7b at their published widths and
-depth through `serving.GenerationEngine`, each with its float32 checks).
+(mamba2-130m, zamba2-2.7b, qwen3-1.7b, qwen3-moe-30b-a3b, whisper-medium,
+llava-next-mistral-7b at their published widths and depth, each with its
+float32 checks).
 
-    python3 tools/lm_serve.py [--only serve-zamba2,serve-qwen3]
+    python3 tools/lm_serve.py [--only serve-qwen3moe,serve-whisper]
     python3 tools/lm_serve.py --profile [--only serve-zamba2] [--steps 4]
 
 `--only` names serve phases; B2's phases always run first (they make the
@@ -12,7 +13,8 @@ kernels-line entries whose launches the serve phases count).  Builds only
 the SSD scan's library.  Ends with the kernels line for B2.
 
 `--profile` instead puts each model's bf16 prefill of one batch (8
-prompts drawn as the serve phase draws them) and `--steps` decode steps
+prompts drawn as the serve phase draws them, with the stub embeddings of
+whisper and llava) and `--steps` decode steps
 under `torch.profiler` after a warm-up of the same calls: per call its
 wall time (host clock around it and a synchronise), the device time
 summed over the card's own events, the device's idle share of the wall
@@ -51,22 +53,26 @@ def profile_serving(phases, steps, smi, dev):
     for phase in phases:
         cfg = configs.get(cs.SERVE_ARCHS[phase])
         params = api.init(cs.SERVE_SEED, cfg, device=dev)
-        rng = np.random.RandomState(cs.SERVE_SEED)
-        prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(
-            cs.SERVE_PROMPT[0], cs.SERVE_PROMPT[1] + 1)).astype(np.int32)
-            for _ in range(cs.SERVE_BATCH)]
-        plen = max(len(p) for p in prompts)
-        toks = np.zeros((cs.SERVE_BATCH, plen), np.int32)
-        for i, p in enumerate(prompts):
-            toks[i, plen - len(p):] = p           # left pad, as the engine
-        toks = torch.as_tensor(toks, device=dev)
-        max_len = cs.SERVE_PROMPT[1] + cs.SERVE_NEW
+        if cfg.family in cs.STUB_KEY:
+            batch = cs.stub_batches(cfg, dev)[0][0]
+        else:
+            rng = np.random.RandomState(cs.SERVE_SEED)
+            prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(
+                cs.SERVE_PROMPT[0], cs.SERVE_PROMPT[1] + 1)).astype(np.int32)
+                for _ in range(cs.SERVE_BATCH)]
+            plen = max(len(p) for p in prompts)
+            toks = np.zeros((cs.SERVE_BATCH, plen), np.int32)
+            for i, p in enumerate(prompts):
+                toks[i, plen - len(p):] = p       # left pad, as the engine
+            batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        shape = tuple(batch["tokens"].shape)
+        max_len = cs.serve_max_len(cfg)
         prefill = make_prefill_step(cfg, max_len)
         decode = make_decode_step(cfg)
         state = {}
 
         def run_prefill():
-            state["tok"], state["cache"] = prefill(params, {"tokens": toks})
+            state["tok"], state["cache"] = prefill(params, batch)
 
         def run_decode():
             tok, cache = state["tok"], state["cache"]
@@ -78,7 +84,7 @@ def profile_serving(phases, steps, smi, dev):
             wall, device, rows, _ = profiled(fn, top=200)
             b2 = _sums(rows, "ssd_scan")
             mm = _sums(rows, "gemm", "xmma", "cutlass", "gemv", "nvjet")
-            cs.say(phase, f"{what} (batch {tuple(toks.shape)}): wall "
+            cs.say(phase, f"{what} (batch {shape}): wall "
                    f"{wall:.2f} ms, device {device:.2f} ms, idle "
                    f"{max(0.0, 1 - device / wall):.1%}; B2 {b2:.2f} ms, "
                    f"matrix products {mm:.2f} ms, other {device - b2 - mm:.2f}"
