@@ -44,13 +44,18 @@ the JAX package.
 Phases (one line each): environment, build, kernel vs plain on small
 cases (kernel-vs-plain, kernel-vs-plain-edges: a source on a trapezoid
 boundary and a receiver on four tiles' corner, kernels-batched,
-kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-plain-ssd with
-kernels-ssd, kernels-ssd-zamba2), serve-mamba2, serve-zamba2, serve-qwen3,
-serve-qwen3moe, serve-whisper, serve-llava, then for each path: main path
+kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-first-tti and
+kernel-vs-first-elastic: the cluster-shared trapezoid B5 at halos 32 and
+48 bit-equal to the first schedule and held to the plain version,
+kernel-vs-plain-ssd with kernels-ssd, kernels-ssd-zamba2), serve-mamba2,
+serve-zamba2, serve-qwen3, serve-qwen3moe, serve-whisper, serve-llava, then for each path: main path
 at full size, spatially-blocked baseline, kernel timing (with its design:
 the schedule the launch takes, registers, shared memory, blocks an SM,
 achieved GB/s), the batched kernel at the main path's shapes (after
-acoustic: sharded-acoustic and main-acoustic-bf16); then survey-acoustic,
+acoustic: sharded-acoustic and main-acoustic-bf16); the paper's cases at
+orders 8 and 12 (paper-*: TTI and elastic on B5 at tile 64, each B5 run
+counted and its kernel held against the plain version on a mid-run tile);
+then survey-acoustic,
 survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
 line.  Any failed check raises, and the script exits non-zero.
 """
@@ -264,7 +269,7 @@ def uncounted(fn):
 
 
 # launches held against the plain version, by schedule (`schedules`)
-COMPARED = {"first": 0, "z-streamed": 0}
+COMPARED = {"first": 0, "z-streamed": 0, "cluster": 0}
 
 
 # grids up to this many points hold every schedule against the plain
@@ -276,17 +281,21 @@ EVERY_SCHEDULE_POINTS = 256 ** 3
 
 def schedules(spec, physics):
     """The schedules the physics' kernel can run at `spec`, the one
-    `stencil_tb.launch_plan` picks first: None for the first schedule,
-    else a z-streamed (bx, by, shared bytes)."""
-    chosen = ker.launch_plan(spec, physics)
+    `stencil_tb.launch_plan` picks first: None for the first schedule, a
+    z-streamed (bx, by, shared bytes), or a `stencil_tb.ClusterPlan`
+    (B5, TTI and elastic)."""
+    out = [ker.launch_plan(spec, physics)]
     if spec.nx * spec.ny * spec.nz > EVERY_SCHEDULE_POINTS:
-        return [chosen]
-    if chosen is not None:
-        return [chosen, None]
-    try:
-        return [None, ker.stream_plan(spec, physics)]
-    except ValueError:                  # no sub-tile fits a block
-        return [None]
+        return out
+    for make in (lambda: None, lambda: ker.stream_plan(spec, physics),
+                 lambda: ker.cluster_plan(spec, physics)):
+        try:
+            plan = make()
+        except ValueError:              # no sub-tile fits, or no B5
+            continue
+        if ker.schedule_name(plan) not in map(ker.schedule_name, out):
+            out.append(plan)
+    return out
 
 
 @contextlib.contextmanager
@@ -301,15 +310,16 @@ def on_schedule(plan):
         ker.launch_plan = chosen
 
 
-def schedule_name(plan):
-    return "first" if plan is None else "z-streamed"
-
-
 def schedule_of(spec, physics):
     """The schedule a launch of `spec` takes, for the kernels line."""
     plan = ker.launch_plan(spec, physics)
-    return ("first" if plan is None
-            else f"z-streamed, sub-tile ({plan[0]}, {plan[1]})")
+    if plan is None:
+        return "first"
+    if isinstance(plan, ker.ClusterPlan):
+        return (f"cluster-shared (B5), {plan.cluster} blocks a cluster, "
+                f"chunks up to {plan.chunk[0]}x{plan.chunk[1]}, "
+                f"{plan.smem} B shared")
+    return f"z-streamed, sub-tile ({plan[0]}, {plan[1]})"
 
 
 def compare_kernel(spec, physics, args, dom=None):
@@ -336,7 +346,7 @@ def compare_kernel(spec, physics, args, dom=None):
     for plan in plans:
         kst, krec = picked if plan is plans[0] else launch(plan)
         torch.cuda.synchronize()
-        name = schedule_name(plan)
+        name = ker.schedule_name(plan)
         pairs = [(f, k, q) for f, k, q in zip(physics.state_fields, kst,
                                               pst)]
         pairs += [(f"rec[{c}]", krec[..., c], prec[..., c])
@@ -435,6 +445,68 @@ def phase_kernel_vs_plain_edges(dev):
                 f"injection's region (its neighbour point just outside), "
                 f"receiver on four tiles' corner: max|diff| {err:.3e}, "
                 f"max|diff|/max|plain| {rel:.3e}")
+
+
+# B5 against the first schedule at the deep halos it runs: a reduced grid
+# of 2 x 2 tiles at T = 4, orders 8 and 12 (halo 32 and 48)
+KVF_SHAPE = (160, 160, 64)
+KVF_TILE = (80, 80)
+
+
+def phase_kernel_vs_first(name, dev, smi):
+    """The cluster-shared trapezoid (B5), which `launch_plan` takes at
+    these halos, against the first schedule (bit for bit: fields and
+    receiver partials) and the plain version (rtol / atol and FIELD_RTOL)
+    on KVF_SHAPE, one launch each, with its cluster, chunks, shared bytes
+    and the clusters the card holds at once."""
+    physics = phys.PHYSICS[name]
+    phase = f"kernel-vs-first-{name}"
+    for i, order in enumerate((8, 12)):
+        state, params, g, gr, dt = small_case(name, KVF_SHAPE, order, 3, 8,
+                                              60 + i, dev)
+        plan = TBPlan(KVF_TILE, 4, physics.step_radius(order))
+        spec, args = kernel_inputs(physics, plan, state, params, g, gr, dt,
+                                   1, SMALL_SPACING, order=order)
+        b5 = ker.launch_plan(spec, physics)
+        if not isinstance(b5, ker.ClusterPlan):
+            raise AssertionError(f"{phase}: launch_plan took {b5} at halo "
+                                 f"{spec.halo}, not B5")
+        runs = {}
+        for sched in (b5, None):
+            with on_schedule(sched):
+                runs[ker.schedule_name(sched)] = cuda_ms(lambda: uncounted(
+                    lambda: ker.tb_time_tile(spec, physics, *args)))
+            COMPARED[ker.schedule_name(sched)] += 1
+        plain_ms, (pst, prec) = cuda_ms(lambda: ker.tb_time_tile_plain(
+            spec, physics, *args))
+        (b_ms, (kst, krec)), (f_ms, (fst, frec)) = runs["cluster"], \
+            runs["first"]
+        same = all(torch.equal(a, b)
+                   for a, b in zip((*kst, krec), (*fst, frec)))
+        if not same:
+            raise AssertionError(f"{phase}: B5 differs from the first "
+                                 f"schedule at order {order}")
+        pairs = list(zip(physics.state_fields, kst, pst)) + [
+            (f"rec[{c}]", krec[..., c], prec[..., c])
+            for c in range(prec.shape[-1])]
+        errs = [check_close(f"{phase} order {order} {f}", k, q,
+                            ATOL[name]) for f, k, q in pairs]
+        if not float(prec.abs().max()) > 0:
+            raise AssertionError(f"{phase}: no receiver signal")
+        active = ker.cluster_occupancy(spec, physics, b5)
+        say(phase, f"order {order} T=4 (halo {spec.halo}) {KVF_SHAPE} tile "
+            f"{KVF_TILE}: B5 {b5.cluster} blocks a cluster, chunks up to "
+            f"{b5.chunk[0]}x{b5.chunk[1]}, {b5.smem} B shared, {active} "
+            f"clusters at once, redundancy "
+            f"{ker.redundancy(spec, physics, b5):.3f} (first schedule "
+            f"{ker.redundancy(spec, physics, None):.3f}); bit-equal to the "
+            f"first schedule: {same}; vs plain max|diff| "
+            f"{max(e for e, _ in errs):.3e}, max|diff|/max|plain| "
+            f"{max(r for _, r in errs):.3e} (field rtol {FIELD_RTOL}); one "
+            f"launch B5 {b_ms:.2f} ms, first {f_ms:.2f} ms, plain "
+            f"{plain_ms:.1f} ms [{smi}]")
+        del runs, kst, krec, fst, frec, pst, prec, args
+        torch.cuda.empty_cache()
 
 
 # ---------------------------------------------------------------------------
@@ -760,36 +832,55 @@ def say_design(phase, physics, spec, ms, cost):
     """The kernel's design at this launch's shape: the schedule
     `stencil_tb.launch_plan` picks, each instantiation of it at this
     radius (ptxas registers, static shared memory, spill stores; the
-    plan's dynamic shared memory), blocks an SM, and the launch's
-    achieved GB/s: the least bytes (`kernel_cost`) and the bytes its
-    schedule moves by design (`stencil_tb.design_bytes`) over its time."""
+    plan's dynamic shared memory), blocks an SM (for B5 also its cluster
+    and the clusters the card holds at once), and the launch's achieved
+    GB/s: the least bytes (`kernel_cost`) and the bytes its schedule moves
+    by design (`stencil_tb.design_bytes`) over its time."""
     lib = KERNEL_FILES[physics.name]
     usage = ptxas_usage(_build.build_all([lib])[lib].log)
     plan = ker.launch_plan(spec, physics)
-    bx, by, dyn = plan if plan is not None else (*spec.tile, 0)
+    cluster = isinstance(plan, ker.ClusterPlan)
+    if plan is None:
+        bx, by, dyn = (*spec.tile, 0)
+    elif cluster:
+        bx, by, dyn = (*spec.tile, plan.smem)
+    else:
+        bx, by, dyn = plan
     props = torch.cuda.get_device_properties(0)
     sm_smem = getattr(props, "shared_memory_per_multiprocessor", 233472)
     sm_regs = getattr(props, "regs_per_multiprocessor", 65536)
     sm_threads = getattr(props, "max_threads_per_multi_processor", 2048)
     threads = ker._STREAM_THREADS
+    kind = ker.schedule_name(plan)
     parts = []
     for entry, (regs, static, spill) in sorted(usage.items()):
-        if (f"_kernelILi{spec.radius}E" not in entry
-                or ("StreamArgs" in entry) != (plan is not None)):
+        entry_kind = ("cluster" if "ClusterArgs" in entry else
+                      "z-streamed" if "StreamArgs" in entry else "first")
+        if f"_kernelILi{spec.radius}E" not in entry or entry_kind != kind:
             continue
         blocks = min(sm_smem // (dyn + static + 1024),
                      sm_regs // (regs * threads), sm_threads // threads)
         m = re.search(r"(tb_\w+?_kernel)ILi(\d+)ELb([01])E(\w*?)Ev", entry)
-        kind = "bf16" if "bfloat16" in m.group(4) else "f32"
+        kind_t = "bf16" if "bfloat16" in m.group(4) else "f32"
         parts.append(f"{m.group(1)}<R={m.group(2)}, DOM={m.group(3)}, "
-                     f"{kind}>: {regs} registers, {spill} B spill stores, "
+                     f"{kind_t}>: {regs} registers, {spill} B spill stores, "
                      f"{dyn} + {static} B shared a block, {blocks} block(s) "
                      "an SM")
     design = ker.design_bytes(spec, physics)
     nblocks = (spec.nx // bx) * (spec.ny // by)
-    what = ("first schedule, one block a tile" if plan is None else
-            f"z-streamed schedule, sub-tile ({bx}, {by}) of tile "
-            f"{spec.tile}")
+    if plan is None:
+        what = "first schedule, one block a tile"
+    elif cluster:
+        active = ker.cluster_occupancy(spec, physics, plan)
+        what = (f"cluster-shared trapezoid (B5) on tile {spec.tile}, "
+                f"{plan.cluster} blocks a cluster, chunks up to "
+                f"{plan.chunk[0]}x{plan.chunk[1]}, {active} clusters at once "
+                f"({nblocks / max(active, 1):.2f} waves), redundancy "
+                f"{ker.redundancy(spec, physics, plan):.3f}")
+        nblocks *= plan.cluster
+    else:
+        what = (f"z-streamed schedule, sub-tile ({bx}, {by}) of tile "
+                f"{spec.tile}")
     say(phase, f"design: {what}, {nblocks} blocks of {threads} threads; "
         + "; ".join(parts)
         + f"; achieved {cost['min_bytes'] / ms / 1e6:.0f} GB/s of least "
@@ -802,19 +893,33 @@ def say_design(phase, physics, spec, ms, cost):
 # The paper's other cases: every physics at space orders 8 and 12
 # ---------------------------------------------------------------------------
 
-# the TB plans tried in order (tile, T): the first whose propagation fits
-# the card.  A smaller tile does not make a launch smaller here (each
-# tile's window overhangs it by the same halo), so (16, 16) comes last.
-PAPER_PLANS = (((32, 32), 4), ((32, 32), 2), ((16, 16), 2))
+# the TB plans tried in order (tile, T), by physics and order: the first
+# whose propagation fits the card.  Acoustic: a smaller tile does not make
+# a launch smaller (each tile's window overhangs it by the same halo), so
+# (16, 16) comes last.  TTI and elastic: the cluster-shared trapezoid (B5)
+# at tiles 64 and 128 first, in the order `tools/paper_cases.py --kernels`
+# measured fastest a step in all four cases (PERF.md: tile 64 with 2
+# blocks a cluster fills the card in one wave; T = 2 beats T = 4), then
+# the plans of PR 19.
+_FIRST_PLANS = (((32, 32), 4), ((32, 32), 2), ((16, 16), 2))
+_B5_PLANS = (((64, 64), 2), ((128, 128), 2), ((64, 64), 4),
+             ((128, 128), 4))
+PAPER_PLANS = {
+    ("acoustic", 8): _FIRST_PLANS, ("acoustic", 12): _FIRST_PLANS,
+    ("tti", 8): _B5_PLANS + _FIRST_PLANS,
+    ("tti", 12): _B5_PLANS + _FIRST_PLANS,
+    ("elastic", 8): _B5_PLANS + _FIRST_PLANS,
+    ("elastic", 12): _B5_PLANS + _FIRST_PLANS,
+}
 # device bytes a propagation may count on beyond `ops.propagation_bytes`
 # (its tables, receiver partials and traces, the allocator's rounding)
 PAPER_RESERVE = 2 * 2 ** 30
 
 
 def paper_plan(fc):
-    """(plan, [(tile, T, GiB) of the plans tried]): the first of
-    PAPER_PLANS whose propagation (`ops.propagation_bytes`) fits this
-    card's free memory less PAPER_RESERVE; raises if none does."""
+    """(plan, [(tile, T, GiB) of the plans tried]): the first of the
+    case's PAPER_PLANS whose propagation (`ops.propagation_bytes`) fits
+    this card's free memory less PAPER_RESERVE; raises if none does."""
     from repro_torch.survey.engine import free_device_bytes
 
     torch.cuda.empty_cache()
@@ -823,14 +928,15 @@ def paper_plan(fc):
     # the case's state and params, already made, count in each `need`
     made = sum(f.numel() * f.element_size() for f in (*fc.state, *fc.params))
     tried = []
-    for tile, T in PAPER_PLANS:
+    plans = PAPER_PLANS[fc.physics.name, fc.order]
+    for tile, T in plans:
         plan = TBPlan(tile, T, fc.physics.step_radius(fc.order))
         need = ops.propagation_bytes(fc.physics, shape, fc.nt, plan,
                                      fc.order)
         tried.append((tile, T, need / 2 ** 30))
         if need + PAPER_RESERVE <= free + made:
             return plan, tried
-    raise AssertionError(f"{fc.case.name}: no plan of {PAPER_PLANS} fits "
+    raise AssertionError(f"{fc.case.name}: no plan of {plans} fits "
                          f"the card's {free / 2 ** 30:.2f} GiB free: " +
                          ", ".join(f"tile {t} T={d} {g:.2f} GiB"
                                    for t, d, g in tried))
@@ -839,7 +945,8 @@ def paper_plan(fc):
 def counted_run(fc, plan):
     """fc.run(plan) with the launch counter set to 0 just before and read
     just after, CUDA events around the run and around each launch: (final,
-    recs, launches, run ms, ms of each full-depth launch, peak GiB)."""
+    recs, launches, run ms, ms of each full-depth launch, peak GiB, the
+    launches by schedule)."""
     events = []
 
     def launch(spec, p, *args, **kw):
@@ -855,6 +962,7 @@ def counted_run(fc, plan):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     ker.launches = 0
+    ker.schedule_launches.update(dict.fromkeys(ker.schedule_launches, 0))
     ops.EXECUTORS["cuda"] = launch
     try:
         ms, (final, recs) = cuda_ms(lambda: fc.run(plan))
@@ -867,7 +975,8 @@ def counted_run(fc, plan):
         raise AssertionError(f"{fc.case.name} T={plan.T}: {launches} kernel "
                              f"launches, expected {expect}")
     per_launch = [a.elapsed_time(b) for a, b in events]
-    return final, recs, launches, ms, per_launch, peak
+    return final, recs, launches, ms, per_launch, peak, dict(
+        ker.schedule_launches)
 
 
 def phase_paper_case(name, order, smi, dev):
@@ -902,19 +1011,25 @@ def phase_paper_case(name, order, smi, dev):
            "model_plan": {"tile": list(model.tile), "T": model.T}}
     sb = TBPlan(TILE, 1, fc.physics.step_radius(order))
     for what, p in (("TB", plan), ("SB", sb)):
-        final, recs, launches, ms, per_launch, peak = counted_run(fc, p)
+        final, recs, launches, ms, per_launch, peak, by_schedule = \
+            counted_run(fc, p)
         if not (all(torch.isfinite(f).all() for f in final)
                 and torch.isfinite(recs).all()):
             raise AssertionError(f"{phase}: {what} non-finite values")
         errs, same = field_errors(fc.physics, (final, recs), (
             tuple(f.to(dev) for f in rfinal), rrec))
-        del final, recs
+        del recs
         worst = check_errors(phase, errs, MAIN_TOL,
                              f"{what} vs the Listing-1 reference")
         pspec = ops.make_spec(SHAPE, p, order, fc.dt, fc.spacing, 1, 1,
                               physics=fc.physics)
         k_ms = statistics.median(per_launch)
-        bound, by = bound_of(ker.kernel_cost(pspec, fc.physics))
+        cost = ker.kernel_cost(pspec, fc.physics)
+        bound, by = bound_of(cost)
+        if isinstance(ker.launch_plan(pspec, fc.physics), ker.ClusterPlan):
+            out["kernel_entry"] = b5_entry(phase, fc, pspec, final,
+                                           by_schedule, k_ms, cost, smi)
+        del final
         say(phase, f"{what} tile {p.tile} T={p.T} "
             f"({schedule_of(pspec, fc.physics)} schedule): {launches} "
             f"kernel launches, run {ms:.1f} ms = {ms / fc.nt:.3f} ms per "
@@ -938,6 +1053,59 @@ def phase_paper_case(name, order, smi, dev):
 
 PAPER_EXTRA = [(c.propagator, c.space_order) for c in
                paper_stencil.PAPER_CASES if c.space_order != ORDER]
+
+
+def b5_entry(phase, fc, spec, final, by_schedule, k_ms, cost, smi):
+    """The kernels-line entry of a paper case's TB run on the cluster-
+    shared trapezoid (B5): every launch of the run whose shape takes B5
+    (the full-depth ones, and the remainder's at a halo of 24 and more)
+    was B5, and the kernel on a mid-run tile of the run's final state (the
+    source's values of that tile) is held against the plain version."""
+    name, plan = fc.physics.name, ker.launch_plan(spec, fc.physics)
+    r = fc.physics.step_radius(fc.order)
+    expect = fc.nt // spec.T
+    if fc.nt % spec.T:                  # the remainder tile's own halo
+        rspec = ops.make_spec(SHAPE, TBPlan(spec.tile, fc.nt % spec.T, r),
+                              fc.order, fc.dt, fc.spacing, 1, 1,
+                              physics=fc.physics)
+        expect += isinstance(ker.launch_plan(rspec, fc.physics),
+                             ker.ClusterPlan)
+    if by_schedule["cluster"] != expect:
+        raise AssertionError(f"{phase}: {by_schedule['cluster']} B5 "
+                             f"launches, expected {expect} ({by_schedule})")
+    t0 = (fc.nt // spec.T // 2) * spec.T
+    tplan = TBPlan(spec.tile, spec.T, r)
+    cspec, args = kernel_inputs(fc.physics, tplan, final,
+                                fc.params._asdict(), fc.g, fc.gr, fc.dt, t0,
+                                fc.spacing, order=fc.order)
+    err, rel, _, plain_ms = compare_kernel(cspec, fc.physics, args)
+    del args
+    say_design(phase, fc.physics, spec, k_ms, cost)
+    bound, by = bound_of(cost)
+    say(phase, f"B5 tb_{name} at tile {spec.tile} T={spec.T}: "
+        f"{by_schedule['cluster']} launches in the TB run, {k_ms:.3f} ms "
+        f"a launch vs bound {bound:.3f} ms by {by}; vs plain on the tile "
+        f"at step {t0}: max|diff| {err:.3e}, max|diff|/max|plain| "
+        f"{rel:.3e}, plain {plain_ms:.1f} ms [{smi}]")
+    return {
+        "name": f"stencil_tb.tb_{name}_cluster_O{fc.order}",
+        "route": "cuda",
+        "source": f"src/repro_torch/kernels/csrc/{KERNEL_FILES[name]}.cu",
+        "replaces": "src/repro/kernels/stencil_tb.py:129",
+        "launches": by_schedule["cluster"],
+        "max_abs_err": err,
+        "ms": k_ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "schedule": schedule_of(spec, fc.physics),
+        "cluster": plan.cluster,
+        "chunk": list(plan.chunk),
+        "smem": plan.smem,
+        "tile": list(spec.tile),
+        "T": spec.T,
+    }
 
 
 # ---------------------------------------------------------------------------
@@ -1850,7 +2018,7 @@ def compare_bf16(spec, physics, args, args32):
         with on_schedule(plan):
             outs.append(uncounted(lambda: ker.tb_time_tile(spec, physics,
                                                            *args)))
-        COMPARED[schedule_name(plan)] += 1
+        COMPARED[ker.schedule_name(plan)] += 1
     torch.cuda.synchronize()
     for kst, krec in outs:
         for k, p, f in zip((*kst, krec), (*pst, prec), (*fst, frec)):
@@ -2754,6 +2922,9 @@ def main():
     timed("kernels-batched", phase_kernels_batched, dev)
     timed("kernel-vs-plain-dom", phase_kernel_vs_plain_dom, dev)
     timed("kernel-vs-plain-bf16", phase_kernel_vs_plain_bf16, dev)
+    for name in ("tti", "elastic"):
+        timed(f"kernel-vs-first-{name}", phase_kernel_vs_first, name, dev,
+              smi)
     say("kernel-vs-plain", f"launches held against the plain version by "
         f"schedule (acoustic, TTI, elastic): {COMPARED}")
     b2 = timed("kernel-vs-plain-ssd", phase_kernel_vs_plain_ssd, dev, smi)
@@ -2773,6 +2944,7 @@ def main():
         paper.append(timed(f"paper-{name}-O{order}", phase_paper_case, name,
                            order, smi, dev))
     say_paper_table(paper, smi)
+    entries += [r["kernel_entry"] for r in paper if "kernel_entry" in r]
     entries.append(timed("survey-acoustic", phase_survey_acoustic, smi, dev,
                          tb_ms["acoustic"]))
     timed("survey-tti", phase_survey_tti, smi, dev, tb_ms["tti"])

@@ -27,9 +27,10 @@
 // What bounds it: bytes — 13 fields in and 9 out, 11.8 GB at 512^3, 3.53
 // ms at 3.35 TB/s, against 165 flops a point-step.
 //
-// Two schedules compute the same function; the wrapper picks one a launch
-// from its shape (`stencil_tb.launch_plan`) and passes the z-streamed
-// schedule's sub-tile, or (0, 0) for the first schedule:
+// Three schedules compute the same function; the wrapper picks one a
+// launch from its shape (`stencil_tb.launch_plan`) and passes the
+// z-streamed schedule's sub-tile, or (0, 0) for the first schedule, to
+// `repro_tb_tile`, or B5's chunk table to `repro_tb_tile_cluster`:
 //
 // The first schedule (the port's first design, kept as it was) re-reads
 // every field from device memory at every tap of every in-window step,
@@ -71,8 +72,21 @@
 // Two points at a time (their reads in flight together) was slower at the
 // 128-register cap.  Next: a fused V+S pass keeping the velocities on
 // chip, and the z taps from shared memory at a smaller block tile.
+//
+// The cluster-shared trapezoid (B5, tb_cluster.cuh) runs the z-streamed
+// schedule's two phases point for point on a whole spec tile's trapezoid,
+// a thread block cluster a tile and each pass's chunks spread over its
+// blocks, for the deep halos of orders 8 and 12 (from halo 16), where a
+// sub-tile's window overhangs it so far that the block windows outgrow the
+// card, and the first schedule recomputes 4-16x the tile's points a pass.
+// Unlike the z-streamed kernel it takes its z taps from shared-memory
+// rings too (as TTI does), and its pointwise operands are coherent loads
+// of the spec tile's windows, which other blocks of the cluster wrote
+// before the barrier.
+// Measured (PERF.md), 512^3, tile 64, 2 blocks a cluster: order 8 at T = 2
+// ~50 ms a launch against 121.2 (first) and 99.6 (z-streamed).
 
-#include "tb_stream.cuh"
+#include "tb_cluster.cuh"
 
 // ---------------------------------------------------------------------------
 // The first schedule (sub-tile (0, 0)): the first design's kernel, unchanged
@@ -412,6 +426,248 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
     }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster-shared trapezoid (B5, tb_cluster.cuh)
+// ---------------------------------------------------------------------------
+
+// shared memory of a B5 chunk of pass n whose load rectangle is lh x lw:
+// phase V's rings of 2R + 2 planes of the three stresses with z taps
+// (txz, tyz, tzz) and two planes of the other three, or phase S's rings
+// of the three velocities; at least the write-back's warp tiles
+// (`stencil_tb.chunk_smem`)
+static long long elastic_chunk_smem(int R, int n, int lh, int lw)
+{
+    const long long ring = ring_planes(R);
+    const long long planes = n % 2 ? 3 * ring + 6 : 3 * ring;
+    const long long need = 4LL * planes * lh * lw;
+    const long long tiles = 4LL * (STREAM_THREADS / 32) * 32 * 33;
+    return need > tiles ? need : tiles;
+}
+
+// a point's pointwise reads in phase V (inside the domain, damp, b, vx,
+// vy, vz) and in phase S (inside, damp, lam, mu, the six stresses)
+struct OpsV {
+    bool in;
+    float damp, b, v[3];
+};
+struct OpsS {
+    bool in;
+    float damp, lam, mu, t[6];
+};
+
+// The same phases as the z-streamed kernel above, point for point, on the
+// spec tile's trapezoid: each pass over this block's chunks, the cluster's
+// blocks meeting at a barrier between passes.  Unlike the z-streamed
+// kernel, every tap comes from shared memory: the fields a phase takes z
+// taps of stream through rings of 2R + 2 planes (phase V: txz, tyz, tzz;
+// phase S: vx, vy, vz), the others through two planes, and only the
+// pointwise operands (the params, the phase's own old values) are
+// coherent loads of the z-major fields, one point of a thread at a time
+// (two, with their reads in flight together, spilled registers at radius
+// 6 and were 25% slower; PERF.md).  The spec tile's 9 windows hold the
+// state, z-major over the spec window, each phase writing its fields in
+// place.
+
+template <int R, bool DOM>
+__global__ void __launch_bounds__(STREAM_THREADS, 1)
+tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
+                  const ClusterArgs c)
+{
+    constexpr int NT = 2 * R;              // staggered taps
+    extern __shared__ __align__(16) float smc[];
+    const CBlk b(a, c);
+    const int nz = a.nz, tid = threadIdx.x, nt = blockDim.x;
+    const float dt = a.dt;
+    ZView st[9];                           // the copies, then the scratch
+    float* scr[9];
+#pragma unroll
+    for (int f = 0; f < 9; ++f) {
+        st[f] = b.copy(s, a.nshots, f);
+        scr[f] = b.window(s, f);
+    }
+    const ZView lam = b.copy(s, a.nshots, 9), mu = b.copy(s, a.nshots, 10);
+    const ZView bb = b.copy(s, a.nshots, 11), damp = b.copy(s, a.nshots, 12);
+    const long long bsx = b.wy, bsz = (long long)b.wx * b.wy;
+
+    // staggered derivative along x or y from a shared plane centred at q
+    // (rows w0 wide), along z from a ring (zero beyond [0, nz)); taps from
+    // offset off0, summed in order as the z-streamed kernel sums them
+    const auto tap_x = [&](const float* q, int w0, int off0) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) acc += q[(off0 + k) * w0] * cf.c[0][k];
+        return acc;
+    };
+    const auto tap_y = [&](const float* q, int off0) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) acc += q[off0 + k] * cf.c[1][k];
+        return acc;
+    };
+    const auto tap_z = [&](const float* q, const ZTaps<R>& zt, int off0) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+            const int j = off0 + k + R;
+            const float v = (zt.mask >> j) & 1 ? q[zt.d[j]] : 0.f;
+            acc += v * cf.c[2][k];
+        }
+        return acc;
+    };
+
+    int cb, ce;
+    for (int k = 0; k < a.T; ++k) {
+        // phase V: velocities (vx, vy, vz = st[0..2]) from the stresses
+        // (txx, tyy, tzz, txy, txz, tyz = st[3..8])
+        {
+            const ZView ring[3] = {st[7], st[8], st[5]};
+            const ZView pln[3] = {st[3], st[4], st[6]};
+            b.chunks(2 * k + 1, &cb, &ce);
+            for (int i = cb; i < ce; ++i)
+                chunk_pass<R, 3, 3>(smc, ring, pln, nz, b.chunk(i),
+                    [&](int x, int y, int z) {
+                    OpsV o;
+                    o.in = b.template in_domain<DOM>(x, y);
+                    if (o.in) {
+                        o.damp = damp.ro(x, y, z);
+                        o.b = bb.ro(x, y, z);
+#pragma unroll
+                        for (int f = 0; f < 3; ++f) o.v[f] = st[f].at(x, y, z);
+                    }
+                    return o;
+                },
+                    [&](const OpsV& o, const float* rc, const float* pc,
+                        int rs, int ps, int w0, const ZTaps<R>& zt, int x,
+                        int y, int z) {
+                    const long long wi = z * bsz + x * bsx + y;
+                    if (!o.in) {
+                        scr[0][wi] = 0.f;
+                        scr[1][wi] = 0.f;
+                        scr[2][wi] = 0.f;
+                        return;
+                    }
+                    const float* txz = rc;
+                    const float* tyz = rc + rs;
+                    const float* tzz = rc + 2 * rs;
+                    const float* txx = pc;
+                    const float* tyy = pc + ps;
+                    const float* txy = pc + 2 * ps;
+                    const float dmp = 1.f / (1.f + o.damp * dt);
+                    const float bdt = dt * o.b;
+                    const float vx = dmp * (o.v[0]
+                        + bdt * ((tap_x(txx, w0, 1 - R) + tap_y(txy, -R))
+                                 + tap_z(txz, zt, -R)));
+                    const float vy = dmp * (o.v[1]
+                        + bdt * ((tap_x(txy, w0, -R) + tap_y(tyy, 1 - R))
+                                 + tap_z(tyz, zt, -R)));
+                    const float vz = dmp * (o.v[2]
+                        + bdt * ((tap_x(txz, w0, -R) + tap_y(tyz, -R))
+                                 + tap_z(tzz, zt, 1 - R)));
+                    scr[0][wi] = vx;
+                    scr[1][wi] = vy;
+                    scr[2][wi] = vz;
+                });
+#pragma unroll
+            for (int f = 0; f < 3; ++f) st[f] = b.view(scr[f]);
+        }
+        cluster_barrier();
+
+        // phase S: stresses from the new velocities
+        const int n = 2 * k + 2;
+        {
+            const ZView ring[3] = {st[0], st[1], st[2]};
+            b.chunks(n, &cb, &ce);
+            for (int i = cb; i < ce; ++i)
+                chunk_pass<R, 3, 0>(smc, ring, nullptr, nz, b.chunk(i),
+                    [&](int x, int y, int z) {
+                    OpsS o;
+                    o.in = b.template in_domain<DOM>(x, y);
+                    if (o.in) {
+                        o.damp = damp.ro(x, y, z);
+                        o.lam = lam.ro(x, y, z);
+                        o.mu = mu.ro(x, y, z);
+#pragma unroll
+                        for (int f = 0; f < 6; ++f)
+                            o.t[f] = st[3 + f].at(x, y, z);
+                    }
+                    return o;
+                },
+                    [&](const OpsS& o, const float* rc, const float*, int rs,
+                        int, int w0, const ZTaps<R>& zt, int x, int y,
+                        int z) {
+                    const long long wi = z * bsz + x * bsx + y;
+                    if (!o.in) {
+#pragma unroll
+                        for (int f = 3; f < 9; ++f) scr[f][wi] = 0.f;
+                        return;
+                    }
+                    const float* vxp = rc;
+                    const float* vyp = rc + rs;
+                    const float* vzp = rc + 2 * rs;
+                    const float dmp = 1.f / (1.f + o.damp * dt);
+                    const float l = o.lam, mu_q = o.mu;
+                    const float dvx_dx = tap_x(vxp, w0, -R);
+                    const float dvy_dy = tap_y(vyp, -R);
+                    const float dvz_dz = tap_z(vzp, zt, -R);
+                    const float div_v = (dvx_dx + dvy_dy) + dvz_dz;
+                    const float mu2 = 2.f * mu_q, dtmu = dt * mu_q;
+                    const float txx = dmp * (o.t[0]
+                                             + dt * (l * div_v + mu2 * dvx_dx));
+                    const float tyy = dmp * (o.t[1]
+                                             + dt * (l * div_v + mu2 * dvy_dy));
+                    const float tzz = dmp * (o.t[2]
+                                             + dt * (l * div_v + mu2 * dvz_dz));
+                    const float txy = dmp * (o.t[3] + dtmu
+                        * (tap_y(vxp, 1 - R) + tap_x(vyp, w0, 1 - R)));
+                    const float txz = dmp * (o.t[4] + dtmu
+                        * (tap_z(vxp, zt, 1 - R) + tap_x(vzp, w0, 1 - R)));
+                    const float tyz = dmp * (o.t[5] + dtmu
+                        * (tap_z(vyp, zt, 1 - R) + tap_y(vzp, 1 - R)));
+                    scr[3][wi] = txx;
+                    scr[4][wi] = tyy;
+                    scr[5][wi] = tzz;
+                    scr[6][wi] = txy;
+                    scr[7][wi] = txz;
+                    scr[8][wi] = tyz;
+                });
+#pragma unroll
+            for (int f = 3; f < 9; ++f) st[f] = b.view(scr[f]);
+        }
+
+        // inject the source values into txx, tyy, tzz at the points this
+        // block's chunks of phase S hold, then record vz and the pressure
+        // at those of the receivers
+        for (int p = tid; p < a.src_cap; p += nt) {
+            const int* cc = a.src_coords + (b.tile * a.src_cap + p) * 3;
+            const float v = a.src_vals[(b.tile * a.T + k) * a.src_cap + p];
+            if (v == 0.f || cc[2] < 0 || cc[2] >= nz
+                || !b.holds(n, cc[0], cc[1]))
+                continue;
+            const long long wi = cc[2] * bsz + cc[0] * bsx + cc[1];
+#pragma unroll
+            for (int f = 3; f < 6; ++f) scr[f][wi] = scr[f][wi] + v;
+        }
+        __syncthreads();
+        for (int p = tid; p < a.rec_cap; p += nt) {
+            const int* cc = a.rec_coords + (b.tile * a.rec_cap + p) * 3;
+            if (!b.in_centre(cc) || !b.holds(n, cc[0], cc[1])) continue;
+            const long long wi = cc[2] * bsz + cc[0] * bsx + cc[1];
+            const float w = a.rec_w[b.tile * a.rec_cap + p];
+            float* o = a.rec_out + ((b.tile * a.T + k) * a.rec_cap + p) * 2;
+            o[0] = w * scr[2][wi];
+            o[1] = w * (-((scr[3][wi] + scr[4][wi]) + scr[5][wi]) / 3.f);
+        }
+        // the next phase V reads the stresses from every block's chunks
+        // and overwrites vz, which the record just read
+        cluster_barrier();
+    }
+
+    // write back this block's chunks of the last pass: the tile's centre
+    b.chunks(2 * a.T, &cb, &ce);
+    for (int i = cb; i < ce; ++i)
+        write_back_chunk<9>(a, b, smc, st, b.chunk(i));
+}
+
 // the params' z-major copies for `repro_tb_tile` with PARAMS_COPIED (see
 // tb_stream.cuh)
 extern "C" int repro_tb_param_copies(int device, const float* const* in,
@@ -468,4 +724,72 @@ extern "C" int repro_tb_tile(
                    smem, st>>>(a, cf, s);
     });
     return rc ? rc : (int)cudaGetLastError();
+}
+
+// B5 (tb_cluster.cuh): `cluster` blocks a spec tile, `table` the chunk
+// table (`stencil_tb.chunk_table`, `len` ints) on the host, checked here,
+// and `table_dev` its copy on the device, `smem` the shared bytes a block;
+// the scratch is the z-major copies and nine spec windows a tile
+extern "C" int repro_tb_tile_cluster(
+    int device, const float* const* in, const int* src_coords,
+    const float* src_vals, const int* rec_coords, const float* rec_w,
+    float* const* out, float* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int cluster, const int* table, const int* table_dev, int len,
+    int smem, void* stream)
+{
+    TileArgs a;
+    Coefs cf;
+    const int e = tile_args(&a, &cf, device, 13, 9, in, src_coords,
+                            src_vals, rec_coords, rec_w, out, rec_out,
+                            scratch, dom, param_rows & PARAM_ROWS, nshots,
+                            nx, ny, nz, tx, ty, T, H, src_cap, rec_cap,
+                            radius, coefs, 2 * radius, dt, dt2);
+    if (e) return e;
+    if (H != 2 * T * radius || cluster < 1 || cluster > CLUSTER_MAX
+        || smem > STREAM_SMEM || (long long)(nx / tx) * (ny / ty) > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int rc0 = check_chunks(
+        table, len, 2 * T, cluster, tx + 2 * H, ty + 2 * H, radius, smem,
+        [&](int n, int lh, int lw) {
+            return elastic_chunk_smem(radius, n, lh, lw);
+        });
+    if (rc0) return rc0;
+    const StreamArgs s = stream_args(a, scratch, 9, 4, param_rows, tx, ty, 9);
+    if (!cluster_aligned(a, s)) return (int)cudaErrorInvalidValue;
+    const ClusterArgs c{table_dev, cluster, 2 * T};
+    const cudaStream_t st = (cudaStream_t)stream;
+    launch_to_zmajor(a, s, 4, param_rows, st);
+    const dim3 grid(cluster, (nx / tx) * (ny / ty), nshots);
+    int rc = 0;
+    with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
+                     const ClusterArgs) =
+            tb_elastic_kernel<decltype(r)::value, decltype(d)::value>;
+        rc = cluster_launch(kern, cluster, grid, STREAM_THREADS, smem, st,
+                            a, cf, s, c);
+    });
+    return rc;
+}
+
+// the clusters of B5 blocks (`cluster` a cluster, `smem` shared bytes a
+// block) the card holds at once, into *active (0: none; a launch raises)
+extern "C" int repro_tb_cluster_occupancy(int radius, int dom, int cluster,
+                                          int smem, int* active)
+{
+    if (radius < 1 || radius > MAX_RADIUS || cluster < 1
+        || cluster > CLUSTER_MAX || smem > STREAM_SMEM)
+        return (int)cudaErrorInvalidValue;
+    int rc = 0;
+    with_radius(radius, dom != 0, [&](auto r, auto d) {
+        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
+                     const ClusterArgs) =
+            tb_elastic_kernel<decltype(r)::value, decltype(d)::value>;
+        cudaLaunchAttribute attr;
+        cudaLaunchConfig_t cfg;
+        rc = cluster_config(kern, cluster, dim3(cluster), STREAM_THREADS, smem,
+                            nullptr, &attr, &cfg, active);
+    });
+    return rc;
 }

@@ -32,9 +32,10 @@
 // What bounds it: on the roofline, operations — the reference prices a
 // point-step at 508 flops at order 4, so a depth-4 tile of the 512^3 case
 // needs 4.07 ms at 67 TFLOP/s against 2.24 ms for its 7.5 GB of least
-// traffic.  Two schedules compute the same function; the wrapper picks one
-// a launch from its shape (`stencil_tb.launch_plan`) and passes the
-// z-streamed schedule's sub-tile, or (0, 0) for the first schedule:
+// traffic.  Three schedules compute the same function; the wrapper picks
+// one a launch from its shape (`stencil_tb.launch_plan`) and passes the
+// z-streamed schedule's sub-tile, or (0, 0) for the first schedule, to
+// `repro_tb_tile`, or B5's chunk table to `repro_tb_tile_cluster`:
 //
 // The first schedule (the port's first design, kept as it was; 137.7 ms a
 // depth-4 launch at 512^3) is bound by bytes in practice: it keeps seven
@@ -88,8 +89,17 @@
 // zeros and tiny normal numerators off that path: the live 512^3
 // wavefield's launch 69.0 → 66.3-66.8 ms, 1.2 ms more on a dense random
 // field.
+//
+// The cluster-shared trapezoid (B5, tb_cluster.cuh) runs the z-streamed
+// schedule's two phases point for point on a whole spec tile's trapezoid,
+// a thread block cluster a tile and each pass's chunks spread over its
+// blocks, for the deep halos of orders 8 and 12 (from halo 16), where a
+// sub-tile's rings fit no block or overhang it many times and the first
+// schedule recomputes 4-16x the tile's points a pass.  Measured (PERF.md),
+// 512^3, tile 64, 2 blocks a cluster: order 8 at T = 2 ~33 ms a launch
+// against 113.5 (first) and 73.7 (z-streamed), at T = 4 87 against 515.
 
-#include "tb_stream.cuh"
+#include "tb_cluster.cuh"
 
 // ---------------------------------------------------------------------------
 // The first schedule (sub-tile (0, 0)): the first design's kernel, unchanged
@@ -206,10 +216,6 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
 // The z-streamed schedule (sub-tile (bx, by))
 // ---------------------------------------------------------------------------
 
-// planes a z ring holds: the 2R + 1 taps of the current plane and the plane
-// loading meanwhile
-static __host__ __device__ constexpr int ring_planes(int r) { return 2 * r + 2; }
-
 // shared memory of sub-tile (bx, by) at halo H and radius r: the larger of
 // the first phase A pass (rings of p and r over the block window) and the
 // first phase B pass (rings of Dx~p and Dz~r and two planes of Dy~p over
@@ -235,25 +241,6 @@ static long long tti_blk_floats(int nz, int H, int r, int bx, int by)
         * (4LL * (bx + 2 * H - 4 * r) * (by + 2 * H - 4 * r)
            + 3LL * (bx + 2 * H - 2 * r) * (by + 2 * H - 2 * r));
 }
-
-// The z taps of plane z in a ring: the offsets of planes z - R .. z + R
-// from plane z's slot (floats), and a bit each for those in [0, nz)
-template <int R>
-struct ZTaps {
-    int d[2 * R + 1];
-    unsigned mask;
-
-    __device__ ZTaps(int z, int nz, int cap) : mask(0) {
-        constexpr int S = ring_planes(R);
-#pragma unroll
-        for (int q = 0; q <= 2 * R; ++q) {
-            const int zz = z + q - R;
-            const bool ok = zz >= 0 && zz < nz;
-            mask |= (unsigned)ok << q;
-            d[q] = ok ? (zz % S - z % S) * cap : 0;
-        }
-    }
-};
 
 // threads of a z-streamed block, and the points each takes at a time in
 // a pass: the pointwise reads of all of them are issued before the first
@@ -579,6 +566,219 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
     }
 }
 
+// ---------------------------------------------------------------------------
+// The cluster-shared trapezoid (B5, tb_cluster.cuh)
+// ---------------------------------------------------------------------------
+
+// shared memory of a B5 chunk of pass n whose load rectangle is lh x lw:
+// phase A's rings of p and r, or phase B's rings of Dx~p and Dz~r and two
+// planes of Dy~p; at least the write-back's warp tiles
+// (`stencil_tb.chunk_smem`)
+static long long tti_chunk_smem(int R, int n, int lh, int lw)
+{
+    const long long ring = ring_planes(R);
+    const long long planes = n % 2 ? 2 * ring : 2 * ring + 2;
+    const long long need = 4LL * planes * lh * lw;
+    const long long tiles = 4LL * (STREAM_THREADS / 32) * 32 * 33;
+    return need > tiles ? need : tiles;
+}
+
+// The same phases as the z-streamed kernel above, point for point, on the
+// spec tile's trapezoid: each pass over this block's chunks, the cluster's
+// blocks meeting at a barrier between passes, one point of a thread at a
+// time (TTI_POINTS points spilled registers at radius 6 and were 4-7%
+// slower; PERF.md).  The spec tile's windows (7, z-major over the spec
+// window): p and r twice, Dx~p, Dy~p, Dz~r.
+template <int R, bool DOM>
+__global__ void __launch_bounds__(TTI_THREADS, 1)
+tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
+              const ClusterArgs c)
+{
+    constexpr int NT = 2 * R + 1;          // central first derivative taps
+    extern __shared__ __align__(16) float sm[];
+    const CBlk b(a, c);
+    const int nz = a.nz, tid = threadIdx.x, nt = blockDim.x;
+    ZView p = b.copy(s, a.nshots, 0), p_prev = b.copy(s, a.nshots, 1);
+    ZView r = b.copy(s, a.nshots, 2), r_prev = b.copy(s, a.nshots, 3);
+    const ZView par = b.copy(s, a.nshots, 4);
+    const float* const m = par.p;
+    const float* const damp = b.copy(s, a.nshots, 5).p;
+    const float* const eps = b.copy(s, a.nshots, 6).p;
+    const float* const dlt = b.copy(s, a.nshots, 7).p;
+    const float* const theta = b.copy(s, a.nshots, 8).p;
+    const float* const phi = b.copy(s, a.nshots, 9).p;
+    float* const pbuf[2] = {b.window(s, 0), b.window(s, 1)};
+    float* const rbuf[2] = {b.window(s, 2), b.window(s, 3)};
+    float* const gx = b.window(s, 4);      // Dx~p
+    float* const gy = b.window(s, 5);      // Dy~p
+    float* const gz = b.window(s, 6);      // Dz~r
+    const long long row = b.wy, plane = (long long)b.wx * b.wy;
+
+    const auto tap_x = [&](const float* q, int w0) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) acc += q[(k - R) * w0] * cf.c[0][k];
+        return acc;
+    };
+    const auto tap_y = [&](const float* q) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) acc += q[k - R] * cf.c[1][k];
+        return acc;
+    };
+    const auto tap_z = [&](const float* q, const ZTaps<R>& zt) {
+        float acc = 0.f;
+#pragma unroll
+        for (int k = 0; k < NT; ++k) {
+            const float v = (zt.mask >> k) & 1 ? q[zt.d[k]] : 0.f;
+            acc += v * cf.c[2][k];
+        }
+        return acc;
+    };
+
+    int cb, ce;
+    for (int k = 0; k < a.T; ++k) {
+        // phase A: the inner first-derivative fields, masked
+        {
+            const ZView ring[2] = {p, r};
+            b.chunks(2 * k + 1, &cb, &ce);
+            for (int i = cb; i < ce; ++i)
+                chunk_pass<R, 2, 0>(sm, ring, nullptr, nz, b.chunk(i),
+                    [&](int x, int y, int z) {
+                    OpsA o;
+                    o.in = b.template in_domain<DOM>(x, y);
+                    if (o.in) {
+                        const long long pi = par.idx(x, y, z);
+                        o.th = __ldg(theta + pi);
+                        o.ph = __ldg(phi + pi);
+                    }
+                    return o;
+                },
+                    [&](const OpsA& o, const float* rc, const float*, int rs,
+                        int, int w0, const ZTaps<R>& zt, int x, int y,
+                        int z) {
+                    const long long wi = z * plane + x * row + y;
+                    if (!o.in) {
+                        gx[wi] = 0.f;
+                        gy[wi] = 0.f;
+                        gz[wi] = 0.f;
+                        return;
+                    }
+                    const Dirs d(o.th, o.ph);
+                    const float* pc = rc;
+                    const float* rcc = rc + rs;
+                    const float dxp = tap_x(pc, w0);
+                    const float dyp = tap_y(pc);
+                    const float dzp = tap_z(pc, zt);
+                    const float dxr = tap_x(rcc, w0);
+                    const float dyr = tap_y(rcc);
+                    const float dzr = tap_z(rcc, zt);
+                    gx[wi] = (d.x0 * dxp + d.x1 * dyp) + d.x2 * dzp;
+                    gy[wi] = d.y0 * dxp + d.y1 * dyp;
+                    gz[wi] = (d.z0 * dxr + d.z1 * dyr) + d.z2 * dzr;
+                });
+        }
+        cluster_barrier();
+
+        // phase B: the outer derivatives and the update; the new p and r
+        // overwrite p_prev and r_prev (or, at the first step, fill the
+        // windows), read only pointwise at the point overwritten
+        const int n = 2 * k + 2;
+        float* const pn = pbuf[k & 1];
+        float* const rn = rbuf[k & 1];
+        {
+            const ZView ring[2] = {b.view(gx), b.view(gz)};
+            const ZView pln[1] = {b.view(gy)};
+            b.chunks(n, &cb, &ce);
+            for (int i = cb; i < ce; ++i)
+                chunk_pass<R, 2, 1>(sm, ring, pln, nz, b.chunk(i),
+                    [&](int x, int y, int z) {
+                    OpsB o;
+                    o.in = b.template in_domain<DOM>(x, y);
+                    if (o.in) {
+                        const long long pi = par.idx(x, y, z);
+                        o.th = __ldg(theta + pi);
+                        o.ph = __ldg(phi + pi);
+                        o.eps = __ldg(eps + pi);
+                        o.dlt = __ldg(dlt + pi);
+                        o.m = __ldg(m + pi);
+                        o.damp = __ldg(damp + pi);
+                        o.p = p.at(x, y, z);
+                        o.pp = p_prev.at(x, y, z);
+                        o.r = r.at(x, y, z);
+                        o.rp = r_prev.at(x, y, z);
+                    }
+                    return o;
+                },
+                    [&](const OpsB& o, const float* rc, const float* pc,
+                        int rs, int, int w0, const ZTaps<R>& zt, int x, int y,
+                        int z) {
+                    const long long wi = z * plane + x * row + y;
+                    if (!o.in) {
+                        pn[wi] = 0.f;
+                        rn[wi] = 0.f;
+                        return;
+                    }
+                    const Dirs d(o.th, o.ph);
+                    const float* vgx = rc;
+                    const float* vgz = rc + rs;
+                    const float gxx = (d.x0 * tap_x(vgx, w0)
+                                       + d.x1 * tap_y(vgx))
+                        + d.x2 * tap_z(vgx, zt);
+                    const float gyy = d.y0 * tap_x(pc, w0) + d.y1 * tap_y(pc);
+                    const float hz_r = (d.z0 * tap_x(vgz, w0)
+                                        + d.z1 * tap_y(vgz))
+                        + d.z2 * tap_z(vgz, zt);
+                    const float h0_p = gxx + gyy;
+                    const float e_fac = 1.f + 2.f * o.eps;
+                    const float d_fac = sqrtf(1.f + 2.f * o.dlt);
+                    const float mm = o.m, dd = o.damp;
+                    const float den = mm + dd * a.dt;
+                    const float rhs_p = e_fac * h0_p + d_fac * hz_r;
+                    const float rhs_r = d_fac * h0_p + hz_r;
+                    pn[wi] = qdiv(a.dt2 * rhs_p + mm * (2.f * o.p - o.pp)
+                                  + dd * a.dt * o.p, den);
+                    rn[wi] = qdiv(a.dt2 * rhs_r + mm * (2.f * o.r - o.rp)
+                                  + dd * a.dt * o.r, den);
+                });
+        }
+
+        // inject the source values into p and r at the points this block's
+        // chunks of phase B hold, then record p at those of the receivers
+        for (int q = tid; q < a.src_cap; q += nt) {
+            const int* cc = a.src_coords + (b.tile * a.src_cap + q) * 3;
+            const float v = a.src_vals[(b.tile * a.T + k) * a.src_cap + q];
+            if (v == 0.f || cc[2] < 0 || cc[2] >= nz
+                || !b.holds(n, cc[0], cc[1]))
+                continue;
+            const long long wi = cc[2] * plane + cc[0] * row + cc[1];
+            pn[wi] = pn[wi] + v;
+            rn[wi] = rn[wi] + v;
+        }
+        __syncthreads();
+        for (int q = tid; q < a.rec_cap; q += nt) {
+            const int* cc = a.rec_coords + (b.tile * a.rec_cap + q) * 3;
+            if (!b.in_centre(cc) || !b.holds(n, cc[0], cc[1])) continue;
+            const long long wi = cc[2] * plane + cc[0] * row + cc[1];
+            a.rec_out[(b.tile * a.T + k) * a.rec_cap + q] =
+                a.rec_w[b.tile * a.rec_cap + q] * pn[wi];
+        }
+        // the next phase A reads this step's p and r from every block's
+        // chunks; the next phase B overwrites this step's p_prev and r_prev
+        cluster_barrier();
+        p_prev = p;
+        p = b.view(pn);
+        r_prev = r;
+        r = b.view(rn);
+    }
+
+    // write back this block's chunks of the last pass: the tile's centre
+    const ZView fin[4] = {p, p_prev, r, r_prev};
+    b.chunks(2 * a.T, &cb, &ce);
+    for (int i = cb; i < ce; ++i)
+        write_back_chunk<4>(a, b, sm, fin, b.chunk(i));
+}
+
 // the params' z-major copies for `repro_tb_tile` with PARAMS_COPIED (see
 // tb_stream.cuh)
 extern "C" int repro_tb_param_copies(int device, const float* const* in,
@@ -635,4 +835,72 @@ extern "C" int repro_tb_tile(
                    smem, st>>>(a, cf, s);
     });
     return rc ? rc : (int)cudaGetLastError();
+}
+
+// B5 (tb_cluster.cuh): `cluster` blocks a spec tile, `table` the chunk
+// table (`stencil_tb.chunk_table`, `len` ints) on the host, checked here,
+// and `table_dev` its copy on the device, `smem` the shared bytes a block;
+// the scratch is the z-major copies and seven spec windows a tile
+extern "C" int repro_tb_tile_cluster(
+    int device, const float* const* in, const int* src_coords,
+    const float* src_vals, const int* rec_coords, const float* rec_w,
+    float* const* out, float* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int cluster, const int* table, const int* table_dev, int len,
+    int smem, void* stream)
+{
+    TileArgs a;
+    Coefs cf;
+    const int e = tile_args(&a, &cf, device, 10, 4, in, src_coords,
+                            src_vals, rec_coords, rec_w, out, rec_out,
+                            scratch, dom, param_rows & PARAM_ROWS, nshots,
+                            nx, ny, nz, tx, ty, T, H, src_cap, rec_cap,
+                            radius, coefs, 2 * radius + 1, dt, dt2);
+    if (e) return e;
+    if (H != 2 * T * radius || cluster < 1 || cluster > CLUSTER_MAX
+        || smem > STREAM_SMEM || (long long)(nx / tx) * (ny / ty) > 65535)
+        return (int)cudaErrorInvalidValue;
+    const int rc0 = check_chunks(
+        table, len, 2 * T, cluster, tx + 2 * H, ty + 2 * H, radius, smem,
+        [&](int n, int lh, int lw) {
+            return tti_chunk_smem(radius, n, lh, lw);
+        });
+    if (rc0) return rc0;
+    const StreamArgs s = stream_args(a, scratch, 4, 6, param_rows, tx, ty, 7);
+    if (!cluster_aligned(a, s)) return (int)cudaErrorInvalidValue;
+    const ClusterArgs c{table_dev, cluster, 2 * T};
+    const cudaStream_t st = (cudaStream_t)stream;
+    launch_to_zmajor(a, s, 6, param_rows, st);
+    const dim3 grid(cluster, (nx / tx) * (ny / ty), nshots);
+    int rc = 0;
+    with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
+                     const ClusterArgs) =
+            tb_tti_kernel<decltype(r)::value, decltype(d)::value>;
+        rc = cluster_launch(kern, cluster, grid, TTI_THREADS, smem, st, a, cf, s,
+                            c);
+    });
+    return rc;
+}
+
+// the clusters of B5 blocks (`cluster` a cluster, `smem` shared bytes a
+// block) the card holds at once, into *active (0: none; a launch raises)
+extern "C" int repro_tb_cluster_occupancy(int radius, int dom, int cluster,
+                                          int smem, int* active)
+{
+    if (radius < 1 || radius > MAX_RADIUS || cluster < 1
+        || cluster > CLUSTER_MAX || smem > STREAM_SMEM)
+        return (int)cudaErrorInvalidValue;
+    int rc = 0;
+    with_radius(radius, dom != 0, [&](auto r, auto d) {
+        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
+                     const ClusterArgs) =
+            tb_tti_kernel<decltype(r)::value, decltype(d)::value>;
+        cudaLaunchAttribute attr;
+        cudaLaunchConfig_t cfg;
+        rc = cluster_config(kern, cluster, dim3(cluster), TTI_THREADS, smem,
+                            nullptr, &attr, &cfg, active);
+    });
+    return rc;
 }

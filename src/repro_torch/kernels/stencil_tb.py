@@ -32,13 +32,19 @@ z-streamed trapezoid of ``csrc/tb_stream.cuh``, where a block takes a
 sub-tile of the spec tile (`stream_plan`), each launch makes float32
 z-major copies of its padded state in the scratch, and reads the params
 as z-major copies that the caller owning them makes once
-(`param_copies`) or the launch makes itself.
+(`param_copies`) or the launch makes itself.  The TTI and elastic kernels
+have a third, the cluster-shared trapezoid of ``csrc/tb_cluster.cuh``
+(B5, `cluster_plan`): a thread block cluster shares one spec tile's
+trapezoid, each pass cut into chunks (`pass_chunks`) spread over its
+blocks, so the deep halos of orders 8 and 12 are computed once a tile
+and not once a sub-tile.
 """
 from __future__ import annotations
 
 import ctypes
 import dataclasses
-from typing import Callable, Optional, Tuple
+import functools
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -49,8 +55,10 @@ from repro_torch.core.propagators import elastic as el
 from repro_torch.core.propagators import tti as tt
 from repro_torch.kernels import tb_physics as phys
 
-# kernel launches made by `tb_time_tile` (set it to 0 before a counted run)
+# kernel launches made by `tb_time_tile` (set it to 0 before a counted
+# run), and the same launches by schedule (`schedule_name`)
 launches = 0
+schedule_launches = {"first": 0, "z-streamed": 0, "cluster": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -230,6 +238,17 @@ _OUT_CHUNK = 8
 _MAX_OVERHANG = 16
 
 
+# the cluster-shared trapezoid (B5, csrc/tb_cluster.cuh): the clusters of
+# C blocks (~200 KB of shared memory each, one an SM) an H100 holds at
+# once, by C (cudaOccupancyMaxActiveClusters, measured; PERF.md): a
+# cluster's blocks share a GPC, so clusters of 4 and more leave some of
+# the 132 SMs idle.  C = 16 is beyond the portable 8 and is allowed a
+# launch by cudaFuncAttributeNonPortableClusterSizeAllowed.
+_ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
+# the write-back's warp tiles: the least shared memory of a streamed block
+_WB_TILES = 4 * (_STREAM_THREADS // 32) * 32 * 33
+
+
 @dataclasses.dataclass(frozen=True)
 class _CudaKernel:
     source: str                 # csrc/<source>.cu
@@ -246,6 +265,13 @@ class _CudaKernel:
     # plane-steps, cost more than the re-reads they save)
     stream_windows: Tuple[int, ...]
     stream_from_halo: int
+    # the cluster-shared trapezoid (B5): the least space order and halo
+    # at which `launch_plan` takes it (None: the kernel has none; measured
+    # at 512^3, PERF.md: from order 8 at T = 2, halo 16, it beat both
+    # other schedules at every tile measured); it keeps `scratch_windows`
+    # whole spec windows a tile, float32 z-major
+    cluster_from_order: Optional[int] = None
+    cluster_from_halo: int = 0
 
 
 # physics name -> its hand-written kernel; all share one C entry point
@@ -258,11 +284,13 @@ _KERNELS = {
     # against 15.5 ms), as its z taps come from shared memory
     "tti": _CudaKernel("stencil_tb_tti", 7, st.first_derivative_weights, 1,
                        stream_windows=(2, 2, 2, 2, 1, 1, 1),
-                       stream_from_halo=4),
+                       stream_from_halo=4, cluster_from_order=8,
+                       cluster_from_halo=16),
     "elastic": _CudaKernel(
         "stencil_tb_elastic", 9,
         lambda order: st.staggered_first_derivative_weights(order)[1], 1,
-        stream_windows=(0,) * 9, stream_from_halo=12),
+        stream_windows=(0,) * 9, stream_from_halo=12, cluster_from_order=8,
+        cluster_from_halo=16),
 }
 
 
@@ -273,7 +301,7 @@ def _stream_smem(physics: phys.TBPhysics, spec: TBKernelSpec, bx: int,
     files, which size the launch; a launch refuses a sub-tile beyond
     STREAM_SMEM)."""
     H, r = spec.halo, spec.radius
-    tiles = 4 * (_STREAM_THREADS // 32) * 32 * 33    # write-back warp tiles
+    tiles = _WB_TILES
     if physics.name == "acoustic":
         T = spec.T
         pitch = (bx * by + 31) // 32 * 32 + 4
@@ -321,16 +349,234 @@ def stream_plan(spec: TBKernelSpec,
     return best[1]
 
 
-def launch_plan(spec: TBKernelSpec, physics: phys.TBPhysics
-                ) -> Optional[Tuple[int, int, int]]:
-    """The schedule a CUDA launch of this shape takes: the z-streamed
-    schedule's (bx, by, shared bytes) (`stream_plan`), or None for the
-    first schedule.  The z-streamed one is taken from the kernel's
+Chunk = Tuple[int, int, int, int]        # (x0, y0, h, w), window-local
+
+
+@dataclasses.dataclass(frozen=True)
+class ClusterPlan:
+    """The cluster-shared trapezoid (B5) of one launch shape: `cluster`
+    blocks share each spec tile; `chunks[n - 1][b]` are block b's chunks
+    of pass n (`pass_chunks`); `smem` the shared bytes a block takes (the
+    largest chunk's need); `chunk` the largest chunk's (h, w)."""
+
+    cluster: int
+    chunk: Tuple[int, int]
+    smem: int
+    chunks: Tuple[Tuple[Tuple[Chunk, ...], ...], ...]
+
+
+def chunk_load(R: int, x0: int, y0: int, h: int,
+               w: int) -> Tuple[int, int, int, int]:
+    """(x, y, h, w) of the points a chunk's pass loads a plane of
+    (`chunk_load` in csrc/tb_cluster.cuh): the chunk and its seam, R
+    points of the previous pass's output on every side, widened in y to
+    whole 16-byte groups of the window's rows."""
+    ly = (y0 - R) // 4 * 4
+    return x0 - R, ly, h + 2 * R, -(-(y0 + w + R) // 4) * 4 - ly
+
+
+def chunk_smem(physics: phys.TBPhysics, R: int, n: int, lh: int,
+               lw: int) -> int:
+    """Shared bytes of a B5 chunk of pass n whose load rectangle is lh x lw
+    (`tti_chunk_smem` / `elastic_chunk_smem` in the .cu files): TTI's
+    phase A streams p and r through rings of 2R + 2 planes, phase B Dx~p
+    and Dz~r the same way and Dy~p through two planes; elastic's phase V
+    the three stresses it takes z taps of through rings and the other
+    three through two planes, phase S the three velocities through
+    rings; at least the write-back's warp tiles."""
+    cap = lh * lw
+    ring = 2 * R + 2
+    if physics.name == "tti":
+        planes = 2 * ring if n % 2 else 2 * ring + 2
+    else:
+        planes = 3 * ring + 6 if n % 2 else 3 * ring
+    return max(4 * planes * cap, _WB_TILES)
+
+
+def _split(n: int, k: int):
+    """n points in k near-equal runs: [(start, size)]."""
+    q, r = divmod(n, k)
+    return [(i * q + min(i, r), q + (i < r)) for i in range(k)]
+
+
+@functools.lru_cache(maxsize=None)
+def _pass_chunks(name: str, wx: int, wy: int, R: int, npass: int,
+                 cluster: int):
+    physics = phys.PHYSICS[name]
+    passes = []
+    for n in range(1, npass + 1):
+        m = n * R
+        hx, hy = wx - 2 * m, wy - 2 * m
+        best = None
+        for px in (d for d in range(1, cluster + 1) if cluster % d == 0):
+            py = cluster // px
+            if px > hx or py > hy:
+                continue
+            parts = [(x0, y0, h, w) for x0, h in _split(hx, px)
+                     for y0, w in _split(hy, py)]
+            # a part more than a quarter above the mean keeps the other
+            # blocks waiting at the pass's barrier
+            uneven = max(h * w for _, _, h, w in parts) * cluster \
+                > 1.25 * hx * hy
+            # the fewest chunks a part (qx x qy) at which every chunk fits
+            # a block, among them the least seam a block loads
+            for q in range(1, hx * hy + 1):
+                fits = []
+                for qx in (d for d in range(1, q + 1) if q % d == 0):
+                    qy = q // qx
+                    if qx > hx // px or qy > hy // py:
+                        continue
+                    blocks = [[(m + x0 + cx, m + y0 + cy, ch, cw)
+                               for cx, ch in _split(h, qx)
+                               for cy, cw in _split(w, qy)]
+                              for x0, y0, h, w in parts]
+                    loads = [[chunk_load(R, *c) for c in b] for b in blocks]
+                    if any(chunk_smem(physics, R, n, lh, lw) > _STREAM_SMEM
+                           for b in loads for _, _, lh, lw in b):
+                        continue
+                    seam = max(sum(lh * lw for _, _, lh, lw in b)
+                               for b in loads)
+                    fits.append((seam, qx, blocks))
+                if fits:
+                    seam, _, blocks = min(fits, key=lambda f: f[:2])
+                    break
+            else:
+                continue
+            if best is None or (uneven, q, seam) < best[0]:
+                best = ((uneven, q, seam), blocks)
+        if best is None:
+            raise ValueError(f"{name}: pass {n}'s region {hx}x{hy} fits no "
+                             f"chunking over {cluster} blocks")
+        passes.append(tuple(tuple(b) for b in best[1]))
+    return tuple(passes)
+
+
+def pass_chunks(spec: TBKernelSpec, physics: phys.TBPhysics,
+                cluster: int):
+    """Each block's chunks of each pass of the cluster-shared trapezoid
+    (B5) on `spec`, handed to the kernel as an int table (`chunk_table`):
+    ``out[n - 1][b]`` is block b's tuple of (x0, y0, h, w) chunks of pass
+    n (window-local output points).  Pass n of 2T computes the spec
+    window's region of margin n R (R = order // 2); its region is cut
+    into `cluster` near-equal parts (px x py, one a block, so every point
+    of a level is computed once a spec tile and the blocks' areas differ
+    by a row or a column), and each part into the fewest near-equal
+    chunks whose load rectangle (`chunk_load`) fits a block's shared
+    memory (`chunk_smem`): the grid of parts and chunks whose largest
+    part is within a quarter of the mean, then with the fewest chunks a
+    part, then with the least seam a block loads."""
+    wx, wy, _ = spec.window
+    return _pass_chunks(physics.name, wx, wy, spec.radius, 2 * spec.T,
+                        cluster)
+
+
+def cluster_size(spec: TBKernelSpec) -> int:
+    """Blocks a B5 cluster takes at `spec`: the C of `_ACTIVE_CLUSTERS`
+    whose launch of one row (a cluster a spec tile) ends soonest, taking
+    a tile's time as 1 / C and the launch's as its waves, ceil(tiles /
+    clusters at once), times that; the smaller C on a tie, and only a C
+    whose blocks can each take a part of the tile (`pass_chunks`)."""
+    ntx, nty = spec.ntiles
+    tx, ty = spec.tile
+    best = None
+    for c, active in sorted(_ACTIVE_CLUSTERS.items()):
+        if not any(c % px == 0 and px <= tx and c // px <= ty
+                   for px in range(1, c + 1)):
+            continue
+        cost = -(-ntx * nty // active) / c
+        if best is None or cost < best[0]:
+            best = (cost, c)
+    return best[1]
+
+
+def cluster_plan(spec: TBKernelSpec, physics: phys.TBPhysics,
+                 cluster: Optional[int] = None) -> ClusterPlan:
+    """The B5 launch of `spec`: `cluster` (default `cluster_size`) blocks
+    a spec tile, each pass's chunks (`pass_chunks`), the shared bytes a
+    block takes (the largest chunk's `chunk_smem`) and the largest
+    chunk's (h, w).  Raises ValueError where the kernel has no B5 or its
+    rows are not whole 16-byte groups (a tile width ty not a multiple of
+    4)."""
+    if _KERNELS[physics.name].cluster_from_order is None:
+        raise ValueError(f"{physics.name}: no cluster-shared schedule")
+    if spec.tile[1] % 4:
+        raise ValueError(f"tile {spec.tile}: B5 needs ty a multiple of 4")
+    c = cluster_size(spec) if cluster is None else cluster
+    chunks = pass_chunks(spec, physics, c)
+    R = spec.radius
+    smem = max(chunk_smem(physics, R, n, *chunk_load(R, *ch)[2:])
+               for n, per_block in enumerate(chunks, 1)
+               for b in per_block for ch in b)
+    big = max((ch for p in chunks for b in p for ch in b),
+              key=lambda ch: ch[2] * ch[3])
+    return ClusterPlan(c, big[2:], smem, chunks)
+
+
+def redundancy(spec: TBKernelSpec, physics: phys.TBPhysics,
+               plan="launch") -> float:
+    """Points a launch computes a pass over the tile's points: 1 when every
+    level is computed once.  The first schedule computes the whole window
+    every pass, the z-streamed one each sub-tile's trapezoid (phase n of
+    2T over its block window less n R a side, one step a pass for
+    acoustic), B5 the spec tile's trapezoid once.  `plan` defaults to the
+    one `launch_plan` picks."""
+    if plan == "launch":
+        plan = launch_plan(spec, physics)
+    tx, ty = spec.tile
+    wx, wy, _ = spec.window
+    h = spec.halo
+    if plan is None:
+        return wx * wy / (tx * ty)
+    steps = spec.T if physics.name == "acoustic" else 2 * spec.T
+    r = h // steps
+    if isinstance(plan, ClusterPlan):
+        bx, by = tx, ty
+    else:
+        bx, by = plan[:2]
+    return sum((bx + 2 * (h - n * r)) * (by + 2 * (h - n * r))
+               for n in range(1, steps + 1)) / (steps * bx * by)
+
+
+# (plan, device) -> the chunk table on the host and on the device
+_TABLES: Dict = {}
+
+
+def chunk_table(plan: ClusterPlan, dev) -> Tuple[np.ndarray, torch.Tensor]:
+    """The kernel's chunk table of a B5 plan, int32: ``2T * cluster + 1``
+    starts (block b's chunks of pass n are entries [start[(n - 1) *
+    cluster + b], start[(n - 1) * cluster + b + 1])), then the chunks'
+    (x0, y0, h, w).  The host copy is what the C entry checks, the device
+    copy (made once a plan and device) what the kernel reads."""
+    key = (plan, str(dev))
+    if key not in _TABLES:
+        starts, flat = [0], []
+        for per_block in plan.chunks:
+            for chunks in per_block:
+                flat += [v for ch in chunks for v in ch]
+                starts.append(len(flat) // 4)
+        host = np.ascontiguousarray(starts + flat, dtype=np.int32)
+        _TABLES[key] = (host, torch.from_numpy(host).to(dev))
+    return _TABLES[key]
+
+
+def launch_plan(spec: TBKernelSpec, physics: phys.TBPhysics):
+    """The schedule a CUDA launch of this shape takes: a `ClusterPlan`
+    (B5, TTI and elastic from the kernel's `cluster_from_order` and
+    `cluster_from_halo` up, where the tile's rows are whole 16-byte
+    groups), the z-streamed schedule's
+    (bx, by, shared bytes) (`stream_plan`), or None for the first
+    schedule.  The z-streamed one is taken from the kernel's
     `stream_from_halo` up, where a sub-tile fits a block's shared
     memory and its window overhangs it at most `_MAX_OVERHANG` times;
     elsewhere the first schedule is the faster, or the only one that
     runs."""
-    if spec.halo < _KERNELS[physics.name].stream_from_halo:
+    kern = _KERNELS[physics.name]
+    if (kern.cluster_from_order is not None
+            and spec.order >= kern.cluster_from_order
+            and spec.halo >= kern.cluster_from_halo
+            and spec.tile[1] % 4 == 0):
+        return cluster_plan(spec, physics)
+    if spec.halo < kern.stream_from_halo:
         return None
     if physics.name == "acoustic" and spec.T > _MAX_T:
         return None
@@ -351,21 +597,25 @@ def _scratch_elems(spec: TBKernelSpec,
     first schedule's scratch is its tiles' windows in the storage dtype
     and it takes no copies; the z-streamed schedule's is float32: z-major
     copies of the row's state and its blocks' windows, and the params'
-    copies (`param_copies`, or made by the launch in its scratch)."""
+    copies (`param_copies`, or made by the launch in its scratch); B5's
+    the same copies and `scratch_windows` whole spec windows a tile."""
     ntx, nty = spec.ntiles
     kern = _KERNELS[physics.name]
     plan = launch_plan(spec, physics)
+    wx, wy, nz = spec.window
     if plan is None:
-        wx, wy, nz = spec.window
         return (ntx * nty * kern.scratch_windows * wx * wy * nz, 0,
                 spec.dtype)
-    bx, by, _ = plan
     h = spec.halo
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
-    blocks = (spec.nx // bx) * (spec.ny // by)
-    r = spec.radius
-    windows = sum((bx + 2 * h - 2 * m * r) * (by + 2 * h - 2 * m * r)
-                  for m in kern.stream_windows)
+    if isinstance(plan, ClusterPlan):
+        blocks, windows = ntx * nty, kern.scratch_windows * wx * wy
+    else:
+        bx, by, _ = plan
+        blocks = (spec.nx // bx) * (spec.ny // by)
+        r = spec.radius
+        windows = sum((bx + 2 * h - 2 * m * r) * (by + 2 * h - 2 * m * r)
+                      for m in kern.stream_windows)
     per_row = len(physics.state_fields) * vol + blocks * windows * spec.nz
     return per_row, len(physics.param_fields) * vol, torch.float32
 
@@ -425,6 +675,15 @@ def _bind(source: str):
             fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
                            + [ctypes.c_float] * 2 + [i, i, p])
             fn.restype = i
+        if hasattr(lib, "repro_tb_tile_cluster"):
+            # B5: the cluster size, the chunk table on the host and on the
+            # device, its length, the shared bytes a block
+            lib.repro_tb_tile_cluster.argtypes = (
+                [i] + [p] * 9 + [i] * 12 + [p] + [ctypes.c_float] * 2
+                + [i, p, p, i, i, p])
+            lib.repro_tb_tile_cluster.restype = i
+            lib.repro_tb_cluster_occupancy.argtypes = [i, i, i, i, p]
+            lib.repro_tb_cluster_occupancy.restype = i
         copies = [lib.repro_tb_param_copies]
         if hasattr(lib, "repro_tb_param_copies_bf16"):
             copies.append(lib.repro_tb_param_copies_bf16)
@@ -447,8 +706,8 @@ def _device_index(dev) -> int:
 def param_copies(spec: TBKernelSpec, physics: phys.TBPhysics,
                  param_pads) -> Optional[torch.Tensor]:
     """The params' float32 z-major copies ((nparam, rows, X * Y * nz)) that
-    a z-streamed launch of `spec` reads, made once by the caller that owns
-    the params (a propagation's tile loop, a survey executable) and passed
+    a z-streamed or B5 launch of `spec` reads, made once by the caller that
+    owns the params (a propagation's tile loop, a survey executable) and passed
     to each `tb_time_tile`; None where the launch takes none (the first
     schedule, the plain version on the CPU).  A launch given none makes
     them in its scratch every time."""
@@ -472,6 +731,21 @@ def param_copies(spec: TBKernelSpec, physics: phys.TBPhysics,
         raise RuntimeError("param copies failed: "
                            + lib.repro_cuda_error_string(rc).decode())
     return copies
+
+
+def cluster_occupancy(spec: TBKernelSpec, physics: phys.TBPhysics,
+                      plan: ClusterPlan, dom: bool = False) -> int:
+    """Clusters of a B5 launch of `plan` the card holds at once
+    (cudaOccupancyMaxActiveClusters; a launch whose clusters number more
+    runs in waves, and one that gets 0 raises).  Needs a card."""
+    lib = _bind(_KERNELS[physics.name].source)
+    out = ctypes.c_int(0)
+    rc = lib.repro_tb_cluster_occupancy(spec.radius, int(dom), plan.cluster,
+                                        plan.smem, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError("cluster occupancy query failed: "
+                           + lib.repro_cuda_error_string(rc).decode())
+    return out.value
 
 
 def _check(name, t, shape, dtype, dev):
@@ -572,8 +846,15 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     per_row, pelems, sdtype = _scratch_elems(spec, physics)
     rows_flag = int(param_rows)
     extra = 0
-    # the z-streamed schedule's sub-tile, (0, 0) for the first schedule
-    sub = (0, 0) if plan is None else plan[:2]
+    cluster = isinstance(plan, ClusterPlan)
+    if cluster:
+        table, table_dev = chunk_table(plan, dev)
+        tail = (plan.cluster, table.ctypes.data_as(ctypes.c_void_p),
+                ctypes.c_void_p(table_dev.data_ptr()), table.size,
+                plan.smem)
+    else:
+        # the z-streamed schedule's sub-tile, (0, 0) for the first
+        tail = (0, 0) if plan is None else plan[:2]
     if plan is not None:
         prow = B if param_rows else 1
         if copies is None:
@@ -590,7 +871,8 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
                               device=dev)
     else:
         check_scratch(scratch, (B * per_row + extra) * sdtype.itemsize, dev)
-    entry = lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16
+    entry = (lib.repro_tb_tile_cluster if cluster else
+             lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = entry(
@@ -601,13 +883,22 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
         rows_flag, B,
         spec.nx, spec.ny, spec.nz, spec.tile[0], spec.tile[1], spec.T, h,
         cap, capr, r, (ctypes.c_float * len(coefs))(*coefs), dt, dt2,
-        *sub, ctypes.c_void_p(stream))
+        *tail, ctypes.c_void_p(stream))
     if rc != 0:
         raise RuntimeError(f"{kern.source} CUDA launch failed: "
                            + lib.repro_cuda_error_string(rc).decode())
     global launches
     launches += 1
+    schedule_launches[schedule_name(plan)] += 1
     return outs, rec
+
+
+def schedule_name(plan) -> str:
+    """"first", "z-streamed" or "cluster" (B5): the schedule of a
+    `launch_plan` result."""
+    if plan is None:
+        return "first"
+    return "cluster" if isinstance(plan, ClusterPlan) else "z-streamed"
 
 
 def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
@@ -615,8 +906,8 @@ def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
     its receiver partials and its part of the scratch (`launch_plan`: the
     first schedule's tile windows in the storage dtype; the z-streamed
     schedule's float32 z-major copies of the shot's state and its blocks'
-    windows, none for acoustic).  The params' copies, shared by the shots,
-    are `launch_shared_bytes`."""
+    windows, none for acoustic; B5's copies and its spec tiles' windows).
+    The params' copies, shared by the shots, are `launch_shared_bytes`."""
     ntx, nty = spec.ntiles
     elems = (len(physics.state_fields) * spec.nx * spec.ny * spec.nz
              + ntx * nty * spec.T * spec.rec_cap * physics.rec_channels)
@@ -644,17 +935,19 @@ def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
     read in the storage dtype, written in float32; the params' counted
     as if the launch made them), then per block reads the planes its
     passes read and writes the fields they write, each region once a
-    pass."""
+    pass.  B5 (`ClusterPlan`) reads each chunk's load rectangle
+    (`chunk_load`: the chunk, its seam and its 16-byte widening) of the
+    tap fields and its points' pointwise operands, once a spec tile."""
     h, nz = spec.halo, spec.nz
     item = spec.dtype.itemsize
     ns, npar = len(physics.state_fields), len(physics.param_fields)
     plan = launch_plan(spec, physics)
+    ntx, nty = spec.ntiles
+    wx, wy, _ = spec.window
     if plan is None:
-        ntx, nty = spec.ntiles
-        wx, wy, _ = spec.window
         return float(shots * spec.T * ntx * nty * wx * wy * nz * item
                      * (physics.num_windows + len(physics.evolved_fields)))
-    bx, by, _ = plan
+    bx, by = spec.tile if isinstance(plan, ClusterPlan) else plan[:2]
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * nz
     prow = shots if param_rows else 1
     copies = (ns * shots + npar * prow) * vol * (item + 4)
@@ -675,10 +968,21 @@ def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
     # state fields, and writes 3, then 2 fields; elastic as its notes
     terms = {"tti": ((2, 2 + 3), (3, 10 + 2)),
              "elastic": ((5, 11), (3, 18))}[physics.name]
+    if isinstance(plan, ClusterPlan) and physics.name == "elastic":
+        # B5 loads the z-tap fields with the chunk too: phase V six
+        # stresses, then the 3 velocities and 2 params pointwise and 3
+        # writes; phase S three velocities, then 6 stresses, 3 params, 6
+        # writes
+        terms = ((6, 8), (3, 15))
     per_block = 0
     for n in range(1, 2 * spec.T + 1):
         taps, points = terms[1 - n % 2]
-        per_block += taps * area((n - 1) * r) + points * area(n * r)
+        if isinstance(plan, ClusterPlan):
+            seam = sum(lh * lw for b in plan.chunks[n - 1] for ch in b
+                       for _, _, lh, lw in [chunk_load(r, *ch)])
+        else:
+            seam = area((n - 1) * r)
+        per_block += taps * seam + points * area(n * r)
     per_block = 4 * nz * (per_block + 2 * ns * bx * by)
     return float(copies + blocks * per_block)
 

@@ -47,11 +47,16 @@ def _card():
 
 def _schedules(spec, p):
     """Every schedule the physics' kernel runs at `spec`: None for the
-    first, and the z-streamed sub-tile plan where one fits a block,
-    whichever `launch_plan` would pick."""
+    first, the z-streamed sub-tile plan where one fits a block, and the
+    cluster-shared trapezoid (B5) where the kernel has one, whichever
+    `launch_plan` would pick."""
     out = [None]
     try:
         out.append(ker.stream_plan(spec, p))
+    except ValueError:
+        pass
+    try:
+        out.append(ker.cluster_plan(spec, p))
     except ValueError:
         pass
     return out
@@ -662,6 +667,92 @@ def test_launch_refuses_a_subtile_that_does_not_fit(physics, monkeypatch):
     atol = ATOL if physics == "acoustic" else MP_ATOL
     for k, q in zip((*kst, krec), (*pst, prec)):
         torch.testing.assert_close(k, q, rtol=RTOL, atol=atol)
+
+
+# B5 at halos 32 and 48 (orders 8 and 12, T = 4) on 2 x 2 spec tiles: the
+# default cluster (16 blocks a tile here, beyond the portable 8), one
+# block a tile, 2 and 8
+CLUSTER_CASES = [(8, None), (12, None), (8, 1), (12, 2), (8, 8)]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["tti", "elastic"])
+@pytest.mark.parametrize("order,cluster", CLUSTER_CASES)
+def test_cluster_kernel_matches_first_and_plain(physics, order, cluster,
+                                                monkeypatch):
+    """The cluster-shared trapezoid (B5), which `launch_plan` takes at
+    these halos, equals the first schedule bit for bit (fields and
+    receiver partials) and holds to the plain version; with `dom` the
+    grid's own mask and the params one a row (the sharded layer's launch,
+    B1c) it equals itself without them."""
+    dev = _card()
+    c = MULTI_CASES[physics](shape=(64, 64, 24), order=order, nt=8, nsrc=3,
+                             nrec=4)
+    p, spec, args = _mp_operands(c, 4, (32, 32), dev)
+    plan = ker.launch_plan(spec, p)
+    assert isinstance(plan, ker.ClusterPlan) and plan.cluster == 16
+    if cluster is not None:
+        plan = ker.cluster_plan(spec, p, cluster)
+    before = dict(ker.schedule_launches)
+    monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
+    kst, krec = ker.tb_time_tile(spec, p, *args)
+    monkeypatch.setattr(ker, "launch_plan", lambda s, q: None)
+    fst, frec = ker.tb_time_tile(spec, p, *args)
+    assert ker.schedule_launches["cluster"] == before["cluster"] + 1
+    assert ker.schedule_launches["first"] == before["first"] + 1
+    pst, prec = ker.tb_time_tile_plain(spec, p, *args)
+    torch.cuda.synchronize()
+    for k, f in zip((*kst, krec), (*fst, frec)):
+        assert torch.equal(k, f)
+    for k, q in zip((*kst, krec), (*pst, prec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
+    assert_fields_close(
+        [(f, k.cpu(), q.cpu()) for f, k, q in zip(p.state_fields, kst, pst)]
+        + [(f"rec[{i}]", krec[..., i].cpu(), prec[..., i].cpu())
+           for i in range(p.rec_channels)], FIELD_RTOL, physics)
+    assert float(prec.abs().max()) > 0
+    pads, ppads, sc, sv, rc, rw = args
+    h = spec.halo
+    gx = torch.arange(-h, spec.nx + h, device=dev)
+    gy = torch.arange(-h, spec.ny + h, device=dev)
+    dom = (((gx >= 0) & (gx < spec.nx))[:, None]
+           & ((gy >= 0) & (gy < spec.ny))).float()[None].contiguous()
+    monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
+    dst, drec = ker.tb_time_tile(spec, p, pads,
+                                 tuple(q[None].contiguous() for q in ppads),
+                                 sc, sv, rc, rw, dom=dom)
+    torch.cuda.synchronize()
+    for k, d in zip((*kst, krec), (*dst, drec)):
+        assert torch.equal(k, d)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("physics", ["tti", "elastic"])
+def test_cluster_launch_refuses_a_bad_chunk_table(physics, monkeypatch):
+    """The C entry checks B5's chunk table before it launches: chunks that
+    overlap, leave a point of a pass out, or need more shared memory than
+    the launch gives are refused; the table as planned runs."""
+    dev = _card()
+    c = MULTI_CASES[physics](shape=(64, 64, 24), order=8, nt=8, nsrc=3,
+                             nrec=4)
+    p, spec, args = _mp_operands(c, 4, (32, 32), dev)
+    plan = ker.cluster_plan(spec, p)
+    first = plan.chunks[0]
+    x0, y0, h, w = first[0][0]
+    overlap = ((first[0] + ((x0, y0, 1, 1),),) + first[1:],)
+    missing = ((first[0][1:],) + first[1:],)
+    bad = [dataclasses.replace(plan, chunks=ch + plan.chunks[1:])
+           for ch in (overlap, missing)]
+    bad.append(dataclasses.replace(plan, smem=plan.smem // 4))
+    for b in bad:
+        monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=b: x)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ker.tb_time_tile(spec, p, *args)
+    monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
+    kst, krec = ker.tb_time_tile(spec, p, *args)
+    pst, prec = ker.tb_time_tile_plain(spec, p, *args)
+    for k, q in zip((*kst, krec), (*pst, prec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
 
 
 @pytest.mark.cuda

@@ -15,6 +15,7 @@ from repro.kernels import ops as jops, stencil_tb as jker, \
 from repro_torch import interop
 from repro_torch.kernels import stencil_tb as tker, tb_physics as tphys
 from test_torch_case import acoustic_case
+from test_torch_cluster import _choice
 
 RTOL, ATOL = 2e-4, 1e-6
 
@@ -182,16 +183,21 @@ def _launch_sizes(p, spec, nx):
     the first schedule's tile windows (2 acoustic, 7 TTI, 9 elastic) and
     no copies; the z-major copies of the state and the params, and the
     block windows (none for acoustic; 7 TTI, over regions of its block
-    window; 9 elastic) of the z-streamed one."""
+    window; 9 elastic) of the z-streamed one; B5's copies and whole spec
+    windows (7 TTI, 9 elastic) a tile."""
     h, nz = spec.halo, spec.nz
     tx, ty = spec.tile
     plan = tker.launch_plan(spec, p)
+    windows = {"acoustic": 2, "tti": 7, "elastic": 9}[p.name]
     if plan is None:
-        windows = {"acoustic": 2, "tti": 7, "elastic": 9}[p.name]
         return ((nx // tx) * (nx // ty) * windows * (tx + 2 * h)
                 * (ty + 2 * h) * nz * 4, 0)
-    bx, by, _ = plan
     vol = (nx + 2 * h) ** 2 * nz
+    if isinstance(plan, tker.ClusterPlan):
+        return ((len(p.state_fields) * vol + (nx // tx) * (nx // ty)
+                 * windows * (tx + 2 * h) * (ty + 2 * h) * nz) * 4,
+                len(p.param_fields) * vol * 4)
+    bx, by, _ = plan
     r = spec.radius
     windows = {"acoustic": 0,
                # p, r twice over margin 2r; the three inner derivatives
@@ -224,8 +230,9 @@ def test_launch_bytes_follow_the_kernels(name):
 
 
 # (physics, space order, T) -> the schedule a launch at 512^3, tile 32
-# takes: the z-streamed sub-tile, or None for the first schedule — where
-# each was measured the faster, or is the only one that runs (PERF.md)
+# takes: the z-streamed sub-tile, ("B5", cluster size), or None for the
+# first schedule — where each was measured the faster, or is the only one
+# that runs (PERF.md)
 CHOICES = [
     ("acoustic", 4, 1, None),                 # halo 2: first faster
     ("acoustic", 4, 2, (32, 32)),
@@ -240,18 +247,21 @@ CHOICES = [
     ("elastic", 8, 1, None),
     ("elastic", 12, 1, (32, 32)),
     ("elastic", 4, 4, (32, 32)),
-    ("elastic", 8, 2, (32, 32)),
-    ("elastic", 12, 2, (32, 16)),             # overhang 10, still faster
-    ("elastic", 8, 4, None),                  # 8x8: overhang 81
+    # order 8 and up from halo 16: the cluster-shared trapezoid, one
+    # block a tile (256 tiles fill the card)
+    ("elastic", 8, 2, ("B5", 1)),             # z-streamed 32x32 slower
+    ("elastic", 12, 2, ("B5", 1)),
+    ("elastic", 8, 4, ("B5", 1)),
+    ("elastic", 12, 4, ("B5", 1)),
     ("tti", 4, 1, (32, 32)),                  # streamed even at depth 1
     ("tti", 4, 2, (32, 32)),
     ("tti", 4, 4, (32, 32)),
     ("tti", 8, 1, (32, 32)),
-    ("tti", 8, 2, (16, 16)),                  # overhang 9, still faster
-    ("tti", 8, 4, None),                      # no sub-tile fits
+    ("tti", 8, 2, ("B5", 1)),                 # z-streamed 16x16 slower
+    ("tti", 8, 4, ("B5", 1)),
     ("tti", 12, 1, (16, 16)),                 # overhang 6.25
-    ("tti", 12, 2, None),                     # no sub-tile fits
-    ("tti", 12, 4, None),
+    ("tti", 12, 2, ("B5", 1)),
+    ("tti", 12, 4, ("B5", 1)),
 ]
 
 
@@ -260,7 +270,7 @@ def test_launch_plan_takes_the_measured_schedule(name, order, T, want):
     p = tphys.PHYSICS[name]
     spec = _spec(p, (512, 512, 512), (32, 32), T, order)
     plan = tker.launch_plan(spec, p)
-    assert (None if plan is None else plan[:2]) == want
+    assert _choice(plan) == want
     scratch, shared = _launch_sizes(p, spec, 512)
     assert tker.launch_shared_bytes(spec, p) == shared
     assert tker.launch_bytes(spec, p) - scratch == (

@@ -24,9 +24,10 @@ T = 1, 2 and 4 (tile 32, one shot), with the same fingerprints and the
 launch plan where the checkout has one; a configuration the checkout
 refuses, or that does not fit the card's memory, prints why and the sweep
 goes on.  With `--each-schedule` every configuration runs once on each
-schedule the checkout's kernel has there (the first, and the z-streamed
-one where a sub-tile fits: `stencil_tb.stream_plan`), whatever
-`launch_plan` picks.  `--physics` names the kernels (default: all three).
+schedule the checkout's kernel has there (the first, the z-streamed one
+where a sub-tile fits: `stencil_tb.stream_plan`, and the cluster-shared
+trapezoid where the checkout has one: `stencil_tb.cluster_plan`),
+whatever `launch_plan` picks.  `--physics` names the kernels (default: all three).
 Where the checkout keeps the params' copies outside the launch
 (`stencil_tb.param_copies`), they are made once before the timed
 launches, as a propagation makes them.  Needs a card.
@@ -127,14 +128,20 @@ def plan_of(ker, spec, p):
 
 def forced_plans(ker, spec, p, each):
     """The schedules to time: [None] for the one the checkout picks, or
-    with `each` the first schedule and the z-streamed sub-tile where the
-    checkout's kernel has one that fits (launch plans to force)."""
+    with `each` the first schedule, the z-streamed sub-tile where the
+    checkout's kernel has one that fits, and the cluster-shared trapezoid
+    (B5) where it has one (launch plans to force)."""
     if not each or not hasattr(ker, "launch_plan"):
         return [None]
     plans = ["first"]
     try:
         if ker._KERNELS[p.name].stream_from_halo is not None:
             plans.append(ker.stream_plan(spec, p))
+    except ValueError:
+        pass
+    try:
+        if hasattr(ker, "cluster_plan"):
+            plans.append(ker.cluster_plan(spec, p))
     except ValueError:
         pass
     return plans
