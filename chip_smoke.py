@@ -44,17 +44,19 @@ the JAX package.
 Phases (one line each): environment, build, kernel vs plain on small
 cases (kernel-vs-plain, kernel-vs-plain-edges: a source on a trapezoid
 boundary and a receiver on four tiles' corner, kernels-batched,
-kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-first-tti and
-kernel-vs-first-elastic: the cluster-shared trapezoid B5 at halos 32 and
-48 bit-equal to the first schedule and held to the plain version,
+kernel-vs-plain-dom, kernel-vs-plain-bf16, kernel-vs-first-acoustic,
+kernel-vs-first-tti and kernel-vs-first-elastic: the cluster-shared
+z-wavefront B6 at halos 16 and 12 and trapezoid B5 at halos 32 and 48
+bit-equal to the first schedule and held to the plain version,
 kernel-vs-plain-ssd with kernels-ssd, kernels-ssd-zamba2), serve-mamba2,
 serve-zamba2, serve-qwen3, serve-qwen3moe, serve-whisper, serve-llava, then for each path: main path
 at full size, spatially-blocked baseline, kernel timing (with its design:
 the schedule the launch takes, registers, shared memory, blocks an SM,
 achieved GB/s), the batched kernel at the main path's shapes (after
 acoustic: sharded-acoustic and main-acoustic-bf16); the paper's cases at
-orders 8 and 12 (paper-*: TTI and elastic on B5 at tile 64, each B5 run
-counted and its kernel held against the plain version on a mid-run tile);
+orders 8 and 12 (paper-*: acoustic on B6, TTI and elastic on B5 at tile
+64, each such run counted and its kernel held against the plain version
+on a mid-run tile);
 then survey-acoustic,
 survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
 line.  Any failed check raises, and the script exits non-zero.
@@ -269,7 +271,7 @@ def uncounted(fn):
 
 
 # launches held against the plain version, by schedule (`schedules`)
-COMPARED = {"first": 0, "z-streamed": 0, "cluster": 0}
+COMPARED = {"first": 0, "z-streamed": 0, "cluster": 0, "wavefront": 0}
 
 
 # grids up to this many points hold every schedule against the plain
@@ -282,13 +284,14 @@ EVERY_SCHEDULE_POINTS = 256 ** 3
 def schedules(spec, physics):
     """The schedules the physics' kernel can run at `spec`, the one
     `stencil_tb.launch_plan` picks first: None for the first schedule, a
-    z-streamed (bx, by, shared bytes), or a `stencil_tb.ClusterPlan`
-    (B5, TTI and elastic)."""
+    z-streamed (bx, by, shared bytes), a `stencil_tb.ClusterPlan` (B5,
+    TTI and elastic) or a `stencil_tb.WavePlan` (B6, acoustic)."""
     out = [ker.launch_plan(spec, physics)]
     if spec.nx * spec.ny * spec.nz > EVERY_SCHEDULE_POINTS:
         return out
     for make in (lambda: None, lambda: ker.stream_plan(spec, physics),
-                 lambda: ker.cluster_plan(spec, physics)):
+                 lambda: ker.cluster_plan(spec, physics),
+                 lambda: ker.wave_plan(spec, physics)):
         try:
             plan = make()
         except ValueError:              # no sub-tile fits, or no B5
@@ -319,6 +322,10 @@ def schedule_of(spec, physics):
         return (f"cluster-shared (B5), {plan.cluster} blocks a cluster, "
                 f"chunks up to {plan.chunk[0]}x{plan.chunk[1]}, "
                 f"{plan.smem} B shared")
+    if isinstance(plan, ker.WavePlan):
+        return (f"cluster-shared wavefront (B6), {plan.cluster} blocks a "
+                f"cluster ({plan.parts[0]}x{plan.parts[1]} parts), "
+                f"{plan.planes} plane(s) a step, {plan.smem} B shared")
     return f"z-streamed, sub-tile ({plan[0]}, {plan[1]})"
 
 
@@ -447,45 +454,53 @@ def phase_kernel_vs_plain_edges(dev):
                 f"max|diff|/max|plain| {rel:.3e}")
 
 
-# B5 against the first schedule at the deep halos it runs: a reduced grid
-# of 2 x 2 tiles at T = 4, orders 8 and 12 (halo 32 and 48)
+# The cluster-shared schedules against the first schedule at the deep
+# halos they run, orders 8 and 12: B5 (TTI, elastic; T = 4, halo 32 and
+# 48) on a reduced grid of 2 x 2 tiles, B6 (acoustic; halo 16 at T = 4,
+# two planes a step, and 12 at T = 2, one) on 5 x 5 tiles of 32, where
+# `launch_plan` takes it
 KVF_SHAPE = (160, 160, 64)
-KVF_TILE = (80, 80)
+KVF_TILE = {"acoustic": (32, 32), "tti": (80, 80), "elastic": (80, 80)}
+KVF_T = {"acoustic": {8: 4, 12: 2}, "tti": {8: 4, 12: 4},
+         "elastic": {8: 4, 12: 4}}
 
 
 def phase_kernel_vs_first(name, dev, smi):
-    """The cluster-shared trapezoid (B5), which `launch_plan` takes at
-    these halos, against the first schedule (bit for bit: fields and
-    receiver partials) and the plain version (rtol / atol and FIELD_RTOL)
-    on KVF_SHAPE, one launch each, with its cluster, chunks, shared bytes
-    and the clusters the card holds at once."""
+    """The cluster-shared trapezoid (B5) or z-wavefront (B6), which
+    `launch_plan` takes at these halos, against the first schedule (bit
+    for bit: fields and receiver partials) and the plain version (rtol /
+    atol and FIELD_RTOL) on KVF_SHAPE, one launch each, with its cluster,
+    shared bytes and the clusters the card holds at once."""
     physics = phys.PHYSICS[name]
     phase = f"kernel-vs-first-{name}"
+    kind = ker.WavePlan if name == "acoustic" else ker.ClusterPlan
     for i, order in enumerate((8, 12)):
         state, params, g, gr, dt = small_case(name, KVF_SHAPE, order, 3, 8,
                                               60 + i, dev)
-        plan = TBPlan(KVF_TILE, 4, physics.step_radius(order))
+        T = KVF_T[name][order]
+        plan = TBPlan(KVF_TILE[name], T, physics.step_radius(order))
         spec, args = kernel_inputs(physics, plan, state, params, g, gr, dt,
                                    1, SMALL_SPACING, order=order)
-        b5 = ker.launch_plan(spec, physics)
-        if not isinstance(b5, ker.ClusterPlan):
-            raise AssertionError(f"{phase}: launch_plan took {b5} at halo "
-                                 f"{spec.halo}, not B5")
+        cplan = ker.launch_plan(spec, physics)
+        if not isinstance(cplan, kind):
+            raise AssertionError(f"{phase}: launch_plan took {cplan} at halo "
+                                 f"{spec.halo}, not {kind.__name__}")
         runs = {}
-        for sched in (b5, None):
+        for sched in (cplan, None):
             with on_schedule(sched):
                 runs[ker.schedule_name(sched)] = cuda_ms(lambda: uncounted(
                     lambda: ker.tb_time_tile(spec, physics, *args)))
             COMPARED[ker.schedule_name(sched)] += 1
         plain_ms, (pst, prec) = cuda_ms(lambda: ker.tb_time_tile_plain(
             spec, physics, *args))
-        (b_ms, (kst, krec)), (f_ms, (fst, frec)) = runs["cluster"], \
-            runs["first"]
+        (b_ms, (kst, krec)), (f_ms, (fst, frec)) = \
+            runs[ker.schedule_name(cplan)], runs["first"]
         same = all(torch.equal(a, b)
                    for a, b in zip((*kst, krec), (*fst, frec)))
         if not same:
-            raise AssertionError(f"{phase}: B5 differs from the first "
-                                 f"schedule at order {order}")
+            raise AssertionError(f"{phase}: {schedule_of(spec, physics)} "
+                                 f"differs from the first schedule at order "
+                                 f"{order}")
         pairs = list(zip(physics.state_fields, kst, pst)) + [
             (f"rec[{c}]", krec[..., c], prec[..., c])
             for c in range(prec.shape[-1])]
@@ -493,20 +508,27 @@ def phase_kernel_vs_first(name, dev, smi):
                             ATOL[name]) for f, k, q in pairs]
         if not float(prec.abs().max()) > 0:
             raise AssertionError(f"{phase}: no receiver signal")
-        active = ker.cluster_occupancy(spec, physics, b5)
-        say(phase, f"order {order} T=4 (halo {spec.halo}) {KVF_SHAPE} tile "
-            f"{KVF_TILE}: B5 {b5.cluster} blocks a cluster, chunks up to "
-            f"{b5.chunk[0]}x{b5.chunk[1]}, {b5.smem} B shared, {active} "
+        active = occupancy(spec, physics, cplan)
+        say(phase, f"order {order} T={T} (halo {spec.halo}) {KVF_SHAPE} tile "
+            f"{KVF_TILE[name]}: {schedule_of(spec, physics)}, {active} "
             f"clusters at once, redundancy "
-            f"{ker.redundancy(spec, physics, b5):.3f} (first schedule "
+            f"{ker.redundancy(spec, physics, cplan):.3f} (first schedule "
             f"{ker.redundancy(spec, physics, None):.3f}); bit-equal to the "
             f"first schedule: {same}; vs plain max|diff| "
             f"{max(e for e, _ in errs):.3e}, max|diff|/max|plain| "
             f"{max(r for _, r in errs):.3e} (field rtol {FIELD_RTOL}); one "
-            f"launch B5 {b_ms:.2f} ms, first {f_ms:.2f} ms, plain "
+            f"launch {ker.schedule_name(cplan)} {b_ms:.2f} ms, first "
+            f"{f_ms:.2f} ms, plain "
             f"{plain_ms:.1f} ms [{smi}]")
         del runs, kst, krec, fst, frec, pst, prec, args
         torch.cuda.empty_cache()
+
+
+def occupancy(spec, physics, plan):
+    """Clusters of a B5 or B6 launch of `plan` the card holds at once."""
+    if isinstance(plan, ker.WavePlan):
+        return ker.wave_occupancy(spec, physics, plan)
+    return ker.cluster_occupancy(spec, physics, plan)
 
 
 # ---------------------------------------------------------------------------
@@ -839,7 +861,7 @@ def say_design(phase, physics, spec, ms, cost):
     lib = KERNEL_FILES[physics.name]
     usage = ptxas_usage(_build.build_all([lib])[lib].log)
     plan = ker.launch_plan(spec, physics)
-    cluster = isinstance(plan, ker.ClusterPlan)
+    cluster = isinstance(plan, (ker.ClusterPlan, ker.WavePlan))
     if plan is None:
         bx, by, dyn = (*spec.tile, 0)
     elif cluster:
@@ -855,6 +877,7 @@ def say_design(phase, physics, spec, ms, cost):
     parts = []
     for entry, (regs, static, spill) in sorted(usage.items()):
         entry_kind = ("cluster" if "ClusterArgs" in entry else
+                      "wavefront" if "WaveArgs" in entry else
                       "z-streamed" if "StreamArgs" in entry else "first")
         if f"_kernelILi{spec.radius}E" not in entry or entry_kind != kind:
             continue
@@ -871,10 +894,9 @@ def say_design(phase, physics, spec, ms, cost):
     if plan is None:
         what = "first schedule, one block a tile"
     elif cluster:
-        active = ker.cluster_occupancy(spec, physics, plan)
-        what = (f"cluster-shared trapezoid (B5) on tile {spec.tile}, "
-                f"{plan.cluster} blocks a cluster, chunks up to "
-                f"{plan.chunk[0]}x{plan.chunk[1]}, {active} clusters at once "
+        active = occupancy(spec, physics, plan)
+        what = (f"{schedule_of(spec, physics)} on tile {spec.tile}, "
+                f"{active} clusters at once "
                 f"({nblocks / max(active, 1):.2f} waves), redundancy "
                 f"{ker.redundancy(spec, physics, plan):.3f}")
         nblocks *= plan.cluster
@@ -904,8 +926,14 @@ def say_design(phase, physics, spec, ms, cost):
 _FIRST_PLANS = (((32, 32), 4), ((32, 32), 2), ((16, 16), 2))
 _B5_PLANS = (((64, 64), 2), ((128, 128), 2), ((64, 64), 4),
              ((128, 128), 4))
+# acoustic: the cluster-shared z-wavefront (B6), which `launch_plan`
+# takes from halo 12, at the tiles and depths `tools/paper_cases.py
+# --kernels` measured fastest a step (PERF.md), each with the cluster and
+# planes a step `stencil_tb.wave_size` gives
+_B6_PLANS = {8: (((32, 32), 3), ((32, 32), 4)), 12: (((32, 32), 2),)}
 PAPER_PLANS = {
-    ("acoustic", 8): _FIRST_PLANS, ("acoustic", 12): _FIRST_PLANS,
+    ("acoustic", 8): _B6_PLANS[8] + _FIRST_PLANS,
+    ("acoustic", 12): _B6_PLANS[12] + _FIRST_PLANS,
     ("tti", 8): _B5_PLANS + _FIRST_PLANS,
     ("tti", 12): _B5_PLANS + _FIRST_PLANS,
     ("elastic", 8): _B5_PLANS + _FIRST_PLANS,
@@ -1026,9 +1054,10 @@ def phase_paper_case(name, order, smi, dev):
         k_ms = statistics.median(per_launch)
         cost = ker.kernel_cost(pspec, fc.physics)
         bound, by = bound_of(cost)
-        if isinstance(ker.launch_plan(pspec, fc.physics), ker.ClusterPlan):
-            out["kernel_entry"] = b5_entry(phase, fc, pspec, final,
-                                           by_schedule, k_ms, cost, smi)
+        if isinstance(ker.launch_plan(pspec, fc.physics),
+                      (ker.ClusterPlan, ker.WavePlan)):
+            out["kernel_entry"] = cluster_entry(phase, fc, pspec, final,
+                                                by_schedule, k_ms, cost, smi)
         del final
         say(phase, f"{what} tile {p.tile} T={p.T} "
             f"({schedule_of(pspec, fc.physics)} schedule): {launches} "
@@ -1045,7 +1074,10 @@ def phase_paper_case(name, order, smi, dev):
                      "bound_ms": bound, "bound_by": by, "peak_gib": peak,
                      "max_rel_err": worst, "bit_equal": same}
     out["TB/SB"] = out["TB"]["ms"] / out["SB"]["ms"]
-    say(phase, f"TB/SB {out['TB/SB']:.3f} (no gain claimed) [{smi}]")
+    before = EARLIER_TB_SB.get((name, order))
+    say(phase, f"TB/SB {out['TB/SB']:.3f} (no gain claimed)"
+        + (f"; on the schedules before the cluster-shared wavefront "
+           f"(PERF.md): {before}" if before else "") + f" [{smi}]")
     del fc, rfinal, rrec
     torch.cuda.empty_cache()
     return out
@@ -1053,25 +1085,32 @@ def phase_paper_case(name, order, smi, dev):
 
 PAPER_EXTRA = [(c.propagator, c.space_order) for c in
                paper_stencil.PAPER_CASES if c.space_order != ORDER]
+# TB/SB of the acoustic cases at orders 8 and 12 on the schedules they took
+# before the cluster-shared wavefront (B6), printed beside today's (PERF.md
+# section 5: z-streamed 16 x 16 and the first schedule)
+EARLIER_TB_SB = {("acoustic", 8): 1.589, ("acoustic", 12): 3.763}
 
 
-def b5_entry(phase, fc, spec, final, by_schedule, k_ms, cost, smi):
-    """The kernels-line entry of a paper case's TB run on the cluster-
-    shared trapezoid (B5): every launch of the run whose shape takes B5
-    (the full-depth ones, and the remainder's at a halo of 24 and more)
-    was B5, and the kernel on a mid-run tile of the run's final state (the
-    source's values of that tile) is held against the plain version."""
+def cluster_entry(phase, fc, spec, final, by_schedule, k_ms, cost, smi):
+    """The kernels-line entry of a paper case's TB run on a cluster-shared
+    schedule, the trapezoid B5 (TTI, elastic) or the z-wavefront B6
+    (acoustic): every launch of the run whose shape takes it (the
+    full-depth ones, and the remainder's where its halo does) took it, and
+    the kernel on a mid-run tile of the run's final state (the source's
+    values of that tile) is held against the plain version."""
     name, plan = fc.physics.name, ker.launch_plan(spec, fc.physics)
+    kind = ker.schedule_name(plan)
+    label = "B6" if kind == "wavefront" else "B5"
     r = fc.physics.step_radius(fc.order)
     expect = fc.nt // spec.T
     if fc.nt % spec.T:                  # the remainder tile's own halo
         rspec = ops.make_spec(SHAPE, TBPlan(spec.tile, fc.nt % spec.T, r),
                               fc.order, fc.dt, fc.spacing, 1, 1,
                               physics=fc.physics)
-        expect += isinstance(ker.launch_plan(rspec, fc.physics),
-                             ker.ClusterPlan)
-    if by_schedule["cluster"] != expect:
-        raise AssertionError(f"{phase}: {by_schedule['cluster']} B5 "
+        expect += ker.schedule_name(ker.launch_plan(rspec,
+                                                    fc.physics)) == kind
+    if by_schedule[kind] != expect:
+        raise AssertionError(f"{phase}: {by_schedule[kind]} {label} "
                              f"launches, expected {expect} ({by_schedule})")
     t0 = (fc.nt // spec.T // 2) * spec.T
     tplan = TBPlan(spec.tile, spec.T, r)
@@ -1082,17 +1121,19 @@ def b5_entry(phase, fc, spec, final, by_schedule, k_ms, cost, smi):
     del args
     say_design(phase, fc.physics, spec, k_ms, cost)
     bound, by = bound_of(cost)
-    say(phase, f"B5 tb_{name} at tile {spec.tile} T={spec.T}: "
-        f"{by_schedule['cluster']} launches in the TB run, {k_ms:.3f} ms "
+    say(phase, f"{label} tb_{name} at tile {spec.tile} T={spec.T}: "
+        f"{by_schedule[kind]} launches in the TB run, {k_ms:.3f} ms "
         f"a launch vs bound {bound:.3f} ms by {by}; vs plain on the tile "
         f"at step {t0}: max|diff| {err:.3e}, max|diff|/max|plain| "
         f"{rel:.3e}, plain {plain_ms:.1f} ms [{smi}]")
+    shape = ({"parts": list(plan.parts), "planes": plan.planes}
+             if kind == "wavefront" else {"chunk": list(plan.chunk)})
     return {
-        "name": f"stencil_tb.tb_{name}_cluster_O{fc.order}",
+        "name": f"stencil_tb.tb_{name}_{kind}_O{fc.order}",
         "route": "cuda",
         "source": f"src/repro_torch/kernels/csrc/{KERNEL_FILES[name]}.cu",
         "replaces": "src/repro/kernels/stencil_tb.py:129",
-        "launches": by_schedule["cluster"],
+        "launches": by_schedule[kind],
         "max_abs_err": err,
         "ms": k_ms,
         "plain_ms": plain_ms,
@@ -1101,7 +1142,7 @@ def b5_entry(phase, fc, spec, final, by_schedule, k_ms, cost, smi):
         "library_ms": None,
         "schedule": schedule_of(spec, fc.physics),
         "cluster": plan.cluster,
-        "chunk": list(plan.chunk),
+        **shape,
         "smem": plan.smem,
         "tile": list(spec.tile),
         "T": spec.T,
@@ -2922,7 +2963,7 @@ def main():
     timed("kernels-batched", phase_kernels_batched, dev)
     timed("kernel-vs-plain-dom", phase_kernel_vs_plain_dom, dev)
     timed("kernel-vs-plain-bf16", phase_kernel_vs_plain_bf16, dev)
-    for name in ("tti", "elastic"):
+    for name in ("acoustic", "tti", "elastic"):
         timed(f"kernel-vs-first-{name}", phase_kernel_vs_first, name, dev,
               smi)
     say("kernel-vs-plain", f"launches held against the plain version by "

@@ -95,6 +95,16 @@ __device__ __forceinline__ void cluster_barrier()
     asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
 }
 
+// the two halves of cluster_barrier, for work between them
+__device__ __forceinline__ void cluster_arrive()
+{
+    asm volatile("barrier.cluster.arrive.release;\n" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait()
+{
+    asm volatile("barrier.cluster.wait.acquire;\n" ::: "memory");
+}
+
 // the load rectangle (x, y, h, w) of a chunk's pass (`stencil_tb.
 // chunk_load`): the chunk and R points around it, widened in y to whole
 // 16-byte groups of the window's rows
@@ -148,7 +158,11 @@ struct CBlk {
           Y(a.ny + 2 * a.H), ox(ti * a.tx), oy(tj * a.ty),
           tile((long long)blockIdx.z * gridDim.y + blockIdx.y),
           dom(a.dom ? a.dom + blockIdx.z * a.dom_row : nullptr),
-          table(c.table), ch0(c.table + c.npass * c.C + 1), C(c.C) {}
+          table(c.table),
+          ch0(c.table ? c.table + c.npass * c.C + 1 : nullptr), C(c.C) {}
+    // a block of a launch without a chunk table (B6, stencil_tb.cu)
+    __device__ explicit CBlk(const TileArgs& a)
+        : CBlk(a, ClusterArgs{nullptr, (int)gridDim.x, 0}) {}
 
     // input i's z-major copy (state i < s.nstate of this row, else param
     // i - nstate, shared or this row's), from the spec window's origin

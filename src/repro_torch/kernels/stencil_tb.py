@@ -37,7 +37,11 @@ have a third, the cluster-shared trapezoid of ``csrc/tb_cluster.cuh``
 (B5, `cluster_plan`): a thread block cluster shares one spec tile's
 trapezoid, each pass cut into chunks (`pass_chunks`) spread over its
 blocks, so the deep halos of orders 8 and 12 are computed once a tile
-and not once a sub-tile.
+and not once a sub-tile.  The acoustic kernel's third is the
+cluster-shared z-wavefront (B6, `wave_plan`): the z-streamed wavefront of
+every level kept on chip, one spec tile's levels cut into a part a block
+of a cluster (`WavePlan`), the seams between parts written into the
+neighbours' shared memory.
 """
 from __future__ import annotations
 
@@ -58,7 +62,8 @@ from repro_torch.kernels import tb_physics as phys
 # kernel launches made by `tb_time_tile` (set it to 0 before a counted
 # run), and the same launches by schedule (`schedule_name`)
 launches = 0
-schedule_launches = {"first": 0, "z-streamed": 0, "cluster": 0}
+schedule_launches = {"first": 0, "z-streamed": 0, "cluster": 0,
+                     "wavefront": 0}
 
 
 @dataclasses.dataclass(frozen=True)
@@ -247,6 +252,14 @@ _MAX_OVERHANG = 16
 _ACTIVE_CLUSTERS = {1: 132, 2: 66, 4: 30, 8: 15, 16: 7}
 # the write-back's warp tiles: the least shared memory of a streamed block
 _WB_TILES = 4 * (_STREAM_THREADS // 32) * 32 * 33
+# the cluster-shared z-wavefront (B6, csrc/stencil_tb.cu): the depths it
+# takes (WAVE_MAX_T), the blocks a cluster may have (CLUSTER_MAX in
+# csrc/tb_cluster.cuh) and the cluster sizes `wave_size` chooses among
+_WAVE_MAX_T = 8
+_WAVE_MAX_K = 2
+_WAVE_MIN_R = 4           # WAVE_MIN_R: B6 takes space orders 8 to 16
+_CLUSTER_MAX = 16
+_WAVE_CLUSTERS = (1, 2, 4, 8, 16)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -272,12 +285,24 @@ class _CudaKernel:
     # whole spec windows a tile, float32 z-major
     cluster_from_order: Optional[int] = None
     cluster_from_halo: int = 0
+    # the cluster-shared z-wavefront (B6, acoustic): the least space order
+    # and halo at which `launch_plan` takes it, float32 at T >= 2, and the
+    # most blocks a cluster it takes (measured at 512^3, PERF.md: from
+    # halo 12 with 2 or 4 blocks a cluster it beat the z-streamed and first
+    # schedules at every tile and T measured; at halo 8 the z-streamed one
+    # is the faster, and with 8 or 16 blocks, 15 or 7 clusters at once,
+    # mostly the other schedules)
+    wave_from_order: Optional[int] = None
+    wave_from_halo: int = 0
+    wave_max_cluster: int = 0
 
 
 # physics name -> its hand-written kernel; all share one C entry point
 _KERNELS = {
     "acoustic": _CudaKernel("stencil_tb", 2, st.second_derivative_weights,
-                            2, stream_windows=(), stream_from_halo=4),
+                            2, stream_windows=(), stream_from_halo=4,
+                            wave_from_order=8, wave_from_halo=12,
+                            wave_max_cluster=4),
     # p and r twice (ping-pong) from the first step's region, the three
     # inner first derivatives from the first phase A's (`tti_blk_floats`);
     # streamed from the least halo measured, 4 (order 4, T = 1: 14.2
@@ -529,12 +554,167 @@ def redundancy(spec: TBKernelSpec, physics: phys.TBPhysics,
         return wx * wy / (tx * ty)
     steps = spec.T if physics.name == "acoustic" else 2 * spec.T
     r = h // steps
-    if isinstance(plan, ClusterPlan):
+    if isinstance(plan, (ClusterPlan, WavePlan)):
         bx, by = tx, ty
     else:
         bx, by = plan[:2]
     return sum((bx + 2 * (h - n * r)) * (by + 2 * (h - n * r))
                for n in range(1, steps + 1)) / (steps * bx * by)
+
+
+@dataclasses.dataclass(frozen=True)
+class WavePlan:
+    """The cluster-shared z-wavefront (B6) of one acoustic launch shape:
+    `cluster` blocks share each spec tile, block a * py + b keeping part
+    (a, b) of every level, the parts cut by lines fixed in window
+    coordinates (`xcuts`: px + 1 lines from 0 to wx, `ycuts` the same in
+    y); `planes` planes of every level a step; `smem` the shared bytes a
+    block takes (`wave_smem`)."""
+
+    cluster: int
+    parts: Tuple[int, int]
+    xcuts: Tuple[int, ...]
+    ycuts: Tuple[int, ...]
+    smem: int
+    planes: int = 1
+
+
+def wave_slots(r: int, j: int, T: int, K: int = 1) -> int:
+    """Planes of level j's ring in B6 at K planes a step (`wave_slots` in
+    csrc/stencil_tb.cu): the 2r + K planes level j + 1 taps, the K planes
+    level j writes meanwhile, and where level j + 2 reads it as u_prev,
+    r + K planes behind, K more."""
+    return 2 * r + 3 * K if j + 2 <= T else 2 * r + 2 * K
+
+
+def wave_rect(xcuts, ycuts, a: int, b: int, j: int, r: int, wx: int,
+              wy: int, ring: bool = False) -> Chunk:
+    """(x0, y0, h, w), window-local, of part (a, b) at level j of B6
+    (`wave_rect` in csrc/stencil_tb.cu): its own points, the part within
+    the region of margin j r; with `ring` the rectangle its ring holds,
+    those widened by r within the region (the seam: its neighbours'
+    points that level j + 1 taps)."""
+    s, m = (r if ring else 0), j * r
+    x0, x1 = max(xcuts[a] - s, m), min(xcuts[a + 1] + s, wx - m)
+    y0, y1 = max(ycuts[b] - s, m), min(ycuts[b + 1] + s, wy - m)
+    return x0, y0, x1 - x0, y1 - y0
+
+
+def wave_smem(T: int, r: int, wx: int, wy: int, xcuts, ycuts,
+              K: int = 1) -> int:
+    """Shared bytes of a B6 block at K planes a step (`wave_smem` in
+    csrc/stencil_tb.cu, which refuses a launch given less): the largest
+    part's rings of levels 0..T-1 (`wave_slots` planes of its ring
+    rectangle each) and the staging of its part of the centre, OUT_CHUNK
+    planes of u_T and of u_{T-1}."""
+    most = 0
+    for a in range(len(xcuts) - 1):
+        for b in range(len(ycuts) - 1):
+            f = sum(wave_slots(r, j, T, K) * h * w for j in range(T)
+                    for _, _, h, w in [wave_rect(xcuts, ycuts, a, b, j, r,
+                                                 wx, wy, True)])
+            _, _, h, w = wave_rect(xcuts, ycuts, a, b, T, r, wx, wy)
+            f += 2 * _OUT_CHUNK * ((h * w + 31) // 32 * 32 + 4)
+            most = max(most, 4 * f)
+    return most
+
+
+def wave_cuts(n: int, H: int, r: int, T: int, p: int) -> Tuple[int, ...]:
+    """p + 1 cut lines, 0 to n, of a window n points wide into B6's p parts
+    along it: at the nearest points where the levels' work splits evenly
+    (a window column's work: the levels 1..T whose region holds it).
+    Raises ValueError where a part would be narrower than r (its seam then
+    reaches beyond its neighbours) or a cut would fall outside the tile
+    (H, n - H) (a part without points at some level)."""
+    weight = [sum(j * r <= x < n - j * r for j in range(1, T + 1))
+              for x in range(n)]
+    total = sum(weight)
+    cuts, acc, x = [0], 0, 0
+    for k in range(1, p):
+        while acc + weight[x] / 2 < k * total / p:
+            acc += weight[x]
+            x += 1
+        cuts.append(x)
+    cuts.append(n)
+    if any(b - a < r for a, b in zip(cuts, cuts[1:])) or any(
+            not H < c < n - H for c in cuts[1:-1]):
+        raise ValueError(f"{p} parts of a window {n} wide (halo {H}, radius "
+                         f"{r}): a part narrower than {r} or a cut outside "
+                         "the tile")
+    return tuple(cuts)
+
+
+@functools.lru_cache(maxsize=None)
+def _wave_plan(wx: int, wy: int, H: int, r: int, T: int, cluster: int,
+               K: int) -> Optional[WavePlan]:
+    if r < _WAVE_MIN_R or K > 1 and (r % K or r < 3 * K - 2):
+        return None
+    best = None
+    for px in (d for d in range(1, cluster + 1) if cluster % d == 0):
+        py = cluster // px
+        try:
+            xc, yc = wave_cuts(wx, H, r, T, px), wave_cuts(wy, H, r, T, py)
+        except ValueError:
+            continue
+        smem = wave_smem(T, r, wx, wy, xc, yc, K)
+        if smem <= _STREAM_SMEM and (best is None or (smem, -px) < best[0]):
+            best = ((smem, -px), WavePlan(cluster, (px, py), xc, yc, smem,
+                                          K))
+    return None if best is None else best[1]
+
+
+def wave_plan(spec: TBKernelSpec, physics: phys.TBPhysics,
+              cluster: Optional[int] = None,
+              planes: Optional[int] = None) -> WavePlan:
+    """The B6 launch of `spec`: `cluster` blocks a spec tile and `planes`
+    planes a step (defaults: `wave_size`), cut into px x py parts
+    (`wave_cuts`), the grid of parts whose largest block needs the least
+    shared memory.  Two planes a step need an even radius of at least 4
+    (a step's planes then start at multiples of 2, and a seam is read two
+    or more steps after it is written).  Raises ValueError where the
+    kernel has no B6 (TTI, elastic), the launch is not float32 at T =
+    2..8 and space order 8..16 with ty a multiple of 4, or no parts of
+    that cluster fit a block."""
+    if _KERNELS[physics.name].wave_from_order is None:
+        raise ValueError(f"{physics.name}: no cluster-shared wavefront")
+    if spec.dtype != torch.float32 or not 2 <= spec.T <= _WAVE_MAX_T:
+        raise ValueError(f"B6 takes float32 at T = 2..{_WAVE_MAX_T}, not "
+                         f"{spec.dtype} at T = {spec.T}")
+    if spec.tile[1] % 4:
+        raise ValueError(f"tile {spec.tile}: B6 needs ty a multiple of 4")
+    c, k = wave_size(spec)
+    if planes is not None:
+        ks = (planes,)
+    elif cluster is None:
+        ks = (k,)
+    else:                       # the most planes a step that fit
+        ks = range(_WAVE_MAX_K, 0, -1)
+    c = c if cluster is None else cluster
+    wx, wy, _ = spec.window
+    for k in ks:
+        plan = (_wave_plan(wx, wy, spec.halo, spec.radius, spec.T, c, k)
+                if 1 <= c <= _CLUSTER_MAX and 1 <= k <= _WAVE_MAX_K
+                else None)
+        if plan is not None:
+            return plan
+    raise ValueError(f"acoustic T={spec.T} order {spec.order} tile "
+                     f"{spec.tile}: no parts of {c} blocks at "
+                     f"{planes or 'any number of'} planes a step fit a "
+                     "block's shared memory")
+
+
+def wave_size(spec: TBKernelSpec) -> Tuple[int, int]:
+    """(blocks a cluster, planes a step) of B6 at `spec`: the fewest blocks
+    of `_WAVE_CLUSTERS` whose parts fit a block at the most planes a step
+    that fit, else at one (the largest cluster where none fits:
+    `wave_plan` then raises)."""
+    wx, wy, _ = spec.window
+    for c in _WAVE_CLUSTERS:
+        for k in range(_WAVE_MAX_K, 0, -1):
+            if _wave_plan(wx, wy, spec.halo, spec.radius, spec.T, c,
+                          k) is not None:
+                return c, k
+    return _WAVE_CLUSTERS[-1], 1
 
 
 # (plan, device) -> the chunk table on the host and on the device
@@ -563,8 +743,10 @@ def launch_plan(spec: TBKernelSpec, physics: phys.TBPhysics):
     """The schedule a CUDA launch of this shape takes: a `ClusterPlan`
     (B5, TTI and elastic from the kernel's `cluster_from_order` and
     `cluster_from_halo` up, where the tile's rows are whole 16-byte
-    groups), the z-streamed schedule's
-    (bx, by, shared bytes) (`stream_plan`), or None for the first
+    groups), a `WavePlan` (B6, acoustic from `wave_from_order` and
+    `wave_from_halo` up, where `wave_plan`'s parts fit clusters of at most
+    `wave_max_cluster` blocks), the z-streamed schedule's (bx, by, shared
+    bytes) (`stream_plan`), or None for the first
     schedule.  The z-streamed one is taken from the kernel's
     `stream_from_halo` up, where a sub-tile fits a block's shared
     memory and its window overhangs it at most `_MAX_OVERHANG` times;
@@ -576,6 +758,15 @@ def launch_plan(spec: TBKernelSpec, physics: phys.TBPhysics):
             and spec.halo >= kern.cluster_from_halo
             and spec.tile[1] % 4 == 0):
         return cluster_plan(spec, physics)
+    if (kern.wave_from_order is not None
+            and spec.order >= kern.wave_from_order
+            and spec.halo >= kern.wave_from_halo):
+        try:
+            plan = wave_plan(spec, physics)
+        except ValueError:          # bf16, T = 1, or no parts fit
+            plan = None
+        if plan is not None and plan.cluster <= kern.wave_max_cluster:
+            return plan
     if spec.halo < kern.stream_from_halo:
         return None
     if physics.name == "acoustic" and spec.T > _MAX_T:
@@ -598,7 +789,8 @@ def _scratch_elems(spec: TBKernelSpec,
     and it takes no copies; the z-streamed schedule's is float32: z-major
     copies of the row's state and its blocks' windows, and the params'
     copies (`param_copies`, or made by the launch in its scratch); B5's
-    the same copies and `scratch_windows` whole spec windows a tile."""
+    the same copies and `scratch_windows` whole spec windows a tile; B6's
+    the copies alone."""
     ntx, nty = spec.ntiles
     kern = _KERNELS[physics.name]
     plan = launch_plan(spec, physics)
@@ -608,7 +800,9 @@ def _scratch_elems(spec: TBKernelSpec,
                 spec.dtype)
     h = spec.halo
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
-    if isinstance(plan, ClusterPlan):
+    if isinstance(plan, WavePlan):
+        blocks, windows = 0, 0          # every level stays on chip
+    elif isinstance(plan, ClusterPlan):
         blocks, windows = ntx * nty, kern.scratch_windows * wx * wy
     else:
         bx, by, _ = plan
@@ -684,6 +878,15 @@ def _bind(source: str):
             lib.repro_tb_tile_cluster.restype = i
             lib.repro_tb_cluster_occupancy.argtypes = [i, i, i, i, p]
             lib.repro_tb_cluster_occupancy.restype = i
+        if hasattr(lib, "repro_tb_tile_wave"):
+            # B6: the cluster size, the parts (px, py), the planes a step,
+            # the cut lines in x and in y, the shared bytes a block
+            lib.repro_tb_tile_wave.argtypes = (
+                [i] + [p] * 9 + [i] * 12 + [p] + [ctypes.c_float] * 2
+                + [i, i, i, i, p, p, i, p])
+            lib.repro_tb_tile_wave.restype = i
+            lib.repro_tb_wave_occupancy.argtypes = [i, i, i, i, p]
+            lib.repro_tb_wave_occupancy.restype = i
         copies = [lib.repro_tb_param_copies]
         if hasattr(lib, "repro_tb_param_copies_bf16"):
             copies.append(lib.repro_tb_param_copies_bf16)
@@ -742,6 +945,22 @@ def cluster_occupancy(spec: TBKernelSpec, physics: phys.TBPhysics,
     out = ctypes.c_int(0)
     rc = lib.repro_tb_cluster_occupancy(spec.radius, int(dom), plan.cluster,
                                         plan.smem, ctypes.byref(out))
+    if rc != 0:
+        raise RuntimeError("cluster occupancy query failed: "
+                           + lib.repro_cuda_error_string(rc).decode())
+    return out.value
+
+
+def wave_occupancy(spec: TBKernelSpec, physics: phys.TBPhysics,
+                   plan: WavePlan, dom: bool = False) -> int:
+    """Clusters of a B6 launch of `plan` the card holds at once
+    (cudaOccupancyMaxActiveClusters at the plan's shared bytes; a launch
+    whose clusters number more runs in waves, one that gets 0 raises).
+    Needs a card."""
+    lib = _bind(_KERNELS[physics.name].source)
+    out = ctypes.c_int(0)
+    rc = lib.repro_tb_wave_occupancy(spec.radius, int(dom), plan.cluster,
+                                     plan.smem, ctypes.byref(out))
     if rc != 0:
         raise RuntimeError("cluster occupancy query failed: "
                            + lib.repro_cuda_error_string(rc).decode())
@@ -847,11 +1066,18 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     rows_flag = int(param_rows)
     extra = 0
     cluster = isinstance(plan, ClusterPlan)
+    wave = isinstance(plan, WavePlan)
     if cluster:
         table, table_dev = chunk_table(plan, dev)
         tail = (plan.cluster, table.ctypes.data_as(ctypes.c_void_p),
                 ctypes.c_void_p(table_dev.data_ptr()), table.size,
                 plan.smem)
+    elif wave:
+        if dtype != f32:
+            raise TypeError("the cluster-shared wavefront (B6) takes float32")
+        tail = (plan.cluster, *plan.parts, plan.planes,
+                (ctypes.c_int * len(plan.xcuts))(*plan.xcuts),
+                (ctypes.c_int * len(plan.ycuts))(*plan.ycuts), plan.smem)
     else:
         # the z-streamed schedule's sub-tile, (0, 0) for the first
         tail = (0, 0) if plan is None else plan[:2]
@@ -872,6 +1098,7 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     else:
         check_scratch(scratch, (B * per_row + extra) * sdtype.itemsize, dev)
     entry = (lib.repro_tb_tile_cluster if cluster else
+             lib.repro_tb_tile_wave if wave else
              lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -894,10 +1121,12 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 
 def schedule_name(plan) -> str:
-    """"first", "z-streamed" or "cluster" (B5): the schedule of a
-    `launch_plan` result."""
+    """"first", "z-streamed", "cluster" (B5) or "wavefront" (B6): the
+    schedule of a `launch_plan` result."""
     if plan is None:
         return "first"
+    if isinstance(plan, WavePlan):
+        return "wavefront"
     return "cluster" if isinstance(plan, ClusterPlan) else "z-streamed"
 
 
@@ -906,7 +1135,8 @@ def launch_bytes(spec: TBKernelSpec, physics: phys.TBPhysics) -> int:
     its receiver partials and its part of the scratch (`launch_plan`: the
     first schedule's tile windows in the storage dtype; the z-streamed
     schedule's float32 z-major copies of the shot's state and its blocks'
-    windows, none for acoustic; B5's copies and its spec tiles' windows).
+    windows, none for acoustic; B5's copies and its spec tiles' windows;
+    B6's copies).
     The params' copies, shared by the shots, are `launch_shared_bytes`."""
     ntx, nty = spec.ntiles
     elems = (len(physics.state_fields) * spec.nx * spec.ny * spec.nz
@@ -937,7 +1167,10 @@ def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
     passes read and writes the fields they write, each region once a
     pass.  B5 (`ClusterPlan`) reads each chunk's load rectangle
     (`chunk_load`: the chunk, its seam and its 16-byte widening) of the
-    tap fields and its points' pointwise operands, once a spec tile."""
+    tap fields and its points' pointwise operands, once a spec tile.  B6
+    (`WavePlan`) reads u over each part's level-0 ring rectangle (the
+    seams twice) and every level's pointwise operands once a spec tile;
+    its seams between levels move between shared memories, not here."""
     h, nz = spec.halo, spec.nz
     item = spec.dtype.itemsize
     ns, npar = len(physics.state_fields), len(physics.param_fields)
@@ -947,7 +1180,8 @@ def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
     if plan is None:
         return float(shots * spec.T * ntx * nty * wx * wy * nz * item
                      * (physics.num_windows + len(physics.evolved_fields)))
-    bx, by = spec.tile if isinstance(plan, ClusterPlan) else plan[:2]
+    bx, by = spec.tile if isinstance(plan, (ClusterPlan, WavePlan)) \
+        else plan[:2]
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * nz
     prow = shots if param_rows else 1
     copies = (ns * shots + npar * prow) * vol * (item + 4)
@@ -959,6 +1193,12 @@ def design_bytes(spec: TBKernelSpec, physics: phys.TBPhysics,
     r = spec.radius
     if physics.name == "acoustic":
         lv = [area(j * r) for j in range(spec.T + 1)]
+        if isinstance(plan, WavePlan):
+            px, py = plan.parts
+            lv[0] = sum(h * w for a in range(px) for b in range(py)
+                        for _, _, h, w in [wave_rect(
+                            plan.xcuts, plan.ycuts, a, b, 0, r, wx, wy,
+                            True)])
         return float(copies + blocks * (
             4 * nz * (lv[0] + lv[1] + 2 * sum(lv[1:]))
             + 2 * item * bx * by * nz))

@@ -48,17 +48,18 @@ def _card():
 def _schedules(spec, p):
     """Every schedule the physics' kernel runs at `spec`: None for the
     first, the z-streamed sub-tile plan where one fits a block, and the
-    cluster-shared trapezoid (B5) where the kernel has one, whichever
-    `launch_plan` would pick."""
+    cluster-shared trapezoid (B5) or z-wavefront (B6) where the kernel has
+    one, whichever `launch_plan` would pick."""
     out = [None]
     try:
         out.append(ker.stream_plan(spec, p))
     except ValueError:
         pass
-    try:
-        out.append(ker.cluster_plan(spec, p))
-    except ValueError:
-        pass
+    for make in (ker.cluster_plan, ker.wave_plan):
+        try:
+            out.append(make(spec, p))
+        except ValueError:
+            pass
     return out
 
 
@@ -669,43 +670,71 @@ def test_launch_refuses_a_subtile_that_does_not_fit(physics, monkeypatch):
         torch.testing.assert_close(k, q, rtol=RTOL, atol=atol)
 
 
-# B5 at halos 32 and 48 (orders 8 and 12, T = 4) on 2 x 2 spec tiles: the
-# default cluster (16 blocks a tile here, beyond the portable 8), one
-# block a tile, 2 and 8
-CLUSTER_CASES = [(8, None), (12, None), (8, 1), (12, 2), (8, 8)]
+# B5 at halos 32 and 48 (TTI and elastic, orders 8 and 12, T = 4) on 2 x 2
+# spec tiles: the default cluster (16 blocks a tile here, beyond the
+# portable 8), one block a tile, 2 and 8; B6 (acoustic) at halos 16 (T =
+# 4) and 12 (order 12, T = 2) with the cluster and planes a step
+# `launch_plan` takes, at halo 24 with 16 blocks, and at halos 8 and 12
+# (T = 2) with 2, 4 and 8 blocks a cluster at one or two planes a step
+CLUSTER_CASES = [(p, o, 4, c, None) for p in ("tti", "elastic")
+                 for o, c in ((8, None), (12, None), (8, 1), (12, 2),
+                              (8, 8))] + [
+    ("acoustic", 8, 4, None, None), ("acoustic", 12, 2, None, None),
+    ("acoustic", 12, 4, 16, 2), ("acoustic", 8, 2, 2, 2),
+    ("acoustic", 12, 2, 4, 2), ("acoustic", 8, 2, 8, 1),
+    ("acoustic", 12, 2, 8, 1), ("acoustic", 8, 4, 4, 1)]
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("physics", ["tti", "elastic"])
-@pytest.mark.parametrize("order,cluster", CLUSTER_CASES)
-def test_cluster_kernel_matches_first_and_plain(physics, order, cluster,
-                                                monkeypatch):
-    """The cluster-shared trapezoid (B5), which `launch_plan` takes at
-    these halos, equals the first schedule bit for bit (fields and
-    receiver partials) and holds to the plain version; with `dom` the
-    grid's own mask and the params one a row (the sharded layer's launch,
-    B1c) it equals itself without them."""
+@pytest.mark.parametrize("physics,order,T,cluster,planes", CLUSTER_CASES)
+def test_cluster_kernel_matches_first_and_plain(physics, order, T, cluster,
+                                                planes, monkeypatch):
+    """The cluster-shared schedules, the trapezoid B5 (TTI, elastic) and
+    the z-wavefront B6 (acoustic), which `launch_plan` takes at these
+    halos, equal the first schedule bit for bit (fields and receiver
+    partials) and hold to the plain version; with `dom` the grid's own
+    mask and the params one a row (the sharded layer's launch, B1c) each
+    equals itself without them; B6's launch of two shots equals two
+    single-shot launches."""
     dev = _card()
-    c = MULTI_CASES[physics](shape=(64, 64, 24), order=order, nt=8, nsrc=3,
-                             nrec=4)
-    p, spec, args = _mp_operands(c, 4, (32, 32), dev)
-    plan = ker.launch_plan(spec, p)
-    assert isinstance(plan, ker.ClusterPlan) and plan.cluster == 16
-    if cluster is not None:
-        plan = ker.cluster_plan(spec, p, cluster)
+    if physics == "acoustic":
+        p = phys.ACOUSTIC
+        cases = [(acoustic_case(shape=(64, 64, 24), order=order, nt=8,
+                                nsrc=3, nrec=4, seed=sd), True)
+                 for sd in (1, 2)]
+        spec, both = _batch_operands(p, cases, T, (32, 32), dev)
+        args = tuple(tuple(f[:1] for f in a) if i == 0 else
+                     a if i == 1 else a[:1] for i, a in enumerate(both))
+        if cluster is None:
+            plan = ker.launch_plan(spec, p)
+            assert isinstance(plan, ker.WavePlan)
+        else:
+            plan = ker.wave_plan(spec, p, cluster, planes)
+            assert plan.planes == planes
+        atol = ATOL
+    else:
+        c = MULTI_CASES[physics](shape=(64, 64, 24), order=order, nt=8,
+                                 nsrc=3, nrec=4)
+        p, spec, args = _mp_operands(c, T, (32, 32), dev)
+        plan = ker.launch_plan(spec, p)
+        assert isinstance(plan, ker.ClusterPlan) and plan.cluster == 16
+        if cluster is not None:
+            plan = ker.cluster_plan(spec, p, cluster)
+        atol = MP_ATOL
+    kind = ker.schedule_name(plan)
     before = dict(ker.schedule_launches)
     monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
     kst, krec = ker.tb_time_tile(spec, p, *args)
     monkeypatch.setattr(ker, "launch_plan", lambda s, q: None)
     fst, frec = ker.tb_time_tile(spec, p, *args)
-    assert ker.schedule_launches["cluster"] == before["cluster"] + 1
+    assert ker.schedule_launches[kind] == before[kind] + 1
     assert ker.schedule_launches["first"] == before["first"] + 1
     pst, prec = ker.tb_time_tile_plain(spec, p, *args)
     torch.cuda.synchronize()
     for k, f in zip((*kst, krec), (*fst, frec)):
         assert torch.equal(k, f)
     for k, q in zip((*kst, krec), (*pst, prec)):
-        torch.testing.assert_close(k, q, rtol=RTOL, atol=MP_ATOL)
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=atol)
     assert_fields_close(
         [(f, k.cpu(), q.cpu()) for f, k, q in zip(p.state_fields, kst, pst)]
         + [(f"rec[{i}]", krec[..., i].cpu(), prec[..., i].cpu())
@@ -724,6 +753,51 @@ def test_cluster_kernel_matches_first_and_plain(physics, order, cluster,
     torch.cuda.synchronize()
     for k, d in zip((*kst, krec), (*dst, drec)):
         assert torch.equal(k, d)
+    if physics == "acoustic":
+        bst, brec = ker.tb_time_tile(spec, p, *both)
+        pads2, _, sc2, sv2, rc2, rw2 = both
+        ost, orec = ker.tb_time_tile(spec, p, tuple(f[1:] for f in pads2),
+                                     ppads, sc2[1:], sv2[1:], rc2[1:],
+                                     rw2[1:])
+        torch.cuda.synchronize()
+        assert float(brec[1].abs().max()) > 0
+        for b, k in zip((*bst, brec), (*kst, krec)):
+            assert torch.equal(b[:1], k)
+        for b, k in zip((*bst, brec), (*ost, orec)):
+            assert torch.equal(b[1:], k)
+
+
+@pytest.mark.cuda
+def test_wave_launch_refuses_a_parts_table_that_does_not_fit(monkeypatch):
+    """The C entry checks B6's parts table before it launches: a block
+    given less shared memory than its part needs, a cluster that is not
+    px x py blocks, a cut line outside the tile, or one block holding a
+    tile whose rings do not fit are refused; the table as planned runs."""
+    dev = _card()
+    c = acoustic_case(shape=(64, 64, 24), order=8, nt=8, nsrc=3, nrec=4)
+    spec, args = _operands(c, 4, (32, 32), dev)
+    p = phys.ACOUSTIC
+    plan = ker.wave_plan(spec, p)
+    assert plan.parts == (2, 2)
+    wx, wy, _ = spec.window
+    h = spec.halo
+    bad = [dataclasses.replace(plan, smem=plan.smem // 2),
+           dataclasses.replace(plan, cluster=2),
+           dataclasses.replace(plan, xcuts=(0, h, wx)),
+           dataclasses.replace(plan, cluster=1, parts=(1, 1),
+                               xcuts=(0, wx), ycuts=(0, wy),
+                               smem=ker._STREAM_SMEM)]
+    assert ker.wave_smem(4, spec.radius, wx, wy, (0, wx), (0, wy)) \
+        > ker._STREAM_SMEM
+    for b in bad:
+        monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=b: x)
+        with pytest.raises(RuntimeError, match="launch failed"):
+            ker.tb_time_tile(spec, p, *args)
+    monkeypatch.setattr(ker, "launch_plan", lambda s, q, x=plan: x)
+    kst, krec = ker.tb_time_tile(spec, p, *args)
+    pst, prec = ker.tb_time_tile_plain(spec, p, *args)
+    for k, q in zip((*kst, krec), (*pst, prec)):
+        torch.testing.assert_close(k, q, rtol=RTOL, atol=ATOL)
 
 
 @pytest.mark.cuda

@@ -184,7 +184,7 @@ def _launch_sizes(p, spec, nx):
     no copies; the z-major copies of the state and the params, and the
     block windows (none for acoustic; 7 TTI, over regions of its block
     window; 9 elastic) of the z-streamed one; B5's copies and whole spec
-    windows (7 TTI, 9 elastic) a tile."""
+    windows (7 TTI, 9 elastic) a tile; B6's copies alone."""
     h, nz = spec.halo, spec.nz
     tx, ty = spec.tile
     plan = tker.launch_plan(spec, p)
@@ -193,6 +193,9 @@ def _launch_sizes(p, spec, nx):
         return ((nx // tx) * (nx // ty) * windows * (tx + 2 * h)
                 * (ty + 2 * h) * nz * 4, 0)
     vol = (nx + 2 * h) ** 2 * nz
+    if isinstance(plan, tker.WavePlan):        # B6: the copies alone
+        return (len(p.state_fields) * vol * 4,
+                len(p.param_fields) * vol * 4)
     if isinstance(plan, tker.ClusterPlan):
         return ((len(p.state_fields) * vol + (nx // tx) * (nx // ty)
                  * windows * (tx + 2 * h) * (ty + 2 * h) * nz) * 4,
@@ -230,17 +233,22 @@ def test_launch_bytes_follow_the_kernels(name):
 
 
 # (physics, space order, T) -> the schedule a launch at 512^3, tile 32
-# takes: the z-streamed sub-tile, ("B5", cluster size), or None for the
-# first schedule — where each was measured the faster, or is the only one
-# that runs (PERF.md)
+# takes: the z-streamed sub-tile, ("B5", cluster size), ("B6", cluster
+# size, planes a step), or None for the first schedule — where each was
+# measured the faster, or is the only one that runs (PERF.md)
 CHOICES = [
     ("acoustic", 4, 1, None),                 # halo 2: first faster
     ("acoustic", 4, 2, (32, 32)),
     ("acoustic", 4, 4, (32, 32)),
     ("acoustic", 8, 1, (32, 32)),
-    ("acoustic", 8, 4, (16, 16)),             # overhang 9, still faster
-    ("acoustic", 12, 2, (32, 16)),
-    ("acoustic", 12, 4, None),                # no sub-tile fits
+    ("acoustic", 8, 2, (32, 32)),             # halo 8: z-streamed faster
+    # from halo 12 the cluster-shared z-wavefront, the fewest blocks a
+    # cluster whose parts fit, at the most planes a step that fit, where
+    # that is at most 4 blocks
+    ("acoustic", 8, 4, ("B6", 4, 2)),         # z-streamed 16x16 slower
+    ("acoustic", 12, 2, ("B6", 2, 1)),        # z-streamed 32x16 slower
+    ("acoustic", 12, 4, None),                # no sub-tile fits; B6's 16
+                                              # blocks a cluster slower
     ("acoustic", 4, 16, None),                # no sub-tile fits
     ("elastic", 4, 1, None),                  # halo 4 and 8: first faster
     ("elastic", 4, 2, None),

@@ -83,13 +83,13 @@ VARIANTS = {
 }
 
 
-def build_all(out: Path, names):
-    """{variant: (library, nvcc's output)}, one nvcc each, all started
-    together."""
-    src = (_build.CSRC / "stencil_tb_tti.cu").read_text()
+def build_all(out: Path, names, source="stencil_tb_tti", variants=VARIANTS):
+    """{variant: (library, nvcc's output)} of `csrc/<source>.cu` with each
+    named variant's substitutions, one nvcc each, all started together."""
+    src = (_build.CSRC / f"{source}.cu").read_text()
     procs = {}
     for i, name in enumerate(names):
-        subs = VARIANTS[name]
+        subs = variants[name]
         text = src
         for a, b in subs:
             if a not in text:
@@ -99,11 +99,11 @@ def build_all(out: Path, names):
         d.mkdir(parents=True, exist_ok=True)
         for h in _build.CSRC.glob("*.cuh"):
             (d / h.name).write_text(h.read_text())
-        (d / "stencil_tb_tti.cu").write_text(text)
-        lib = d / "libstencil_tb_tti.so"
+        (d / f"{source}.cu").write_text(text)
+        lib = d / f"lib{source}.so"
         procs[name] = (subprocess.Popen(
             [_build.nvcc(), *_build.NVCC_FLAGS, "-o", str(lib),
-             str(d / "stencil_tb_tti.cu")], stdout=subprocess.PIPE,
+             str(d / f"{source}.cu")], stdout=subprocess.PIPE,
             stderr=subprocess.STDOUT, text=True), lib)
     libs = {}
     for name, (proc, lib) in procs.items():
