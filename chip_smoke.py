@@ -22,9 +22,9 @@ card against the single-device run, TTI and elastic at 256^3 and acoustic
 schedules (time-nested, overlapped, uniform halo, autotuned) at 128^3, and
 the survey engine's sharded route.  Then the language models: kernel B2
 (the SSD chunked scan) against its plain version on both of its schedules
-(tensor cores for bf16 inputs at mamba2-130m's head shape, float32 cores
-for the rest, zamba2-2.7b's (N, P, Q) = (64, 64, 128) among them; each
-line names the one that ran), and six models at their published widths
+(tensor cores for bf16 inputs at mamba2-130m's and zamba2-2.7b's head
+shapes, (N, P, Q) = (128, 64, 64) and (64, 64, 128), float32 cores for
+the rest; each line names the one that ran), and six models at their published widths
 and depth, each serving 16 requests with random bf16 parameters from a
 seed: through `serving.GenerationEngine` mamba2-130m (B2 counted, 24
 launches a prefill), zamba2-2.7b (Mamba2 plus a shared attention block;
@@ -33,7 +33,9 @@ dense qwen3-1.7b and qwen3-moe-30b-a3b (128 experts, top 8, the
 sort-based capacity dispatch, its dropped entries counted); through
 `launch.steps`, with their stub embeddings in the batch, whisper-medium
 (24 + 24 layers over 1500 frames) and llava-next-mistral-7b (2880 image
-positions before the text).  Each has a float32 batch: its prefill held
+positions before the text).  A scanning model's bf16 prefill logits are
+held to the plain scan's, within twice the gap of a scan one float32 ulp
+from the plain one.  Each has a float32 batch: its prefill held
 against the plain scan where the model scans, the MoE's layer against a
 dense top-k oracle, and decode against the teacher-forced forward.  Then
 the bf16 acoustic tile (B1a-bf16).  It prints one JSON line listing every
@@ -2206,8 +2208,8 @@ SSD_FIELD_RTOL = 1e-5                    # max|diff| / max|plain|
 # schedule), then mamba2-130m's head shape (N 128, P 64, Q 64: the
 # tensor-core schedule with bf16 inputs) with one chunk and with two groups,
 # mamba2-130m's serve shape (24 heads of 64, state 128, chunk 64; 8 x 1024)
-# and zamba2-2.7b's (80 heads of 64, state 64, chunk 128: the float32-core
-# schedule for both dtypes)
+# and zamba2-2.7b's (80 heads of 64, state 64, chunk 128: the tensor-core
+# schedule with bf16 inputs too)
 SERVE_SHAPE = (8, 1024, 24, 1, 128, 64, 64)
 ZAMBA2_SSD_SHAPE = (8, 1024, 80, 1, 64, 64, 128)
 SSD_CASES = [
@@ -2256,14 +2258,29 @@ def check_ssd(name, got, want):
     return err, rel, outside
 
 
+@contextlib.contextmanager
+def forced_schedule(name):
+    """B2's launches take the schedule `name`, whatever `ssd.schedule_of`
+    would pick (the C entry still refuses a shape the schedule does not
+    take)."""
+    first = ssd.schedule_of
+    ssd.schedule_of = lambda *a: name
+    try:
+        yield
+    finally:
+        ssd.schedule_of = first
+
+
 def ssd_design(spec, schedule):
     """B2's design at this shape on `schedule`: ptxas registers and spill
-    stores of its float32-y kernel, dynamic shared memory a block, blocks
-    an SM (the occupancy API), and waves over the card's SMs."""
+    stores of its float32-y kernel (the tensor-core one instantiated at
+    this (N, P, Q)), dynamic shared memory a block, blocks an SM (the
+    occupancy API), and waves over the card's SMs."""
     b = _build.build_all(["ssd_scan"])["ssd_scan"]
     lib = ssd._bind()
     sched = ssd.SCHEDULES.index(schedule)
-    name = ("ssd_scan_tc_kernelIfE" if schedule == "tensor cores"
+    name = (f"ssd_scan_tc_kernelILi{spec.state}ELi{spec.headdim}"
+            f"ELi{spec.chunk}EfE" if schedule == "tensor cores"
             else "ssd_scan_kernelI13__nv_bfloat16fE")
     regs, _, spill = next(v for k, v in ptxas_usage(b.log).items()
                           if name in k)
@@ -2333,12 +2350,8 @@ def phase_kernel_vs_plain_ssd(dev, smi):
         return statistics.median(means), min(means), max(means)
 
     ms, lo, hi = timed()
-    first = ssd.schedule_of
-    ssd.schedule_of = lambda *a: "float32 cores"
-    try:
+    with forced_schedule("float32 cores"):
         ms_f32, _, _ = timed()
-    finally:
-        ssd.schedule_of = first
     plain_ms, _ = cuda_ms(lambda: ssd.ssd_scan_plain(spec, *args))
     cost = ssd.kernel_cost(spec, SERVE_SHAPE[0], in_dtype=BF16)
     t_bytes = cost["min_bytes"] / HBM_BW * 1e3
@@ -2391,24 +2404,38 @@ def phase_kernel_vs_plain_ssd(dev, smi):
 def phase_kernels_ssd_zamba2(dev, smi):
     """Kernel B2 at zamba2-2.7b's serve shape (ZAMBA2_SSD_SHAPE; bf16
     x/B/C, float32 y: block_forward's call) on the schedule
-    `ssd.schedule_of` picks (the float32-core one: the tensor-core schedule
-    covers only (N, P, Q) = ssd.TC_SHAPE): held against ssd_scan_plain
-    (its time is that call's), timed as the mamba2-130m shape is, its
-    bound as `phase_kernel_vs_plain_ssd`'s: from `ssd.kernel_cost` at the
-    card's rate for bf16 inputs (the tensor cores), whichever schedule
-    runs, with the float32-core bound beside it; and a `design:` line.
-    Returns the kernels-line entry (launches set by serve-zamba2)."""
+    `ssd.schedule_of` picks (the tensor cores, instantiated at (N, P, Q) =
+    (64, 64, 128)): held against ssd_scan_plain (its time is that call's),
+    timed as the mamba2-130m shape is, with the float32-core schedule on
+    the same inputs beside it; its bound as `phase_kernel_vs_plain_ssd`'s:
+    from `ssd.kernel_cost` at the card's rate for bf16 inputs (the tensor
+    cores), with the float32-core bound beside it; and a `design:` line a
+    schedule.  Returns the kernels-line entry (launches set by
+    serve-zamba2)."""
     phase = "kernels-ssd-zamba2"
     shape = ZAMBA2_SSD_SHAPE
     spec, args, _ = ssd_case(shape, 7, BF16, False, dev)
     schedule = ssd.schedule_of(spec, BF16)
+    if schedule != "tensor cores":
+        raise AssertionError(f"{phase}: {schedule} schedule at {shape}, "
+                             f"expected the tensor cores")
     launch = lambda: ssd.ssd_scan(spec, *args)  # noqa: E731
     plain_ms, (py, _) = cuda_ms(lambda: ssd.ssd_scan_plain(spec, *args))
     err = check_ssd(f"y {shape}", uncounted(launch)[0], py)[0]
     del py
-    means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
-             for _ in range(3)]
-    ms = statistics.median(means)
+
+    def timed():
+        means = [uncounted(lambda: cuda_ms(launch, reps=5))[0]
+                 for _ in range(3)]
+        return statistics.median(means), min(means), max(means)
+
+    ms, lo, hi = timed()
+    with forced_schedule("float32 cores"):
+        ms_f32, lo_f32, hi_f32 = timed()
+    if not ms < ms_f32:
+        raise AssertionError(f"{phase}: the tensor cores ({ms:.3f} ms) are "
+                             f"not faster than the float32 cores "
+                             f"({ms_f32:.3f} ms)")
     cost = ssd.kernel_cost(spec, shape[0], in_dtype=BF16)
     t_bytes = cost["min_bytes"] / HBM_BW * 1e3
     t_tc = cost["needed_flops"] / BF16_TC_PEAK * 1e3
@@ -2417,23 +2444,25 @@ def phase_kernels_ssd_zamba2(dev, smi):
                                      else "operations")
     say(phase, f"ssd_scan at (B,S,H,G,N,P,Q)={shape} (zamba2-2.7b), bf16 "
         f"x/B/C, float32 y, {schedule} schedule: {ms:.3f} ms per launch "
-        f"(median of 3 means of 5; least {min(means):.3f}, most "
-        f"{max(means):.3f}) vs bound {bound:.4f} ms by {by} "
-        f"({cost['min_bytes'] / 1e6:.1f} MB in {t_bytes:.4f} ms; "
-        f"{cost['needed_flops'] / 1e9:.2f} GFLOP needed, causal halves "
-        f"only, in {t_tc:.4f} ms at 989 TFLOP/s bf16 on the tensor cores); "
-        f"the float32-core bound {max(t_bytes, t_f32):.3f} ms (the same "
-        f"work in {t_f32:.3f} ms at 67 TFLOP/s); y max|diff| {err:.3e} "
-        f"against plain ({plain_ms:.1f} ms); no "
-        f"single PyTorch call computes a chunked scan, so no library time "
-        f"[{smi}]")
-    regs, spill, smem, per_sm = ssd_design(spec, schedule)
+        f"(median of 3 means of 5; least {lo:.3f}, most {hi:.3f}) vs bound "
+        f"{bound:.4f} ms by {by} ({cost['min_bytes'] / 1e6:.1f} MB in "
+        f"{t_bytes:.4f} ms; {cost['needed_flops'] / 1e9:.2f} GFLOP needed, "
+        f"causal halves only, in {t_tc:.4f} ms at 989 TFLOP/s bf16 on the "
+        f"tensor cores); the float32-core schedule on the same inputs "
+        f"{ms_f32:.3f} ms (least {lo_f32:.3f}, most {hi_f32:.3f}; "
+        f"{ms_f32 / ms:.2f}x), its bound {max(t_bytes, t_f32):.3f} ms (the "
+        f"same work in {t_f32:.3f} ms at 67 TFLOP/s); y max|diff| "
+        f"{err:.3e} against plain ({plain_ms:.1f} ms); no single PyTorch "
+        f"call computes a chunked scan, so no library time [{smi}]")
     blocks = shape[0] * shape[2]
     sms = torch.cuda.get_device_properties(0).multi_processor_count
-    say(phase, f"design: {schedule} schedule at zamba2-2.7b's shape, "
-        f"{blocks} blocks (one a (batch, head)): {regs} registers, {spill} "
-        f"B spill stores, {smem} B shared a block, {per_sm} block(s) an SM, "
-        f"{blocks / (per_sm * sms):.2f} waves on {sms} SMs")
+    for name in ssd.SCHEDULES:
+        regs, spill, smem, per_sm = ssd_design(spec, name)
+        say(phase, f"design: {name} schedule at zamba2-2.7b's shape, "
+            f"{blocks} blocks (one a (batch, head)): {regs} registers, "
+            f"{spill} B spill stores, {smem} B shared a block, {per_sm} "
+            f"block(s) an SM, {blocks / (per_sm * sms):.2f} waves on {sms} "
+            f"SMs")
     return {
         "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan), zamba2-2.7b's "
                 "head shape",
@@ -2448,11 +2477,19 @@ def phase_kernels_ssd_zamba2(dev, smi):
         "bound_by": by,
         "library_ms": None,
         "schedule": schedule,
+        "float32_core_ms": ms_f32,
         "float32_core_bound_ms": max(t_bytes, t_f32),
     }
 
 
 SERVE_SEED = 0
+# a bf16 model's prefill logits with B2 against the plain scan's: at most
+# twice the gap a scan one float32 ulp from the plain one makes (`ulp_scan`),
+# as tests/test_torch_zamba2.py holds served logits within twice the
+# reference's own gap.  At full width with random parameters that control
+# moves the logits by ~46-48% of max|logits| (ROADMAP C6), so ROADMAP C2's
+# 2^-5 is printed beside it but holds for no scan that is not bit-equal.
+BF16_LOGITS_CONTROLS = 2
 SERVE_REQUESTS = 16
 SERVE_BATCH = 8
 SERVE_NEW = 32
@@ -2501,15 +2538,65 @@ def timed_steps(engine, events):
     engine._decode = timed_fn(engine._decode, "decode", events)
 
 
-def with_plain_scan(fn):
-    """fn() with the model's scan running `ssd_scan_plain` (the model
-    itself never does)."""
+def with_scan(scan, fn):
+    """fn() with the model's scan replaced by `scan` (the model itself
+    never does that)."""
     kernel = ssd.ssd_scan
-    ssd.ssd_scan = ssd.ssd_scan_plain
+    ssd.ssd_scan = scan
     try:
         return fn()
     finally:
         ssd.ssd_scan = kernel
+
+
+def with_plain_scan(fn):
+    """fn() with the model's scan running `ssd_scan_plain`."""
+    return with_scan(ssd.ssd_scan_plain, fn)
+
+
+def ulp_scan(seed=0):
+    """A control scan: `ssd_scan_plain` with each element of y moved by one
+    float32 ulp, up or down by a random sign drawn from `seed`; as far
+    from the plain scan as float32 rounding alone."""
+    gens = {}
+
+    def scan(spec, *args, h0=None):
+        y, h = ssd.ssd_scan_plain(spec, *args, h0=h0)
+        gen = gens.setdefault(y.device, torch.Generator(
+            device=y.device).manual_seed(seed))
+        up = torch.rand(y.shape, generator=gen, device=y.device) < 0.5
+        away = torch.where(up, torch.inf, -torch.inf).to(y.dtype)
+        return torch.nextafter(y, away), h
+
+    return scan
+
+
+def bf16_logits_gap(phase, cfg, logits, prefill):
+    """A scanning model's bf16 prefill logits with B2 (`logits`) against
+    the plain scan's (`prefill()` under `with_plain_scan`), beside the
+    `ulp_scan` control's: max|diff| / max|plain logits| over every
+    position and at the last one; raises past BF16_LOGITS_CONTROLS times
+    the control's gap."""
+    plain = with_plain_scan(prefill).float()
+    ctrl = with_scan(ulp_scan(), prefill).float()
+    scale = float(plain.abs().max())
+    gaps = {}
+    for name, got in (("B2", logits.float()), ("control", ctrl)):
+        d = (got - plain).abs()
+        gaps[name] = (float(d.max()) / scale, float(d[:, -1].max()) / scale)
+    del plain, ctrl
+    (gap, last), (c_gap, c_last) = gaps["B2"], gaps["control"]
+    say(phase, f"bf16 prefill logits {tuple(logits.shape)} with B2 "
+        f"({scan_schedule(cfg)}) vs ssd_scan_plain: max|diff|/max|logits| "
+        f"{gap:.3e} (last position {last:.3e}); the plain scan with y "
+        f"moved one float32 ulp {c_gap:.3e} (last {c_last:.3e}); limit "
+        f"{BF16_LOGITS_CONTROLS} x the control {BF16_LOGITS_CONTROLS * c_gap:.3e}"
+        f" (2^-5 = {2 ** -5:.3e}: {'within' if gap <= 2 ** -5 else 'beyond'}"
+        f", the control {'within' if c_gap <= 2 ** -5 else 'beyond'})")
+    if gap > BF16_LOGITS_CONTROLS * c_gap:
+        raise AssertionError(f"{phase}: bf16 prefill logits with B2 vs "
+                             f"plain {gap:.3e} > {BF16_LOGITS_CONTROLS} x "
+                             f"the one-ulp control's {c_gap:.3e}")
 
 
 # the serve phases: one model each, at its published widths and depth
@@ -2518,6 +2605,15 @@ SERVE_ARCHS = {"serve-mamba2": "mamba2-130m", "serve-zamba2": "zamba2-2.7b",
                "serve-qwen3moe": "qwen3-moe-30b-a3b",
                "serve-whisper": "whisper-medium",
                "serve-llava": "llava-next-mistral-7b"}
+
+
+def scan_schedule(cfg):
+    """The B2 schedule a bf16 prefill of this scanning model takes
+    (`models.mamba2.block_forward`'s call: x, B and C in bf16)."""
+    spec = ssd.SSDSpec(seq_len=cfg.ssm_chunk, chunk=cfg.ssm_chunk,
+                       nheads=1, ngroups=cfg.ssm_ngroups,
+                       headdim=cfg.ssm_headdim, state=cfg.ssm_state)
+    return ssd.schedule_of(spec, BF16)
 
 
 def scan_layers(cfg):
@@ -2746,7 +2842,8 @@ def phase_serve(phase, dev, smi, entry):
         f"{SERVE_REQUESTS} requests in {len(batches)} batches of "
         f"{SERVE_BATCH}, padded prompt lengths {plens}{stub_say}, "
         f"{SERVE_NEW} new tokens each; B2 launches per prefill {scans} "
-        f"({launches} in all)")
+        f"({launches} in all"
+        + (f", {scan_schedule(cfg)} schedule" if launches else "") + ")")
     read = decode_weight_bytes(params, cfg)
     say(phase, f"prefill ms per batch (CUDA events) "
         + ", ".join(f"{p:.2f}" for p in pre)
@@ -2765,6 +2862,9 @@ def phase_serve(phase, dev, smi, entry):
     logits, _ = uncounted(lambda: api.prefill(params, cfg, first, max_len))
     if not torch.isfinite(logits).all():
         raise AssertionError(f"{phase}: non-finite bf16 prefill logits")
+    if scan_layers(cfg):
+        bf16_logits_gap(phase, cfg, logits, lambda: api.prefill(
+            params, cfg, first, max_len)[0])
     del logits, params, generate, batches
     if cfg.family not in STUB_KEY:
         del engine

@@ -20,53 +20,65 @@
 // (`ssd_scan.schedule_of`, from the input dtype and (N, P, Q)); the C
 // entry only checks that the shape is one the schedule takes.
 //
-// Schedule 1, tensor cores (`ssd_scan_tc_kernel`): bf16 x, B and C at
-// (N, P, Q) = (128, 64, 64), mamba2-130m's heads (the serving path's
-// call).  The four products run as mma.sync m16n8k16 bf16 with float32
-// accumulation.  x, B and C are exact in bf16.  The float32 operand of
-// the other three (M, h, and dt-decay o x: the update reads B^T (sd o x),
-// the same three factors as the plain version's (B o sd)^T x, rounded at
-// another place) is split into three bf16 pieces, hi + mid + lo, each the
-// bf16 rounding of what the pieces before it left: 24 significant bits,
-// float32's own, so the pieces' three products (summed in float32, the
-// smallest first) carry no error a float32 product would not.  bf16 and
-// not TF32: m16n8k16's accumulator fragment is, two n8 tiles side by side,
-// the A fragment of the next product (M never leaves registers), and three
-// bf16 passes cost 1.5 TF32 passes where TF32's own split needs two.  One
-// unsplit pass would round M, h or sd o x to 8 bits (~2^-9) and miss the
-// kernel-vs-plain bound (max|diff| <= 1e-5 max|plain|) by two orders
-// (tests/test_torch_ssd.py replays both on the CPU).  Summation order
-// differs from the plain version's, so the two are close, not bit-equal.
-// Warps: each of the 8 owns 8 columns p of the state, all N rows, in
-// registers (32 float32 accumulators: the state never goes to shared
+// Schedule 1, tensor cores (`ssd_scan_tc_kernel<N, P, Q>`): bf16 x, B
+// and C at (N, P, Q) = (128, 64, 64), mamba2-130m's heads (B4), and (64,
+// 64, 128), zamba2-2.7b's (B7): the serving path's calls; one template,
+// instantiated at the shapes of `with_tc_shape`.  The four products run
+// as mma.sync m16n8k16 bf16 with float32 accumulation.  x, B and C are
+// exact in bf16.  The float32 operand of the other three (M, h, and
+// dt-decay o x: the update reads B^T (sd o x), the same three factors as
+// the plain version's (B o sd)^T x, rounded at another place) is split
+// into three bf16 pieces, hi + mid + lo, each the bf16 rounding of what
+// the pieces before it left: 24 significant bits, float32's own, so the
+// pieces' three products (summed in float32, the smallest first) carry no
+// error a float32 product would not.  bf16 and not TF32: m16n8k16's
+// accumulator fragment is, two n8 tiles side by side, the A fragment of
+// the next product (M never leaves registers), and three bf16 passes cost
+// 1.5 TF32 passes where TF32's own split needs two.  One unsplit pass
+// would round M, h or sd o x to 8 bits (~2^-9) and miss the
+// kernel-vs-plain bound (max|diff| <= 1e-5 max|plain|) by two orders, at
+// Q = 128 as at 64 (tests/test_torch_ssd.py replays both at both shapes
+// on the CPU).  Summation order differs from the plain version's, so the
+// two are close, not bit-equal.  Warps: each of the 8 owns 8 columns p of
+// the state, all N rows, in registers (the state never goes to shared
 // memory), and computes C h and the update for its columns; the B operand
 // of C h comes from those registers, split and transposed per 8x8 with
-// movmatrix.  Six warps also compute the intra-chunk term: C B^T for the
-// 16x16 blocks on and below the diagonal only (blocks above it are
-// neither computed nor multiplied), the mask, decay and dt_j applied to
-// the accumulator fragments, split in registers and fed straight back as
-// the A operand of M x.  Row block r has r + 1 such blocks, 10 in all;
-// `intra_job` gives at most 2 to a warp and 3 to a warp scheduler, and a
-// row block split over two warps meets in shared memory in a fixed order
-// (the first stores its part, a named barrier of the two, the second
-// adds).  Each warp then adds the y there to exp(Lc) o (C h) for its
-// columns and stores y.  Warp 5, which has no intra-chunk work, computes
-// the next chunk's cumulative log-decay (one lane, in order, as the plain
-// version: exp(Lc) at |Lc| ~ 30 moves 4e-6 a last-place change) while
-// the others finish this chunk.  The next chunk's x, B and C
-// load as bf16 with cp.async into a second buffer while this one computes.
-// Shared memory: two buffers of x (64 x 72), B and C (64 x 136 each; rows
-// padded 16 B so ldmatrix's eight rows fall in distinct banks), the
-// intra-chunk y (64 x 72 float32) and four scalars a step twice: 108,544
-// bytes, so two blocks fit an SM (<= 113 KB each) and all 192 blocks of
-// the serve call (8 x 24) run at once on 132 SMs, where one block an SM
-// took ~1.45 waves; __launch_bounds__(256, 2) holds registers to 128.
-// Two blocks an SM was kept over a chunk-parallel first pass (3,072
-// items), which would move ~100 MB of chunk states through device memory
-// and back, ~0.06 ms at 3.35 TB/s beside the whole call's bound.  C B^T
-// is the same for all heads of a group (G = 1 here) but each block
-// computes its own: sharing it means a pass over (b, g, chunk) first, or
-// blocks of several heads; not tried.
+// movmatrix.  The update takes the Q steps in two halves at Q = 128, so
+// one half's split sd o x is in registers at a time.  The intra-chunk
+// term: C B^T for the 16x16 blocks on and below the diagonal only (blocks
+// above it are neither computed nor multiplied), the mask, decay and dt_j
+// applied to the accumulator fragments, split in registers and fed
+// straight back as the A operand of M x.  Row block r has r + 1 such
+// blocks, 10 at Q = 64 and 36 at Q = 128; `intra_jobs` cuts each row
+// block into at most two parts and spreads the parts over the warps, at
+// most one a warp, balanced over the four warp schedulers (Q = 64: six
+// parts of 1-2 blocks, two row blocks split; Q = 128: the 8 row blocks
+// whole, 9 blocks a scheduler).  A row block split over two warps meets
+// in shared memory in a fixed order (the first stores its part, a named
+// barrier of the two, the second adds).  Each warp then adds the y there
+// to exp(Lc) o (C h) for its columns and stores y.  DECAY_WARP, with the
+// smallest part or none, computes the next chunk's cumulative log-decay
+// (one lane, in order, as the plain version: exp(Lc) at |Lc| ~ 30 moves
+// 4e-6 a last-place change) while the others finish this chunk.  The next
+// chunk's x, B and C load as bf16 with cp.async into a second buffer while
+// this one computes.  Shared memory (`Smem`): two buffers of x, B and C
+// (rows padded 16 B so ldmatrix's eight rows fall in distinct banks), four
+// scalars a step twice, and the intra-chunk y (float32).  At (128, 64, 64)
+// that is 108,544 bytes with the y in room of its own, so two blocks fit
+// an SM (<= 113 KB each) and all 192 blocks of the serve call (8 x 24) run
+// at once on 132 SMs, where one block an SM took ~1.45 waves; at (64, 64,
+// 128) the y's own room (36,864 B) would make it 151,552, one block an SM,
+// so there the y takes the chunk's own x/B/C buffer once every warp is
+// done reading it: 114,688 bytes, two blocks an SM, 640 blocks (8 x 80) in
+// 2.42 waves; the intra-chunk parts then run after C h and the update and
+// hold their partial y in registers across the barrier.
+// __launch_bounds__(256, 2) holds registers to 128.  Two blocks an SM was
+// kept over a chunk-parallel first pass (3,072 items at the serve shape),
+// which would move ~100 MB of chunk states through device memory and
+// back, ~0.06 ms at 3.35 TB/s beside the whole call's bound.  C B^T is the
+// same for all heads of a group (G = 1 here) but each block computes its
+// own: sharing it means a pass over (b, g, chunk) first, or blocks of
+// several heads; not tried.
 //
 // Schedule 0, float32 cores (`ssd_scan_kernel`, this kernel's first
 // design, kept as it was): every other shape and the float32 inputs.
@@ -89,7 +101,16 @@
 // tools/ssd_attribution.py): 0.16 ms a launch, 1.86 on schedule 0; what
 // holds it there is issue and latency, not one unit: each of the
 // intra-chunk term, C h, the update and the split's extra passes costs
-// ~0.03-0.04 ms, and one block an SM instead of two costs 0.06.
+// ~0.03-0.04 ms, and one block an SM instead of two costs 0.06.  At
+// zamba2-2.7b's (B 8, S 1024, H 80, N 64, P 64, Q 128) it needs 21.8
+// GFLOP (0.022 ms on the tensor cores) and moves 267 MB, 0.080 ms: bytes
+// bound again.  It issues 2,688 mma a chunk a block (C B^T 288, M x 864,
+// C h 768, the update 768), 13.8 M a launch.  Measured: 0.40 ms a launch,
+// 3.50 on schedule 0; taken out one at a time, the intra-chunk term costs
+// 0.19 ms (36 blocks over 8 warps, the row block of 8 on one warp), C h
+// 0.065, the update 0.05, the split's extra passes 0.07, M's exp 0.03;
+// one block an SM costs 0.155, the y in room of its own (one block an SM)
+// 0.07.
 //
 // Flags: no fast math and -fmad=false (kernels/_build.py); expf in IEEE
 // form.
@@ -287,52 +308,137 @@ ssd_scan_kernel(const TI* __restrict__ x, const TI* __restrict__ Bm,
 }
 
 // ---------------------------------------------------------------------------
-// Schedule 1: tensor cores (bf16 x, B and C at (N, P, Q) = (128, 64, 64))
+// Schedule 1: tensor cores (bf16 x, B and C at the shapes of
+// `with_tc_shape`)
 // ---------------------------------------------------------------------------
 
 namespace tc {
 
-constexpr int N = 128, P = 64, Q = 64;
 constexpr int THREADS = 256;            // 8 warps, 8 state columns each
-constexpr int XLD = P + 8;              // bf16 row stride of x: 144 B
-constexpr int BLD = N + 8;              // of B and C: 272 B
-constexpr int YLD = P + 8;              // float row stride of the intra y
-constexpr int DECAY_WARP = 5;           // computes the next chunk's decay
+constexpr int WARPS = THREADS / 32;
+constexpr int DECAY_WARP = 4;           // computes the next chunk's decay:
+                                        // the job table's last slot
+// shared memory a block may take for two to fit an SM: the SM's 228 KB
+// less the 1 KB the system keeps for each block, halved
+constexpr int TWO_A_SM = (228 * 1024 - 2 * 1024) / 2;
 
+// Shared memory at (N, P, Q): two buffers of x (Q x XLD), B and C (Q x BLD
+// each; rows padded 16 B so ldmatrix's eight rows fall in distinct banks),
+// four scalars a step twice, and the intra-chunk y (Q x YLD float32).  The
+// y has room of its own where that still lets two blocks fit an SM;
+// otherwise it takes the buffer of the chunk it belongs to once every warp
+// is done reading that chunk's x, B and C.
+template <int N, int P, int Q>
 struct Smem {
-    __nv_bfloat16 x[2][Q * XLD];
-    __nv_bfloat16 B[2][Q * BLD];
-    __nv_bfloat16 C[2][Q * BLD];
-    float y[Q * YLD];                   // M x of this chunk
+    static constexpr int XLD = P + 8;   // bf16 row stride of x
+    static constexpr int BLD = N + 8;   // of B and C
+    static constexpr int YLD = P + 8;   // float row stride of the intra y
+    struct Ops {
+        __nv_bfloat16 x[Q * XLD], B[Q * BLD], C[Q * BLD];
+    };
+    Ops ops[2];
     float dt[2][Q], Lc[2][Q], eLc[2][Q], sd[2][Q];
+
+    static constexpr int Y_BYTES = Q * YLD * (int)sizeof(float);
+    static constexpr int BASE_BYTES = 2 * (int)sizeof(Ops)
+                                      + 8 * Q * (int)sizeof(float);
+    static constexpr bool OWN_Y = BASE_BYTES + Y_BYTES <= TWO_A_SM;
+    static constexpr int BYTES = BASE_BYTES + (OWN_Y ? Y_BYTES : 0);
+    static_assert(OWN_Y || Y_BYTES <= (int)sizeof(Ops),
+                  "the intra y must fit in a chunk's buffer");
+    static_assert(sizeof(Ops) % 16 == 0 && (Q * XLD) % 8 == 0
+                  && (Q * BLD) % 8 == 0, "cp.async needs 16-byte rows");
+
+    __device__ float* y(int buf)
+    {
+        return OWN_Y ? reinterpret_cast<float*>(this + 1)
+                     : reinterpret_cast<float*>(&ops[buf]);
+    }
 };
 
 // a warp's part of the intra-chunk term: row block r (r < 0: none),
 // column blocks kb0..kb1 - 1 of it, and how its partial y meets the other
 // part of the same rows: mode 0 alone, 1 stored first (then it arrives at
-// named barrier `bar`), 2 added to the first (after waiting there).  The
-// 10 blocks on and below the diagonal, at most 2 a warp, 3 a warp
-// scheduler (warp w runs on scheduler w % 4; DECAY_WARP has none)
+// named barrier `bar`), 2 added to the first (after waiting there)
 struct IntraJob {
     int r, kb0, kb1, mode, bar;
 };
 
-__device__ __forceinline__ IntraJob intra_job(int warp)
+struct IntraJobs {
+    IntraJob job[WARPS];
+};
+
+// the largest part, in 16x16 blocks: the least m for which the R row
+// blocks (row block r has the r + 1 blocks on and below the diagonal),
+// each cut into at most two parts of at most m blocks, make at most WARPS
+// parts.  R <= WARPS.
+__host__ __device__ constexpr int part_blocks(int R)
 {
-    switch (warp) {
-    case 0: return {3, 0, 2, 1, 1};
-    case 1: return {3, 2, 4, 2, 1};
-    case 2: return {2, 0, 2, 1, 2};
-    case 7: return {2, 2, 3, 2, 2};
-    case 3: return {1, 0, 2, 0, 0};
-    case 4: return {0, 0, 1, 0, 0};
-    default: return {-1, 0, 0, 0, 0};
+    for (int m = (R + 1) / 2;; ++m) {
+        int parts = 0;
+        for (int r = 0; r < R; ++r) parts += r + 1 > m ? 2 : 1;
+        if (parts <= WARPS) return m;
     }
 }
 
-__host__ __device__ constexpr bool shape_ok(int n, int p, int q)
+// The warps' parts for R row blocks.  Each row block is cut into at most
+// two parts of at most part_blocks(R) blocks (the first part the larger);
+// the parts, largest first (ties in order of row block, the last first),
+// go to warp schedulers (warp w runs on scheduler w % 4) one round of
+// four at a time, every other round in reverse, so each scheduler's two
+// parts add up to about the same.  A warp has at most one part, whose
+// partial y it can hold in registers.  The last slot, DECAY_WARP's, gets
+// the smallest part or none.  At R = 4 (mamba2-130m): 6 parts of 2, 2, 2,
+// 2, 1, 1 blocks, two split row blocks, DECAY_WARP and warp 5 without a
+// part; at R = 8 (zamba2-2.7b): the 8 row blocks whole, 9 blocks a
+// scheduler.
+__host__ __device__ constexpr IntraJobs intra_jobs(int R)
 {
-    return n == N && p == P && q == Q;
+    const int m = part_blocks(R);
+    IntraJob part[WARPS] = {};
+    int n = 0, bar = 0;
+    for (int r = R - 1; r >= 0; --r) {
+        if (r + 1 > m) {
+            ++bar;
+            part[n++] = {r, 0, m, 1, bar};
+            part[n++] = {r, m, r + 1, 2, bar};
+        } else {
+            part[n++] = {r, 0, r + 1, 0, 0};
+        }
+    }
+    for (int i = 1; i < n; ++i) {           // stable, largest first
+        const IntraJob t = part[i];
+        int j = i;
+        for (; j > 0 && part[j - 1].kb1 - part[j - 1].kb0 < t.kb1 - t.kb0;
+             --j)
+            part[j] = part[j - 1];
+        part[j] = t;
+    }
+    IntraJobs out = {};
+    for (int w = 0; w < WARPS; ++w) out.job[w] = {-1, 0, 0, 0, 0};
+    for (int i = 0; i < n; ++i) {
+        const int round = i / 4, k = i % 4;
+        out.job[(round % 2 ? 3 - k : k) + 4 * round] = part[i];
+    }
+    return out;
+}
+
+// every block on and below the diagonal in exactly one part, none above,
+// no named barrier past 15
+__host__ __device__ constexpr bool jobs_cover(int R)
+{
+    const IntraJobs t = intra_jobs(R);
+    for (int r = 0; r < R; ++r)
+        for (int kb = 0; kb < R; ++kb) {
+            int times = 0;
+            for (int w = 0; w < WARPS; ++w)
+                times += t.job[w].r == r && t.job[w].kb0 <= kb
+                         && kb < t.job[w].kb1;
+            if (times != (kb <= r ? 1 : 0)) return false;
+        }
+    for (int w = 0; w < WARPS; ++w)
+        if (t.job[w].bar > 15) return false;
+    return true;
 }
 
 __device__ __forceinline__ unsigned saddr(const void* p)
@@ -463,7 +569,7 @@ __device__ __forceinline__ void store2(__nv_bfloat16* p, float u, float v)
 
 }  // namespace tc
 
-template <class TO>
+template <int N, int P, int Q, class TO>
 __global__ void __launch_bounds__(tc::THREADS, 2)
 ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
                    const __nv_bfloat16* __restrict__ Bm,
@@ -471,8 +577,20 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
                    const ScanArgs a)
 {
     using namespace tc;
+    using Sm = Smem<N, P, Q>;
+    constexpr int XLD = Sm::XLD, BLD = Sm::BLD, YLD = Sm::YLD;
+    constexpr int R = Q / 16;                    // row blocks of a chunk
+    // the update's k in KH parts: the split sd o x of one part in registers
+    constexpr int KH = R > 4 ? 2 : 1, KQ = R / KH;
+    static_assert(P == 8 * WARPS, "a warp owns 8 columns of the state");
+    static_assert(N % 64 == 0, "the update takes 4 row blocks at a time");
+    static_assert(Q % 32 == 0 && KQ % 2 == 0 && R <= WARPS,
+                  "32 steps a decay lane's turn and an ldmatrix of x");
+    static_assert(jobs_cover(R), "the intra-chunk parts cover the blocks");
+    constexpr IntraJobs jobs = intra_jobs(R);
+
     extern __shared__ __align__(16) unsigned char smem_raw[];
-    Smem& sm = *reinterpret_cast<Smem*>(smem_raw);
+    Sm& sm = *reinterpret_cast<Sm*>(smem_raw);
     const int h = blockIdx.x, b = blockIdx.y;
     const int S = a.S, H = a.H, G = a.G, grp = h / (H / G);
     const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
@@ -484,35 +602,35 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
     // chunk c's x, B and C into buffer c & 1, 16 bytes a copy
     auto load_chunk = [&](int c) {
-        const int buf = c & 1;
+        typename Sm::Ops& o = sm.ops[c & 1];
         const long long s0 = (long long)b * S + (long long)c * Q;
         for (int i = threadIdx.x; i < Q * (P / 8); i += THREADS) {
             const int q = i / (P / 8), k = 8 * (i % (P / 8));
-            cp_async16(&sm.x[buf][q * XLD + k],
-                       x + ((s0 + q) * H + h) * P + k);
+            cp_async16(&o.x[q * XLD + k], x + ((s0 + q) * H + h) * P + k);
         }
         for (int i = threadIdx.x; i < Q * (N / 8); i += THREADS) {
             const int q = i / (N / 8), k = 8 * (i % (N / 8));
             const long long gi = ((s0 + q) * G + grp) * N + k;
-            cp_async16(&sm.B[buf][q * BLD + k], Bm + gi);
-            cp_async16(&sm.C[buf][q * BLD + k], Cm + gi);
+            cp_async16(&o.B[q * BLD + k], Bm + gi);
+            cp_async16(&o.C[q * BLD + k], Cm + gi);
         }
         cp_async_commit();
     };
-    // the decay warp: dt of chunk c's steps lane and lane + 32
-    auto load_dt = [&](int c, float (&d)[2]) {
+    // the decay warp: dt of chunk c's steps lane + 32 j
+    auto load_dt = [&](int c, float (&d)[Q / 32]) {
         const long long s0 = (long long)b * S + (long long)c * Q;
-        d[0] = a.dt[(s0 + lane) * H + h];
-        d[1] = a.dt[(s0 + lane + 32) * H + h];
+#pragma unroll
+        for (int j = 0; j < Q / 32; ++j)
+            d[j] = a.dt[(s0 + lane + 32 * j) * H + h];
     };
     // ... and chunk c's scalars into buffer c & 1: the log-decay summed in
     // order by one lane, exp(Lc) and exp(Lc_Q - Lc) dt
-    auto decay = [&](int c, const float (&d)[2]) {
+    auto decay = [&](int c, const float (&d)[Q / 32]) {
         const int buf = c & 1;
         float* dts = sm.dt[buf];
         float* Lc = sm.Lc[buf];
-        dts[lane] = d[0];
-        dts[lane + 32] = d[1];
+#pragma unroll
+        for (int j = 0; j < Q / 32; ++j) dts[lane + 32 * j] = d[j];
         __syncwarp();
         if (lane == 0) {
             float run = 0.f;
@@ -540,9 +658,9 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
         }
 
     load_chunk(0);
-    float dnext[2];
+    float dnext[Q / 32];
     if (warp == DECAY_WARP) {
-        float d0[2];
+        float d0[Q / 32];
         load_dt(0, d0);
         decay(0, d0);
         if (nc > 1) load_dt(1, dnext);
@@ -555,20 +673,30 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
         // the other buffers and with y
         __syncthreads();
         if (c + 1 < nc) load_chunk(c + 1);
-        const __nv_bfloat16* xs = sm.x[buf];
-        const __nv_bfloat16* Bs = sm.B[buf];
-        const __nv_bfloat16* Cs = sm.C[buf];
+        const __nv_bfloat16* xs = sm.ops[buf].x;
+        const __nv_bfloat16* Bs = sm.ops[buf].B;
+        const __nv_bfloat16* Cs = sm.ops[buf].C;
         const float* dts = sm.dt[buf];
         const float* Lc = sm.Lc[buf];
         const float* eLc = sm.eLc[buf];
         const float* sd = sm.sd[buf];
+        float* ys = sm.y(buf);
+        // this warp's part of the intra-chunk term (picked here, not held
+        // in registers across the chunk loop)
+        IntraJob job = {-1, 0, 0, 0, 0};
+#pragma unroll
+        for (int w = 0; w < WARPS; ++w)
+            if (w == warp) job = jobs.job[w];
 
         // the intra-chunk term of row block r: y_r = sum over column
         // blocks kb <= r of M[r, kb] x[kb], this warp's kb0..kb1 - 1
-        const IntraJob job = intra_job(warp);
-        if (job.r >= 0) {
+        float yi[P / 8][4];
+        auto intra = [&]() {
             const int r = job.r;
-            float yi[P / 8][4] = {};
+#pragma unroll
+            for (int n = 0; n < P / 8; ++n)
+#pragma unroll
+                for (int e = 0; e < 4; ++e) yi[n][e] = 0.f;
             for (int kb = job.kb0; kb < job.kb1; ++kb) {
                 float gacc[2][4] = {};       // C B^T, columns 16 kb..
 #pragma unroll
@@ -611,7 +739,10 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
                     mma3(yi[2 * np + 1], am, bf[2], bf[3]);
                 }
             }
-            float* yr = sm.y + (16 * r + fg) * YLD + 2 * ft;
+        };
+        // ... into the shared y, the parts of a split row block in order
+        auto put_intra = [&]() {
+            float* yr = ys + (16 * job.r + fg) * YLD + 2 * ft;
             if (job.mode == 2) {            // the first part is stored
                 pair_sync(job.bar);
 #pragma unroll
@@ -630,6 +761,13 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
                 store2(yr + 8 * YLD + 8 * n, yi[n][2], yi[n][3]);
             }
             if (job.mode == 1) pair_arrive(job.bar);
+        };
+        const bool has_part = job.r >= 0;
+        if constexpr (Sm::OWN_Y) {
+            if (has_part) {
+                intra();
+                put_intra();
+            }
         }
 
         // C h for this warp's columns, with h the state before this chunk:
@@ -652,50 +790,66 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
             }
         }
 
-        // h = exp(Lc_Q) h + B^T (sd o x): the B operand sd o x of this
-        // warp's columns, split; A = B^T from B's rows, transposed
-        Split xb[Q / 16][2];
-#pragma unroll
-        for (int k2 = 0; k2 < Q / 32; ++k2) {
-            unsigned r4[4];
-            ldsm_t(r4, xs + (32 * k2 + lane) * XLD + p0);
-#pragma unroll
-            for (int j = 0; j < 4; ++j) {
-                const int q = 32 * k2 + 8 * j + 2 * ft;
-                const float2 v = __bfloat1622float2(
-                    *reinterpret_cast<const __nv_bfloat162*>(&r4[j]));
-                xb[2 * k2 + (j >> 1)][j & 1] = split(sd[q] * v.x,
-                                                     sd[q + 1] * v.y);
-            }
-        }
-        // four row blocks of the state at a time: four independent
-        // accumulator chains in flight
+        // h = exp(Lc_Q) h + B^T (sd o x), the k (steps) in KH parts: the B
+        // operand sd o x of this warp's columns, split; A = B^T from B's
+        // rows, transposed
         const float eLQ = eLc[Q - 1];
 #pragma unroll
-        for (int i0 = 0; i0 < N / 16; i0 += 4) {
-            float acc[4][4] = {};
+        for (int kh = 0; kh < KH; ++kh) {
+            Split xb[KQ][2];
 #pragma unroll
-            for (int kq = 0; kq < Q / 16; ++kq)
+            for (int k2 = 0; k2 < KQ / 2; ++k2) {
+                const int q0 = 16 * KQ * kh + 32 * k2;
+                unsigned r4[4];
+                ldsm_t(r4, xs + (q0 + lane) * XLD + p0);
 #pragma unroll
-                for (int ii = 0; ii < 4; ++ii) {
-                    unsigned af[4];
-                    ldsm_t(af, Bs + (16 * kq + (lane & 7) + (lane >> 4) * 8)
-                                    * BLD + 16 * (i0 + ii)
-                                    + ((lane >> 3) & 1) * 8);
-                    mma3(acc[ii], af, xb[kq][0], xb[kq][1]);
+                for (int j = 0; j < 4; ++j) {
+                    const int q = q0 + 8 * j + 2 * ft;
+                    const float2 v = __bfloat1622float2(
+                        *reinterpret_cast<const __nv_bfloat162*>(&r4[j]));
+                    xb[2 * k2 + (j >> 1)][j & 1] = split(sd[q] * v.x,
+                                                         sd[q + 1] * v.y);
                 }
+            }
+            // four row blocks of the state at a time: four independent
+            // accumulator chains in flight
 #pragma unroll
-            for (int ii = 0; ii < 4; ++ii)
+            for (int i0 = 0; i0 < N / 16; i0 += 4) {
+                float acc[4][4] = {};
 #pragma unroll
-                for (int e = 0; e < 4; ++e)
-                    st[i0 + ii][e] = eLQ * st[i0 + ii][e] + acc[ii][e];
+                for (int kq = 0; kq < KQ; ++kq)
+#pragma unroll
+                    for (int ii = 0; ii < 4; ++ii) {
+                        unsigned af[4];
+                        ldsm_t(af, Bs + (16 * (KQ * kh + kq) + (lane & 7)
+                                         + (lane >> 4) * 8) * BLD
+                                        + 16 * (i0 + ii)
+                                        + ((lane >> 3) & 1) * 8);
+                        mma3(acc[ii], af, xb[kq][0], xb[kq][1]);
+                    }
+#pragma unroll
+                for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+                    for (int e = 0; e < 4; ++e)
+                        st[i0 + ii][e] = (kh == 0 ? eLQ * st[i0 + ii][e]
+                                                  : st[i0 + ii][e])
+                                         + acc[ii][e];
+            }
         }
 
+        if constexpr (!Sm::OWN_Y) {
+            if (has_part) intra();
+        }
         if (warp == DECAY_WARP && c + 1 < nc) {
             decay(c + 1, dnext);
             if (c + 2 < nc) load_dt(c + 2, dnext);
         }
-        __syncthreads();              // the intra-chunk y is in
+        __syncthreads();              // OWN_Y: the intra-chunk y is in;
+                                      // else this chunk's x, B, C are read
+        if constexpr (!Sm::OWN_Y) {
+            if (has_part) put_intra();
+            __syncthreads();          // the intra-chunk y is in
+        }
 
         // y = M x + exp(Lc) o (C h), this warp's columns
 #pragma unroll
@@ -704,7 +858,7 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
             for (int hh = 0; hh < 2; ++hh) {
                 const int q = 16 * r + fg + 8 * hh;
                 const float2 yv = *reinterpret_cast<const float2*>(
-                    sm.y + q * YLD + p0 + 2 * ft);
+                    ys + q * YLD + p0 + 2 * ft);
                 const float e = eLc[q];
                 store2(y + (((long long)b * S + (long long)c * Q + q) * H + h)
                                * P + p0 + 2 * ft,
@@ -728,11 +882,35 @@ ssd_scan_tc_kernel(const __nv_bfloat16* __restrict__ x,
 
 enum Schedule { FLOAT32_CORES = 0, TENSOR_CORES = 1 };
 
+template <int N_, int P_, int Q_>
+struct TcShape {
+    static constexpr int N = N_, P = P_, Q = Q_;
+};
+
+// f(TcShape<N, P, Q>{}) at a shape the tensor-core schedule is
+// instantiated at, mamba2-130m's heads and zamba2-2.7b's; false, f not
+// called, at any other shape
+template <class F>
+static bool with_tc_shape(int n, int p, int q, F f)
+{
+    if (n == 128 && p == 64 && q == 64) f(TcShape<128, 64, 64>{});
+    else if (n == 64 && p == 64 && q == 128) f(TcShape<64, 64, 128>{});
+    else return false;
+    return true;
+}
+
+// bytes of dynamic shared memory a block of `schedule` takes; 0 for the
+// tensor cores at a shape they do not take
 static long long smem_bytes(int N, int P, int Q, int schedule)
 {
-    return schedule == TENSOR_CORES
-        ? (long long)sizeof(tc::Smem)
-        : smem_floats(N, P, Q) * (long long)sizeof(float);
+    if (schedule != TENSOR_CORES)
+        return smem_floats(N, P, Q) * (long long)sizeof(float);
+    long long bytes = 0;
+    with_tc_shape(N, P, Q, [&](auto s) {
+        using Sh = decltype(s);
+        bytes = tc::Smem<Sh::N, Sh::P, Sh::Q>::BYTES;
+    });
+    return bytes;
 }
 
 template <class K>
@@ -746,6 +924,18 @@ static cudaError_t set_smem(int device, K kernel, long long bytes)
     return cudaFuncSetAttribute(kernel,
                                 cudaFuncAttributeMaxDynamicSharedMemorySize,
                                 (int)bytes);
+}
+
+// the shared memory a tensor-core kernel takes, and all of the SM's as
+// shared memory, so two blocks fit
+template <class K>
+static cudaError_t set_smem_tc(int device, K kernel, long long bytes)
+{
+    cudaError_t e = set_smem(device, kernel, bytes);
+    if (e != cudaSuccess) return e;
+    return cudaFuncSetAttribute(kernel,
+                                cudaFuncAttributePreferredSharedMemoryCarveout,
+                                (int)cudaSharedmemCarveoutMaxShared);
 }
 
 template <class TI, class TO>
@@ -767,31 +957,34 @@ static int launch_tc(int device, const void* x, const void* Bm,
                      const void* Cm, void* y, const ScanArgs& a, int batch,
                      void* stream)
 {
-    const long long bytes = smem_bytes(a.N, a.P, a.Q, TENSOR_CORES);
-    cudaError_t e = set_smem(device, ssd_scan_tc_kernel<TO>, bytes);
-    if (e != cudaSuccess) return (int)e;
-    // all of the SM's shared memory, so two blocks fit
-    e = cudaFuncSetAttribute(ssd_scan_tc_kernel<TO>,
-                             cudaFuncAttributePreferredSharedMemoryCarveout,
-                             (int)cudaSharedmemCarveoutMaxShared);
-    if (e != cudaSuccess) return (int)e;
     typedef __nv_bfloat16 bf;
-    ssd_scan_tc_kernel<TO><<<dim3(a.H, batch), tc::THREADS, (size_t)bytes,
-                             (cudaStream_t)stream>>>(
-        (const bf*)x, (const bf*)Bm, (const bf*)Cm, (TO*)y, a);
-    return (int)cudaGetLastError();
+    cudaError_t e = cudaErrorInvalidValue;
+    with_tc_shape(a.N, a.P, a.Q, [&](auto s) {
+        using Sh = decltype(s);
+        auto kernel = ssd_scan_tc_kernel<Sh::N, Sh::P, Sh::Q, TO>;
+        const int bytes = tc::Smem<Sh::N, Sh::P, Sh::Q>::BYTES;
+        e = set_smem_tc(device, kernel, bytes);
+        if (e != cudaSuccess) return;
+        kernel<<<dim3(a.H, batch), tc::THREADS, (size_t)bytes,
+                 (cudaStream_t)stream>>>(
+            (const bf*)x, (const bf*)Bm, (const bf*)Cm, (TO*)y, a);
+        e = cudaGetLastError();
+    });
+    return (int)e;
 }
 
 static bool schedule_ok(int schedule, int in_bf16, int N, int P, int Q)
 {
-    if (schedule == TENSOR_CORES) return in_bf16 && tc::shape_ok(N, P, Q);
+    if (schedule == TENSOR_CORES)
+        return in_bf16 && with_tc_shape(N, P, Q, [](auto) {});
     return schedule == FLOAT32_CORES;
 }
 
 // Returns 0, or the cudaError_t value of what went wrong (a refused launch
 // included).  in_bf16 / out_bf16 select the types of x, B, C and of y;
 // schedule is 0 (float32 cores, any shape) or 1 (tensor cores: bf16
-// inputs at (N, P, Q) = (128, 64, 64) only), as the host picks it.
+// inputs at (N, P, Q) = (128, 64, 64) or (64, 64, 128) only), as the host
+// picks it.
 extern "C" int repro_ssd_scan(int device, const void* x, const float* dt,
                               const void* Bm, const void* Cm, const float* A,
                               const float* h0, void* y, float* h_final,
@@ -818,7 +1011,8 @@ extern "C" int repro_ssd_scan(int device, const void* x, const float* dt,
                     : launch<float, float>(device, x, Bm, Cm, y, a, batch, stream);
 }
 
-// dynamic shared memory one block of `schedule` needs, in bytes
+// dynamic shared memory one block of `schedule` needs, in bytes (0: the
+// tensor cores do not take this shape)
 extern "C" long long repro_ssd_smem_bytes(int N, int P, int Q, int schedule)
 {
     return smem_bytes(N, P, Q, schedule);
@@ -833,16 +1027,15 @@ extern "C" int repro_ssd_blocks_per_sm(int device, int N, int P, int Q,
     const long long bytes = smem_bytes(N, P, Q, schedule);
     int blocks = 0;
     if (schedule == TENSOR_CORES) {
-        e = set_smem(device, ssd_scan_tc_kernel<float>, bytes);
-        if (e == cudaSuccess)
-            e = cudaFuncSetAttribute(
-                ssd_scan_tc_kernel<float>,
-                cudaFuncAttributePreferredSharedMemoryCarveout,
-                (int)cudaSharedmemCarveoutMaxShared);
-        if (e == cudaSuccess)
-            e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-                &blocks, ssd_scan_tc_kernel<float>, tc::THREADS,
-                (size_t)bytes);
+        e = cudaErrorInvalidValue;
+        with_tc_shape(N, P, Q, [&](auto s) {
+            using Sh = decltype(s);
+            auto kernel = ssd_scan_tc_kernel<Sh::N, Sh::P, Sh::Q, float>;
+            e = set_smem_tc(device, kernel, bytes);
+            if (e == cudaSuccess)
+                e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+                    &blocks, kernel, tc::THREADS, (size_t)bytes);
+        });
     } else {
         typedef __nv_bfloat16 bf;
         e = set_smem(device, ssd_scan_kernel<bf, float>, bytes);
@@ -852,6 +1045,21 @@ extern "C" int repro_ssd_blocks_per_sm(int device, int N, int P, int Q,
                 (size_t)bytes);
     }
     return e == cudaSuccess ? blocks : -(int)e;
+}
+
+// the tensor-core schedule's intra-chunk parts at chunk Q: five ints a
+// warp (r, kb0, kb1, mode, bar) into out[5 * WARPS]; returns the number of
+// warps, or -1 where Q / 16 row blocks are more than the warps
+extern "C" int repro_ssd_intra_jobs(int Q, int* out)
+{
+    if (Q < 16 || Q % 16 || Q / 16 > tc::WARPS) return -1;
+    const tc::IntraJobs t = tc::intra_jobs(Q / 16);
+    for (int w = 0; w < tc::WARPS; ++w) {
+        const tc::IntraJob& j = t.job[w];
+        const int v[5] = {j.r, j.kb0, j.kb1, j.mode, j.bar};
+        for (int i = 0; i < 5; ++i) out[5 * w + i] = v[i];
+    }
+    return tc::WARPS;
 }
 
 extern "C" const char* repro_cuda_error_string(int e)

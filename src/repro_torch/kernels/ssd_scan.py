@@ -19,7 +19,8 @@ Per chunk (head h, state N x P, chunk Q):
 thread block per (batch, head), the state resident on chip) or raise.
 B2 has two schedules, picked a launch by `schedule_of` from the input
 dtype and (N, P, Q): the tensor-core one for bf16 inputs at mamba2-130m's
-head shape, the float32-core one (the first design) for everything else.
+and zamba2-2.7b's head shapes (`TC_SHAPES`), the float32-core one (the
+first design) for everything else.
 `launches` counts kernel launches, so a run can show it went through the
 kernel.  Unlike the reference's `ssd_scan`, both take an optional initial
 state `h0` (zeros when None), as the reference's
@@ -123,19 +124,65 @@ _IO_DTYPES = (torch.float32, torch.bfloat16)
 
 # kernel B2's schedules, by the index its C entry takes
 SCHEDULES = ("float32 cores", "tensor cores")
-# (N, P, Q) of the tensor-core schedule (csrc/ssd_scan.cu, namespace tc)
-TC_SHAPE = (128, 64, 64)
+# (N, P, Q) the tensor-core schedule is instantiated at (csrc/ssd_scan.cu,
+# `with_tc_shape`): mamba2-130m's heads and zamba2-2.7b's
+TC_SHAPES = ((128, 64, 64), (64, 64, 128))
+TC_WARPS = 8
+# shared memory a block may take for two to fit an H100 SM (tc::TWO_A_SM)
+TC_TWO_A_SM = (228 * 1024 - 2 * 1024) // 2
 
 
 def schedule_of(spec: SSDSpec, in_dtype: torch.dtype) -> str:
     """The schedule a CUDA launch of kernel B2 takes: "tensor cores" for
-    bf16 x, B and C at (N, P, Q) = `TC_SHAPE` (the serving path's call,
-    `models.mamba2.block_forward`), "float32 cores" (the first design)
-    for float32 inputs and every other shape."""
+    bf16 x, B and C at an (N, P, Q) of `TC_SHAPES` (the serving path's
+    calls, `models.mamba2.block_forward`), "float32 cores" (the first
+    design) for float32 inputs and every other shape."""
     if in_dtype == torch.bfloat16 and \
-            (spec.state, spec.headdim, spec.chunk) == TC_SHAPE:
+            (spec.state, spec.headdim, spec.chunk) in TC_SHAPES:
         return "tensor cores"
     return "float32 cores"
+
+
+def tc_smem_bytes(N: int, P: int, Q: int):
+    """(bytes of shared memory a block, whether the intra-chunk y has room
+    of its own) of the tensor-core schedule at (N, P, Q), as `tc::Smem`
+    lays it out: two buffers of bf16 x (Q x (P + 8)), B and C (Q x (N + 8)
+    each), four float32 scalars a step twice, and the float32 intra-chunk
+    y (Q x (P + 8)) where two blocks still fit an SM, else in the chunk's
+    buffer."""
+    base = 2 * 2 * (Q * (P + 8) + 2 * Q * (N + 8)) + 4 * 8 * Q
+    y = 4 * Q * (P + 8)
+    own = base + y <= TC_TWO_A_SM
+    return base + (y if own else 0), own
+
+
+def tc_intra_jobs(Q: int):
+    """The tensor-core schedule's intra-chunk parts at chunk Q, one a warp:
+    (row block r, first column block, end column block, mode, named
+    barrier), r = -1 for none; mode 0 alone, 1 stored first, 2 added to
+    the first (`tc::intra_jobs`).  Each of the Q/16 row blocks (row block
+    r has the r + 1 16x16 blocks on and below the diagonal) is cut into at
+    most two parts of at most m blocks, m the least for which the parts
+    are at most the warps; the parts, largest first, go to the four warp
+    schedulers (warp w on w % 4) a round of four at a time, every other
+    round reversed."""
+    R = Q // 16
+    assert Q % 16 == 0 and 1 <= R <= TC_WARPS
+    m = next(m for m in range((R + 1) // 2, R + 1)
+             if sum(2 if r + 1 > m else 1 for r in range(R)) <= TC_WARPS)
+    parts, bar = [], 0
+    for r in range(R - 1, -1, -1):
+        if r + 1 > m:
+            bar += 1
+            parts += [(r, 0, m, 1, bar), (r, m, r + 1, 2, bar)]
+        else:
+            parts.append((r, 0, r + 1, 0, 0))
+    parts.sort(key=lambda j: j[1] - j[2])          # stable: largest first
+    jobs = [(-1, 0, 0, 0, 0)] * TC_WARPS
+    for i, part in enumerate(parts):
+        rnd, k = divmod(i, 4)
+        jobs[(3 - k if rnd % 2 else k) + 4 * rnd] = part
+    return jobs
 
 
 def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
@@ -147,6 +194,8 @@ def declare(lib: ctypes.CDLL) -> ctypes.CDLL:
     lib.repro_ssd_smem_bytes.restype = ctypes.c_longlong
     lib.repro_ssd_blocks_per_sm.argtypes = [i] * 5
     lib.repro_ssd_blocks_per_sm.restype = i
+    lib.repro_ssd_intra_jobs.argtypes = [i, p]
+    lib.repro_ssd_intra_jobs.restype = i
     lib.repro_cuda_error_string.argtypes = [i]
     lib.repro_cuda_error_string.restype = ctypes.c_char_p
     return lib

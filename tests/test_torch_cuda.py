@@ -892,17 +892,18 @@ def _ssd_close(got, want):
     assert err <= SSD_FIELD_RTOL * scale, (err, scale)
 
 
-SSD_SHAPES = [  # (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's, then
-    (2, 16, 4, 2, 8, 8, 4),         # mamba2-130m's head shape, the serve
-    (2, 32, 4, 2, 8, 8, 32),        # call's, one chunk, two groups
+# (B, S, H, G, N, P, Q)
+SSD_SHAPES = [
+    (2, 16, 4, 2, 8, 8, 4),          # tests/test_kernel_ssd.py's shapes
+    (2, 32, 4, 2, 8, 8, 32),
     (1, 16, 2, 1, 4, 4, 8),
     (2, 24, 6, 3, 5, 8, 4),
     (3, 8, 4, 4, 16, 16, 8),
-    (2, 256, 24, 1, 128, 64, 64),
-    (8, 1024, 24, 1, 128, 64, 64),
-    (2, 64, 4, 1, 128, 64, 64),
-    (2, 256, 8, 2, 128, 64, 64),
-    (2, 256, 8, 1, 64, 64, 128),    # zamba2-2.7b's head shape
+    (2, 256, 24, 1, 128, 64, 64),    # mamba2-130m's head shape
+    (8, 1024, 24, 1, 128, 64, 64),   # its serve call
+    (2, 64, 4, 1, 128, 64, 64),      # its head shape, one chunk
+    (2, 256, 8, 2, 128, 64, 64),     # its head shape, two groups
+    (2, 256, 8, 1, 64, 64, 128),     # zamba2-2.7b's head shape
 ]
 
 
@@ -912,13 +913,15 @@ SSD_SHAPES = [  # (B, S, H, G, N, P, Q): tests/test_kernel_ssd.py's, then
 @pytest.mark.parametrize("with_h0", [False, True])
 def test_ssd_kernel_matches_plain(shape, dtype, with_h0):
     """Each schedule of B2 on the shapes it takes: tensor cores for bf16
-    inputs at (N, P, Q) = (128, 64, 64) (four shapes), float32 cores for
-    the rest (the float32 inputs at every shape, bf16 at the small ones)."""
+    inputs at (N, P, Q) = (128, 64, 64) (four shapes) and (64, 64, 128)
+    (zamba2-2.7b's), float32 cores for the rest (the float32 inputs at
+    every shape, bf16 at the small ones)."""
     from repro_torch.kernels import ssd_scan as ssd
 
     dev = _card()
     spec, args, h0 = _ssd_inputs(shape, 3, dtype, with_h0, dev)
-    tc = dtype == torch.bfloat16 and shape[4:] == (128, 64, 64)
+    tc = dtype == torch.bfloat16 and shape[4:] in ((128, 64, 64),
+                                                   (64, 64, 128))
     assert ssd.schedule_of(spec, dtype) == ("tensor cores" if tc
                                             else "float32 cores")
     before = ssd.launches
@@ -934,11 +937,11 @@ def test_ssd_kernel_matches_plain(shape, dtype, with_h0):
 @pytest.mark.cuda
 def test_ssd_kernel_bf16_output():
     """A bf16 y within one bf16 rounding of the plain float32 y, on both
-    schedules."""
+    schedules and at both head shapes of the tensor-core one."""
     from repro_torch.kernels import ssd_scan as ssd
 
     dev = _card()
-    for shape in (SSD_SHAPES[3], SSD_SHAPES[7]):
+    for shape in (SSD_SHAPES[3], SSD_SHAPES[7], SSD_SHAPES[9]):
         spec, args, h0 = _ssd_inputs(shape, 4, torch.bfloat16, True, dev)
         y, _ = ssd.ssd_scan(dataclasses.replace(spec, dtype=torch.bfloat16),
                             *args, h0=h0)
@@ -952,19 +955,45 @@ def test_ssd_kernel_bf16_output():
 @pytest.mark.cuda
 def test_ssd_tensor_core_schedule_refuses_other_shapes(monkeypatch):
     """The C entry takes the tensor-core schedule only for bf16 inputs at
-    (N, P, Q) = (128, 64, 64): asked for it elsewhere, the launch is
-    refused and the wrapper raises (no fallback)."""
+    (N, P, Q) = (128, 64, 64) (mamba2-130m's heads) or (64, 64, 128)
+    (zamba2-2.7b's): asked for it elsewhere, or for float32 inputs at
+    those shapes, the launch is refused and the wrapper raises (no
+    fallback)."""
     from repro_torch.kernels import ssd_scan as ssd
 
     dev = _card()
     monkeypatch.setattr(ssd, "schedule_of", lambda spec, dt: "tensor cores")
     for shape, dtype in ((SSD_SHAPES[4], torch.bfloat16),
-                         (SSD_SHAPES[7], torch.float32)):
+                         (SSD_SHAPES[7], torch.float32),
+                         (SSD_SHAPES[9], torch.float32)):
         spec, args, _ = _ssd_inputs(shape, 0, dtype, False, dev)
         before = ssd.launches
         with pytest.raises(RuntimeError, match="launch failed"):
             ssd.ssd_scan(spec, *args)
         assert ssd.launches == before
+
+
+@pytest.mark.cuda
+def test_ssd_tensor_core_tables_equal_the_mirrors():
+    """The C library's intra-chunk parts (`repro_ssd_intra_jobs`) and
+    shared bytes a block at both head shapes equal `ssd_scan.tc_intra_jobs`
+    and `tc_smem_bytes`, which the CPU tests check; both shapes hold two
+    blocks an SM."""
+    import ctypes
+
+    from repro_torch.kernels import ssd_scan as ssd
+
+    _card()
+    lib = ssd._bind()
+    for N, P, Q in ssd.TC_SHAPES:
+        out = (ctypes.c_int * (5 * ssd.TC_WARPS))()
+        assert lib.repro_ssd_intra_jobs(Q, out) == ssd.TC_WARPS
+        assert [tuple(out[5 * w:5 * w + 5]) for w in range(ssd.TC_WARPS)] \
+            == ssd.tc_intra_jobs(Q)
+        assert lib.repro_ssd_smem_bytes(N, P, Q, 1) == \
+            ssd.tc_smem_bytes(N, P, Q)[0]
+        assert lib.repro_ssd_blocks_per_sm(0, N, P, Q, 1) == 2
+    assert lib.repro_ssd_smem_bytes(8, 8, 4, 1) == 0
 
 
 @pytest.mark.cuda

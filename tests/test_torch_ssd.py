@@ -12,6 +12,9 @@ Tolerances are that file's: rtol 1e-4, atol 1e-5 (2e-4 for the property
 cases), and for bf16 I/O max|diff| <= 0.15 max(max|f32|, 1); at the
 mamba2-130m head shape the atol scales with max|y| (see that test).
 """
+import re
+from pathlib import Path
+
 import numpy as np
 import jax.numpy as jnp
 import pytest
@@ -335,15 +338,23 @@ def _tc_replay(spec, x, dtv, Bm, Cm, A, h0, pieces):
     return y.permute(0, 2, 1, 3).contiguous(), h
 
 
-def _replay_errors(with_h0, pieces):
+# (N, P, Q, S) of the replays: mamba2-130m's head shape with four chunks,
+# zamba2-2.7b's with four chunks (there exp(Lc) spans twice the range it
+# spans at Q = 64)
+REPLAY_SHAPES = {"mamba2-130m": (128, 64, 64, 256),
+                 "zamba2-2.7b": (64, 64, 128, 512)}
+
+
+def _replay_errors(shape, with_h0, pieces):
     """(max|diff| / max|plain|, elements outside rtol 1e-4 / atol 1e-5 x
     max(1, max|plain|)) of the replay against `ssd_scan_plain`, for y and
-    h_final, at mamba2-130m's head shape (N 128, P 64, Q 64), S 256, four
-    heads of one group, bf16 x, B and C."""
-    x, dtv, Bm, Cm, A, h0 = _inputs(1, 256, 4, 1, 128, 64, seed=11,
+    h_final, at a head shape of `REPLAY_SHAPES` (N, P, Q, S), four heads
+    of one group, bf16 x, B and C."""
+    N, P, Q, S = REPLAY_SHAPES[shape]
+    x, dtv, Bm, Cm, A, h0 = _inputs(1, S, 4, 1, N, P, seed=11,
                                     with_h0=with_h0)
     x, Bm, Cm = (_bf16(_t(v)) for v in (x, Bm, Cm))
-    spec = _spec(256, 64, 4, 1, 128, 64, tssd, torch.float32)
+    spec = _spec(S, Q, 4, 1, N, P, tssd, torch.float32)
     got = _tc_replay(spec, x, _t(dtv), Bm, Cm, _t(A), _t(h0), pieces)
     want = tssd.ssd_scan_plain(spec, x, _t(dtv), Bm, Cm, _t(A), h0=_t(h0))
     out = []
@@ -354,23 +365,129 @@ def _replay_errors(with_h0, pieces):
     return out
 
 
+@pytest.mark.parametrize("shape", sorted(REPLAY_SHAPES))
 @pytest.mark.parametrize("with_h0", [False, True])
-def test_tensor_core_split_keeps_the_bounds(with_h0):
+def test_tensor_core_split_keeps_the_bounds(shape, with_h0):
     """B2's tensor-core schedule splits M, h and sd o x into three bf16
-    pieces (24 significant bits): replayed on the CPU it keeps the
-    kernel-vs-plain bounds (`chip_smoke.check_ssd`,
+    pieces (24 significant bits): replayed on the CPU at both head shapes
+    it takes, it keeps the kernel-vs-plain bounds (`chip_smoke.check_ssd`,
     tests/test_torch_cuda.py): max|diff| / max|plain| <= 1e-5, and every
     element within rtol 1e-4, atol 1e-5 x max(1, max|plain|)."""
-    for rel, outside in _replay_errors(with_h0, pieces=3):
+    for rel, outside in _replay_errors(shape, with_h0, pieces=3):
         assert rel <= 1e-5, rel
         assert outside == 0
 
 
-def test_unsplit_single_pass_misses_the_bound():
+@pytest.mark.parametrize("shape", sorted(REPLAY_SHAPES))
+def test_unsplit_single_pass_misses_the_bound(shape):
     """The reason for the split: one unsplit bf16 pass on M, h and sd o x
     (8 significant bits) puts y and h_final far beyond max|diff| /
-    max|plain| = 1e-5 (about 2e-3 here, with elements outside the
-    per-element bound), so the schedule may not take it."""
-    (rel_y, out_y), (rel_h, out_h) = _replay_errors(True, pieces=1)
+    max|plain| = 1e-5 (about 2e-3 at both shapes, with elements outside
+    the per-element bound), so the schedule may not take it."""
+    (rel_y, out_y), (rel_h, out_h) = _replay_errors(shape, True, pieces=1)
     assert rel_y > 1e1 * 1e-5 and rel_h > 1e1 * 1e-5, (rel_y, rel_h)
     assert out_y > 0 and out_h > 0
+
+
+# ---------------------------------------------------------------------------
+# Kernel B2's tensor-core schedule: its shapes, intra-chunk parts and
+# shared memory (the Python mirrors of csrc/ssd_scan.cu's tables)
+# ---------------------------------------------------------------------------
+
+CU = (Path(tssd.__file__).parent / "csrc" / "ssd_scan.cu").read_text()
+
+
+@pytest.mark.parametrize("N,P,Q", [(128, 64, 64), (64, 64, 128),
+                                   (8, 8, 4), (128, 64, 128),
+                                   (64, 64, 64), (128, 80, 64)])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_schedule_of_takes_the_tensor_cores_at_both_head_shapes(N, P, Q,
+                                                               dtype):
+    """bf16 inputs at mamba2-130m's (128, 64, 64) and zamba2-2.7b's (64,
+    64, 128) take the tensor cores; float32 inputs, and every other
+    shape, the float32 cores."""
+    spec = _spec(4 * Q, Q, 2, 1, N, P, tssd, torch.float32)
+    tc = dtype == torch.bfloat16 and (N, P, Q) in ((128, 64, 64),
+                                                   (64, 64, 128))
+    assert tssd.schedule_of(spec, dtype) == ("tensor cores" if tc
+                                             else "float32 cores")
+
+
+@pytest.mark.parametrize("Q", [64, 128])
+def test_intra_jobs_cover_each_causal_block_once(Q):
+    """Every 16x16 block on and below the diagonal of M in exactly one
+    warp's part, none above; at most one part a warp; a row block in at
+    most two parts, which share a named barrier (1..15), the first stored
+    (mode 1), the second added to it (mode 2); the decay warp (4, the
+    table's last slot) has the smallest part or none; each warp
+    scheduler's (warp w on w % 4) parts within one block of the others'."""
+    R = Q // 16
+    jobs = tssd.tc_intra_jobs(Q)
+    assert len(jobs) == tssd.TC_WARPS == 8
+    seen = np.zeros((R, R), int)
+    rows = {}
+    for r, kb0, kb1, mode, bar in jobs:
+        if r < 0:
+            continue
+        assert 0 <= kb0 < kb1 <= r + 1
+        seen[r, kb0:kb1] += 1
+        rows.setdefault(r, []).append((kb0, mode, bar))
+    assert (seen == np.tril(np.ones((R, R), int))).all()
+    for r, parts in rows.items():
+        if len(parts) == 1:
+            assert parts[0][1:] == (0, 0)
+        else:
+            (_, m1, b1), (_, m2, b2) = sorted(parts)
+            assert (m1, m2) == (1, 2) and b1 == b2 and 1 <= b1 <= 15
+    size = [kb1 - kb0 if r >= 0 else 0 for r, kb0, kb1, _, _ in jobs]
+    assert size[4] == min(size)
+    load = [size[s] + size[s + 4] for s in range(4)]
+    assert max(load) - min(load) <= 1 and sum(load) == R * (R + 1) // 2
+
+
+def test_intra_jobs_at_both_head_shapes():
+    """The tables `tc::intra_jobs` gives at Q = 64 (mamba2-130m's: the
+    schedule's first, hand-written table with warps 4 and 6 swapped, the
+    decay warp 4) and
+    Q = 128 (zamba2-2.7b's: the 8 row blocks whole, 9 blocks a
+    scheduler)."""
+    assert tssd.tc_intra_jobs(64) == [
+        (3, 0, 2, 1, 1), (3, 2, 4, 2, 1), (2, 0, 2, 1, 2), (1, 0, 2, 0, 0),
+        (-1, 0, 0, 0, 0), (-1, 0, 0, 0, 0), (0, 0, 1, 0, 0),
+        (2, 2, 3, 2, 2)]
+    assert [j[0] for j in tssd.tc_intra_jobs(128)] == [7, 6, 5, 4, 0, 1, 2,
+                                                       3]
+    assert all(j[1:] == (0, j[0] + 1, 0, 0) for j in tssd.tc_intra_jobs(128))
+
+
+def test_tc_constants_equal_the_source():
+    """The mirror's warps, decay warp, two-blocks-an-SM limit and shapes
+    are the ones csrc/ssd_scan.cu states."""
+    assert re.search(r"constexpr int THREADS = 256;", CU)
+    assert re.search(r"constexpr int DECAY_WARP = 4;", CU)
+    m = re.search(r"TWO_A_SM = \((\d+) \* 1024 - (\d+) \* 1024\) / 2;", CU)
+    assert (int(m[1]) * 1024 - int(m[2]) * 1024) // 2 == tssd.TC_TWO_A_SM
+    shapes = re.findall(r"n == (\d+) && p == (\d+) && q == (\d+)\) "
+                        r"f\(TcShape<(\d+), (\d+), (\d+)>", CU)
+    assert [tuple(map(int, s[:3])) for s in shapes] == list(tssd.TC_SHAPES)
+    assert all(s[:3] == s[3:] for s in shapes)
+
+
+@pytest.mark.parametrize("N,P,Q,own,want", [(128, 64, 64, True, 108544),
+                                            (64, 64, 128, False, 114688)])
+def test_tc_smem_bytes_equal_the_source_layout(N, P, Q, own, want):
+    """`tc::Smem<N, P, Q>`'s bytes, summed from its members (two buffers
+    of bf16 x, B and C with rows padded by 8, four float32 scalars a step
+    twice, and the float32 intra-chunk y where two blocks still fit an
+    SM): 108,544 at mamba2-130m's shape (the y of its own), 114,688 at
+    zamba2-2.7b's (with it, 151,552: one block an SM), both at most the
+    two-blocks-an-SM limit."""
+    xld, bld, yld = P + 8, N + 8, P + 8
+    ops = 2 * (Q * xld + Q * bld + Q * bld)
+    scalars = 4 * 2 * Q * 4
+    y = 4 * Q * yld
+    assert (ops * 2 + scalars + y <= tssd.TC_TWO_A_SM) == own
+    assert tssd.tc_smem_bytes(N, P, Q) == (want, own)
+    assert want == 2 * ops + scalars + (y if own else 0)
+    assert want <= tssd.TC_TWO_A_SM
+    assert y <= ops                  # the y fits a chunk's buffer

@@ -7,6 +7,7 @@ float32 checks).
 
     python3 tools/lm_serve.py [--only serve-qwen3moe,serve-whisper]
     python3 tools/lm_serve.py --profile [--only serve-zamba2] [--steps 4]
+    python3 tools/lm_serve.py --logits-gap [--only serve-zamba2]
 
 `--only` names serve phases; B2's phases always run first (they make the
 kernels-line entries whose launches the serve phases count).  Builds only
@@ -20,6 +21,17 @@ wall time (host clock around it and a synchronise), the device time
 summed over the card's own events, the device's idle share of the wall
 time, B2's and the matrix products' device time, and the events with the
 most device time.
+
+`--logits-gap` instead takes each scanning model's bf16 prefill of that
+batch and holds its logits, computed with each of these scans, against
+the logits with `ssd_scan_plain`: B2 as the model runs it, B2 again (the
+run's own repeatability), B2 forced onto its float32-core schedule (bit
+for bit the plain scan), and the plain scan with each element of y moved
+by one float32 ulp up or down (`chip_smoke.ulp_scan`): a control, a scan
+as far from the plain one as float32 rounding alone.  Prints max|diff| /
+max|plain logits| over every position, at the last position (the logits
+serving samples from), over the first and the last 64 positions, and
+whether the last position's greedy tokens agree.
 """
 import argparse
 import json
@@ -42,8 +54,67 @@ def _sums(rows, *marks):
                if any(m in name.lower() for m in marks))
 
 
-def profile_serving(phases, steps, smi, dev):
+def first_batch(cfg, dev):
+    """The serve phase's first batch of 8: its prompts drawn as the phase
+    draws them and left-padded as the engine pads them, or the stub
+    families' first batch."""
     import numpy as np
+
+    if cfg.family in cs.STUB_KEY:
+        return cs.stub_batches(cfg, dev)[0][0]
+    rng = np.random.RandomState(cs.SERVE_SEED)
+    prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(
+        cs.SERVE_PROMPT[0], cs.SERVE_PROMPT[1] + 1)).astype(np.int32)
+        for _ in range(cs.SERVE_BATCH)]
+    plen = max(len(p) for p in prompts)
+    toks = np.zeros((cs.SERVE_BATCH, plen), np.int32)
+    for i, p in enumerate(prompts):
+        toks[i, plen - len(p):] = p       # left pad, as the engine
+    return {"tokens": torch.as_tensor(toks, device=dev)}
+
+
+def logits_gaps(phases, smi, dev):
+    from repro_torch import configs
+    from repro_torch.models import api
+
+    for phase in phases:
+        cfg = configs.get(cs.SERVE_ARCHS[phase])
+        if not cs.scan_layers(cfg):
+            continue
+        params = api.init(cs.SERVE_SEED, cfg, device=dev)
+        batch = first_batch(cfg, dev)
+        max_len = cs.serve_max_len(cfg)
+
+        def prefill():
+            out = api.prefill(params, cfg, batch, max_len)[0].float()
+            torch.cuda.synchronize()
+            return out
+
+        plain = cs.with_plain_scan(prefill)
+        scale = float(plain.abs().max())
+        runs = {f"B2 ({cs.scan_schedule(cfg)})": prefill(),
+                "B2 again": prefill()}
+        with cs.forced_schedule("float32 cores"):
+            runs["B2 on the float32 cores"] = prefill()
+        runs["plain, y moved 1 ulp"] = cs.with_scan(cs.ulp_scan(), prefill)
+        cs.say(phase, f"bf16 prefill logits {tuple(plain.shape)}, max|plain "
+               f"logits| {scale:.3f}; max|diff| / max|plain logits| against "
+               f"the plain scan's [{smi}]")
+        for name, got in runs.items():
+            d = (got - plain).abs()
+            by_pos = d.amax(dim=(0, 2)) / scale
+            same = bool((got[:, -1].argmax(-1)
+                         == plain[:, -1].argmax(-1)).all())
+            cs.say(phase, f"  {name}: all positions {float(by_pos.max()):.3e}"
+                   f", last {float(by_pos[-1]):.3e}, first 64 "
+                   f"{float(by_pos[:64].max()):.3e}, last 64 "
+                   f"{float(by_pos[-64:].max()):.3e}; last position's greedy "
+                   f"tokens equal: {same}")
+        del params, runs, plain
+        torch.cuda.empty_cache()
+
+
+def profile_serving(phases, steps, smi, dev):
     from sharded_profile import profiled
 
     from repro_torch import configs
@@ -53,18 +124,7 @@ def profile_serving(phases, steps, smi, dev):
     for phase in phases:
         cfg = configs.get(cs.SERVE_ARCHS[phase])
         params = api.init(cs.SERVE_SEED, cfg, device=dev)
-        if cfg.family in cs.STUB_KEY:
-            batch = cs.stub_batches(cfg, dev)[0][0]
-        else:
-            rng = np.random.RandomState(cs.SERVE_SEED)
-            prompts = [rng.randint(0, cfg.vocab_size, size=rng.randint(
-                cs.SERVE_PROMPT[0], cs.SERVE_PROMPT[1] + 1)).astype(np.int32)
-                for _ in range(cs.SERVE_BATCH)]
-            plen = max(len(p) for p in prompts)
-            toks = np.zeros((cs.SERVE_BATCH, plen), np.int32)
-            for i, p in enumerate(prompts):
-                toks[i, plen - len(p):] = p       # left pad, as the engine
-            batch = {"tokens": torch.as_tensor(toks, device=dev)}
+        batch = first_batch(cfg, dev)
         shape = tuple(batch["tokens"].shape)
         max_len = cs.serve_max_len(cfg)
         prefill = make_prefill_step(cfg, max_len)
@@ -101,9 +161,14 @@ def main():
                     help="comma list of serve phases, e.g. serve-zamba2")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--steps", type=int, default=4)
+    ap.add_argument("--logits-gap", action="store_true")
     args = ap.parse_args()
     phases = (args.only.split(",") if args.only else list(cs.SERVE_ARCHS))
     smi = cs.phase_environment()
+    if args.logits_gap:
+        _build.build_all(["ssd_scan"])
+        logits_gaps(phases, smi, torch.device("cuda", 0))
+        return 0
     if args.profile:
         _build.build_all(["ssd_scan"])
         profile_serving(phases, args.steps, smi, torch.device("cuda", 0))

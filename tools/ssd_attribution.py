@@ -1,19 +1,21 @@
 """Time variants of kernel B2's tensor-core schedule on the card, to split
 its launch's time by what it does:
 
-    python3 tools/ssd_attribution.py [--only a,b]
+    python3 tools/ssd_attribution.py [--only a,b] [--shape serve|zamba2]
 
 Builds variants of this tree's `src/repro_torch/kernels/csrc/ssd_scan.cu`,
 each a text substitution (below), into `build/ssd_attribution/` (one nvcc
-each, all started together), and times each one's launch at the serve
-phase's shapes of `chip_smoke.py` (B 8, S 1024, H 24, G 1, N 128, P 64,
-Q 64; bf16 x, B and C, float32 y, no h0; `chip_smoke.ssd_case`'s draw),
-in turns with `base` (base, variant, variant, base), each turn the mean of
-10 launches after a warm-up, by CUDA events.  Prints the medians, each
-variant's max|diff| / max|plain| against `ssd_scan_plain`, and the card's
-name and power limit.  The variants that take a piece out compute other
-functions, so their differences from `base` are where the time goes, not
-speed-ups; those marked "same function" keep the result.  Needs a card.
+each, all started together), and times each one's launch at a B2 shape of
+`chip_smoke.py`: `--shape serve` (the default: mamba2-130m's serve call,
+B 8, S 1024, H 24, G 1, N 128, P 64, Q 64) or `--shape zamba2`
+(zamba2-2.7b's, B 8, S 1024, H 80, G 1, N 64, P 64, Q 128); bf16 x, B and
+C, float32 y, no h0; `chip_smoke.ssd_case`'s draw), in turns with `base`
+(base, variant, variant, base), each turn the mean of 10 launches after a
+warm-up, by CUDA events.  Prints the medians, each variant's max|diff| /
+max|plain| against `ssd_scan_plain`, and the card's name and power limit.
+The variants that take a piece out compute other functions, so their
+differences from `base` are where the time goes, not speed-ups; those
+marked "same function" keep the result.  Needs a card.
 """
 import argparse
 import ctypes
@@ -35,14 +37,21 @@ CLOBBER = ': "r"(saddr(p)) : "memory");'
 VARIANTS = {
     "base": [],
     # same function: 12,000 more bytes of shared memory, one block an SM
-    "one block an SM": [("    float dt[2][Q], Lc[2][Q], eLc[2][Q], "
-                         "sd[2][Q];\n};",
-                         "    float dt[2][Q], Lc[2][Q], eLc[2][Q], "
-                         "sd[2][Q];\n    unsigned char pad[12000];\n};")],
+    "one block an SM": [("BASE_BYTES + (OWN_Y ? Y_BYTES : 0);",
+                         "BASE_BYTES + (OWN_Y ? Y_BYTES : 0) + 12000;")],
+    # same function: the intra-chunk y in room of its own whatever that
+    # costs (at zamba2-2.7b's shape 151,552 B, one block an SM)
+    "y own room": [("static constexpr bool OWN_Y = BASE_BYTES + Y_BYTES "
+                    "<= TWO_A_SM;", "static constexpr bool OWN_Y = true;")],
+    # same function: the state update's k in one part (all of sd o x split
+    # in registers at once)
+    "update k whole": [("constexpr int KH = R > 4 ? 2 : 1,",
+                        "constexpr int KH = 1,")],
     # same function: ldmatrix without the compiler's memory barrier
     "ldmatrix unordered": [(CLOBBER, ': "r"(saddr(p)));')] * 2,
     # the intra-chunk term (C B^T, M, M x) left out
-    "no intra": [("if (job.r >= 0) {", "if (job.r >= 4) {")],
+    "no intra": [("const bool has_part = job.r >= 0;",
+                  "const bool has_part = false;")],
     # M's decay: no expf (M = C B^T o dt_j)
     "no decay exp": [("* expf(Lc[i] - Lc[j]) ", ""),
                      ("* expf(Lc[i] - Lc[j + 1])", "")],
@@ -90,6 +99,7 @@ def build_all(names):
 def main(argv):
     ap = argparse.ArgumentParser()
     ap.add_argument("--only", default="")
+    ap.add_argument("--shape", choices=("serve", "zamba2"), default="serve")
     args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         raise SystemExit("tools/ssd_attribution.py needs a card")
@@ -97,9 +107,11 @@ def main(argv):
         not args.only or n in args.only.split(","))]
     libs = build_all(names)
     dev = torch.device("cuda", 0)
-    B, S, H, G, N, P, Q = chip_smoke.SERVE_SHAPE
+    shape = {"serve": chip_smoke.SERVE_SHAPE,
+             "zamba2": chip_smoke.ZAMBA2_SSD_SHAPE}[args.shape]
+    B, S, H, G, N, P, Q = shape
     spec, (x, dt, Bm, Cm, A), _ = chip_smoke.ssd_case(
-        chip_smoke.SERVE_SHAPE, 7, torch.bfloat16, False, dev)
+        shape, 7, torch.bfloat16, False, dev)
     y = torch.empty((B, S, H, P), device=dev)
     h = torch.empty((B, H, N, P), device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
@@ -137,7 +149,7 @@ def main(argv):
         for who in ("base", name, name, "base"):
             turns[who].append(ms(who))
         b, v = (statistics.median(turns[k]) for k in ("base", name))
-        print(f"{name}: {v:.4f} ms against base {b:.4f} ms ({v - b:+.4f}); "
+        print(f"{name} ({args.shape} shape {shape}): {v:.4f} ms against base {b:.4f} ms ({v - b:+.4f}); "
               f"y max|diff|/max|plain| {rel:.2e} [{smi}]", flush=True)
 
 
