@@ -33,8 +33,18 @@ dense qwen3-1.7b and qwen3-moe-30b-a3b (128 experts, top 8, the
 sort-based capacity dispatch, its dropped entries counted); through
 `launch.steps`, with their stub embeddings in the batch, whisper-medium
 (24 + 24 layers over 1500 frames) and llava-next-mistral-7b (2880 image
-positions before the text).  A scanning model's bf16 prefill logits are
-held to the plain scan's, within twice the gap of a scan one float32 ulp
+positions before the text).  Then training (train-mamba2): B2 under a
+gradient (`ssd_scan.SSDScanFn`, its backward the autodiff of
+`_ssd_chunked`), its forward and its gradients against autograd through
+the plain scan at both tensor-core head shapes and at the trainer's own
+call (8 x 4096, bf16), a planted wrong backward refused, one float32
+step of mamba2-130m at full width with B2 against the plain scan, and
+the trainer's CLI
+(`launch.train.main`) for mamba2-130m at full width in bf16, 8 x 4096
+tokens a step, B2 counted (48 launches a step under remat "full"), with
+a simulated preemption and a bit-exact restore.  A scanning model's
+bf16 prefill logits are held to the plain scan's, within twice the gap
+of a scan one float32 ulp
 from the plain one.  Each has a float32 batch: its prefill held
 against the plain scan where the model scans, the MoE's layer against a
 dense top-k oracle, and decode against the teacher-forced forward.  Then
@@ -51,7 +61,8 @@ kernel-vs-first-tti and kernel-vs-first-elastic: the cluster-shared
 z-wavefront B6 at halos 16 and 12 and trapezoid B5 at halos 32 and 48
 bit-equal to the first schedule and held to the plain version,
 kernel-vs-plain-ssd with kernels-ssd, kernels-ssd-zamba2), serve-mamba2,
-serve-zamba2, serve-qwen3, serve-qwen3moe, serve-whisper, serve-llava, then for each path: main path
+serve-zamba2, serve-qwen3, serve-qwen3moe, serve-whisper, serve-llava,
+train-mamba2, then for each path: main path
 at full size, spatially-blocked baseline, kernel timing (with its design:
 the schedule the launch takes, registers, shared memory, blocks an SM,
 achieved GB/s), the batched kernel at the main path's shapes (after
@@ -2259,16 +2270,22 @@ def check_ssd(name, got, want):
 
 
 @contextlib.contextmanager
+def patched(owner, name, value):
+    """`owner.name` set to `value` for the block (the port itself never
+    does that)."""
+    first = getattr(owner, name)
+    setattr(owner, name, value)
+    try:
+        yield
+    finally:
+        setattr(owner, name, first)
+
+
 def forced_schedule(name):
     """B2's launches take the schedule `name`, whatever `ssd.schedule_of`
     would pick (the C entry still refuses a shape the schedule does not
     take)."""
-    first = ssd.schedule_of
-    ssd.schedule_of = lambda *a: name
-    try:
-        yield
-    finally:
-        ssd.schedule_of = first
+    return patched(ssd, "schedule_of", lambda *a: name)
 
 
 def ssd_design(spec, schedule):
@@ -2541,12 +2558,8 @@ def timed_steps(engine, events):
 def with_scan(scan, fn):
     """fn() with the model's scan replaced by `scan` (the model itself
     never does that)."""
-    kernel = ssd.ssd_scan
-    ssd.ssd_scan = scan
-    try:
+    with patched(ssd, "ssd_scan", scan):
         return fn()
-    finally:
-        ssd.ssd_scan = kernel
 
 
 def with_plain_scan(fn):
@@ -2978,6 +2991,436 @@ def serve_f32_checks(cfg, batch, max_len, dev, phase):
     torch.cuda.empty_cache()
 
 
+# ---------------------------------------------------------------------------
+# Training: mamba2-130m at full width, a gradient through kernel B2
+# ---------------------------------------------------------------------------
+
+TRAIN_ARCH = "mamba2-130m"
+TRAIN_SEED = 0
+# B2 under a gradient: (label, (B, S, H, G, N, P, Q), input dtypes) at
+# mamba2-130m's head shape and zamba2-2.7b's (both B2's tensor-core shapes
+# in bf16), and the trainer's own call in train-mamba2 (c): the CLI's
+# 8 x 4096 tokens at mamba2-130m's heads in bf16, 64 chunks of carried state
+GRAD_CASES = [("mamba2-130m's head shape", (2, 1024, 24, 1, 128, 64, 64),
+               (torch.float32, BF16)),
+              ("zamba2-2.7b's head shape", (2, 1024, 80, 1, 64, 64, 128),
+               (torch.float32, BF16)),
+              ("the trainer's call", (8, 4096, 24, 1, 128, 64, 64), (BF16,))]
+GRAD_TOL = 1e-4              # float32: max|diff| / max|plain gradient|
+# bf16 inputs: the same ratio.  The backward computes in float32 from the
+# same inputs as autograd through the plain version; they differ by the
+# final cast to bf16 and the order of the sums.  Sound readings reach
+# 2.3e-3 (dC at the trainer's call; PERF.md, PR 25), a planted wrong backward
+# (PLANTED) reads far above the bound, and the phase fails unless it does.
+GRAD_TOL_BF16 = 2 ** -6
+TRAIN_F32_SHAPE = (1024, 2)  # (seq_len, batch) of the float32 model check
+TRAIN_LOSS_RTOL = 1e-5
+# the CLI at the config's own dtypes: its flags, then steps straight and
+# the step the simulated preemption stops after
+TRAIN_CLI = ["--arch", TRAIN_ARCH, "--seq-len", "4096", "--batch", "8",
+             "--mesh", "single", "--save-every", "4", "--log-every", "1",
+             "--keep", "1"]
+TRAIN_STEPS, TRAIN_STOP = 8, 4
+TRAIN_TIMED = slice(2, None)     # the steps timed: 2-7
+RESUME_RTOL = 1e-3               # a CUDA index-add may reorder sums
+MATMUL_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "gemv", "wgmma")
+
+
+def _cotangent_dropped(chunked):
+    """`chunked` with h_final's cotangent dropped from its gradient."""
+    def planted(*a, **kw):
+        y, h = chunked(*a, **kw)
+        return y, h.detach() + 0 * h
+    return planted
+
+
+def _decay_halved(chunked):
+    """`chunked` with the decay rate A halved."""
+    def planted(xh, dtv, Bm, Cm, A, chunk, h0=None):
+        return chunked(xh, dtv, Bm, Cm, 0.5 * A, chunk, h0=h0)
+    return planted
+
+
+# planted wrong backwards: `SSDScanFn.backward` differentiates
+# `models.mamba2._ssd_chunked`, patched for the call to one of these
+PLANTED = {"h_final's cotangent dropped": _cotangent_dropped,
+           "decay rate A halved": _decay_halved}
+
+
+def scan_grads(spec, args, cots, scan):
+    """(gradients of (x, dt, B, C, A), (y, h_final), y's grad_fn, forward
+    ms, backward ms) through `scan` (a forward that autograd records) at
+    `args`, with cotangents `cots` on (y, h_final); the times by CUDA
+    events around the forward and around `torch.autograd.grad`."""
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    torch.cuda.synchronize()
+    ev[0].record()
+    y, h = scan(spec, *leaves)
+    ev[1].record()
+    grads = torch.autograd.grad((y, h), leaves, cots)
+    ev[2].record()
+    torch.cuda.synchronize()
+    return (grads, (y.detach(), h.detach()), y.grad_fn,
+            ev[0].elapsed_time(ev[1]), ev[1].elapsed_time(ev[2]))
+
+
+def grad_gaps(got, want, what):
+    """{name: max|diff| / max|plain gradient|} of (dx, ddt, dB, dC, dA);
+    raises where a gradient is not finite or not in its input's dtype."""
+    gaps = {}
+    for name, g, w in zip(("dx", "ddt", "dB", "dC", "dA"), got, want):
+        if g.dtype != w.dtype or not torch.isfinite(g).all():
+            raise AssertionError(f"train-mamba2: {name} at {what}: dtype "
+                                 f"{g.dtype} or not finite")
+        gaps[name] = max_rel(g.float(), w.float())
+    return gaps
+
+
+def phase_train_grads(dev, smi, entry):
+    """(a) B2's forward and the backward formula under a gradient:
+    `ssd.ssd_scan` on grad-requiring card tensors goes through `SSDScanFn`
+    (forward B2, backward the autodiff of `_ssd_chunked`), against
+    `torch.autograd` straight through `ssd_scan_plain` on the same
+    tensors, at each of GRAD_CASES (the trainer's own call among them).
+    The forward's y and h_final held to the kernels-ssd bounds
+    (`check_ssd`); the gradients of x, dt, B, C and A, with random
+    cotangents on y and h_final, within GRAD_TOL (float32 inputs, B2's
+    float32-core schedule) or GRAD_TOL_BF16 (bf16, the tensor cores) of
+    max|plain gradient|, each.  At mamba2-130m's head shape in bf16 each
+    of PLANTED must read beyond GRAD_TOL_BF16.  At the trainer's call,
+    B2's ms a launch beside its bound, and the two backwards' ms:
+    `SSDScanFn`'s (`_ssd_chunked` recomputed and differentiated) and
+    autograd's through `ssd_scan_plain`.  `entry` (B2's kernels-line
+    entry at mamba2-130m's head shape) gets the trainer's call as
+    ``train_call``."""
+    from repro_torch.models import mamba2
+
+    phase = "train-mamba2"
+    for label, shape, dtypes in GRAD_CASES:
+        for dtype in dtypes:
+            spec, args, _ = ssd_case(shape, 11, dtype, False, dev)
+            gen = torch.Generator(device=dev).manual_seed(12)
+            Bsz, S_, Hh, G, N, P, Q = shape
+            cots = (torch.randn((Bsz, S_, Hh, P), generator=gen, device=dev),
+                    torch.randn((Bsz, Hh, N, P), generator=gen, device=dev))
+            got, (y, h), fn, fwd_ms, bwd_ms = uncounted(
+                lambda: scan_grads(spec, args, cots, ssd.ssd_scan))
+            want, (py, ph), _, pfwd_ms, pbwd_ms = scan_grads(
+                spec, args, cots, ssd.ssd_scan_plain)
+            if type(fn).__name__ != "SSDScanFnBackward":
+                raise AssertionError(f"{phase}: ssd_scan under grad recorded "
+                                     f"{type(fn).__name__}, not SSDScanFn")
+            what = f"{shape} {str(dtype)[6:]}"
+            ey = check_ssd(f"{phase}: y {what}", y, py)
+            eh = check_ssd(f"{phase}: h_final {what}", h, ph)
+            gaps = grad_gaps(got, want, what)
+            worst = max(gaps.values())
+            tol = GRAD_TOL if dtype == torch.float32 else GRAD_TOL_BF16
+            say(phase, f"B2 under a gradient at {label} (B,S,H,G,N,P,Q)="
+                f"{shape}, {str(dtype)[6:]} inputs "
+                f"({ssd.schedule_of(spec, dtype)} forward): forward y "
+                f"max|diff| / max|plain| {ey[1]:.2e}, h_final {eh[1]:.2e} "
+                f"(limit {SSD_FIELD_RTOL:g}); gradients max|diff| / max|plain "
+                f"grad| " + ", ".join(f"{k} {v:.2e}" for k, v in gaps.items())
+                + f" (limit {tol:g}) [{smi}]")
+            if worst > tol:
+                raise AssertionError(f"{phase}: gradients through SSDScanFn "
+                                     f"vs plain at {what}: {gaps} > {tol}")
+            if label == GRAD_CASES[0][0] and dtype == BF16:
+                for name, plant in PLANTED.items():
+                    with patched(mamba2, "_ssd_chunked",
+                                 plant(mamba2._ssd_chunked)):
+                        bad = uncounted(lambda: scan_grads(
+                            spec, args, cots, ssd.ssd_scan))[0]
+                    planted = grad_gaps(bad, want, what)
+                    say(phase, f"planted wrong backward ({name}) at {what}: "
+                        + ", ".join(f"{k} {v:.2e}" for k, v in
+                                    planted.items())
+                        + f"; worst {max(planted.values()):.2e} against the "
+                        f"limit {tol:g}")
+                    if max(planted.values()) <= tol:
+                        raise AssertionError(f"{phase}: the bf16 gradient "
+                                             f"bound passes a planted wrong "
+                                             f"backward ({name})")
+                    del bad
+            if label == "the trainer's call":
+                # the times of a second call each (the first at a shape
+                # also grows the caching allocator's pools)
+                fwd_ms, bwd_ms = uncounted(lambda: scan_grads(
+                    spec, args, cots, ssd.ssd_scan))[3:]
+                pfwd_ms, pbwd_ms = scan_grads(spec, args, cots,
+                                              ssd.ssd_scan_plain)[3:]
+                launch = lambda: ssd.ssd_scan(spec, *args)  # noqa: E731
+                ms = uncounted(lambda: cuda_ms(launch, reps=5))[0]
+                cost = ssd.kernel_cost(spec, Bsz, in_dtype=dtype)
+                t_bytes = cost["min_bytes"] / HBM_BW * 1e3
+                t_ops = cost["needed_flops"] / BF16_TC_PEAK * 1e3
+                bound = max(t_bytes, t_ops)
+                by = "bytes" if t_bytes >= t_ops else "operations"
+                say(phase, f"B2 at {label} {shape} bf16: {ms:.3f} ms a "
+                    f"launch (mean of 5) vs bound {bound:.4f} ms by {by} "
+                    f"({cost['min_bytes'] / 1e6:.1f} MB in {t_bytes:.4f} ms; "
+                    f"{cost['needed_flops'] / 1e9:.2f} GFLOP in {t_ops:.4f} "
+                    f"ms at 989 TFLOP/s); under a gradient (a second call "
+                    f"each): SSDScanFn forward {fwd_ms:.2f} ms, backward "
+                    f"{bwd_ms:.2f} ms (_ssd_chunked "
+                    f"recomputed and differentiated); autograd through "
+                    f"ssd_scan_plain: forward {pfwd_ms:.2f} ms, backward "
+                    f"{pbwd_ms:.2f} ms [{smi}]")
+                entry["train_call"] = {
+                    "shape": list(shape), "ms": ms, "bound_ms": bound,
+                    "bound_by": by, "max_abs_err": ey[0],
+                    "backward_ms": bwd_ms, "plain_backward_ms": pbwd_ms}
+            del got, want, args, cots, y, h, py, ph
+    torch.cuda.empty_cache()
+
+
+def phase_train_f32(dev, smi):
+    """(b) One training step's loss and gradients
+    (`steps.loss_and_grads`, what `make_train_step` differentiates) for
+    mamba2-130m at full width in float32 (TRAIN_F32_SHAPE), with B2 (the
+    float32-core schedule) against the same step with `ssd_scan` replaced
+    by `ssd_scan_plain` under autograd: the loss within TRAIN_LOSS_RTOL;
+    the global gradient norm's relative gap and the worst leaf's
+    max|diff g| / max|g| printed."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps
+    from repro_torch.optim import global_norm
+    from repro_torch.optim.adamw import tree_leaves
+
+    phase = "train-mamba2"
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    params = api.init(TRAIN_SEED, cfg, device=dev)
+    batch = make_batch(cfg, ShapeConfig("train_f32", *TRAIN_F32_SHAPE,
+                                        "train"), device=dev)
+    (loss, _, _), grads = uncounted(lambda: steps.loss_and_grads(
+        params, cfg, batch))
+    (ploss, _, _), pgrads = with_plain_scan(
+        lambda: steps.loss_and_grads(params, cfg, batch))
+    loss, ploss = float(loss), float(ploss)
+    rel = abs(loss - ploss) / abs(ploss)
+    gn, pgn = float(global_norm(grads)), float(global_norm(pgrads))
+    leaf = max(max_rel(g, w) for g, w in zip(tree_leaves(grads),
+                                            tree_leaves(pgrads)))
+    say(phase, f"float32 {TRAIN_ARCH} at full width ({widths(cfg)}), batch "
+        f"{TRAIN_F32_SHAPE[1]} x {TRAIN_F32_SHAPE[0]}, one step's loss and "
+        f"gradients with B2 vs ssd_scan_plain under autograd: loss {loss:.6f}"
+        f" vs {ploss:.6f} (relative gap {rel:.2e}, limit "
+        f"{TRAIN_LOSS_RTOL:g}); global gradient norm {gn:.6e} vs {pgn:.6e} "
+        f"(relative gap {abs(gn - pgn) / pgn:.2e}); worst leaf max|diff g|/"
+        f"max|g| {leaf:.2e} [{smi}]")
+    if not (math.isfinite(loss) and rel <= TRAIN_LOSS_RTOL):
+        raise AssertionError(f"{phase}: float32 loss with B2 {loss} vs plain "
+                             f"{ploss}: {rel:.2e} > {TRAIN_LOSS_RTOL}")
+    del params, grads, pgrads, batch
+    torch.cuda.empty_cache()
+
+
+def clone_tree(tree):
+    """A copy of a checkpoint's tree (dicts and AdamWState) on its
+    device."""
+    return torch.utils._pytree.tree_map(lambda t: t.clone(), tree)
+
+
+def equal_trees(got, want):
+    """Whether two trees of tensors are equal bit for bit, leaf by leaf."""
+    g, gspec = torch.utils._pytree.tree_flatten(got)
+    w, wspec = torch.utils._pytree.tree_flatten(want)
+    return gspec == wspec and all(
+        a.dtype == b.dtype and a.shape == b.shape and torch.equal(
+            a.reshape(-1).view(torch.uint8), b.reshape(-1).view(torch.uint8))
+        for a, b in zip(g, w))
+
+
+def read_losses(ckpt):
+    """{step: loss} from a run's metrics.jsonl (a resumed run's lines come
+    after those of the run it resumes)."""
+    with open(Path(ckpt) / "metrics.jsonl") as f:
+        return {r["step"]: r["loss"] for r in map(json.loads, f)}
+
+
+def step_split(prof):
+    """Device ms of one profiled train step by kind: B2 (kernels named
+    ssd_scan, in the forward and in remat's recompute), the scan's
+    autograd backward (every kernel launched under an SSDScanFnBackward
+    event), matrix products (cuBLAS's kernels elsewhere) and the rest;
+    the total over the card's own events beside them."""
+    from torch.autograd import DeviceType
+
+    split = {"B2": 0.0, "scan backward": 0.0, "matrix products": 0.0,
+             "rest": 0.0}
+
+    def walk(ev, in_bwd):
+        in_bwd = in_bwd or "SSDScanFnBackward" in ev.name
+        for k in ev.kernels:
+            name = k.name.lower()
+            kind = ("B2" if "ssd_scan" in name else "scan backward"
+                    if in_bwd else "matrix products"
+                    if any(m in name for m in MATMUL_MARKS) else "rest")
+            split[kind] += k.duration / 1e3
+        for ch in ev.cpu_children:
+            walk(ch, in_bwd)
+
+    events = prof.events()
+    for ev in events:
+        if ev.device_type == DeviceType.CPU and ev.cpu_parent is None:
+            walk(ev, False)
+    total = sum(e.self_device_time_total for e in events
+                if e.device_type == DeviceType.CUDA) / 1e3
+    return split, total
+
+
+def profile_train_step(dev, cfg, shape):
+    """(wall ms, device split, device total) of one bf16 train step of
+    `cfg` at `shape` under torch.profiler, after one step's warm-up."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.launch import steps
+    from repro_torch.optim import AdamWConfig, adamw_init
+
+    params = api.init(TRAIN_SEED, cfg, shape, device=dev)
+    opt = adamw_init(params)
+    step = steps.make_train_step(cfg, AdamWConfig())
+    batch = make_batch(cfg, shape, device=dev)
+    params, opt, _ = uncounted(lambda: step(params, opt, batch))
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        params, opt, _ = uncounted(lambda: step(params, opt, batch))
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3
+    split, total = step_split(prof)
+    del params, opt, prof
+    torch.cuda.empty_cache()
+    return wall, split, total
+
+
+def phase_train_cli(dev, smi, entry):
+    """(c) The trainer's CLI in-process (`repro_torch.launch.train.main`)
+    for mamba2-130m at full width in the config's bf16, 8 x 4096 tokens a
+    step (TRAIN_CLI), checkpoints in a temporary directory: TRAIN_STEPS
+    steps straight (B2 counted: 2 x 24 launches a step under
+    remat="full"), then TRAIN_STOP steps and a simulated preemption, then
+    a resumed run to TRAIN_STEPS.  Holds every loss finite, the restored
+    params and optimizer state bit-equal to the saved ones, and the
+    resumed run's last loss within RESUME_RTOL of the straight run's.
+    Prints ms a step (CUDA events around each step, median of steps 2-7),
+    tokens/s, peak GiB, and one profiled step's device time split B2 /
+    the scan's autograd backward / matrix products / the rest.  `entry`
+    (B2's kernels-line entry at mamba2-130m's head shape) gets the
+    launches as ``train_launches``."""
+    import tempfile
+
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import steps, train
+
+    phase = "train-mamba2"
+    argv = TRAIN_CLI + ["--steps", str(TRAIN_STEPS)]
+    args = train.parse_args(argv)
+    cfg = configs.get(TRAIN_ARCH)
+    shape = ShapeConfig("train_cli", args.seq_len, args.batch, "train")
+    tokens = args.seq_len * args.batch
+    events, saved = [], {}
+    make_step = steps.make_train_step
+
+    def timed_make_step(*a, **kw):
+        return timed_fn(make_step(*a, **kw), "train", events)
+
+    save = CheckpointManager.save
+
+    def recording_save(mgr, step, tree, *a, **kw):
+        if step == TRAIN_STOP:
+            saved[step] = clone_tree(tree)
+        return save(mgr, step, tree, *a, **kw)
+
+    with tempfile.TemporaryDirectory() as tmp:
+        straight, resumed = str(Path(tmp) / "a"), str(Path(tmp) / "b")
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        ssd.launches = 0
+        t0 = time.perf_counter()
+        with patched(steps, "make_train_step", timed_make_step):
+            rc = train.main(argv + ["--ckpt-dir", straight])
+        wall = time.perf_counter() - t0
+        launches = ssd.launches
+        peak = torch.cuda.max_memory_allocated() / 2 ** 30
+        torch.cuda.synchronize()
+        ms = [s.elapsed_time(e) for _, s, e in events]
+        if rc != 0 or len(ms) != TRAIN_STEPS:
+            raise AssertionError(f"{phase}: straight run exit {rc}, "
+                                 f"{len(ms)} steps timed")
+        per_step = launches / TRAIN_STEPS
+        want = 2 * cfg.num_layers if cfg.remat == "full" else cfg.num_layers
+        if launches != want * TRAIN_STEPS:
+            raise AssertionError(f"{phase}: {launches} B2 launches in "
+                                 f"{TRAIN_STEPS} steps, expected {want} a "
+                                 f"step (remat {cfg.remat!r})")
+        entry["train_launches"] = launches
+        with patched(CheckpointManager, "save", recording_save):
+            rc_stop = uncounted(lambda: train.main(
+                argv + ["--ckpt-dir", resumed, "--stop-after",
+                        str(TRAIN_STOP)]))
+        mgr = CheckpointManager(resumed)
+        step, restored = mgr.restore(saved[TRAIN_STOP])
+        same = step == TRAIN_STOP and equal_trees(restored,
+                                                  saved[TRAIN_STOP])
+        del restored, saved[TRAIN_STOP]
+        rc_res = uncounted(lambda: train.main(argv + ["--ckpt-dir",
+                                                      resumed]))
+        a, b = read_losses(straight), read_losses(resumed)
+    last = TRAIN_STEPS - 1
+    gap = abs(b[last] - a[last]) / abs(a[last])
+    finite = all(math.isfinite(v) for v in (*a.values(), *b.values()))
+    med = statistics.median(ms[TRAIN_TIMED])
+    say(phase, f"CLI {' '.join(argv)} ({widths(cfg)}, bf16, "
+        f"{cfg.param_count() / 1e6:.1f} M parameters, remat {cfg.remat}): "
+        f"{med:.2f} ms a step (CUDA events, median of steps 2-7; all "
+        + ", ".join(f"{t:.1f}" for t in ms) + f"), {tokens / med * 1e3:.0f} "
+        f"tokens/s, peak {peak:.2f} GiB, B2 launches a step {per_step:g} "
+        f"({cfg.num_layers} forward + {cfg.num_layers} in remat's recompute"
+        f"), wall {wall:.1f} s for {TRAIN_STEPS} steps with checkpoints "
+        f"[{smi}]")
+    say(phase, f"losses straight " + ", ".join(f"{a[k]:.4f}" for k in
+                                                sorted(a))
+        + f"; stopped after {TRAIN_STOP} (exit {rc_stop}) and resumed (exit "
+        f"{rc_res}): " + ", ".join(f"{b[k]:.4f}" for k in sorted(b))
+        + f"; step {last} relative gap {gap:.2e} (limit {RESUME_RTOL:g}); "
+        f"restored params and optimizer state bit-equal to the saved: "
+        f"{same}")
+    if not (finite and same and rc_stop == 0 and rc_res == 0
+            and sorted(b) == list(range(TRAIN_STEPS)) and gap <= RESUME_RTOL):
+        raise AssertionError(f"{phase}: resume check failed (finite "
+                             f"{finite}, restored equal {same}, exits "
+                             f"{rc_stop}/{rc_res}, steps {sorted(b)}, gap "
+                             f"{gap:.2e})")
+    wall_p, split, total = profile_train_step(dev, cfg, shape)
+    attributed = sum(split.values())
+    say(phase, f"one step under torch.profiler: wall {wall_p:.1f} ms, "
+        f"device {total:.1f} ms (idle share "
+        f"{max(wall_p - total, 0.0) / wall_p:.3f}); by the kernels' CPU "
+        f"parents ({attributed:.1f} ms): " + ", ".join(
+            f"{k} {v:.1f} ms ({v / max(attributed, 1e-9):.1%})"
+            for k, v in split.items()) + f" [{smi}]")
+    return {"ms_a_step": med, "tokens_s": tokens / med * 1e3,
+            "peak_gib": peak, "b2_a_step": per_step}
+
+
+def phase_train(dev, smi, entry):
+    """train-mamba2: (a) B2's forward and the backward formula under a
+    gradient, (b) the float32 model step, (c) the CLI at the config's
+    dtypes (`phase_train_*`)."""
+    phase_train_grads(dev, smi, entry)
+    phase_train_f32(dev, smi)
+    return phase_train_cli(dev, smi, entry)
+
+
 def run_path(name, smi, dev):
     """One main path; returns (its kernel entry, its TB run's ms, for
     acoustic the sharded path's and the bf16 tile's kernel entries, and
@@ -3075,6 +3518,7 @@ def main():
     timed("serve-qwen3", phase_serve, "serve-qwen3", dev, smi, None)
     for phase in ("serve-qwen3moe", "serve-whisper", "serve-llava"):
         timed(phase, phase_serve, phase, dev, smi, None)
+    timed("train-mamba2", phase_train, dev, smi, b2)
     entries, tb_ms, extra, paper = [], {}, [], []
     for name in ("acoustic", "tti", "elastic"):
         entry, tb_ms[name], more, record = run_path(name, smi, dev)

@@ -4,10 +4,10 @@ A copy, so the port imports nothing of the JAX package: `ModelConfig`
 with every family's fields (attention, MoE, SSM (Mamba2 / SSD), hybrid,
 enc-dec, vlm), `param_count` and `active_param_count`; `ShapeConfig` and
 the benchmark shapes; `MeshConfig` and the reference's two meshes.  Every
-field has the reference's name and default.  `remat` is a training field
-and comes with training (ROADMAP A11); the reference's TPU figures
-(`PEAK_FLOPS_BF16`, `HBM_BW`, `ICI_BW`) are not copied.  Configs are
-frozen and hashable, as in the reference.
+field has the reference's name and default; `remat` is the training
+forward's activation-checkpointing policy (`models.layers.maybe_remat`).
+The reference's TPU figures (`PEAK_FLOPS_BF16`, `HBM_BW`, `ICI_BW`) are
+not copied.  Configs are frozen and hashable, as in the reference.
 """
 from __future__ import annotations
 
@@ -61,6 +61,10 @@ class ModelConfig:
     # --- numerics ---
     param_dtype: str = "bfloat16"
     activation_dtype: str = "bfloat16"
+
+    # --- activation checkpointing policy for the layer loop (train only):
+    # "none" | "full" (save nothing) | "dots" (save matmul outputs)
+    remat: str = "full"
 
     def hd(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

@@ -1,0 +1,2 @@
+"""The synthetic data pipeline (port of `repro.data`)."""
+from repro_torch.data.pipeline import SyntheticLM, make_batch  # noqa: F401

@@ -30,6 +30,20 @@ M x, so with bf16 inputs they differ from it by that rounding.  The
 float32-core schedule equals `ssd_scan_plain` bit for bit; the tensor-core
 one sums in another order (and its float32 operands in three bf16
 pieces), so it is close to it, not equal.
+
+Gradients (training): under grad mode, with an input that requires grad,
+`ssd_scan` goes through `SSDScanFn`.  Its forward is the same call (B2 on
+the card, the plain version on the CPU); its backward is the vector-
+Jacobian product of the port's copy of the reference's `_ssd_chunked`
+(`models.mamba2._ssd_chunked`, M in float32), taken by
+`torch.autograd` in float32.  That is how the reference gets the scan's
+gradient too: its models differentiate the jnp `_ssd_chunked` with XLA's
+autodiff, outside any Pallas kernel, and the JAX package has no backward
+kernel.  So no kernel of this module computes a gradient, and none is
+left out: B2 runs the forward, and again where activation checkpointing
+(`layers.maybe_remat`) recomputes a layer in the backward.  A CUDA launch
+reached under grad mode with an input that requires grad, but outside
+`SSDScanFn`, raises rather than cut the graph.
 """
 from __future__ import annotations
 
@@ -76,6 +90,15 @@ def _cumsum(l):
     return out
 
 
+def causal_exp(L, causal):
+    """exp(L) where `causal` holds, 0 elsewhere, taking exp of the causal
+    entries only: above the diagonal a log-decay difference may overflow,
+    and autograd through exp-then-mask would take 0 * inf there (ROADMAP
+    C8).  The values are those of the masked exp.  Shared by
+    `ssd_scan_plain` and `models.mamba2._ssd_chunked`."""
+    return torch.where(causal, torch.exp(torch.where(causal, L, 0.0)), 0.0)
+
+
 def ssd_scan_plain(spec: SSDSpec, x, dtv, Bm, Cm, A,
                    h0: Optional[torch.Tensor] = None):
     """The TPU kernel's per-(batch, head) program, step by step over the
@@ -105,8 +128,7 @@ def ssd_scan_plain(spec: SSDSpec, x, dtv, Bm, Cm, A,
             Ch[:, :, sl]
         Lc = _cumsum(dtq * a)                              # (B, H, Q)
         LQ = Lc[..., -1:]
-        D = torch.where(causal, torch.exp(Lc[..., :, None]
-                                          - Lc[..., None, :]), 0.0)
+        D = causal_exp(Lc[..., :, None] - Lc[..., None, :], causal)
         M = (Cq @ Bq.transpose(-1, -2)) * D * dtq[..., None, :]
         yq = M @ xq + torch.exp(Lc)[..., None] * (Cq @ h)
         y[:, :, sl] = yq.to(spec.dtype)
@@ -220,7 +242,17 @@ def _check(name, t, shape, dtypes, dev):
         raise ValueError(f"{name} must be contiguous")
 
 
+def _needs_grad(*tensors) -> bool:
+    """Whether autograd would record a call on these tensors."""
+    return torch.is_grad_enabled() and any(
+        t is not None and t.requires_grad for t in tensors)
+
+
 def _ssd_scan_cuda(spec: SSDSpec, x, dtv, Bm, Cm, A, h0):
+    if _needs_grad(x, dtv, Bm, Cm, A, h0):
+        raise RuntimeError("ssd_scan's CUDA launch has no gradient of its "
+                           "own: an input requires grad, so the call must "
+                           "go through SSDScanFn (`ssd_scan` does that)")
     dev = x.device
     f32 = torch.float32
     if x.dim() != 4 or Bm.dim() != 4:
@@ -272,6 +304,51 @@ def _ssd_scan_cuda(spec: SSDSpec, x, dtv, Bm, Cm, A, h0):
     return y, h_final
 
 
+def _scan(spec: SSDSpec, x, dtv, Bm, Cm, A, h0):
+    """The forward call, by device: the plain version or kernel B2."""
+    dev = x.device
+    if dev.type == "cpu":
+        return ssd_scan_plain(spec, x, dtv, Bm, Cm, A, h0)
+    if dev.type == "cuda":
+        return _ssd_scan_cuda(spec, x, dtv, Bm, Cm, A, h0)
+    raise ValueError(f"no SSD scan for device {dev}")
+
+
+class SSDScanFn(torch.autograd.Function):
+    """The scan with a gradient: forward = `_scan` (kernel B2 on CUDA
+    tensors, on the schedule `schedule_of` picks; `ssd_scan_plain` on CPU
+    tensors), with the inputs saved.  Backward = the vector-Jacobian
+    product of `models.mamba2._ssd_chunked` at the saved inputs, cast to
+    float32 (M in float32: the function B2 computes), by
+    `torch.autograd.grad` of its plain array operations, as the reference
+    differentiates its jnp `_ssd_chunked` with XLA's autodiff (the JAX
+    package has no backward kernel).  Takes cotangents of y and h_final;
+    returns the gradients of x, dt, B, C, A and h0 (None when h0 is None)
+    in the inputs' dtypes."""
+
+    @staticmethod
+    def forward(ctx, spec, x, dtv, Bm, Cm, A, h0):
+        ctx.spec = spec
+        ctx.save_for_backward(x, dtv, Bm, Cm, A, h0)
+        return _scan(spec, x, dtv, Bm, Cm, A, h0)
+
+    @staticmethod
+    def backward(ctx, gy, gh):
+        from repro_torch.models.mamba2 import _ssd_chunked
+        f32 = torch.float32
+        saved = ctx.saved_tensors
+        ins = [None if t is None else t.detach().to(f32).requires_grad_()
+               for t in saved]
+        with torch.enable_grad():
+            y, h = _ssd_chunked(*ins[:5], ctx.spec.chunk, h0=ins[5])
+            leaves = [t for t in ins if t is not None]
+            grads = iter(torch.autograd.grad((y, h), leaves,
+                                             (gy.to(f32), gh.to(f32))))
+        out = [None if t is None else next(grads).to(t.dtype)
+               for t in saved]
+        return (None, *out)
+
+
 def ssd_scan(spec: SSDSpec, x, dtv, Bm, Cm, A,
              h0: Optional[torch.Tensor] = None):
     """Chunked SSD scan.
@@ -284,14 +361,13 @@ def ssd_scan(spec: SSDSpec, x, dtv, Bm, Cm, A,
     CPU tensors run `ssd_scan_plain`; CUDA tensors launch kernel B2 once,
     on the schedule `schedule_of` picks (contiguous operands of those
     dtypes), or raise.  The launch goes on the
-    current stream and does not synchronise.
+    current stream and does not synchronise.  Under grad mode with an
+    input that requires grad the call goes through `SSDScanFn` (the same
+    forward; the backward autodiff of `_ssd_chunked`), on either device.
     """
-    dev = x.device
-    if dev.type == "cpu":
-        return ssd_scan_plain(spec, x, dtv, Bm, Cm, A, h0)
-    if dev.type == "cuda":
-        return _ssd_scan_cuda(spec, x, dtv, Bm, Cm, A, h0)
-    raise ValueError(f"no SSD scan for device {dev}")
+    if _needs_grad(x, dtv, Bm, Cm, A, h0):
+        return SSDScanFn.apply(spec, x, dtv, Bm, Cm, A, h0)
+    return _scan(spec, x, dtv, Bm, Cm, A, h0)
 
 
 def kernel_cost(spec: SSDSpec, batch: int, in_dtype=None) -> dict:

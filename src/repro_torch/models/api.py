@@ -4,24 +4,30 @@ families.
     init(seed, cfg, shape=None, device=)           -> params
     forward(params, cfg, batch)                    -> (logits, aux_loss)
     forward_features(params, cfg, batch)           -> (features, aux_loss)
+    loss_targets(cfg, batch)                       -> (labels, loss_mask)
+    cross_entropy(logits, labels, mask)            -> mean next-token CE
+    chunked_cross_entropy(params, cfg, feats, labels, mask) -> the same,
+                                                      a chunk at a time
     prefill(params, cfg, batch, max_len)           -> (logits, cache)
     decode_step(params, cfg, tokens, cache)        -> (logits, cache)
     make_cache(cfg, batch_size, max_len, enc_len)  -> cache
 
-Batches are dicts in the reference's layouts:
-  dense/moe/ssm/hybrid: tokens (B, S)
-  vlm:    tokens (B, S - n_img), image_embeds (B, n_img, D)
-  encdec: frame_embeds (B, S, D), tokens (B, S/4)
-`loss_targets` and the cross-entropies come with training (ROADMAP A11).
+Batches are dicts in the reference's layouts (training batches carry
+``labels`` too, `data.pipeline.make_batch`):
+  dense/moe/ssm/hybrid: tokens (B, S), labels (B, S)
+  vlm:    tokens (B, S - n_img), image_embeds (B, n_img, D), labels (B, S)
+  encdec: frame_embeds (B, S, D), tokens (B, S/4), labels (B, S/4)
 """
 from __future__ import annotations
 
 from typing import Optional
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.models import layers as L
 from repro_torch.models import llava, mamba2, transformer, whisper, zamba2
 
 _MODULES = {"dense": transformer, "moe": transformer, "ssm": mamba2,
@@ -67,6 +73,63 @@ def forward_features(params, cfg: ModelConfig, batch: dict):
     and the aux loss."""
     return _module(cfg).forward(params, cfg, *_inputs(cfg, batch),
                                 features_only=True)
+
+
+def loss_targets(cfg: ModelConfig, batch: dict):
+    """(labels, loss mask float32): the vlm family's mask keeps only the
+    text positions (`llava.text_loss_mask`), every other family's is all
+    ones."""
+    labels = batch["labels"]
+    if cfg.family == "vlm":
+        mask = llava.text_loss_mask(cfg, labels.shape[0], labels.shape[1],
+                                    device=labels.device)
+    else:
+        mask = torch.ones(labels.shape, dtype=torch.float32,
+                          device=labels.device)
+    return labels, mask
+
+
+def cross_entropy(logits, labels, mask):
+    """Next-token CE over (B, S, V) float32 logits, averaged over the
+    mask; labels are already aligned (labels[t] is position t's target)."""
+    logp = torch.log_softmax(logits, dim=-1)
+    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
+
+
+def _loss_chunk(cfg: ModelConfig, seq_len: int, max_chunk: int = 512) -> int:
+    """The largest chunk of at most `max_chunk` positions dividing
+    seq_len."""
+    c = min(seq_len, max_chunk)
+    while seq_len % c:
+        c -= 1
+    return c
+
+
+def chunked_cross_entropy(params, cfg: ModelConfig, feats, labels, mask,
+                          max_chunk: int = 512):
+    """`cross_entropy` of the unembedded features, a sequence chunk at a
+    time (`_loss_chunk`), so the (B, S, V) float32 logits are never whole
+    in memory.  Each chunk's body runs under `torch.utils.checkpoint`, as
+    the reference's under `jax.checkpoint`: the backward recomputes its
+    logits and holds one chunk of them too."""
+    B, S, D = feats.shape
+    c = _loss_chunk(cfg, S, max_chunk)
+
+    def body(f, lab, m):
+        logits = L.unembed(params["embed"], cfg, f)
+        logp = torch.log_softmax(logits, dim=-1)
+        ll = torch.gather(logp, -1, lab.long()[..., None])[..., 0]
+        return torch.sum(ll * m)
+
+    total = torch.zeros((), dtype=torch.float32, device=feats.device)
+    for i in range(0, S, c):
+        sl = slice(i, i + c)
+        args = (feats[:, sl], labels[:, sl], mask[:, sl])
+        part = (checkpoint(body, *args, use_reentrant=False)
+                if torch.is_grad_enabled() else body(*args))
+        total = total - part
+    return total / torch.clamp(torch.sum(mask), min=1.0)
 
 
 def prefill(params, cfg: ModelConfig, batch: dict, max_len: int,

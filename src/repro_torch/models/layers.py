@@ -1,5 +1,6 @@
 """Building blocks the ported models share (port of `repro.models.layers`):
-dtypes, the dense initialiser, RMSNorm and LayerNorm, RoPE, attention
+activation checkpointing (`maybe_remat`), dtypes, the dense initialiser,
+RMSNorm and LayerNorm, RoPE, attention
 (GQA, optional qk-norm and qkv bias; full, one token against a KV cache,
 or cross-attention to an encoder's k and v), the SwiGLU and GELU MLPs, and
 the token embedding with its (tied) unembedding.
@@ -22,8 +23,50 @@ from typing import Optional
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    """Selective checkpointing's policy for ``remat="dots"``: keep the
+    outputs of matrix products, recompute the rest (the counterpart of
+    JAX's `dots_with_no_batch_dims_saveable`)."""
+    aten = torch.ops.aten
+    if op in (aten.mm.default, aten.bmm.default, aten.addmm.default,
+              aten.matmul.default):
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def maybe_remat(fn, cfg: ModelConfig):
+    """`fn` (a layer loop's body) under the configured activation-
+    checkpointing policy, as the reference's `maybe_remat`: ``"none"``
+    returns it as it is; ``"full"`` keeps none of its activations for the
+    backward and runs it again there
+    (`torch.utils.checkpoint.checkpoint`, non-reentrant); ``"dots"`` keeps
+    the matrix products' outputs and recomputes the rest.  Outside grad
+    mode, or where no argument of the body (its parameter dict included)
+    requires grad (serving, eval), the body just runs.  Recomputing
+    changes no number: the backward sees the same values."""
+    if cfg.remat not in ("none", "full", "dots"):
+        raise ValueError(f"remat {cfg.remat!r}: expected none, full or dots")
+    if cfg.remat == "none":
+        return fn
+    kw = {"use_reentrant": False}
+    if cfg.remat == "dots":
+        kw["context_fn"] = lambda: create_selective_checkpoint_contexts(
+            _dots_policy)
+
+    def remat(*args):
+        if not (torch.is_grad_enabled() and any(
+                isinstance(t, torch.Tensor) and t.requires_grad
+                for t in torch.utils._pytree.tree_leaves(args))):
+            return fn(*args)
+        return checkpoint(fn, *args, **kw)
+
+    return remat
 
 
 def dtype_of(cfg: ModelConfig) -> torch.dtype:
@@ -217,9 +260,11 @@ def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_len=None):
     Skv, Hkv = k.shape[1], k.shape[2]
     rep = H // Hkv
     qr = q.reshape(B, Sq, Hkv, rep, hd)
-    # the product in q's dtype, then float32 (a fresh tensor in either
-    # dtype: the in-place steps below touch nothing of the caller's)
-    scores = torch.einsum("bqhrd,bkhd->bhrqk", qr, k).float()
+    # the product in q's dtype, then float32: a copy in either dtype, so
+    # the in-place steps below touch neither the caller's tensors nor the
+    # product itself (which `maybe_remat`'s "dots" policy keeps)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qr, k).to(torch.float32,
+                                                          copy=True)
     scores.div_(float(np.float32(np.sqrt(hd))))
     cols = torch.arange(Skv, device=q.device)
     if causal:

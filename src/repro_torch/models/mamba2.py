@@ -4,12 +4,15 @@ The SSD chunked algorithm is temporal blocking of a linear recurrence: a
 chunk of Q timesteps is advanced while resident in fast memory, and only
 the per-chunk state crosses chunk boundaries.  `block_forward` (prefill
 and forward) runs the scan through `kernels.ssd_scan.ssd_scan`: kernel B2
-on a card, its plain version on CPU tensors.  The reference's model path
-calls its jnp `_ssd_chunked` there.  With no initial state (prefill and
+on a card, its plain version on CPU tensors; under a gradient through
+`ssd_scan.SSDScanFn`, whose backward differentiates this module's copy
+of the reference's jnp `_ssd_chunked`.  The reference's model path calls
+its `_ssd_chunked` there.  With no initial state (prefill and
 forward never pass one) and float32 activations, that is the function the
 kernel computes.  With bf16 activations (the config's own) they differ:
-`_ssd_chunked` rounds the score matrix M to bf16 before M x, while B2 and
-its plain version keep M in float32.  The bf16 models then differ by that
+the reference's `_ssd_chunked` rounds the score matrix M to bf16 before
+M x, while B2, its plain version and this module's copy keep M in
+float32.  The bf16 models then differ by that
 rounding and by the frameworks' own bf16 rounding orders
 (`tests/test_torch_mamba2.py::test_bf16_model_tracks_reference` records
 the gap).
@@ -20,7 +23,9 @@ Recurrence (per head h, state N x P):
 
 Parameters are a dict as in the reference: ``embed/embedding``,
 ``blocks/*`` stacked over layers (leading axis L) and ``final_norm``; the
-reference's `layer_scan` is a Python loop over the layers.
+reference's `layer_scan` is a Python loop over the layers, its body
+under `layers.maybe_remat` in `forward` (the training forward), as in
+the reference.
 """
 from __future__ import annotations
 
@@ -135,6 +140,74 @@ def _split_proj(p, x):
             torch.matmul(x, p["in_bc"]), torch.matmul(x, p["in_dt"]))
 
 
+def _ssd_chunked(xh, dtv, Bm, Cm, A, chunk: int,
+                 h0: Optional[torch.Tensor] = None):
+    """The reference's jnp chunked SSD scan (`repro.models.mamba2.
+    _ssd_chunked`), op for op in plain PyTorch: the intra-chunk term from
+    the (B, nc, H, Q, Q) score matrix M, the chunk states, a loop over the
+    chunks for the states carried between them, the inter-chunk term.
+
+    xh: (B, S, H, P); dtv: (B, S, H) (post-softplus); Bm/Cm: (B, S, G, N);
+    A: (H,) negative; h0: None (zeros) or (B, H, N, P).  S must be a
+    multiple of `chunk`.  Returns (y (B, S, H, P) float32, h_final
+    (B, H, N, P) float32).  Two departures from the reference: M x is
+    taken in float32 (the reference rounds M and x to x's dtype first),
+    so that this is the function kernel B2 computes; and the decay
+    exp(Lc_i - Lc_j) is taken of the causal entries only
+    (`ssd_scan.causal_exp`), so its gradient stays finite where a chunk's
+    log-decay spans more than float32's exp range (the reference's is NaN
+    there, ROADMAP C8; the values are the same).  The model's scan is
+    `ssd_scan` (kernel B2); `ssd_scan.SSDScanFn` differentiates this
+    function, on float32 inputs, for its gradient."""
+    f32 = torch.float32
+    Bsz, S, H, P = xh.shape
+    G, N = Bm.shape[2], Bm.shape[3]
+    rep = H // G
+    Q = chunk
+    nc = S // Q
+
+    xr = xh.reshape(Bsz, nc, Q, H, P)
+    dtr = dtv.reshape(Bsz, nc, Q, H)
+    Br = Bm.reshape(Bsz, nc, Q, G, N)
+    Cr = Cm.reshape(Bsz, nc, Q, G, N)
+
+    l = dtr * A                                           # (B, nc, Q, H)
+    Lc = torch.cumsum(l, dim=2)                           # inclusive
+    LQ = Lc[:, :, -1]                                     # (B, nc, H)
+
+    # intra-chunk "attention" term
+    CB = torch.einsum("bcqgn,bckgn->bcgqk", Cr.to(f32), Br.to(f32))
+    Ldiff = Lc[:, :, :, None, :] - Lc[:, :, None, :, :]   # (B, nc, Q, K, H)
+    mask = torch.ones((Q, Q), dtype=torch.bool,
+                      device=xh.device).tril()[None, None, :, :, None]
+    decay = ssd.causal_exp(Ldiff, mask)
+    CBh = CB.repeat_interleave(rep, dim=2) if rep > 1 else CB
+    dtk = dtr.permute(0, 1, 3, 2)[:, :, :, None, :]       # dt_j on k axis
+    M = CBh * decay.permute(0, 1, 4, 2, 3) * dtk          # (B, nc, H, Q, Q)
+    y_intra = torch.einsum("bchqk,bckhp->bcqhp", M, xr.to(f32))
+
+    # chunk states: S_c = sum_j exp(LQ - L_j) dt_j B_j x_j^T
+    sdecay = torch.exp(LQ[:, :, None, :] - Lc) * dtr      # (B, nc, Q, H)
+    Brep = Br.repeat_interleave(rep, dim=3) if rep > 1 else Br
+    S_c = torch.einsum("bcqhn,bcqhp->bchnp",
+                       sdecay[..., None] * Brep.to(f32), xr.to(f32))
+
+    # inter-chunk scan: the state before each chunk
+    h = (torch.zeros((Bsz, H, N, P), dtype=f32, device=xh.device)
+         if h0 is None else h0.to(f32))
+    starts = []
+    for c in range(nc):
+        starts.append(h)
+        h = torch.exp(LQ[:, c])[:, :, None, None] * h + S_c[:, c]
+    h_starts = torch.stack(starts, dim=1)                 # (B, nc, H, N, P)
+
+    # inter-chunk contribution: C_i exp(L_i) h_start
+    Crep = Cr.repeat_interleave(rep, dim=3) if rep > 1 else Cr
+    y_inter = torch.einsum("bcqhn,bchnp->bcqhp",
+                           Crep.to(f32) * torch.exp(Lc)[..., None], h_starts)
+    return (y_intra + y_inter).reshape(Bsz, S, H, P), h
+
+
 def block_forward(p, cfg: ModelConfig, x,
                   conv_state: Optional[torch.Tensor] = None,
                   ssm_state: Optional[torch.Tensor] = None):
@@ -160,7 +233,11 @@ def block_forward(p, cfg: ModelConfig, x,
     new_conv = torch.cat([new_conv_x, new_conv_bc], dim=-1)
 
     dtv = _softplus(dt_raw.float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    # in float32 for the scan; A_log is float32 at init, and in the
+    # param dtype once an optimizer step has cast every param to it (the
+    # reference's exp then rounds to that dtype too, before the products
+    # promote it)
+    A = (-torch.exp(p["A_log"])).float()
     xh = xi.reshape(Bsz, S, H, P)
 
     # pad S to a chunk multiple (padded tokens have dt=0 -> identity decay,
@@ -250,8 +327,9 @@ def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
     """Logits (B, S, vocab) float32 (or the final-norm features) and the
     aux loss 0.0."""
     x = L.embed(params["embed"], cfg, tokens)
+    body = L.maybe_remat(lambda c, bp: block_forward(bp, cfg, c)[0], cfg)
     for i in range(cfg.num_layers):
-        x, _ = block_forward(L.index(params["blocks"], i), cfg, x)
+        x = body(x, L.index(params["blocks"], i))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:
         return x, 0.0

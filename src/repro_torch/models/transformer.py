@@ -129,9 +129,15 @@ def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     `features_only`."""
     x = _embed(params, cfg, tokens, inputs_embeds)
     positions = L.positions(*x.shape[:2], x.device)
+
+    def body(c, bp):
+        out, _, a = _block(cfg, bp, c, positions)
+        return out, a
+
+    body = L.maybe_remat(body, cfg)
     aux = 0.0
     for i in range(cfg.num_layers):
-        x, _, a = _block(cfg, L.index(params["blocks"], i), x, positions)
+        x, a = body(x, L.index(params["blocks"], i))
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:

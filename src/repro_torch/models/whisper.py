@@ -105,14 +105,18 @@ def encode(params, cfg: ModelConfig, frame_embeds):
     the encoder's output (B, S_enc, D)."""
     S = frame_embeds.shape[1]
     x = frame_embeds.to(L.act_dtype_of(cfg)) + params["enc_pos"][:S]
-    for i in range(cfg.num_layers):
-        bp = L.index(params["enc_blocks"], i)
-        h = _ln(x, bp["attn_norm"], cfg.norm_eps)
+
+    def body(c, bp):
+        h = _ln(c, bp["attn_norm"], cfg.norm_eps)
         attn_out, _ = L.attention_block(bp["attn"], cfg, h, None,
                                         causal=False)
-        x = x + attn_out
-        h = _ln(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + L.mlp_gelu_block(bp["mlp"], h)
+        c = c + attn_out
+        h = _ln(c, bp["mlp_norm"], cfg.norm_eps)
+        return c + L.mlp_gelu_block(bp["mlp"], h)
+
+    body = L.maybe_remat(body, cfg)
+    for i in range(cfg.num_layers):
+        x = body(x, L.index(params["enc_blocks"], i))
     return _ln(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -140,10 +144,14 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out,
     final features when `features_only`."""
     x = _dec_embed(params, cfg, tokens)
     positions = L.positions(*tokens.shape, tokens.device)
-    for i in range(cfg.num_decoder_layers):
-        bp = L.index(params["dec_blocks"], i)
+
+    def body(c, bp):
         enc_kv = L.encoder_kv(bp["cross_attn"], cfg, enc_out)
-        x, _ = _dec_block(cfg, bp, x, positions, enc_kv)
+        return _dec_block(cfg, bp, c, positions, enc_kv)[0]
+
+    body = L.maybe_remat(body, cfg)
+    for i in range(cfg.num_decoder_layers):
+        x = body(x, L.index(params["dec_blocks"], i))
     x = _ln(x, params["dec_final_norm"], cfg.norm_eps)
     if features_only:
         return x

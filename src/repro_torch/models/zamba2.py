@@ -109,11 +109,15 @@ def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
     aux loss 0.0."""
     x = L.embed(params["embed"], cfg, tokens)
     positions = L.positions(*tokens.shape, tokens.device)
-    for s in range(n_superblocks(cfg)):
+
+    def super_body(c, sb):
         for j in range(cfg.shared_attn_every):
-            x, _ = mamba2.block_forward(
-                L.index(params["mamba_blocks"], s, j), cfg, x)
-        x, _ = _shared_apply(params["shared"], cfg, x, positions)
+            c, _ = mamba2.block_forward(L.index(sb, j), cfg, c)
+        return _shared_apply(params["shared"], cfg, c, positions)[0]
+
+    super_body = L.maybe_remat(super_body, cfg)
+    for s in range(n_superblocks(cfg)):
+        x = super_body(x, L.index(params["mamba_blocks"], s))
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:
         return x, 0.0

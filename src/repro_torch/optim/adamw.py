@@ -1,0 +1,123 @@
+"""AdamW with float32 master weights, global-norm clipping and a cosine
+schedule (port of `repro.optim.adamw`).
+
+The reference's formulas to the letter, on plain dicts of tensors: the
+state holds float32 master params and moments with the params' tree;
+the gradients are clipped by their global norm; the decay is decoupled
+and inside the update, ``p - lr * (mh / (sqrt(vh) + eps) + wd * p)``; the
+new params are the master cast to `param_dtype`.  Not `torch.optim.AdamW`,
+whose formula differs (it decays the params before the Adam step, by
+``lr * wd``), and not a module holding state: `adamw_update` takes the
+state and returns a new one, as the reference's does.  Scalars (the step,
+the learning rate, the norm) stay tensors on the params' device, so a
+step does not wait for the card.
+"""
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import NamedTuple
+
+import torch
+
+
+@dataclasses.dataclass(frozen=True)
+class AdamWConfig:
+    lr: float = 3e-4
+    b1: float = 0.9
+    b2: float = 0.95
+    eps: float = 1e-8
+    weight_decay: float = 0.1
+    clip_norm: float = 1.0
+    warmup_steps: int = 100
+    total_steps: int = 10000
+    min_lr_ratio: float = 0.1
+
+
+class AdamWState(NamedTuple):
+    step: torch.Tensor    # () int32
+    master: dict          # float32 copy of params
+    mu: dict              # float32 first moment
+    nu: dict              # float32 second moment
+
+
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of nested dicts of one structure."""
+    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
+            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
+
+
+def tree_leaves(tree) -> list:
+    """The leaves of a nested dict, keys sorted at every level (the order
+    `jax.tree_util` flattens a dict in)."""
+    out = []
+    for k in sorted(tree):
+        v = tree[k]
+        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
+    return out
+
+
+def adamw_init(params: dict) -> AdamWState:
+    f32 = torch.float32
+    dev = tree_leaves(params)[0].device
+    return AdamWState(
+        step=torch.zeros((), dtype=torch.int32, device=dev),
+        master=tree_map(lambda x: x.detach().to(f32, copy=True), params),
+        mu=tree_map(lambda x: torch.zeros(x.shape, dtype=f32,
+                                          device=x.device), params),
+        nu=tree_map(lambda x: torch.zeros(x.shape, dtype=f32,
+                                          device=x.device), params))
+
+
+def global_norm(tree) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32."""
+    total = 0
+    for x in tree_leaves(tree):
+        total = total + torch.sum(torch.square(x.float()))
+    return torch.sqrt(total)
+
+
+def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
+    """Linear warm-up to `cfg.lr`, then a cosine down to
+    `min_lr_ratio * lr` at `total_steps`; float32, at a step tensor."""
+    step = step.to(torch.float32)
+    warm = torch.clamp(step / max(cfg.warmup_steps, 1), max=1.0)
+    prog = torch.clamp((step - cfg.warmup_steps)
+                       / max(cfg.total_steps - cfg.warmup_steps, 1),
+                       0.0, 1.0)
+    cos = 0.5 * (1.0 + torch.cos(math.pi * prog))
+    scale = cfg.min_lr_ratio + (1.0 - cfg.min_lr_ratio) * cos
+    return cfg.lr * warm * scale
+
+
+def adamw_update(grads: dict, state: AdamWState, cfg: AdamWConfig,
+                 param_dtype=torch.bfloat16):
+    """One optimizer step.  Returns (new params in `param_dtype`, new
+    state, metrics {grad_norm, lr, clip_scale}).  `state` is left as it
+    was."""
+    step = state.step + 1
+    lr = cosine_schedule(cfg, step)
+
+    g32 = tree_map(lambda g: g.float(), grads)
+    gnorm = global_norm(g32)
+    scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
+    g32 = tree_map(lambda g: g * scale, g32)
+
+    b1, b2 = cfg.b1, cfg.b2
+    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, g32)
+    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, g32)
+    t = step.to(torch.float32)
+    bc1 = 1.0 - torch.pow(b1, t)
+    bc2 = 1.0 - torch.pow(b2, t)
+
+    def upd(p, m, v):
+        mh = m / bc1
+        vh = v / bc2
+        return p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                         + cfg.weight_decay * p)
+
+    master = tree_map(upd, state.master, mu, nu)
+    new_params = tree_map(lambda x: x.to(param_dtype), master)
+    new_state = AdamWState(step=step, master=master, mu=mu, nu=nu)
+    metrics = {"grad_norm": gnorm, "lr": lr, "clip_scale": scale}
+    return new_params, new_state, metrics

@@ -21,7 +21,8 @@ bf16 acoustic tile: the reference's bf16 bound (0.1 max|f32| + 1e-2).  The
 SSD scan: rtol 1e-4 and atol 1e-5 x max(1, max|plain|)
 (tests/test_kernel_ssd.py; the atol scaled as in tests/test_torch_ssd.py),
 and max|diff| / max|plain| <= 1e-5; a bf16 y within one bf16 rounding
-(2^-8 relative) of the plain float32 y.
+(2^-8 relative) of the plain float32 y.  The scan under a gradient
+(`SSDScanFn`): float32 gradients within 1e-4 of each max|plain gradient|.
 """
 import dataclasses
 
@@ -1028,6 +1029,109 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take():
                      z((1, 256, 1), device=dev),
                      z((1, 256, 1, 128), device=dev),
                      z((1, 256, 1, 128), device=dev), z((1,), device=dev))
+
+
+# the scan under a gradient (`ssd_scan.SSDScanFn`), as chip_smoke.py's
+# train-mamba2 phase checks it: mamba2-130m's and zamba2-2.7b's head shapes
+SSD_GRAD_SHAPES = [(2, 1024, 24, 1, 128, 64, 64), (2, 1024, 80, 1, 64, 64,
+                                                    128)]
+SSD_GRAD_TOL = 1e-4          # float32: max|diff| / max|plain gradient|
+SSD_GRAD_TOL_BF16 = 2 ** -6  # bf16 inputs (chip_smoke.GRAD_TOL_BF16)
+
+
+def _scan_grads(spec, args, cots, scan):
+    leaves = [a.detach().clone().requires_grad_() for a in args]
+    y, h = scan(spec, *leaves)
+    return (torch.autograd.grad((y, h), leaves, cots), y.grad_fn,
+            (y.detach(), h.detach()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", SSD_GRAD_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_grads_through_kernel_match_plain(shape, dtype):
+    """`ssd_scan` on grad-requiring card tensors launches B2 once through
+    `SSDScanFn`; its y and h_final against `ssd_scan_plain`'s within the
+    kernel's bounds (`_ssd_close`), and its gradients of x, dt, B, C and
+    A (random cotangents on y and h_final) against autograd straight
+    through `ssd_scan_plain`, in the inputs' dtypes and finite: float32
+    within 1e-4 of each max|plain gradient|, bf16 (the tensor cores)
+    within 2^-6 (the backward computes in float32 from the same inputs;
+    the two differ by the final bf16 cast and the order of sums)."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = _card()
+    spec, args, _ = _ssd_inputs(shape, 5, dtype, False, dev)
+    Bsz, S, H, G, N, P, Q = shape
+    gen = torch.Generator(device=dev).manual_seed(6)
+    cots = (torch.randn((Bsz, S, H, P), generator=gen, device=dev),
+            torch.randn((Bsz, H, N, P), generator=gen, device=dev))
+    before = ssd.launches
+    got, fn, out = _scan_grads(spec, args, cots, ssd.ssd_scan)
+    assert ssd.launches == before + 1
+    assert type(fn).__name__ == "SSDScanFnBackward"
+    want, _, plain = _scan_grads(spec, args, cots, ssd.ssd_scan_plain)
+    torch.cuda.synchronize()
+    for o, p in zip(out, plain):
+        _ssd_close(o, p)
+    tol = SSD_GRAD_TOL if dtype == torch.float32 else SSD_GRAD_TOL_BF16
+    for g, w, a in zip(got, want, args):
+        assert g.dtype == w.dtype == a.dtype
+        assert torch.isfinite(g).all()
+        err = float((g.float() - w.float()).abs().max())
+        assert err <= tol * float(w.float().abs().max())
+
+
+@pytest.mark.cuda
+def test_ssd_cuda_launch_refuses_a_grad_requiring_input():
+    """Reached under grad mode with an input that requires grad, the CUDA
+    launch raises rather than cut the graph; `ssd_scan` itself goes
+    through `SSDScanFn`, and under no_grad launches directly."""
+    from repro_torch.kernels import ssd_scan as ssd
+
+    dev = _card()
+    spec, args, _ = _ssd_inputs(SSD_SHAPES[0], 0, torch.float32, False, dev)
+    x = args[0].clone().requires_grad_()
+    before = ssd.launches
+    with pytest.raises(RuntimeError, match="SSDScanFn"):
+        ssd._ssd_scan_cuda(spec, x, *args[1:], None)
+    assert ssd.launches == before
+    with torch.no_grad():
+        y, _ = ssd._ssd_scan_cuda(spec, x, *args[1:], None)
+    assert y.grad_fn is None and ssd.launches == before + 1
+    y, _ = ssd.ssd_scan(spec, x, *args[1:])
+    assert type(y.grad_fn).__name__ == "SSDScanFnBackward"
+
+
+@pytest.mark.cuda
+def test_train_step_on_card_matches_cpu():
+    """REDUCED mamba2-130m in float32: a train step's loss and gradients on
+    the card (B2 under remat="full": two launches a layer, the forward and
+    the recompute) match the CPU's (the plain scan)."""
+    from repro_torch import configs
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch
+    from repro_torch.kernels import ssd_scan as ssd
+    from repro_torch.launch import steps
+    from repro_torch.models import api
+    from repro_torch.optim.adamw import tree_leaves
+
+    dev = _card()
+    cfg = dataclasses.replace(configs.get_reduced("mamba2-130m"),
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    shape = ShapeConfig("t", 45, 2, "train")
+    cpu_params = api.init(0, cfg, shape, device="cpu")
+    batch = make_batch(cfg, shape, device="cpu")
+    before = ssd.launches
+    (loss, _, _), grads = steps.loss_and_grads(
+        _to(cpu_params, dev), cfg, {k: v.to(dev) for k, v in batch.items()})
+    assert ssd.launches == before + 2 * cfg.num_layers
+    (want, _, _), wgrads = steps.loss_and_grads(cpu_params, cfg, batch)
+    assert abs(float(loss) - float(want)) <= 1e-5 * abs(float(want))
+    for g, w in zip(tree_leaves(grads), tree_leaves(wgrads)):
+        assert float((g.cpu() - w).abs().max()) <= \
+            SSD_GRAD_TOL * float(w.abs().max())
 
 
 @pytest.mark.cuda

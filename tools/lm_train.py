@@ -1,0 +1,40 @@
+"""The training phase of `chip_smoke.py` on the card, alone: train-mamba2
+(kernel B2 under a gradient at mamba2-130m's and zamba2-2.7b's head
+shapes, the float32 model step with B2 against the plain scan, and the
+trainer's CLI for mamba2-130m at full width, 8 x 4096 tokens a step, with
+a simulated preemption and a resume, then one step under
+`torch.profiler`).
+
+    python3 tools/lm_train.py
+
+Builds only the SSD scan's library.  The CLI's step counts are
+`chip_smoke.TRAIN_STEPS` / `TRAIN_STOP`.
+"""
+import json
+import sys
+from pathlib import Path
+
+sys.path.insert(0, str(Path(__file__).resolve().parents[1]))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402  (puts src/ on the path)
+from repro_torch.kernels import _build  # noqa: E402
+
+
+def main():
+    if not torch.cuda.is_available():
+        print("lm_train: needs an NVIDIA card", file=sys.stderr)
+        return 2
+    smi = cs.phase_environment()
+    dev = torch.device("cuda", 0)
+    built = _build.build_all(["ssd_scan"])["ssd_scan"]
+    cs.say("build", f"ssd_scan: nvcc {built.seconds:.1f} s")
+    entry = {}
+    out = cs.timed("train-mamba2", cs.phase_train, dev, smi, entry)
+    print(json.dumps({"train-mamba2": out, "b2": entry}), flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())
