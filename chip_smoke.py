@@ -42,7 +42,12 @@ step of mamba2-130m at full width with B2 against the plain scan, and
 the trainer's CLI
 (`launch.train.main`) for mamba2-130m at full width in bf16, 8 x 4096
 tokens a step, B2 counted (48 launches a step under remat "full"), with
-a simulated preemption and a bit-exact restore.  A scanning model's
+a simulated preemption and a bit-exact restore.  Then the same CLI in two
+data-parallel processes (train-mamba2-dp2: spawned ranks sharing the one
+card over gloo, 4 x 4096 tokens a rank, ZeRO-1, B2 counted in each),
+resumed in one process (elastic DP 2 -> 1), its losses held to the
+one-process run's, with a float32 check of the reduced gradient and the
+sharded optimizer state.  A scanning model's
 bf16 prefill logits are held to the plain scan's, within twice the gap
 of a scan one float32 ulp
 from the plain one.  Each has a float32 batch: its prefill held
@@ -62,7 +67,7 @@ z-wavefront B6 at halos 16 and 12 and trapezoid B5 at halos 32 and 48
 bit-equal to the first schedule and held to the plain version,
 kernel-vs-plain-ssd with kernels-ssd, kernels-ssd-zamba2), serve-mamba2,
 serve-zamba2, serve-qwen3, serve-qwen3moe, serve-whisper, serve-llava,
-train-mamba2, then for each path: main path
+train-mamba2, train-mamba2-dp2, then for each path: main path
 at full size, spatially-blocked baseline, kernel timing (with its design:
 the schedule the launch takes, registers, shared memory, blocks an SM,
 achieved GB/s), the batched kernel at the main path's shapes (after
@@ -2999,13 +3004,20 @@ TRAIN_ARCH = "mamba2-130m"
 TRAIN_SEED = 0
 # B2 under a gradient: (label, (B, S, H, G, N, P, Q), input dtypes) at
 # mamba2-130m's head shape and zamba2-2.7b's (both B2's tensor-core shapes
-# in bf16), and the trainer's own call in train-mamba2 (c): the CLI's
-# 8 x 4096 tokens at mamba2-130m's heads in bf16, 64 chunks of carried state
+# in bf16), the trainer's own call in train-mamba2 (c) (the CLI's 8 x 4096
+# tokens at mamba2-130m's heads in bf16, 64 chunks of carried state) and a
+# rank's call in train-mamba2-dp2 (its 4 x 4096 of the same global batch)
 GRAD_CASES = [("mamba2-130m's head shape", (2, 1024, 24, 1, 128, 64, 64),
                (torch.float32, BF16)),
               ("zamba2-2.7b's head shape", (2, 1024, 80, 1, 64, 64, 128),
                (torch.float32, BF16)),
-              ("the trainer's call", (8, 4096, 24, 1, 128, 64, 64), (BF16,))]
+              ("the trainer's call", (8, 4096, 24, 1, 128, 64, 64), (BF16,)),
+              ("a data-parallel rank's call", (4, 4096, 24, 1, 128, 64, 64),
+               (BF16,))]
+# the main paths' calls of GRAD_CASES, timed: label -> key of B2's
+# kernels-line entry
+GRAD_TIMED = {"the trainer's call": "train_call",
+              "a data-parallel rank's call": "dp2_call"}
 GRAD_TOL = 1e-4              # float32: max|diff| / max|plain gradient|
 # bf16 inputs: the same ratio.  The backward computes in float32 from the
 # same inputs as autograd through the plain version; they differ by the
@@ -3020,8 +3032,10 @@ TRAIN_LOSS_RTOL = 1e-5
 TRAIN_CLI = ["--arch", TRAIN_ARCH, "--seq-len", "4096", "--batch", "8",
              "--mesh", "single", "--save-every", "4", "--log-every", "1",
              "--keep", "1"]
-TRAIN_STEPS, TRAIN_STOP = 8, 4
-TRAIN_TIMED = slice(2, None)     # the steps timed: 2-7
+# (six steps keep the whole script inside its time limit beside
+# train-mamba2-dp2)
+TRAIN_STEPS, TRAIN_STOP = 6, 4
+TRAIN_TIMED = slice(2, None)     # the steps timed: 2-5
 RESUME_RTOL = 1e-3               # a CUDA index-add may reorder sums
 MATMUL_MARKS = ("gemm", "xmma", "cutlass", "nvjet", "gemv", "wgmma")
 
@@ -3088,12 +3102,12 @@ def phase_train_grads(dev, smi, entry):
     cotangents on y and h_final, within GRAD_TOL (float32 inputs, B2's
     float32-core schedule) or GRAD_TOL_BF16 (bf16, the tensor cores) of
     max|plain gradient|, each.  At mamba2-130m's head shape in bf16 each
-    of PLANTED must read beyond GRAD_TOL_BF16.  At the trainer's call,
-    B2's ms a launch beside its bound, and the two backwards' ms:
-    `SSDScanFn`'s (`_ssd_chunked` recomputed and differentiated) and
-    autograd's through `ssd_scan_plain`.  `entry` (B2's kernels-line
-    entry at mamba2-130m's head shape) gets the trainer's call as
-    ``train_call``."""
+    of PLANTED must read beyond GRAD_TOL_BF16.  At each call of GRAD_TIMED
+    (the trainer's, a data-parallel rank's), B2's ms a launch beside its
+    bound, and the two backwards' ms: `SSDScanFn`'s (`_ssd_chunked`
+    recomputed and differentiated) and autograd's through
+    `ssd_scan_plain`.  `entry` (B2's kernels-line entry at mamba2-130m's
+    head shape) gets each under its GRAD_TIMED key."""
     from repro_torch.models import mamba2
 
     phase = "train-mamba2"
@@ -3144,7 +3158,7 @@ def phase_train_grads(dev, smi, entry):
                                              f"bound passes a planted wrong "
                                              f"backward ({name})")
                     del bad
-            if label == "the trainer's call":
+            if label in GRAD_TIMED:
                 # the times of a second call each (the first at a shape
                 # also grows the caching allocator's pools)
                 fwd_ms, bwd_ms = uncounted(lambda: scan_grads(
@@ -3168,7 +3182,7 @@ def phase_train_grads(dev, smi, entry):
                     f"recomputed and differentiated); autograd through "
                     f"ssd_scan_plain: forward {pfwd_ms:.2f} ms, backward "
                     f"{pbwd_ms:.2f} ms [{smi}]")
-                entry["train_call"] = {
+                entry[GRAD_TIMED[label]] = {
                     "shape": list(shape), "ms": ms, "bound_ms": bound,
                     "bound_by": by, "max_abs_err": ey[0],
                     "backward_ms": bwd_ms, "plain_backward_ms": pbwd_ms}
@@ -3188,7 +3202,7 @@ def phase_train_f32(dev, smi):
     from repro_torch.data.pipeline import make_batch
     from repro_torch.launch import steps
     from repro_torch.optim import global_norm
-    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.tree import tree_leaves
 
     phase = "train-mamba2"
     cfg = dataclasses.replace(configs.get(TRAIN_ARCH),
@@ -3310,8 +3324,9 @@ def phase_train_cli(dev, smi, entry):
     a resumed run to TRAIN_STEPS.  Holds every loss finite, the restored
     params and optimizer state bit-equal to the saved ones, and the
     resumed run's last loss within RESUME_RTOL of the straight run's.
-    Prints ms a step (CUDA events around each step, median of steps 2-7),
-    tokens/s, peak GiB, and one profiled step's device time split B2 /
+    Prints ms a step (CUDA events around each step, median of the steps
+    TRAIN_TIMED), tokens/s, peak GiB, and one profiled step's device time
+    split B2 /
     the scan's autograd backward / matrix products / the rest.  `entry`
     (B2's kernels-line entry at mamba2-130m's head shape) gets the
     launches as ``train_launches``."""
@@ -3381,7 +3396,8 @@ def phase_train_cli(dev, smi, entry):
     med = statistics.median(ms[TRAIN_TIMED])
     say(phase, f"CLI {' '.join(argv)} ({widths(cfg)}, bf16, "
         f"{cfg.param_count() / 1e6:.1f} M parameters, remat {cfg.remat}): "
-        f"{med:.2f} ms a step (CUDA events, median of steps 2-7; all "
+        f"{med:.2f} ms a step (CUDA events, median of steps "
+        f"{TRAIN_TIMED.start}-{TRAIN_STEPS - 1}; all "
         + ", ".join(f"{t:.1f}" for t in ms) + f"), {tokens / med * 1e3:.0f} "
         f"tokens/s, peak {peak:.2f} GiB, B2 launches a step {per_step:g} "
         f"({cfg.num_layers} forward + {cfg.num_layers} in remat's recompute"
@@ -3409,7 +3425,7 @@ def phase_train_cli(dev, smi, entry):
             f"{k} {v:.1f} ms ({v / max(attributed, 1e-9):.1%})"
             for k, v in split.items()) + f" [{smi}]")
     return {"ms_a_step": med, "tokens_s": tokens / med * 1e3,
-            "peak_gib": peak, "b2_a_step": per_step}
+            "peak_gib": peak, "b2_a_step": per_step, "losses": a}
 
 
 def phase_train(dev, smi, entry):
@@ -3419,6 +3435,327 @@ def phase_train(dev, smi, entry):
     phase_train_grads(dev, smi, entry)
     phase_train_f32(dev, smi)
     return phase_train_cli(dev, smi, entry)
+
+
+# ---------------------------------------------------------------------------
+# Training across processes: mamba2-130m in two data-parallel ranks
+# ---------------------------------------------------------------------------
+
+DP_WORLD = 2
+DP_STEPS = 3          # DP-2 trains steps 0-2 and checkpoints after step 3
+# the trainer's CLI as in train-mamba2, started in DP_WORLD processes that
+# share the one card over gloo (nccl needs a card a rank); --batch stays
+# the global batch, 4 x 4096 tokens a rank
+DP_CLI = [("host" if a == "single" else a) for a in TRAIN_CLI] + [
+    "--dist-backend", "gloo"]
+DP_TIMEOUT = 600.0    # seconds for the ranks to report
+# DP-2's ZeRO-1 state after two steps against the control's (one process
+# fed the same rows one rank's share at a time): max|diff| / max|control|
+# of master, mu and nu.  Both sum the same per-rank float32 gradients, so
+# they agree but for a reordered sum: a few float32 ulps of the leaf's max
+DP_CONTROL_TOL = 4 * 2 ** -24
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as sock:
+        sock.bind(("localhost", 0))
+        return sock.getsockname()[1]
+
+
+def dp_rank(rank, ckpt):
+    """One rank of train-mamba2-dp2, in a process of its own
+    (`process_group.spawn_ranks`): joins the gloo group on
+    cuda:LOCAL_RANK % device_count, runs the trainer's CLI
+    (`launch.train.main`) and the float32 check (`dp_f32_check`)."""
+    from repro_torch.distributed.process_group import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = DataParallel.start("gloo", "cuda")
+    try:
+        out = dp_rank_cli(group, ckpt)
+        out.update(dp_f32_check(group))
+        return out
+    finally:
+        group.close()
+
+
+def dp_rank_cli(group, ckpt):
+    """This rank's run of the CLI (DP_CLI, DP_STEPS steps then a
+    checkpoint): B2 launches (counted from 0 just before), peak GiB, wall
+    s, each step's ms (CUDA events), and each gradient reduce's ms on the
+    host clock in two parts: the wait, from this rank's gradient done
+    (synchronised) to a barrier that every rank has reached (the ranks
+    share the card, so one waits for the other's backward), and the
+    transfer, from the barrier to the reduced gradient on the card (gloo
+    stages the card's buffers through the host)."""
+    from repro_torch.distributed.process_group import DataParallel
+    from repro_torch.launch import steps, train
+
+    events, wait_ms, reduce_ms = [], [], []
+    make_step, reduce = steps.make_train_step, DataParallel.all_reduce_grads
+
+    def timed_make_step(*a, **kw):
+        return timed_fn(make_step(*a, **kw), "train", events)
+
+    def timed_reduce(self, grads):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        self.max(0.0)                     # the barrier
+        t1 = time.perf_counter()
+        out = reduce(self, grads)
+        torch.cuda.synchronize()
+        wait_ms.append((t1 - t0) * 1e3)
+        reduce_ms.append((time.perf_counter() - t1) * 1e3)
+        return out
+
+    argv = DP_CLI + ["--steps", str(TRAIN_STEPS), "--stop-after",
+                     str(DP_STEPS), "--ckpt-dir", ckpt]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.launches = 0
+    t0 = time.perf_counter()
+    with patched(steps, "make_train_step", timed_make_step), \
+            patched(DataParallel, "all_reduce_grads", timed_reduce):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"rc": rc, "launches": ssd.launches, "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "step_ms": [s.elapsed_time(e) for _, s, e in events],
+            "wait_ms": wait_ms, "reduce_ms": reduce_ms, "argv": argv}
+
+
+def dp_f32_check(group):
+    """The float32 check of train-mamba2-dp2: mamba2-130m at full width in
+    float32, the global batch TRAIN_F32_SHAPE split one row a rank, two
+    data-parallel steps (`make_train_step` with rules, ZeRO-1).  On rank
+    0, from the same params: the loss and the reduced gradient of step 0
+    against one process on the whole batch (within TRAIN_LOSS_RTOL, and
+    GRAD_TOL of max|g| per leaf); the ZeRO-1 state after the two steps,
+    gathered, bit-equal to the unsharded `adamw_update` fed the same
+    reduced gradients; within DP_CONTROL_TOL of a control's after its two
+    steps: one process fed the same rows one rank's share at a time, their
+    gradients summed in float32 (so a fault in either step's reduced
+    gradient shows); and, for information, the gaps of both to the one
+    process's own state on the whole batch (AdamW moves a param by about
+    lr whatever its gradient's size, so a gradient element within float32
+    rounding of 0 steps either way, and the next gradient is taken
+    elsewhere).  Returns the gaps (rank 0)."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch, rank_batch
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.distributed.process_group import DataParallel
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import zero1_gather_state, zero1_init
+    from repro_torch.tree import named_leaves, tree_map
+
+    dev, rank, world = group.device, group.rank, group.world
+    f32 = torch.float32
+    cfg = dataclasses.replace(configs.get(TRAIN_ARCH), param_dtype="float32",
+                              activation_dtype="float32")
+    shape = ShapeConfig("train_f32", *TRAIN_F32_SHAPE, "train")
+    opt_cfg = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    mesh = make_host_mesh(group=group)
+    rules = ShardingRules(mesh=mesh, cfg=cfg)
+    params = api.init(TRAIN_SEED, cfg, shape, device=dev)
+    group.broadcast_(params)
+    p0 = clone_tree(params) if rank == 0 else None
+    specs = steps.zero1_specs(rules, params)
+    shapes = tree_map(lambda p: tuple(p.shape), params)
+    opt = zero1_init(params, specs, mesh, rank)
+    step = steps.make_train_step(cfg, opt_cfg, rules)
+    reduced, dp_loss = [], []
+    reduce = DataParallel.all_reduce_grads
+
+    def keeping(self, grads):
+        out = reduce(self, grads)
+        if rank == 0:
+            reduced.append(out)
+        return out
+
+    with patched(DataParallel, "all_reduce_grads", keeping):
+        for s_ in range(2):
+            batch = rank_batch(cfg, shape, s_, rank, world, device=dev)
+            params, opt, m = step(params, opt, batch)
+            dp_loss.append(float(m["loss"]))
+    full = zero1_gather_state(opt, specs, group, mesh, shapes)
+    del params, opt
+    if rank != 0:
+        return {}
+
+    def worst(got, want):
+        """(max over leaves of max|diff| / max|want|, that leaf)."""
+        w = dict(named_leaves(want))
+        return max((max_rel(g, w[k]), k) for k, g in named_leaves(got))
+
+    def rows_grads(p, s_):
+        """The control's gradient: each rank's rows alone, weighted by
+        their share, summed in float32."""
+        total = None
+        for r in range(world):
+            _, g = steps.loss_and_grads(
+                p, cfg, rank_batch(cfg, shape, s_, r, world, device=dev),
+                ce_weight=1.0 / world)
+            g = tree_map(lambda t: t.to(f32), g)
+            total = g if total is None else tree_map(torch.add, total, g)
+        return total
+
+    def state_gaps(got, want):
+        return {f: worst(getattr(got, f), getattr(want, f))[0]
+                for f in ("master", "mu", "nu")}
+
+    (loss0, _, _), g0 = steps.loss_and_grads(
+        p0, cfg, make_batch(cfg, shape, step=0, device=dev))
+    grad_gap, grad_leaf = worst(reduced[0], g0)
+    ctrl_grad_gap = worst(rows_grads(p0, 0), g0)[0]
+    del g0
+    one = steps.make_train_step(cfg, opt_cfg)
+    st, pp = adamw_init(p0), p0                  # one process, whole batch
+    cst, cp = adamw_init(p0), p0                 # the control
+    same = adamw_init(p0)                        # unsharded, DP's gradients
+    for s_ in range(2):
+        pp, st, _ = one(pp, st, make_batch(cfg, shape, step=s_, device=dev))
+        cp, cst, _ = adamw_update(rows_grads(cp, s_), cst, opt_cfg,
+                                  param_dtype=f32)
+        _, same, _ = adamw_update(reduced[s_], same, opt_cfg,
+                                  param_dtype=f32)
+    return {"f32": {"loss": dp_loss[0], "one_loss": float(loss0),
+                    "grad_gap": grad_gap, "grad_leaf": grad_leaf,
+                    "control_grad_gap": ctrl_grad_gap,
+                    "state_exact": equal_trees(full, same),
+                    "state_gaps": state_gaps(full, st),
+                    "control_gaps": state_gaps(cst, st),
+                    "dp_vs_control": state_gaps(full, cst)}}
+
+
+def phase_train_dp(dev, smi, entry, straight):
+    """train-mamba2-dp2: the trainer's CLI started as DP_WORLD processes
+    (spawned; each `launch.train.main`, rank r on cuda:0 over gloo) for
+    mamba2-130m at full width in bf16, the global batch 8 x 4096 (4 x 4096
+    a rank), DP_STEPS steps and a checkpoint; then that checkpoint
+    resumed in this process (elastic DP 2 -> 1) for step DP_STEPS.  Holds
+    each rank's B2 launches at 2 x 24 a step (SSDScanFn, no plain scan),
+    every loss finite, the DP-2 losses of steps 0-2 and the resumed loss
+    of step 3 within RESUME_RTOL of the straight one-process run of
+    train-mamba2 (`straight`: its metrics, same seed, stream and global
+    batch), and the float32 check (`dp_f32_check`).  Also that nccl
+    refuses two ranks on one card.  Prints ms a global step (CUDA events
+    on rank 0, median of steps 1-2), global tokens/s, the gradient
+    reduce's ms a step, each rank's wait at the barrier before it apart
+    from the transfer after it (gloo stages it through the host: a cost
+    of this one-card rig, not a link's), peak GiB and B2 launches a rank,
+    wall s.
+    `entry` (B2's kernel-line entry) gets the launches a rank as
+    ``dp2_launches``."""
+    import tempfile
+
+    from repro_torch.distributed import process_group
+    from repro_torch.launch import train
+
+    phase = "train-mamba2-dp2"
+    cfg = configs.get(TRAIN_ARCH)
+    if torch.cuda.device_count() < DP_WORLD:
+        try:
+            process_group.rank_device(1, DP_WORLD, "nccl", "cuda")
+        except ValueError as e:
+            say(phase, f"nccl with {DP_WORLD} ranks on "
+                f"{torch.cuda.device_count()} card refused: {e}")
+        else:
+            raise AssertionError(f"{phase}: nccl accepted {DP_WORLD} ranks "
+                                 "on one card")
+    want = (2 if cfg.remat == "full" else 1) * cfg.num_layers
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "dp")
+        t0 = time.perf_counter()
+        res = process_group.spawn_ranks(
+            dp_rank, DP_WORLD, (ckpt,), timeout=DP_TIMEOUT,
+            env={"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())})
+        wall = time.perf_counter() - t0
+        ssd.launches = 0
+        rc_res = train.main(TRAIN_CLI + ["--steps", str(TRAIN_STEPS),
+                                         "--stop-after", str(DP_STEPS + 1),
+                                         "--ckpt-dir", ckpt])
+        resumed_launches = ssd.launches
+        got = read_losses(ckpt)
+    r0 = res[0]
+    ms = r0["step_ms"]
+    med = statistics.median(ms[1:])
+    cli = train.parse_args(DP_CLI)
+    tokens = cli.seq_len * cli.batch
+    gaps = {k: abs(got[k] - straight[k]) / abs(straight[k]) for k in got}
+    finite = all(math.isfinite(v) for v in got.values())
+    launches = [res[r]["launches"] for r in range(DP_WORLD)]
+    say(phase, f"CLI in {DP_WORLD} ranks over gloo on one card "
+        f"({' '.join(r0['argv'][:-2])}; {widths(cfg)}, bf16): {med:.2f} ms a "
+        f"global step of {tokens} tokens (CUDA events on rank 0, median of "
+        f"steps 1-{DP_STEPS - 1}; all " + ", ".join(f"{t:.1f}" for t in ms)
+        + f"), {tokens / med * 1e3:.0f} tokens/s; gradient reduce "
+        f"(float32, gloo through the host: this one-card rig's cost, not a "
+        f"link figure), by rank, median a step of the transfer after a "
+        f"barrier " + ", ".join(
+            f"{statistics.median(res[r]['reduce_ms']):.1f}"
+            for r in range(DP_WORLD)) + " ms and of the wait at it for the "
+        "other rank's backward " + ", ".join(
+            f"{statistics.median(res[r]['wait_ms']):.1f}"
+            for r in range(DP_WORLD)) + " ms (rank 0's transfer, all steps: "
+        + ", ".join(f"{t:.1f}" for t in r0["reduce_ms"])
+        + f"); peak GiB a rank " + ", ".join(
+            f"{res[r]['peak_gib']:.2f}" for r in range(DP_WORLD))
+        + f"; B2 launches a rank {launches} in {DP_STEPS} steps "
+        f"({want} a step expected); wall {wall:.1f} s for the ranks "
+        f"(start, {DP_STEPS} steps, checkpoint, float32 check) [{smi}]")
+    say(phase, f"losses DP-2 " + ", ".join(
+        f"{got[k]:.4f}" for k in range(DP_STEPS)) + f"; resumed in one "
+        f"process (DP 2 -> 1, exit {rc_res}, {resumed_launches} B2 "
+        f"launches) step {DP_STEPS}: {got.get(DP_STEPS, float('nan')):.4f}; "
+        f"straight one-process " + ", ".join(
+            f"{straight[k]:.4f}" for k in range(DP_STEPS + 1))
+        + "; relative gaps " + ", ".join(
+            f"{gaps[k]:.2e}" for k in sorted(gaps))
+        + f" (limit {RESUME_RTOL:g})")
+    f = r0["f32"]
+    lgap = abs(f["loss"] - f["one_loss"]) / abs(f["one_loss"])
+    say(phase, f"float32 at full width, batch {TRAIN_F32_SHAPE[1]} x "
+        f"{TRAIN_F32_SHAPE[0]} split one row a rank: loss {f['loss']:.6f} vs "
+        f"one process {f['one_loss']:.6f} (relative gap {lgap:.2e}, limit "
+        f"{TRAIN_LOSS_RTOL:g}); reduced gradient worst leaf max|diff|/max|g| "
+        f"{f['grad_gap']:.2e} ({f['grad_leaf']}; limit {GRAD_TOL:g}; the "
+        f"control, one process fed the rows one at a time: "
+        f"{f['control_grad_gap']:.2e}); ZeRO-1 state after 2 steps "
+        f"gathered: bit-equal to unsharded AdamW on the same gradients "
+        f"{f['state_exact']}; against the control's state (max|diff| / "
+        f"max|control|) " + ", ".join(
+            f"{k} {v:.2e}" for k, v in f["dp_vs_control"].items())
+        + f" (limit {DP_CONTROL_TOL:.2e}); for information, against the "
+        f"one-process run's own state on the whole batch " + ", ".join(
+            f"{k} {f['state_gaps'][k]:.2e} (the control's "
+            f"{f['control_gaps'][k]:.2e})" for k in ("master", "mu", "nu"))
+        + f" [{smi}]")
+    ok = (all(res[r]["rc"] == 0 for r in range(DP_WORLD)) and rc_res == 0
+          and all(n == want * DP_STEPS for n in launches)
+          and resumed_launches == want and finite
+          and sorted(got) == list(range(DP_STEPS + 1))
+          and max(gaps.values()) <= RESUME_RTOL
+          and lgap <= TRAIN_LOSS_RTOL and f["grad_gap"] <= GRAD_TOL
+          and f["state_exact"]
+          and max(f["dp_vs_control"].values()) <= DP_CONTROL_TOL)
+    if not ok:
+        raise AssertionError(f"{phase}: check failed (exits "
+                             f"{[res[r]['rc'] for r in range(DP_WORLD)]}/"
+                             f"{rc_res}, launches {launches}/"
+                             f"{resumed_launches}, losses {got}, gaps "
+                             f"{gaps}, float32 {f})")
+    entry["dp2_launches"] = launches
+    return {"ms_a_step": med, "tokens_s": tokens / med * 1e3,
+            "reduce_ms": statistics.median(r0["reduce_ms"]),
+            "wait_ms": statistics.median(r0["wait_ms"]),
+            "peak_gib": [res[r]["peak_gib"] for r in range(DP_WORLD)],
+            "b2_a_step": [n / DP_STEPS for n in launches], "wall_s": wall}
 
 
 def run_path(name, smi, dev):
@@ -3518,7 +3855,9 @@ def main():
     timed("serve-qwen3", phase_serve, "serve-qwen3", dev, smi, None)
     for phase in ("serve-qwen3moe", "serve-whisper", "serve-llava"):
         timed(phase, phase_serve, phase, dev, smi, None)
-    timed("train-mamba2", phase_train, dev, smi, b2)
+    trained = timed("train-mamba2", phase_train, dev, smi, b2)
+    timed("train-mamba2-dp2", phase_train_dp, dev, smi, b2,
+          trained["losses"])
     entries, tb_ms, extra, paper = [], {}, [], []
     for name in ("acoustic", "tti", "elastic"):
         entry, tb_ms[name], more, record = run_path(name, smi, dev)

@@ -11,13 +11,15 @@ def resolve_device(device="cuda") -> torch.device:
     ``"cuda"`` (the default everywhere) requires a card and raises
     `RuntimeError` without one: there is no CPU fallback.  The CPU runs
     only when the caller asks for it (``device="cpu"``), as the tests do.
+    ``"meta"`` holds shapes and dtypes only, no data: the specs of
+    `models.api` (`param_specs`, `cache_specs`) are built there.
     """
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
             f"device {str(device)!r} requested but torch.cuda.is_available() "
             "is False; pass device='cpu' to run on the CPU")
-    if dev.type not in ("cuda", "cpu"):
+    if dev.type not in ("cuda", "cpu", "meta"):
         raise ValueError(f"unsupported device {str(device)!r}")
     return dev
 

@@ -18,9 +18,13 @@ restores in the other.
     the device to the host first, inside `save`, then hands the host
     arrays to a writer thread, so the loop may go on.
   * **retention**: the newest `keep` committed checkpoints stay.
-
-The reference's `restore_sharded` (placing leaves on a mesh's shardings)
-waits for the port's sharding layer (ROADMAP A9b) and is left out.
+  * **under a process group** (`group=`, a `distributed.process_group.
+    DataParallel`): the content stays global and is written once, by
+    rank 0, in the same format; the other ranks wait for its commit
+    (`wait`, a collective every rank calls at the same saves).
+  * **elastic restore**: `restore_sharded` reads each leaf's slice that
+    a rank holds under a spec (`distributed.ShardingRules`), so a
+    checkpoint written at one data-parallel size resumes at another.
 """
 from __future__ import annotations
 
@@ -34,20 +38,9 @@ from typing import Any, Optional
 import numpy as np
 import torch
 
+from repro_torch.tree import map_named
+
 MANIFEST = "MANIFEST.json"
-
-
-def _map_named(fn, tree, prefix=()):
-    """`tree` with each leaf replaced by fn(name, leaf), visiting leaves
-    in the reference's flattening order."""
-    if isinstance(tree, dict):
-        out = {k: _map_named(fn, tree[k], prefix + (str(k),))
-               for k in sorted(tree)}
-        return {k: out[k] for k in tree}
-    if isinstance(tree, tuple) and hasattr(tree, "_fields"):
-        return type(tree)(*(_map_named(fn, getattr(tree, f), prefix + (f,))
-                            for f in tree._fields))
-    return fn("/".join(prefix), tree)
 
 
 def _sanitize(name: str) -> str:
@@ -70,7 +63,7 @@ def _to_host(leaf):
 def _host_leaves(tree) -> list:
     """[(name, host array, logical dtype)] of every leaf, in order."""
     out = []
-    _map_named(lambda name, leaf: out.append((name, *_to_host(leaf))), tree)
+    map_named(lambda name, leaf: out.append((name, *_to_host(leaf))), tree)
     return out
 
 
@@ -100,8 +93,8 @@ def save_pytree(path: str, tree: Any, metadata: Optional[dict] = None,
     _write(path, _host_leaves(tree), metadata, host)
 
 
-def _load_leaf(path: str, entry: dict) -> torch.Tensor:
-    arr = np.load(os.path.join(path, entry["file"]))
+def _as_tensor(arr: np.ndarray, entry: dict) -> torch.Tensor:
+    """A stored array as a tensor of the entry's logical dtype."""
     if str(arr.dtype) == entry["dtype"]:
         return torch.from_numpy(arr)
     # bf16's raw bits: uint16 as the port writes them, or the two-byte
@@ -114,10 +107,10 @@ def _load_leaf(path: str, entry: dict) -> torch.Tensor:
                     f"logical dtype {entry['dtype']} is not readable here")
 
 
-def load_pytree(path: str, like: Any):
-    """Restore into the structure of `like`: each leaf a tensor on the
-    device of `like`'s leaf (the CPU for a leaf that is not a tensor),
-    with the checkpoint's dtype; shapes checked against `like`."""
+def _load_tree(path: str, like: Any, place):
+    """`like`'s structure with each leaf place(name, stored array (numpy,
+    memory-mapped), like's leaf) -> tensor; shapes checked against
+    `like`."""
     with open(os.path.join(path, MANIFEST)) as f:
         manifest = json.load(f)
     by_name = {e["name"]: e for e in manifest["leaves"]}
@@ -125,14 +118,37 @@ def load_pytree(path: str, like: Any):
     def get(name, leaf):
         if name not in by_name:
             raise KeyError(f"checkpoint missing leaf {name!r}")
-        t = _load_leaf(path, by_name[name])
-        want = tuple(getattr(leaf, "shape", t.shape))
-        if tuple(t.shape) != want:
+        entry = by_name[name]
+        arr = np.load(os.path.join(path, entry["file"]), mmap_mode="r")
+        want = tuple(getattr(leaf, "shape", arr.shape))
+        if tuple(arr.shape) != want:
             raise ValueError(f"leaf {name!r}: checkpoint shape "
-                             f"{tuple(t.shape)} != expected {want}")
+                             f"{tuple(arr.shape)} != expected {want}")
+        return place(name, _Stored(arr, entry), leaf)
+
+    return map_named(get, like)
+
+
+class _Stored:
+    """A stored leaf: its array (memory-mapped) and manifest entry; `read`
+    copies a slice of it into a tensor of the logical dtype."""
+
+    def __init__(self, arr, entry):
+        self.arr, self.entry = arr, entry
+
+    def read(self, index=()) -> torch.Tensor:
+        return _as_tensor(np.array(self.arr[index], order="C"), self.entry)
+
+
+def load_pytree(path: str, like: Any):
+    """Restore into the structure of `like`: each leaf a tensor on the
+    device of `like`'s leaf (the CPU for a leaf that is not a tensor),
+    with the checkpoint's dtype; shapes checked against `like`."""
+    def place(name, stored, leaf):
+        t = stored.read()
         return t.to(leaf.device) if torch.is_tensor(leaf) else t
 
-    return _map_named(get, like)
+    return _load_tree(path, like, place)
 
 
 def load_metadata(path: str) -> dict:
@@ -141,14 +157,22 @@ def load_metadata(path: str) -> dict:
 
 
 class CheckpointManager:
-    """Step-indexed checkpoint directory with retention + async commit."""
+    """Step-indexed checkpoint directory with retention + async commit.
+    Under a process group (`group`) every rank calls `save` and `wait` at
+    the same points with the same global tree; rank 0 writes."""
 
-    def __init__(self, directory: str, keep: int = 3):
+    def __init__(self, directory: str, keep: int = 3, group=None):
         self.directory = directory
         self.keep = keep
+        self.group = group
         os.makedirs(directory, exist_ok=True)
         self._thread: Optional[threading.Thread] = None
         self._error: Optional[BaseException] = None
+        self._pending = False      # a save whose commit the ranks await
+
+    @property
+    def _writer(self) -> bool:
+        return self.group is None or self.group.rank == 0
 
     # -- paths ---------------------------------------------------------------
     def _path(self, step: int) -> str:
@@ -168,16 +192,32 @@ class CheckpointManager:
 
     # -- save / restore --------------------------------------------------
     def wait(self):
+        """Until the last save is committed; raises its writer's error.
+        Under a group every rank waits for rank 0's commit and raises if
+        it failed."""
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        failed = self._error is not None
+        if self.group is not None and self._pending:
+            self._pending = False
+            failed = bool(self.group.max(float(failed)) > 0)
         if self._error is not None:
             err, self._error = self._error, None
             raise err
+        if failed:
+            raise RuntimeError(f"checkpoint commit failed on rank 0 "
+                               f"({self.directory})")
 
     def save(self, step: int, tree: Any, metadata: Optional[dict] = None,
              blocking: bool = True):
         self.wait()  # one in-flight save at a time
+        if not self._writer:
+            self._pending = True
+            if blocking:
+                self.wait()
+            return
+        self._pending = self.group is not None
         # device -> host copy happens here so the caller may go on
         host_leaves = _host_leaves(tree)
 
@@ -202,6 +242,30 @@ class CheckpointManager:
             return None, None
         tree = load_pytree(self._path(step), like)
         return step, tree
+
+    def restore_sharded(self, like: Any, specs: Any, mesh, rank: int,
+                        step: Optional[int] = None):
+        """Elastic restore: each leaf as the slice the rank at flat `rank`
+        of `mesh` holds under its spec (`specs`, a tree matching `like`;
+        `distributed.sharding.shard_of`'s slice), read from the stored
+        array alone, on the device of `like`'s leaf.  `like` gives the
+        global shapes.  A checkpoint written under one mesh loads onto any
+        other, because its content is global."""
+        from repro_torch.distributed.sharding import (mesh_coords,
+                                                      shard_slices)
+
+        step = step if step is not None else self.latest_step()
+        if step is None:
+            return None, None
+        spec_of = {}
+        map_named(lambda name, s: spec_of.__setitem__(name, s), specs)
+        coords = mesh_coords(mesh, rank)
+
+        def place(name, stored, leaf):
+            sl = shard_slices(stored.arr.shape, spec_of[name], coords, mesh)
+            return stored.read(sl).to(leaf.device)
+
+        return step, _load_tree(self._path(step), like, place)
 
     def _gc(self):
         steps = self.steps()

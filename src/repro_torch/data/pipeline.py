@@ -99,3 +99,24 @@ def make_batch(cfg, shape, step: int = 0, dp_rank: int = 0, dp_size: int = 1,
                 "labels": ints(base["labels"])}
     base = SyntheticLM(cfg.vocab_size, S, B).batch_at(step, dp_rank, dp_size)
     return {"tokens": ints(base["tokens"]), "labels": ints(base["labels"])}
+
+
+def rank_batch(cfg, shape, step: int, dp_rank: int, dp_size: int,
+               device="cuda") -> dict:
+    """Data-parallel rank `dp_rank`'s rows of the global batch of `shape`
+    (rows [r * b, (r + 1) * b), b = global_batch / dp_size), so the ranks
+    together train on the one-process batch.  The text families build
+    only their rows (`make_batch`'s dp split; rows are addressed
+    globally); the vlm and encdec stub embeddings are drawn for the
+    global batch from one seed (`make_batch`), so their rank takes its
+    rows of it."""
+    if shape.global_batch % dp_size:
+        raise ValueError(f"global_batch={shape.global_batch} must divide "
+                         f"by dp_size={dp_size}")
+    if cfg.family not in ("vlm", "encdec") or dp_size == 1:
+        return make_batch(cfg, shape, step=step, dp_rank=dp_rank,
+                          dp_size=dp_size, device=device)
+    b = shape.global_batch // dp_size
+    full = make_batch(cfg, shape, step=step, device="cpu")
+    return {k: v[dp_rank * b:(dp_rank + 1) * b].to(resolve_device(device))
+            for k, v in full.items()}

@@ -90,8 +90,12 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Built]:
         if proc.returncode != 0:
             failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
             continue
-        out.with_suffix(".log").write_text(log)
-        os.replace(tmp, out)          # atomic: concurrent builders agree
+        # atomic, the log first: a process that finds the library (a rank
+        # started beside this build) finds its whole log too
+        log_tmp = tmp.with_suffix(".log")
+        log_tmp.write_text(log)
+        os.replace(log_tmp, out.with_suffix(".log"))
+        os.replace(tmp, out)          # concurrent builds agree
         _loaded[name] = Built(ctypes.CDLL(str(out)), out, secs, log)
     if failed:
         raise RuntimeError("CUDA kernel build failed:\n" + "\n".join(failed))

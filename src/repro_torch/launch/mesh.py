@@ -19,16 +19,17 @@ import torch
 from repro_torch._device import resolve_device
 
 
-def _mesh_device(d) -> torch.device:
-    dev = torch.device(d)
-    return dev if dev.type == "meta" else resolve_device(dev)
-
-
 class ShardMesh:
     """A (px, py) grid of shards over `devices`; grid x is the
     second-to-last axis ("data"), grid y the last ("model").  Leading
     axes (the multi-pod mesh's "pod") hold copies of that grid: the
     stencil's sharded layer decomposes its grid over the last two only.
+
+    A mesh over a process group (`make_host_mesh(group=)`) is one rank's
+    view: its shape counts every rank, `devices` holds this rank's one
+    device, and `process_group` (a `distributed.process_group.
+    DataParallel`; None on a single-controller mesh) runs the
+    collectives.
 
     `exchange_rounds` counts the 2-D halo exchanges of one field each
     (`distributed.halo.halo_exchange_2d`) run for this mesh; set it to 0
@@ -48,7 +49,8 @@ class ShardMesh:
             raise ValueError("a mesh needs at least one device")
         self.shape = {a: int(n) for a, n in zip(axes, shape)}
         self.axes = tuple(axes)
-        self.devices = tuple(_mesh_device(d) for d in devices)
+        self.devices = tuple(resolve_device(d) for d in devices)
+        self.process_group = None
         self.exchange_rounds = 0
 
     @property
@@ -101,12 +103,23 @@ def make_mesh(shape, axes, devices: Sequence = ("cuda",)) -> ShardMesh:
     return ShardMesh(tuple(shape), tuple(axes), devices)
 
 
-def make_host_mesh(model: int = 1, device="cuda") -> ShardMesh:
+def make_host_mesh(model: int = 1, device="cuda", group=None) -> ShardMesh:
     """Tiny (data, model) mesh over however many devices this host has
-    (`mesh_devices`): tests, examples."""
-    devices = mesh_devices(device)
-    return make_mesh((len(devices) // model, model), ("data", "model"),
-                     devices)
+    (`mesh_devices`): tests, examples.  Over a process group (a
+    `distributed.process_group.DataParallel`) it counts the group's ranks,
+    as the reference counts `jax.devices()` across processes: (world //
+    model, model), on this rank's device."""
+    if group is None:
+        devices = mesh_devices(device)
+        return make_mesh((len(devices) // model, model), ("data", "model"),
+                         devices)
+    if group.world % model:
+        raise ValueError(f"model axis {model} does not divide the "
+                         f"{group.world} ranks")
+    mesh = make_mesh((group.world // model, model), ("data", "model"),
+                     [group.device])
+    mesh.process_group = group
+    return mesh
 
 
 def make_xy_mesh(n_shards: int, devices: Sequence = ("cuda",)) -> ShardMesh:

@@ -1,9 +1,12 @@
-"""Fault-tolerant training launcher (port of `repro.launch.train`), one
-device.
+"""Fault-tolerant training launcher (port of `repro.launch.train`), on
+one device or data-parallel across processes.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --reduced --steps 200 --ckpt-dir /tmp/ckpt --save-every 50 \
         [--device cpu]
+    PYTHONPATH=src python -m torch.distributed.run --standalone \
+        --nproc-per-node 2 -m repro_torch.launch.train --arch mamba2-130m \
+        --reduced --device cpu --dist-backend gloo --steps 4
 
 The reference's flags and behaviour, on the card by default (``--device
 cuda``; without a card that raises, with no CPU fallback):
@@ -22,11 +25,21 @@ cuda``; without a card that raises, with no CPU fallback):
     the job.
   * metrics stream to <ckpt-dir>/metrics.jsonl (one JSON a step).
 
-One process, one device: the reference's multi-host start
-(`jax.distributed.initialize`) and its sharded meshes wait for ROADMAP
-A9b and the sharding rules.  A ``WORLD_SIZE`` above 1 or --model-axis
-above 1 raises `NotImplementedError`; ``--mesh host`` on one device is
-the single-device case, as in the reference.
+Data parallelism: started as several processes (``WORLD_SIZE`` above 1,
+`torch.distributed.run`'s environment), each rank joins the group
+(`distributed.process_group.DataParallel`, backend --dist-backend: nccl
+needs one card a rank, gloo lets ranks share one and runs on the CPU),
+takes rank 0's initial params, trains on its own rows of the same global
+batch (`data.pipeline.rank_batch`: --batch is global), and steps with
+`launch.steps.make_train_step(cfg, opt_cfg, rules)`: gradients summed
+over the ranks, ZeRO-1 optimizer state (this rank's shard).  Checkpoints
+hold the global content, written by rank 0; a resumed run restores its
+own shards (`CheckpointManager.restore_sharded`), so a job may resume at
+another data-parallel size (elastic: 2 -> 1, 1 -> 2).  The straggler
+decision is agreed by the ranks (an incident on any rank is one on all),
+so they checkpoint and exit 75 together.  Rank 0 prints and writes the
+metrics.  --model-axis above 1 (tensor parallelism) raises
+`NotImplementedError` (ROADMAP A9c).
 """
 import argparse
 import json
@@ -56,36 +69,53 @@ def parse_args(argv=None):
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; the CPU "
                          "only when asked: --device cpu)")
+    ap.add_argument("--dist-backend", choices=["nccl", "gloo"],
+                    default="nccl",
+                    help="torch.distributed backend when WORLD_SIZE > 1 "
+                         "(nccl: one card a rank; gloo: ranks may share a "
+                         "card, or run on the CPU)")
     return ap.parse_args(argv)
-
-
-def _single_device(args):
-    """Refuse what needs more than one device (ROADMAP A9b)."""
-    world = int(os.environ.get("WORLD_SIZE", "1"))
-    if world > 1:
-        raise NotImplementedError(
-            f"WORLD_SIZE={world}: multi-process training (a torch."
-            "distributed process group) waits for ROADMAP A9b")
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            f"--model-axis {args.model_axis}: model-parallel sharding waits "
-            "for the sharding rules slice (ROADMAP A9b)")
 
 
 def main(argv=None):
     args = parse_args(argv)
-    _single_device(args)
+    if args.model_axis > 1:
+        raise NotImplementedError(
+            f"--model-axis {args.model_axis}: tensor and expert parallelism "
+            "(column/row collectives in the models) wait for ROADMAP A9c")
+    from repro_torch.distributed import process_group
 
+    world = process_group.world_size()
+    if world == 1:
+        return _train(args, None)
+    if args.mesh != "host":
+        raise ValueError(f"--mesh {args.mesh} runs one process; "
+                         f"WORLD_SIZE={world} takes --mesh host")
+    group = process_group.DataParallel.start(args.dist_backend, args.device)
+    try:
+        return _train(args, group)
+    finally:
+        group.close()
+
+
+def _train(args, group):
     from repro_torch import configs
     from repro_torch._device import resolve_device
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.base import ShapeConfig
-    from repro_torch.data.pipeline import make_batch
+    from repro_torch.data.pipeline import rank_batch
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
     from repro_torch.models import api
     from repro_torch.optim import AdamWConfig, adamw_init
+    from repro_torch.optim.adamw import (AdamWState, zero1_init,
+                                         zero1_gather_state)
+    from repro_torch.tree import tree_map
 
-    dev = resolve_device(args.device)
+    dev = group.device if group else resolve_device(args.device)
+    rank, dp = (group.rank, group.world) if group else (0, 1)
+    lead = rank == 0
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get(args.arch))
     shape = ShapeConfig("train_cli", args.seq_len, args.batch, "train")
@@ -93,80 +123,105 @@ def main(argv=None):
                           total_steps=args.steps)
 
     params = api.init(0, cfg, shape, device=dev)
-    opt_state = adamw_init(params)
+    rules = mesh = None
+    if group is None:
+        opt_state = adamw_init(params)
+    else:
+        mesh = mesh_lib.make_host_mesh(model=args.model_axis, group=group)
+        rules = ShardingRules(mesh=mesh, cfg=cfg)
+        group.broadcast_(params)
+        zspecs = steps.zero1_specs(rules, params)
+        shapes = tree_map(lambda p: tuple(p.shape), params)
+        opt_state = zero1_init(params, zspecs, mesh, rank)
     start_step = 0
+
+    def saved_tree():
+        """The checkpoint's global content (under a group, every rank
+        gathers the ZeRO-1 shards; rank 0 writes)."""
+        if group is None:
+            return {"params": params, "opt": opt_state}
+        return {"params": params, "opt": zero1_gather_state(
+            opt_state, zspecs, group, mesh, shapes)}
 
     mgr = None
     if args.ckpt_dir:
-        mgr = CheckpointManager(args.ckpt_dir, keep=args.keep)
+        mgr = CheckpointManager(args.ckpt_dir, keep=args.keep, group=group)
         latest = mgr.latest_step()
         if latest is not None:
-            _, restored = mgr.restore({"params": params, "opt": opt_state})
+            if group is None:
+                _, restored = mgr.restore({"params": params,
+                                           "opt": opt_state})
+            else:
+                like = {"params": params, "opt": AdamWState(
+                    opt_state.step, params, params, params)}
+                specs = {"params": rules.param_pspecs(params),
+                         "opt": AdamWState((), zspecs, zspecs, zspecs)}
+                _, restored = mgr.restore_sharded(like, specs, mesh, rank)
             params, opt_state = restored["params"], restored["opt"]
             start_step = latest
-            print(f"resumed from checkpoint step {latest}", flush=True)
+            if lead:
+                print(f"resumed from checkpoint step {latest}", flush=True)
 
-    step_fn = steps.make_train_step(cfg, opt_cfg)
+    step_fn = steps.make_train_step(cfg, opt_cfg, rules)
 
     metrics_path = (os.path.join(args.ckpt_dir, "metrics.jsonl")
-                    if args.ckpt_dir else None)
+                    if args.ckpt_dir and lead else None)
     mfile = open(metrics_path, "a") if metrics_path else None
     try:
         ewma, incidents = None, 0
         stop_at = min(args.steps, args.stop_after or args.steps)
         for step in range(start_step, stop_at):
             t0 = time.time()
-            batch = make_batch(cfg, shape, step=step, dp_rank=0, dp_size=1,
-                               device=dev)
+            batch = rank_batch(cfg, shape, step, rank, dp, device=dev)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
             dt_step = time.time() - t0
 
-            # ---- straggler detection -----------------------------------
-            if ewma is None:
-                ewma = dt_step
-            else:
-                if dt_step > args.deadline_factor * ewma \
-                        and step > start_step + 3:
-                    incidents += 1
+            # ---- straggler detection (agreed across the ranks) ----------
+            slow = (ewma is not None and dt_step > args.deadline_factor * ewma
+                    and step > start_step + 3)
+            if group is not None:
+                slow = bool(group.max(float(slow)) > 0)
+            if slow:
+                incidents += 1
+                if lead:
                     print(f"[straggler] step {step} took {dt_step:.2f}s "
                           f"(ewma {ewma:.2f}s), incident {incidents}",
                           flush=True)
-                    if mgr and incidents >= args.max_incidents:
-                        mgr.save(step + 1, {"params": params,
-                                            "opt": opt_state},
-                                 blocking=True)
+                if mgr and incidents >= args.max_incidents:
+                    mgr.save(step + 1, saved_tree(), blocking=True)
+                    if lead:
                         print("[straggler] checkpoint-and-exit for "
                               "resharding", flush=True)
-                        return 75
-                ewma = 0.9 * ewma + 0.1 * dt_step
+                    return 75
+            ewma = dt_step if ewma is None else 0.9 * ewma + 0.1 * dt_step
 
-            if step % args.log_every == 0 or step == args.steps - 1:
+            if lead and (step % args.log_every == 0
+                         or step == args.steps - 1):
                 print(f"step {step} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {float(metrics['grad_norm']):.2f} "
-                      f"{dt_step*1e3:.0f}ms dp=1", flush=True)
+                      f"{dt_step*1e3:.0f}ms dp={dp}", flush=True)
             if mfile:
                 mfile.write(json.dumps({"step": step, "loss": loss,
                                         "t": dt_step}) + "\n")
                 mfile.flush()
             if mgr and (step + 1) % args.save_every == 0:
-                mgr.save(step + 1, {"params": params, "opt": opt_state},
-                         blocking=False)
+                mgr.save(step + 1, saved_tree(), blocking=False)
 
         if mgr:
-            mgr.save(stop_at, {"params": params, "opt": opt_state},
-                     blocking=True)
+            mgr.save(stop_at, saved_tree(), blocking=True)
     finally:
         if mgr:
             mgr.wait()
         if mfile:
             mfile.close()
-    if stop_at < args.steps:
-        print(f"stopped (simulated preemption) at step {stop_at}",
-              flush=True)
-    else:
-        print("training complete", flush=True)
+    if lead:
+        if stop_at < args.steps:
+            print(f"stopped (simulated preemption) at step {stop_at}",
+                  flush=True)
+        else:
+            print("training complete", flush=True)
     return 0
 
 

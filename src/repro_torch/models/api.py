@@ -11,6 +11,9 @@ families.
     prefill(params, cfg, batch, max_len)           -> (logits, cache)
     decode_step(params, cfg, tokens, cache)        -> (logits, cache)
     make_cache(cfg, batch_size, max_len, enc_len)  -> cache
+    param_specs(cfg, shape) / cache_specs(...) / input_specs(cfg, shape)
+                                                   -> the same trees as
+                                                      ``meta`` tensors
 
 Batches are dicts in the reference's layouts (training batches carry
 ``labels`` too, `data.pipeline.make_batch`):
@@ -57,11 +60,32 @@ def init(seed: int, cfg: ModelConfig, shape: Optional[ShapeConfig] = None,
     and seq_len // 4 decoder positions (at least 16 each;
     `cfg.max_source_positions` when no shape is given)."""
     gen = torch.Generator(device=resolve_device(device)).manual_seed(seed)
+    return _init(gen, cfg, shape)
+
+
+class _MetaGenerator(torch.Generator):
+    """A generator whose `device` is ``meta``: every tensor `init` draws
+    or fills there has a shape and a dtype and no data."""
+
+    @property
+    def device(self):
+        return torch.device("meta")
+
+
+def _init(gen: torch.Generator, cfg: ModelConfig,
+          shape: Optional[ShapeConfig]):
     if cfg.family == "encdec":
         seq = shape.seq_len if shape is not None else cfg.max_source_positions
         return whisper.init(gen, cfg, max_enc=max(seq, 16),
                             max_dec=max(whisper.dec_seq_len(seq), 16))
     return _module(cfg).init(gen, cfg)
+
+
+def param_specs(cfg: ModelConfig, shape: Optional[ShapeConfig] = None):
+    """`init`'s tree as ``meta`` tensors: every parameter's shape and
+    dtype without allocating (the reference's `jax.eval_shape` of its
+    init), so the sharding rules can be held at full size."""
+    return _init(_MetaGenerator(), cfg, shape)
 
 
 def forward(params, cfg: ModelConfig, batch: dict):
@@ -155,3 +179,38 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
         return whisper.make_cache(cfg, batch, max_len, enc_len or max_len,
                                   dtype, device=device)
     return _module(cfg).make_cache(cfg, batch, max_len, dtype, device=device)
+
+
+def cache_specs(cfg: ModelConfig, batch: int, max_len: int,
+                enc_len: Optional[int] = None, dtype=torch.bfloat16):
+    """`make_cache`'s tree as ``meta`` tensors (shapes and dtypes)."""
+    return make_cache(cfg, batch, max_len, enc_len, dtype, device="meta")
+
+
+def input_specs(cfg: ModelConfig, shape: ShapeConfig) -> dict:
+    """The batch of `shape` as ``meta`` tensors, in the family's layout:
+    a train batch carries labels; prefill the prompt; decode one new
+    token (B, 1) against a cache of capacity seq_len."""
+    B, S = shape.global_batch, shape.seq_len
+    i32, act, D = torch.int32, L.act_dtype_of(cfg), cfg.d_model
+
+    def spec(dims, dtype=i32):
+        return torch.empty(dims, dtype=dtype, device="meta")
+
+    if shape.kind == "decode":
+        return {"tokens": spec((B, 1))}
+    if cfg.family == "vlm":
+        n_img = cfg.num_image_tokens
+        out = {"tokens": spec((B, S - n_img)),
+               "image_embeds": spec((B, n_img, D), act)}
+        labels = (B, S)
+    elif cfg.family == "encdec":
+        Sd = whisper.dec_seq_len(S)
+        out = {"frame_embeds": spec((B, S, D), act), "tokens": spec((B, Sd))}
+        labels = (B, Sd)
+    else:
+        out = {"tokens": spec((B, S))}
+        labels = (B, S)
+    if shape.kind == "train":
+        out["labels"] = spec(labels)
+    return out

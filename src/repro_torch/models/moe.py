@@ -8,8 +8,11 @@ batched products over the expert axis (`torch.bmm`: the reference's
 einsums run outside any Pallas kernel); the outputs are gathered back,
 weighted by the router and summed over each token's K choices.
 
-One token group: the reference's `runtime.MOE_DP_GROUPS` is set only by
-its language-model dry run, which the port does not have (ROADMAP A11).
+Token groups: one a process.  Under data parallelism each rank
+dispatches its own rows at the capacity of its own token count, as the
+reference's `runtime.moe_dp_groups(dp)` does with one group a data-parallel
+shard (the reference falls back to one global group when a group would
+hold fewer tokens than experts; a rank here always dispatches its own).
 
 Two steps differ from the reference's code, each deterministic on a card:
 - Dropped entries are not written.  The reference writes every dropped
@@ -31,6 +34,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed.process_group import mean_over_ranks
 from repro_torch.models import layers as L
 
 
@@ -65,13 +69,21 @@ def route(p, cfg: ModelConfig, x2d: torch.Tensor):
     """Top-k routing.  x2d: (N, D) -> (expert_idx (N, K), weights (N, K)
     in x's dtype, aux loss).  The router's product and softmax in float32;
     the top-k weights normalised to sum 1; the Switch-style load-balancing
-    loss over each token's first choice."""
+    loss over each token's first choice, E * sum(density * density_prob),
+    its two means taken over the global batch: inside a data-parallel
+    step (`distributed.process_group.reducing`) they are averaged over
+    the ranks before the product, as the reference routes every token of
+    its batch before it cuts the groups."""
     E = cfg.num_experts
     probs = torch.softmax(torch.matmul(x2d.float(), p["router"]), dim=-1)
     weights, expert_idx = torch.topk(probs, cfg.experts_per_tok, dim=-1)
     weights = weights / weights.sum(dim=-1, keepdim=True)
     density = torch.nn.functional.one_hot(expert_idx[:, 0], E).float().mean(0)
-    aux = E * torch.sum(density * probs.mean(0))
+    # under data parallelism, the global batch's statistics (every rank
+    # routes its own rows): one all-reduce for both
+    density, density_prob = mean_over_ranks(
+        torch.cat([density, probs.mean(0)])).split(E)
+    aux = E * torch.sum(density * density_prob)
     return expert_idx, weights.to(x2d.dtype), aux
 
 

@@ -11,6 +11,11 @@ whose formula differs (it decays the params before the Adam step, by
 state and returns a new one, as the reference's does.  Scalars (the step,
 the learning rate, the norm) stay tensors on the params' device, so a
 step does not wait for the card.
+
+ZeRO-1 (`zero1_init`, `zero1_update`): under data parallelism master,
+mu and nu hold only this rank's shard (`distributed.ShardingRules.
+opt_pspecs`), the update runs on the shard, and the new params are
+gathered whole on every rank.
 """
 from __future__ import annotations
 
@@ -19,6 +24,8 @@ import math
 from typing import NamedTuple
 
 import torch
+
+from repro_torch.tree import tree_leaves, tree_map
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,22 +46,6 @@ class AdamWState(NamedTuple):
     master: dict          # float32 copy of params
     mu: dict              # float32 first moment
     nu: dict              # float32 second moment
-
-
-def tree_map(fn, tree, *rest):
-    """fn over the leaves of nested dicts of one structure."""
-    return {k: tree_map(fn, v, *(r[k] for r in rest)) if isinstance(v, dict)
-            else fn(v, *(r[k] for r in rest)) for k, v in tree.items()}
-
-
-def tree_leaves(tree) -> list:
-    """The leaves of a nested dict, keys sorted at every level (the order
-    `jax.tree_util` flattens a dict in)."""
-    out = []
-    for k in sorted(tree):
-        v = tree[k]
-        out.extend(tree_leaves(v) if isinstance(v, dict) else [v])
-    return out
 
 
 def adamw_init(params: dict) -> AdamWState:
@@ -91,15 +82,17 @@ def cosine_schedule(cfg: AdamWConfig, step) -> torch.Tensor:
 
 
 def adamw_update(grads: dict, state: AdamWState, cfg: AdamWConfig,
-                 param_dtype=torch.bfloat16):
+                 param_dtype=torch.bfloat16, grad_norm=None):
     """One optimizer step.  Returns (new params in `param_dtype`, new
     state, metrics {grad_norm, lr, clip_scale}).  `state` is left as it
-    was."""
+    was.  `grad_norm`: the whole gradient's global norm, where `grads`
+    and `state` hold only this rank's shards (ZeRO-1, `zero1_update`);
+    by default the norm of `grads`."""
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
 
     g32 = tree_map(lambda g: g.float(), grads)
-    gnorm = global_norm(g32)
+    gnorm = global_norm(g32) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
     g32 = tree_map(lambda g: g * scale, g32)
 
@@ -121,3 +114,48 @@ def adamw_update(grads: dict, state: AdamWState, cfg: AdamWConfig,
     new_state = AdamWState(step=step, master=master, mu=mu, nu=nu)
     metrics = {"grad_norm": gnorm, "lr": lr, "clip_scale": scale}
     return new_params, new_state, metrics
+
+
+# ---------------------------------------------------------------------------
+# ZeRO-1: the state as this rank's shards
+# ---------------------------------------------------------------------------
+
+def zero1_shards(tree: dict, specs: dict, mesh, rank: int) -> dict:
+    """This rank's shard of every leaf of `tree` (`specs`: the ZeRO-1
+    specs, `distributed.ShardingRules.opt_pspecs(...).master`)."""
+    from repro_torch.distributed.sharding import mesh_coords, shard_of
+
+    coords = mesh_coords(mesh, rank)
+    return tree_map(lambda x, s: shard_of(x, s, coords, mesh), tree, specs)
+
+
+def zero1_init(params: dict, specs: dict, mesh, rank: int) -> AdamWState:
+    """ZeRO-1's state: `adamw_init` of this rank's shards of `params`, so
+    master, mu and nu hold only the shard."""
+    return adamw_init(zero1_shards(params, specs, mesh, rank))
+
+
+def zero1_update(grads: dict, state: AdamWState, cfg: AdamWConfig, specs,
+                 group, mesh, param_dtype=torch.bfloat16):
+    """`adamw_update` with ZeRO-1: `grads` the whole gradient, summed over
+    the ranks (the same on each); its global norm clips, the update runs
+    on this rank's shard of state and gradient, and the new params are
+    gathered whole on every rank (`group.gather`).  Every operation after
+    the norm is elementwise, so the shards equal the matching slices of
+    the unsharded update bit for bit."""
+    gnorm = global_norm(grads)
+    shards, new_state, metrics = adamw_update(
+        zero1_shards(grads, specs, mesh, group.rank), state, cfg,
+        param_dtype, grad_norm=gnorm)
+    shapes = tree_map(lambda g: tuple(g.shape), grads)
+    return (group.gather(shards, specs, mesh, shapes), new_state, metrics)
+
+
+def zero1_gather_state(state: AdamWState, specs: dict, group, mesh,
+                       shapes: dict) -> AdamWState:
+    """The whole state from every rank's ZeRO-1 shards (a checkpoint's
+    global content)."""
+    return AdamWState(step=state.step,
+                      **{f: group.gather(getattr(state, f), specs, mesh,
+                                         shapes)
+                         for f in ("master", "mu", "nu")})

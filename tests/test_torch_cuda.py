@@ -1114,7 +1114,7 @@ def test_train_step_on_card_matches_cpu():
     from repro_torch.kernels import ssd_scan as ssd
     from repro_torch.launch import steps
     from repro_torch.models import api
-    from repro_torch.optim.adamw import tree_leaves
+    from repro_torch.tree import tree_leaves
 
     dev = _card()
     cfg = dataclasses.replace(configs.get_reduced("mamba2-130m"),

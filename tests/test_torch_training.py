@@ -14,8 +14,9 @@
 - Checkpoints: one written by the reference restores in the port, and one
   written by the port restores in the reference, bf16 leaves included,
   bit for bit.
-- The CLI refuses more than one device, raises without a card unless
-  asked for the CPU, and its straggler path checkpoints and exits 75.
+- The CLI refuses a model axis above 1 and nccl where it cannot run
+  (two ranks on one card, the CPU), raises without a card unless asked
+  for the CPU, and its straggler path checkpoints and exits 75.
 """
 import dataclasses
 import os
@@ -351,14 +352,25 @@ def test_checkpoint_manager_retention_and_tmp_cleanup(tmp_path):
 
 
 def test_cli_refuses_more_than_one_device(monkeypatch):
+    """What the CLI still refuses since data parallelism runs
+    (`tests/test_torch_dp.py`): a model axis above 1 (tensor parallelism,
+    ROADMAP A9c), and nccl where it cannot run: two ranks on a host with
+    one card (ranks share a card over gloo only) and the CPU.  Each
+    raises before joining a process group."""
     argv = ["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
             "--steps", "1"]
-    monkeypatch.setenv("WORLD_SIZE", "2")
-    with pytest.raises(NotImplementedError, match="A9b"):
-        train.main(argv)
-    monkeypatch.delenv("WORLD_SIZE")
-    with pytest.raises(NotImplementedError, match="A9b"):
+    with pytest.raises(NotImplementedError, match="A9c"):
         train.main(argv + ["--model-axis", "2"])
+    for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0"),
+                 ("LOCAL_WORLD_SIZE", "2")):
+        monkeypatch.setenv(k, v)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    monkeypatch.setattr(torch.cuda, "device_count", lambda: 1)
+    with pytest.raises(ValueError, match="nccl needs one card a rank"):
+        train.main(["--arch", "qwen3-1.7b", "--reduced", "--steps", "1",
+                    "--dist-backend", "nccl"])
+    with pytest.raises(ValueError, match="nccl runs on cards only"):
+        train.main(argv)
 
 
 def test_cli_needs_a_card_unless_asked_for_the_cpu():

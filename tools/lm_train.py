@@ -1,9 +1,11 @@
-"""The training phase of `chip_smoke.py` on the card, alone: train-mamba2
-(kernel B2 under a gradient at mamba2-130m's and zamba2-2.7b's head
-shapes, the float32 model step with B2 against the plain scan, and the
-trainer's CLI for mamba2-130m at full width, 8 x 4096 tokens a step, with
-a simulated preemption and a resume, then one step under
-`torch.profiler`).
+"""The training phases of `chip_smoke.py` on the card, alone:
+train-mamba2 (kernel B2 under a gradient at mamba2-130m's and
+zamba2-2.7b's head shapes, the float32 model step with B2 against the
+plain scan, and the trainer's CLI for mamba2-130m at full width, 8 x 4096
+tokens a step, with a simulated preemption and a resume, then one step
+under `torch.profiler`) and train-mamba2-dp2 (the CLI in two
+data-parallel ranks on the one card, resumed in one process, and its
+float32 check).
 
     python3 tools/lm_train.py
 
@@ -32,7 +34,10 @@ def main():
     cs.say("build", f"ssd_scan: nvcc {built.seconds:.1f} s")
     entry = {}
     out = cs.timed("train-mamba2", cs.phase_train, dev, smi, entry)
-    print(json.dumps({"train-mamba2": out, "b2": entry}), flush=True)
+    dp2 = cs.timed("train-mamba2-dp2", cs.phase_train_dp, dev, smi, entry,
+                   out["losses"])
+    print(json.dumps({"train-mamba2": out, "train-mamba2-dp2": dp2,
+                      "b2": entry}), flush=True)
     return 0
 
 
