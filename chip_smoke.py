@@ -47,7 +47,14 @@ data-parallel processes (train-mamba2-dp2: spawned ranks sharing the one
 card over gloo, 4 x 4096 tokens a rank, ZeRO-1, B2 counted in each),
 resumed in one process (elastic DP 2 -> 1), its losses held to the
 one-process run's, with a float32 check of the reduced gradient and the
-sharded optimizer state.  A scanning model's
+sharded optimizer state.  Then the same CLI in two model-parallel
+processes (train-mamba2-tp2: --model-axis 2, each rank 12 of the 24
+heads and all 8 x 4096 tokens, B2 counted in each, the model-axis
+collectives timed), resumed in one process (TP 2 -> 1), its losses held
+to the one-process run's; in the same ranks tp2-qwen3moe, one float32
+step of qwen3-moe-30b-a3b at full width cut to 2 of its 48 layers with
+its experts, heads and vocabulary split, against one process on the
+card.  A scanning model's
 bf16 prefill logits are held to the plain scan's, within twice the gap
 of a scan one float32 ulp
 from the plain one.  Each has a float32 batch: its prefill held
@@ -67,14 +74,15 @@ z-wavefront B6 at halos 16 and 12 and trapezoid B5 at halos 32 and 48
 bit-equal to the first schedule and held to the plain version,
 kernel-vs-plain-ssd with kernels-ssd, kernels-ssd-zamba2), serve-mamba2,
 serve-zamba2, serve-qwen3, serve-qwen3moe, serve-whisper, serve-llava,
-train-mamba2, train-mamba2-dp2, then for each path: main path
+train-mamba2, train-mamba2-dp2, train-mamba2-tp2 (with tp2-qwen3moe),
+then for each path: main path
 at full size, spatially-blocked baseline, kernel timing (with its design:
 the schedule the launch takes, registers, shared memory, blocks an SM,
 achieved GB/s), the batched kernel at the main path's shapes (after
 acoustic: sharded-acoustic and main-acoustic-bf16); the paper's cases at
 orders 8 and 12 (paper-*: acoustic on B6, TTI and elastic on B5 at tile
 64, each such run counted and its kernel held against the plain version
-on a mid-run tile);
+on a mid-run tile; elastic at half depth, PAPER_HALF_DEPTH);
 then survey-acoustic,
 survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
 line.  Any failed check raises, and the script exits non-zero.
@@ -957,6 +965,12 @@ PAPER_PLANS = {
     ("elastic", 8): _B5_PLANS + _FIRST_PLANS,
     ("elastic", 12): _B5_PLANS + _FIRST_PLANS,
 }
+# the paper cases run at half depth, in simulated ms (nt 220 / 230 for
+# elastic at orders 8 / 12, 440 / 459 at the paper's 512 ms): the same
+# width and plans, still held to Listing 1; the time they free keeps the
+# whole script inside its limit beside train-mamba2-tp2 (PERF.md keeps
+# the full-depth figures of PRs 22-23)
+PAPER_HALF_DEPTH = {("elastic", 8): 256.0, ("elastic", 12): 256.0}
 # device bytes a propagation may count on beyond `ops.propagation_bytes`
 # (its tables, receiver partials and traces, the allocator's rounding)
 PAPER_RESERVE = 2 * 2 ** 30
@@ -1033,7 +1047,8 @@ def phase_paper_case(name, order, smi, dev):
     the reference within MAIN_TOL on every field and receiver channel.
     Returns the case's record for the nine-case summary."""
     phase = f"paper-{name}-O{order}"
-    fc = full_case(name, dev, order=order)
+    half = PAPER_HALF_DEPTH.get((name, order))
+    fc = full_case(name, dev, order=order, time_ms=half)
     plan, tried = paper_plan(fc)
     model = plan_for_physics(name, SHAPE[2], order,
                              tiles=(4, 8, 16, 32, 64, 128),
@@ -1041,7 +1056,9 @@ def phase_paper_case(name, order, smi, dev):
     spec = ops.make_spec(SHAPE, plan, order, fc.dt, fc.spacing, 1, 1,
                          physics=fc.physics)
     say(phase, f"{fc.case.name}: {SHAPE} spacing {fc.spacing[0]:g} m "
-        f"nt={fc.nt} dt={fc.dt:.6e}; plan tile {plan.tile} T={plan.T} "
+        f"nt={fc.nt} dt={fc.dt:.6e}"
+        + (f" (half depth: {half:g} of the paper's 512 ms)" if half else "")
+        + f"; plan tile {plan.tile} T={plan.T} "
         f"(halo {spec.halo}; propagation bytes by plan tried: "
         + ", ".join(f"tile {t} T={d} {g:.2f} GiB" for t, d, g in tried)
         + f"), {schedule_of(spec, fc.physics)} schedule; the plan model "
@@ -1052,7 +1069,8 @@ def phase_paper_case(name, order, smi, dev):
     rfinal = tuple(f.cpu() for f in rfinal)
     ref_s = time.perf_counter() - t0
     out = {"case": fc.case.name, "physics": name, "order": order,
-           "nt": fc.nt, "tile": list(plan.tile), "T": plan.T,
+           "nt": fc.nt, "half_depth": bool(half),
+           "tile": list(plan.tile), "T": plan.T,
            "schedule": schedule_of(spec, fc.physics),
            "model_plan": {"tile": list(model.tile), "T": model.T}}
     sb = TBPlan(TILE, 1, fc.physics.step_radius(order))
@@ -3005,19 +3023,24 @@ TRAIN_SEED = 0
 # B2 under a gradient: (label, (B, S, H, G, N, P, Q), input dtypes) at
 # mamba2-130m's head shape and zamba2-2.7b's (both B2's tensor-core shapes
 # in bf16), the trainer's own call in train-mamba2 (c) (the CLI's 8 x 4096
-# tokens at mamba2-130m's heads in bf16, 64 chunks of carried state) and a
+# tokens at mamba2-130m's heads in bf16, 64 chunks of carried state), a
 # rank's call in train-mamba2-dp2 (its 4 x 4096 of the same global batch)
+# and a rank's call in train-mamba2-tp2 (all 8 x 4096, its 12 of the 24
+# heads)
 GRAD_CASES = [("mamba2-130m's head shape", (2, 1024, 24, 1, 128, 64, 64),
                (torch.float32, BF16)),
               ("zamba2-2.7b's head shape", (2, 1024, 80, 1, 64, 64, 128),
                (torch.float32, BF16)),
               ("the trainer's call", (8, 4096, 24, 1, 128, 64, 64), (BF16,)),
               ("a data-parallel rank's call", (4, 4096, 24, 1, 128, 64, 64),
+               (BF16,)),
+              ("a model-parallel rank's call", (8, 4096, 12, 1, 128, 64, 64),
                (BF16,))]
 # the main paths' calls of GRAD_CASES, timed: label -> key of B2's
 # kernels-line entry
 GRAD_TIMED = {"the trainer's call": "train_call",
-              "a data-parallel rank's call": "dp2_call"}
+              "a data-parallel rank's call": "dp2_call",
+              "a model-parallel rank's call": "tp2_call"}
 GRAD_TOL = 1e-4              # float32: max|diff| / max|plain gradient|
 # bf16 inputs: the same ratio.  The backward computes in float32 from the
 # same inputs as autograd through the plain version; they differ by the
@@ -3167,6 +3190,7 @@ def phase_train_grads(dev, smi, entry):
                                               ssd.ssd_scan_plain)[3:]
                 launch = lambda: ssd.ssd_scan(spec, *args)  # noqa: E731
                 ms = uncounted(lambda: cuda_ms(launch, reps=5))[0]
+                plain_ms = cuda_ms(lambda: ssd.ssd_scan_plain(spec, *args))[0]
                 cost = ssd.kernel_cost(spec, Bsz, in_dtype=dtype)
                 t_bytes = cost["min_bytes"] / HBM_BW * 1e3
                 t_ops = cost["needed_flops"] / BF16_TC_PEAK * 1e3
@@ -3176,7 +3200,8 @@ def phase_train_grads(dev, smi, entry):
                     f"launch (mean of 5) vs bound {bound:.4f} ms by {by} "
                     f"({cost['min_bytes'] / 1e6:.1f} MB in {t_bytes:.4f} ms; "
                     f"{cost['needed_flops'] / 1e9:.2f} GFLOP in {t_ops:.4f} "
-                    f"ms at 989 TFLOP/s); under a gradient (a second call "
+                    f"ms at 989 TFLOP/s); plain {plain_ms:.2f} ms; under a "
+                    f"gradient (a second call "
                     f"each): SSDScanFn forward {fwd_ms:.2f} ms, backward "
                     f"{bwd_ms:.2f} ms (_ssd_chunked "
                     f"recomputed and differentiated); autograd through "
@@ -3185,6 +3210,7 @@ def phase_train_grads(dev, smi, entry):
                 entry[GRAD_TIMED[label]] = {
                     "shape": list(shape), "ms": ms, "bound_ms": bound,
                     "bound_by": by, "max_abs_err": ey[0],
+                    "plain_ms": plain_ms, "grad_gaps": gaps,
                     "backward_ms": bwd_ms, "plain_backward_ms": pbwd_ms}
             del got, want, args, cots, y, h, py, ph
     torch.cuda.empty_cache()
@@ -3758,6 +3784,333 @@ def phase_train_dp(dev, smi, entry, straight):
             "b2_a_step": [n / DP_STEPS for n in launches], "wall_s": wall}
 
 
+# ---------------------------------------------------------------------------
+# Training across processes: mamba2-130m in two model-parallel ranks, and
+# qwen3-moe-30b-a3b's experts, heads and vocabulary split over two ranks
+# ---------------------------------------------------------------------------
+
+TP_WORLD = 2
+# the trainer's CLI of train-mamba2-dp2 with a model axis of 2: both ranks
+# take all 8 x 4096 tokens, each its 12 of the 24 heads a block
+TP_CLI = DP_CLI + ["--model-axis", str(TP_WORLD)]
+# tp2-qwen3moe: qwen3-moe-30b-a3b at full width, cut to 2 of its 48 layers,
+# in float32, 2 x 512 tokens; its limits: the loss's relative gap, the
+# gathered gradient's max|diff| / max|g| per leaf, grad_norm's relative gap
+TP_MOE_ARCH = "qwen3-moe-30b-a3b"
+TP_MOE_LAYERS = 2
+TP_MOE_SHAPE = (512, 2)            # (seq_len, batch)
+TP_MOE_LOSS_RTOL = 1e-5
+TP_MOE_GRAD_TOL = 1e-4
+TP_MOE_NORM_RTOL = 1e-4
+
+
+def tp_rank(rank, ckpt):
+    """One rank of train-mamba2-tp2 and tp2-qwen3moe, in a process of its
+    own (`process_group.spawn_ranks`): joins the gloo group on
+    cuda:LOCAL_RANK % device_count, runs the trainer's CLI with a model
+    axis (`tp_rank_cli`), then the float32 MoE check (`tp_moe_check`)."""
+    from repro_torch.distributed.process_group import DataParallel
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = DataParallel.start("gloo", "cuda")
+    try:
+        out = tp_rank_cli(ckpt)
+        torch.cuda.empty_cache()
+        out["moe"] = tp_moe_check(group)
+        return out
+    finally:
+        group.close()
+
+
+def tp_rank_cli(ckpt):
+    """This rank's run of the CLI (TP_CLI, DP_STEPS steps then a
+    checkpoint): B2 launches (counted from 0 just before), peak GiB, wall
+    s, each step's ms (CUDA events), and per step the model-axis
+    collectives (`DataParallel.all_reduce_` on the mesh's model group: the
+    models' f and g, and the sum of the partial gradients and of the
+    norm's squares): their count, bytes, and ms on
+    the host clock in two parts, the wait at a barrier every rank of the
+    group has reached (after this rank's work before it, synchronised)
+    and the transfer after it (gloo stages the card's buffers through the
+    host)."""
+    from repro_torch.distributed.process_group import DataParallel
+    from repro_torch.launch import steps, train
+
+    events, per_step, model = [], [], []
+    now = {"wait": 0.0, "transfer": 0.0, "bytes": 0, "calls": 0}
+    make_step, all_reduce = steps.make_train_step, DataParallel.all_reduce_
+
+    def timed_make_step(cfg, opt_cfg, rules, *a, **kw):
+        model.append(rules.mesh.axis_groups[rules.tp_axis])
+        step = timed_fn(make_step(cfg, opt_cfg, rules, *a, **kw), "train",
+                        events)
+
+        def call(*args):
+            out = step(*args)
+            per_step.append(dict(now))
+            now.update(wait=0.0, transfer=0.0, bytes=0, calls=0)
+            return out
+        return call
+
+    def timed_all_reduce(self, t, op=torch.distributed.ReduceOp.SUM):
+        if not model or self is not model[0] or self.world == 1:
+            return all_reduce(self, t, op)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(torch.zeros(1, device=self.device),
+                                     group=self.pg)            # the barrier
+        t1 = time.perf_counter()
+        out = all_reduce(self, t, op)
+        torch.cuda.synchronize()
+        now["wait"] += (t1 - t0) * 1e3
+        now["transfer"] += (time.perf_counter() - t1) * 1e3
+        now["bytes"] += t.numel() * t.element_size()
+        now["calls"] += 1
+        return out
+
+    argv = TP_CLI + ["--steps", str(TRAIN_STEPS), "--stop-after",
+                     str(DP_STEPS), "--ckpt-dir", ckpt]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.launches = 0
+    t0 = time.perf_counter()
+    with patched(steps, "make_train_step", timed_make_step), \
+            patched(DataParallel, "all_reduce_", timed_all_reduce):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    return {"rc": rc, "launches": ssd.launches, "wall_s": wall,
+            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "step_ms": [s.elapsed_time(e) for _, s, e in events],
+            "collectives": per_step, "argv": argv}
+
+
+def tp_moe_check(group):
+    """tp2-qwen3moe: qwen3-moe-30b-a3b at full width cut to TP_MOE_LAYERS
+    layers, float32, TP_MOE_SHAPE tokens from seed TRAIN_SEED: one train
+    step (`make_train_step` with rules) in the two ranks, as (1, 2) on
+    the (data, model) mesh: the 128 experts over the model axis (EP), the
+    32 q and 4 kv heads, the untied lm_head and the embedding's 151936
+    rows.  Against the same step's loss and gradient in one process on
+    the card, run first on rank 0 (`steps.loss_and_grads`, what the step
+    differentiates, and `global_norm`), its gradient kept on the host and
+    its device memory freed before the ranks build theirs (rank 1 waits
+    at a barrier).  On rank 0: the loss within TP_MOE_LOSS_RTOL, the
+    summed gradient gathered whole within TP_MOE_GRAD_TOL of max|g| per
+    leaf, grad_norm within TP_MOE_NORM_RTOL.  Returns the gaps (rank 0),
+    the step's ms and both ranks' peak GiB."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch, rank_batch
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.distributed.sharding import mesh_coords, shard_of
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig, global_norm
+    from repro_torch.optim.adamw import zero1_init
+    from repro_torch.tree import named_leaves, tree_map
+
+    dev, rank = group.device, group.rank
+    cfg = dataclasses.replace(configs.get(TP_MOE_ARCH),
+                              num_layers=TP_MOE_LAYERS,
+                              param_dtype="float32",
+                              activation_dtype="float32")
+    shape = ShapeConfig("tp_moe", *TP_MOE_SHAPE, "train")
+    torch.cuda.reset_peak_memory_stats()
+    one = None
+    if rank == 0:
+        params = api.init(TRAIN_SEED, cfg, shape, device=dev)
+        (loss, _, _), g = steps.loss_and_grads(
+            params, cfg, make_batch(cfg, shape, step=0, device=dev))
+        one = {"loss": float(loss), "norm": float(global_norm(g)),
+               "grads": {k: v.cpu() for k, v in named_leaves(g)},
+               "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30}
+        del params, g
+        torch.cuda.empty_cache()
+    group.max(0.0)                        # rank 1 waits for the card
+    torch.cuda.reset_peak_memory_stats()
+    mesh = make_host_mesh(model=TP_WORLD, group=group)
+    rules = ShardingRules(mesh=mesh, cfg=cfg)
+    data = mesh.axis_groups["data"]
+    whole = api.init(TRAIN_SEED, cfg, shape, device=dev)
+    pspecs = rules.param_pspecs(whole)
+    shapes = tree_map(lambda p: tuple(p.shape), whole)
+    opt = zero1_init(whole, steps.zero1_specs(rules, whole), mesh, rank)
+    coords = mesh_coords(mesh, rank)
+    params = tree_map(lambda p, s: shard_of(p, s, coords, mesh), whole,
+                      pspecs)
+    del whole
+    torch.cuda.empty_cache()
+    step = steps.make_train_step(cfg, AdamWConfig(warmup_steps=1,
+                                                  total_steps=TRAIN_STEPS),
+                                 rules)
+    summed, sum_grads = [], steps._sum_grads
+
+    def keeping(*a, **kw):
+        out = sum_grads(*a, **kw)
+        summed.append(out)
+        return out
+
+    batch = rank_batch(cfg, shape, 0, data.rank, data.world, device=dev)
+    with patched(steps, "_sum_grads", keeping):
+        step_ms, (params, opt, m) = cuda_ms(lambda: step(params, opt, batch))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    del params, opt
+    torch.cuda.empty_cache()
+    gathered = group.gather(summed[0], pspecs, mesh, shapes)
+    del summed
+    out = {"step_ms": step_ms, "peak_gib": peak,
+           "loss": float(m["loss"]), "norm": float(m["grad_norm"])}
+    if rank == 0:
+        gaps = {}
+        for k, g in named_leaves(gathered):
+            w = one["grads"][k].to(dev)
+            gaps[k] = max_rel(g, w)
+            del w
+        out.update(one_loss=one["loss"], one_norm=one["norm"],
+                   one_peak_gib=one["peak_gib"], gaps=gaps)
+    del gathered
+    torch.cuda.empty_cache()
+    return out
+
+
+def phase_train_tp(dev, smi, entry, straight):
+    """train-mamba2-tp2: the trainer's CLI started as TP_WORLD processes
+    (spawned; rank r on cuda:0 over gloo) with --model-axis 2 for
+    mamba2-130m at full width in bf16, 8 x 4096 tokens on both ranks, each
+    its 12 heads (B2 at B 8, S 4096, H 12), DP_STEPS steps and a
+    checkpoint; that checkpoint resumed in this process (TP 2 -> 1) for
+    step DP_STEPS; and, in the same two ranks, tp2-qwen3moe
+    (`tp_moe_check`), this process holding no device memory of its own
+    meanwhile.  Holds each rank's B2 launches at 2 x 24 a step
+    (SSDScanFn, no plain scan), every loss finite, the TP-2 losses of
+    steps 0-2 and the resumed loss of step 3 within RESUME_RTOL of the
+    straight one-process run of train-mamba2 (`straight`), and
+    tp2-qwen3moe's limits.  Prints ms a step (CUDA events on rank 0,
+    median of steps 1-2), tokens/s, the model-axis collectives a step
+    (count, bytes, transfer after a barrier apart from the wait at it;
+    gloo through the host: a cost of this one-card rig, not a link's),
+    peak GiB and B2 launches a rank, wall s.  Returns B2's kernels-line
+    entry at the model-parallel rank's call (`entry`'s ``tp2_call``, held
+    against the plain scan under a gradient in train-mamba2) with this
+    run's launches a rank."""
+    import tempfile
+
+    from repro_torch.distributed import process_group
+    from repro_torch.launch import train
+
+    from repro_torch.models.mamba2 import dims
+
+    phase = "train-mamba2-tp2"
+    cfg = configs.get(TRAIN_ARCH)
+    heads = dims(cfg)[1]
+    want = (2 if cfg.remat == "full" else 1) * cfg.num_layers
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        ckpt = str(Path(tmp) / "tp")
+        t0 = time.perf_counter()
+        res = process_group.spawn_ranks(
+            tp_rank, TP_WORLD, (ckpt,), timeout=DP_TIMEOUT,
+            env={"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())})
+        wall = time.perf_counter() - t0
+        ssd.launches = 0
+        rc_res = train.main(TRAIN_CLI + ["--steps", str(TRAIN_STEPS),
+                                         "--stop-after", str(DP_STEPS + 1),
+                                         "--ckpt-dir", ckpt])
+        resumed_launches = ssd.launches
+        got = read_losses(ckpt)
+    r0 = res[0]
+    ms = r0["step_ms"]
+    med = statistics.median(ms[1:])
+    cli = train.parse_args(TP_CLI)
+    tokens = cli.seq_len * cli.batch
+    gaps = {k: abs(got[k] - straight[k]) / abs(straight[k]) for k in got}
+    finite = all(math.isfinite(v) for v in got.values())
+    launches = [res[r]["launches"] for r in range(TP_WORLD)]
+
+    def per_step(r, key):
+        return statistics.median(c[key] for c in res[r]["collectives"][1:])
+
+    say(phase, f"CLI in {TP_WORLD} ranks over gloo on one card "
+        f"({' '.join(r0['argv'][:-2])}; {widths(cfg)}, bf16; a rank holds "
+        f"{heads // TP_WORLD} of the {heads} heads, B and C of the conv "
+        f"gathered): {med:.2f} ms a "
+        f"step of {tokens} tokens (CUDA events on rank 0, median of steps "
+        f"1-{DP_STEPS - 1}; all " + ", ".join(f"{t:.1f}" for t in ms)
+        + f"), {tokens / med * 1e3:.0f} tokens/s; model-axis collectives a "
+        f"step (gloo through the host: this one-card rig's cost, not a link "
+        f"figure; median of steps 1-{DP_STEPS - 1}), by rank: "
+        + "; ".join(
+            f"rank {r}: {per_step(r, 'calls'):.0f} all-reduces, "
+            f"{per_step(r, 'bytes') / 1e9:.3f} GB, transfer after a barrier "
+            f"{per_step(r, 'transfer'):.1f} ms, wait at it "
+            f"{per_step(r, 'wait'):.1f} ms" for r in range(TP_WORLD))
+        + f" (rank 0's transfer, all steps: " + ", ".join(
+            f"{c['transfer']:.1f}" for c in r0["collectives"])
+        + f"); peak GiB a rank " + ", ".join(
+            f"{res[r]['peak_gib']:.2f}" for r in range(TP_WORLD))
+        + f"; B2 launches a rank {launches} in {DP_STEPS} steps ({want} a "
+        f"step expected); wall {wall:.1f} s for the ranks (start, "
+        f"{DP_STEPS} steps, checkpoint, tp2-qwen3moe) [{smi}]")
+    say(phase, f"losses TP-2 " + ", ".join(
+        f"{got[k]:.4f}" for k in range(DP_STEPS)) + f"; resumed in one "
+        f"process (TP 2 -> 1, exit {rc_res}, {resumed_launches} B2 "
+        f"launches) step {DP_STEPS}: {got.get(DP_STEPS, float('nan')):.4f}; "
+        f"straight one-process " + ", ".join(
+            f"{straight[k]:.4f}" for k in range(DP_STEPS + 1))
+        + "; relative gaps " + ", ".join(
+            f"{gaps[k]:.2e}" for k in sorted(gaps))
+        + f" (limit {RESUME_RTOL:g})")
+    m = r0["moe"]
+    lgap = abs(m["loss"] - m["one_loss"]) / abs(m["one_loss"])
+    ngap = abs(m["norm"] - m["one_norm"]) / abs(m["one_norm"])
+    worst = max(m["gaps"].items(), key=lambda kv: kv[1])
+    say("tp2-qwen3moe", f"{TP_MOE_ARCH} at full width cut to "
+        f"{TP_MOE_LAYERS} of 48 layers, float32, {TP_MOE_SHAPE[1]} x "
+        f"{TP_MOE_SHAPE[0]} tokens, one train step in {TP_WORLD} ranks "
+        f"(experts, heads and vocabulary split) against one process on the "
+        f"card: loss {m['loss']:.6f} vs {m['one_loss']:.6f} (relative gap "
+        f"{lgap:.2e}, limit {TP_MOE_LOSS_RTOL:g}); grad_norm {m['norm']:.6e} "
+        f"vs {m['one_norm']:.6e} (relative gap {ngap:.2e}, limit "
+        f"{TP_MOE_NORM_RTOL:g}); gathered gradient max|diff| / max|g| worst "
+        f"leaf {worst[0]} {worst[1]:.2e} (limit {TP_MOE_GRAD_TOL:g}); the "
+        f"step {m['step_ms']:.1f} ms on rank 0; peak GiB a rank " + ", ".join(
+            f"{res[r]['moe']['peak_gib']:.2f}" for r in range(TP_WORLD))
+        + f", one process {m['one_peak_gib']:.2f} [{smi}]")
+    ok = (all(res[r]["rc"] == 0 for r in range(TP_WORLD)) and rc_res == 0
+          and all(n == want * DP_STEPS for n in launches)
+          and resumed_launches == want and finite
+          and sorted(got) == list(range(DP_STEPS + 1))
+          and max(gaps.values()) <= RESUME_RTOL
+          and lgap <= TP_MOE_LOSS_RTOL and ngap <= TP_MOE_NORM_RTOL
+          and worst[1] <= TP_MOE_GRAD_TOL)
+    if not ok:
+        raise AssertionError(f"{phase}: check failed (exits "
+                             f"{[res[r]['rc'] for r in range(TP_WORLD)]}/"
+                             f"{rc_res}, launches {launches}/"
+                             f"{resumed_launches}, losses {got}, gaps "
+                             f"{gaps}, tp2-qwen3moe loss {lgap:.2e} norm "
+                             f"{ngap:.2e} worst {worst})")
+    call = entry["tp2_call"]
+    return {
+        "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan) at a "
+                "model-parallel rank's call (B 8, S 4096, H 12)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:49",
+        "launches": launches[0],
+        "launches_by_rank": launches,
+        "max_abs_err": call["max_abs_err"],
+        "ms": call["ms"],
+        "plain_ms": call["plain_ms"],
+        "bound_ms": call["bound_ms"],
+        "bound_by": call["bound_by"],
+        "library_ms": None,
+        "grad_gaps": call["grad_gaps"],
+        "ms_a_step": med, "tokens_s": tokens / med * 1e3,
+    }
+
+
 def run_path(name, smi, dev):
     """One main path; returns (its kernel entry, its TB run's ms, for
     acoustic the sharded path's and the bf16 tile's kernel entries, and
@@ -3824,7 +4177,9 @@ def say_paper_table(records, smi):
     """The nine paper cases, TB against SB, one line each."""
     for r in sorted(records, key=lambda r: (r["physics"], r["order"])):
         tb, sb = r["TB"], r["SB"]
-        say("paper", f"{r['case']}: nt {r['nt']}, tile {tuple(r['tile'])} "
+        say("paper", f"{r['case']}: nt {r['nt']}"
+            + (" (half depth)" if r.get("half_depth") else "")
+            + f", tile {tuple(r['tile'])} "
             f"T={r['T']} ({r['schedule']}), {tb['launches']} launches, TB "
             f"{tb['ms']:.1f} ms, SB {sb['ms']:.1f} ms, TB/SB "
             f"{r['TB/SB']:.3f}; kernel {tb['kernel_ms']:.3f} ms per launch "
@@ -3858,6 +4213,8 @@ def main():
     trained = timed("train-mamba2", phase_train, dev, smi, b2)
     timed("train-mamba2-dp2", phase_train_dp, dev, smi, b2,
           trained["losses"])
+    b2tp = timed("train-mamba2-tp2", phase_train_tp, dev, smi, b2,
+                 trained["losses"])
     entries, tb_ms, extra, paper = [], {}, [], []
     for name in ("acoustic", "tti", "elastic"):
         entry, tb_ms[name], more, record = run_path(name, smi, dev)
@@ -3873,7 +4230,7 @@ def main():
                          tb_ms["acoustic"]))
     timed("survey-tti", phase_survey_tti, smi, dev, tb_ms["tti"])
     entries += timed("survey-small", phase_survey_small, smi, dev)
-    entries += extra + [b2, b2z]
+    entries += extra + [b2, b2z, b2tp]
     timed("sharded-small", phase_sharded_small, smi, dev)
     timed("survey-sharded", phase_survey_sharded, smi, dev)
     say("time", f"total {time.perf_counter() - t_start:.1f} s: " + ", ".join(

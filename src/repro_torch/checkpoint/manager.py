@@ -19,12 +19,14 @@ restores in the other.
     arrays to a writer thread, so the loop may go on.
   * **retention**: the newest `keep` committed checkpoints stay.
   * **under a process group** (`group=`, a `distributed.process_group.
-    DataParallel`): the content stays global and is written once, by
-    rank 0, in the same format; the other ranks wait for its commit
-    (`wait`, a collective every rank calls at the same saves).
+    DataParallel`): the content stays global (the caller gathers the
+    ranks' model-axis and ZeRO-1 shards, `DataParallel.gather`) and is
+    written once, by rank 0, in the same format; the other ranks wait for
+    its commit (`wait`, a collective every rank calls at the same saves).
   * **elastic restore**: `restore_sharded` reads each leaf's slice that
-    a rank holds under a spec (`distributed.ShardingRules`), so a
-    checkpoint written at one data-parallel size resumes at another.
+    a rank holds under a spec (`distributed.ShardingRules`) on every axis
+    of the mesh, so a checkpoint written at one data-parallel or
+    model-parallel size resumes at another.
 """
 from __future__ import annotations
 

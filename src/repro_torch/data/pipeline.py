@@ -103,9 +103,11 @@ def make_batch(cfg, shape, step: int = 0, dp_rank: int = 0, dp_size: int = 1,
 
 def rank_batch(cfg, shape, step: int, dp_rank: int, dp_size: int,
                device="cuda") -> dict:
-    """Data-parallel rank `dp_rank`'s rows of the global batch of `shape`
-    (rows [r * b, (r + 1) * b), b = global_batch / dp_size), so the ranks
-    together train on the one-process batch.  The text families build
+    """The rows of data coordinate `dp_rank` (of `dp_size` along the
+    mesh's data axis; not the process's rank: the ranks of one model axis
+    share a coordinate and take the same rows) of the global batch of
+    `shape`: rows [r * b, (r + 1) * b), b = global_batch / dp_size, so the
+    data axis together trains on the one-process batch.  The text families build
     only their rows (`make_batch`'s dp split; rows are addressed
     globally); the vlm and encdec stub embeddings are drawn for the
     global batch from one seed (`make_batch`), so their rank takes its

@@ -1,7 +1,7 @@
-"""Data parallelism across processes: the port's counterpart of the
-reference's multi-process start (`jax.distributed.initialize` in
-`repro.launch.train`) and of the collectives that GSPMD inserts for data
-parallelism.
+"""Data, tensor and expert parallelism across processes: the port's
+counterpart of the reference's multi-process start
+(`jax.distributed.initialize` in `repro.launch.train`) and of the
+collectives that GSPMD inserts for a (data, model) mesh.
 
     torchrun --nproc-per-node 2 -m repro_torch.launch.train ... \
         --dist-backend gloo
@@ -28,6 +28,27 @@ data allows:
     tensor is bit-equal to the shards;
   * `mean_over_ranks`: a statistic averaged over the ranks inside the
     model (the MoE's load-balancing terms, `models.moe.route`).
+
+A mesh with a model axis (`launch.mesh.make_host_mesh(model=)`) cuts the
+world into sub-groups (`DataParallel.axis_groups`): the ranks that differ
+on the data axis alone (the gradient sum, ZeRO-1) and those that differ on
+the model axis alone.  Over the latter the models run the Megatron
+collectives that GSPMD inserts from the reference's specs, written out
+(`model_parallel` sets the group for a step; with none set each is the
+identity):
+  * `copy_to_model` (Megatron's f): the identity forward, the gradient
+    all-reduced backward, at the input of a column-parallel product;
+  * `reduce_from_model` (g): the rank's partial sum all-reduced forward,
+    the identity backward, at a row-parallel output;
+  * `gather_from_model`: the ranks' blocks of a dimension put together
+    (an all-reduce of a zero-padded buffer: ``gloo`` gives CUDA tensors
+    no all-gather), the gradient all-reduced and cut backward;
+  * `sum_over_model`: all-reduced both ways, for a sum that the ranks'
+    own blocks consume (the gated RMSNorm's sum of squares);
+  * `max_over_model`: a detached maximum (the vocabulary-parallel
+    softmax's shift).
+They reduce in the tensor's dtype: ``gloo`` reduces bf16 on the CPU and on
+CUDA tensors (PERF.md).
 """
 from __future__ import annotations
 
@@ -40,7 +61,7 @@ import torch
 import torch.distributed as dist
 
 from repro_torch._device import resolve_device
-from repro_torch.distributed.sharding import (_axes_of, all_coords,
+from repro_torch.distributed.sharding import (_axes_of_spec, all_coords,
                                               shard_slices)
 from repro_torch.tree import map_named, named_leaves
 
@@ -142,15 +163,19 @@ def _flat_bytes(tensors) -> torch.Tensor:
 
 
 class DataParallel:
-    """This process's place in a data-parallel group (`rank` of `world`,
-    on `device`) and the collectives over it.  `start` joins a group, or
-    takes the one already started in this process (then `close` leaves it
-    to its owner)."""
+    """This process's place in a group of ranks (`rank` of `world`, on
+    `device`) and the collectives over it.  `start` joins the world's
+    group, or takes the one already started in this process (then `close`
+    leaves it to its owner); `axis_groups` makes its sub-groups, each
+    over the global `ranks` of its members through `pg` (None: the
+    world's).  A group of one rank runs no collective."""
 
     def __init__(self, rank: int, world: int, device: torch.device,
-                 backend: str, owned: bool = False):
+                 backend: str, owned: bool = False, pg=None, ranks=None):
         self.rank, self.world = rank, world
         self.device, self.backend, self.owned = device, backend, owned
+        self.pg = pg
+        self.ranks = list(range(world)) if ranks is None else list(ranks)
 
     @classmethod
     def start(cls, backend: str = "nccl", device="cuda"):
@@ -177,20 +202,52 @@ class DataParallel:
         if self.owned and dist.is_initialized():
             dist.destroy_process_group()
 
+    def axis_groups(self, mesh) -> dict:
+        """{axis: this rank's group along `axis` of `mesh`} (this group
+        the world's, `mesh.shape` counting its ranks row-major): the ranks
+        whose coordinates differ from this rank's on that axis alone, in
+        that axis's order.  Every rank creates every group of more than
+        one rank and fewer than all (`dist.new_group`), in the same order,
+        as torch.distributed requires."""
+        coords = all_coords(mesh)
+        if len(coords) != self.world:
+            raise ValueError(f"mesh {dict(mesh.shape)} counts {len(coords)} "
+                             f"ranks, the group {self.world}")
+        out = {}
+        for axis in mesh.shape:
+            lines = {}
+            for r, c in enumerate(coords):
+                key = tuple(c[a] for a in mesh.shape if a != axis)
+                lines.setdefault(key, []).append(r)
+            for ranks in lines.values():
+                pg = self.pg
+                if 1 < len(ranks) < self.world:
+                    pg = dist.new_group(ranks, backend=self.backend)
+                if self.rank in ranks:
+                    out[axis] = DataParallel(
+                        ranks.index(self.rank), len(ranks), self.device,
+                        self.backend, pg=pg, ranks=ranks)
+        return out
+
+    def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM):
+        """t reduced over the ranks in place (as it is in a group of one
+        rank); returns t."""
+        if self.world > 1:
+            dist.all_reduce(t, op=op, group=self.pg)
+        return t
+
     # -- small collectives ------------------------------------------------
     def sum(self, x) -> torch.Tensor:
         """x (a number or a tensor on this rank's device) summed over the
         ranks, float32."""
         t = torch.as_tensor(x, dtype=torch.float32,
                             device=self.device).detach().clone()
-        dist.all_reduce(t)
-        return t
+        return self.all_reduce_(t)
 
     def max(self, x) -> torch.Tensor:
         t = torch.as_tensor(x, dtype=torch.float32,
                             device=self.device).detach().clone()
-        dist.all_reduce(t, op=dist.ReduceOp.MAX)
-        return t
+        return self.all_reduce_(t, op=dist.ReduceOp.MAX)
 
     # -- trees ------------------------------------------------------------
     def all_reduce_grads(self, grads: dict) -> dict:
@@ -203,7 +260,7 @@ class DataParallel:
 
         def flush():
             flat = torch.cat([g.reshape(-1).float() for _, g in bucket])
-            dist.all_reduce(flat)
+            self.all_reduce_(flat)
             for (name, g), part in zip(bucket, flat.split(
                     [g.numel() for _, g in bucket])):
                 out[name] = part.view(g.shape)
@@ -221,12 +278,14 @@ class DataParallel:
     def broadcast_(self, tree, src: int = 0):
         """Every leaf of `tree` (tensors on this rank's device) set to
         rank `src`'s, in place: one broadcast a dtype, as bytes."""
+        if self.world == 1:
+            return tree
         by_dtype = {}
         for _, t in named_leaves(tree):
             by_dtype.setdefault(t.dtype, []).append(t)
         for ts in by_dtype.values():
             flat = _flat_bytes(ts)
-            dist.broadcast(flat, src=src)
+            dist.broadcast(flat, src=self.ranks[src], group=self.pg)
             for t, part in zip(ts, flat.split(
                     [t.numel() * t.element_size() for t in ts])):
                 t.copy_(part.view(t.dtype).view(t.shape))
@@ -235,10 +294,13 @@ class DataParallel:
     def gather(self, shards, specs, mesh, shapes) -> dict:
         """The whole tree from every rank's shards: `shards` this rank's
         (a tree), `specs` and `shapes` (whole shapes) trees of the same
-        structure.  A leaf whose spec splits over no axis of size > 1 is
-        the same on every rank and stays as it is; the others come in one
-        broadcast from each owner of its shards (the first rank holding
-        each distinct slice), as bytes."""
+        structure, `mesh` this group's (its ranks row-major).  A leaf whose
+        spec splits over no axis of size > 1 is the same on every rank and
+        stays as it is; the others come in one broadcast from each owner
+        of its shards (the first rank holding each distinct slice), as
+        bytes."""
+        if self.world == 1:
+            return shards
         spec_of = dict(named_leaves(specs))
         shape_of = dict(named_leaves(shapes))
         mine = named_leaves(shards)
@@ -267,15 +329,11 @@ class DataParallel:
                     if owner == self.rank else
                     torch.empty(sum(nbytes), dtype=torch.uint8,
                                 device=self.device))
-            dist.broadcast(flat, src=owner)
+            dist.broadcast(flat, src=self.ranks[owner], group=self.pg)
             for n, sl, d, part in zip(held, slices, dims,
                                       flat.split(nbytes)):
                 out[n][sl] = part.view(out[n].dtype).view(d)
         return map_named(lambda name, _: out[name], shards)
-
-
-def _axes_of_spec(spec) -> tuple:
-    return tuple(a for e in spec for a in _axes_of(e))
 
 
 def _first_holder(spec, coords: dict, mesh) -> bool:
@@ -319,8 +377,7 @@ class _MeanOverRanks(torch.autograd.Function):
     @staticmethod
     def forward(ctx, x, group):
         ctx.world = group.world
-        out = x.detach().float().clone()
-        dist.all_reduce(out)
+        out = group.all_reduce_(x.detach().float().clone())
         return (out / group.world).to(x.dtype)
 
     @staticmethod
@@ -338,5 +395,145 @@ def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
     return _MeanOverRanks.apply(x, group)
 
 
-__all__ = ["BACKENDS", "BUCKET_BYTES", "DataParallel", "mean_over_ranks",
-           "rank_device", "reducing", "spawn_ranks", "world_size"]
+# ---------------------------------------------------------------------------
+# Tensor and expert parallelism: the collectives over the model axis
+# ---------------------------------------------------------------------------
+
+# The model-axis group of the step running (`model_parallel`): process-wide
+# for the same reason as `_REDUCING` (remat's recompute runs the forward,
+# and its collectives, on autograd's thread).
+_MODEL: Optional[DataParallel] = None
+
+
+@contextlib.contextmanager
+def model_parallel(group: Optional[DataParallel]):
+    """The models' model-axis collectives run over `group` inside the
+    block (None, or a group of one rank: no model axis)."""
+    global _MODEL
+    prev, _MODEL = _MODEL, group
+    try:
+        yield
+    finally:
+        _MODEL = prev
+
+
+def model_block(local: int, whole: int) -> tuple:
+    """(index, count): this rank's block of a dimension of `whole` that a
+    leaf holds `local` of.  (0, 1) where it holds all of it; else the
+    dimension is split over the model axis (`distributed.ShardingRules`
+    cut it: block index = the rank's model coordinate), which needs the
+    model group to be set and of that many ranks."""
+    if local == whole:
+        return 0, 1
+    group = _MODEL
+    if group is None or whole != local * group.world:
+        raise ValueError(
+            f"a leaf holds {local} of a dimension of {whole}: it is split "
+            f"over a model axis, but the model group running is "
+            f"{'none' if group is None else f'of {group.world} ranks'} "
+            "(process_group.model_parallel)")
+    return group.rank, group.world
+
+
+def _model() -> Optional[DataParallel]:
+    group = _MODEL
+    return group if group is not None and group.world > 1 else None
+
+
+class _CopyToModel(torch.autograd.Function):
+    """Megatron's f: x as it is; its gradient summed over the model axis
+    (each rank's is its own block's part)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce_(grad.contiguous().clone()), None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """Megatron's g: the ranks' partial sums all-reduced; the gradient as
+    it is (every rank's consumer of the sum is the same)."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        return group.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None
+
+
+class _SumOverModel(torch.autograd.Function):
+    """All-reduced forward and backward: a sum each rank's own block
+    consumes, so each rank's gradient of it is a part."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return group.all_reduce_(x.contiguous().clone())
+
+    @staticmethod
+    def backward(ctx, grad):
+        return ctx.group.all_reduce_(grad.contiguous().clone()), None
+
+
+class _GatherFromModel(torch.autograd.Function):
+    """The ranks' blocks along `dim` put together in rank order: each
+    rank's block in a zero buffer of the whole, all-reduced (exact: every
+    element is one value plus zeros).  Backward: the whole gradient summed
+    over the ranks, this rank's block cut out."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, n = group, dim, x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * group.world
+        out = x.new_zeros(shape)
+        out.narrow(dim, group.rank * n, n).copy_(x)
+        return group.all_reduce_(out)
+
+    @staticmethod
+    def backward(ctx, grad):
+        group, dim = ctx.group, ctx.dim
+        full = group.all_reduce_(grad.contiguous().clone())
+        n = full.shape[dim] // group.world
+        return full.narrow(dim, group.rank * n, n), None, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    group = _model()
+    return x if group is None else _CopyToModel.apply(x, group)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    group = _model()
+    return x if group is None else _ReduceFromModel.apply(x, group)
+
+
+def sum_over_model(x: torch.Tensor) -> torch.Tensor:
+    group = _model()
+    return x if group is None else _SumOverModel.apply(x, group)
+
+
+def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    group = _model()
+    return x if group is None else _GatherFromModel.apply(
+        x, group, dim % x.dim())
+
+
+def max_over_model(x: torch.Tensor) -> torch.Tensor:
+    """x's elementwise maximum over the model axis, detached."""
+    group = _model()
+    x = x.detach()
+    return x if group is None else group.all_reduce_(
+        x.contiguous().clone(), op=dist.ReduceOp.MAX)
+
+
+__all__ = ["BACKENDS", "BUCKET_BYTES", "DataParallel", "copy_to_model",
+           "gather_from_model", "max_over_model", "mean_over_ranks",
+           "model_block", "model_parallel", "rank_device", "reduce_from_model",
+           "reducing", "spawn_ranks", "sum_over_model", "world_size"]

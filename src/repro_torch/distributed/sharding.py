@@ -33,8 +33,12 @@ meshes included, and on trees of ``meta`` tensors (`models.api`'s
 What places a tensor by its spec is `shard_of` (this rank's slice) and
 `unshard` (the slices put back together); the reference's `named` /
 `*_shardings` hand the same specs to `jax.device_put`.  The port executes
-data parallelism (`distributed.process_group`, ZeRO-1 in
-`optim.adamw`); tensor and expert parallelism wait for ROADMAP A9c.
+data, tensor and expert parallelism in its train and eval steps
+(`launch.steps`): each rank holds `shard_of` its params, the models run
+the Megatron collectives of the blocks whose leaves are split
+(`distributed.process_group`'s f and g), and `model_partial` says which
+whole leaves get a partial gradient.  FSDP and SP are rules only: the
+steps refuse them.
 """
 from __future__ import annotations
 
@@ -111,10 +115,14 @@ class ShardingRules:
     # -- activation constraints ----------------------------------------------
     def constrain(self, x, tag: str):
         """The identity.  The reference pins an activation's layout for
-        GSPMD (`with_sharding_constraint`); under data parallelism a
-        rank's activations are its own rows already, so there is nothing
-        to pin.  Tensor parallelism's counterpart (explicit column/row
-        collectives in the models) is ROADMAP A9c."""
+        GSPMD (`with_sharding_constraint`), which then inserts the
+        collectives.  Here a rank's activations are its own rows already,
+        and the collectives of tensor and expert parallelism are written
+        out where the layouts change, in the blocks that own them
+        (`models.layers`' attention, MLPs, embedding and unembedding,
+        `models.mamba2.block_forward`, `models.moe.moe_block`, the
+        vocabulary-parallel loss in `models.api`), each reading its
+        leaves' shapes; so there is nothing to pin."""
         return x
 
     def activation_spec(self, x, tag: str) -> Optional[Spec]:
@@ -189,6 +197,41 @@ class ShardingRules:
                 if shape[d] >= 1024 and put(d, self.dp):
                     break
         return _spec(spec)
+
+    def model_partial(self, param_tree):
+        """A bool for every leaf of a (whole-shaped) parameter tree: True
+        where a rank's gradient of it is only its part, to be summed over
+        the model axis.  Those are the leaves the spec leaves whole inside
+        a block that runs split over the model axis (between its f and
+        its g), so a rank uses them on its own heads or channels only:
+        attention's q_norm / k_norm and a whole wk / wv (with bk, bv); the
+        Mamba2 block's in_dt, dt_bias, A_log, D, gate_norm and a whole
+        in_bc and BC conv.  Not the leaves used on the activations every
+        rank holds alike (the pre-norms, the router, the final norm, a
+        whole embedding; whisper's b_out, added after g), whose gradient
+        is the same on every rank already."""
+        tp = self.tp_axis
+
+        def split(path, leaf):
+            return self.tp_size > 1 and tp in _axes_of_spec(
+                self._param_spec(path, leaf))
+
+        def walk(tree, prefix, region):
+            if region is None and "router" not in tree:
+                for key, outside in (("wq", ()), ("w_gate", ()),
+                                     ("w_in", ("b_out",)),
+                                     ("in_x", ("norm",))):
+                    if key in tree and not isinstance(tree[key], dict):
+                        if split(prefix + key, tree[key]):
+                            region = outside
+                        break
+            return {k: walk(v, f"{prefix}{k}/", region)
+                    if isinstance(v, dict) else
+                    (region is not None and k not in region
+                     and not split(prefix + k, v))
+                    for k, v in tree.items()}
+
+        return walk(param_tree, "", None)
 
     # -- optimizer state (ZeRO-1) ---------------------------------------------
     def opt_pspecs(self, opt_state):
@@ -316,6 +359,23 @@ def shard_slices(shape: Sequence[int], spec: Spec, coords: dict,
     return tuple(out)
 
 
+def _axes_of_spec(spec) -> tuple:
+    return tuple(a for e in spec for a in _axes_of(e))
+
+
+def whole_shape(shape: Sequence[int], spec: Spec, mesh) -> tuple:
+    """The whole tensor's shape from a shard's `shape` under `spec`."""
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    return tuple(n * math.prod(mesh.shape[a] for a in _axes_of(e))
+                 for n, e in zip(shape, spec))
+
+
+def without_axis(spec: Spec, axis: str) -> Spec:
+    """`spec` with `axis` taken out of every entry: the spec of the
+    slices that the other axes cut of a shard already cut on `axis`."""
+    return _spec(tuple(a for a in _axes_of(e) if a != axis) for e in spec)
+
+
 def shard_of(tensor: torch.Tensor, spec: Spec, coords: dict,
              mesh) -> torch.Tensor:
     """This rank's slice of `tensor` (a copy, contiguous)."""
@@ -332,9 +392,7 @@ def unshard(parts: Sequence[torch.Tensor], spec: Spec, mesh,
     if len(parts) != len(coords):
         raise ValueError(f"{len(parts)} parts for a mesh of {len(coords)}")
     if shape is None:
-        spec_full = tuple(spec) + (None,) * (parts[0].dim() - len(spec))
-        shape = [n * math.prod(mesh.shape[a] for a in _axes_of(e))
-                 for n, e in zip(parts[0].shape, spec_full)]
+        shape = whole_shape(parts[0].shape, spec, mesh)
     out = parts[0].new_empty(tuple(shape))
     for c, p in zip(coords, parts):
         out[shard_slices(shape, spec, c, mesh)] = p
@@ -342,4 +400,5 @@ def unshard(parts: Sequence[torch.Tensor], spec: Spec, mesh,
 
 
 __all__ = ["ShardingRules", "Spec", "all_coords", "mesh_coords",
-           "needs_fsdp", "shard_of", "shard_slices", "unshard"]
+           "needs_fsdp", "shard_of", "shard_slices", "unshard",
+           "whole_shape", "without_axis"]

@@ -29,7 +29,9 @@ class ShardMesh:
     view: its shape counts every rank, `devices` holds this rank's one
     device, and `process_group` (a `distributed.process_group.
     DataParallel`; None on a single-controller mesh) runs the
-    collectives.
+    collectives; `axis_groups` holds this rank's sub-group along each
+    axis ({"data": ..., "model": ...}; empty on a single-controller
+    mesh).
 
     `exchange_rounds` counts the 2-D halo exchanges of one field each
     (`distributed.halo.halo_exchange_2d`) run for this mesh; set it to 0
@@ -51,6 +53,7 @@ class ShardMesh:
         self.axes = tuple(axes)
         self.devices = tuple(resolve_device(d) for d in devices)
         self.process_group = None
+        self.axis_groups = {}
         self.exchange_rounds = 0
 
     @property
@@ -108,7 +111,9 @@ def make_host_mesh(model: int = 1, device="cuda", group=None) -> ShardMesh:
     (`mesh_devices`): tests, examples.  Over a process group (a
     `distributed.process_group.DataParallel`) it counts the group's ranks,
     as the reference counts `jax.devices()` across processes: (world //
-    model, model), on this rank's device."""
+    model, model), on this rank's device, with the group's sub-groups
+    along each axis (`DataParallel.axis_groups`: every rank of the group
+    must make the mesh, at the same point)."""
     if group is None:
         devices = mesh_devices(device)
         return make_mesh((len(devices) // model, model), ("data", "model"),
@@ -119,6 +124,7 @@ def make_host_mesh(model: int = 1, device="cuda", group=None) -> ShardMesh:
     mesh = make_mesh((group.world // model, model), ("data", "model"),
                      [group.device])
     mesh.process_group = group
+    mesh.axis_groups = group.axis_groups(mesh)
     return mesh
 
 

@@ -1,12 +1,14 @@
 """Fault-tolerant training launcher (port of `repro.launch.train`), on
-one device or data-parallel across processes.
+one device or across processes: data-parallel, tensor/expert-parallel
+(--model-axis), or both.
 
     PYTHONPATH=src python -m repro_torch.launch.train --arch qwen3-1.7b \
         --reduced --steps 200 --ckpt-dir /tmp/ckpt --save-every 50 \
         [--device cpu]
     PYTHONPATH=src python -m torch.distributed.run --standalone \
         --nproc-per-node 2 -m repro_torch.launch.train --arch mamba2-130m \
-        --reduced --device cpu --dist-backend gloo --steps 4
+        --reduced --device cpu --dist-backend gloo --steps 4 \
+        [--model-axis 2]
 
 The reference's flags and behaviour, on the card by default (``--device
 cuda``; without a card that raises, with no CPU fallback):
@@ -25,21 +27,26 @@ cuda``; without a card that raises, with no CPU fallback):
     the job.
   * metrics stream to <ckpt-dir>/metrics.jsonl (one JSON a step).
 
-Data parallelism: started as several processes (``WORLD_SIZE`` above 1,
+Across processes: started as several processes (``WORLD_SIZE`` above 1,
 `torch.distributed.run`'s environment), each rank joins the group
 (`distributed.process_group.DataParallel`, backend --dist-backend: nccl
-needs one card a rank, gloo lets ranks share one and runs on the CPU),
-takes rank 0's initial params, trains on its own rows of the same global
-batch (`data.pipeline.rank_batch`: --batch is global), and steps with
-`launch.steps.make_train_step(cfg, opt_cfg, rules)`: gradients summed
-over the ranks, ZeRO-1 optimizer state (this rank's shard).  Checkpoints
-hold the global content, written by rank 0; a resumed run restores its
-own shards (`CheckpointManager.restore_sharded`), so a job may resume at
-another data-parallel size (elastic: 2 -> 1, 1 -> 2).  The straggler
-decision is agreed by the ranks (an incident on any rank is one on all),
-so they checkpoint and exit 75 together.  Rank 0 prints and writes the
-metrics.  --model-axis above 1 (tensor parallelism) raises
-`NotImplementedError` (ROADMAP A9c).
+needs one card a rank, gloo lets ranks share one and runs on the CPU) on
+a (WORLD_SIZE / --model-axis, --model-axis) mesh of (data, model) axes,
+takes rank 0's initial params whole and keeps its shards of them
+(`distributed.sharding.shard_of` under the rules' specs: a model axis
+splits heads, FFN widths, experts and the vocabulary), trains on the rows
+of its data coordinate of the same global batch
+(`data.pipeline.rank_batch`: --batch is global; the model axis's ranks
+take the same rows), and steps with `launch.steps.make_train_step(cfg,
+opt_cfg, rules)`: the model's Megatron collectives over the model axis,
+gradients summed over the data axis, ZeRO-1 optimizer state (this rank's
+shard).  Checkpoints hold the global content, gathered from the ranks'
+shards and written by rank 0; a resumed run restores its own shards
+(`CheckpointManager.restore_sharded`), so a job may resume at another
+data or model size (elastic: 2 -> 1, 1 -> 2, TP-2 -> 1, 1 -> TP-2).  The
+straggler decision is agreed by the ranks (an incident on any rank is
+one on all), so they checkpoint and exit 75 together.  Rank 0 prints and
+writes the metrics.
 """
 import argparse
 import json
@@ -79,14 +86,13 @@ def parse_args(argv=None):
 
 def main(argv=None):
     args = parse_args(argv)
-    if args.model_axis > 1:
-        raise NotImplementedError(
-            f"--model-axis {args.model_axis}: tensor and expert parallelism "
-            "(column/row collectives in the models) wait for ROADMAP A9c")
     from repro_torch.distributed import process_group
 
     world = process_group.world_size()
     if world == 1:
+        if args.model_axis > 1:
+            raise ValueError(f"--model-axis {args.model_axis} needs that "
+                             "many processes (WORLD_SIZE); this is one")
         return _train(args, None)
     if args.mesh != "host":
         raise ValueError(f"--mesh {args.mesh} runs one process; "
@@ -99,12 +105,15 @@ def main(argv=None):
 
 
 def _train(args, group):
+    import torch
+
     from repro_torch import configs
     from repro_torch._device import resolve_device
     from repro_torch.checkpoint import CheckpointManager
     from repro_torch.configs.base import ShapeConfig
     from repro_torch.data.pipeline import rank_batch
     from repro_torch.distributed import ShardingRules
+    from repro_torch.distributed.sharding import mesh_coords, shard_of
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch import steps
     from repro_torch.models import api
@@ -114,7 +123,7 @@ def _train(args, group):
     from repro_torch.tree import tree_map
 
     dev = group.device if group else resolve_device(args.device)
-    rank, dp = (group.rank, group.world) if group else (0, 1)
+    rank = group.rank if group else 0
     lead = rank == 0
     cfg = (configs.get_reduced(args.arch) if args.reduced
            else configs.get(args.arch))
@@ -124,24 +133,36 @@ def _train(args, group):
 
     params = api.init(0, cfg, shape, device=dev)
     rules = mesh = None
+    data_rank, dp, tp = 0, 1, 1
     if group is None:
         opt_state = adamw_init(params)
     else:
         mesh = mesh_lib.make_host_mesh(model=args.model_axis, group=group)
         rules = ShardingRules(mesh=mesh, cfg=cfg)
+        data_rank, dp = (mesh.axis_groups["data"].rank,
+                         mesh.axis_groups["data"].world)
+        tp = mesh.shape["model"]
         group.broadcast_(params)
-        zspecs = steps.zero1_specs(rules, params)
-        shapes = tree_map(lambda p: tuple(p.shape), params)
-        opt_state = zero1_init(params, zspecs, mesh, rank)
+        whole = params
+        pspecs = rules.param_pspecs(whole)
+        zspecs = steps.zero1_specs(rules, whole)
+        shapes = tree_map(lambda p: tuple(p.shape), whole)
+        opt_state = zero1_init(whole, zspecs, mesh, rank)
+        coords = mesh_coords(mesh, rank)
+        params = tree_map(lambda p, s: shard_of(p, s, coords, mesh), whole,
+                          pspecs)
+        del whole
     start_step = 0
 
     def saved_tree():
         """The checkpoint's global content (under a group, every rank
-        gathers the ZeRO-1 shards; rank 0 writes)."""
+        gathers the params' model-axis shards and the ZeRO-1 shards;
+        rank 0 writes)."""
         if group is None:
             return {"params": params, "opt": opt_state}
-        return {"params": params, "opt": zero1_gather_state(
-            opt_state, zspecs, group, mesh, shapes)}
+        return {"params": group.gather(params, pspecs, mesh, shapes),
+                "opt": zero1_gather_state(opt_state, zspecs, group, mesh,
+                                          shapes)}
 
     mgr = None
     if args.ckpt_dir:
@@ -152,9 +173,11 @@ def _train(args, group):
                 _, restored = mgr.restore({"params": params,
                                            "opt": opt_state})
             else:
-                like = {"params": params, "opt": AdamWState(
-                    opt_state.step, params, params, params)}
-                specs = {"params": rules.param_pspecs(params),
+                whole = tree_map(lambda p, n: torch.empty(
+                    n, dtype=p.dtype, device=dev), params, shapes)
+                like = {"params": whole, "opt": AdamWState(
+                    opt_state.step, whole, whole, whole)}
+                specs = {"params": pspecs,
                          "opt": AdamWState((), zspecs, zspecs, zspecs)}
                 _, restored = mgr.restore_sharded(like, specs, mesh, rank)
             params, opt_state = restored["params"], restored["opt"]
@@ -172,7 +195,7 @@ def _train(args, group):
         stop_at = min(args.steps, args.stop_after or args.steps)
         for step in range(start_step, stop_at):
             t0 = time.time()
-            batch = rank_batch(cfg, shape, step, rank, dp, device=dev)
+            batch = rank_batch(cfg, shape, step, data_rank, dp, device=dev)
             params, opt_state, metrics = step_fn(params, opt_state, batch)
             loss = float(metrics["loss"])
             dt_step = time.time() - t0
@@ -201,7 +224,8 @@ def _train(args, group):
                 print(f"step {step} loss {loss:.4f} "
                       f"lr {float(metrics['lr']):.2e} "
                       f"gnorm {float(metrics['grad_norm']):.2f} "
-                      f"{dt_step*1e3:.0f}ms dp={dp}", flush=True)
+                      f"{dt_step*1e3:.0f}ms dp={dp}"
+                      + (f" tp={tp}" if tp > 1 else ""), flush=True)
             if mfile:
                 mfile.write(json.dumps({"step": step, "loss": loss,
                                         "t": dt_step}) + "\n")

@@ -5,7 +5,7 @@ families.
     forward(params, cfg, batch)                    -> (logits, aux_loss)
     forward_features(params, cfg, batch)           -> (features, aux_loss)
     loss_targets(cfg, batch)                       -> (labels, loss_mask)
-    cross_entropy(logits, labels, mask)            -> mean next-token CE
+    cross_entropy(logits, labels, mask[, first])   -> mean next-token CE
     chunked_cross_entropy(params, cfg, feats, labels, mask) -> the same,
                                                       a chunk at a time
     prefill(params, cfg, batch, max_len)           -> (logits, cache)
@@ -30,6 +30,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig, ShapeConfig
+from repro_torch.distributed import process_group as pg
 from repro_torch.models import layers as L
 from repro_torch.models import llava, mamba2, transformer, whisper, zamba2
 
@@ -113,11 +114,34 @@ def loss_targets(cfg: ModelConfig, batch: dict):
     return labels, mask
 
 
-def cross_entropy(logits, labels, mask):
-    """Next-token CE over (B, S, V) float32 logits, averaged over the
-    mask; labels are already aligned (labels[t] is position t's target)."""
-    logp = torch.log_softmax(logits, dim=-1)
-    ll = torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+def token_log_probs(logits, labels, first: Optional[int] = None):
+    """log p(label) (B, S) from float32 logits (B, S, V): all of the
+    vocabulary's, or, where `first` is given, this rank's block of it from
+    `first` on (`layers.vocab_first`; the vocabulary split over the model
+    axis).  Then the softmax is taken across the ranks, as GSPMD takes the
+    reference's: the max over the model axis (detached, it cancels), the
+    sum of exp and the label's shifted logit (zero on the ranks whose
+    block does not hold it) summed by g."""
+    if first is None:
+        logp = torch.log_softmax(logits, dim=-1)
+        return torch.gather(logp, -1, labels.long()[..., None])[..., 0]
+    n = logits.shape[-1]
+    shifted = logits - pg.max_over_model(torch.amax(logits, dim=-1))[..., None]
+    t = labels.long() - first
+    inside = (t >= 0) & (t < n)
+    picked = torch.gather(shifted, -1, t.clamp(0, n - 1)[..., None])[..., 0]
+    sums = pg.reduce_from_model(torch.stack(
+        [torch.sum(torch.exp(shifted), dim=-1),
+         torch.where(inside, picked, 0)]))
+    return sums[1] - torch.log(sums[0])
+
+
+def cross_entropy(logits, labels, mask, first: Optional[int] = None):
+    """Next-token CE over (B, S, V) float32 logits (or a rank's block of
+    the vocabulary's, from `first`: `token_log_probs`), averaged over the
+    mask; labels are already aligned (labels[t] is position t's
+    target)."""
+    ll = token_log_probs(logits, labels, first)
     return -torch.sum(ll * mask) / torch.clamp(torch.sum(mask), min=1.0)
 
 
@@ -136,15 +160,16 @@ def chunked_cross_entropy(params, cfg: ModelConfig, feats, labels, mask,
     time (`_loss_chunk`), so the (B, S, V) float32 logits are never whole
     in memory.  Each chunk's body runs under `torch.utils.checkpoint`, as
     the reference's under `jax.checkpoint`: the backward recomputes its
-    logits and holds one chunk of them too."""
+    logits and holds one chunk of them too.  With the vocabulary split
+    over the model axis, each chunk's softmax is vocabulary-parallel
+    (`token_log_probs`), the features entering the product through f."""
     B, S, D = feats.shape
     c = _loss_chunk(cfg, S, max_chunk)
+    first = L.vocab_first(params["embed"], cfg)
 
     def body(f, lab, m):
         logits = L.unembed(params["embed"], cfg, f)
-        logp = torch.log_softmax(logits, dim=-1)
-        ll = torch.gather(logp, -1, lab.long()[..., None])[..., 0]
-        return torch.sum(ll * m)
+        return torch.sum(token_log_probs(logits, lab, first) * m)
 
     total = torch.zeros((), dtype=torch.float32, device=feats.device)
     for i in range(0, S, c):

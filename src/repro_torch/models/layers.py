@@ -15,6 +15,16 @@ back.  Attention is plain PyTorch: the reference computes it outside any
 Pallas kernel.  Random init draws from an explicit `torch.Generator`: the
 numbers differ from `jax.random`'s, so the tests carry the reference's
 parameters across (`repro_torch.interop`).
+
+Tensor parallelism: a leaf may hold this rank's block of a dimension over
+the model axis, as `distributed.ShardingRules` cut it (q heads, the FFN's
+hidden width, the vocabulary).  Each block reads its leaves' shapes
+against the config's (`process_group.model_block`) and runs the Megatron
+form that GSPMD gives the reference: f (`process_group.copy_to_model`) at
+the input of the column-parallel products, g (`reduce_from_model`) after
+the row-parallel one; a whole leaf is used whole.  Where the kv heads do
+not divide the model axis, wk and wv stay whole and a rank takes the kv
+heads its q heads read.
 """
 from __future__ import annotations
 
@@ -27,6 +37,7 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import process_group as pg
 
 
 def _dots_policy(ctx, op, *args, **kwargs):
@@ -222,18 +233,52 @@ def _heads(x, w):
         -1, tuple(w.shape[1:]))
 
 
-def _out(p, o):
-    """einsum("bshk,hkd->bsd", o, wo)."""
+def _q_block(p, cfg: ModelConfig):
+    """(index, count): this rank's block of the q heads ((0, 1): wq
+    whole)."""
+    return pg.model_block(p["wq"].shape[-2], cfg.num_heads)
+
+
+def _column_input(p, cfg: ModelConfig, x):
+    """x as the q/k/v products' input: through f where the heads are
+    split."""
+    return pg.copy_to_model(x) if _q_block(p, cfg)[1] > 1 else x
+
+
+def _kv_heads(p, cfg: ModelConfig, w):
+    """`w` (wk, wv, bk or bv; heads on dim -2) as this rank's q heads read
+    it: as it is where it is split with wq, or nothing is split; where it
+    is whole while wq is split (num_kv_heads does not divide the model
+    axis), the kv heads of this rank's q heads, in order (one copy a q
+    head where a block of q heads does not map onto whole kv groups)."""
+    m, n = _q_block(p, cfg)
+    if n == 1 or w.shape[-2] < cfg.num_kv_heads:
+        return w
+    hl = cfg.num_heads // n
+    rep = cfg.num_heads // cfg.num_kv_heads
+    if hl % rep == 0 or rep % hl == 0:
+        return w.narrow(-2, m * hl // rep, max(hl // rep, 1))
+    idx = torch.arange(m * hl, (m + 1) * hl, device=w.device) // rep
+    return w.index_select(w.dim() - 2, idx)
+
+
+def _out(p, cfg: ModelConfig, o):
+    """einsum("bshk,hkd->bsd", o, wo); with the heads split, this rank's
+    part summed over the model axis (g)."""
     wo = p["wo"]
-    return torch.matmul(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    out = torch.matmul(o.flatten(-2), wo.reshape(-1, wo.shape[-1]))
+    return pg.reduce_from_model(out) if _q_block(p, cfg)[1] > 1 else out
 
 
 def _qkv(p, cfg: ModelConfig, x, positions):
-    q, k, v = _heads(x, p["wq"]), _heads(x, p["wk"]), _heads(x, p["wv"])
+    x = _column_input(p, cfg, x)
+    q = _heads(x, p["wq"])
+    k = _heads(x, _kv_heads(p, cfg, p["wk"]))
+    v = _heads(x, _kv_heads(p, cfg, p["wv"]))
     if cfg.qkv_bias:
         q = q + p["bq"]
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + _kv_heads(p, cfg, p["bk"])
+        v = v + _kv_heads(p, cfg, p["bv"])
     if cfg.qk_norm:
         q = rms_norm(q, p["q_norm"], cfg.norm_eps)
         k = rms_norm(k, p["k_norm"], cfg.norm_eps)
@@ -284,7 +329,7 @@ def attention_block(p, cfg: ModelConfig, x, positions, *, causal=True):
     """Full (prefill / forward) self-attention.  Returns (out, (k, v))."""
     q, k, v = _qkv(p, cfg, x, positions)
     o = sdpa(q, k, v, causal=causal)
-    return _out(p, o), (k, v)
+    return _out(p, cfg, o), (k, v)
 
 
 def attention_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos):
@@ -302,27 +347,30 @@ def attention_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos):
     v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
     o = sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), causal=False,
              kv_len=pos + 1)
-    return _out(p, o), k_cache, v_cache
+    return _out(p, cfg, o), k_cache, v_cache
 
 
 def cross_attention_block(p, cfg: ModelConfig, x, enc_kv):
     """Cross-attention (whisper's decoder): x's queries against enc_kv =
     (k, v), computed once from the encoder's output (`encoder_kv`); no
     RoPE, no mask."""
-    q = _heads(x, p["wq"])
+    q = _heads(_column_input(p, cfg, x), p["wq"])
     if cfg.qkv_bias:
         q = q + p["bq"]
     k, v = enc_kv
-    return _out(p, sdpa(q, k, v, causal=False))
+    return _out(p, cfg, sdpa(q, k, v, causal=False))
 
 
 def encoder_kv(p, cfg: ModelConfig, enc_out):
-    """The cross-attention's (k, v), each (B, S_enc, Hkv, hd), from the
-    encoder's output (B, S_enc, D)."""
-    k, v = _heads(enc_out, p["wk"]), _heads(enc_out, p["wv"])
+    """The cross-attention's (k, v), each (B, S_enc, Hkv, hd) (this
+    rank's kv heads where the heads are split), from the encoder's output
+    (B, S_enc, D)."""
+    enc_out = _column_input(p, cfg, enc_out)
+    k = _heads(enc_out, _kv_heads(p, cfg, p["wk"]))
+    v = _heads(enc_out, _kv_heads(p, cfg, p["wv"]))
     if cfg.qkv_bias:
-        k = k + p["bk"]
-        v = v + p["bv"]
+        k = k + _kv_heads(p, cfg, p["bk"])
+        v = v + _kv_heads(p, cfg, p["bv"])
     return k, v
 
 
@@ -355,10 +403,25 @@ def mlp_gelu_shapes(cfg: ModelConfig) -> dict:
     return {"w_in": (D, Fd), "b_in": (Fd,), "w_out": (Fd, D), "b_out": (D,)}
 
 
-def mlp_block(p, x):
+def _ff_split(p, name: str, d_ff: Optional[int]) -> bool:
+    """Whether the FFN's hidden width is split over the model axis: its
+    leaf `name` (hidden width last) holds a block of `d_ff` (None: the
+    leaves are whole)."""
+    n = p[name].shape[-1]
+    return pg.model_block(n, d_ff or n)[1] > 1
+
+
+def mlp_block(p, x, d_ff: Optional[int] = None):
+    """SwiGLU.  `d_ff`, the config's hidden width: where the leaves hold a
+    block of it, column-parallel w_gate/w_up and row-parallel w_down (f
+    before, g after)."""
+    split = _ff_split(p, "w_gate", d_ff)
+    if split:
+        x = pg.copy_to_model(x)
     g = torch.matmul(x, p["w_gate"])
     u = torch.matmul(x, p["w_up"])
-    return torch.matmul(silu(g) * u, p["w_down"])
+    out = torch.matmul(silu(g) * u, p["w_down"])
+    return pg.reduce_from_model(out) if split else out
 
 
 def init_mlp_gelu(gen: torch.Generator, cfg: ModelConfig,
@@ -385,9 +448,18 @@ def gelu(x):
     return x * (0.5 * (1.0 + torch.tanh(inner)))
 
 
-def mlp_gelu_block(p, x):
+def mlp_gelu_block(p, x, d_ff: Optional[int] = None):
+    """The GELU MLP with biases; with the hidden width split (`d_ff` as in
+    `mlp_block`), w_in/b_in column-parallel, w_out row-parallel, and the
+    whole b_out added once, after g."""
+    split = _ff_split(p, "w_in", d_ff)
+    if split:
+        x = pg.copy_to_model(x)
     h = torch.matmul(x, p["w_in"]) + p["b_in"]
-    return torch.matmul(gelu(h), p["w_out"]) + p["b_out"]
+    out = torch.matmul(gelu(h), p["w_out"])
+    if split:
+        out = pg.reduce_from_model(out)
+    return out + p["b_out"]
 
 
 # ---------------------------------------------------------------------------
@@ -419,14 +491,39 @@ def positions(B: int, S: int, device) -> torch.Tensor:
 
 
 def embed(p: dict, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
-    return p["embedding"][tokens.long()].to(act_dtype_of(cfg))
+    """The tokens' rows of the embedding, in the activation dtype.  With
+    the vocabulary split over the model axis: each rank looks up the
+    tokens in its block (others zero) and g sums the ranks' rows."""
+    w = p["embedding"]
+    m, n = pg.model_block(w.shape[0], cfg.vocab_size)
+    if n == 1:
+        return w[tokens.long()].to(act_dtype_of(cfg))
+    t = tokens.long() - m * w.shape[0]
+    inside = (t >= 0) & (t < w.shape[0])
+    rows = w[t.clamp(0, w.shape[0] - 1)].to(act_dtype_of(cfg))
+    return pg.reduce_from_model(torch.where(inside[..., None], rows, 0))
+
+
+def unembedding(p: dict, cfg: ModelConfig) -> torch.Tensor:
+    """The (D, vocab) unembedding: the tied embedding's transpose or
+    lm_head (this rank's block of the vocabulary where it is split)."""
+    return p["embedding"].t() if cfg.tie_embeddings else p["lm_head"]
+
+
+def vocab_first(p: dict, cfg: ModelConfig) -> Optional[int]:
+    """The first vocabulary entry of this rank's logits: None where the
+    unembedding is whole, else its block's start."""
+    n = unembedding(p, cfg).shape[-1]
+    m, count = pg.model_block(n, cfg.vocab_size)
+    return None if count == 1 else m * n
 
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     """Logits (..., vocab) in float32; the product is taken in x's dtype,
-    as the reference's einsum is."""
-    if cfg.tie_embeddings:
-        logits = torch.matmul(x, p["embedding"].t())
-    else:
-        logits = torch.matmul(x, p["lm_head"])
-    return logits.float()
+    as the reference's einsum is.  With the vocabulary split over the
+    model axis: this rank's block of the logits (from `vocab_first`), x
+    through f."""
+    w = unembedding(p, cfg)
+    if vocab_first(p, cfg) is not None:
+        x = pg.copy_to_model(x)
+    return torch.matmul(x, w).float()

@@ -21,6 +21,16 @@ Recurrence (per head h, state N x P):
     h_t = exp(dt_t A) h_{t-1} + dt_t B_t (x)_t^T
     y_t = C_t . h_t + D x_t
 
+Tensor parallelism (`block_forward`): with in_z / in_x and the x conv
+split over the model axis (`distributed.ShardingRules`), a rank holds a
+contiguous block of the heads (d_inner is head-major: channel h * P + p)
+and scans only those; in_bc and the BC conv split the 2 G N columns (at
+two ranks one holds B, the other C), gathered after the conv, since every
+head reads its group's B and C; in_dt, dt_bias, A_log and D stay whole
+and a rank takes its heads' entries; the gated RMSNorm's sum of squares is
+summed over the model axis; out_proj is row-parallel, then g.  The
+normalised input enters through f.
+
 Parameters are a dict as in the reference: ``embed/embedding``,
 ``blocks/*`` stacked over layers (leading axis L) and ``final_norm``; the
 reference's `layer_scan` is a Python loop over the layers, its body
@@ -37,6 +47,7 @@ import torch.nn.functional as F
 
 from repro_torch._device import resolve_device
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import process_group as pg
 from repro_torch.kernels import ssd_scan as ssd
 from repro_torch.models import layers as L
 
@@ -134,10 +145,12 @@ def _causal_conv(xbc, w, b, init_state: Optional[torch.Tensor] = None):
     return L.silu(out).to(xbc.dtype), full[:, S:]
 
 
-def _split_proj(p, x):
-    """The separate z / x / BC / dt projections."""
+def _split_proj(p, x, heads=slice(None)):
+    """The separate z / x / BC / dt projections (dt of the heads
+    `heads`)."""
     return (torch.matmul(x, p["in_z"]), torch.matmul(x, p["in_x"]),
-            torch.matmul(x, p["in_bc"]), torch.matmul(x, p["in_dt"]))
+            torch.matmul(x, p["in_bc"]),
+            torch.matmul(x, p["in_dt"][:, heads]))
 
 
 def _ssd_chunked(xh, dtv, Bm, Cm, A, chunk: int,
@@ -208,20 +221,56 @@ def _ssd_chunked(xh, dtv, Bm, Cm, A, chunk: int,
     return (y_intra + y_inter).reshape(Bsz, S, H, P), h
 
 
+def _head_block(p, cfg: ModelConfig):
+    """(first head, heads, first group, groups, split): this rank's
+    contiguous block of the heads (all of them where in_x is whole) and
+    the groups of B and C those heads read."""
+    d_inner, H, _ = dims(cfg)
+    G = cfg.ssm_ngroups
+    m, n = pg.model_block(p["in_x"].shape[-1], d_inner)
+    if H % n:
+        raise NotImplementedError(
+            f"{H} heads over a model axis of {n}: a block of d_inner would "
+            "cut a head")
+    hl, rep = H // n, H // G
+    if hl % rep and rep % hl:
+        raise NotImplementedError(
+            f"{hl} heads a rank do not map onto whole groups of {rep}")
+    return m * hl, hl, m * hl // rep, max(hl // rep, 1), n > 1
+
+
+def _gated_norm(v, w, eps: float, width: int):
+    """`layers.rms_norm` over all `width` channels of d_inner: where v and
+    w hold this rank's block of them, the float32 sum of squares is summed
+    over the model axis."""
+    if v.shape[-1] == width:
+        return L.rms_norm(v, w, eps)
+    vf = v.float()
+    var = pg.sum_over_model(torch.sum(vf * vf, dim=-1, keepdim=True)) / width
+    y = vf * torch.rsqrt(var + eps)
+    return (y * w.float()).to(v.dtype)
+
+
 def block_forward(p, cfg: ModelConfig, x,
                   conv_state: Optional[torch.Tensor] = None,
                   ssm_state: Optional[torch.Tensor] = None):
     """One Mamba2 block (pre-norm residual).  x: (B, S, D).  The scan runs
-    through `ssd_scan` with float32 y (kernel B2 on a card).
+    through `ssd_scan` with float32 y (kernel B2 on a card), over this
+    rank's heads where the block is split over the model axis.
 
     Returns (y, (new_conv_state, new_ssm_state)) so prefill can seed decode.
     """
-    d_inner, H, conv_ch = dims(cfg)
-    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    N, P = cfg.ssm_state, cfg.ssm_headdim
+    GN = cfg.ssm_ngroups * N
     Bsz, S, D = x.shape
+    h0, H, g0, G, split = _head_block(p, cfg)   # this rank's heads, groups
+    heads = slice(h0, h0 + H)
 
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xi, bc, dt_raw = _split_proj(p, h)
+    if split:
+        h = pg.copy_to_model(h)
+    z, xi, bc, dt_raw = _split_proj(p, h, heads)
+    d_inner = xi.shape[-1]
     conv_x_st = conv_bc_st = None
     if conv_state is not None:
         conv_x_st = conv_state[..., :d_inner]
@@ -231,13 +280,15 @@ def block_forward(p, cfg: ModelConfig, x,
     bc, new_conv_bc = _causal_conv(bc, p["conv_bc_w"], p["conv_bc_b"],
                                    conv_bc_st)
     new_conv = torch.cat([new_conv_x, new_conv_bc], dim=-1)
+    if bc.shape[-1] < 2 * GN:            # B and C split over the model axis
+        bc = pg.gather_from_model(bc, -1)
 
-    dtv = _softplus(dt_raw.float() + p["dt_bias"])
+    dtv = _softplus(dt_raw.float() + p["dt_bias"][heads])
     # in float32 for the scan; A_log is float32 at init, and in the
     # param dtype once an optimizer step has cast every param to it (the
     # reference's exp then rounds to that dtype too, before the products
     # promote it)
-    A = (-torch.exp(p["A_log"])).float()
+    A = (-torch.exp(p["A_log"][heads])).float()
     xh = xi.reshape(Bsz, S, H, P)
 
     # pad S to a chunk multiple (padded tokens have dt=0 -> identity decay,
@@ -247,18 +298,22 @@ def block_forward(p, cfg: ModelConfig, x,
     xs = F.pad(xh, (0, 0, 0, 0, 0, pad))
     dts = F.pad(dtv, (0, 0, 0, pad))
     bcs = F.pad(bc, (0, 0, 0, pad))
-    Bm = bcs[..., :G * N].reshape(Bsz, S + pad, G, N).contiguous()
-    Cm = bcs[..., G * N:].reshape(Bsz, S + pad, G, N).contiguous()
+    groups = slice(g0, g0 + G)
+    Bm = bcs[..., :GN].unflatten(-1, (-1, N))[:, :, groups].contiguous()
+    Cm = bcs[..., GN:].unflatten(-1, (-1, N))[:, :, groups].contiguous()
 
     spec = ssd.SSDSpec(seq_len=S + pad, chunk=Q, nheads=H, ngroups=G,
                        headdim=P, state=N, dtype=torch.float32)
     y, h_final = ssd.ssd_scan(spec, xs.contiguous(), dts.contiguous(), Bm,
                               Cm, A.contiguous(), h0=ssm_state)
     y = y[:, :S]
-    y = y + p["D"][None, None, :, None] * xh.float()
+    y = y + p["D"][heads][None, None, :, None] * xh.float()
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
-    y = L.rms_norm(y * L.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = _gated_norm(y * L.silu(z), p["gate_norm"][h0 * P:(h0 + H) * P],
+                    cfg.norm_eps, dims(cfg)[0])
     out = torch.matmul(y, p["out_proj"])
+    if split:
+        out = pg.reduce_from_model(out)
     return x + out, (new_conv, h_final)
 
 

@@ -8,6 +8,14 @@ batched products over the expert axis (`torch.bmm`: the reference's
 einsums run outside any Pallas kernel); the outputs are gathered back,
 weighted by the router and summed over each token's K choices.
 
+Expert parallelism: with the expert dim split over the model axis
+(`distributed.ShardingRules`), every model rank routes and dispatches the
+same tokens, runs the experts of its block on their rows of the buffer,
+and combines their weighted outputs; the ranks' float32 partial sums are
+all-reduced (g) and rounded once.  The tokens and the router weights go
+to the experts through f, so the router, used on the same activations on
+every rank, gets the whole gradient on each.
+
 Token groups: one a process.  Under data parallelism each rank
 dispatches its own rows at the capacity of its own token count, as the
 reference's `runtime.moe_dp_groups(dp)` does with one group a data-parallel
@@ -34,6 +42,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.distributed import process_group as pg
 from repro_torch.distributed.process_group import mean_over_ranks
 from repro_torch.models import layers as L
 
@@ -75,7 +84,11 @@ def route(p, cfg: ModelConfig, x2d: torch.Tensor):
     the ranks before the product, as the reference routes every token of
     its batch before it cuts the groups."""
     E = cfg.num_experts
-    probs = torch.softmax(torch.matmul(x2d.float(), p["router"]), dim=-1)
+    # the router is float32 at init and in the param dtype once an
+    # optimizer step has cast every param to it; the product promotes to
+    # float32 either way, as the reference's does
+    probs = torch.softmax(torch.matmul(x2d.float(), p["router"].float()),
+                          dim=-1)
     weights, expert_idx = torch.topk(probs, cfg.experts_per_tok, dim=-1)
     weights = weights / weights.sum(dim=-1, keepdim=True)
     density = torch.nn.functional.one_hot(expert_idx[:, 0], E).float().mean(0)
@@ -137,26 +150,39 @@ def experts(p, buf: torch.Tensor) -> torch.Tensor:
 
 
 def combine(d: Dispatch, out_buf: torch.Tensor, n: int, K: int,
-            dtype) -> torch.Tensor:
+            dtype, first: int = 0) -> torch.Tensor:
     """Each token's weighted expert outputs summed over its K choices:
-    (n, D) in `dtype`.  A dropped entry adds 0."""
-    out = out_buf[d.slot_e, d.slot_c]
-    contrib = torch.where(d.keep[:, None], out, 0) * d.w_sorted[:, None]
+    (n, D) in `dtype`.  A dropped entry adds 0.  `out_buf` holds experts
+    [first, first + its length): where that is not all of them (expert
+    parallelism), the other experts' entries add 0 here and the ranks'
+    float32 sums are all-reduced (g) before the one rounding."""
+    held = out_buf.shape[0]
+    mine = d.keep & (d.slot_e >= first) & (d.slot_e < first + held)
+    out = out_buf[(d.slot_e - first).clamp(0, held - 1), d.slot_c]
+    contrib = torch.where(mine[:, None], out, 0) * d.w_sorted[:, None]
     per_choice = torch.empty_like(contrib)
     per_choice[d.order] = contrib                 # back to (token, choice)
-    return per_choice.view(n, K, -1).sum(dim=1, dtype=torch.float32).to(dtype)
+    total = per_choice.view(n, K, -1).sum(dim=1, dtype=torch.float32)
+    if held < d.buf.shape[0]:
+        total = pg.reduce_from_model(total)
+    return total.to(dtype)
 
 
 def moe_block(p, cfg: ModelConfig, x: torch.Tensor):
     """x: (B, S, D) -> ((B, S, D), aux loss): route the B * S tokens,
-    dispatch them at capacity `capacity(B * S)`, run the experts and
-    combine."""
+    dispatch them at capacity `capacity(B * S)`, run the experts (this
+    rank's block of them where they are split) and combine."""
     B, S, D = x.shape
     n = B * S
     x2d = x.reshape(n, D)
     expert_idx, weights, aux = route(p, cfg, x2d)
+    m, blocks = pg.model_block(p["w_gate"].shape[0], cfg.num_experts)
+    if blocks > 1:
+        x2d, weights = pg.copy_to_model(x2d), pg.copy_to_model(weights)
     d = dispatch(cfg, x2d, expert_idx, weights, capacity(n, cfg))
-    y = combine(d, experts(p, d.buf), n, cfg.experts_per_tok, x.dtype)
+    held = cfg.num_experts // blocks
+    out = experts(p, d.buf[m * held:(m + 1) * held])
+    y = combine(d, out, n, cfg.experts_per_tok, x.dtype, first=m * held)
     return y.reshape(B, S, D), aux
 
 

@@ -99,8 +99,8 @@ def _ffn(cfg: ModelConfig, bp: dict, h):
     if _is_moe(cfg):
         return moe.moe_block(bp["moe"], cfg, h)
     if cfg.mlp_type == "gelu":
-        return L.mlp_gelu_block(bp["mlp"], h), 0.0
-    return L.mlp_block(bp["mlp"], h), 0.0
+        return L.mlp_gelu_block(bp["mlp"], h, cfg.d_ff), 0.0
+    return L.mlp_block(bp["mlp"], h, cfg.d_ff), 0.0
 
 
 def _embed(params, cfg, tokens, inputs_embeds):

@@ -112,7 +112,7 @@ def encode(params, cfg: ModelConfig, frame_embeds):
                                         causal=False)
         c = c + attn_out
         h = _ln(c, bp["mlp_norm"], cfg.norm_eps)
-        return c + L.mlp_gelu_block(bp["mlp"], h)
+        return c + L.mlp_gelu_block(bp["mlp"], h, cfg.d_ff)
 
     body = L.maybe_remat(body, cfg)
     for i in range(cfg.num_layers):
@@ -130,7 +130,7 @@ def _dec_block(cfg: ModelConfig, bp: dict, x, positions, enc_kv):
     h = _ln(x, bp["cross_norm"], cfg.norm_eps)
     x = x + L.cross_attention_block(bp["cross_attn"], cfg, h, enc_kv)
     h = _ln(x, bp["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp_gelu_block(bp["mlp"], h), kv
+    return x + L.mlp_gelu_block(bp["mlp"], h, cfg.d_ff), kv
 
 
 def _dec_embed(params, cfg: ModelConfig, tokens):
@@ -236,7 +236,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: EncDecCache):
             bp["cross_attn"], cfg, h,
             (cache.cross_k[i].to(x.dtype), cache.cross_v[i].to(x.dtype)))
         h = _ln(x, bp["mlp_norm"], cfg.norm_eps)
-        x = x + L.mlp_gelu_block(bp["mlp"], h)
+        x = x + L.mlp_gelu_block(bp["mlp"], h, cfg.d_ff)
     x = _ln(x, params["dec_final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)
     return logits, cache._replace(length=cache.length + 1)

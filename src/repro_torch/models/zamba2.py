@@ -101,7 +101,7 @@ def _shared_apply(shared, cfg: ModelConfig, x, positions):
                                      causal=True)
     x = x + attn_out
     h = L.rms_norm(x, shared["mlp_norm"], cfg.norm_eps)
-    return x + L.mlp_block(shared["mlp"], h), kv
+    return x + L.mlp_block(shared["mlp"], h, cfg.d_ff), kv
 
 
 def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
@@ -175,7 +175,7 @@ def decode_step(params, cfg: ModelConfig, tokens, cache: HybridCache):
                                             cache.k[s], cache.v[s], pos)
         x = x + attn_out
         h = L.rms_norm(x, shared["mlp_norm"], cfg.norm_eps)
-        x = x + L.mlp_block(shared["mlp"], h)
+        x = x + L.mlp_block(shared["mlp"], h, cfg.d_ff)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)
     return logits, HybridCache(conv=torch.stack(convs),

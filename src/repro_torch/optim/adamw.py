@@ -60,11 +60,23 @@ def adamw_init(params: dict) -> AdamWState:
                                           device=x.device), params))
 
 
-def global_norm(tree) -> torch.Tensor:
-    """sqrt of the sum of every leaf's squares, in float32."""
-    total = 0
-    for x in tree_leaves(tree):
-        total = total + torch.sum(torch.square(x.float()))
+def global_norm(tree, split=None, group=None) -> torch.Tensor:
+    """sqrt of the sum of every leaf's squares, in float32.  `split` (a
+    tree of bools over `tree`) marks the leaves that hold this rank's
+    block over the ranks of `group` (tensor parallelism): their squares
+    are summed over the group, the other leaves (the same on every rank)
+    count once, so the norm is the whole gradient's."""
+    leaves = tree_leaves(tree)
+    total, part = 0, 0
+    for x, s in zip(leaves, tree_leaves(split) if split is not None
+                    else [False] * len(leaves)):
+        sq = torch.sum(torch.square(x.float()))
+        if s:
+            part = part + sq
+        else:
+            total = total + sq
+    if group is not None and torch.is_tensor(part):
+        total = total + group.sum(part)
     return torch.sqrt(total)
 
 
@@ -91,25 +103,26 @@ def adamw_update(grads: dict, state: AdamWState, cfg: AdamWConfig,
     step = state.step + 1
     lr = cosine_schedule(cfg, step)
 
-    g32 = tree_map(lambda g: g.float(), grads)
-    gnorm = global_norm(g32) if grad_norm is None else grad_norm
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     scale = torch.clamp(cfg.clip_norm / (gnorm + 1e-12), max=1.0)
-    g32 = tree_map(lambda g: g * scale, g32)
-
     b1, b2 = cfg.b1, cfg.b2
-    mu = tree_map(lambda m, g: b1 * m + (1 - b1) * g, state.mu, g32)
-    nu = tree_map(lambda v, g: b2 * v + (1 - b2) * g * g, state.nu, g32)
     t = step.to(torch.float32)
     bc1 = 1.0 - torch.pow(b1, t)
     bc2 = 1.0 - torch.pow(b2, t)
 
-    def upd(p, m, v):
+    def upd(g, p, m, v):
+        """(master, mu, nu) of one leaf: a leaf at a time, so only one
+        leaf's clipped gradient is held at once."""
+        g = g.float() * scale
+        m = b1 * m + (1 - b1) * g
+        v = b2 * v + (1 - b2) * g * g
         mh = m / bc1
         vh = v / bc2
-        return p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
-                         + cfg.weight_decay * p)
+        return (p - lr * (mh / (torch.sqrt(vh) + cfg.eps)
+                          + cfg.weight_decay * p), m, v)
 
-    master = tree_map(upd, state.master, mu, nu)
+    new = tree_map(upd, grads, state.master, state.mu, state.nu)
+    master, mu, nu = (tree_map(lambda x, i=i: x[i], new) for i in range(3))
     new_params = tree_map(lambda x: x.to(param_dtype), master)
     new_state = AdamWState(step=step, master=master, mu=mu, nu=nu)
     metrics = {"grad_norm": gnorm, "lr": lr, "clip_scale": scale}
@@ -122,11 +135,20 @@ def adamw_update(grads: dict, state: AdamWState, cfg: AdamWConfig,
 
 def zero1_shards(tree: dict, specs: dict, mesh, rank: int) -> dict:
     """This rank's shard of every leaf of `tree` (`specs`: the ZeRO-1
-    specs, `distributed.ShardingRules.opt_pspecs(...).master`)."""
-    from repro_torch.distributed.sharding import mesh_coords, shard_of
+    specs, `distributed.ShardingRules.opt_pspecs(...).master`); a leaf
+    its spec does not split over any axis of more than one rank is
+    itself, not a copy."""
+    from repro_torch.distributed.sharding import (_axes_of_spec, mesh_coords,
+                                                  shard_of)
 
     coords = mesh_coords(mesh, rank)
-    return tree_map(lambda x, s: shard_of(x, s, coords, mesh), tree, specs)
+
+    def cut(x, s):
+        if all(mesh.shape[a] == 1 for a in _axes_of_spec(s)):
+            return x
+        return shard_of(x, s, coords, mesh)
+
+    return tree_map(cut, tree, specs)
 
 
 def zero1_init(params: dict, specs: dict, mesh, rank: int) -> AdamWState:
@@ -136,14 +158,17 @@ def zero1_init(params: dict, specs: dict, mesh, rank: int) -> AdamWState:
 
 
 def zero1_update(grads: dict, state: AdamWState, cfg: AdamWConfig, specs,
-                 group, mesh, param_dtype=torch.bfloat16):
-    """`adamw_update` with ZeRO-1: `grads` the whole gradient, summed over
-    the ranks (the same on each); its global norm clips, the update runs
-    on this rank's shard of state and gradient, and the new params are
-    gathered whole on every rank (`group.gather`).  Every operation after
-    the norm is elementwise, so the shards equal the matching slices of
-    the unsharded update bit for bit."""
-    gnorm = global_norm(grads)
+                 group, mesh, param_dtype=torch.bfloat16, grad_norm=None):
+    """`adamw_update` with ZeRO-1 over the data-parallel `group` (`mesh`
+    its ranks, `specs` the ZeRO-1 specs of `grads`' leaves): `grads` the
+    gradient summed over the group's ranks (the same on each); its global
+    norm (`grad_norm`, where `grads` is this rank's block over a model
+    axis; else `global_norm(grads)`) clips, the update runs on this
+    rank's shard of state and gradient, and the new params are gathered
+    whole on every rank of the group (`group.gather`).  Every operation
+    after the norm is elementwise, so the shards equal the matching slices
+    of the unsharded update bit for bit."""
+    gnorm = global_norm(grads) if grad_norm is None else grad_norm
     shards, new_state, metrics = adamw_update(
         zero1_shards(grads, specs, mesh, group.rank), state, cfg,
         param_dtype, grad_norm=gnorm)

@@ -352,14 +352,15 @@ def test_checkpoint_manager_retention_and_tmp_cleanup(tmp_path):
 
 
 def test_cli_refuses_more_than_one_device(monkeypatch):
-    """What the CLI still refuses since data parallelism runs
-    (`tests/test_torch_dp.py`): a model axis above 1 (tensor parallelism,
-    ROADMAP A9c), and nccl where it cannot run: two ranks on a host with
-    one card (ranks share a card over gloo only) and the CPU.  Each
-    raises before joining a process group."""
+    """What the CLI still refuses since data and tensor parallelism run
+    (`tests/test_torch_dp.py`, `tests/test_torch_tp.py`): a model axis
+    above 1 in one process (it needs that many ranks), and nccl where it
+    cannot run: two ranks on a host with one card (ranks share a card
+    over gloo only) and the CPU.  Each raises before joining a process
+    group."""
     argv = ["--arch", "qwen3-1.7b", "--reduced", "--device", "cpu",
             "--steps", "1"]
-    with pytest.raises(NotImplementedError, match="A9c"):
+    with pytest.raises(ValueError, match="--model-axis 2 needs"):
         train.main(argv + ["--model-axis", "2"])
     for k, v in (("WORLD_SIZE", "2"), ("RANK", "0"), ("LOCAL_RANK", "0"),
                  ("LOCAL_WORLD_SIZE", "2")):

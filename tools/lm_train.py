@@ -3,9 +3,10 @@ train-mamba2 (kernel B2 under a gradient at mamba2-130m's and
 zamba2-2.7b's head shapes, the float32 model step with B2 against the
 plain scan, and the trainer's CLI for mamba2-130m at full width, 8 x 4096
 tokens a step, with a simulated preemption and a resume, then one step
-under `torch.profiler`) and train-mamba2-dp2 (the CLI in two
+under `torch.profiler`), train-mamba2-dp2 (the CLI in two
 data-parallel ranks on the one card, resumed in one process, and its
-float32 check).
+float32 check) and train-mamba2-tp2 (the CLI in two model-parallel ranks,
+resumed in one process, and tp2-qwen3moe in the same ranks).
 
     python3 tools/lm_train.py
 
@@ -36,8 +37,10 @@ def main():
     out = cs.timed("train-mamba2", cs.phase_train, dev, smi, entry)
     dp2 = cs.timed("train-mamba2-dp2", cs.phase_train_dp, dev, smi, entry,
                    out["losses"])
+    tp2 = cs.timed("train-mamba2-tp2", cs.phase_train_tp, dev, smi, entry,
+                   out["losses"])
     print(json.dumps({"train-mamba2": out, "train-mamba2-dp2": dp2,
-                      "b2": entry}), flush=True)
+                      "train-mamba2-tp2": tp2, "b2": entry}), flush=True)
     return 0
 
 
