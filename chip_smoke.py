@@ -20,7 +20,11 @@ shot held against a sequential call.  Then the sharded path
 its plain version, the 512^3 acoustic case as a 2x2 mesh of shards on the
 card against the single-device run, TTI and elastic at 256^3 and acoustic
 schedules (time-nested, overlapped, uniform halo, autotuned) at 128^3, and
-the survey engine's sharded route.  Then the language models: kernel B2
+the survey engine's sharded route; and the 512^3 acoustic mesh one shard
+a process (sharded-acoustic-ranks: four ranks spawned on the card over
+gloo, each holding its block and exchanging halos through the host,
+kernel B1c one shard row a launch in each), held to the single-device
+run.  Then the language models: kernel B2
 (the SSD chunked scan) against its plain version on both of its schedules
 (tensor cores for bf16 inputs at mamba2-130m's and zamba2-2.7b's head
 shapes, (N, P, Q) = (128, 64, 64) and (64, 64, 128), float32 cores for
@@ -79,10 +83,11 @@ then for each path: main path
 at full size, spatially-blocked baseline, kernel timing (with its design:
 the schedule the launch takes, registers, shared memory, blocks an SM,
 achieved GB/s), the batched kernel at the main path's shapes (after
-acoustic: sharded-acoustic and main-acoustic-bf16); the paper's cases at
+acoustic: sharded-acoustic, sharded-acoustic-ranks and
+main-acoustic-bf16); the paper's cases at
 orders 8 and 12 (paper-*: acoustic on B6, TTI and elastic on B5 at tile
 64, each such run counted and its kernel held against the plain version
-on a mid-run tile; elastic at half depth, PAPER_HALF_DEPTH);
+on a mid-run tile; at half depth, PAPER_HALF_DEPTH);
 then survey-acoustic,
 survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
 line.  Any failed check raises, and the script exits non-zero.
@@ -966,11 +971,15 @@ PAPER_PLANS = {
     ("elastic", 12): _B5_PLANS + _FIRST_PLANS,
 }
 # the paper cases run at half depth, in simulated ms (nt 220 / 230 for
-# elastic at orders 8 / 12, 440 / 459 at the paper's 512 ms): the same
-# width and plans, still held to Listing 1; the time they free keeps the
-# whole script inside its limit beside train-mamba2-tp2 (PERF.md keeps
-# the full-depth figures of PRs 22-23)
-PAPER_HALF_DEPTH = {("elastic", 8): 256.0, ("elastic", 12): 256.0}
+# elastic and acoustic at orders 8 / 12, 440 / 459 at the paper's 512 ms;
+# TTI 131 / 136 of 261 / 272): the same width and plans, still held to
+# Listing 1; the time they free keeps the whole script inside its limit
+# beside train-mamba2-tp2 (elastic, PR 27) and sharded-acoustic-ranks
+# (acoustic and TTI, PR 28).  PERF.md keeps the full-depth figures of PRs
+# 22-23
+PAPER_HALF_DEPTH = {(name, order): 256.0
+                    for name in ("acoustic", "tti", "elastic")
+                    for order in (8, 12)}
 # device bytes a propagation may count on beyond `ops.propagation_bytes`
 # (its tables, receiver partials and traces, the allocator's rounding)
 PAPER_RESERVE = 2 * 2 ** 30
@@ -1675,13 +1684,14 @@ SHARDED_SURVEY_SHOTS = 2
 
 
 def dist_plan(physics, shape, dt, spacing, dev, T=T_TB, tile=TILE,
-              inner_T=None, order=ORDER, **kw):
-    """A `DistTBPlan` of the 2x2 mesh on `dev` with the CUDA inner
-    executor: exchange depth T, inner tile `tile`, inner depth `inner_T`
-    (default T: the flat schedule)."""
+              inner_T=None, order=ORDER, mesh=None, **kw):
+    """A `DistTBPlan` of the 2x2 mesh on `dev` (or of `mesh`, a rank's
+    view) with the CUDA inner executor: exchange depth T, inner tile
+    `tile`, inner depth `inner_T` (default T: the flat schedule)."""
     r = physics.step_radius(order)
     return H.DistTBPlan(
-        mesh=ShardMesh(MESH, devices=(dev,)), grid_shape=tuple(shape),
+        mesh=mesh or ShardMesh(MESH, devices=(dev,)),
+        grid_shape=tuple(shape),
         physics=physics, order=order, T=T, dt=dt, spacing=spacing,
         inner="cuda", inner_plan=TBPlan(tile, inner_T or T, r), **kw)
 
@@ -1952,6 +1962,429 @@ def phase_sharded_acoustic(fc, smi, kept, tb_ms):
     }
 
 
+RANKS_WORLD = MESH[0] * MESH[1]      # one shard a rank
+RANKS_TIMEOUT = 600.0                # seconds for the ranks to report
+
+
+def save_run(tmp, what, physics, fields, rec):
+    """A run's global fields and traces as .npy files in `tmp`, named
+    `what`, for the ranks to read their blocks of."""
+    for f, a in zip(physics.state_fields, fields):
+        np.save(Path(tmp) / f"{what}-{f}.npy", a.cpu().numpy())
+    np.save(Path(tmp) / f"{what}-rec.npy", rec.cpu().numpy())
+
+
+def against_saved(tmp, what, physics, plan, st, rec):
+    """This rank's blocks `st` (on a rank's view of `plan`'s mesh) and the
+    traces `rec` against the run `save_run` saved as `what`: per field
+    (max|diff|, max|saved|) over the block and whether the block is
+    bit-equal; per receiver channel max|diff| / max|saved|, and whether
+    the traces are bit-equal."""
+    dev = rec.device
+    bx, by = plan.block
+    i, j = divmod(plan.mesh.rank, plan.pgrid[1])
+    fields, equal = {}, True
+    for f, a in zip(physics.state_fields, st):
+        whole = np.load(Path(tmp) / f"{what}-{f}.npy", mmap_mode="r")
+        want = torch.as_tensor(np.ascontiguousarray(
+            whole[i * bx:(i + 1) * bx, j * by:(j + 1) * by]), device=dev)
+        fields[f] = (float((a - want).abs().max()), float(want.abs().max()))
+        equal = equal and torch.equal(a, want)
+        del want
+    want = torch.as_tensor(np.load(Path(tmp) / f"{what}-rec.npy"),
+                           device=dev)
+    w, r = (t if t.dim() == 3 else t[..., None] for t in (want, rec))
+    return {"fields": fields, "equal": equal,
+            "rec": {f"rec[{c}]": max_rel(r[..., c], w[..., c])
+                    for c in range(w.shape[-1])},
+            "rec_equal": torch.equal(rec, want)}
+
+
+def ranks_errors(res, key, physics):
+    """max|diff| / max|saved| per field over all the ranks' blocks (their
+    `against_saved` results under `key`), rank 0's per trace channel, and
+    whether every block and the traces are bit-equal."""
+    errs = {f: max(r[key]["fields"][f][0] for r in res)
+            / max(max(r[key]["fields"][f][1] for r in res), 1e-30)
+            for f in physics.state_fields}
+    errs.update(res[0][key]["rec"])
+    same = all(r[key]["equal"] for r in res) and res[0][key]["rec_equal"]
+    return errs, same
+
+
+def same_traces(group, rec):
+    """Whether every rank of `group` holds these traces bit for bit: the
+    least and the most over the ranks of a checksum of their bits."""
+    bits = rec.contiguous().view(torch.int32).long().sum().reshape(1)
+    most = group.all_reduce_(bits.clone(), op=torch.distributed.ReduceOp.MAX)
+    least = group.all_reduce_(bits.clone(),
+                              op=torch.distributed.ReduceOp.MIN)
+    return bool(torch.equal(most, least))
+
+
+def spawn_sharded(fn, tmp):
+    """fn(rank, tmp) in RANKS_WORLD spawned ranks (gloo over a free
+    localhost port); (their results, wall seconds)."""
+    from repro_torch.distributed import process_group
+
+    t0 = time.perf_counter()
+    res = process_group.spawn_ranks(
+        fn, RANKS_WORLD, (tmp,), timeout=RANKS_TIMEOUT,
+        env={"MASTER_ADDR": "localhost", "MASTER_PORT": str(free_port())})
+    return res, time.perf_counter() - t0
+
+
+def in_gloo_group(fn, tmp):
+    """fn(group, tmp) in this rank's gloo group on cuda:LOCAL_RANK %
+    device_count (`DataParallel.start`), left at the end."""
+    from repro_torch.distributed.process_group import DataParallel
+
+    group = DataParallel.start("gloo", "cuda")
+    try:
+        return fn(group, tmp)
+    finally:
+        group.close()
+
+
+def host_case(fc):
+    """`fc`'s global state and params moved to the host (the rank's card
+    then holds its blocks alone): (state tuple, params dict)."""
+    state = tuple(f.cpu() for f in fc.state)
+    params = {k: v.cpu() for k, v in fc.params._asdict().items()}
+    fc.state = fc.params = None
+    torch.cuda.empty_cache()
+    return state, params
+
+
+def phase_sharded_acoustic_ranks(fc, smi, kept, four_rows):
+    """sharded-acoustic-ranks: sharded-acoustic's case and plan (the 512^3
+    acoustic paper case, nt 399, a 2x2 mesh, T=4, tile 32 flat, kernel
+    B1c) one shard a process: RANKS_WORLD ranks spawned by
+    `process_group.spawn_ranks(sharded_rank, ...)`, each on cuda:0 over
+    gloo, each holding its own block and exchanging halos with its
+    neighbours through the host (`DataParallel.exchange`).  Each rank's
+    block and the traces are held against main-acoustic's single-device
+    run within FIELD_RTOL (bit-equality reported) and its Listing-1
+    reference within MAIN_TOL (`kept`, saved for the ranks to a
+    temporary directory: no block travels through the result queue);
+    each rank's launches and exchange rounds against `expected_launches`
+    / `expected_rounds`.  Prints the run's ms (CUDA events on rank 0),
+    the state exchange's bytes, transfer ms and wait ms a tile a rank,
+    peak GiB a rank, and B1c's one-row launch (rank 0, a mid-run pass)
+    against its bound beside the four-row launch of sharded-acoustic
+    (`four_rows`, its kernel-line entry).  Returns the one-row route's
+    kernel-line entry."""
+    import tempfile
+
+    phase = "sharded-acoustic-ranks"
+    final, recs, rfinal, rrec = kept
+    physics = fc.physics
+    torch.cuda.empty_cache()
+    with tempfile.TemporaryDirectory() as tmp:
+        save_run(tmp, "single", physics, final, recs)
+        save_run(tmp, "listing1", physics, rfinal, rrec)
+        res, wall = spawn_sharded(sharded_rank, tmp)
+    r0 = res[0]
+    plan = dist_plan(physics, SHAPE, fc.dt, fc.spacing, fc.state[0].device)
+    want = (expected_launches(plan, fc.nt), expected_rounds(plan, fc.nt))
+    counts = [(r["launches"], r["rounds"]) for r in res]
+    if any(c != want for c in counts):
+        raise AssertionError(f"{phase}: (launches, exchange rounds) by rank "
+                             f"{counts}, expected {want} in each")
+    errs, same = ranks_errors(res, "single", physics)
+    rerrs, _ = ranks_errors(res, "listing1", physics)
+    worst = check_errors(phase, errs, FIELD_RTOL, "vs the single-device run")
+    rworst = check_errors(phase, rerrs, MAIN_TOL, "vs the Listing-1 "
+                          "reference")
+    if not (all(r["finite"] for r in res)
+            and all(r["rec_same"] for r in res)):
+        raise AssertionError(f"{phase}: non-finite blocks, or ranks "
+                             "holding different traces")
+    n_tiles = -(-fc.nt // plan.T)
+    ex = [r["exchange"] for r in res]
+    say(phase, f"{SHAPE} nt={fc.nt} on a {MESH} mesh, one {plan.block} "
+        f"block a rank in {RANKS_WORLD} ranks (gloo on one card, strips "
+        f"through pinned host buffers), T={plan.T} tile {plan.inner_tile} "
+        f"flat, field depths {plan.field_depths(plan.T)}: launches and "
+        f"exchange rounds by rank {counts} (expected {want}, one shard row "
+        f"a launch); vs the single-device TB run: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (max {worst:.3e}, limit {FIELD_RTOL:g}), bit-equal: {same} "
+        f"(fields: {all(r['single']['equal'] for r in res)}); vs the "
+        f"Listing-1 reference max {rworst:.3e} (limit {MAIN_TOL:g}); every "
+        "rank holds the same traces")
+    say(phase, f"warm run {r0['ms']:.1f} ms (CUDA events on rank 0; ranks "
+        + ", ".join(f"{r['ms']:.1f}" for r in res) + f"), cold run "
+        f"{r0['cold_ms']:.1f} ms (the counted one, with the exchange "
+        f"timed); a tile a rank, the state's exchange: " + ", ".join(
+            f"{e['bytes'] / n_tiles / 1e6:.2f}" for e in ex)
+        + " MB sent, transfer " + ", ".join(
+            f"{e['transfer_s'] / n_tiles * 1e3:.3f}" for e in ex)
+        + " ms, wait at the barrier before it " + ", ".join(
+            f"{e['wait_s'] / n_tiles * 1e3:.3f}" for e in ex)
+        + f" ms (by rank; {n_tiles} tiles; gloo through the host: this "
+        f"one-card rig's cost, not a link's); peak GiB by rank " + ", ".join(
+            f"{r['peak_gib']:.2f}" for r in res)
+        + f"; wall {wall:.1f} s for the ranks (start, case, two runs, "
+        f"checks, the kernel timing) [{smi}]")
+    k = r0["kernel"]
+    say(phase, f"kernel B1c, one shard row at grid {k['grid']} + halo "
+        f"{k['halo']}, tile {k['tile']} (rank 0, a mid-run pass, the other "
+        f"ranks idle at a barrier): {k['ms']:.3f} ms per launch (median of "
+        f"3 means of 5; least {k['lo']:.3f}, most {k['hi']:.3f}) vs bound "
+        f"{k['bound_ms']:.3f} ms by {k['bound_by']} ({k['gb']:.2f} GB); "
+        f"plain {k['plain_ms']:.1f} ms; max|diff| vs plain "
+        f"{k['err']:.3e}, max|diff|/max|plain| {k['rel']:.3e}; beside it "
+        f"sharded-acoustic's four-row launch {four_rows['ms']:.3f} ms vs "
+        f"bound {four_rows['bound_ms']:.3f} ms [{smi}]")
+    return {
+        "name": "stencil_tb.tb_acoustic (sharded pass in a rank: one shard "
+                "row, its params and domain mask)",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/stencil_tb.cu",
+        "replaces": "src/repro/kernels/stencil_tb.py:129",
+        "launches": counts[0][0],
+        "launches_by_rank": [c[0] for c in counts],
+        "max_abs_err": k["err"],
+        "ms": k["ms"],
+        "plain_ms": k["plain_ms"],
+        "bound_ms": k["bound_ms"],
+        "bound_by": k["bound_by"],
+        "library_ms": None,
+    }
+
+
+def sharded_rank(rank, tmp):
+    """One rank of sharded-acoustic-ranks, in a process of its own
+    (`sharded_rank_run` in its gloo group)."""
+    return in_gloo_group(sharded_rank_run, tmp)
+
+
+def sharded_rank_run(group, tmp):
+    """This rank's part of sharded-acoustic-ranks: the case built on the
+    card as main-acoustic builds it, its global fields then moved to the
+    host; a counted run (B1c's launches and the exchange rounds from 0,
+    the state exchange timed: the wait at a barrier apart from the
+    transfer after it), its block and the traces against the saved
+    single-device run and Listing-1 reference; a warm run timed by CUDA
+    events; on rank 0, B1c's one-row launch of a mid-run pass timed and
+    held against the plain version while the other ranks wait."""
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    dev = group.device
+    fc = full_case("acoustic", dev)
+    state, params = host_case(fc)
+    physics = fc.physics
+    mesh = make_rank_mesh(MESH, group)
+    plan = dist_plan(physics, SHAPE, fc.dt, fc.spacing, dev, mesh=mesh)
+    mid = (fc.nt // plan.T) // 2
+    captured = []
+
+    def capture(spec, p, *args, dom=None, param_copies=None):
+        if len(captured) == mid and group.rank == 0:
+            captured.append((spec, args, dom))
+        else:
+            captured.append(None)
+        return ker.tb_time_tile(spec, p, *args, dom=dom,
+                                param_copies=param_copies)
+
+    exchange = {"bytes": 0, "transfer_s": 0.0, "wait_s": 0.0}
+    to_depth = H.exchange_to_depth
+
+    def counted_exchange(*a, **kw):
+        before = dict(group.p2p)
+        out = to_depth(*a, **kw)
+        exchange["bytes"] += group.p2p["bytes_sent"] - before["bytes_sent"]
+        for key in ("transfer_s", "wait_s"):
+            exchange[key] += group.p2p[key] - before[key]
+        return out
+
+    def run():
+        return H.sharded_tb_propagate(plan, fc.nt, state, params, fc.g,
+                                      fc.gr)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    group.max(0.0)
+    ker.launches = 0
+    mesh.exchange_rounds = 0
+    group.timing = True
+    ops.EXECUTORS["cuda"] = capture
+    try:
+        with patched(H, "exchange_to_depth", counted_exchange):
+            cold_ms, (st, rec) = cuda_ms(run)
+    finally:
+        ops.EXECUTORS["cuda"] = ker.tb_time_tile
+        group.timing = False
+    out = {"launches": ker.launches, "rounds": mesh.exchange_rounds,
+           "exchange": exchange, "cold_ms": cold_ms,
+           "finite": all(bool(torch.isfinite(f).all()) for f in st)
+           and bool(torch.isfinite(rec).all()),
+           "rec_same": same_traces(group, rec)}
+    for what in ("single", "listing1"):
+        out[what] = against_saved(tmp, what, physics, plan, st, rec)
+    del st, rec
+    group.max(0.0)
+    out["ms"], res = cuda_ms(run)
+    del res
+    out["peak_gib"] = torch.cuda.max_memory_allocated(dev) / 2 ** 30
+    group.max(0.0)
+    if group.rank == 0:
+        spec, args, dom = next(c for c in captured if c is not None)
+        k_ms, lo, hi, _ = time_kernel(spec, physics, args, dom=dom)
+        err, rel, _, plain_ms = compare_kernel(spec, physics, args, dom=dom)
+        cost = ker.kernel_cost(spec, physics, shots=1, shard_rows=True)
+        bound, by = bound_of(cost)
+        out["kernel"] = {"ms": k_ms, "lo": lo, "hi": hi, "err": err,
+                         "rel": rel, "plain_ms": plain_ms, "bound_ms": bound,
+                         "bound_by": by, "gb": cost["min_bytes"] / 1e9,
+                         "grid": (spec.nx, spec.ny, spec.nz),
+                         "halo": spec.halo, "tile": spec.tile}
+        del spec, args, dom
+    del captured
+    group.max(0.0)
+    return out
+
+
+# sharded-small-ranks: (name, physics, shape, plan fields) of each case run
+# in the ranks against its single-device TB run
+SMALL_RANK_CASES = [
+    ("elastic", "elastic", SHARDED_SMALL_SHAPE, {}),
+    ("acoustic, overlap", "acoustic", NESTED_SHAPE, {"overlap": True}),
+]
+
+
+def sharded_survey(fc, dev):
+    """survey-sharded's engine and its 2 shots on `fc` (the 128^3
+    acoustic case)."""
+    h = fc.spacing[0]
+    grid = Grid(shape=NESTED_SHAPE, spacing=fc.spacing)
+    wav = S.ricker_wavelet(fc.nt, fc.dt, fc.case.f0)
+    rec = receiver_line(NESTED_SHAPE) * h
+    shots = [Shot(src_coords=source_point(NESTED_SHAPE, x) * h, wavelet=wav,
+                  rec_coords=rec, shot_id=i)
+             for i, x in enumerate((0.3 * NESTED_SHAPE[0] + 0.37,
+                                    0.7 * NESTED_SHAPE[0] - 0.63))]
+    engine = SurveyEngine("acoustic", grid, fc.params._asdict(), fc.nt,
+                          fc.dt, order=ORDER, plan=plan_for(fc.physics, T_TB),
+                          plan_cache=PlanCache(),
+                          bucket_cap=SHARDED_SURVEY_SHOTS, device=dev)
+    return engine, shots
+
+
+def phase_sharded_small_ranks(smi, dev):
+    """sharded-small-ranks: sharded-small's and survey-sharded's cases on
+    the 2x2 mesh one shard a process (RANKS_WORLD spawned gloo ranks on
+    the card): elastic at 256^3 with its nine per-field depths, acoustic
+    at 128^3 with the overlapped first step and nt % T = 3, each rank's
+    block and the traces against the case's single-device TB run, and
+    `SurveyEngine.run_sharded` for the two 128^3 shots against `run`; each
+    within FIELD_RTOL, with the launches and exchange rounds each rank
+    makes.  Run by `tools/sharded_ranks.py`, outside this script's time
+    limit."""
+    import tempfile
+
+    phase = "sharded-small-ranks"
+    with tempfile.TemporaryDirectory() as tmp:
+        for name, pname, shape, _ in SMALL_RANK_CASES:
+            fc = full_case(pname, dev, shape=shape, time_ms=REDUCED_TIME_MS)
+            save_run(tmp, name, fc.physics,
+                     *fc.run(plan_for(fc.physics, T_TB)))
+            del fc
+            torch.cuda.empty_cache()
+        fc = full_case("acoustic", dev, shape=NESTED_SHAPE,
+                       time_ms=REDUCED_TIME_MS)
+        engine, shots = sharded_survey(fc, dev)
+        np.save(Path(tmp) / "survey.npy", np.stack(engine.run(shots).traces))
+        del engine, fc
+        torch.cuda.empty_cache()
+        res, wall = spawn_sharded(small_rank, tmp)
+    for name, pname, shape, kw in SMALL_RANK_CASES:
+        physics = phys.PHYSICS[pname]
+        errs, same = ranks_errors([r[name] for r in res], "single", physics)
+        worst = check_errors(f"{phase} {name}", errs, FIELD_RTOL,
+                             "vs the single-device run")
+        r0 = res[0][name]
+        counts = [(r[name]["launches"], r[name]["rounds"]) for r in res]
+        if not all(r[name]["rec_same"] for r in res):
+            raise AssertionError(f"{phase} {name}: the ranks hold different "
+                                 "traces")
+        say(phase, f"{name} {shape} nt={r0['nt']} mesh {MESH} in "
+            f"{RANKS_WORLD} ranks, T={T_TB} tile {TILE} {kw or 'flat'}, field "
+            f"depths {r0['depths']}: launches and exchange rounds by rank "
+            f"{counts} (as the plan needs: checked in each rank); vs the "
+            f"single-device TB run max {worst:.3e} (limit {FIELD_RTOL:g}), "
+            f"bit-equal: {same} (fields: "
+            f"{all(r[name]['single']['equal'] for r in res)}); run "
+            f"{r0['ms']:.1f} ms (CUDA events on rank 0), "
+            f"{r0['sent'] / 1e6:.1f} MB sent by rank 0 [{smi}]")
+    s = res[0]["survey"]
+    worst = max(r["survey"]["worst"] for r in res)
+    if not worst <= FIELD_RTOL:
+        raise AssertionError(f"{phase}: run_sharded's traces differ from "
+                             f"run's by {worst:.3e}")
+    say(phase, f"run_sharded in {RANKS_WORLD} ranks, {s['shots']} shots "
+        f"{NESTED_SHAPE}: launches by rank "
+        f"{[r['survey']['launches'] for r in res]} (as the plan needs: "
+        f"checked in each rank), {s['seconds']:.3f} s on rank 0; every "
+        f"rank's traces against run's max|diff|/max|ref| {worst:.3e} "
+        f"(limit {FIELD_RTOL:g}); wall {wall:.1f} s for the ranks [{smi}]")
+
+
+def small_rank(rank, tmp):
+    """One rank of sharded-small-ranks (`small_rank_run` in its gloo
+    group)."""
+    return in_gloo_group(small_rank_run, tmp)
+
+
+def small_rank_run(group, tmp):
+    """This rank's part of sharded-small-ranks: each SMALL_RANK_CASES case
+    built on the card, its global fields moved to the host, one counted
+    run (`sharded_run`: raises unless the launches and exchange rounds
+    are what the plan needs) timed by CUDA events, against the saved
+    single-device run; then `run_sharded` of survey-sharded's shots."""
+    from repro_torch.launch.mesh import make_rank_mesh
+
+    dev = group.device
+    mesh = make_rank_mesh(MESH, group)
+    out = {}
+    for name, pname, shape, kw in SMALL_RANK_CASES:
+        fc = full_case(pname, dev, shape=shape, time_ms=REDUCED_TIME_MS)
+        state, params = host_case(fc)
+        plan = dist_plan(fc.physics, shape, fc.dt, fc.spacing, dev,
+                         mesh=mesh, **kw)
+        group.max(0.0)
+        sent = group.p2p["bytes_sent"]
+        ms, ((st, rec), launches, rounds) = cuda_ms(lambda: sharded_run(
+            plan, fc.nt, state, params, fc.g, fc.gr, name))
+        out[name] = {"launches": launches, "rounds": rounds, "ms": ms,
+                     "nt": fc.nt, "depths": plan.field_depths(plan.T),
+                     "sent": group.p2p["bytes_sent"] - sent,
+                     "rec_same": same_traces(group, rec),
+                     "single": against_saved(tmp, name, fc.physics, plan, st,
+                                             rec)}
+        del st, rec, state, params, fc
+        torch.cuda.empty_cache()
+    fc = full_case("acoustic", dev, shape=NESTED_SHAPE,
+                   time_ms=REDUCED_TIME_MS)
+    engine, shots = sharded_survey(fc, dev)
+    plan = dist_plan(fc.physics, NESTED_SHAPE, fc.dt, fc.spacing, dev,
+                     mesh=mesh)
+    ker.launches = 0
+    sres = engine.run_sharded(shots, plan)
+    torch.cuda.synchronize()
+    if ker.launches != len(shots) * expected_launches(plan, fc.nt):
+        raise AssertionError(f"run_sharded: {ker.launches} launches")
+    want = np.load(Path(tmp) / "survey.npy")
+    out["survey"] = {
+        "launches": ker.launches, "shots": len(shots),
+        "seconds": sres.stats["seconds"],
+        "worst": max(max(stencil_survey.channel_errors(a, b))
+                     for a, b in zip(sres.traces, want))}
+    group.max(0.0)
+    return out
+
+
 def _against_single(phase, fc, single, plan, smi):
     """One sharded run of `fc` on `plan` against `single`, the
     single-device TB result; prints and returns its ms."""
@@ -2023,18 +2456,7 @@ def phase_survey_sharded(smi, dev):
     phase = "survey-sharded"
     fc = full_case("acoustic", dev, shape=NESTED_SHAPE,
                    time_ms=REDUCED_TIME_MS)
-    h = fc.spacing[0]
-    grid = Grid(shape=NESTED_SHAPE, spacing=fc.spacing)
-    wav = S.ricker_wavelet(fc.nt, fc.dt, fc.case.f0)
-    rec = receiver_line(NESTED_SHAPE) * h
-    shots = [Shot(src_coords=source_point(NESTED_SHAPE, x) * h, wavelet=wav,
-                  rec_coords=rec, shot_id=i)
-             for i, x in enumerate((0.3 * NESTED_SHAPE[0] + 0.37,
-                                    0.7 * NESTED_SHAPE[0] - 0.63))]
-    engine = SurveyEngine("acoustic", grid, fc.params._asdict(), fc.nt,
-                          fc.dt, order=ORDER, plan=plan_for(fc.physics, T_TB),
-                          plan_cache=PlanCache(),
-                          bucket_cap=SHARDED_SURVEY_SHOTS, device=dev)
+    engine, shots = sharded_survey(fc, dev)
     res = engine.run(shots)
     plan = dist_plan(fc.physics, NESTED_SHAPE, fc.dt, fc.spacing, dev)
     ker.launches = 0
@@ -4120,8 +4542,12 @@ def run_path(name, smi, dev):
                                                phase_main_path, fc, smi)
     extra = []
     if kept is not None:
-        extra.append(timed("sharded-acoustic", phase_sharded_acoustic, fc,
-                           smi, (state, *kept), tb_ms))
+        four_rows = timed("sharded-acoustic", phase_sharded_acoustic, fc,
+                          smi, (state, *kept), tb_ms)
+        extra.append(four_rows)
+        extra.append(timed("sharded-acoustic-ranks",
+                           phase_sharded_acoustic_ranks, fc, smi,
+                           (state, *kept), four_rows))
         del kept
         torch.cuda.empty_cache()
     sb_ms = timed(f"sb-{name}", phase_sb, fc, smi, tb_ms, state)

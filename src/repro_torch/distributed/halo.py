@@ -29,17 +29,27 @@ first step splits into an interior update of the un-exchanged block plus
 four rim strips, and steps 2..T run through the inner executor.
 
 The reference runs one program over a device mesh (`shard_map`,
-`lax.ppermute`).  The port is single-controller: one process holds each
-shard as a tensor on its mesh device (`launch.mesh.ShardMesh`), and a
-neighbour shift is a copy between shard tensors — a device-local copy when
-the shards share a card.  A sharded field is a shard grid: a list of px
-rows of py tensors.  The shift functions stay injectable (`shift_fns`), as
-in the reference.  Missing neighbours (the domain edge) give zeros, the
-Dirichlet convention of the reference and the kernel; out-of-domain cells
-are re-masked every in-window step.
+`lax.ppermute`).  The port runs a `launch.mesh.ShardMesh` two ways:
+
+  single controller  one process holds each shard as a tensor on its mesh
+                     device, and a neighbour shift is a copy between shard
+                     tensors — a device-local copy when the shards share a
+                     card;
+  one shard a rank   on a rank's view of the mesh (`mesh.process_group`,
+                     `launch.mesh.make_rank_mesh`) each process holds its
+                     own block and a shift is a message between ranks
+                     (`rank_shift_fns` over `DataParallel.exchange`): the
+                     reference's SPMD program, one process a shard.
+
+A sharded field is a shard grid: a list of px rows of py tensors (on a
+rank's view, this rank's block and None elsewhere).  The shift functions
+stay injectable (`shift_fns`), as in the reference.  Missing neighbours
+(the domain edge) give zeros, the Dirichlet convention of the reference and
+the kernel; out-of-domain cells are re-masked every in-window step.
 
 Receivers are recorded once, by the owning shard's owning tile, as partial
-per-step samples segment-summed by receiver id (`ops.combine_rec_partials`);
+per-step samples segment-summed by receiver id (`ops.combine_rec_partials`;
+across ranks each rank sums its own, then one all-reduce adds the ranks');
 `nt % T != 0` runs a shallower remainder tile whose params and mask are a
 crop of the main tiles' exchanged ones (no second param exchange).
 """
@@ -102,24 +112,68 @@ def shift_from_high(blocks, h: int, dim: int):
     return _neighbour_strips(blocks, h, dim, +1)
 
 
+def rank_shift_fns(mesh: ShardMesh):
+    """The `(from_low, from_high)` pair of a rank's view of `mesh`: this
+    rank's strip goes to its neighbour along the mesh axis of `dim` and
+    the neighbour's comes back (`DataParallel.exchange`, one message each
+    way), zeros at the domain edge.  Each message of a shift carries the
+    tag of its (dim, direction), and every rank finishes a shift before it
+    starts the next, so the x round, then the y round (which carries the
+    x halo), can neither deadlock nor cross."""
+    group = mesh.process_group
+    px, py = mesh.pgrid
+    i, j = divmod(group.rank, py)
+
+    def shift(blocks, h, dim, step):
+        x = blocks[i][j]
+        n, c = ((px, i), (py, j))[dim]
+        stride = py if dim == 0 else 1
+        shape = list(x.shape)
+        shape[dim] = h
+        sends, recvs = [], []
+        if 0 <= c - step < n:       # the neighbour this shard's strip feeds
+            lo = x.shape[dim] - h if step < 0 else 0
+            sends.append((group.rank - step * stride, x.narrow(dim, lo, h)))
+        if 0 <= c + step < n:       # the neighbour whose strip it takes
+            recvs.append((group.rank + step * stride, shape, x.dtype))
+        got = group.exchange(sends, recvs, tag=2 * dim + (step > 0))
+        strip = got[0] if got else x.new_zeros(shape)
+        return [[strip if (a, b) == (i, j) else None for b in range(py)]
+                for a in range(px)]
+
+    return (lambda blocks, h, dim: shift(blocks, h, dim, -1),
+            lambda blocks, h, dim: shift(blocks, h, dim, +1))
+
+
+def mesh_shift_fns(mesh: Optional[ShardMesh]):
+    """The shifts a mesh runs: `rank_shift_fns` on a rank's view, None
+    (the copies above) otherwise."""
+    if mesh is not None and mesh.process_group is not None:
+        return rank_shift_fns(mesh)
+    return None
+
+
 def halo_exchange(blocks, h: int, dim: int, shift_fns=None):
     """Pad every shard's block with depth-h halos from both neighbours
     along `dim`.  `shift_fns` (default: the copies above) injects the two
     strip providers `(from_low, from_high)`, each taking and returning a
-    shard grid."""
+    shard grid (None where the process holds no block)."""
     from_low, from_high = shift_fns or (shift_from_low, shift_from_high)
     lo = from_low(blocks, h, dim)
     hi = from_high(blocks, h, dim)
-    return [[torch.cat([lo[i][j], b, hi[i][j]], dim=dim)
+    return [[None if b is None else torch.cat([lo[i][j], b, hi[i][j]],
+                                              dim=dim)
              for j, b in enumerate(row)] for i, row in enumerate(blocks)]
 
 
 def halo_exchange_2d(blocks, h: int, shift_fns=None,
                      mesh: Optional[ShardMesh] = None):
     """x then y (the second exchange carries the x-halo, so the corners are
-    filled); one exchange round, counted on `mesh`."""
+    filled); one exchange round, counted on `mesh`.  Without `shift_fns`,
+    the mesh's own (`mesh_shift_fns`)."""
     if mesh is not None:
         mesh.exchange_rounds += 1
+    shift_fns = shift_fns or mesh_shift_fns(mesh)
     blocks = halo_exchange(blocks, h, 0, shift_fns=shift_fns)
     return halo_exchange(blocks, h, 1, shift_fns=shift_fns)
 
@@ -135,8 +189,8 @@ def exchange_to_depth(blocks, depth: int, h: int, shift_fns=None,
                                   mesh=mesh)
     if h > depth:
         pad = h - depth
-        blocks = [[F.pad(b, (0, 0, pad, pad, pad, pad)) for b in row]
-                  for row in blocks]
+        blocks = [[None if b is None else F.pad(b, (0, 0, pad, pad, pad, pad))
+                   for b in row] for row in blocks]
     return blocks
 
 
@@ -569,11 +623,23 @@ def _gather_vals(win, sid, smask, scale_vec, dtype):
 # Sharded driver
 # ---------------------------------------------------------------------------
 
-def _split_blocks(a: torch.Tensor, plan: DistTBPlan):
-    """A global (nx, ny, ...) tensor as a shard grid of blocks, each on its
-    shard's device."""
+def _split_blocks(a, plan: DistTBPlan):
+    """A global (nx, ny, ...) array as a shard grid of blocks, each on its
+    shard's device.  On a rank's view only this rank's block is cut out
+    (wherever `a` lies, a numpy array or a tensor) and moved, contiguous:
+    the device never holds the whole grid; the grid holds None
+    elsewhere."""
     px, py = plan.pgrid
     bx, by = plan.block
+    k = plan.mesh.rank
+    if k is not None:
+        i, j = divmod(k, py)
+        b = a[i * bx:(i + 1) * bx, j * by:(j + 1) * by]
+        if isinstance(b, np.ndarray):
+            b = np.ascontiguousarray(b)
+        b = as_tensor(b, plan.mesh.device_of(k)).contiguous()
+        return [[b if (r, c) == (i, j) else None for c in range(py)]
+                for r in range(px)]
     return [[a[i * bx:(i + 1) * bx, j * by:(j + 1) * by]
              .to(plan.mesh.device_of(i * py + j)) for j in range(py)]
             for i in range(px)]
@@ -621,7 +687,8 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
     Returns (run_tile, combine, (param_pads, dom_pads, h)) with
       run_tile(state blocks, t0, src_dcmp, scale) -> (new state blocks,
                partials), src_dcmp/scale per group device;
-      combine(partials) -> (T_depth, nrec, rec_channels) per-step samples;
+      combine(partials) -> (T_depth, nrec, rec_channels) per-step samples
+               (on a rank's view, this rank's part of them);
     param_pads / dom_pads per device group (`ShardMesh.groups`), one
     (S, bx + 2h, by + 2h, nz) tensor a param and one (S, ., ., 1) mask.
     """
@@ -647,7 +714,14 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
                                  min(plan.inner_T, max(T_rest, 1)), r)
 
     # --- host-side owner-sharded tables, one binning per pass, moved to
-    # each group's device once -------------------------------------------------
+    # each group's device once (on a rank's view, this rank's rows) --------
+    # the receiver ids' rows this process combines: all, or this rank's
+    if mesh.rank is None:
+        rid_rows, held = np.s_[:, :], (px, py)
+    else:
+        ri, rj = divmod(mesh.rank, py)
+        rid_rows, held = np.s_[ri:ri + 1, rj:rj + 1], (1, 1)
+
     def device_tables(sc, sid, smask, rc, rw):
         return [(_rows(sc, ks, dev), _rows(sid, ks, dev, torch.long),
                  _rows(smask, ks, dev), _rows(rc, ks, dev),
@@ -658,7 +732,7 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
         sc, sid, smask = _pass_source_tables(plan, g, geom)
         rc, rw, rid = _pass_receiver_tables(plan, receivers, geom)
         pass_tabs.append(device_tables(sc, sid, smask, rc, rw))
-        pass_rids.append(torch.as_tensor(rid, device=dev0))
+        pass_rids.append(torch.as_tensor(rid[rid_rows], device=dev0))
     if overlap:
         # shard-level tables for the split first step (window = the whole
         # exchanged block, one "tile" per shard)
@@ -668,7 +742,7 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
         sc, sid, smask = _pass_source_tables(plan, g, og)
         rc, rw, o_rid = _pass_receiver_tables(plan, receivers, og)
         o_tabs = device_tables(sc, sid, smask, rc, rw)
-        o_rid = torch.as_tensor(o_rid, device=dev0)
+        o_rid = torch.as_tensor(o_rid[rid_rows], device=dev0)
 
     # --- time-invariant param halos (exchanged once per depth) --------------
     fills = dict(physics.param_fills)
@@ -688,9 +762,10 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
                     for f in physics.param_fields}
             param_pads, dom_pads = [], []
             for dev, ks in groups:
+                pdtype = pads[physics.param_fields[0]][ks[0] // py][
+                    ks[0] % py].dtype
                 doms = [_local_domain_mask(plan, h, divmod(k, py), dev,
-                                           pads[physics.param_fields[0]]
-                                           [0][0].dtype) for k in ks]
+                                           pdtype) for k in ks]
                 fields = []
                 for f in physics.param_fields:
                     rows = [pads[f][k // py][k % py] for k in ks]
@@ -714,7 +789,7 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
         new_blocks = [[[None] * py for _ in range(px)] for _ in blocks]
         parts = []
         for gi, (dev, ks) in enumerate(groups):
-            dtype = spads[0][0][0].dtype
+            dtype = spads[0][ks[0] // py][ks[0] % py].dtype
             win = src_dcmp[gi][t0:t0 + T_depth]
             gparts = []
             off = 0
@@ -771,8 +846,9 @@ def _depth_setup(plan: DistTBPlan, T_depth: int,
         rids = ([o_rid] if overlap else []) + pass_rids
         recs = []
         for per_group, rid in zip(partials, rids):
-            rows = _in_shard_order(per_group, groups, dev0)
-            recs.append(_combine_pass(rows.reshape((px, py) + rows.shape[1:]),
+            rows = (per_group[0] if mesh.rank is not None
+                    else _in_shard_order(per_group, groups, dev0))
+            recs.append(_combine_pass(rows.reshape(held + rows.shape[1:]),
                                       rid, nrec))
         return recs[0] if len(recs) == 1 else torch.cat(recs, dim=0)
 
@@ -794,9 +870,19 @@ def sharded_tb_propagate(plan: DistTBPlan, nt: int,
     exchange depth.  The schedule (inner tiling, inner depth, per-field
     depths, overlap) changes only data movement, never results.
 
-    Returns (final state tuple, global fields on the mesh's first device;
-    rec (nt, nrec, rec_channels) | None), receiver traces per step at any
-    T, summed across shards by receiver id.
+    On a rank's view of the mesh (`launch.mesh.make_rank_mesh`) every
+    rank of its group calls this with the same arguments: the global
+    `state` and `params` may lie anywhere (host arrays, say), and only
+    this rank's block of them reaches its device.  Each rank advances its
+    block, exchanging halos with its neighbours, and the receivers'
+    samples are summed over the ranks (one all-reduce), so every rank
+    holds the traces.
+
+    Returns (final state tuple: global fields on the mesh's first device,
+    or on a rank's view this rank's (bx, by, nz) blocks, which
+    `gather_blocks` puts together; rec (nt, nrec, rec_channels) | None),
+    receiver traces per step at any T, summed across shards by receiver
+    id.
     """
     physics = plan.physics
     plan.validate()
@@ -808,29 +894,43 @@ def sharded_tb_propagate(plan: DistTBPlan, nt: int,
     mesh = plan.mesh
     groups = mesh.groups()
     dev0 = mesh.devices[0]
-    state = tuple(as_tensor(a, dev0) for a in state)
-    params = {f: as_tensor(params[f], dev0) for f in physics.param_fields}
+    local = mesh.rank is not None
+    if not local:
+        state = tuple(as_tensor(a, dev0) for a in state)
+        params = {f: as_tensor(params[f], dev0)
+                  for f in physics.param_fields}
+    # on a rank's view the caller's arrays stay where they lie: each rank
+    # takes its block of them
     if tuple(state[0].shape) != tuple(plan.grid_shape):
         raise ValueError(f"state shaped {tuple(state[0].shape)}, plan grid "
                          f"{tuple(plan.grid_shape)}")
+    blocks = [_split_blocks(a, plan) for a in state]
+    param_blocks = {f: _split_blocks(params[f], plan)
+                    for f in physics.param_fields}
+    k0 = groups[0][1][0]
+    dtype = blocks[0][k0 // plan.pgrid[1]][k0 % plan.pgrid[1]].dtype
     nchan = physics.rec_channels
-    dtype = state[0].dtype
 
     if g is not None:
         if g.nt < nt:
             raise ValueError(f"source wavelets cover {g.nt} steps < nt={nt}")
+        # the injection scale reads the params at the sources' points,
+        # where the params lie
+        prm = {}
+        for f in physics.param_fields:
+            p = params[f]
+            prm[f] = as_tensor(p, p.device if torch.is_tensor(p) else "cpu")
+        pdev = prm[physics.param_fields[0]].device
+        scale = physics.inject_scale(prm, g.to(pdev),
+                                     float(plan.dt)).to(dev0)
         g = g.to(dev0)
         src_dcmp = g.src_dcmp
-        scale = physics.inject_scale(params, g, float(plan.dt))
     else:
         src_dcmp = torch.zeros((max(nt, 1), 1), dtype=dtype, device=dev0)
         scale = torch.zeros((1,), dtype=torch.float32, device=dev0)
     src_dcmp = [src_dcmp.to(dev) for dev, _ in groups]
     scale = [scale.to(dev) for dev, _ in groups]
 
-    blocks = [_split_blocks(a, plan) for a in state]
-    param_blocks = {f: _split_blocks(params[f], plan)
-                    for f in physics.param_fields}
     n_main = nt // plan.T
     rem = nt - n_main * plan.T
     recs = []
@@ -855,15 +955,53 @@ def sharded_tb_propagate(plan: DistTBPlan, nt: int,
             blocks, parts = run_rem(blocks, n_main * plan.T, src_dcmp,
                                     scale)
             recs.append(combine_rem(parts))
-    final = tuple(_join_blocks(b, dev0) for b in blocks)
+    if local:
+        i, j = divmod(mesh.rank, plan.pgrid[1])
+        final = tuple(b[i][j] for b in blocks)
+    else:
+        final = tuple(_join_blocks(b, dev0) for b in blocks)
     if receivers is None:
         return final, None
     if not recs:
         return final, torch.zeros((0, receivers.num, nchan), dtype=dtype,
                                   device=dev0)
-    return final, torch.cat(recs, dim=0)
+    rec = torch.cat(recs, dim=0)
+    if local:
+        # each (receiver, point) pair is recorded by one shard: the other
+        # ranks add zeros there
+        mesh.process_group.all_reduce_(rec)
+    return final, rec
+
+
+# tag of `gather_blocks`' messages (the shifts use 0-3)
+GATHER_TAG = 8
+
+
+def gather_blocks(blocks, mesh: ShardMesh, dst: int = 0):
+    """The global fields from every rank's blocks (`sharded_tb_propagate`'s
+    final state on a rank's view of `mesh`), put together on rank `dst`:
+    a tuple of (nx, ny, ...) tensors there, None on the other ranks.  Every
+    rank of the mesh's group calls it; each block moves once, to `dst`
+    (`DataParallel.exchange`, a message a field)."""
+    group = mesh.process_group
+    px, py = mesh.pgrid
+    blocks = tuple(blocks)
+    if group.rank != dst:
+        for f, b in enumerate(blocks):
+            group.exchange([(dst, b)], [], tag=GATHER_TAG + f)
+        return None
+    out = []
+    for f, b in enumerate(blocks):
+        peers = [k for k in range(px * py) if k != dst]
+        got = dict(zip(peers, group.exchange(
+            [], [(k, b.shape, b.dtype) for k in peers], tag=GATHER_TAG + f)))
+        got[dst] = b
+        out.append(torch.cat([torch.cat([got[i * py + j] for j in range(py)],
+                                        dim=1) for i in range(px)], dim=0))
+    return tuple(out)
 
 
 __all__ = ["DistTBPlan", "dist_plan_from_hier", "exchange_to_depth",
-           "halo_exchange", "halo_exchange_2d", "sharded_tb_propagate",
+           "gather_blocks", "halo_exchange", "halo_exchange_2d",
+           "mesh_shift_fns", "rank_shift_fns", "sharded_tb_propagate",
            "shift_from_high", "shift_from_low"]

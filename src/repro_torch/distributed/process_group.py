@@ -27,7 +27,12 @@ data allows:
     shard moves once and no value is added to another, so the whole
     tensor is bit-equal to the shards;
   * `mean_over_ranks`: a statistic averaged over the ranks inside the
-    model (the MoE's load-balancing terms, `models.moe.route`).
+    model (the MoE's load-balancing terms, `models.moe.route`);
+  * `exchange`: point-to-point messages with chosen ranks in one batch
+    (`dist.batch_isend_irecv`), the sharded stencil layer's halo
+    transport (`distributed.halo` on a rank's mesh).  ``nccl`` sends the
+    device tensors themselves; ``gloo`` on a card stages them through
+    pinned host buffers (`p2p_route` says which).
 
 A mesh with a model axis (`launch.mesh.make_host_mesh(model=)`) cuts the
 world into sub-groups (`DataParallel.axis_groups`): the ranks that differ
@@ -55,6 +60,7 @@ from __future__ import annotations
 import contextlib
 import math
 import os
+import time
 from typing import Optional
 
 import torch
@@ -156,6 +162,14 @@ def _spawned(fn, rank, world, env, args, q):
         q.put((rank, False, traceback.format_exc()))
 
 
+def p2p_counts() -> dict:
+    """Zeroed counters of `DataParallel.exchange`: bytes this rank sent
+    and received, messages, calls, and (with `timing`) the host seconds
+    of the wait at the barrier and of the transfer after it."""
+    return {"bytes_sent": 0, "bytes_recv": 0, "messages": 0, "calls": 0,
+            "wait_s": 0.0, "transfer_s": 0.0}
+
+
 def _flat_bytes(tensors) -> torch.Tensor:
     """The tensors' bytes end to end, one uint8 tensor."""
     return torch.cat([t.contiguous().reshape(-1).view(torch.uint8)
@@ -176,6 +190,8 @@ class DataParallel:
         self.device, self.backend, self.owned = device, backend, owned
         self.pg = pg
         self.ranks = list(range(world)) if ranks is None else list(ranks)
+        self.timing = False
+        self.p2p = p2p_counts()
 
     @classmethod
     def start(cls, backend: str = "nccl", device="cuda"):
@@ -248,6 +264,72 @@ class DataParallel:
         t = torch.as_tensor(x, dtype=torch.float32,
                             device=self.device).detach().clone()
         return self.all_reduce_(t, op=dist.ReduceOp.MAX)
+
+    # -- point to point ---------------------------------------------------
+    @property
+    def p2p_route(self) -> str:
+        """How `exchange` moves a tensor: ``"device"`` (the tensors
+        themselves: nccl on a card, gloo on the CPU) or ``"host"`` (gloo on
+        a card: through pinned host buffers, since gloo sends and receives
+        CPU tensors only)."""
+        staged = self.backend == "gloo" and self.device.type == "cuda"
+        return "host" if staged else "device"
+
+    def exchange(self, sends, recvs, tag: int = 0) -> list:
+        """One batch of point-to-point messages with other ranks of this
+        group (`dist.batch_isend_irecv`): `sends` [(rank, tensor)],
+        `recvs` [(rank, shape, dtype)], ranks counted in this group.
+        Returns the received tensors on this rank's device, in `recvs`'
+        order.  Every message of one call carries `tag`; a pair of ranks
+        exchanges at most one message each way a call, or several in the
+        same order on both sides, so they cannot cross.
+
+        Counts bytes and messages in `p2p`; with `timing` set, also the
+        host seconds of the wait at a barrier of the group (the other ranks'
+        work before it) apart from the transfer after it, to the received
+        data on the device: then every rank of the group must call, at the
+        same points, as the halo exchange's callers do."""
+        stats = self.p2p
+        staged = self.p2p_route == "host"
+        if self.timing:
+            self._sync()
+            t0 = time.perf_counter()
+            self.max(0.0)
+            t1 = time.perf_counter()
+            stats["wait_s"] += t1 - t0
+        ops, bufs = [], []
+        for peer, shape, dtype in recvs:
+            buf = torch.empty(tuple(shape), dtype=dtype,
+                              device="cpu" if staged else self.device,
+                              pin_memory=staged)
+            bufs.append(buf)
+            ops.append(dist.P2POp(dist.irecv, buf, self.ranks[peer],
+                                  self.pg, tag))
+        for peer, t in sends:
+            t = t.contiguous()
+            if staged:
+                host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+                host.copy_(t)
+                t = host
+            stats["bytes_sent"] += t.numel() * t.element_size()
+            ops.append(dist.P2POp(dist.isend, t, self.ranks[peer], self.pg,
+                                  tag))
+        if ops:
+            for req in dist.batch_isend_irecv(ops):
+                req.wait()
+        out = [b.to(self.device) if staged else b for b in bufs]
+        stats["bytes_recv"] += sum(b.numel() * b.element_size()
+                                   for b in bufs)
+        stats["messages"] += len(ops)
+        stats["calls"] += 1
+        if self.timing:
+            self._sync()
+            stats["transfer_s"] += time.perf_counter() - t1
+        return out
+
+    def _sync(self):
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
 
     # -- trees ------------------------------------------------------------
     def all_reduce_grads(self, grads: dict) -> dict:
@@ -535,5 +617,6 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
 
 __all__ = ["BACKENDS", "BUCKET_BYTES", "DataParallel", "copy_to_model",
            "gather_from_model", "max_over_model", "mean_over_ranks",
-           "model_block", "model_parallel", "rank_device", "reduce_from_model",
-           "reducing", "spawn_ranks", "sum_over_model", "world_size"]
+           "model_block", "model_parallel", "p2p_counts", "rank_device",
+           "reduce_from_model", "reducing", "spawn_ranks", "sum_over_model",
+           "world_size"]

@@ -2,17 +2,26 @@
 `make_production_mesh`, `make_mesh`, `make_host_mesh`, `make_xy_mesh`).
 
 The reference runs one program over a JAX device mesh (`shard_map`), one
-shard a device.  The port is single-controller too: one process holds
-every shard as a tensor on its mesh device, and a neighbour exchange is a
-copy between shard tensors.  `ShardMesh` maps shard (i, j) of a
-(px, py) grid to ``devices[(i * py + j) % len(devices)]``: with one card
-every shard sits on it, with several the same code copies between cards.
+shard a device.  The port runs a mesh two ways:
+
+  single controller  one process holds every shard as a tensor on its mesh
+                     device, and a neighbour exchange is a copy between
+                     shard tensors.  `ShardMesh` maps shard (i, j) of a
+                     (px, py) grid to ``devices[(i * py + j) %
+                     len(devices)]``: with one card every shard sits on it,
+                     with several the same code copies between cards;
+  one shard a rank   a rank's view of a mesh over a process group
+                     (`make_rank_mesh`): the mesh
+                     counts every rank, shard k = i * py + j belongs to
+                     rank k, and the exchange goes between ranks
+                     (`distributed.process_group.DataParallel.exchange`).
+
 A mesh on the ``meta`` device holds shapes only: the production meshes
 of a dry run, built without a card.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
@@ -25,17 +34,18 @@ class ShardMesh:
     axes (the multi-pod mesh's "pod") hold copies of that grid: the
     stencil's sharded layer decomposes its grid over the last two only.
 
-    A mesh over a process group (`make_host_mesh(group=)`) is one rank's
-    view: its shape counts every rank, `devices` holds this rank's one
-    device, and `process_group` (a `distributed.process_group.
-    DataParallel`; None on a single-controller mesh) runs the
-    collectives; `axis_groups` holds this rank's sub-group along each
+    A mesh over a process group (`make_host_mesh(group=)`,
+    `make_rank_mesh`) is one rank's view: its shape counts every rank,
+    `devices` holds this rank's one device, and `process_group` (a
+    `distributed.process_group.DataParallel`; None on a single-controller
+    mesh) runs the collectives; this rank holds shard `rank` alone
+    (`groups`).  `axis_groups` holds this rank's sub-group along each
     axis ({"data": ..., "model": ...}; empty on a single-controller
-    mesh).
+    mesh and on `make_rank_mesh`'s).
 
     `exchange_rounds` counts the 2-D halo exchanges of one field each
-    (`distributed.halo.halo_exchange_2d`) run for this mesh; set it to 0
-    before a counted run.
+    (`distributed.halo.halo_exchange_2d`) run for this mesh (by this rank
+    on a rank's view); set it to 0 before a counted run.
     """
 
     def __init__(self, shape: Tuple[int, ...],
@@ -65,13 +75,29 @@ class ShardMesh:
         px, py = self.pgrid
         return px * py
 
+    @property
+    def rank(self) -> Optional[int]:
+        """The shard this process holds on a rank's view (its rank in the
+        group); None on a single-controller mesh."""
+        group = self.process_group
+        return None if group is None else group.rank
+
     def device_of(self, k: int) -> torch.device:
-        """The device of flat shard k = i * py + j."""
+        """The device of flat shard k = i * py + j (on a rank's view, of
+        this rank's shard only: the others live in other processes)."""
+        if self.rank is not None:
+            if k != self.rank:
+                raise ValueError(f"shard {k} belongs to rank {k}; this is "
+                                 f"rank {self.rank}")
+            return self.devices[0]
         return self.devices[k % len(self.devices)]
 
     def groups(self) -> List[Tuple[torch.device, List[int]]]:
-        """(device, its flat shard ids in order) for every device holding a
-        shard: the shards of one group go in one kernel launch."""
+        """(device, its flat shard ids in order) for every device of this
+        process holding a shard: the shards of one group go in one kernel
+        launch.  On a rank's view, this rank's device and shard."""
+        if self.rank is not None:
+            return [(self.devices[0], [self.rank])]
         out: Dict[torch.device, List[int]] = {}
         for k in range(self.size):
             out.setdefault(self.device_of(k), []).append(k)
@@ -128,6 +154,21 @@ def make_host_mesh(model: int = 1, device="cuda", group=None) -> ShardMesh:
     return mesh
 
 
+def make_rank_mesh(pgrid: Tuple[int, int], group) -> ShardMesh:
+    """This rank's view of a (px, py) shard mesh over `group` (a
+    `distributed.process_group.DataParallel`), one shard a rank: shard k
+    = i * py + j is rank k's, on its device.  Every rank of the group
+    makes it; px * py must be the group's rank count."""
+    px, py = (int(v) for v in pgrid)
+    if px * py != group.world:
+        raise ValueError(f"a {px}x{py} mesh has {px * py} shards, the "
+                         f"process group {group.world} ranks: the sharded "
+                         "layer runs one shard a rank")
+    mesh = make_mesh((px, py), ("data", "model"), [group.device])
+    mesh.process_group = group
+    return mesh
+
+
 def make_xy_mesh(n_shards: int, devices: Sequence = ("cuda",)) -> ShardMesh:
     """(data, model) mesh of `n_shards` shards for the x/y grid
     decomposition, the reference's heuristic applied to the shard count
@@ -139,4 +180,5 @@ def make_xy_mesh(n_shards: int, devices: Sequence = ("cuda",)) -> ShardMesh:
 
 
 __all__ = ["ShardMesh", "make_host_mesh", "make_mesh",
-           "make_production_mesh", "make_xy_mesh", "mesh_devices"]
+           "make_production_mesh", "make_rank_mesh", "make_xy_mesh",
+           "mesh_devices"]

@@ -24,6 +24,19 @@ single-device Listing-1 reference.
   # dry run on the production mesh (16x16, or 2x16x16 with --multipod) for
   # a 512^3 grid, shapes only: no card needed
   python -m repro_torch.launch.stencil_dist --device cpu --dryrun --multipod
+
+  # one shard a process: --mesh PXxPY over WORLD_SIZE = PX * PY ranks, each
+  # holding its block and exchanging halos with its neighbours
+  # (`DataParallel.exchange`; nccl needs a card a rank, gloo stages a
+  # card's strips through the host); --check gathers the fields on rank 0
+  python -m torch.distributed.run --standalone --nproc-per-node 4 \
+      -m repro_torch.launch.stencil_dist --mesh 2x2 --device cpu \
+      --dist-backend gloo --check
+
+Across ranks every rank runs the same plan: with --auto-plan rank 0 picks
+it (`cached_plan_hierarchy`) and broadcasts it.  Rank 0 prints, and with
+--telemetry writes the trace and the drift report from its own clock
+(every rank runs the measurement).
 """
 import argparse
 import json
@@ -141,7 +154,12 @@ def main(argv=None):
     ap.add_argument("--mesh", default="4x2",
                     help="PXxPY shards along x and y")
     ap.add_argument("--device", default="cuda",
-                    help="cuda (every visible card, default) or cpu")
+                    help="cuda (every visible card, default; a rank's own "
+                         "with --dist-backend) or cpu")
+    ap.add_argument("--dist-backend", default=None, choices=("nccl", "gloo"),
+                    help="run one shard a process, started by "
+                         "torch.distributed.run: --mesh must count "
+                         "WORLD_SIZE shards")
     ap.add_argument("--inner", default=None, choices=("torch", "cuda"),
                     help="per-shard executor: the CUDA TB kernel or its "
                          "plain version (default: cuda on a card, torch on "
@@ -200,12 +218,27 @@ def main(argv=None):
     if args.outer_T and args.sweep_T:
         ap.error("--sweep-T sweeps the exchange depth; it cannot be "
                  "combined with --outer-T")
+    if args.dryrun and args.dist_backend:
+        ap.error("--dryrun builds shapes only; it runs in one process")
     try:
         pgrid = tuple(int(v) for v in args.mesh.lower().split("x"))
         assert len(pgrid) == 2
     except (ValueError, AssertionError):
         ap.error(f"--mesh {args.mesh!r}: expected PXxPY, e.g. 2x2")
+    if not args.dist_backend:
+        return _run(args, pgrid, None)
+    from repro_torch.distributed.process_group import DataParallel
 
+    group = DataParallel.start(args.dist_backend, args.device)
+    try:
+        return _run(args, pgrid, group)
+    finally:
+        group.close()
+
+
+def _run(args, pgrid, group):
+    """The launcher's work on one process's mesh: every shard, or (over
+    `group`) this rank's."""
     import numpy as np
     import torch
 
@@ -213,16 +246,30 @@ def main(argv=None):
     from repro_torch.core import interp as interp_mod
     from repro_torch.core import sources as S
     from repro_torch.core.grid import Grid
-    from repro_torch.core.temporal_blocking import TBPlan
+    from repro_torch.core.temporal_blocking import HierPlan, TBPlan
     from repro_torch.distributed.halo import (DistTBPlan, dist_plan_from_hier,
+                                              gather_blocks, mesh_shift_fns,
                                               sharded_tb_propagate)
     from repro_torch.kernels import tb_physics as phys
     from repro_torch.launch import mesh as mesh_lib
     from repro_torch.launch.dryrun import stencil_plan_report
     from repro_torch.survey.plan_cache import cached_plan_hierarchy
 
+    lead = group is None or group.rank == 0
+
+    def say(*a, **kw):
+        if lead:
+            print(*a, **kw)
+
     if args.dryrun:
         mesh = mesh_lib.make_production_mesh(multi_pod=args.multipod)
+    elif group is not None:
+        mesh = mesh_lib.make_rank_mesh(pgrid, group)
+        route = ("the host (pinned buffers)" if group.p2p_route == "host"
+                 else "the devices")
+        say(f"rank mesh {pgrid[0]}x{pgrid[1]}: one shard a rank, "
+            f"{group.world} ranks over {group.backend}, halo strips through "
+            f"{route}")
     else:
         mesh = mesh_lib.ShardMesh(pgrid,
                                   devices=mesh_lib.mesh_devices(args.device))
@@ -246,15 +293,25 @@ def main(argv=None):
         block = (shape[0] // px, shape[1] // py)
         common = dict(inner=inner, per_field_halo=not args.uniform_halo)
         if args.auto_plan:
-            hier, _entry, info = cached_plan_hierarchy(
-                args.physics, shape[2], order, block, tiles=AUTO_TILES,
-                depths=AUTO_DEPTHS)
-            print(f"plan cache {'HIT' if info.hit else 'MISS'} "
-                  f"key={info.key}")
-            print(f"auto-plan: outer T={hier.outer_T} "
-                  f"inner T={hier.inner.T} inner tile={hier.inner.tile} "
-                  f"overlap={hier.overlap} "
-                  f"field depths={hier.field_depths}")
+            # every rank runs one plan: rank 0's pick, broadcast
+            picked = [None]
+            if lead:
+                hier, _entry, info = cached_plan_hierarchy(
+                    args.physics, shape[2], order, block, tiles=AUTO_TILES,
+                    depths=AUTO_DEPTHS)
+                say(f"plan cache {'HIT' if info.hit else 'MISS'} "
+                    f"key={info.key}")
+                picked = [hier.to_dict()]
+            if group is not None and group.world > 1:
+                import torch.distributed as dist
+
+                dist.broadcast_object_list(picked, src=group.ranks[0],
+                                           group=group.pg)
+            hier = HierPlan.from_dict(picked[0])
+            say(f"auto-plan: outer T={hier.outer_T} "
+                f"inner T={hier.inner.T} inner tile={hier.inner.tile} "
+                f"overlap={hier.overlap} "
+                f"field depths={hier.field_depths}")
             return dist_plan_from_hier(mesh, shape, physics, order, hier,
                                        dt, grid.spacing, **common)
         # --outer-T decouples the levels: --T is then the inner depth
@@ -341,7 +398,8 @@ def main(argv=None):
         """Predicted vs measured seconds per point-step for the executed
         plan: total from the whole propagation, exchange from an
         exchange-only run of the same per-field schedule, kernel phase as
-        their difference (read against max(compute, memory))."""
+        their difference (read against max(compute, memory)).  Across
+        ranks every rank runs it and rank 0 reports its own clock."""
         from repro_torch.distributed.halo import (_split_blocks,
                                                   exchange_to_depth)
 
@@ -363,7 +421,8 @@ def main(argv=None):
             t0 = time.perf_counter()
             with tele.span("dist.exchange_bench"):
                 for b, d in zip(blocks, depths):
-                    exchange_to_depth(b, d, plan.halo)
+                    exchange_to_depth(b, d, plan.halo,
+                                      shift_fns=mesh_shift_fns(plan.mesh))
                 sync()
             times.append(time.perf_counter() - t0)
         # one deep exchange buys T steps of the whole shard block
@@ -384,16 +443,16 @@ def main(argv=None):
              "inner_tile": list(plan.inner_tile), "overlap": plan.overlap,
              "inner": inner, "devices": [str(d) for d in mesh.devices]},
             predicted, measured)
-        path = ledger.save(os.path.splitext(telemetry_path)[0]
-                           + "_drift.json")
+        path = (ledger.save(os.path.splitext(telemetry_path)[0]
+                            + "_drift.json") if lead else None)
         for what, terms in (("predicted", rec["predicted"]),
                             ("measured ", measured)):
-            print(f"drift {what} s/pt-step:",
-                  json.dumps({k: terms[k] for k in
-                              ("compute_s", "memory_s", "exchange_s",
-                               "total_s")}))
-        print("drift ratio measured/predicted:", json.dumps(rec["ratio"]))
-        print("drift report written to", path)
+            say(f"drift {what} s/pt-step:",
+                json.dumps({k: terms[k] for k in
+                            ("compute_s", "memory_s", "exchange_s",
+                             "total_s")}))
+        say("drift ratio measured/predicted:", json.dumps(rec["ratio"]))
+        say("drift report written to", path)
 
     if args.sweep_T:
         depths = [int(t) for t in args.sweep_T.split(",")]
@@ -403,43 +462,54 @@ def main(argv=None):
         ok = True
         for T in depths[1:]:
             err = float((traces[T] - base).abs().max())
-            print(f"trace T={T} vs T={depths[0]}: max|err| {err:.3e} "
-                  f"(scale {scale:.3e})")
+            say(f"trace T={T} vs T={depths[0]}: max|err| {err:.3e} "
+                f"(scale {scale:.3e})")
             ok = ok and tol_ok(err, scale)
-        if telemetry_path:
-            print("telemetry trace:",
-                  tele.collector().export(telemetry_path))
-        print("SWEEP", "PASS" if ok else "FAIL")
+        if telemetry_path and lead:
+            say("telemetry trace:",
+                tele.collector().export(telemetry_path))
+        say("SWEEP", "PASS" if ok else "FAIL")
         return 0 if ok else 1
 
     plan, (dstate, drec) = run(args.T)
-    print(f"sharded {args.physics} propagate done on mesh "
-          f"{dict(mesh.shape)} over {[str(d) for d in mesh.devices]} "
-          f"(inner={inner}, inner_tile={args.inner_tile or 'block'}, "
-          f"overlap={args.overlap}, "
-          f"per_field_halo={not args.uniform_halo}, nt={nt}, "
-          f"outer_T={plan.T}, inner_T={plan.inner_T})")
+    say(f"sharded {args.physics} propagate done on mesh "
+        f"{dict(mesh.shape)} over {[str(d) for d in mesh.devices]} "
+        f"(inner={inner}, inner_tile={args.inner_tile or 'block'}, "
+        f"overlap={args.overlap}, "
+        f"per_field_halo={not args.uniform_halo}, nt={nt}, "
+        f"outer_T={plan.T}, inner_T={plan.inner_T})")
 
     if telemetry_path:
         measure_drift(plan)
-        print("telemetry trace:", tele.collector().export(telemetry_path))
+        if lead:
+            say("telemetry trace:",
+                tele.collector().export(telemetry_path))
 
-    if args.check:
+    def check(dstate, drec):
+        """The fields and traces against the Listing-1 reference, by the
+        reference launcher's rule; prints and returns the verdict."""
         rstate, rrec = ref_fn(nt, g, gr)
         ok = True
         for f, dv, rv in zip(physics.state_fields, dstate, rstate):
             err = float((dv - rv).abs().max())
             scale = float(rv.abs().max()) + 1e-30
-            print(f"max|err| {f}={err:.3e} (field scale {scale:.3e})")
+            say(f"max|err| {f}={err:.3e} (field scale {scale:.3e})")
             ok = ok and tol_ok(err, scale)
         rec_err = float((drec - rrec).abs().max())
         rec_scale = float(rrec.abs().max()) + 1e-30
-        print(f"max|err| rec={rec_err:.3e} (trace scale {rec_scale:.3e})")
+        say(f"max|err| rec={rec_err:.3e} (trace scale {rec_scale:.3e})")
         ok = ok and tol_ok(rec_err, rec_scale)
-        print("CHECK", "PASS" if ok else "FAIL")
-        return 0 if ok else 1
-    return 0
+        say("CHECK", "PASS" if ok else "FAIL")
+        return ok
 
+    if not args.check:
+        return 0
+    if group is None:
+        return 0 if check(dstate, drec) else 1
+    # rank 0 holds the fields put together; its verdict is every rank's
+    dstate = gather_blocks(dstate, mesh, dst=0)
+    ok = check(dstate, drec) if lead else True
+    return 0 if float(group.max(0.0 if ok else 1.0)) == 0.0 else 1
 
 if __name__ == "__main__":
     sys.exit(main())

@@ -598,7 +598,10 @@ class SurveyEngine:
         domain-parallel per shot instead of shot-parallel, for models too
         large for one card.  The sharded layer sizes its table caps from
         each shot's geometry, so shots are not batched here; traces come
-        back in survey order, as from `run`."""
+        back in survey order, as from `run`.  On a rank's view of a mesh
+        (`launch.mesh.make_rank_mesh`) every rank of its group calls this
+        with the same survey: each runs every shot on its own shard, and
+        every rank gets every shot's traces."""
         from repro_torch.distributed.halo import sharded_tb_propagate
 
         shots = list(survey.shots if isinstance(survey, Survey) else survey)
@@ -634,6 +637,8 @@ class SurveyEngine:
             "shots_per_s": n / seconds if seconds else float("inf"),
             "mpoints_per_s": pts / seconds / 1e6 if seconds else 0.0,
             "mesh": dict(dist_plan.mesh.shape),
+            "ranks": (1 if dist_plan.mesh.process_group is None
+                      else dist_plan.mesh.process_group.world),
             "outer_T": dist_plan.T, "inner": dist_plan.inner,
             "cache": {"sweeps": self.cache.sweeps},
         }
