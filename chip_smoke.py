@@ -58,7 +58,18 @@ collectives timed), resumed in one process (TP 2 -> 1), its losses held
 to the one-process run's; in the same ranks tp2-qwen3moe, one float32
 step of qwen3-moe-30b-a3b at full width cut to 2 of its 48 layers with
 its experts, heads and vocabulary split, against one process on the
-card.  A scanning model's
+card, and serve-mamba2-tp2, mamba2-130m served by
+`GenerationEngine(rules=)` with 12 of its 24 heads a rank (B2 counted in
+each, a float32 batch's logits against one process's); in the
+data-parallel ranks train-mamba2-fsdp2, the same model's step with FSDP
+over the data axis (its losses against the one-process run's, a float32
+step's gradient against one process's), and train-zamba2-fsdp2, the same
+for zamba2-2.7b at full width cut to 6 of its 54 layers, whose weights
+the rules do split over the data axis.  Then dryrun-vs-card: the port's
+dry run (`launch.dryrun`, an eager trace on ``meta`` over a recorder,
+no card) of those ranks' steps and of serve-mamba2's prefill, its
+collectives a rank and B2 launches held equal to the counted ones and
+its peak within 25% of the card's.  A scanning model's
 bf16 prefill logits are held to the plain scan's, within twice the gap
 of a scan one float32 ulp
 from the plain one.  Each has a float32 batch: its prefill held
@@ -78,8 +89,10 @@ z-wavefront B6 at halos 16 and 12 and trapezoid B5 at halos 32 and 48
 bit-equal to the first schedule and held to the plain version,
 kernel-vs-plain-ssd with kernels-ssd, kernels-ssd-zamba2), serve-mamba2,
 serve-zamba2, serve-qwen3, serve-qwen3moe, serve-whisper, serve-llava,
-train-mamba2, train-mamba2-dp2, train-mamba2-tp2 (with tp2-qwen3moe),
-then for each path: main path
+train-mamba2, train-mamba2-dp2 (with train-mamba2-fsdp2 and
+train-zamba2-fsdp2), train-mamba2-tp2 (with tp2-qwen3moe and
+serve-mamba2-tp2), kernels-ssd-serve-tp2, kernels-ssd-fsdp-zamba2,
+dryrun-vs-card, then for each path: main path
 at full size, spatially-blocked baseline, kernel timing (with its design:
 the schedule the launch takes, registers, shared memory, blocks an SM,
 achieved GB/s), the batched kernel at the main path's shapes (after
@@ -87,7 +100,9 @@ acoustic: sharded-acoustic, sharded-acoustic-ranks and
 main-acoustic-bf16); the paper's cases at
 orders 8 and 12 (paper-*: acoustic on B6, TTI and elastic on B5 at tile
 64, each such run counted and its kernel held against the plain version
-on a mid-run tile; at half depth, PAPER_HALF_DEPTH);
+on a mid-run tile; at half depth, elastic's at a quarter,
+PAPER_HALF_DEPTH; elastic's order-4 main path at half depth,
+MAIN_TIME_MS);
 then survey-acoustic,
 survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
 line.  Any failed check raises, and the script exits non-zero.
@@ -972,12 +987,12 @@ PAPER_PLANS = {
 }
 # the paper cases run at half depth, in simulated ms (nt 220 / 230 for
 # elastic and acoustic at orders 8 / 12, 440 / 459 at the paper's 512 ms;
-# TTI 131 / 136 of 261 / 272): the same width and plans, still held to
-# Listing 1; the time they free keeps the whole script inside its limit
-# beside train-mamba2-tp2 (elastic, PR 27) and sharded-acoustic-ranks
-# (acoustic and TTI, PR 28).  PERF.md keeps the full-depth figures of PRs
-# 22-23
-PAPER_HALF_DEPTH = {(name, order): 256.0
+# TTI 131 / 136 of 261 / 272), the elastic ones at a quarter (128 ms, nt
+# 110 / 115): the same width and plans, still held to Listing 1; the time
+# they free keeps the whole script inside its limit beside the training
+# phases in ranks, sharded-acoustic-ranks, serve-mamba2-tp2 and
+# dryrun-vs-card.  PERF.md keeps the full-depth figures
+PAPER_HALF_DEPTH = {(name, order): 128.0 if name == "elastic" else 256.0
                     for name in ("acoustic", "tti", "elastic")
                     for order in (8, 12)}
 # device bytes a propagation may count on beyond `ops.propagation_bytes`
@@ -1066,7 +1081,7 @@ def phase_paper_case(name, order, smi, dev):
                          physics=fc.physics)
     say(phase, f"{fc.case.name}: {SHAPE} spacing {fc.spacing[0]:g} m "
         f"nt={fc.nt} dt={fc.dt:.6e}"
-        + (f" (half depth: {half:g} of the paper's 512 ms)" if half else "")
+        + (f" (cut depth: {half:g} of the paper's 512 ms)" if half else "")
         + f"; plan tile {plan.tile} T={plan.T} "
         f"(halo {spec.halo}; propagation bytes by plan tried: "
         + ", ".join(f"tile {t} T={d} {g:.2f} GiB" for t, d, g in tried)
@@ -3913,10 +3928,11 @@ def free_port():
 
 
 def dp_rank(rank, ckpt):
-    """One rank of train-mamba2-dp2, in a process of its own
-    (`process_group.spawn_ranks`): joins the gloo group on
+    """One rank of train-mamba2-dp2 and train-mamba2-fsdp2, in a process
+    of its own (`process_group.spawn_ranks`): joins the gloo group on
     cuda:LOCAL_RANK % device_count, runs the trainer's CLI
-    (`launch.train.main`) and the float32 check (`dp_f32_check`)."""
+    (`launch.train.main`), the float32 check (`dp_f32_check`), then the
+    FSDP steps (`fsdp_rank`)."""
     from repro_torch.distributed.process_group import DataParallel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -3925,6 +3941,8 @@ def dp_rank(rank, ckpt):
     try:
         out = dp_rank_cli(group, ckpt)
         out.update(dp_f32_check(group))
+        torch.cuda.empty_cache()
+        out["fsdp"] = fsdp_rank(group)
         return out
     finally:
         group.close()
@@ -4081,6 +4099,167 @@ def dp_f32_check(group):
                     "dp_vs_control": state_gaps(full, cst)}}
 
 
+# train-mamba2-fsdp2: the trainer's step (its config, optimizer and
+# global batch of TRAIN_CLI) with FSDP over the data axis of the two
+# data-parallel ranks, FSDP_STEPS steps from the CLI's initial params; its
+# losses within RESUME_RTOL of the straight one-process run's; then one
+# float32 step (TRAIN_F32_SHAPE) against one process's.  The rules split
+# none of mamba2-130m's weight matrices (ROADMAP C9: under 1024 entries
+# once the size-1 model axis holds their wide dim), so the same two ranks
+# then run train-zamba2-fsdp2: zamba2-2.7b at its published widths cut to
+# FSDP_ZAMBA2_LAYERS layers (one shared-attention application), whose
+# every weight the rules split over the data axis: one bf16 step of
+# FSDP_ZAMBA2_SHAPE, timed, then the float32 step against one process's
+FSDP_STEPS = 2
+FSDP_PARAM_TOL = 1e-6   # max|p - p_adamw| / max|p_adamw| (same gradient)
+FSDP_ZAMBA2_ARCH = "zamba2-2.7b"
+FSDP_ZAMBA2_LAYERS = 6
+FSDP_ZAMBA2_SHAPE = (4096, 2)   # (seq_len, global batch): 1 x 4096 a rank
+FSDP_ZAMBA2_STEPS = 1
+FSDP_ZAMBA2_SSD_SHAPE = (1, 4096, 80, 1, 64, 64, 128)   # a rank's B2 call
+
+
+def fsdp_rank(group):
+    """train-mamba2-fsdp2, then train-zamba2-fsdp2, in this rank
+    (`fsdp_steps`, `fsdp_f32_check`).  Returns this rank's figures and
+    rank 0's gaps, zamba2's under ``zamba2``."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig
+
+    cli = train.parse_args(TRAIN_CLI)
+    opt_cfg = AdamWConfig(lr=cli.lr, warmup_steps=max(TRAIN_STEPS // 20, 1),
+                          total_steps=TRAIN_STEPS)
+    cfg = configs.get(TRAIN_ARCH)
+    out = fsdp_steps(group, cfg, ShapeConfig("train_cli", cli.seq_len,
+                                             cli.batch, "train"),
+                     opt_cfg, FSDP_STEPS)
+    out.update(fsdp_f32_check(group, cfg))
+    zcfg = dataclasses.replace(configs.get(FSDP_ZAMBA2_ARCH),
+                               num_layers=FSDP_ZAMBA2_LAYERS)
+    out["zamba2"] = fsdp_steps(group, zcfg, ShapeConfig(
+        "train_zamba2", *FSDP_ZAMBA2_SHAPE, "train"), opt_cfg,
+        FSDP_ZAMBA2_STEPS)
+    out["zamba2"].update(fsdp_f32_check(group, zcfg))
+    group.max(0.0)
+    return out
+
+
+def fsdp_steps(group, cfg, shape, opt_cfg, n_steps):
+    """`n_steps` steps of `launch.steps.make_train_step` with
+    `ShardingRules(fsdp=True)` on the (2, 1) mesh from `api.init(0)`'s
+    params, each rank the rows of its data coordinate: each step timed
+    (CUDA events), B2 counted, its collectives by class counted and the
+    data axis's gathers and reduce-scatters timed (`timing_collectives`),
+    its peak bytes; how many leaves and parameters FSDP splits."""
+    from repro_torch.data.pipeline import rank_batch
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim.adamw import zero1_init
+    from repro_torch.tree import named_leaves
+
+    dev, rank = group.device, group.rank
+    mesh = make_host_mesh(group=group)
+    data = mesh.axis_groups["data"]
+    rules = ShardingRules(mesh=mesh, cfg=cfg, fsdp=True)
+    whole = api.init(0, cfg, shape, device=dev)
+    group.broadcast_(whole)
+    params = rank_shards(whole, rules, mesh, rank)
+    opt = zero1_init(whole, steps.zero1_specs(rules, whole), mesh, rank)
+    split = [t.numel() for (_, t), (_, sp) in zip(
+        named_leaves(whole), named_leaves(rules.param_pspecs(whole)))
+        if "data" in str(sp)]
+    out = {"losses": [], "ms": [], "launches": [], "counted": [],
+           "peaks": [], "timed": [], "split_leaves": len(split),
+           "split_share": sum(split) / sum(t.numel() for _, t in
+                                           named_leaves(whole))}
+    del whole
+    step = steps.make_train_step(cfg, opt_cfg, rules)
+    for s_ in range(n_steps):
+        batch = rank_batch(cfg, shape, s_, data.rank, data.world,
+                           device=dev)
+        now = {}
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = collective_snapshot(group)
+        ssd.launches = 0
+        with timing_collectives([data], now):
+            ms, (params, opt, m) = cuda_ms(lambda: step(params, opt, batch))
+        out["losses"].append(float(m["loss"]))
+        out["ms"].append(ms)
+        out["launches"].append(ssd.launches)
+        out["peaks"].append(torch.cuda.max_memory_allocated())
+        out["counted"].append(collective_diff(collective_snapshot(group),
+                                              before))
+        out["timed"].append(now)
+    del params, opt, step, batch
+    torch.cuda.empty_cache()
+    return out
+
+
+def fsdp_f32_check(group, cfg):
+    """`cfg` in float32, one FSDP step on TRAIN_F32_SHAPE from
+    TRAIN_SEED's params: the summed gradient (FSDP's leaves from their
+    reduce-scattered shards) and the params after the step, gathered; on
+    rank 0 held against one process's gradient (GRAD_TOL of max|g| a
+    leaf) and against `adamw_update` fed that gradient (FSDP_PARAM_TOL).
+    Returns the loss, and rank 0's one-process loss and gaps."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.data.pipeline import make_batch, rank_batch
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.launch import steps
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.optim import AdamWConfig, adamw_init, adamw_update
+    from repro_torch.optim.adamw import zero1_init
+    from repro_torch.tree import named_leaves, tree_map
+
+    dev, rank = group.device, group.rank
+    mesh = make_host_mesh(group=group)
+    data = mesh.axis_groups["data"]
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    shape32 = ShapeConfig("train_f32", *TRAIN_F32_SHAPE, "train")
+    rules32 = ShardingRules(mesh=mesh, cfg=cfg32, fsdp=True)
+    whole = api.init(TRAIN_SEED, cfg32, shape32, device=dev)
+    pspecs = rules32.param_pspecs(whole)
+    shapes = tree_map(lambda p: tuple(p.shape), whole)
+    params = rank_shards(whole, rules32, mesh, rank)
+    opt = zero1_init(whole, steps.zero1_specs(rules32, whole), mesh, rank)
+    opt32 = AdamWConfig(warmup_steps=1, total_steps=TRAIN_STEPS)
+    kept, sum_grads = [], steps._sum_grads
+
+    def keeping(*a, **kw):
+        kept.append(sum_grads(*a, **kw))
+        return kept[-1]
+
+    batch = rank_batch(cfg32, shape32, 0, data.rank, data.world, device=dev)
+    with patched(steps, "_sum_grads", keeping):
+        params, opt, m = uncounted(lambda: steps.make_train_step(
+            cfg32, opt32, rules32)(params, opt, batch))
+    grads = group.gather(kept[0], pspecs, mesh, shapes)
+    after = group.gather(params, pspecs, mesh, shapes)
+    out = {"f32_loss": float(m["loss"])}
+    del kept, params, opt
+    if rank == 0:
+        (loss1, _, _), g1 = uncounted(lambda: steps.loss_and_grads(
+            whole, cfg32, make_batch(cfg32, shape32, step=0, device=dev)))
+        want, _, _ = adamw_update(grads, adamw_init(whole), opt32,
+                                  param_dtype=torch.float32)
+        g1 = dict(named_leaves(g1))
+        w = dict(named_leaves(want))
+        out["f32_one_loss"] = float(loss1)
+        out["f32_grad_gap"] = max((max_rel(g, g1[k]), k)
+                                  for k, g in named_leaves(grads))
+        out["f32_param_gap"] = max((max_rel(p, w[k]), k)
+                                   for k, p in named_leaves(after))
+        del g1, w, want
+    del grads, after, whole
+    torch.cuda.empty_cache()
+    group.max(0.0)
+    return out
+
+
 def phase_train_dp(dev, smi, entry, straight):
     """train-mamba2-dp2: the trainer's CLI started as DP_WORLD processes
     (spawned; each `launch.train.main`, rank r on cuda:0 over gloo) for
@@ -4199,11 +4378,108 @@ def phase_train_dp(dev, smi, entry, straight):
                              f"{resumed_launches}, losses {got}, gaps "
                              f"{gaps}, float32 {f})")
     entry["dp2_launches"] = launches
+    fs = [res[r]["fsdp"] for r in range(DP_WORLD)]
+    f0 = fs[0]
+    fgaps = [abs(a - straight[k]) / abs(straight[k])
+             for k, a in enumerate(f0["losses"])]
+    say_fsdp("train-mamba2-fsdp2", cfg, tokens, fs, smi, f" (DP-2's " +
+             ", ".join(f"{res[r]['peak_gib']:.2f}" for r in range(DP_WORLD))
+             + ")")
+    say("train-mamba2-fsdp2", f"losses " + ", ".join(
+        f"{v:.4f}" for v in f0["losses"]) + f" vs the straight "
+        f"one-process run's " + ", ".join(
+            f"{straight[k]:.4f}" for k in range(FSDP_STEPS))
+        + f" (relative gaps " + ", ".join(f"{g:.2e}" for g in fgaps)
+        + f", limit {RESUME_RTOL:g})")
+    if not (fsdp_ok(cfg, fs)
+            and max(fgaps) <= RESUME_RTOL):
+        raise AssertionError(f"train-mamba2-fsdp2: check failed (launches "
+                             f"{[x['launches'] for x in fs]}, loss gaps "
+                             f"{fgaps}, float32 {f0['f32_grad_gap']} "
+                             f"{f0['f32_param_gap']})")
+    zs = [x["zamba2"] for x in fs]
+    zcfg = dataclasses.replace(configs.get(FSDP_ZAMBA2_ARCH),
+                               num_layers=FSDP_ZAMBA2_LAYERS)
+    say_fsdp("train-zamba2-fsdp2", zcfg, math.prod(FSDP_ZAMBA2_SHAPE), zs,
+             smi, "")
+    if not fsdp_ok(zcfg, zs):
+        raise AssertionError(f"train-zamba2-fsdp2: check failed (launches "
+                             f"{[x['launches'] for x in zs]}, losses "
+                             f"{zs[0]['losses']}, float32 "
+                             f"{zs[0]['f32_grad_gap']} "
+                             f"{zs[0]['f32_param_gap']})")
+    CARD_RUNS["fsdp2-zamba2"] = {"counted": zs[0]["counted"],
+                                 "peaks": zs[0]["peaks"],
+                                 "launches_a_step": zs[0]["launches"][-1]}
+    entry["fsdp2_launches"] = [x["launches"] for x in fs]
+    CARD_RUNS["fsdp2"] = {"counted": f0["counted"], "peaks": f0["peaks"],
+                          "launches_a_step": f0["launches"][-1]}
     return {"ms_a_step": med, "tokens_s": tokens / med * 1e3,
             "reduce_ms": statistics.median(r0["reduce_ms"]),
             "wait_ms": statistics.median(r0["wait_ms"]),
             "peak_gib": [res[r]["peak_gib"] for r in range(DP_WORLD)],
             "b2_a_step": [n / DP_STEPS for n in launches], "wall_s": wall}
+
+
+def say_fsdp(phase, cfg, tokens, fs, smi, beside):
+    """Prints an FSDP run's lines (`fsdp_rank`'s figures of each rank, `fs`;
+    `tokens` the global batch's, `beside` follows the peaks)."""
+    f0 = fs[0]
+    timed_kinds = {k: statistics.median(
+        t.get(k, {}).get("transfer", 0.0) for t in f0["timed"])
+        for k in ("all-gather", "reduce-scatter")}
+    waits = {k: statistics.median(
+        t.get(k, {}).get("wait", 0.0) for t in f0["timed"])
+        for k in ("all-gather", "reduce-scatter")}
+    c1 = f0["counted"][-1]
+    lgap32 = abs(f0["f32_loss"] - f0["f32_one_loss"]) / abs(
+        f0["f32_one_loss"])
+    say(phase, f"{cfg.name} ({widths(cfg)}, bf16) with FSDP over the data "
+        f"axis in {DP_WORLD} ranks as ({DP_WORLD}, 1), {f0['split_leaves']} "
+        f"leaves split ({f0['split_share']:.4f} of the parameters), "
+        f"{tokens // DP_WORLD} tokens a rank, {len(f0['ms'])} steps: ms a "
+        f"step (CUDA events on rank 0) " + ", ".join(
+            f"{t:.1f}" for t in f0["ms"]) + f"; a step's collectives "
+        f"{c1['counts']}, MB " + ", ".join(
+            f"{k} {v / 1e6:.1f}" for k, v in c1["bytes"].items() if v)
+        + "; the gathers' and reduce-scatters' transfer after a barrier "
+        + ", ".join(f"{k} {v:.1f} ms" for k, v in timed_kinds.items())
+        + ", wait at it " + ", ".join(f"{k} {v:.1f} ms" for k, v in
+                                      waits.items())
+        + f" a step (median; gloo through the host: this one-card rig's "
+        f"cost, not a link's); peak GiB a rank " + ", ".join(
+            f"{max(x['peaks']) / 2 ** 30:.2f}" for x in fs) + beside
+        + f"; B2 launches a step a rank " + ", ".join(
+            str(x["launches"]) for x in fs) + f" ({fsdp_launches(cfg)} "
+        f"expected); losses " + ", ".join(f"{v:.4f}" for v in f0["losses"])
+        + f" [{smi}]")
+    say(phase, f"float32 step at {TRAIN_F32_SHAPE[1]} x "
+        f"{TRAIN_F32_SHAPE[0]}: loss {f0['f32_loss']:.6f} vs one process "
+        f"{f0['f32_one_loss']:.6f} (relative gap {lgap32:.2e}, limit "
+        f"{TRAIN_LOSS_RTOL:g}); gathered gradient worst leaf max|diff|/"
+        f"max|g| {f0['f32_grad_gap'][0]:.2e} ({f0['f32_grad_gap'][1]}; "
+        f"limit {GRAD_TOL:g}); params after the step against AdamW fed "
+        f"that gradient, worst leaf {f0['f32_param_gap'][0]:.2e} "
+        f"({f0['f32_param_gap'][1]}; limit {FSDP_PARAM_TOL:g})")
+
+
+def fsdp_launches(cfg):
+    """B2 launches a train step: one a Mamba2 layer, twice under remat
+    "full" (the forward and the recompute)."""
+    return (2 if cfg.remat == "full" else 1) * scan_layers(cfg)
+
+
+def fsdp_ok(cfg, fs):
+    """An FSDP run's checks: every rank's B2 launches a step, every loss
+    finite, and rank 0's float32 step against one process's."""
+    f0 = fs[0]
+    lgap32 = abs(f0["f32_loss"] - f0["f32_one_loss"]) / abs(
+        f0["f32_one_loss"])
+    return (all(n == fsdp_launches(cfg) for x in fs for n in x["launches"])
+            and all(math.isfinite(v) for v in f0["losses"])
+            and lgap32 <= TRAIN_LOSS_RTOL
+            and f0["f32_grad_gap"][0] <= GRAD_TOL
+            and f0["f32_param_gap"][0] <= FSDP_PARAM_TOL)
 
 
 # ---------------------------------------------------------------------------
@@ -4227,10 +4503,11 @@ TP_MOE_NORM_RTOL = 1e-4
 
 
 def tp_rank(rank, ckpt):
-    """One rank of train-mamba2-tp2 and tp2-qwen3moe, in a process of its
-    own (`process_group.spawn_ranks`): joins the gloo group on
-    cuda:LOCAL_RANK % device_count, runs the trainer's CLI with a model
-    axis (`tp_rank_cli`), then the float32 MoE check (`tp_moe_check`)."""
+    """One rank of train-mamba2-tp2, tp2-qwen3moe and serve-mamba2-tp2, in
+    a process of its own (`process_group.spawn_ranks`): joins the gloo
+    group on cuda:LOCAL_RANK % device_count, runs the trainer's CLI with a
+    model axis (`tp_rank_cli`), the float32 MoE check (`tp_moe_check`),
+    then serving under the rules (`serve_tp_rank`)."""
     from repro_torch.distributed.process_group import DataParallel
 
     torch.backends.cuda.matmul.allow_tf32 = False
@@ -4240,56 +4517,108 @@ def tp_rank(rank, ckpt):
         out = tp_rank_cli(ckpt)
         torch.cuda.empty_cache()
         out["moe"] = tp_moe_check(group)
+        torch.cuda.empty_cache()
+        out["serve"] = serve_tp_rank(group)
         return out
     finally:
         group.close()
+
+
+def collective_snapshot(group):
+    """A copy of `group`'s collective counters (by class: ``bytes``,
+    ``counts``), shared by its sub-groups."""
+    return {k: dict(v) for k, v in group.collectives.items()}
+
+
+def collective_diff(after, before):
+    """The collectives between two snapshots, with ``total_bytes``, as
+    `launch.dryrun` reports them."""
+    out = {k: {op: after[k][op] - before[k][op] for op in after[k]}
+           for k in ("bytes", "counts")}
+    out["total_bytes"] = sum(out["bytes"].values())
+    return out
+
+
+@contextlib.contextmanager
+def timing_collectives(groups, now):
+    """Every collective (`DataParallel.all_reduce_`, which the all-gathers
+    and reduce-scatters go through) on a group of `groups` (a list, which
+    may be filled later) timed on the host clock in two parts, the wait at
+    a barrier every rank of the group has reached (after this rank's work
+    before it, synchronised) and the transfer after it (gloo stages the
+    card's buffers through the host), added to now[kind] (``wait``,
+    ``transfer`` ms, ``bytes``, ``calls``)."""
+    from repro_torch.distributed.process_group import DataParallel
+
+    all_reduce = DataParallel.all_reduce_
+
+    def timed(self, t, op=torch.distributed.ReduceOp.SUM, **kw):
+        if self.world == 1 or not any(self is g for g in groups):
+            return all_reduce(self, t, op, **kw)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.distributed.all_reduce(torch.zeros(1, device=self.device),
+                                     group=self.pg)            # the barrier
+        t1 = time.perf_counter()
+        out = all_reduce(self, t, op, **kw)
+        torch.cuda.synchronize()
+        rec = now.setdefault(kw.get("kind", "all-reduce"), {
+            "wait": 0.0, "transfer": 0.0, "bytes": 0, "calls": 0})
+        rec["wait"] += (t1 - t0) * 1e3
+        rec["transfer"] += (time.perf_counter() - t1) * 1e3
+        rec["bytes"] += t.numel() * t.element_size()
+        rec["calls"] += 1
+        return out
+
+    with patched(DataParallel, "all_reduce_", timed):
+        yield
+
+
+def summed_kinds(now):
+    """`timing_collectives`' records of every class added together."""
+    out = {"wait": 0.0, "transfer": 0.0, "bytes": 0, "calls": 0}
+    for rec in now.values():
+        for k in out:
+            out[k] += rec[k]
+    return out
 
 
 def tp_rank_cli(ckpt):
     """This rank's run of the CLI (TP_CLI, DP_STEPS steps then a
     checkpoint): B2 launches (counted from 0 just before), peak GiB, wall
     s, each step's ms (CUDA events), and per step the model-axis
-    collectives (`DataParallel.all_reduce_` on the mesh's model group: the
-    models' f and g, and the sum of the partial gradients and of the
-    norm's squares): their count, bytes, and ms on
-    the host clock in two parts, the wait at a barrier every rank of the
-    group has reached (after this rank's work before it, synchronised)
-    and the transfer after it (gloo stages the card's buffers through the
-    host)."""
-    from repro_torch.distributed.process_group import DataParallel
+    collectives (on the mesh's model group: the models' f and g, the B/C
+    gathers, and the sum of the partial gradients and of the norm's
+    squares): their count, bytes, and ms (`timing_collectives`); and per
+    step the rank's collectives by class (every group's counters) and its
+    peak bytes, for dryrun-vs-card."""
     from repro_torch.launch import steps, train
 
-    events, per_step, model = [], [], []
-    now = {"wait": 0.0, "transfer": 0.0, "bytes": 0, "calls": 0}
-    make_step, all_reduce = steps.make_train_step, DataParallel.all_reduce_
+    events, per_step, model, counted, peaks = [], [], [], [], []
+    now = {}
+    make_step = steps.make_train_step
+    running = [0]
 
     def timed_make_step(cfg, opt_cfg, rules, *a, **kw):
         model.append(rules.mesh.axis_groups[rules.tp_axis])
+        world = rules.mesh.process_group
         step = timed_fn(make_step(cfg, opt_cfg, rules, *a, **kw), "train",
                         events)
 
         def call(*args):
+            torch.cuda.synchronize()
+            running[0] = max(running[0], torch.cuda.max_memory_allocated())
+            torch.cuda.reset_peak_memory_stats()
+            before = collective_snapshot(world)
             out = step(*args)
-            per_step.append(dict(now))
-            now.update(wait=0.0, transfer=0.0, bytes=0, calls=0)
+            torch.cuda.synchronize()
+            peaks.append(torch.cuda.max_memory_allocated())
+            counted.append(collective_diff(collective_snapshot(world),
+                                           before))
+            per_step.append(summed_kinds(now))
+            now.clear()
             return out
         return call
-
-    def timed_all_reduce(self, t, op=torch.distributed.ReduceOp.SUM):
-        if not model or self is not model[0] or self.world == 1:
-            return all_reduce(self, t, op)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        torch.distributed.all_reduce(torch.zeros(1, device=self.device),
-                                     group=self.pg)            # the barrier
-        t1 = time.perf_counter()
-        out = all_reduce(self, t, op)
-        torch.cuda.synchronize()
-        now["wait"] += (t1 - t0) * 1e3
-        now["transfer"] += (time.perf_counter() - t1) * 1e3
-        now["bytes"] += t.numel() * t.element_size()
-        now["calls"] += 1
-        return out
 
     argv = TP_CLI + ["--steps", str(TRAIN_STEPS), "--stop-after",
                      str(DP_STEPS), "--ckpt-dir", ckpt]
@@ -4298,14 +4627,16 @@ def tp_rank_cli(ckpt):
     ssd.launches = 0
     t0 = time.perf_counter()
     with patched(steps, "make_train_step", timed_make_step), \
-            patched(DataParallel, "all_reduce_", timed_all_reduce):
+            timing_collectives(model, now):
         rc = train.main(argv)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
+    peak = max(running[0], torch.cuda.max_memory_allocated(), *peaks)
     return {"rc": rc, "launches": ssd.launches, "wall_s": wall,
-            "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+            "peak_gib": peak / 2 ** 30,
             "step_ms": [s.elapsed_time(e) for _, s, e in events],
-            "collectives": per_step, "argv": argv}
+            "collectives": per_step, "counted": counted,
+            "step_peak_bytes": peaks, "argv": argv}
 
 
 def tp_moe_check(group):
@@ -4394,6 +4725,236 @@ def tp_moe_check(group):
     del gathered
     torch.cuda.empty_cache()
     return out
+
+
+# serve-mamba2-tp2: mamba2-130m at full width in bf16 served by
+# `GenerationEngine(rules=)` on the (1, 2) mesh of train-mamba2-tp2's
+# ranks (12 of the 24 heads a rank): SERVE_TP_REQUESTS requests with
+# prompts of SERVE_PROMPT tokens, SERVE_NEW new tokens, one batch; then a
+# float32 batch's prefill and SERVE_TP_DECODES decode steps (float32
+# caches) against one process's, within SERVE_TP_TOL of max|logits|
+SERVE_TP_ARCH = "mamba2-130m"
+SERVE_TP_REQUESTS = 8
+SERVE_TP_DECODES = 4
+SERVE_TP_TOL = 1e-4
+SERVE_TP_SHAPE = (8, 1024, 12, 1, 128, 64, 64)   # a rank's B2 call
+
+
+def serve_requests(cfg, n):
+    """`n` requests with prompts of SERVE_PROMPT tokens and SERVE_NEW new
+    tokens from SERVE_SEED (serve-mamba2's draw)."""
+    rng = np.random.RandomState(SERVE_SEED)
+    return [Request(prompt=rng.randint(0, cfg.vocab_size, size=rng.randint(
+        SERVE_PROMPT[0], SERVE_PROMPT[1] + 1)).astype(np.int32),
+        max_new_tokens=SERVE_NEW) for _ in range(n)]
+
+
+def rank_shards(whole, rules, mesh, rank):
+    """This rank's `shard_of` each leaf of `whole` under the rules."""
+    from repro_torch.distributed.sharding import mesh_coords, shard_of
+    from repro_torch.tree import tree_map
+
+    coords = mesh_coords(mesh, rank)
+    return tree_map(lambda p, sp: shard_of(p, sp, coords, mesh), whole,
+                    rules.param_pspecs(whole))
+
+
+def serve_tp_only(rank, arch, depths):
+    """A rank of `tools/lm_serve.py --tp`: joins the gloo group on the
+    card and runs `serve_tp_rank` for `arch`, then `serve_tp_f32` for
+    `arch` cut to each of `depths` layers ({depth: its results} under
+    ``depths``)."""
+    from repro_torch.distributed.process_group import DataParallel
+    from repro_torch.launch.mesh import make_host_mesh
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    group = DataParallel.start("gloo", "cuda")
+    try:
+        out = serve_tp_rank(group, arch)
+        cfg = configs.get(arch)
+        mesh = make_host_mesh(model=TP_WORLD, group=group)
+        reqs = serve_requests(cfg, SERVE_TP_REQUESTS)
+        out["depths"] = {d: serve_tp_f32(group, mesh, dataclasses.replace(
+            cfg, num_layers=d), reqs) for d in depths}
+        return out
+    finally:
+        group.close()
+
+
+def serve_tp_rank(group, arch=SERVE_TP_ARCH):
+    """serve-mamba2-tp2 in this rank: the engine with rules on the (1, 2)
+    mesh, one batch of SERVE_TP_REQUESTS (after a short uncounted warm-up
+    batch), the prefill and decode steps timed (CUDA events), B2 counted,
+    the model-axis collectives of the decode steps counted and timed
+    (`timing_collectives`); then the float32 batch.  On rank 0, one
+    process's runs on the whole params (rank 1 waits at a barrier): the
+    bf16 tokens and the float32 logits.  Returns rank 0's comparisons and
+    every rank's figures."""
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.launch.mesh import make_host_mesh
+
+    dev, rank = group.device, group.rank
+    cfg = configs.get(arch)
+    mesh = make_host_mesh(model=TP_WORLD, group=group)
+    model = mesh.axis_groups["model"]
+    rules = ShardingRules(mesh=mesh, cfg=cfg)
+    max_len = serve_max_len(cfg)
+    whole = api.init(SERVE_SEED, cfg, device=dev)
+    params = rank_shards(whole, rules, mesh, rank)
+    reqs = serve_requests(cfg, SERVE_TP_REQUESTS)
+    engine = GenerationEngine(params, cfg, max_len=max_len,
+                              batch_size=SERVE_TP_REQUESTS, device=dev,
+                              rules=rules)
+    uncounted(lambda: engine.generate([Request(prompt=r.prompt[:64],
+                                               max_new_tokens=4)
+                                       for r in reqs]))
+    events, now, per_decode = [], {}, []
+    timed_steps(engine, events)
+    decode = engine._decode
+
+    def counted_decode(*a):
+        before = summed_kinds(now)
+        out = decode(*a)
+        after = summed_kinds(now)
+        per_decode.append({k: after[k] - before[k] for k in after})
+        return out
+
+    engine._decode = counted_decode
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.launches = 0
+    before = collective_snapshot(group)
+    t0 = time.perf_counter()
+    with timing_collectives([model], now):
+        out = np.stack([r.output for r in engine.generate(reqs)])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    coll = collective_diff(collective_snapshot(group), before)
+    launches = ssd.launches
+    pre = [st.elapsed_time(e) for k, st, e in events if k == "prefill"]
+    dec = [st.elapsed_time(e) for k, st, e in events if k == "decode"]
+    res = {"launches": launches, "prefill_ms": pre,
+           "decode_ms": statistics.mean(dec), "decodes": len(dec),
+           "wall_s": wall, "collectives": coll, "timed": now,
+           "per_decode": {k: statistics.median(d[k] for d in per_decode)
+                          for k in per_decode[0]},
+           "peak_gib": torch.cuda.max_memory_allocated() / 2 ** 30,
+           "plen": max(len(r.prompt) for r in reqs)}
+    del engine
+    res.update(serve_tp_f32(group, mesh, cfg, reqs))
+    if rank == 0:
+        one = GenerationEngine(whole, cfg, max_len=max_len,
+                               batch_size=SERVE_TP_REQUESTS, device=dev)
+        ref_out = np.stack([r.output for r in uncounted(
+            lambda: one.generate(serve_requests(cfg, SERVE_TP_REQUESTS)))])
+        res["bf16_agree"] = float((ref_out == out).mean())
+        res["bf16_first_equal"] = float((ref_out[:, 0] == out[:, 0]).mean())
+    group.max(0.0)
+    return res
+
+
+def serve_tp_f32(group, mesh, cfg, reqs):
+    """`cfg` in float32 on `mesh` (1, 2): the ranks' prefill of `reqs`
+    and SERVE_TP_DECODES decode steps (float32 caches), then on rank 0
+    one process's (rank 1 waits at a barrier), and a control's: one
+    process whose scan's y moves one float32 ulp.  Returns rank 0's
+    max|diff| / max|one process's logits| a step, ranks' and control's,
+    and whether the next tokens are equal."""
+    from repro_torch.distributed import ShardingRules
+
+    dev, rank = group.device, group.rank
+    rules = ShardingRules(mesh=mesh, cfg=cfg)
+    max_len = serve_max_len(cfg)
+    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
+                                activation_dtype="float32")
+    whole32 = api.init(SERVE_SEED, cfg32, device=dev)
+    params32 = rank_shards(whole32, rules, mesh, rank)
+    batch = {"tokens": GenerationEngine(
+        None, cfg32, max_len, SERVE_TP_REQUESTS, dev)._make_batch(reqs)}
+    res = {}
+
+    def steps_logits(p, r):
+        prefill = make_prefill_step(cfg32, max_len, r, with_logits=True,
+                                    cache_dtype=torch.float32)
+        decode = make_decode_step(cfg32, r, with_logits=True)
+        tok, cache, logits = uncounted(lambda: prefill(p, batch))
+        toks, outs = [tok], [logits]
+        for _ in range(SERVE_TP_DECODES):
+            tok, cache, logits = uncounted(lambda: decode(p, tok, cache))
+            toks.append(tok)
+            outs.append(logits)
+        return [t.cpu() for t in toks], [o.cpu() for o in outs]
+
+    ranks_toks, ranks_logits = steps_logits(params32, rules)
+    del params32
+    torch.cuda.empty_cache()
+    group.max(0.0)
+    if rank == 0:
+        one_toks, one_logits = steps_logits(whole32, None)
+
+        def gaps(logits):
+            return [float((a - b).abs().max() / b.abs().max())
+                    for a, b in zip(logits, one_logits)]
+
+        res["f32_gaps"] = gaps(ranks_logits)
+        # the control: one process with the scan's y one float32 ulp off
+        res["f32_control_gaps"] = gaps(with_scan(
+            ulp_scan(), lambda: steps_logits(whole32, None))[1])
+        res["f32_tokens_equal"] = all(torch.equal(a, b) for a, b in
+                                      zip(ranks_toks, one_toks))
+    del whole32
+    torch.cuda.empty_cache()
+    group.max(0.0)
+    return res
+
+
+def say_serve_tp(phase, cfg, serve, smi):
+    """Prints a serve-under-rules run's lines (`serve_tp_rank`'s results
+    of each rank) beside a control's float32 gap (one process whose
+    scan's y moves one float32 ulp) and holds its checks: every rank's B2
+    launches one prefill's, the float32 next tokens equal, and the
+    float32 logits within SERVE_TP_TOL of max|logits| of one process's.
+    Returns rank 0's results."""
+    from repro_torch.models.mamba2 import dims
+
+    heads = dims(cfg)[1]
+    sv = serve[0]
+    pd = sv["per_decode"]
+    say(phase, f"{cfg.name} ({widths(cfg)}, bf16) served "
+        f"by GenerationEngine(rules=) in {TP_WORLD} ranks as (1, "
+        f"{TP_WORLD}) ({heads // TP_WORLD} of {heads} heads a rank): "
+        f"{SERVE_TP_REQUESTS} requests, padded prompt {sv['plen']}, "
+        f"{SERVE_NEW} new tokens; prefill {sv['prefill_ms'][0]:.2f} ms, "
+        f"decode {sv['decode_ms']:.3f} ms a step (mean of {sv['decodes']}; "
+        f"CUDA events on rank 0); model-axis collectives a decode step "
+        f"(median): {pd['calls']:.0f} calls, {pd['bytes'] / 1e6:.3f} MB, "
+        f"transfer after a barrier {pd['transfer']:.2f} ms, wait at it "
+        f"{pd['wait']:.2f} ms (gloo through the host: this one-card rig's "
+        f"cost, not a link's); the whole batch's collectives by class "
+        f"{sv['collectives']['counts']} ({sv['collectives']['total_bytes'] / 1e6:.2f} MB); "
+        f"B2 launches a rank {[x['launches'] for x in serve]} (one prefill, "
+        f"{scan_layers(cfg)} expected at H {heads // TP_WORLD}); peak GiB a "
+        f"rank " + ", ".join(f"{x['peak_gib']:.2f}" for x in serve)
+        + f"; wall {sv['wall_s']:.2f} s [{smi}]")
+    say(phase, f"against one process on the same params: bf16 "
+        f"tokens agree {sv['bf16_agree']:.4f} of {SERVE_TP_REQUESTS} x "
+        f"{SERVE_NEW} (first token {sv['bf16_first_equal']:.4f}; ROADMAP "
+        f"C6: a bf16 model amplifies any change in its scan, so no bound "
+        f"holds); float32 batch, prefill and {SERVE_TP_DECODES} decode "
+        f"steps' logits max|diff| / max|one process| " + ", ".join(
+            f"{g:.2e}" for g in sv["f32_gaps"])
+        + f" (limit {SERVE_TP_TOL:g}; the control, one process with the "
+        "scan's y one float32 ulp off: " + ", ".join(
+            f"{g:.2e}" for g in sv["f32_control_gaps"])
+        + f"), next tokens equal {sv['f32_tokens_equal']}")
+    if not (all(x["launches"] == scan_layers(cfg) for x in serve)
+            and max(sv["f32_gaps"]) <= SERVE_TP_TOL
+            and sv["f32_tokens_equal"]):
+        raise AssertionError(f"{phase}: check failed (launches "
+                             f"{[x['launches'] for x in serve]}, float32 "
+                             f"gaps {sv['f32_gaps']})")
+    return sv
 
 
 def phase_train_tp(dev, smi, entry, straight):
@@ -4513,6 +5074,14 @@ def phase_train_tp(dev, smi, entry, straight):
                              f"{resumed_launches}, losses {got}, gaps "
                              f"{gaps}, tp2-qwen3moe loss {lgap:.2e} norm "
                              f"{ngap:.2e} worst {worst})")
+    serve = [res[r]["serve"] for r in range(TP_WORLD)]
+    sv = say_serve_tp("serve-mamba2-tp2", configs.get(SERVE_TP_ARCH), serve,
+                      smi)
+    CARD_RUNS["tp2"] = {"counted": r0["counted"],
+                        "peaks": r0["step_peak_bytes"],
+                        "launches_a_step": r0["launches"] / DP_STEPS}
+    CARD_RUNS["serve-tp2"] = {**sv, "launches_by_rank": [
+        x["launches"] for x in serve]}
     call = entry["tp2_call"]
     return {
         "name": "ssd_scan.ssd_scan (Mamba2 SSD chunked scan) at a "
@@ -4533,11 +5102,179 @@ def phase_train_tp(dev, smi, entry, straight):
     }
 
 
+def phase_kernels_ssd_serve_tp2(dev, smi):
+    """B2 at a model-parallel serving rank's call (SERVE_TP_SHAPE: 8
+    prompts of 1024 tokens at 12 of mamba2-130m's 24 heads), with
+    serve-mamba2-tp2's launches a rank (`ssd_call_entry`)."""
+    return ssd_call_entry(
+        dev, smi, SERVE_TP_SHAPE, "a model-parallel serving rank's call",
+        CARD_RUNS["serve-tp2"]["launches_by_rank"],
+        "in serve-mamba2-tp2's batch")
+
+
+def phase_kernels_ssd_fsdp_zamba2(dev, smi):
+    """B2 at train-zamba2-fsdp2's call (FSDP_ZAMBA2_SSD_SHAPE: a rank's 1
+    x 4096 tokens at zamba2-2.7b's 80 heads), with that step's launches a
+    rank (`ssd_call_entry`)."""
+    return ssd_call_entry(
+        dev, smi, FSDP_ZAMBA2_SSD_SHAPE, "an FSDP rank's call",
+        [CARD_RUNS["fsdp2-zamba2"]["launches_a_step"]] * DP_WORLD,
+        "a step in train-zamba2-fsdp2")
+
+
+def ssd_call_entry(dev, smi, shape, where, launches, counted):
+    """B2 at `shape` (B, S, H, G, N, P, Q), bf16 x/B/C, float32 y, held
+    against ssd_scan_plain (`check_ssd`) and timed, on the schedule
+    `ssd.schedule_of` picks.  Returns its kernels-line entry with
+    `launches` (each rank's, counted in the run `counted` names)."""
+    spec, args, _ = ssd_case(shape, 7, BF16, False, dev)
+    launch = lambda: ssd.ssd_scan(spec, *args)  # noqa: E731
+    y = uncounted(launch)[0]
+    py = ssd.ssd_scan_plain(spec, *args)[0]
+    err, rel, _ = check_ssd(f"y at {where}", y, py)
+    del y, py
+    ms = statistics.median(uncounted(lambda: cuda_ms(launch, reps=5))[0]
+                           for _ in range(3))
+    plain_ms, _ = cuda_ms(lambda: ssd.ssd_scan_plain(spec, *args))
+    cost = ssd.kernel_cost(spec, shape[0], in_dtype=BF16)
+    t_bytes = cost["min_bytes"] / HBM_BW * 1e3
+    t_tc = cost["needed_flops"] / BF16_TC_PEAK * 1e3
+    bound, by = max(t_bytes, t_tc), ("bytes" if t_bytes >= t_tc
+                                     else "operations")
+    schedule = ssd.schedule_of(spec, BF16)
+    say("kernels-ssd", f"ssd_scan at {where} (B,S,H,G,N,P,Q)={shape}, bf16 "
+        f"x/B/C, float32 y, {schedule} schedule: max|diff| {err:.3e} "
+        f"(/max|plain| {rel:.2e}) against the plain scan; {ms:.3f} ms per "
+        f"launch (median of 3 means of 5) vs bound {bound:.4f} ms by {by}; "
+        f"plain {plain_ms:.1f} ms; {launches[0]} launches a rank {counted} "
+        f"[{smi}]")
+    return {
+        "name": f"ssd_scan.ssd_scan (Mamba2 SSD chunked scan) at {where} "
+                f"(B {shape[0]}, S {shape[1]}, H {shape[2]})",
+        "route": "cuda",
+        "source": "src/repro_torch/kernels/csrc/ssd_scan.cu",
+        "replaces": "src/repro/kernels/ssd_scan.py:49",
+        "launches": launches[0],
+        "launches_by_rank": launches,
+        "max_abs_err": err,
+        "ms": ms,
+        "plain_ms": plain_ms,
+        "bound_ms": bound,
+        "bound_by": by,
+        "library_ms": None,
+        "schedule": schedule,
+    }
+
+
+DRYRUN_PEAK_GAP = 0.25    # |predicted - card| / card, a rank's peak bytes
+
+
+def serve_prefill_on_card(cfg, dev, plen):
+    """serve-mamba2's prefill step on one device at its batch (SERVE_BATCH
+    prompts of `plen` tokens, seed SERVE_SEED), after one uncounted
+    warm-up: its B2 launches, collectives (none) and peak bytes."""
+    from repro_torch.distributed.process_group import collective_counts
+
+    params = api.init(SERVE_SEED, cfg, device=dev)
+    rng = np.random.RandomState(SERVE_SEED)
+    batch = {"tokens": torch.as_tensor(rng.randint(
+        0, cfg.vocab_size, (SERVE_BATCH, plen)).astype(np.int32),
+        device=dev)}
+    prefill = make_prefill_step(cfg, serve_max_len(cfg))
+    uncounted(lambda: prefill(params, batch))
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ssd.launches = 0
+    out = prefill(params, batch)
+    torch.cuda.synchronize()
+    del out
+    none = collective_counts()
+    return {"counted": [{**none, "total_bytes": 0}],
+            "peaks": [torch.cuda.max_memory_allocated()],
+            "launches_a_step": ssd.launches}
+
+
+def phase_dryrun_vs_card(dev, smi):
+    """dryrun-vs-card: the port's dry run (`launch.dryrun.lower_cell`, an
+    eager trace on ``meta`` over a `RecordingGroup`, no card) of the
+    four cells the card has just run: train-mamba2-tp2's step on its
+    (1, 2) mesh, train-mamba2-fsdp2's and train-zamba2-fsdp2's on their
+    (2, 1) mesh (FSDP), and serve-mamba2's prefill on one device (run
+    here once more, counted).  Holds the predicted collectives (by class:
+    counts and bytes a rank) equal to the ones the ranks counted in their
+    last step, the predicted B2 launches equal to the counted ones a
+    step, and the predicted peak a rank within DRYRUN_PEAK_GAP of
+    `torch.cuda.max_memory_allocated` over that step.  Also prints the
+    predicted peak of train-zamba2-fsdp2's step without FSDP (ZeRO-1
+    alone), beside which its FSDP peak stands."""
+    from repro_torch.configs.base import ShapeConfig
+    from repro_torch.distributed import ShardingRules
+    from repro_torch.launch import dryrun, train
+    from repro_torch.launch.mesh import make_rank_view
+
+    cfg = configs.get(TRAIN_ARCH)
+    cli = train.parse_args(TRAIN_CLI)
+    shape = ShapeConfig("train_cli", cli.seq_len, cli.batch, "train")
+    tp_view = make_rank_view((1, TP_WORLD), ("data", "model"))
+    fs_view = make_rank_view((DP_WORLD, 1), ("data", "model"))
+    plen = SERVE_PROMPT[1]
+    zcfg = dataclasses.replace(configs.get(FSDP_ZAMBA2_ARCH),
+                               num_layers=FSDP_ZAMBA2_LAYERS)
+    zshape = ShapeConfig("train_zamba2", *FSDP_ZAMBA2_SHAPE, "train")
+    cells = [
+        ("train-mamba2-tp2", cfg, shape, tp_view, None, CARD_RUNS["tp2"]),
+        ("train-mamba2-fsdp2", cfg, shape, fs_view,
+         ShardingRules(mesh=fs_view, cfg=cfg, fsdp=True), CARD_RUNS["fsdp2"]),
+        ("train-zamba2-fsdp2", zcfg, zshape, fs_view,
+         ShardingRules(mesh=fs_view, cfg=zcfg, fsdp=True),
+         CARD_RUNS["fsdp2-zamba2"]),
+        ("serve-mamba2 prefill", cfg, ShapeConfig("serve", plen, SERVE_BATCH,
+                                                  "prefill"),
+         make_rank_view((1, 1), ("data", "model")), None,
+         serve_prefill_on_card(cfg, dev, plen)),
+    ]
+    torch.cuda.empty_cache()
+    bad = []
+    for name, ccfg, sh, view, rules, run in cells:
+        t0 = time.perf_counter()
+        trace, meta = dryrun.lower_cell(ccfg, sh, view, rules=rules)
+        trace_s = time.perf_counter() - t0
+        counted, peak = run["counted"][-1], run["peaks"][-1]
+        same = (trace.collectives["counts"] == counted["counts"]
+                and trace.collectives["bytes"] == counted["bytes"])
+        scans = len(trace.ssd_calls)
+        gap = abs(trace.peak_bytes - peak) / peak
+        say("dryrun-vs-card", f"{name} ({meta['kind']}, mesh "
+            f"{dict(view.shape)}, traced on meta in {trace_s:.1f} s): "
+            f"collectives a rank predicted {trace.collectives['counts']} "
+            f"({trace.collectives['total_bytes'] / 1e6:.3f} MB), counted "
+            f"{counted['counts']} ({counted['total_bytes'] / 1e6:.3f} MB): "
+            f"equal {same}; B2 launches predicted {scans}, counted "
+            f"{run['launches_a_step']:g}; peak a rank predicted "
+            f"{trace.peak_bytes / 2 ** 30:.3f} GiB, card "
+            f"{peak / 2 ** 30:.3f} GiB (max_memory_allocated over the "
+            f"step; gap {gap:.3f}, limit {DRYRUN_PEAK_GAP}); predicted "
+            f"{trace.flops / 1e12:.3f} TFLOP, {trace.bytes_accessed / 1e9:.2f}"
+            f" GB accessed (eager, unfused) [{smi}]")
+        if not (same and scans == run["launches_a_step"]
+                and gap <= DRYRUN_PEAK_GAP):
+            bad.append(name)
+    zero1, _ = dryrun.lower_cell(zcfg, zshape, fs_view, rules=ShardingRules(
+        mesh=fs_view, cfg=zcfg))
+    say("dryrun-vs-card", f"train-zamba2-fsdp2's step without FSDP (ZeRO-1 "
+        f"alone): peak a rank predicted {zero1.peak_bytes / 2 ** 30:.3f} "
+        f"GiB, collectives {zero1.collectives['counts']} "
+        f"({zero1.collectives['total_bytes'] / 1e6:.3f} MB)")
+    if bad:
+        raise AssertionError(f"dryrun-vs-card: {bad} disagree with the card")
+
+
 def run_path(name, smi, dev):
     """One main path; returns (its kernel entry, its TB run's ms, for
     acoustic the sharded path's and the bf16 tile's kernel entries, and
     its order-4 case's record for the nine-case summary)."""
-    fc = full_case(name, dev)
+    fc = full_case(name, dev, time_ms=MAIN_TIME_MS.get(name))
     state, launches, tb_ms, kept, peak = timed(f"main-{name}",
                                                phase_main_path, fc, smi)
     extra = []
@@ -4560,7 +5297,7 @@ def run_path(name, smi, dev):
                      "kernel_ms": entry["ms"], "bound_ms": entry["bound_ms"],
                      "bound_by": entry["bound_by"], "peak_gib": peak},
               "SB": {"ms": sb_ms, "launches": fc.nt},
-              "TB/SB": tb_ms / sb_ms}
+              "TB/SB": tb_ms / sb_ms, "half_depth": name in MAIN_TIME_MS}
     if name == "acoustic":
         extra.append(timed("main-acoustic-bf16", phase_main_bf16, fc, smi,
                            state, tb_ms))
@@ -4587,7 +5324,15 @@ def run_path(name, smi, dev):
     return entry, tb_ms, extra, record
 
 
+# main paths cut in depth, in simulated ms (the paper's 512 ms
+# otherwise): elastic at order 4 runs 256 ms (the same width, plan and
+# checks), so that serve-mamba2-tp2, train-mamba2-fsdp2 and
+# dryrun-vs-card fit the script's time limit (PERF.md §4, "Depth cuts")
+MAIN_TIME_MS = {"elastic": 256.0}
 SECONDS = {}                          # phase -> seconds
+# the ranks' counted steps that dryrun-vs-card predicts: per step the
+# collectives by class and the peak bytes, the B2 launches a step
+CARD_RUNS = {}
 
 
 def timed(phase, fn, *args):
@@ -4604,7 +5349,7 @@ def say_paper_table(records, smi):
     for r in sorted(records, key=lambda r: (r["physics"], r["order"])):
         tb, sb = r["TB"], r["SB"]
         say("paper", f"{r['case']}: nt {r['nt']}"
-            + (" (half depth)" if r.get("half_depth") else "")
+            + (" (cut depth)" if r.get("half_depth") else "")
             + f", tile {tuple(r['tile'])} "
             f"T={r['T']} ({r['schedule']}), {tb['launches']} launches, TB "
             f"{tb['ms']:.1f} ms, SB {sb['ms']:.1f} ms, TB/SB "
@@ -4641,6 +5386,11 @@ def main():
           trained["losses"])
     b2tp = timed("train-mamba2-tp2", phase_train_tp, dev, smi, b2,
                  trained["losses"])
+    b2serve = timed("kernels-ssd-serve-tp2", phase_kernels_ssd_serve_tp2,
+                    dev, smi)
+    b2fsdp = timed("kernels-ssd-fsdp-zamba2", phase_kernels_ssd_fsdp_zamba2,
+                   dev, smi)
+    timed("dryrun-vs-card", phase_dryrun_vs_card, dev, smi)
     entries, tb_ms, extra, paper = [], {}, [], []
     for name in ("acoustic", "tti", "elastic"):
         entry, tb_ms[name], more, record = run_path(name, smi, dev)
@@ -4656,7 +5406,7 @@ def main():
                          tb_ms["acoustic"]))
     timed("survey-tti", phase_survey_tti, smi, dev, tb_ms["tti"])
     entries += timed("survey-small", phase_survey_small, smi, dev)
-    entries += extra + [b2, b2z, b2tp]
+    entries += extra + [b2, b2z, b2tp, b2serve, b2fsdp]
     timed("sharded-small", phase_sharded_small, smi, dev)
     timed("survey-sharded", phase_survey_sharded, smi, dev)
     say("time", f"total {time.perf_counter() - t_start:.1f} s: " + ", ".join(

@@ -53,7 +53,31 @@ identity):
   * `max_over_model`: a detached maximum (the vocabulary-parallel
     softmax's shift).
 They reduce in the tensor's dtype: ``gloo`` reduces bf16 on the CPU and on
-CUDA tensors (PERF.md).
+CUDA tensors (PERF.md).  Where a block's heads do not divide the model
+axis (mamba2-130m's 24 heads on 16 ranks), `whole_from_model` gathers its
+split leaves whole and every rank runs the block alike.
+
+FSDP over the data axis (`fsdp`): a param the rules split over the data
+axes as well is gathered whole where a layer starts (`fsdp_whole`, from
+`models.layers.index`, inside `maybe_remat`, so a full remat gathers again
+in the recompute), by `gather_from_data`: an all-gather forward, the
+gradient reduce-scattered backward (each rank's part of the sum over the
+data axis).  On ``gloo`` with CUDA tensors both are all-reduces of
+zero-padded buffers, as `gather_from_model` is (exact).
+
+Serving with the cache's sequence split over the data axis (a batch that
+does not divide it; `kv_sequence` sets the group) takes decode attention
+as a softmax split over the group (`models.layers.attention_decode`).
+
+Every collective is counted by its logical class, the reference's
+`launch.dryrun.COLLECTIVE_OPS` (all-reduce, all-gather, reduce-scatter,
+all-to-all, collective-permute), with the bytes of its result on this
+rank, in `DataParallel.collectives` (shared by a group's sub-groups);
+`broadcast_`, the start's copy of rank 0's params, is not counted.
+`RecordingGroup` is a stand-in with no processes: each collective
+returns its result's shape and records it, so the dry run
+(`launch.dryrun`) traces a rank of a 256- or 512-device mesh on ``meta``
+tensors.
 """
 from __future__ import annotations
 
@@ -73,6 +97,23 @@ from repro_torch.tree import map_named, named_leaves
 
 BACKENDS = ("nccl", "gloo")
 BUCKET_BYTES = 2 ** 28
+# the reference's collective classes (`repro.launch.dryrun.COLLECTIVE_OPS`)
+COLLECTIVE_OPS = ("all-gather", "all-reduce", "reduce-scatter", "all-to-all",
+                  "collective-permute")
+
+
+def collective_counts() -> dict:
+    """Zeroed counters of the collectives by class: ``bytes`` (of each
+    result on this rank) and ``counts``."""
+    return {"bytes": {k: 0 for k in COLLECTIVE_OPS},
+            "counts": {k: 0 for k in COLLECTIVE_OPS}}
+
+
+def collective_summary(counts: dict) -> dict:
+    """`counts` as the dry run reports them: ``bytes``, ``counts`` and
+    ``total_bytes`` (the reference's `collective_bytes` keys)."""
+    return {"bytes": dict(counts["bytes"]), "counts": dict(counts["counts"]),
+            "total_bytes": int(sum(counts["bytes"].values()))}
 
 
 def world_size() -> int:
@@ -192,6 +233,7 @@ class DataParallel:
         self.ranks = list(range(world)) if ranks is None else list(ranks)
         self.timing = False
         self.p2p = p2p_counts()
+        self.collectives = collective_counts()
 
     @classmethod
     def start(cls, backend: str = "nccl", device="cuda"):
@@ -238,19 +280,76 @@ class DataParallel:
             for ranks in lines.values():
                 pg = self.pg
                 if 1 < len(ranks) < self.world:
-                    pg = dist.new_group(ranks, backend=self.backend)
+                    pg = self._new_group(ranks)
                 if self.rank in ranks:
-                    out[axis] = DataParallel(
-                        ranks.index(self.rank), len(ranks), self.device,
-                        self.backend, pg=pg, ranks=ranks)
+                    out[axis] = self._sub(ranks, pg)
         return out
 
-    def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM):
+    def _new_group(self, ranks):
+        return dist.new_group(ranks, backend=self.backend)
+
+    def _sub(self, ranks, pg):
+        """This rank's sub-group over `ranks` (counted in this group),
+        sharing this group's collective counters."""
+        sub = type(self)(ranks.index(self.rank), len(ranks), self.device,
+                         self.backend, pg=pg,
+                         ranks=[self.ranks[r] for r in ranks])
+        sub.collectives = self.collectives
+        return sub
+
+    def _record(self, kind: str, nbytes: int):
+        self.collectives["bytes"][kind] += int(nbytes)
+        self.collectives["counts"][kind] += 1
+
+    def _record_recvs(self, recvs):
+        """An `exchange`'s messages, as one collective-permute of the bytes
+        this rank receives."""
+        if recvs:
+            self._record("collective-permute", sum(
+                math.prod(shape) * dtype.itemsize for _, shape, dtype in recvs))
+
+    def _all_reduce(self, t: torch.Tensor, op):
+        """The transport of `all_reduce_`."""
+        dist.all_reduce(t, op=op, group=self.pg)
+
+    def all_reduce_(self, t: torch.Tensor, op=dist.ReduceOp.SUM,
+                    kind: str = "all-reduce", nbytes=None):
         """t reduced over the ranks in place (as it is in a group of one
-        rank); returns t."""
+        rank); returns t.  Counted as one collective of class `kind`
+        moving `nbytes` (default t's) on this rank: `all_gather` and
+        `reduce_scatter` go through it."""
         if self.world > 1:
-            dist.all_reduce(t, op=op, group=self.pg)
+            self._record(kind, t.numel() * t.element_size()
+                         if nbytes is None else nbytes)
+            self._all_reduce(t, op)
         return t
+
+    def all_gather(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """The ranks' blocks of `x` along `dim` put together in rank order:
+        each rank's block in a zero buffer of the whole, all-reduced
+        (exact: every element is one value plus zeros; ``gloo`` gives CUDA
+        tensors no all-gather).  Counted as an all-gather of the whole."""
+        if self.world == 1:
+            return x
+        n = x.shape[dim]
+        shape = list(x.shape)
+        shape[dim] = n * self.world
+        out = x.new_zeros(shape)
+        out.narrow(dim, self.rank * n, n).copy_(x)
+        return self.all_reduce_(out, kind="all-gather")
+
+    def reduce_scatter(self, x: torch.Tensor, dim: int) -> torch.Tensor:
+        """This rank's block along `dim` of `x` summed over the ranks (an
+        all-reduce, then the block cut out: ``gloo`` gives CUDA tensors no
+        reduce-scatter).  Counted as a reduce-scatter of the block."""
+        if self.world == 1:
+            return x
+        full = x.contiguous().clone()
+        n = full.shape[dim] // self.world
+        self.all_reduce_(full, kind="reduce-scatter",
+                         nbytes=full.numel() // self.world
+                         * full.element_size())
+        return full.narrow(dim, self.rank * n, n)
 
     # -- small collectives ------------------------------------------------
     def sum(self, x) -> torch.Tensor:
@@ -297,6 +396,7 @@ class DataParallel:
             self.max(0.0)
             t1 = time.perf_counter()
             stats["wait_s"] += t1 - t0
+        self._record_recvs(recvs)
         ops, bufs = [], []
         for peer, shape, dtype in recvs:
             buf = torch.empty(tuple(shape), dtype=dtype,
@@ -326,6 +426,11 @@ class DataParallel:
             self._sync()
             stats["transfer_s"] += time.perf_counter() - t1
         return out
+
+    def _broadcast(self, flat: torch.Tensor, src: int):
+        """The transport of `broadcast_` and `gather`: rank `src`'s (in this
+        group) `flat` to every rank."""
+        dist.broadcast(flat, src=self.ranks[src], group=self.pg)
 
     def _sync(self):
         if self.device.type == "cuda":
@@ -367,7 +472,7 @@ class DataParallel:
             by_dtype.setdefault(t.dtype, []).append(t)
         for ts in by_dtype.values():
             flat = _flat_bytes(ts)
-            dist.broadcast(flat, src=self.ranks[src], group=self.pg)
+            self._broadcast(flat, src)
             for t, part in zip(ts, flat.split(
                     [t.numel() * t.element_size() for t in ts])):
                 t.copy_(part.view(t.dtype).view(t.shape))
@@ -411,7 +516,8 @@ class DataParallel:
                     if owner == self.rank else
                     torch.empty(sum(nbytes), dtype=torch.uint8,
                                 device=self.device))
-            dist.broadcast(flat, src=self.ranks[owner], group=self.pg)
+            self._record("all-gather", flat.numel())
+            self._broadcast(flat, owner)
             for n, sl, d, part in zip(held, slices, dims,
                                       flat.split(nbytes)):
                 out[n][sl] = part.view(out[n].dtype).view(d)
@@ -465,6 +571,11 @@ class _MeanOverRanks(torch.autograd.Function):
     @staticmethod
     def backward(ctx, grad):
         return grad / ctx.world, None
+
+
+def reducing_world() -> int:
+    """The ranks of the group `reducing` set (1 outside one)."""
+    return 1 if _REDUCING is None else _REDUCING.world
 
 
 def mean_over_ranks(x: torch.Tensor) -> torch.Tensor:
@@ -563,27 +674,37 @@ class _SumOverModel(torch.autograd.Function):
         return ctx.group.all_reduce_(grad.contiguous().clone()), None
 
 
-class _GatherFromModel(torch.autograd.Function):
-    """The ranks' blocks along `dim` put together in rank order: each
-    rank's block in a zero buffer of the whole, all-reduced (exact: every
-    element is one value plus zeros).  Backward: the whole gradient summed
-    over the ranks, this rank's block cut out."""
+class _Gather(torch.autograd.Function):
+    """The ranks' blocks along `dim` put together in rank order
+    (`DataParallel.all_gather`).  Backward: the whole gradient summed over
+    the ranks, this rank's block cut out (`reduce_scatter`): each rank's
+    consumer of the whole is its own (its heads, or its rows of the
+    batch)."""
 
     @staticmethod
     def forward(ctx, x, group, dim):
-        ctx.group, ctx.dim, n = group, dim, x.shape[dim]
-        shape = list(x.shape)
-        shape[dim] = n * group.world
-        out = x.new_zeros(shape)
-        out.narrow(dim, group.rank * n, n).copy_(x)
-        return group.all_reduce_(out)
+        ctx.group, ctx.dim = group, dim
+        return group.all_gather(x.contiguous(), dim)
 
     @staticmethod
     def backward(ctx, grad):
-        group, dim = ctx.group, ctx.dim
-        full = group.all_reduce_(grad.contiguous().clone())
-        n = full.shape[dim] // group.world
-        return full.narrow(dim, group.rank * n, n), None, None
+        return ctx.group.reduce_scatter(grad, ctx.dim), None, None
+
+
+class _Whole(torch.autograd.Function):
+    """The ranks' blocks along `dim` put together, for a computation that
+    every rank then runs alike on the whole: backward, this rank's block
+    of the gradient, which every rank holds whole already (no sum)."""
+
+    @staticmethod
+    def forward(ctx, x, group, dim):
+        ctx.group, ctx.dim, ctx.n = group, dim, x.shape[dim]
+        return group.all_gather(x.contiguous(), dim)
+
+    @staticmethod
+    def backward(ctx, grad):
+        n = ctx.n
+        return grad.narrow(ctx.dim, ctx.group.rank * n, n), None, None
 
 
 def copy_to_model(x: torch.Tensor) -> torch.Tensor:
@@ -603,8 +724,16 @@ def sum_over_model(x: torch.Tensor) -> torch.Tensor:
 
 def gather_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
     group = _model()
-    return x if group is None else _GatherFromModel.apply(
-        x, group, dim % x.dim())
+    return x if group is None else _Gather.apply(x, group, dim % x.dim())
+
+
+def whole_from_model(x: torch.Tensor, dim: int) -> torch.Tensor:
+    """x's blocks along `dim` over the model axis put together, for a
+    block that every rank runs alike on the whole leaf (where its heads do
+    not divide the model axis); its gradient is this rank's block of the
+    whole one, with no sum."""
+    group = _model()
+    return x if group is None else _Whole.apply(x, group, dim % x.dim())
 
 
 def max_over_model(x: torch.Tensor) -> torch.Tensor:
@@ -615,8 +744,132 @@ def max_over_model(x: torch.Tensor) -> torch.Tensor:
         x.contiguous().clone(), op=dist.ReduceOp.MAX)
 
 
-__all__ = ["BACKENDS", "BUCKET_BYTES", "DataParallel", "copy_to_model",
-           "gather_from_model", "max_over_model", "mean_over_ranks",
-           "model_block", "model_parallel", "p2p_counts", "rank_device",
-           "reduce_from_model", "reducing", "spawn_ranks", "sum_over_model",
-           "world_size"]
+# ---------------------------------------------------------------------------
+# FSDP over the data axis
+# ---------------------------------------------------------------------------
+
+# The data group and the leaves it splits of the step running (`fsdp`):
+# {id(storage): (weakref to it, the leaf's rank, its split dim)}.  Keyed
+# by storage, so a layer's view of a stacked leaf (`layers.index`) and a
+# detached copy for the gradient are found; process-wide, as `_MODEL`.
+_FSDP = None
+
+
+@contextlib.contextmanager
+def fsdp(group: Optional[DataParallel], split):
+    """Inside the block, `fsdp_whole` gathers over `group` every view of
+    the leaves in `split` ([(tensor, dim)]: each split over the data axis
+    along dim)."""
+    import weakref
+
+    global _FSDP
+    table = {}
+    for t, dim in split:
+        s = t.untyped_storage()
+        table[id(s)] = (weakref.ref(s), t.dim(), dim)
+    prev, _FSDP = _FSDP, (group, table) if group is not None \
+        and group.world > 1 and table else None
+    try:
+        yield
+    finally:
+        _FSDP = prev
+
+
+def fsdp_whole(t: torch.Tensor) -> torch.Tensor:
+    """`t` whole: gathered over the FSDP group where it is (a view of) a
+    leaf that `fsdp` marks, as it is otherwise.  A view indexing the
+    leading (layer) axes keeps the split dim less those axes."""
+    state = _FSDP
+    if state is None:
+        return t
+    group, table = state
+    s = t.untyped_storage()
+    entry = table.get(id(s))
+    if entry is None or entry[0]() is not s:
+        return t
+    _, ndim, dim = entry
+    return gather_from_data(t, dim - (ndim - t.dim()), group)
+
+
+def gather_from_data(x: torch.Tensor, dim: int,
+                     group: DataParallel) -> torch.Tensor:
+    """FSDP's gather: x's blocks along `dim` over the data `group` put
+    together; the gradient reduce-scattered back (each rank's rows'
+    gradient of the whole leaf summed over the ranks, this rank's block
+    kept)."""
+    if group is None or group.world == 1:
+        return x
+    return _Gather.apply(x, group, dim % x.dim())
+
+
+# ---------------------------------------------------------------------------
+# A KV cache with its sequence split over the data axis
+# ---------------------------------------------------------------------------
+
+_KV_SEQ: Optional[DataParallel] = None
+
+
+@contextlib.contextmanager
+def kv_sequence(group: Optional[DataParallel]):
+    """Inside the block, the attention caches hold this rank's block of
+    the positions over `group` (None: all of them): position p sits on
+    rank p // (capacity / ranks)."""
+    global _KV_SEQ
+    prev, _KV_SEQ = _KV_SEQ, group
+    try:
+        yield
+    finally:
+        _KV_SEQ = prev
+
+
+def kv_sequence_group() -> Optional[DataParallel]:
+    group = _KV_SEQ
+    return group if group is not None and group.world > 1 else None
+
+
+# ---------------------------------------------------------------------------
+# A rank of a mesh with no processes: the dry run's collectives
+# ---------------------------------------------------------------------------
+
+class RecordingGroup(DataParallel):
+    """A stand-in for this rank's group of `world` ranks that runs no
+    process: every collective records its class and the bytes of its
+    result on this rank (`collectives`, as `DataParallel` counts its own)
+    and returns a tensor of its result's shape (on ``meta`` tensors:
+    shapes only).  The dry run (`launch.dryrun`) traces one rank's step of
+    a production mesh over it (`launch.mesh.make_rank_view`)."""
+
+    def __init__(self, rank: int, world: int, device="meta",
+                 backend: str = "record", owned: bool = False, pg=None,
+                 ranks=None):
+        super().__init__(rank, world, torch.device(device), backend, owned,
+                         pg, ranks)
+
+    def _new_group(self, ranks):
+        return None
+
+    def _all_reduce(self, t, op):
+        pass
+
+    def _broadcast(self, flat, src):
+        pass
+
+    def close(self):
+        pass
+
+    def exchange(self, sends, recvs, tag: int = 0) -> list:
+        self._record_recvs(recvs)
+        self.p2p["calls"] += 1
+        self.p2p["messages"] += len(sends) + len(recvs)
+        return [torch.empty(tuple(shape), dtype=dtype, device=self.device)
+                for _, shape, dtype in recvs]
+
+
+__all__ = ["BACKENDS", "BUCKET_BYTES", "COLLECTIVE_OPS", "DataParallel",
+           "RecordingGroup", "collective_counts", "collective_summary",
+           "copy_to_model", "fsdp", "fsdp_whole", "gather_from_data",
+           "gather_from_model", "kv_sequence", "kv_sequence_group",
+           "max_over_model", "mean_over_ranks", "model_block",
+           "model_parallel", "p2p_counts", "rank_device",
+           "reduce_from_model", "reducing", "reducing_world", "spawn_ranks", "sum_over_model",
+           "whole_from_model", "world_size"]

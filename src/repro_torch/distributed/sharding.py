@@ -37,8 +37,9 @@ data, tensor and expert parallelism in its train and eval steps
 (`launch.steps`): each rank holds `shard_of` its params, the models run
 the Megatron collectives of the blocks whose leaves are split
 (`distributed.process_group`'s f and g), and `model_partial` says which
-whole leaves get a partial gradient.  FSDP and SP are rules only: the
-steps refuse them.
+whole leaves get a partial gradient; FSDP's leaves are gathered over the
+data axis where their layer starts.  SP is rules only: the steps refuse
+it.
 """
 from __future__ import annotations
 
@@ -52,6 +53,10 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.tree import map_named
 
 Spec = Tuple  # one entry a dimension: None, an axis name, or a tuple of them
+
+# FSDP splits a leaf's largest free dim of at least this many entries (the
+# reference's 1024)
+FSDP_MIN = 1024
 
 
 def _entry(axes):
@@ -194,7 +199,7 @@ class ShardingRules:
         if self.fsdp:
             # additionally shard the largest free divisible dim over dp
             for d in sorted(range(nd), key=lambda d: -shape[d]):
-                if shape[d] >= 1024 and put(d, self.dp):
+                if shape[d] >= FSDP_MIN and put(d, self.dp):
                     break
         return _spec(spec)
 
@@ -209,8 +214,13 @@ class ShardingRules:
         in_bc and BC conv.  Not the leaves used on the activations every
         rank holds alike (the pre-norms, the router, the final norm, a
         whole embedding; whisper's b_out, added after g), whose gradient
-        is the same on every rank already."""
+        is the same on every rank already; nor any leaf of a Mamba2 block
+        whose heads do not divide the model axis, which every rank runs
+        whole (`models.mamba2._whole_if_cut`)."""
         tp = self.tp_axis
+        cfg = self.cfg
+        ssm_cut = (cfg.ssm_expand * cfg.d_model // cfg.ssm_headdim) \
+            % self.tp_size != 0
 
         def split(path, leaf):
             return self.tp_size > 1 and tp in _axes_of_spec(
@@ -222,7 +232,8 @@ class ShardingRules:
                                      ("w_in", ("b_out",)),
                                      ("in_x", ("norm",))):
                     if key in tree and not isinstance(tree[key], dict):
-                        if split(prefix + key, tree[key]):
+                        if split(prefix + key, tree[key]) and not (
+                                key == "in_x" and ssm_cut):
                             region = outside
                         break
             return {k: walk(v, f"{prefix}{k}/", region)
@@ -399,6 +410,6 @@ def unshard(parts: Sequence[torch.Tensor], spec: Spec, mesh,
     return out
 
 
-__all__ = ["ShardingRules", "Spec", "all_coords", "mesh_coords",
+__all__ = ["FSDP_MIN", "ShardingRules", "Spec", "all_coords", "mesh_coords",
            "needs_fsdp", "shard_of", "shard_slices", "unshard",
            "whole_shape", "without_axis"]

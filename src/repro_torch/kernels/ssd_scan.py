@@ -55,6 +55,10 @@ import torch
 
 # kernel launches made by `ssd_scan` (set it to 0 before a counted run)
 launches = 0
+# the calls the dry run traced on ``meta`` tensors (`_scan_meta`), one
+# `kernel_cost` each: what B2 would do there.  The dry run empties it
+# before a trace and sums it after (`launch.dryrun.analyze`)
+meta_calls: list = []
 
 
 @dataclasses.dataclass(frozen=True)
@@ -311,7 +315,24 @@ def _scan(spec: SSDSpec, x, dtv, Bm, Cm, A, h0):
         return ssd_scan_plain(spec, x, dtv, Bm, Cm, A, h0)
     if dev.type == "cuda":
         return _ssd_scan_cuda(spec, x, dtv, Bm, Cm, A, h0)
+    if dev.type == "meta":
+        return _scan_meta(spec, x, h0)
     raise ValueError(f"no SSD scan for device {dev}")
+
+
+def _scan_meta(spec: SSDSpec, x, h0):
+    """The dry run's call on ``meta`` tensors: y and h_final with their
+    shapes and dtypes and no data, and B2's `kernel_cost` at this call
+    (its FLOPs and bytes, not the plain version's einsums') appended to
+    `meta_calls`.  Serves ``meta`` tensors only; a CUDA tensor launches
+    the kernel or raises."""
+    Bsz, S, H, P = x.shape
+    cost = kernel_cost(spec, Bsz, in_dtype=x.dtype)
+    cost["has_h0"] = h0 is not None
+    meta_calls.append(cost)
+    return (torch.empty((Bsz, S, H, P), dtype=spec.dtype, device="meta"),
+            torch.empty((Bsz, H, spec.state, P), dtype=torch.float32,
+                        device="meta"))
 
 
 class SSDScanFn(torch.autograd.Function):

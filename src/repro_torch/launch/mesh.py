@@ -17,7 +17,10 @@ shard a device.  The port runs a mesh two ways:
                      (`distributed.process_group.DataParallel.exchange`).
 
 A mesh on the ``meta`` device holds shapes only: the production meshes
-of a dry run, built without a card.
+of a dry run, built without a card.  `make_rank_view` is one rank's view
+of such a mesh over a `distributed.process_group.RecordingGroup`: no
+process runs, and each collective of the rank's step is recorded with
+the shape of its result (`launch.dryrun`).
 """
 from __future__ import annotations
 
@@ -169,6 +172,45 @@ def make_rank_mesh(pgrid: Tuple[int, int], group) -> ShardMesh:
     return mesh
 
 
+def make_rank_view(shape: Optional[Sequence[int]] = None,
+                   axes: Optional[Sequence[str]] = None, *,
+                   multi_pod: bool = False, rank: int = 0) -> ShardMesh:
+    """Rank `rank`'s view (default rank 0's coordinates) of a mesh of
+    `shape` over `axes` (default `make_production_mesh(multi_pod=)`'s:
+    (16, 16) data x model, or (2, 16, 16) pod x data x model) on
+    ``meta``, over a `distributed.process_group.RecordingGroup` of every
+    rank: its `axis_groups` hold this rank's group along each axis and,
+    where there are several data axes, the group over them all (keyed by
+    the tuple of their names, the multi-pod mesh's ("pod", "data")),
+    each a recorder sharing the world's counters."""
+    from repro_torch.distributed.process_group import RecordingGroup
+    from repro_torch.distributed.sharding import all_coords
+
+    if shape is None:
+        shape = (2, 16, 16) if multi_pod else (16, 16)
+        axes = ("pod", "data", "model") if multi_pod else ("data", "model")
+    mesh = make_mesh(tuple(shape), tuple(axes), ("meta",))
+    world = RecordingGroup(rank, mesh_size(mesh))
+    mesh.process_group = world
+    mesh.axis_groups = world.axis_groups(mesh)
+    data = tuple(a for a in mesh.axes if a != "model")
+    if len(data) > 1:
+        coords = all_coords(mesh)
+        mine = coords[rank]
+        members = [r for r, c in enumerate(coords)
+                   if c["model"] == mine["model"]]
+        mesh.axis_groups[data] = world._sub(members, None)
+    return mesh
+
+
+def mesh_size(mesh) -> int:
+    """The number of devices (ranks) the mesh counts."""
+    n = 1
+    for v in mesh.shape.values():
+        n *= v
+    return n
+
+
 def make_xy_mesh(n_shards: int, devices: Sequence = ("cuda",)) -> ShardMesh:
     """(data, model) mesh of `n_shards` shards for the x/y grid
     decomposition, the reference's heuristic applied to the shard count
@@ -180,5 +222,5 @@ def make_xy_mesh(n_shards: int, devices: Sequence = ("cuda",)) -> ShardMesh:
 
 
 __all__ = ["ShardMesh", "make_host_mesh", "make_mesh",
-           "make_production_mesh", "make_rank_mesh", "make_xy_mesh",
-           "mesh_devices"]
+           "make_production_mesh", "make_rank_mesh", "make_rank_view",
+           "make_xy_mesh", "mesh_devices", "mesh_size"]

@@ -131,8 +131,12 @@ def _fill(out, one, i):
 
 def index(tree: dict, *idx) -> dict:
     """The slice `idx` of every leaf of a nested dict (a layer's
-    parameters out of the stacked ones; views, no copy)."""
-    return _map(lambda t: t[idx], tree)
+    parameters out of the stacked ones; views, no copy).  Under FSDP
+    (`process_group.fsdp`) a leaf split over the data axis is gathered
+    whole here (`fsdp_whole`): the layer loops call this inside the
+    remat'd body, so a full remat gathers again in the recompute instead
+    of keeping the whole leaves for the backward."""
+    return _map(lambda t: pg.fsdp_whole(t[idx]), tree)
 
 
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
@@ -296,21 +300,44 @@ def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_len=None):
     when given).  kv_len: (B,) valid prefix length of k/v (decode against
     a padded cache).  Softmax in float32.
 
-    The scores are (B, H, Sq, Skv) at once.  The reference's
-    query-chunked branch (`runtime.ATTN_Q_CHUNK`) is set only by its
-    language-model dry run (`launch/dryrun.run_cell`), which the port does
-    not have (ROADMAP A11).
+    When `runtime.ATTN_Q_CHUNK` is set and Sq exceeds it and divides by
+    it, the queries go in chunks of that size, so the float32 scores are
+    (B, H, chunk, Skv) instead of (B, H, Sq, Skv): the memory-bounded
+    schedule of long-context prefill (the same math a row at a time, as
+    the reference's `lax.scan` over the chunks).
     """
+    from repro_torch.models import runtime
+
+    B, Sq = q.shape[:2]
+    qc = runtime.ATTN_Q_CHUNK
+    if qc and Sq > qc and Sq % qc == 0:
+        if q_positions is None:
+            q_positions = torch.arange(Sq, device=q.device).expand(B, Sq)
+        return torch.cat([
+            _sdpa_full(q[:, i:i + qc], k, v, causal=causal,
+                       q_positions=q_positions[:, i:i + qc], kv_len=kv_len)
+            for i in range(0, Sq, qc)], dim=1)
+    return _sdpa_full(q, k, v, causal=causal, q_positions=q_positions,
+                      kv_len=kv_len)
+
+
+def _scores(q, k):
+    """(B, Hkv, rep, Sq, Skv) float32 scores q.k / sqrt(hd): the product
+    in q's dtype, then float32, a copy in either dtype, so the in-place
+    steps after it touch neither the caller's tensors nor the product
+    itself (which `maybe_remat`'s "dots" policy keeps)."""
     B, Sq, H, hd = q.shape
-    Skv, Hkv = k.shape[1], k.shape[2]
-    rep = H // Hkv
-    qr = q.reshape(B, Sq, Hkv, rep, hd)
-    # the product in q's dtype, then float32: a copy in either dtype, so
-    # the in-place steps below touch neither the caller's tensors nor the
-    # product itself (which `maybe_remat`'s "dots" policy keeps)
+    Hkv = k.shape[2]
+    qr = q.reshape(B, Sq, Hkv, H // Hkv, hd)
     scores = torch.einsum("bqhrd,bkhd->bhrqk", qr, k).to(torch.float32,
                                                           copy=True)
-    scores.div_(float(np.float32(np.sqrt(hd))))
+    return scores.div_(float(np.float32(np.sqrt(hd))))
+
+
+def _sdpa_full(q, k, v, *, causal: bool, q_positions=None, kv_len=None):
+    B, Sq, H, hd = q.shape
+    Skv = k.shape[1]
+    scores = _scores(q, k)
     cols = torch.arange(Skv, device=q.device)
     if causal:
         rows = (q_positions if q_positions is not None
@@ -323,6 +350,30 @@ def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_len=None):
     w = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhrqk,bkhd->bqhrd", w, v)
     return out.reshape(B, Sq, H, hd)
+
+
+def sdpa_split(q, k, v, kv_len, first: int, group):
+    """`sdpa` (not causal) of queries against this rank's block of the
+    keys and values, positions [first, first + Skv), the others' blocks
+    on the other ranks of `group` (a cache whose sequence is split over
+    the data axis): the softmax split over the ranks.  The float32
+    scores' max over the ranks (detached: it cancels), then each rank's
+    sum of exp and exp-weighted values all-reduced in float32 together,
+    divided and cast to q's dtype.  A position at or past kv_len adds 0."""
+    B, Sq, H, hd = q.shape
+    Skv, Hkv = k.shape[1], k.shape[2]
+    scores = _scores(q, k)
+    cols = first + torch.arange(Skv, device=q.device)
+    lmask = cols[None, :] < kv_len[:, None]                  # (B, Skv)
+    scores.masked_fill_(~lmask[:, None, None, None, :], -1e30)
+    top = group.all_reduce_(torch.amax(scores, dim=-1, keepdim=True),
+                            op=torch.distributed.ReduceOp.MAX)
+    e = torch.exp(scores - top)
+    e = torch.where(lmask[:, None, None, None, :], e, 0)
+    o = torch.einsum("bhrqk,bkhd->bhrqd", e, v.float())
+    both = group.all_reduce_(torch.cat([o, e.sum(-1, keepdim=True)], -1))
+    out = both[..., :hd] / both[..., hd:]
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
 
 
 def attention_block(p, cfg: ModelConfig, x, positions, *, causal=True):
@@ -339,15 +390,63 @@ def attention_decode(p, cfg: ModelConfig, x, k_cache, v_cache, pos):
     lengths.  Row b's new k and v are written at pos[b], in place (the
     reference selects them in with a one-hot mask: the same values), and
     the query attends to the first pos + 1 entries.  Returns (out,
-    k_cache, v_cache), the caches the same tensors as given."""
+    k_cache, v_cache), the caches the same tensors as given.
+
+    With the cache's sequence split over the data axis
+    (`process_group.kv_sequence`), the caches hold this rank's block of
+    the positions: the rank holding pos[b] writes it (the others write
+    back what they hold) and the softmax is split over the ranks
+    (`sdpa_split`)."""
     B = x.shape[0]
     q, k, v = _qkv(p, cfg, x, pos[:, None])
     rows, at = torch.arange(B, device=x.device), pos.long()
-    k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
-    v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
-    o = sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), causal=False,
-             kv_len=pos + 1)
+    seq = pg.kv_sequence_group()
+    if seq is None:
+        k_cache[rows, at] = k[:, 0].to(k_cache.dtype)
+        v_cache[rows, at] = v[:, 0].to(v_cache.dtype)
+        o = sdpa(q, k_cache.to(q.dtype), v_cache.to(q.dtype), causal=False,
+                 kv_len=pos + 1)
+        return _out(p, cfg, o), k_cache, v_cache
+    n = k_cache.shape[1]
+    first = seq.rank * n
+    local = at - first
+    mine = ((local >= 0) & (local < n))[:, None, None]
+    local = local.clamp(0, n - 1)
+    for cache, new in ((k_cache, k), (v_cache, v)):
+        cache[rows, local] = torch.where(mine, new[:, 0].to(cache.dtype),
+                                         cache[rows, local])
+    o = sdpa_split(q, k_cache.to(q.dtype), v_cache.to(q.dtype), pos + 1,
+                   first, seq)
     return _out(p, cfg, o), k_cache, v_cache
+
+
+def kv_cache_shape(p, cfg: ModelConfig, batch: int, max_len: int) -> tuple:
+    """(batch, positions, kv heads, hd) of one layer's k (or v) cache of
+    capacity `max_len` as this rank holds it: the kv heads its q heads
+    read (`_kv_heads`: this rank's block where they are split), and its
+    block of the positions where the sequence is split over the data axis
+    (`process_group.kv_sequence`)."""
+    seq = pg.kv_sequence_group()
+    if seq is not None and max_len % seq.world:
+        raise ValueError(f"a cache of {max_len} positions does not split "
+                         f"over {seq.world} ranks")
+    n = max_len // seq.world if seq is not None else max_len
+    return (batch, n, _kv_heads(p, cfg, p["wk"]).shape[-2], cfg.hd())
+
+
+def write_prompt_kv(cache, new):
+    """The prompt's k (or v) (B, S, Hkv, hd) written into one layer's
+    cache (B, Smax, Hkv, hd) from position 0: where the sequence is split
+    over the data axis, the prompt's positions in this rank's block."""
+    S = new.shape[1]
+    seq = pg.kv_sequence_group()
+    if seq is None:
+        cache[:, :S] = new
+        return
+    n = cache.shape[1]
+    lo, hi = seq.rank * n, min((seq.rank + 1) * n, S)
+    if hi > lo:
+        cache[:, :hi - lo] = new[:, lo:hi]
 
 
 def cross_attention_block(p, cfg: ModelConfig, x, enc_kv):

@@ -221,6 +221,26 @@ def _ssd_chunked(xh, dtv, Bm, Cm, A, chunk: int,
     return (y_intra + y_inter).reshape(Bsz, S, H, P), h
 
 
+def _whole_if_cut(p, cfg: ModelConfig) -> dict:
+    """`p` as the block runs it: as it is, unless its leaves are split
+    over the model axis where a block of d_inner would cut a head (the
+    reference's rules split d_inner = 1536 of mamba2-130m's 24 heads over
+    16 ranks: 1.5 heads a rank).  Then every split leaf is gathered whole
+    (`process_group.whole_from_model`) and every rank runs the whole
+    block alike, as GSPMD gathers what it cannot keep split."""
+    d_inner, H, _ = dims(cfg)
+    local = p["in_x"].shape[-1]
+    if local == d_inner or H % (d_inner // local) == 0:
+        return p
+    whole = block_shapes(cfg)
+    out = {}
+    for k, t in p.items():
+        want = whole[k]
+        cut = [d for d in range(t.dim()) if t.shape[d] != want[d]]
+        out[k] = pg.whole_from_model(t, cut[0]) if cut else t
+    return out
+
+
 def _head_block(p, cfg: ModelConfig):
     """(first head, heads, first group, groups, split): this rank's
     contiguous block of the heads (all of them where in_x is whole) and
@@ -263,6 +283,7 @@ def block_forward(p, cfg: ModelConfig, x,
     N, P = cfg.ssm_state, cfg.ssm_headdim
     GN = cfg.ssm_ngroups * N
     Bsz, S, D = x.shape
+    p = _whole_if_cut(p, cfg)
     h0, H, g0, G, split = _head_block(p, cfg)   # this rank's heads, groups
     heads = slice(h0, h0 + H)
 
@@ -319,13 +340,22 @@ def block_forward(p, cfg: ModelConfig, x,
 
 def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     """One-token recurrent update.  x: (B, 1, D); conv_state (B, W-1, C);
-    ssm_state (B, H, N, P) float32."""
-    d_inner, H, conv_ch = dims(cfg)
-    G, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    ssm_state (B, H, N, P) float32.  Split over the model axis as
+    `block_forward` is: this rank's heads, its x channels and B/C columns
+    of the conv state ([x block | B/C block]), B and C gathered, the
+    gated norm's sum of squares summed, out_proj then g."""
+    G_all, N, P = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_headdim
+    GN = G_all * N
     Bsz = x.shape[0]
+    p = _whole_if_cut(p, cfg)
+    h0, H, g0, G, split = _head_block(p, cfg)   # this rank's heads, groups
+    heads = slice(h0, h0 + H)
 
     h = L.rms_norm(x, p["norm"], cfg.norm_eps)
-    z, xi_t, bc_t, dt_raw = _split_proj(p, h)            # (B, 1, *)
+    if split:
+        h = pg.copy_to_model(h)
+    z, xi_t, bc_t, dt_raw = _split_proj(p, h, heads)    # (B, 1, *)
+    d_inner = xi_t.shape[-1]
 
     def one_step_conv(state, new_col, w, b):
         window = torch.cat([state, new_col[:, None]], dim=1)
@@ -338,10 +368,13 @@ def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     bc, new_conv_bc = one_step_conv(conv_state[..., d_inner:], bc_t[:, 0],
                                     p["conv_bc_w"], p["conv_bc_b"])
     new_conv = torch.cat([new_conv_x, new_conv_bc], dim=-1)
-    Bm = bc[:, :G * N].reshape(Bsz, G, N)
-    Cm = bc[:, G * N:].reshape(Bsz, G, N)
-    dtv = _softplus(dt_raw[:, 0].float() + p["dt_bias"])
-    A = -torch.exp(p["A_log"])
+    if bc.shape[-1] < 2 * GN:            # B and C split over the model axis
+        bc = pg.gather_from_model(bc, -1)
+    groups = slice(g0, g0 + G)
+    Bm = bc[:, :GN].reshape(Bsz, G_all, N)[:, groups]
+    Cm = bc[:, GN:].reshape(Bsz, G_all, N)[:, groups]
+    dtv = _softplus(dt_raw[:, 0].float() + p["dt_bias"][heads])
+    A = -torch.exp(p["A_log"][heads])
     xh = xi.reshape(Bsz, H, P)
     rep = H // G
     Brep = Bm.repeat_interleave(rep, dim=1) if rep > 1 else Bm  # (B, H, N)
@@ -351,10 +384,13 @@ def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     h_new = (a[:, :, None, None] * ssm_state
              + (dtv[:, :, None] * Brep)[..., None] * xh[:, :, None, :])
     y = torch.einsum("bhn,bhnp->bhp", Crep, h_new)
-    y = y + p["D"][None, :, None] * xh
+    y = y + p["D"][heads][None, :, None] * xh
     y = y.reshape(Bsz, 1, d_inner).to(x.dtype)
-    y = L.rms_norm(y * L.silu(z), p["gate_norm"], cfg.norm_eps)
+    y = _gated_norm(y * L.silu(z), p["gate_norm"][h0 * P:(h0 + H) * P],
+                    cfg.norm_eps, dims(cfg)[0])
     out = torch.matmul(y, p["out_proj"])
+    if split:
+        out = pg.reduce_from_model(out)
     return x + out, (new_conv, h_new)
 
 
@@ -382,9 +418,10 @@ def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
     """Logits (B, S, vocab) float32 (or the final-norm features) and the
     aux loss 0.0."""
     x = L.embed(params["embed"], cfg, tokens)
-    body = L.maybe_remat(lambda c, bp: block_forward(bp, cfg, c)[0], cfg)
+    body = L.maybe_remat(lambda c, i: block_forward(
+        L.index(params["blocks"], i), cfg, c)[0], cfg)
     for i in range(cfg.num_layers):
-        x = body(x, L.index(params["blocks"], i))
+        x = body(x, i)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:
         return x, 0.0

@@ -16,11 +16,17 @@ all-reduced (g) and rounded once.  The tokens and the router weights go
 to the experts through f, so the router, used on the same activations on
 every rank, gets the whole gradient on each.
 
-Token groups: one a process.  Under data parallelism each rank
-dispatches its own rows at the capacity of its own token count, as the
-reference's `runtime.moe_dp_groups(dp)` does with one group a data-parallel
-shard (the reference falls back to one global group when a group would
-hold fewer tokens than experts; a rank here always dispatches its own).
+Token groups (`runtime.MOE_DP_GROUPS`, G over the whole batch of N
+tokens, the reference's rule: one group where G <= 1, G does not divide
+N, or a group would hold fewer tokens than experts).  Each group is
+dispatched on its own at the capacity of its N / G tokens, the groups'
+buffers go through the experts together, and the combine is one.  Under
+data parallelism a rank holds 1 / R of the batch (R ranks of the step's
+data group, `process_group.reducing`) and dispatches its G / R groups;
+with one group over the batch, or G not a multiple of R, a rank
+dispatches its own rows as one group (the reference's single global
+dispatch then differs from it: its capacity counts every rank's
+tokens).
 
 Two steps differ from the reference's code, each deterministic on a card:
 - Dropped entries are not written.  The reference writes every dropped
@@ -156,22 +162,42 @@ def combine(d: Dispatch, out_buf: torch.Tensor, n: int, K: int,
     [first, first + its length): where that is not all of them (expert
     parallelism), the other experts' entries add 0 here and the ranks'
     float32 sums are all-reduced (g) before the one rounding."""
+    total = _combine_f32(d, out_buf, n, K, first)
+    if out_buf.shape[0] < d.buf.shape[0]:
+        total = pg.reduce_from_model(total)
+    return total.to(dtype)
+
+
+def _combine_f32(d: Dispatch, out_buf, n: int, K: int, first: int):
+    """`combine`'s float32 sums, before the model axis's g."""
     held = out_buf.shape[0]
     mine = d.keep & (d.slot_e >= first) & (d.slot_e < first + held)
     out = out_buf[(d.slot_e - first).clamp(0, held - 1), d.slot_c]
     contrib = torch.where(mine[:, None], out, 0) * d.w_sorted[:, None]
     per_choice = torch.empty_like(contrib)
     per_choice[d.order] = contrib                 # back to (token, choice)
-    total = per_choice.view(n, K, -1).sum(dim=1, dtype=torch.float32)
-    if held < d.buf.shape[0]:
-        total = pg.reduce_from_model(total)
-    return total.to(dtype)
+    return per_choice.view(n, K, -1).sum(dim=1, dtype=torch.float32)
+
+
+def groups(n: int, cfg: ModelConfig) -> int:
+    """The dispatch groups of this rank's `n` tokens: `runtime.
+    MOE_DP_GROUPS` over the whole batch (n times the data-parallel ranks
+    of `process_group.reducing`), by the reference's rule, less the
+    ranks."""
+    from repro_torch.models import runtime
+
+    ranks = pg.reducing_world()
+    G, N = runtime.MOE_DP_GROUPS, n * ranks
+    if G <= 1 or N % G or N // G < cfg.num_experts or G % ranks:
+        return 1
+    return G // ranks
 
 
 def moe_block(p, cfg: ModelConfig, x: torch.Tensor):
     """x: (B, S, D) -> ((B, S, D), aux loss): route the B * S tokens,
-    dispatch them at capacity `capacity(B * S)`, run the experts (this
-    rank's block of them where they are split) and combine."""
+    dispatch each of their `groups` at capacity `capacity(its tokens)`,
+    run the experts on the groups' buffers together (this rank's block of
+    them where they are split) and combine."""
     B, S, D = x.shape
     n = B * S
     x2d = x.reshape(n, D)
@@ -179,11 +205,20 @@ def moe_block(p, cfg: ModelConfig, x: torch.Tensor):
     m, blocks = pg.model_block(p["w_gate"].shape[0], cfg.num_experts)
     if blocks > 1:
         x2d, weights = pg.copy_to_model(x2d), pg.copy_to_model(weights)
-    d = dispatch(cfg, x2d, expert_idx, weights, capacity(n, cfg))
+    G = groups(n, cfg)
+    n_loc = n // G
+    C = capacity(n_loc, cfg)
     held = cfg.num_experts // blocks
-    out = experts(p, d.buf[m * held:(m + 1) * held])
-    y = combine(d, out, n, cfg.experts_per_tok, x.dtype, first=m * held)
-    return y.reshape(B, S, D), aux
+    ds = [dispatch(cfg, x2d[i:i + n_loc], expert_idx[i:i + n_loc],
+                   weights[i:i + n_loc], C) for i in range(0, n, n_loc)]
+    bufs = [d.buf[m * held:(m + 1) * held] for d in ds]
+    out = experts(p, bufs[0] if G == 1 else torch.cat(bufs, dim=1))
+    K = cfg.experts_per_tok
+    total = torch.cat([_combine_f32(d, o, n_loc, K, m * held)
+                       for d, o in zip(ds, out.split(C, dim=1))])
+    if blocks > 1:
+        total = pg.reduce_from_model(total)
+    return total.to(x.dtype).reshape(B, S, D), aux
 
 
 def moe_flops_per_token(cfg: ModelConfig) -> int:

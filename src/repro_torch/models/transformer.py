@@ -130,14 +130,14 @@ def forward(params: dict, cfg: ModelConfig, tokens: Optional[torch.Tensor],
     x = _embed(params, cfg, tokens, inputs_embeds)
     positions = L.positions(*x.shape[:2], x.device)
 
-    def body(c, bp):
-        out, _, a = _block(cfg, bp, c, positions)
+    def body(c, i):
+        out, _, a = _block(cfg, L.index(params["blocks"], i), c, positions)
         return out, a
 
     body = L.maybe_remat(body, cfg)
     aux = 0.0
     for i in range(cfg.num_layers):
-        x, a = body(x, L.index(params["blocks"], i))
+        x, a = body(x, i)
         aux = aux + a
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:
@@ -149,16 +149,22 @@ def prefill(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
             max_len: int, inputs_embeds: Optional[torch.Tensor] = None,
             cache_dtype=torch.bfloat16):
     """Forward + a KV cache of capacity max_len holding the prompt's k and
-    v: (logits (B, S, V) float32, KVCache)."""
+    v: (logits (B, S, V) float32, KVCache).  Under a model axis the cache
+    holds this rank's kv heads, and its block of the positions where the
+    sequence is split over the data axis (`layers.kv_cache_shape`)."""
     x = _embed(params, cfg, tokens, inputs_embeds)
     B, S = x.shape[:2]
     positions = L.positions(B, S, x.device)
-    cache = KVCache.zeros(cfg, B, max_len, cache_dtype, device=x.device)
+    shape = (cfg.num_layers,) + L.kv_cache_shape(
+        params["blocks"]["attn"], cfg, B, max_len)
+    cache = KVCache(*(torch.zeros(shape, dtype=cache_dtype, device=x.device)
+                      for _ in range(2)),
+                    torch.zeros((B,), dtype=torch.int32, device=x.device))
     for i in range(cfg.num_layers):
         x, (k, v), _ = _block(cfg, L.index(params["blocks"], i), x,
                               positions)
-        cache.k[i, :, :S] = k
-        cache.v[i, :, :S] = v
+        L.write_prompt_kv(cache.k[i], k)
+        L.write_prompt_kv(cache.v[i], v)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)
     cache.length.fill_(S)

@@ -106,7 +106,8 @@ def encode(params, cfg: ModelConfig, frame_embeds):
     S = frame_embeds.shape[1]
     x = frame_embeds.to(L.act_dtype_of(cfg)) + params["enc_pos"][:S]
 
-    def body(c, bp):
+    def body(c, i):
+        bp = L.index(params["enc_blocks"], i)
         h = _ln(c, bp["attn_norm"], cfg.norm_eps)
         attn_out, _ = L.attention_block(bp["attn"], cfg, h, None,
                                         causal=False)
@@ -116,7 +117,7 @@ def encode(params, cfg: ModelConfig, frame_embeds):
 
     body = L.maybe_remat(body, cfg)
     for i in range(cfg.num_layers):
-        x = body(x, L.index(params["enc_blocks"], i))
+        x = body(x, i)
     return _ln(x, params["enc_final_norm"], cfg.norm_eps)
 
 
@@ -145,13 +146,14 @@ def decode_train(params, cfg: ModelConfig, tokens, enc_out,
     x = _dec_embed(params, cfg, tokens)
     positions = L.positions(*tokens.shape, tokens.device)
 
-    def body(c, bp):
+    def body(c, i):
+        bp = L.index(params["dec_blocks"], i)
         enc_kv = L.encoder_kv(bp["cross_attn"], cfg, enc_out)
         return _dec_block(cfg, bp, c, positions, enc_kv)[0]
 
     body = L.maybe_remat(body, cfg)
     for i in range(cfg.num_decoder_layers):
-        x = body(x, L.index(params["dec_blocks"], i))
+        x = body(x, i)
     x = _ln(x, params["dec_final_norm"], cfg.norm_eps)
     if features_only:
         return x
@@ -203,19 +205,24 @@ def prefill(params, cfg: ModelConfig, frame_embeds, tokens, max_len: int,
     B, S = tokens.shape
     x = _dec_embed(params, cfg, tokens)
     positions = L.positions(B, S, tokens.device)
-    cache = EncDecCache.zeros(cfg, B, max_len, enc_out.shape[1],
-                              cache_dtype, device=tokens.device)
+    shape = (cfg.num_decoder_layers,) + L.kv_cache_shape(
+        params["dec_blocks"]["self_attn"], cfg, B, max_len)
+    ks, vs = (torch.zeros(shape, dtype=cache_dtype, device=tokens.device)
+              for _ in range(2))
+    cks, cvs = [], []
     for i in range(cfg.num_decoder_layers):
         bp = L.index(params["dec_blocks"], i)
         ck, cv = L.encoder_kv(bp["cross_attn"], cfg, enc_out)
         x, (k, v) = _dec_block(cfg, bp, x, positions, (ck, cv))
-        cache.k[i, :, :S] = k
-        cache.v[i, :, :S] = v
-        cache.cross_k[i] = ck
-        cache.cross_v[i] = cv
+        L.write_prompt_kv(ks[i], k)
+        L.write_prompt_kv(vs[i], v)
+        cks.append(ck.to(cache_dtype))
+        cvs.append(cv.to(cache_dtype))
     x = _ln(x, params["dec_final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)
-    cache.length.fill_(S)
+    cache = EncDecCache(ks, vs, torch.stack(cks), torch.stack(cvs),
+                        torch.full((B,), S, dtype=torch.int32,
+                                   device=tokens.device))
     return logits, cache
 
 

@@ -110,14 +110,15 @@ def forward(params, cfg: ModelConfig, tokens, features_only: bool = False):
     x = L.embed(params["embed"], cfg, tokens)
     positions = L.positions(*tokens.shape, tokens.device)
 
-    def super_body(c, sb):
+    def super_body(c, s):
         for j in range(cfg.shared_attn_every):
-            c, _ = mamba2.block_forward(L.index(sb, j), cfg, c)
+            c, _ = mamba2.block_forward(
+                L.index(params["mamba_blocks"], s, j), cfg, c)
         return _shared_apply(params["shared"], cfg, c, positions)[0]
 
     super_body = L.maybe_remat(super_body, cfg)
     for s in range(n_superblocks(cfg)):
-        x = super_body(x, L.index(params["mamba_blocks"], s))
+        x = super_body(x, s)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     if features_only:
         return x, 0.0
@@ -132,25 +133,32 @@ def make_cache(cfg: ModelConfig, batch: int, max_len: int,
 def prefill(params, cfg: ModelConfig, tokens, max_len: int,
             cache_dtype=torch.bfloat16):
     """(logits (B, S, vocab) float32, HybridCache of capacity max_len after
-    the prompt)."""
+    the prompt).  Under a model axis the cache holds this rank's heads and
+    channels as the blocks split them (`mamba2.block_forward`,
+    `layers.kv_cache_shape`)."""
     x = L.embed(params["embed"], cfg, tokens)
     B, S = tokens.shape
-    positions = L.positions(B, S, tokens.device)
-    cache = HybridCache.zeros(cfg, B, max_len, cache_dtype,
-                              device=tokens.device)
+    dev = tokens.device
+    positions = L.positions(B, S, dev)
+    shape = (n_superblocks(cfg),) + L.kv_cache_shape(
+        params["shared"]["attn"], cfg, B, max_len)
+    ks, vs = (torch.zeros(shape, dtype=cache_dtype, device=dev)
+              for _ in range(2))
+    convs, states = [], []
     k_every = cfg.shared_attn_every
     for s in range(n_superblocks(cfg)):
         for j in range(k_every):
             x, (conv, state) = mamba2.block_forward(
                 L.index(params["mamba_blocks"], s, j), cfg, x)
-            cache.conv[s * k_every + j] = conv
-            cache.state[s * k_every + j] = state
+            convs.append(conv.to(cache_dtype))
+            states.append(state)
         x, (k, v) = _shared_apply(params["shared"], cfg, x, positions)
-        cache.k[s, :, :S] = k
-        cache.v[s, :, :S] = v
+        L.write_prompt_kv(ks[s], k)
+        L.write_prompt_kv(vs[s], v)
     x = L.rms_norm(x, params["final_norm"], cfg.norm_eps)
     logits = L.unembed(params["embed"], cfg, x)
-    cache.length.fill_(S)
+    cache = HybridCache(torch.stack(convs), torch.stack(states), ks, vs,
+                        torch.full((B,), S, dtype=torch.int32, device=dev))
     return logits, cache
 
 

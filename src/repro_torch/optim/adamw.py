@@ -15,7 +15,11 @@ step does not wait for the card.
 ZeRO-1 (`zero1_init`, `zero1_update`): under data parallelism master,
 mu and nu hold only this rank's shard (`distributed.ShardingRules.
 opt_pspecs`), the update runs on the shard, and the new params are
-gathered whole on every rank.
+gathered whole on every rank.  Under FSDP (`opt_pspecs` with
+``fsdp=True``) a param split over the data axis has its state split as
+it is: `zero1_update` is given specs that cut such a leaf no further, so
+AdamW updates this rank's shard and the new param stays a shard, with no
+gather; the leaves FSDP leaves whole are ZeRO-1's as before.
 """
 from __future__ import annotations
 
@@ -60,23 +64,33 @@ def adamw_init(params: dict) -> AdamWState:
                                           device=x.device), params))
 
 
-def global_norm(tree, split=None, group=None) -> torch.Tensor:
+def global_norm(tree, split=None, group=None, data_split=None,
+                data_group=None) -> torch.Tensor:
     """sqrt of the sum of every leaf's squares, in float32.  `split` (a
     tree of bools over `tree`) marks the leaves that hold this rank's
     block over the ranks of `group` (tensor parallelism): their squares
     are summed over the group, the other leaves (the same on every rank)
-    count once, so the norm is the whole gradient's."""
+    count once, so the norm is the whole gradient's.  `data_split` marks
+    likewise the leaves that hold a block over `data_group` (FSDP): their
+    squares are summed over it too."""
     leaves = tree_leaves(tree)
-    total, part = 0, 0
-    for x, s in zip(leaves, tree_leaves(split) if split is not None
-                    else [False] * len(leaves)):
-        sq = torch.sum(torch.square(x.float()))
-        if s:
-            part = part + sq
-        else:
-            total = total + sq
-    if group is not None and torch.is_tensor(part):
-        total = total + group.sum(part)
+    n = len(leaves)
+    model = tree_leaves(split) if split is not None else [False] * n
+    data = (tree_leaves(data_split) if data_split is not None
+            else [False] * n)
+    parts = {}
+    for x, s, d in zip(leaves, model, data):
+        key = (bool(s), bool(d))
+        parts[key] = parts.get(key, 0) + torch.sum(torch.square(x.float()))
+    total = parts.get((False, False), 0)
+    for (s, d), part in sorted(parts.items()):
+        if not (s or d):
+            continue
+        if d and data_group is not None:
+            part = data_group.sum(part)
+        if s and group is not None:
+            part = group.sum(part)
+        total = total + part
     return torch.sqrt(total)
 
 

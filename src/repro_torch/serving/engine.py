@@ -8,6 +8,12 @@ by all requests.
 
 Left padding: shorter prompts are left-padded so every sequence's last
 prompt token sits at the same position, as in the reference.
+
+With `rules` (`distributed.ShardingRules` over a mesh of a process
+group) there is one engine a rank, every rank given the same requests:
+the steps take the global batch and return the global next tokens
+(`launch.steps`), chosen alike on every rank (the argmax of logits made
+whole over the vocabulary), so every rank's outputs are the same.
 """
 from __future__ import annotations
 
@@ -33,17 +39,19 @@ class Request:
 
 class GenerationEngine:
     """`params` must lie on `device` (default the card, which raises
-    without one; the CPU runs when asked for)."""
+    without one; the CPU runs when asked for): with `rules`, this rank's
+    shards of them (`distributed.sharding.shard_of` under the rules'
+    specs) on its device."""
 
     def __init__(self, params, cfg: ModelConfig, max_len: int,
-                 batch_size: int, device="cuda"):
+                 batch_size: int, device="cuda", rules=None):
         self.device = resolve_device(device)
         self.params = params
         self.cfg = cfg
         self.max_len = max_len
         self.batch_size = batch_size
-        self._prefill = make_prefill_step(cfg, max_len)
-        self._decode = make_decode_step(cfg)
+        self._prefill = make_prefill_step(cfg, max_len, rules)
+        self._decode = make_decode_step(cfg, rules)
 
     def _make_batch(self, requests: Sequence[Request]):
         B = self.batch_size

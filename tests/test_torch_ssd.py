@@ -253,8 +253,12 @@ def test_kernel_cost_equals_reference(seq, chunk, batch):
 
 
 def test_plain_and_cuda_dispatch():
-    """CPU tensors run the plain version and count no launch; another
-    device type raises."""
+    """CPU tensors run the plain version and count no launch; ``meta``
+    tensors (the dry run's) get their outputs' shapes and B2's
+    `kernel_cost` recorded, no launch counted; another device type
+    raises."""
+    from types import SimpleNamespace
+
     args = _inputs(1, 8, 2, 1, 4, 4)
     before = tssd.launches
     y, h = _port_scan(*args, 4)
@@ -264,8 +268,14 @@ def test_plain_and_cuda_dispatch():
     assert torch.equal(y, pl_y) and torch.equal(h, pl_h)
     meta = [torch.empty(t.shape, device="meta") for t in
             (_t(a) for a in args[:5])]
+    tssd.meta_calls.clear()
+    my, mh = tssd.ssd_scan(spec, *meta)
+    assert (my.device.type, my.shape, mh.shape) == ("meta", y.shape, h.shape)
+    assert tssd.launches == before and len(tssd.meta_calls) == 1
+    tssd.meta_calls.clear()
+    other = SimpleNamespace(device=torch.device("xla"))
     with pytest.raises(ValueError, match="device"):
-        tssd.ssd_scan(spec, *meta)
+        tssd._scan(spec, other, *meta[1:], None)
 
 
 # ---------------------------------------------------------------------------

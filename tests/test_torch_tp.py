@@ -7,7 +7,9 @@ float32.
 
 (a) The TP-2 train step of each of six architectures (mamba2-130m: heads
     and the B/C columns split, B gathered from one rank and C from the
-    other; qwen3-1.7b: heads with their kv heads, SwiGLU, tied vocab;
+    other; mamba2 with 3 heads, which a model axis of 2 would cut, so
+    every rank runs the block whole and no leaf of it is partial;
+    qwen3-1.7b: heads with their kv heads, SwiGLU, tied vocab;
     qwen3-moe-30b-a3b: experts (EP) and an untied lm_head; zamba2-2.7b;
     whisper-medium: GELU MLP and cross-attention; llava-next-mistral-7b),
     and whisper with a vocabulary of 255 that does not split, against the
@@ -64,7 +66,10 @@ ELASTIC_RTOL = 1e-5
 TIMEOUT = 150.0
 
 # (key, arch, config overrides, data-parallel groups of the reference's MoE)
+# 3 heads of 32 channels: a model axis of 2 splits d_inner = 96 mid-head
+HEADS_CUT = {"d_model": 48, "ssm_headdim": 32}
 TP2 = [("mamba2-130m", "mamba2-130m", {}),
+       ("mamba2-heads-cut", "mamba2-130m", HEADS_CUT),
        ("qwen3-1.7b", "qwen3-1.7b", {}),
        ("qwen3-moe-30b-a3b", "qwen3-moe-30b-a3b", {}),
        ("qwen3-moe-drops", "qwen3-moe-30b-a3b", {"capacity_factor": 0.5}),
@@ -227,19 +232,50 @@ def test_model_partial_marks_whole_leaves_used_on_a_block():
         "blocks/attn/k_norm"}
 
 
+def test_model_partial_leaves_a_block_run_whole_unsummed():
+    """A Mamba2 block whose heads do not divide the model axis runs whole
+    on every rank (`models.mamba2._whole_if_cut`), so every rank holds
+    the whole gradient of its unsplit leaves: none is partial, at TP 2
+    and 4 (3 heads), though in_x is split; at 4 heads and TP 2 they are."""
+    cfg = dataclasses.replace(DW.f32_reduced("mamba2-130m"), **HEADS_CUT)
+    for model in (2, 4):
+        rules = ShardingRules(mesh=make_mesh((1, model), ("data", "model"),
+                                             ["meta"]), cfg=cfg)
+        specs = api.param_specs(cfg)
+        assert "model" in rules.param_pspecs(specs)["blocks"]["in_x"]
+        assert not any(_named(rules.model_partial(specs)).values())
+    four = dataclasses.replace(cfg, ssm_headdim=24)
+    rules = ShardingRules(mesh=make_mesh((1, 2), ("data", "model"),
+                                         ["meta"]), cfg=four)
+    assert _named(rules.model_partial(api.param_specs(four)))[
+        "blocks/A_log"]
+
+
 def test_sharded_steps_refuse_what_the_port_does_not_run():
+    """SP alone is refused, naming its ROADMAP item, by every step; FSDP
+    and rules in the serving steps are executed (tests/test_torch_fsdp.py,
+    tests/test_torch_serve_tp.py); a mesh with no process group, or with
+    no group over the rules' data axes, is refused."""
+    from repro_torch.launch.mesh import make_rank_view
+    from repro_torch.optim import AdamWConfig
+
     cfg = DW.f32_reduced("qwen3-1.7b")
-    mesh = make_mesh((1, 1), ("data", "model"), ["cpu"])
-    mesh.process_group = object()
-    for kw in ({"fsdp": True}, {"sp": True}):
-        with pytest.raises(NotImplementedError, match=next(iter(kw))):
-            steps.make_eval_step(cfg, ShardingRules(mesh=mesh, cfg=cfg,
-                                                    **kw))
-    rules = ShardingRules(mesh=mesh, cfg=cfg)
-    with pytest.raises(NotImplementedError, match="serving"):
-        steps.make_prefill_step(cfg, 16, rules)
-    with pytest.raises(NotImplementedError, match="serving"):
-        steps.make_decode_step(cfg, rules)
+    mesh = make_rank_view((1, 1), ("data", "model"))
+    sp = ShardingRules(mesh=mesh, cfg=cfg, sp=True)
+    for make in (lambda r: steps.make_eval_step(cfg, r),
+                 lambda r: steps.make_train_step(cfg, AdamWConfig(), r),
+                 lambda r: steps.make_prefill_step(cfg, 16, r),
+                 lambda r: steps.make_decode_step(cfg, r)):
+        with pytest.raises(NotImplementedError, match="sp.*ROADMAP"):
+            make(sp)
+        make(ShardingRules(mesh=mesh, cfg=cfg, fsdp=True))
+        make(ShardingRules(mesh=mesh, cfg=cfg))
+    bare = make_mesh((1, 1), ("data", "model"), ["cpu"])
+    with pytest.raises(ValueError, match="process group"):
+        steps.make_eval_step(cfg, ShardingRules(mesh=bare, cfg=cfg))
+    bare.process_group = object()
+    with pytest.raises(NotImplementedError, match="data axes"):
+        steps.make_eval_step(cfg, ShardingRules(mesh=bare, cfg=cfg))
 
 
 # ---------------------------------------------------------------------------

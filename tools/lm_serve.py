@@ -8,6 +8,7 @@ float32 checks).
     python3 tools/lm_serve.py [--only serve-qwen3moe,serve-whisper]
     python3 tools/lm_serve.py --profile [--only serve-zamba2] [--steps 4]
     python3 tools/lm_serve.py --logits-gap [--only serve-zamba2]
+    python3 tools/lm_serve.py --tp zamba2-2.7b [--depths 6,18,36]
 
 `--only` names serve phases; B2's phases always run first (they make the
 kernels-line entries whose launches the serve phases count).  Builds only
@@ -32,6 +33,20 @@ as far from the plain one as float32 rounding alone.  Prints max|diff| /
 max|plain logits| over every position, at the last position (the logits
 serving samples from), over the first and the last 64 positions, and
 whether the last position's greedy tokens agree.
+
+`--tp ARCH` instead serves ARCH at its published widths in two
+model-parallel ranks sharing the card over gloo, as `chip_smoke.py`'s
+serve-mamba2-tp2 serves mamba2-130m (`chip_smoke.serve_tp_rank`: the
+engine with rules on the (1, 2) mesh, 8 prompts of 256-1024 tokens, 32
+new tokens, B2 counted in each rank, the decode steps' model-axis
+collectives counted and timed; a float32 batch's prefill and 4 decode
+steps' next tokens held equal to one process's and their logits within
+1e-4 of max of one process's, printed beside a control's gap, one
+process whose scan's y moves one float32 ulp; the bf16 tokens'
+agreement).  `--depths` then repeats the float32 comparison, in the same
+ranks, with ARCH cut to each of those numbers of layers (same widths),
+and prints each depth's gaps beside its control's before the full
+depth's check: how the gap grows with depth.
 """
 import argparse
 import json
@@ -162,12 +177,41 @@ def main():
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--steps", type=int, default=4)
     ap.add_argument("--logits-gap", action="store_true")
+    ap.add_argument("--tp", default=None, metavar="ARCH",
+                    help="serve ARCH in two model-parallel ranks")
+    ap.add_argument("--depths", default="", metavar="L,L",
+                    help="with --tp: the float32 check also at these depths")
     args = ap.parse_args()
     phases = (args.only.split(",") if args.only else list(cs.SERVE_ARCHS))
     smi = cs.phase_environment()
     if args.logits_gap:
         _build.build_all(["ssd_scan"])
         logits_gaps(phases, smi, torch.device("cuda", 0))
+        return 0
+    if args.tp:
+        from repro_torch import configs
+        from repro_torch.distributed import process_group
+
+        cs.timed("build", _build.build_all, ["ssd_scan"])
+        phase = f"serve-tp2 {args.tp}"
+        cfg = configs.get(args.tp)
+        depths = [int(d) for d in args.depths.split(",") if d]
+        t0 = time.perf_counter()
+        serve = process_group.spawn_ranks(
+            cs.serve_tp_only, cs.TP_WORLD, (args.tp, depths),
+            timeout=1800.0, env={"MASTER_ADDR": "localhost",
+                                 "MASTER_PORT": str(cs.free_port())})
+        cs.say("time", f"{phase} {time.perf_counter() - t0:.1f} s for the "
+               "ranks")
+        for d in depths:
+            r = serve[0]["depths"][d]
+            cs.say(phase, f"float32 at {d} of {cfg.num_layers} layers: "
+                   "logits max|diff| / max|one process| " + ", ".join(
+                       f"{g:.2e}" for g in r["f32_gaps"])
+                   + "; the control's " + ", ".join(
+                       f"{g:.2e}" for g in r["f32_control_gaps"])
+                   + f"; next tokens equal {r['f32_tokens_equal']}")
+        cs.say_serve_tp(phase, cfg, serve, smi)
         return 0
     if args.profile:
         _build.build_all(["ssd_scan"])

@@ -5,8 +5,13 @@ plain scan, and the trainer's CLI for mamba2-130m at full width, 8 x 4096
 tokens a step, with a simulated preemption and a resume, then one step
 under `torch.profiler`), train-mamba2-dp2 (the CLI in two
 data-parallel ranks on the one card, resumed in one process, and its
-float32 check) and train-mamba2-tp2 (the CLI in two model-parallel ranks,
-resumed in one process, and tp2-qwen3moe in the same ranks).
+float32 check, then train-mamba2-fsdp2 and train-zamba2-fsdp2 in the
+same ranks) and train-mamba2-tp2 (the CLI in two model-parallel ranks,
+resumed in one process, then tp2-qwen3moe and serve-mamba2-tp2 in the
+same ranks), then kernels-ssd-serve-tp2 and kernels-ssd-fsdp-zamba2 (B2
+at a serving rank's call and at an FSDP rank's) and dryrun-vs-card (the
+dry run's predictions of those ranks' steps and of serve-mamba2's
+prefill against the card's counts).
 
     python3 tools/lm_train.py
 
@@ -39,8 +44,14 @@ def main():
                    out["losses"])
     tp2 = cs.timed("train-mamba2-tp2", cs.phase_train_tp, dev, smi, entry,
                    out["losses"])
+    serve = cs.timed("kernels-ssd-serve-tp2", cs.phase_kernels_ssd_serve_tp2,
+                     dev, smi)
+    fsdp = cs.timed("kernels-ssd-fsdp-zamba2",
+                    cs.phase_kernels_ssd_fsdp_zamba2, dev, smi)
+    cs.timed("dryrun-vs-card", cs.phase_dryrun_vs_card, dev, smi)
     print(json.dumps({"train-mamba2": out, "train-mamba2-dp2": dp2,
-                      "train-mamba2-tp2": tp2, "b2": entry}), flush=True)
+                      "train-mamba2-tp2": tp2, "serve-tp2": serve,
+                      "fsdp-zamba2": fsdp, "b2": entry}), flush=True)
     return 0
 
 
