@@ -101,12 +101,13 @@ main-acoustic-bf16); the paper's cases at
 orders 8 and 12 (paper-*: acoustic on B6, TTI and elastic on B5 at tile
 64, each such run counted and its kernel held against the plain version
 on a mid-run tile; at half depth, elastic's at a quarter,
-PAPER_HALF_DEPTH; elastic's order-4 main path at half depth,
-MAIN_TIME_MS);
+PAPER_CUT_MS; elastic's order-4 main path at half depth,
+MAIN_TIME_MS; the bf16 runs cut first: MAIN_BF16_MS, PAPER_BF16_MS);
 then survey-acoustic,
 survey-tti, survey-small, sharded-small-*, survey-sharded and the kernel
 line.  Any failed check raises, and the script exits non-zero.
 """
+import collections
 import contextlib
 import dataclasses
 import json
@@ -762,7 +763,7 @@ def phase_main_path(fc, smi):
                              f"{MAIN_TOL}")
     # acoustic's run and reference stay for the sharded run to meet
     kept = (recs, rfinal, rrec) if name == "acoustic" else None
-    del rfinal, rrec, recs
+    del rfinal, rrec
 
     torch.cuda.reset_peak_memory_stats()
     ms, _ = cuda_ms(lambda: fc.run(plan))
@@ -771,7 +772,7 @@ def phase_main_path(fc, smi):
     say(f"main-{name}", f"TB run {ms:.1f} ms = {ms / launches:.3f} ms per "
         f"time tile = {ms / nt:.3f} ms per step, {mpts:.1f} Mpt*steps/s, "
         f"peak {peak:.2f} GiB [{smi}]")
-    return final, launches, ms, kept, peak
+    return final, recs, launches, ms, kept, peak
 
 
 def time_tile_pieces(fc, plan, state, t0):
@@ -931,6 +932,8 @@ def say_design(phase, physics, spec, ms, cost):
                      sm_regs // (regs * threads), sm_threads // threads)
         m = re.search(r"(tb_\w+?_kernel)ILi(\d+)ELb([01])E(\w*?)Ev", entry)
         kind_t = "bf16" if "bfloat16" in m.group(4) else "f32"
+        if kind_t != ("bf16" if spec.dtype == BF16 else "f32"):
+            continue
         parts.append(f"{m.group(1)}<R={m.group(2)}, DOM={m.group(3)}, "
                      f"{kind_t}>: {regs} registers, {spill} B spill stores, "
                      f"{dyn} + {static} B shared a block, {blocks} block(s) "
@@ -985,16 +988,16 @@ PAPER_PLANS = {
     ("elastic", 8): _B5_PLANS + _FIRST_PLANS,
     ("elastic", 12): _B5_PLANS + _FIRST_PLANS,
 }
-# the paper cases run at half depth, in simulated ms (nt 220 / 230 for
-# elastic and acoustic at orders 8 / 12, 440 / 459 at the paper's 512 ms;
-# TTI 131 / 136 of 261 / 272), the elastic ones at a quarter (128 ms, nt
-# 110 / 115): the same width and plans, still held to Listing 1; the time
-# they free keeps the whole script inside its limit beside the training
-# phases in ranks, sharded-acoustic-ranks, serve-mamba2-tp2 and
-# dryrun-vs-card.  PERF.md keeps the full-depth figures
-PAPER_HALF_DEPTH = {(name, order): 128.0 if name == "elastic" else 256.0
-                    for name in ("acoustic", "tti", "elastic")
-                    for order in (8, 12)}
+# the paper cases' depth in simulated ms: acoustic and TTI at half the
+# paper's 512 ms (nt 220 / 230 for acoustic at orders 8 / 12, 440 / 459 at
+# 512 ms; TTI 131 / 136 of 261 / 272), elastic at a quarter (nt 110 /
+# 115): the same width and plans, still held to Listing 1; the time they
+# free keeps the whole script inside its limit beside the training phases
+# in ranks, sharded-acoustic-ranks, serve-mamba2-tp2 and dryrun-vs-card.
+# PERF.md keeps the full-depth figures
+PAPER_CUT_MS = {(name, order): 128.0 if name == "elastic" else 256.0
+                for name in ("acoustic", "tti", "elastic")
+                for order in (8, 12)}
 # device bytes a propagation may count on beyond `ops.propagation_bytes`
 # (its tables, receiver partials and traces, the allocator's rounding)
 PAPER_RESERVE = 2 * 2 ** 30
@@ -1071,8 +1074,8 @@ def phase_paper_case(name, order, smi, dev):
     the reference within MAIN_TOL on every field and receiver channel.
     Returns the case's record for the nine-case summary."""
     phase = f"paper-{name}-O{order}"
-    half = PAPER_HALF_DEPTH.get((name, order))
-    fc = full_case(name, dev, order=order, time_ms=half)
+    cut_ms = PAPER_CUT_MS.get((name, order))
+    fc = full_case(name, dev, order=order, time_ms=cut_ms)
     plan, tried = paper_plan(fc)
     model = plan_for_physics(name, SHAPE[2], order,
                              tiles=(4, 8, 16, 32, 64, 128),
@@ -1081,7 +1084,8 @@ def phase_paper_case(name, order, smi, dev):
                          physics=fc.physics)
     say(phase, f"{fc.case.name}: {SHAPE} spacing {fc.spacing[0]:g} m "
         f"nt={fc.nt} dt={fc.dt:.6e}"
-        + (f" (cut depth: {half:g} of the paper's 512 ms)" if half else "")
+        + (f" (cut depth: {cut_ms:g} of the paper's 512 ms)" if cut_ms
+           else "")
         + f"; plan tile {plan.tile} T={plan.T} "
         f"(halo {spec.halo}; propagation bytes by plan tried: "
         + ", ".join(f"tile {t} T={d} {g:.2f} GiB" for t, d, g in tried)
@@ -1093,7 +1097,7 @@ def phase_paper_case(name, order, smi, dev):
     rfinal = tuple(f.cpu() for f in rfinal)
     ref_s = time.perf_counter() - t0
     out = {"case": fc.case.name, "physics": name, "order": order,
-           "nt": fc.nt, "half_depth": bool(half),
+           "nt": fc.nt, "half_depth": bool(cut_ms),
            "tile": list(plan.tile), "T": plan.T,
            "schedule": schedule_of(spec, fc.physics),
            "model_plan": {"tile": list(model.tile), "T": model.T}}
@@ -1812,6 +1816,36 @@ def phase_kernel_vs_plain_dom(dev):
                 + f"; worst max|diff| {max(e for *_, e, _ in seen):.3e}, "
                 f"max|diff|/max|plain| {max(r for *_, r in seen):.3e} "
                 f"(field rtol {FIELD_RTOL})")
+        # B1c-bf16: the flat run in bf16, every pass's launch held against
+        # the plain bf16 version and the float32 kernel (`compare_bf16`)
+        state, params, g, gr, dt = small_case(name, DOM_SHAPE, ORDER, 3, 4,
+                                              20, dev)
+        plan = dist_plan(physics, DOM_SHAPE, dt, SMALL_SPACING, dev, T=T,
+                         tile=(24, 24))
+        seen = []
+
+        def check16(spec, p, *args, dom=None, param_copies=None):
+            seen.append(compare_bf16(spec, p, args, to_bf16_args(
+                args, torch.float32), dom=dom)[:3])
+            return uncounted(lambda: ker.tb_time_tile(spec, p, *args,
+                                                      dom=dom))
+
+        ops.EXECUTORS["cuda"] = check16
+        try:
+            H.sharded_tb_propagate(
+                plan, nt, tuple(f.to(BF16) for f in state),
+                {f: a.to(BF16) for f, a in params.items()}, g, gr)
+        finally:
+            ops.EXECUTORS["cuda"] = ker.tb_time_tile
+        if len(seen) != expected_launches(plan, nt):
+            raise AssertionError(f"{name}: {len(seen)} bf16 passes")
+        say("kernel-vs-plain-dom", f"{name} in bf16 (B1c-bf16), mesh {MESH} "
+            f"block (24, 24) T={T} nt={nt} flat: {len(seen)} launches of 4 "
+            "shard rows, each on every schedule it has: worst max|diff|/"
+            f"max|plain| vs plain bf16 {max(d[0] for d in seen):.3e} (limit "
+            f"2^-6), max|diff| vs float32 kernel "
+            f"{max(d[1] for d in seen):.3e} (least margin to 0.1 max|f32| + "
+            f"1e-2: {min(d[2] for d in seen):.3e})")
         state, params, g, gr, dt = small_case(name, (32, 16, 29), ORDER, 3, 4,
                                               30, dev)
         plan = TBPlan((16, 8), 2, physics.step_radius(ORDER))
@@ -2497,7 +2531,8 @@ def phase_survey_sharded(smi, dev):
 
 
 # ---------------------------------------------------------------------------
-# The bf16 acoustic tile (kernel B1a-bf16)
+# The bf16 tiles (kernels B1a-bf16 acoustic, B1b-bf16 TTI and elastic,
+# B1c-bf16 with the sharded pass's domain masks)
 # ---------------------------------------------------------------------------
 
 BF16 = torch.bfloat16
@@ -2513,26 +2548,34 @@ def bf16_bound(f32):
 # at the same stores, so they differ by rounding flips of a few bf16
 # spacings (2^-8..2^-7 of a value); held per field and receiver channel
 BF16_PLAIN_RTOL = 2 ** -6
+# bf16 launches held against the plain version, by (physics, schedule)
+COMPARED_BF16 = collections.Counter()
 
 
-def compare_bf16(spec, physics, args, args32):
+def compare_bf16(spec, physics, args, args32, dom=None):
     """The bf16 kernel on `args` against the plain bf16 version on them
-    (max|diff| <= 2^-6 max|plain| per field and receiver channel) and the
-    float32 kernel on `args32`, the same values in float32 (within the
-    reference's bf16 bound of its result).  Returns (max|diff| / max|plain|
-    vs plain, max|diff| vs float32, the least margin to the reference's
-    bound: bound - diff, max|diff| vs plain)."""
+    (max|diff| <= 2^-6 max|plain| per field and receiver channel), once on
+    every schedule it has at this shape (`schedules`), and the float32
+    kernel on `args32`, the same values in float32 (within the reference's
+    bf16 bound of its result); `dom` the rows' domain masks (kernel
+    B1c-bf16).  Returns (max|diff| / max|plain| vs plain, max|diff| vs
+    float32, the least margin to the reference's bound: bound - diff,
+    max|diff| vs plain, the plain version's ms: one call, by CUDA
+    events)."""
     fst, frec = uncounted(lambda: ker.tb_time_tile(
-        dataclasses.replace(spec, dtype=torch.float32), physics, *args32))
-    pst, prec = ker.tb_time_tile_plain(spec, physics, *args)
+        dataclasses.replace(spec, dtype=torch.float32), physics, *args32,
+        dom=dom))
+    plain_ms, (pst, prec) = cuda_ms(lambda: ker.tb_time_tile_plain(
+        spec, physics, *args, dom=dom))
     worst_p = worst_f = abs_p = 0.0
     margin = math.inf
     outs = []
     for plan in schedules(spec, physics):
         with on_schedule(plan):
             outs.append(uncounted(lambda: ker.tb_time_tile(spec, physics,
-                                                           *args)))
+                                                           *args, dom=dom)))
         COMPARED[ker.schedule_name(plan)] += 1
+        COMPARED_BF16[physics.name, ker.schedule_name(plan)] += 1
     torch.cuda.synchronize()
     for kst, krec in outs:
         for k, p, f in zip((*kst, krec), (*pst, prec), (*fst, frec)):
@@ -2556,15 +2599,70 @@ def compare_bf16(spec, physics, args, args32):
             if df > bound:
                 raise AssertionError(f"bf16 kernel: max|diff| {df:.3e} vs "
                                      f"float32 > bound {bound:.3e}")
-    return worst_p, worst_f, margin, abs_p
+    return worst_p, worst_f, margin, abs_p, plain_ms
 
 
-def to_bf16_args(args):
-    """Kernel operands in bf16: fields, params, source values and receiver
-    weights (coordinates stay int32)."""
+def to_bf16_args(args, dtype=BF16):
+    """Kernel operands in bf16 (or `dtype`): fields, params, source values
+    and receiver weights (coordinates stay int32)."""
     pads, ppads, sc, sv, rc, rw = args
-    return (tuple(f.to(BF16) for f in pads), tuple(f.to(BF16) for f in ppads),
-            sc, sv.to(BF16), rc, rw.to(BF16))
+    return (tuple(f.to(dtype) for f in pads),
+            tuple(f.to(dtype) for f in ppads), sc, sv.to(dtype), rc,
+            rw.to(dtype))
+
+
+def phase_kernel_vs_plain_bf16_mp(dev):
+    """Kernel B1b-bf16 on the small TTI and elastic cases of
+    SMALL_MP_CASES at the orders it is built for (`stencil_tb.bf16_built`),
+    each on every schedule it has there (the first, z-streamed and B5),
+    and one batch of two shots each.  Raises unless every schedule was
+    held for both."""
+    for name in ("tti", "elastic"):
+        physics = phys.PHYSICS[name]
+        worst = (0.0, 0.0, math.inf)
+        for i, (T, tile, order, shape, sources) in enumerate(SMALL_MP_CASES):
+            state, params, g, gr, dt = small_case(
+                name, shape, order, 3 if sources else 0, 4, i, dev)
+            plan = TBPlan(tile, T, physics.step_radius(order))
+            spec, args = kernel_inputs(physics, plan, state, params, g, gr,
+                                       dt, 1, SMALL_SPACING, order=order)
+            if not ker.bf16_built(spec, physics):
+                continue      # the orders the bf16 paths launch are built
+            dp, df, margin, _, _ = compare_bf16(
+                dataclasses.replace(spec, dtype=BF16), physics,
+                to_bf16_args(args), args)
+            worst = (max(worst[0], dp), max(worst[1], df),
+                     min(worst[2], margin))
+            say("kernel-vs-plain-bf16", f"{name} T={T} tile={tile} "
+                f"order={order} shape={shape} sources={sources} "
+                f"({len(schedules(spec, physics))} schedules): max|diff|/"
+                f"max|plain| vs plain bf16 {dp:.3e} (limit 2^-6 per field "
+                f"and channel), max|diff| vs float32 kernel {df:.3e} (least "
+                f"margin to 0.1 max|f32| + 1e-2: {margin:.3e})")
+        T, tile, order, shape, nsrcs = BATCHED_CASES[0]
+        states, sparse, params = [], [], None
+        for b, ns in enumerate(nsrcs[:2]):
+            st, prm, g, gr, dt = small_case(name, shape, order, ns, 4,
+                                            50 + b, dev)
+            params = params or prm
+            states.append(st)
+            sparse.append((g, gr))
+        spec, args = batch_operands(
+            physics, TBPlan(tile, T, physics.step_radius(order)), order, dt,
+            SMALL_SPACING, states, params, sparse, 1)
+        dp, df, margin, _, _ = compare_bf16(
+            dataclasses.replace(spec, dtype=BF16), physics,
+            to_bf16_args(args), args)
+        held = {s: COMPARED_BF16[name, s]
+                for s in ("first", "z-streamed", "cluster")}
+        say("kernel-vs-plain-bf16", f"{name} B=2 T={T} tile={tile}: "
+            f"max|diff|/max|plain| vs plain bf16 {dp:.3e}, max|diff| vs "
+            f"float32 kernel {df:.3e} (least margin {margin:.3e}); small "
+            f"cases worst {worst[0]:.3e} / {worst[1]:.3e}, least margin "
+            f"{worst[2]:.3e}; bf16 launches held by schedule {held}")
+        if not all(held.values()):
+            raise AssertionError(f"{name}: a bf16 schedule was not held "
+                                 f"against the plain version: {held}")
 
 
 def phase_kernel_vs_plain_bf16(dev):
@@ -2578,8 +2676,8 @@ def phase_kernel_vs_plain_bf16(dev):
         spec, args = kernel_inputs(physics, plan, state, params, g, gr, dt, 1,
                                    SMALL_SPACING, order=order)
         bspec = dataclasses.replace(spec, dtype=BF16)
-        dp, df, margin, _ = compare_bf16(bspec, physics,
-                                         to_bf16_args(args), args)
+        dp, df, margin, _, _ = compare_bf16(bspec, physics,
+                                            to_bf16_args(args), args)
         worst = (max(worst[0], dp), max(worst[1], df), min(worst[2], margin))
         say("kernel-vs-plain-bf16", f"acoustic T={T} tile={tile} "
             f"order={order} shape={shape} sources={sources}: max|diff|/"
@@ -2596,8 +2694,9 @@ def phase_kernel_vs_plain_bf16(dev):
         sparse.append((g, gr))
     spec, args = batch_operands(physics, TBPlan(tile, T, order // 2), order,
                                 dt, SMALL_SPACING, states, params, sparse, 1)
-    dp, df, margin, _ = compare_bf16(dataclasses.replace(spec, dtype=BF16),
-                                     physics, to_bf16_args(args), args)
+    dp, df, margin, _, _ = compare_bf16(
+        dataclasses.replace(spec, dtype=BF16), physics, to_bf16_args(args),
+        args)
     say("kernel-vs-plain-bf16", f"acoustic B={len(nsrcs)} T={T} tile={tile}:"
         f" max|diff|/max|plain| vs plain bf16 {dp:.3e}, max|diff| vs "
         f"float32 kernel {df:.3e} (least margin {margin:.3e}); small cases "
@@ -2605,68 +2704,281 @@ def phase_kernel_vs_plain_bf16(dev):
         f"{worst[2]:.3e}")
 
 
-def phase_main_bf16(fc, smi, final32, tb_ms):
-    """The 512^3 acoustic paper case in bf16 through the entry point
-    (ops.acoustic_tb_propagate with bf16 fields: kernel B1a-bf16), launches
-    counted; then one mid-run tile of live state against the plain bf16
-    version and the float32 kernel.  Returns the bf16 kernel's entry."""
-    phase = "main-acoustic-bf16"
-    plan = plan_for(fc.physics, T_TB)
-    fcb = dataclasses.replace(
+def bf16_case(fc):
+    """`fc` with its state and params in bf16."""
+    return dataclasses.replace(
         fc, state=tuple(f.to(BF16) for f in fc.state),
         params=type(fc.params)(*(p.to(BF16) for p in fc.params)))
-    ker.launches = 0
-    final, recs = fcb.run(plan)
-    torch.cuda.synchronize()
-    launches = ker.launches
-    expect = -(-fc.nt // T_TB)
-    if launches != expect or final[0].dtype != BF16:
-        raise AssertionError(f"{phase}: {launches} launches (expected "
-                             f"{expect}), dtype {final[0].dtype}")
+
+
+def bf16_tile(spec, physics, args32, per_launch, phase, what, smi):
+    """The bf16 kernel on one tile (`args32`, float32 values, in bf16)
+    against the plain bf16 version and the float32 kernel
+    (`compare_bf16`), beside its time: the median of `per_launch`, the
+    run's full-depth launches (CUDA events, `counted_run`); prints a line
+    and returns (max|diff| vs plain, kernel ms, plain ms, bound ms, bound
+    by)."""
+    bspec = dataclasses.replace(spec, dtype=BF16)
+    bargs = to_bf16_args(args32)
+    dp, df, margin, dp_abs, plain_ms = compare_bf16(bspec, physics, bargs,
+                                                    args32)
+    k_ms = statistics.median(per_launch)
+    cost = ker.kernel_cost(bspec, physics)
+    bound, by = bound_of(cost)
+    say(phase, f"{what}: max|diff|/max|plain| vs plain bf16 {dp:.3e} "
+        f"(limit 2^-6), max|diff| vs float32 kernel {df:.3e} (least margin "
+        f"to 0.1 max|f32| + 1e-2: {margin:.3e}); {k_ms:.3f} ms per launch "
+        f"(median of the run's {len(per_launch)}; least "
+        f"{min(per_launch):.3f}, most {max(per_launch):.3f}) vs bound "
+        f"{bound:.3f} ms by {by} ({cost['min_bytes'] / 1e9:.2f} GB), "
+        f"{schedule_of(bspec, physics)} schedule, plain {plain_ms:.1f} ms "
+        f"[{smi}]")
+    return dp_abs, k_ms, plain_ms, bound, by
+
+
+def schedule_count(fc, plan, dtype=BF16):
+    """(the schedule of `plan`'s full-depth launches of `fc` in `dtype`,
+    how many of a run's launches take it: the full-depth ones, and the
+    remainder's where its own halo takes it too)."""
+    r = fc.physics.step_radius(fc.order)
+
+    def kind(T):
+        spec = ops.make_spec(SHAPE, TBPlan(plan.tile, T, r), fc.order,
+                             fc.dt, fc.spacing, 1, 1, dtype, fc.physics)
+        return ker.schedule_name(ker.launch_plan(spec, fc.physics))
+
+    full, rem = kind(plan.T), fc.nt % plan.T
+    return full, fc.nt // plan.T + (bool(rem) and kind(rem) == full)
+
+
+def bf16_entry(name, source, launches, tile, schedule):
+    """A bf16 kernel's kernels-line entry from `bf16_tile`'s figures."""
+    err, ms, plain_ms, bound, by = tile
+    return {"name": name, "route": "cuda", "source": source,
+            "replaces": "src/repro/kernels/stencil_tb.py:129",
+            "launches": launches, "max_abs_err": err, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": bound, "bound_by": by,
+            "library_ms": None, "schedule": schedule}
+
+
+def phase_main_bf16(fc, smi, final32, recs32, tb_ms, peak32):
+    """The 512^3 paper case of `fc`'s physics in bf16 through its entry
+    point (bf16 state and params: kernel B1a-bf16 acoustic, B1b-bf16 TTI
+    and elastic) at the main path's plan and depth (or MAIN_BF16_MS'):
+    one run, launches counted (every one in bf16 on the float32 run's
+    schedule), timed, its peak beside `ops.propagation_bytes`' and the
+    float32 run's, its drift from the float32 run (`final32`, `recs32`)
+    printed, not held to a bound: the traces' over the steps both ran, the
+    final fields' where the depths are equal; then one mid-run tile of the
+    float32 run's live state against the plain bf16 version and the
+    float32 kernel (`bf16_tile`).  Returns (the kernels-line entry, the
+    bf16 run's (final, traces))."""
+    name = fc.physics.name
+    phase = f"main-{name}-bf16"
+    plan = plan_for(fc.physics, T_TB)
+    nt = fc.nt
+    if name in MAIN_BF16_MS:
+        nt = dataclasses.replace(fc.case,
+                                 time_ms=MAIN_BF16_MS[name]).nt(fc.dt)
+    fcb = dataclasses.replace(bf16_case(fc), nt=nt)
+    spec = ops.make_spec(SHAPE, plan, fc.order, fc.dt, fc.spacing, 1, 1,
+                         BF16, fc.physics)
+    kind, on_kind = schedule_count(fcb, plan)
+    final, recs, launches, ms, per_launch, peak, by_schedule = \
+        counted_run(fcb, plan)
+    expect = -(-nt // T_TB)
+    if (launches != expect or by_schedule[kind] != on_kind
+            or final[0].dtype != BF16 or recs.dtype != BF16):
+        raise AssertionError(f"{phase}: {launches} launches ({by_schedule}"
+                             f"; expected {expect}, {on_kind} on {kind}), "
+                             f"dtype {final[0].dtype}")
     if not (all(torch.isfinite(f.float()).all() for f in final)
             and torch.isfinite(recs.float()).all()):
         raise AssertionError(f"{phase}: non-finite values")
-    drift = max(max_rel(a.float(), b) for a, b in zip(final, final32))
-    del final, recs
-    ms, _ = cuda_ms(lambda: fcb.run(plan))
-    say(phase, f"{SHAPE} nt={fc.nt} T={T_TB} in bf16: {launches} kernel "
-        f"launches, run {ms:.1f} ms (float32 {tb_ms:.1f} ms); final fields "
-        f"max|d|/max|f32| vs the float32 run {drift:.3e} ({fc.nt} steps of "
-        f"bf16 rounding; not held to a bound) [{smi}]")
+    r32 = recs32[:nt].reshape(nt, NREC, -1)
+    drift_tr = [max_rel(a.float(), b) for a, b in zip(
+        recs.reshape(r32.shape).unbind(-1), r32.unbind(-1))]
+    drift = ""
+    if nt == fc.nt:
+        d = max(max_rel(a.float(), b) for a, b in zip(final, final32))
+        drift = f"final fields max|d|/max|f32| {d:.3e}, "
+    need = ops.propagation_bytes(fc.physics, SHAPE, nt, plan, fc.order,
+                                 BF16) / 2 ** 30
+    cut = f" (cut depth: {MAIN_BF16_MS[name]:g} ms)" if nt != fc.nt else ""
+    say(phase, f"{SHAPE} nt={nt}{cut} T={T_TB} in bf16: {launches} kernel "
+        f"launches in bf16 ({on_kind} on the {kind} schedule: "
+        f"{by_schedule}), run {ms:.1f} ms = {ms / launches:.3f} ms a time "
+        f"tile (float32 {tb_ms:.1f} ms at nt {fc.nt} = "
+        f"{tb_ms / -(-fc.nt // T_TB):.3f} ms a time tile); peak "
+        f"{peak:.2f} GiB (float32 {peak32:.2f} GiB; ops.propagation_bytes "
+        f"in bf16 {need:.2f} GiB); vs the float32 run: {drift}traces "
+        "max|d|/max|f32| per channel " + ", ".join(
+            f"{d:.3e}" for d in drift_tr) + f" ({nt} steps of bf16 "
+        f"rounding; not held to a bound) [{smi}]")
     t0 = (fc.nt // T_TB // 2) * T_TB
-    spec, args = kernel_inputs(fc.physics, plan, final32,
-                               fc.params._asdict(), fc.g, fc.gr, fc.dt, t0,
-                               fc.spacing)
-    bspec = dataclasses.replace(spec, dtype=BF16)
-    bargs = to_bf16_args(args)
-    dp, df, margin, dp_abs = compare_bf16(bspec, fc.physics, bargs, args)
+    tspec, args = kernel_inputs(fc.physics, plan, final32,
+                                fc.params._asdict(), fc.g, fc.gr, fc.dt, t0,
+                                fc.spacing)
+    tile = bf16_tile(tspec, fc.physics, args, per_launch,
+                     "kernel-vs-plain-bf16", f"tb_{name} bf16 at {SHAPE} "
+                     f"T={T_TB} (mid-run live state)", smi)
     del args
-    k_ms, lo, hi, _ = time_kernel(bspec, fc.physics, bargs)
-    plain_ms, _ = cuda_ms(lambda: ker.tb_time_tile_plain(bspec, fc.physics,
-                                                         *bargs))
-    cost = ker.kernel_cost(bspec, fc.physics)
+    return bf16_entry(f"stencil_tb.tb_{name} (bf16)",
+                      f"src/repro_torch/kernels/csrc/{KERNEL_FILES[name]}.cu",
+                      launches, tile, schedule_of(spec, fc.physics)), \
+        (final, recs)
+
+
+def phase_sharded_acoustic_bf16(fc, smi, single, tb_ms):
+    """sharded-acoustic's 2x2 single-controller mesh of the 512^3
+    acoustic case (the same plan) in bf16: kernel B1c-bf16 on every pass,
+    launches and exchange rounds counted, the run timed; its fields and
+    traces against main-acoustic-bf16's single-device run (`single`),
+    held bit-equal (and within 2^-6 of each one's max), after that run
+    repeated is held bit-equal to itself; then B1c-bf16 on a mid-run pass
+    (four shard rows, their params and masks) against the plain bf16
+    version and the float32 kernel.  Returns its kernels-line entry."""
+    phase = "sharded-acoustic-bf16"
+    final, recs = single
+    physics = fc.physics
+    fcb = bf16_case(fc)
+    # the receivers' segment sum does not hang on the order in which the
+    # card's atomic adds land (`ops.combine_rec_partials`): the run again
+    # gives the same traces
+    again = fcb.run(plan_for(physics, T_TB))
+    repeat = [torch.equal(a, b)
+              for a, b in zip((*again[0], again[1]), (*final, recs))]
+    say(phase, f"main-acoustic-bf16's run repeated: fields and traces "
+        f"bit-equal to the first: {repeat}")
+    if not all(repeat):
+        raise AssertionError(f"{phase}: the single-device bf16 run differs "
+                             f"from itself: {repeat}")
+    del again
+    plan = dist_plan(physics, SHAPE, fc.dt, fc.spacing, fc.state[0].device)
+    mid = (fc.nt // plan.T) // 2
+    captured = []
+
+    def capture(spec, p, *args, dom=None, param_copies=None):
+        captured.append((spec, args, dom) if len(captured) == mid else None)
+        return ker.tb_time_tile(spec, p, *args, dom=dom,
+                                param_copies=param_copies)
+
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    ops.EXECUTORS["cuda"] = capture
+    try:
+        ms, ((st, rec), launches, rounds) = cuda_ms(lambda: sharded_run(
+            plan, fc.nt, fcb.state, fcb.params._asdict(), fc.g, fc.gr,
+            phase))
+    finally:
+        ops.EXECUTORS["cuda"] = ker.tb_time_tile
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    if st[0].dtype != BF16 or rec.dtype != BF16:
+        raise AssertionError(f"{phase}: dtype {st[0].dtype}")
+    errs, same = field_errors(
+        physics, (tuple(f.float() for f in st), rec.float()),
+        (tuple(f.float() for f in final), recs.float()))
+    worst = check_errors(phase, errs, BF16_PLAIN_RTOL,
+                         "vs the single-device bf16 run")
+    if not same:
+        raise AssertionError(f"{phase}: not bit-equal to the single-device "
+                             f"bf16 run: {errs}")
+    say(phase, f"{SHAPE} nt={fc.nt} in bf16 on a {MESH} mesh of "
+        f"{plan.block} blocks (one card), T={plan.T} tile "
+        f"{plan.inner_tile}: {launches} kernel launches (4 shard rows each),"
+        f" {rounds} exchange rounds, run {ms:.1f} ms (single-device "
+        f"float32 TB {tb_ms:.1f} ms), peak {peak:.2f} GiB; vs the "
+        f"single-device bf16 run: " + ", ".join(
+            f"{k} {v:.2e}" for k, v in errs.items())
+        + f" (max {worst:.3e}, limit 2^-6), bit-equal: {same} [{smi}]")
+    del st, rec, final, recs, single
+    spec, args, dom = next(c for c in captured if c is not None)
+    del captured
+    args32 = to_bf16_args(args, torch.float32)
+    dp, df, margin, dp_abs, plain_ms = compare_bf16(spec, physics, args,
+                                                    args32, dom=dom)
+    k_ms, lo, hi, _ = time_kernel(spec, physics, args, dom=dom)
+    rows = args[0][0].shape[0]
+    cost = ker.kernel_cost(spec, physics, shots=rows, shard_rows=True)
     bound, by = bound_of(cost)
-    say("kernel-vs-plain-bf16", f"tb_acoustic bf16 at {SHAPE} T={T_TB} "
-        f"(mid-run live state): max|diff|/max|plain| vs plain bf16 "
-        f"{dp:.3e} (limit 2^-6), max|diff| vs float32 kernel {df:.3e} "
-        f"(least margin to 0.1 max|f32| + 1e-2: "
-        f"{margin:.3e}); {k_ms:.3f} ms per launch (median of 3 means of 5; "
-        f"least {lo:.3f}, most {hi:.3f}) vs bound {bound:.3f} ms by {by} "
-        f"({cost['min_bytes'] / 1e9:.2f} GB), plain {plain_ms:.1f} ms "
+    say(phase, f"kernel B1c-bf16, {rows} shard rows at grid ({spec.nx}, "
+        f"{spec.ny}, {spec.nz}) + halo {spec.halo}, tile {spec.tile}: "
+        f"{k_ms:.3f} ms per launch (median of 3 means of 5; least {lo:.3f}, "
+        f"most {hi:.3f}) vs bound {bound:.3f} ms by {by} "
+        f"({cost['min_bytes'] / 1e9:.2f} GB); plain {plain_ms:.1f} ms; "
+        f"max|diff|/max|plain| vs plain bf16 {dp:.3e} (limit 2^-6), "
+        f"max|diff| vs float32 kernel {df:.3e} (least margin {margin:.3e}) "
         f"[{smi}]")
-    return {
-        "name": "stencil_tb.tb_acoustic (bf16)",
-        "route": "cuda",
-        "source": "src/repro_torch/kernels/csrc/stencil_tb.cu",
-        "replaces": "src/repro/kernels/stencil_tb.py:129",
-        "launches": launches,
-        "max_abs_err": dp_abs,
-        "ms": k_ms,
-        "plain_ms": plain_ms,
-        "bound_ms": bound,
-        "bound_by": by,
-        "library_ms": None,
-    }
+    return bf16_entry(
+        "stencil_tb.tb_acoustic (sharded pass in bf16: per-shard params and "
+        f"domain mask, {rows} shard rows)",
+        "src/repro_torch/kernels/csrc/stencil_tb.cu", launches,
+        (dp_abs, k_ms, plain_ms, bound, by), schedule_of(spec, physics))
+
+
+# the order-8 paper cases run in bf16 on B5 (paper-<physics>-O8-bf16),
+# at PAPER_BF16_MS simulated ms (nt 33 for TTI, 55 for elastic): an
+# eighth of the paper's depth, cut below the float32 runs' to keep the
+# script inside its limit (the bf16 phases are cut first)
+PAPER_BF16 = [("tti", 8), ("elastic", 8)]
+PAPER_BF16_MS = 64.0
+
+
+def phase_paper_bf16(name, order, smi, dev, record):
+    """A paper case of `PAPER_BF16` in bf16 at the float32 run's plan
+    (`record`, its phase's) and PAPER_BF16_MS: kernel B1b-bf16 on the
+    cluster-shared trapezoid (B5), one counted run (every launch whose
+    shape takes B5 on it), timed beside the float32 run, its peak beside
+    `ops.propagation_bytes`'; then the kernel on a mid-run tile of the
+    bf16 run's final state (in float32, the same values) against the plain
+    bf16 version and the float32 kernel.  Returns its kernels-line
+    entry."""
+    phase = f"paper-{name}-O{order}-bf16"
+    fc = full_case(name, dev, order=order, time_ms=PAPER_BF16_MS)
+    r = fc.physics.step_radius(order)
+    plan = TBPlan(tuple(record["tile"]), record["T"], r)
+    fcb = bf16_case(fc)
+    fc.state = None
+    spec = ops.make_spec(SHAPE, plan, order, fc.dt, fc.spacing, 1, 1, BF16,
+                         fc.physics)
+    schedule = schedule_of(spec, fc.physics)
+    kind, expect = schedule_count(fc, plan)
+    final, recs, launches, ms, per_launch, peak, by_schedule = \
+        counted_run(fcb, plan)
+    if (kind != "cluster" or by_schedule[kind] != expect
+            or final[0].dtype != BF16):
+        raise AssertionError(f"{phase}: {by_schedule} ({kind}, expected "
+                             f"{expect} B5 launches), dtype "
+                             f"{final[0].dtype}")
+    if not (all(torch.isfinite(f.float()).all() for f in final)
+            and torch.isfinite(recs.float()).all()):
+        raise AssertionError(f"{phase}: non-finite values")
+    del recs
+    need = ops.propagation_bytes(fc.physics, SHAPE, fc.nt, plan, order,
+                                 BF16) / 2 ** 30
+    say(phase, f"{fc.case.name} in bf16: nt={fc.nt} (cut depth: "
+        f"{PAPER_BF16_MS:g} of the paper's 512 ms), tile {plan.tile} "
+        f"T={plan.T}, {schedule}: {launches} kernel launches "
+        f"({by_schedule}), run {ms:.1f} ms (float32 "
+        f"{record['TB']['ms']:.1f} ms at nt {record['nt']}; its kernel "
+        f"{record['TB']['kernel_ms']:.3f} ms a depth-{plan.T} launch); "
+        f"peak {peak:.2f} GiB (float32 "
+        f"{record['TB']['peak_gib']:.2f} GiB; ops.propagation_bytes in bf16 "
+        f"{need:.2f} GiB) [{smi}]")
+    t0 = (fc.nt // plan.T // 2) * plan.T
+    tspec, args = kernel_inputs(fc.physics, plan,
+                                tuple(f.float() for f in final),
+                                fc.params._asdict(), fc.g, fc.gr, fc.dt, t0,
+                                fc.spacing, order=order)
+    del final, fcb
+    tile = bf16_tile(tspec, fc.physics, args, per_launch, phase,
+                     f"B5 tb_{name} bf16 on the tile at step {t0} of the "
+                     "bf16 run", smi)
+    del args, fc
+    torch.cuda.empty_cache()
+    return bf16_entry(f"stencil_tb.tb_{name}_cluster_O{order} (bf16)",
+                      f"src/repro_torch/kernels/csrc/{KERNEL_FILES[name]}.cu",
+                      by_schedule[kind], tile, schedule)
 
 
 # ---------------------------------------------------------------------------
@@ -4759,11 +5071,12 @@ def rank_shards(whole, rules, mesh, rank):
                     rules.param_pspecs(whole))
 
 
-def serve_tp_only(rank, arch, depths):
+def serve_tp_only(rank, arch, depths, f64_depths=()):
     """A rank of `tools/lm_serve.py --tp`: joins the gloo group on the
     card and runs `serve_tp_rank` for `arch`, then `serve_tp_f32` for
     `arch` cut to each of `depths` layers ({depth: its results} under
-    ``depths``)."""
+    ``depths``), then its float64 pass at each of `f64_depths` layers
+    (under ``f64``)."""
     from repro_torch.distributed.process_group import DataParallel
     from repro_torch.launch.mesh import make_host_mesh
 
@@ -4777,6 +5090,8 @@ def serve_tp_only(rank, arch, depths):
         reqs = serve_requests(cfg, SERVE_TP_REQUESTS)
         out["depths"] = {d: serve_tp_f32(group, mesh, dataclasses.replace(
             cfg, num_layers=d), reqs) for d in depths}
+        out["f64"] = {d: serve_tp_f32(group, mesh, dataclasses.replace(
+            cfg, num_layers=d), reqs, "float64") for d in f64_depths}
         return out
     finally:
         group.close()
@@ -4854,30 +5169,53 @@ def serve_tp_rank(group, arch=SERVE_TP_ARCH):
     return res
 
 
-def serve_tp_f32(group, mesh, cfg, reqs):
+# ROADMAP C10: a float64 run's ranks against one process, at most this
+# max|diff| / max|logits| where they differ by float64 rounding alone (the
+# float32 gaps scaled by 2^-29 stay near 1e-13)
+SERVE_TP_F64_ROUNDING = 1e-9
+
+
+def serve_tp_f32(group, mesh, cfg, reqs, dtype="float32"):
     """`cfg` in float32 on `mesh` (1, 2): the ranks' prefill of `reqs`
     and SERVE_TP_DECODES decode steps (float32 caches), then on rank 0
     one process's (rank 1 waits at a barrier), and a control's: one
     process whose scan's y moves one float32 ulp.  Returns rank 0's
     max|diff| / max|one process's logits| a step, ranks' and control's,
-    and whether the next tokens are equal."""
+    and whether the next tokens are equal.  With `dtype` "float64" the
+    same in float64 (params, activations and caches; keys ``f64_*``, no
+    control), every scan the plain one (`with_plain_scan`: B2 takes no
+    float64), and the ranks' shards made one rank at a time, so that the
+    card never holds two whole float64 models (21.6 GB each at
+    zamba2-2.7b's widths); rank 0 makes the whole model again for one
+    process's run once the shards are gone."""
     from repro_torch.distributed import ShardingRules
 
     dev, rank = group.device, group.rank
+    f64 = dtype == "float64"
     rules = ShardingRules(mesh=mesh, cfg=cfg)
     max_len = serve_max_len(cfg)
-    cfg32 = dataclasses.replace(cfg, param_dtype="float32",
-                                activation_dtype="float32")
-    whole32 = api.init(SERVE_SEED, cfg32, device=dev)
-    params32 = rank_shards(whole32, rules, mesh, rank)
+    cfgx = dataclasses.replace(cfg, param_dtype=dtype,
+                               activation_dtype=dtype)
+    scanned = with_plain_scan if f64 else (lambda fn: fn())
+    whole = None
+    for turn in range(group.world):
+        if not f64 or turn == rank:
+            whole = api.init(SERVE_SEED, cfgx, device=dev)
+            params = rank_shards(whole, rules, mesh, rank)
+        if f64:
+            whole = None
+            torch.cuda.empty_cache()
+            group.max(0.0)
+        else:
+            break
     batch = {"tokens": GenerationEngine(
-        None, cfg32, max_len, SERVE_TP_REQUESTS, dev)._make_batch(reqs)}
+        None, cfgx, max_len, SERVE_TP_REQUESTS, dev)._make_batch(reqs)}
     res = {}
 
     def steps_logits(p, r):
-        prefill = make_prefill_step(cfg32, max_len, r, with_logits=True,
-                                    cache_dtype=torch.float32)
-        decode = make_decode_step(cfg32, r, with_logits=True)
+        prefill = make_prefill_step(cfgx, max_len, r, with_logits=True,
+                                    cache_dtype=getattr(torch, dtype))
+        decode = make_decode_step(cfgx, r, with_logits=True)
         tok, cache, logits = uncounted(lambda: prefill(p, batch))
         toks, outs = [tok], [logits]
         for _ in range(SERVE_TP_DECODES):
@@ -4886,24 +5224,31 @@ def serve_tp_f32(group, mesh, cfg, reqs):
             outs.append(logits)
         return [t.cpu() for t in toks], [o.cpu() for o in outs]
 
-    ranks_toks, ranks_logits = steps_logits(params32, rules)
-    del params32
+    ranks_toks, ranks_logits = scanned(lambda: steps_logits(params, rules))
+    del params
     torch.cuda.empty_cache()
     group.max(0.0)
     if rank == 0:
-        one_toks, one_logits = steps_logits(whole32, None)
+        if whole is None:
+            whole = api.init(SERVE_SEED, cfgx, device=dev)
+        one_toks, one_logits = scanned(lambda: steps_logits(whole, None))
 
         def gaps(logits):
             return [float((a - b).abs().max() / b.abs().max())
                     for a, b in zip(logits, one_logits)]
 
-        res["f32_gaps"] = gaps(ranks_logits)
-        # the control: one process with the scan's y one float32 ulp off
-        res["f32_control_gaps"] = gaps(with_scan(
-            ulp_scan(), lambda: steps_logits(whole32, None))[1])
-        res["f32_tokens_equal"] = all(torch.equal(a, b) for a, b in
-                                      zip(ranks_toks, one_toks))
-    del whole32
+        key = "f64" if f64 else "f32"
+        res[f"{key}_gaps"] = gaps(ranks_logits)
+        res[f"{key}_tokens_equal"] = all(torch.equal(a, b) for a, b in
+                                         zip(ranks_toks, one_toks))
+        res[f"{key}_dtype"] = str(ranks_logits[0].dtype)
+        if not f64:
+            # the control: one process with the scan's y one float32 ulp
+            # off
+            res["f32_control_gaps"] = gaps(with_scan(
+                ulp_scan(), lambda: steps_logits(whole, None))[1])
+        res[f"{key}_peak_gib"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    del whole
     torch.cuda.empty_cache()
     group.max(0.0)
     return res
@@ -4911,11 +5256,11 @@ def serve_tp_f32(group, mesh, cfg, reqs):
 
 def say_serve_tp(phase, cfg, serve, smi):
     """Prints a serve-under-rules run's lines (`serve_tp_rank`'s results
-    of each rank) beside a control's float32 gap (one process whose
-    scan's y moves one float32 ulp) and holds its checks: every rank's B2
-    launches one prefill's, the float32 next tokens equal, and the
-    float32 logits within SERVE_TP_TOL of max|logits| of one process's.
-    Returns rank 0's results."""
+    of each rank), its float32 gaps beside a control's (one process whose
+    scan's y moves one float32 ulp), and holds its checks: every rank's B2
+    launches one prefill's and the float32 next tokens equal.  The caller
+    holds the gaps: serve-mamba2-tp2 the float32 ones, `tools/lm_serve.py
+    --tp` a float64 run's.  Returns rank 0's results."""
     from repro_torch.models.mamba2 import dims
 
     heads = dims(cfg)[1]
@@ -4949,11 +5294,10 @@ def say_serve_tp(phase, cfg, serve, smi):
             f"{g:.2e}" for g in sv["f32_control_gaps"])
         + f"), next tokens equal {sv['f32_tokens_equal']}")
     if not (all(x["launches"] == scan_layers(cfg) for x in serve)
-            and max(sv["f32_gaps"]) <= SERVE_TP_TOL
             and sv["f32_tokens_equal"]):
         raise AssertionError(f"{phase}: check failed (launches "
                              f"{[x['launches'] for x in serve]}, float32 "
-                             f"gaps {sv['f32_gaps']})")
+                             f"next tokens equal {sv['f32_tokens_equal']})")
     return sv
 
 
@@ -5077,6 +5421,9 @@ def phase_train_tp(dev, smi, entry, straight):
     serve = [res[r]["serve"] for r in range(TP_WORLD)]
     sv = say_serve_tp("serve-mamba2-tp2", configs.get(SERVE_TP_ARCH), serve,
                       smi)
+    if max(sv["f32_gaps"]) > SERVE_TP_TOL:
+        raise AssertionError(f"serve-mamba2-tp2: float32 gaps "
+                             f"{sv['f32_gaps']} > {SERVE_TP_TOL:g}")
     CARD_RUNS["tp2"] = {"counted": r0["counted"],
                         "peaks": r0["step_peak_bytes"],
                         "launches_a_step": r0["launches"] / DP_STEPS}
@@ -5275,8 +5622,8 @@ def run_path(name, smi, dev):
     acoustic the sharded path's and the bf16 tile's kernel entries, and
     its order-4 case's record for the nine-case summary)."""
     fc = full_case(name, dev, time_ms=MAIN_TIME_MS.get(name))
-    state, launches, tb_ms, kept, peak = timed(f"main-{name}",
-                                               phase_main_path, fc, smi)
+    state, recs32, launches, tb_ms, kept, peak = timed(
+        f"main-{name}", phase_main_path, fc, smi)
     extra = []
     if kept is not None:
         four_rows = timed("sharded-acoustic", phase_sharded_acoustic, fc,
@@ -5298,10 +5645,16 @@ def run_path(name, smi, dev):
                      "bound_by": entry["bound_by"], "peak_gib": peak},
               "SB": {"ms": sb_ms, "launches": fc.nt},
               "TB/SB": tb_ms / sb_ms, "half_depth": name in MAIN_TIME_MS}
+    bf16, single = timed(f"main-{name}-bf16", phase_main_bf16, fc, smi,
+                         state, recs32, tb_ms, peak)
+    del recs32
+    extra.append(bf16)
     if name == "acoustic":
-        extra.append(timed("main-acoustic-bf16", phase_main_bf16, fc, smi,
-                           state, tb_ms))
-        torch.cuda.empty_cache()
+        extra.append(timed("sharded-acoustic-bf16",
+                           phase_sharded_acoustic_bf16, fc, smi, single,
+                           tb_ms))
+    del single
+    torch.cuda.empty_cache()
     # the batched kernel at the main path's shapes, B = 2: the live state
     # and, as a null shot, a copy shifted along x.  Its operands go into
     # segments of their own (an empty cache), so that once the state is
@@ -5329,6 +5682,11 @@ def run_path(name, smi, dev):
 # checks), so that serve-mamba2-tp2, train-mamba2-fsdp2 and
 # dryrun-vs-card fit the script's time limit (PERF.md §4, "Depth cuts")
 MAIN_TIME_MS = {"elastic": 256.0}
+# the bf16 runs of the main paths cut below their float32 runs' depth, in
+# simulated ms: TTI at half (nt 118 of 236), to keep the script inside its
+# limit (the bf16 phases are cut first; elastic's runs at main-elastic's
+# half depth, acoustic's whole: sharded-acoustic-bf16 meets it)
+MAIN_BF16_MS = {"tti": 256.0}
 SECONDS = {}                          # phase -> seconds
 # the ranks' counted steps that dryrun-vs-card predicts: per step the
 # collectives by class and the peak bytes, the B2 launches a step
@@ -5369,6 +5727,7 @@ def main():
     timed("kernels-batched", phase_kernels_batched, dev)
     timed("kernel-vs-plain-dom", phase_kernel_vs_plain_dom, dev)
     timed("kernel-vs-plain-bf16", phase_kernel_vs_plain_bf16, dev)
+    timed("kernel-vs-plain-bf16-mp", phase_kernel_vs_plain_bf16_mp, dev)
     for name in ("acoustic", "tti", "elastic"):
         timed(f"kernel-vs-first-{name}", phase_kernel_vs_first, name, dev,
               smi)
@@ -5402,6 +5761,12 @@ def main():
                            order, smi, dev))
     say_paper_table(paper, smi)
     entries += [r["kernel_entry"] for r in paper if "kernel_entry" in r]
+    for name, order in PAPER_BF16:
+        record = next(r for r in paper
+                      if (r["physics"], r["order"]) == (name, order))
+        entries.append(timed(f"paper-{name}-O{order}-bf16",
+                             phase_paper_bf16, name, order, smi, dev,
+                             record))
     entries.append(timed("survey-acoustic", phase_survey_acoustic, smi, dev,
                          tb_ms["acoustic"]))
     timed("survey-tti", phase_survey_tti, smi, dev, tb_ms["tti"])

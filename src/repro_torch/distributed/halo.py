@@ -372,7 +372,9 @@ def _run_pass(plan: DistTBPlan, geom: TBPassGeom, state_pads, param_pads,
     spads = tuple(fit(a, 0, 0.0) for a in state_pads)
     ppads = tuple(fit(a, crop_p, fills.get(f, 0.0))
                   for f, a in zip(physics.param_fields, param_pads))
-    dom = fit(dom_pad, crop_p, 0.0)[..., 0].contiguous()
+    # the kernels take the mask in float32 whatever the storage dtype (a
+    # 0/1 mask: the same values)
+    dom = fit(dom_pad, crop_p, 0.0)[..., 0].to(torch.float32).contiguous()
     spec = ops_mod.pass_inner_spec(
         geom, nz, plan.order, float(plan.dt),
         tuple(float(s) for s in plan.spacing), s_coords.shape[-2],
@@ -383,9 +385,11 @@ def _run_pass(plan: DistTBPlan, geom: TBPassGeom, state_pads, param_pads,
             kept["param_copies"] = stencil_tb.param_copies(spec, physics,
                                                            ppads)
         copies = kept["param_copies"]
+    # the receiver weights in the state's dtype, as the single-device
+    # tables hold them (the kernels take them so)
     new, rec = ops_mod.EXECUTORS[plan.inner](
-        spec, physics, spads, ppads, s_coords, s_vals, r_coords, r_w, dom=dom,
-        param_copies=copies)
+        spec, physics, spads, ppads, s_coords, s_vals, r_coords,
+        r_w.to(spads[0].dtype), dom=dom, param_copies=copies)
     new = tuple(a[:, :keep[0], :keep[1]] for a in new)
     rec = rec.reshape(S, -1, geom.T, rec.shape[-2], rec.shape[-1])
     return new, rec

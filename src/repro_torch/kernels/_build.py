@@ -5,9 +5,12 @@ Each `csrc/<name>.cu` exposes a plain C interface and is compiled by
 headers, so a build takes seconds).  Libraries go to ``build/repro_torch/``
 under the repository root, named by a digest of the source, the shared
 headers (``csrc/*.cuh``) and the flags, so an edited source is rebuilt and
-an unchanged one is reused.  A build happens at first use, never at
-import.  There is no fallback: a missing ``nvcc`` or a failed build
-raises.
+an unchanged one is reused.  The time-tile sources (`SPLIT`) compile as
+two objects, their float32 and their bf16 entries (``REPRO_TB_PART`` in
+``csrc/tb_common.cuh``), all compiles started together, each pair then
+linked into the source's one library.  A build happens at first use,
+never at import.  There is no fallback: a missing ``nvcc`` or a failed
+build raises.
 """
 from __future__ import annotations
 
@@ -32,6 +35,10 @@ SOURCES = ("stencil_tb", "stencil_tb_tti", "stencil_tb_elastic", "ssd_scan")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-fmad=false", "-shared", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
+# sources compiled as one object per part (REPRO_TB_PART 1: the float32
+# entries, 2: the bf16 ones) and linked into one library
+SPLIT = ("stencil_tb", "stencil_tb_tti", "stencil_tb_elastic")
+PARTS = (1, 2)
 
 
 class Built(NamedTuple):
@@ -62,12 +69,27 @@ def _target(name: str) -> Path:
     for header in sorted(CSRC.glob("*.cuh")):
         h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
+    if name in SPLIT:
+        h.update(f"parts {PARTS}".encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 
 
+def _compiles(name: str, tmp: Path):
+    """[(nvcc command, its output)] of `name`'s build: the whole source
+    into the library, or each part into an object (`SPLIT`)."""
+    src = str(CSRC / f"{name}.cu")
+    if name not in SPLIT:
+        return [([nvcc(), *NVCC_FLAGS, "-o", str(tmp), src], tmp)]
+    flags = [f for f in NVCC_FLAGS if f != "-shared"]
+    return [([nvcc(), *flags, "-c", f"-DREPRO_TB_PART={part}", "-o",
+              str(tmp.with_suffix(f".{part}.o")), src],
+             tmp.with_suffix(f".{part}.o")) for part in PARTS]
+
+
 def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Built]:
-    """Build (one nvcc per source, all started together) and load every
-    named library not loaded yet; returns all the named builds."""
+    """Build (one nvcc per source, one a part of a `SPLIT` source, all
+    started together) and load every named library not loaded yet;
+    returns all the named builds."""
     todo = [n for n in names if n not in _loaded]
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     procs = {}
@@ -79,16 +101,33 @@ def build_all(names: Iterable[str] = SOURCES) -> Dict[str, Built]:
                                   log.read_text() if log.is_file() else "")
             continue
         tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-        cmd = [nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
-        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
-                                        stderr=subprocess.STDOUT, text=True),
+        procs[name] = ([(subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT,
+                                          text=True), made)
+                        for cmd, made in _compiles(name, tmp)],
                        tmp, out, time.perf_counter())
     failed = []
-    for name, (proc, tmp, out, t0) in procs.items():
-        log, _ = proc.communicate()
+    for name, (parts, tmp, out, t0) in procs.items():
+        logs, bad = [], []
+        for proc, _ in parts:
+            log, _ = proc.communicate()
+            logs.append(log)
+            if proc.returncode != 0:
+                bad.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        if not bad and len(parts) > 1:
+            objs = [str(made) for _, made in parts]
+            link = subprocess.run([nvcc(), "-shared", "-o", str(tmp), *objs],
+                                  capture_output=True, text=True)
+            logs.append(link.stdout + link.stderr)
+            if link.returncode != 0:
+                bad.append(f"{name}: nvcc link exited {link.returncode}\n"
+                           + logs[-1])
+            for obj in objs:
+                os.remove(obj)
         secs = time.perf_counter() - t0
-        if proc.returncode != 0:
-            failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
+        log = "".join(logs)
+        if bad:
+            failed += bad
             continue
         # atomic, the log first: a process that finds the library (a rank
         # started beside this build) finds its whole log too

@@ -5,7 +5,8 @@
 // acoustic physics in float32 and, as B1a-bf16, in bf16 (the template's
 // storage type S; fields, params, tables and partials in bf16, computed in
 // float32 and rounded at each store), with a C entry point per type.  The
-// bf16 entry takes no domain mask: the sharded path (B1c) stays float32.
+// bf16 entry takes a domain mask too (B1c-bf16, the sharded path), built at
+// the radii `radius_built` names.
 // Per (x, y) tile of each row (shot, or shard pass with `dom`):
 //
 //   T times:  u_next = (dt^2 lap(u) + m (2u - u_prev) + damp dt u)
@@ -1124,10 +1125,20 @@ tb_acoustic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
     cluster_wait();
 }
 
+// whether launch<S> has the instantiation of radius R with(out) a domain
+// mask: every radius without one; with one, the radii `radius_built` names
+// (asked from Python through `repro_bf16_built`)
+template <class S, int R, bool DOM>
+static constexpr bool built()
+{
+    return !DOM || radius_built<S>(R);
+}
+
 // fills the arguments and launches, on sub-tile (bx, by), the copies and
-// the z-streamed instantiation of `radius` (and of whether `dom` is given,
-// where DOM_OK), or with bx = 0 the first schedule's
-template <class S, bool DOM_OK>
+// the z-streamed instantiation of `radius` (and of whether `dom` is
+// given), or with bx = 0 the first schedule's; an instantiation not built
+// (`built`) is refused
+template <class S>
 static int launch(int device, const S* const* in, const int* src_coords,
                   const S* src_vals, const int* rec_coords, const S* rec_w,
                   S* const* out, S* rec_out, S* scratch, const float* dom,
@@ -1145,10 +1156,12 @@ static int launch(int device, const S* const* in, const int* src_coords,
                             tx, ty, T, H, src_cap, rec_cap, radius, coefs,
                             2 * radius + 1, dt, dt2);
     if (e) return e;
+    if (dom != nullptr && !radius_built<S>(radius))
+        return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     if (bx == 0) {
         with_radius(radius, dom != nullptr, [&](auto r, auto d) {
-            if constexpr (DOM_OK || !decltype(d)::value)
+            if constexpr (built<S, decltype(r)::value, decltype(d)::value>())
                 tb_acoustic_kernel<decltype(r)::value, decltype(d)::value, S>
                     <<<tile_grid(a), THREADS, 0, st>>>(a, cf);
         });
@@ -1164,7 +1177,7 @@ static int launch(int device, const S* const* in, const int* src_coords,
     with_radius(radius, dom != nullptr, [&](auto r, auto d) {
         constexpr int KR = decltype(r)::value;
         constexpr bool KD = decltype(d)::value;
-        if constexpr (DOM_OK || !KD) {
+        if constexpr (built<S, KR, KD>()) {
             void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs) =
                 tb_acoustic_kernel<KR, KD, S>;
             rc = (int)cudaFuncSetAttribute(
@@ -1177,6 +1190,7 @@ static int launch(int device, const S* const* in, const int* src_coords,
     return rc ? rc : (int)cudaGetLastError();
 }
 
+#if TB_F32_PART
 // the params' z-major copies for `repro_tb_tile(_bf16)` with
 // PARAMS_COPIED (see tb_stream.cuh)
 extern "C" int repro_tb_param_copies(int device, const float* const* in,
@@ -1187,7 +1201,9 @@ extern "C" int repro_tb_param_copies(int device, const float* const* in,
     return param_copies(device, in, nparam, param_rows, nshots, nx, ny, nz,
                         H, out, stream);
 }
+#endif
 
+#if TB_BF16_PART
 extern "C" int repro_tb_param_copies_bf16(
     int device, const __nv_bfloat16* const* in, int nparam, int param_rows,
     int nshots, int nx, int ny, int nz, int H, float* out, void* stream)
@@ -1195,7 +1211,9 @@ extern "C" int repro_tb_param_copies_bf16(
     return param_copies(device, in, nparam, param_rows, nshots, nx, ny, nz,
                         H, out, stream);
 }
+#endif
 
+#if TB_F32_PART
 // (bx, by): the z-streamed schedule's sub-tile, or (0, 0) for the first
 // schedule, whose scratch is then two windows a tile in the storage type
 extern "C" int repro_tb_tile(
@@ -1206,16 +1224,17 @@ extern "C" int repro_tb_tile(
     int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
     float dt2, int bx, int by, void* stream)
 {
-    return launch<float, true>(device, in, src_coords, src_vals, rec_coords,
-                               rec_w, out, rec_out, scratch, dom, param_rows,
-                               nshots, nx, ny, nz, tx, ty, T, H, src_cap,
-                               rec_cap, radius, coefs, dt, dt2, bx, by,
-                               stream);
+    return launch<float>(device, in, src_coords, src_vals, rec_coords, rec_w,
+                         out, rec_out, scratch, dom, param_rows, nshots, nx,
+                         ny, nz, tx, ty, T, H, src_cap, rec_cap, radius, coefs,
+                         dt, dt2, bx, by, stream);
 }
+#endif
 
-// B1a-bf16: fields, params, source values, receiver weights and partials
-// in bf16 (the z-streamed schedule's scratch, the float32 copies, is
-// passed as it is); no domain mask (a non-null `dom` is refused)
+#if TB_BF16_PART
+// B1a-bf16 (B1c-bf16 with `dom`): fields, params, source values, receiver
+// weights and partials in bf16 (the z-streamed schedule's scratch, the
+// float32 copies, is passed as it is)
 extern "C" int repro_tb_tile_bf16(
     int device, const __nv_bfloat16* const* in, const int* src_coords,
     const __nv_bfloat16* src_vals, const int* rec_coords,
@@ -1225,12 +1244,20 @@ extern "C" int repro_tb_tile_bf16(
     int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
     float dt2, int bx, int by, void* stream)
 {
-    if (dom != nullptr) return (int)cudaErrorInvalidValue;
-    return launch<__nv_bfloat16, false>(
+    return launch<__nv_bfloat16>(
         device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
         scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
         rec_cap, radius, coefs, dt, dt2, bx, by, stream);
 }
+
+// whether the bf16 kernel is built at `radius` without (dom 0) or with a
+// domain mask (`built`): what the wrapper asks before a bf16 launch
+extern "C" int repro_bf16_built(int radius, int dom)
+{
+    return radius >= 1 && radius <= MAX_RADIUS
+        && (dom == 0 || radius_built<__nv_bfloat16>(radius));
+}
+#endif
 
 // f(kernel): B6's instantiation of `radius` (WAVE_MIN_R and up) and of
 // whether `dom` is given
@@ -1248,6 +1275,7 @@ static void with_wave(int radius, bool dom, F f)
     });
 }
 
+#if TB_F32_PART
 // B6 (the cluster-shared z-wavefront): `cluster` blocks a spec tile, the
 // parts table (px x py parts, cut lines xc[0..px] and yc[0..py] in window
 // coordinates; `planes` planes a step), checked here, `smem` the shared
@@ -1298,7 +1326,9 @@ extern "C" int repro_tb_tile_wave(
     });
     return rc;
 }
+#endif
 
+#if TB_F32_PART
 // the clusters of B6 blocks (`cluster` a cluster, `smem` shared bytes a
 // block) the card holds at once, into *active (0: none; a launch raises)
 extern "C" int repro_tb_wave_occupancy(int radius, int dom, int cluster,
@@ -1316,3 +1346,4 @@ extern "C" int repro_tb_wave_occupancy(int radius, int dom, int cluster,
     });
     return rc;
 }
+#endif

@@ -3,8 +3,13 @@
 //
 // Replaces the Pallas TPU kernel `_tb_kernel` of
 // src/repro/kernels/stencil_tb.py (launched by `tb_time_tile`) with
-// `tb_physics.ELASTIC`, in float32: state vx, vy, vz, txx, tyy, tzz, txy,
-// txz, tyz; params lam, mu, b, damp.  Per (x, y) tile, T times
+// `tb_physics.ELASTIC`, in float32 and, as B1b-bf16, in bf16 (the kernels'
+// storage type S: fields, params, source values, receiver weights, outputs
+// and partials in bf16, computed in float32 and rounded at each store of a
+// step's fields, tb_common.cuh; the new velocities that a step's stresses
+// read stay float32 until the step ends, as the plain version keeps them):
+// state vx, vy, vz, txx, tyy, tzz, txy, txz, tyz; params lam, mu, b, damp.
+// Per (x, y) tile, T times
 // (src/repro/core/propagators/elastic.py:64-111):
 //
 //   phase V: the three velocities from the old stresses,
@@ -89,42 +94,58 @@
 #include "tb_cluster.cuh"
 
 // ---------------------------------------------------------------------------
-// The first schedule (sub-tile (0, 0)): the first design's kernel, unchanged
+// The first schedule (sub-tile (0, 0)): the first design's kernel; in bf16
+// the nine windows in the storage type and three float32 windows more, the
+// step's unrounded velocities, which its stresses tap
 // ---------------------------------------------------------------------------
 
-template <int R, bool DOM>
+template <int R, bool DOM, class S>
 __global__ void __launch_bounds__(THREADS)
-tb_elastic_kernel(const TileArgs a, const Coefs cf)
+tb_elastic_kernel(const TileArgsT<S> a, const Coefs cf)
 {
     constexpr int NT = 2 * R;              // staggered taps
-    const Tile t(a);
-    float* buf[9];
-    View s[9];                             // the inputs, then the scratch
+    constexpr bool F32 = std::is_same<S, float>::value;
+    // a tile's scratch in storage windows: the nine fields, then in bf16
+    // a spare window and the three float32 velocity windows (the spare
+    // keeps them 4-byte aligned when a window's points are odd)
+    constexpr int FW = f32_words<S>(), NW = 9 + (F32 ? 0 : 1 + 3 * FW);
+    const TileT<S> t(a);
+    S* buf[9];
+    ViewT<S> s[9];                         // the inputs, then the scratch
+    float* vf[3];                          // the step's velocities, float32
 #pragma unroll
     for (int f = 0; f < 9; ++f) {
-        buf[f] = t.scratch(a, f, 9);
+        buf[f] = t.scratch(a, f, NW);
         s[f] = t.input(a, f);
     }
-    const View lam = t.input(a, 9), mu = t.input(a, 10);
-    const View b = t.input(a, 11), damp = t.input(a, 12);
+#pragma unroll
+    for (int f = 0; f < 3; ++f)
+        vf[f] = reinterpret_cast<float*>(
+            F32 ? buf[f] : t.scratch(a, 10 + f * FW, NW));
+    const View vv[3] = {{vf[0], t.win_sx}, {vf[1], t.win_sx},
+                        {vf[2], t.win_sx}};
+    const ViewT<S> lam = t.input(a, 9), mu = t.input(a, 10);
+    const ViewT<S> b = t.input(a, 11), damp = t.input(a, 12);
     const float dt = a.dt;
 
     for (int k = 0; k < a.T; ++k) {
         // phase V: velocities (vx, vy, vz = s[0..2]) from the stresses
         // (txx, tyy, tzz, txy, txz, tyz = s[3..8])
-        t.for_each_point<DOM>([&](Pt q, bool inside) {
+        t.template for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
-                buf[0][w] = 0.f;
-                buf[1][w] = 0.f;
-                buf[2][w] = 0.f;
+#pragma unroll
+                for (int f = 0; f < 3; ++f) {
+                    buf[f][w] = from_f<S>(0.f);
+                    if constexpr (!F32) vf[f][w] = 0.f;
+                }
                 return;
             }
             const auto fw = [&](int f, int ax) {
-                return t.taps<NT, 1 - R>(s[f], ax, q, cf.c[ax]);
+                return t.template taps<NT, 1 - R>(s[f], ax, q, cf.c[ax]);
             };
             const auto bw = [&](int f, int ax) {
-                return t.taps<NT, -R>(s[f], ax, q, cf.c[ax]);
+                return t.template taps<NT, -R>(s[f], ax, q, cf.c[ax]);
             };
             const float dmp = 1.f / (1.f + t.ro(damp, q) * dt);
             const float bdt = dt * t.ro(b, q);
@@ -134,27 +155,32 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf)
                                     + bdt * ((bw(6, 0) + fw(4, 1)) + bw(8, 2)));
             const float vz = dmp * (t.ld(s[2], q)
                                     + bdt * ((bw(7, 0) + bw(8, 1)) + fw(5, 2)));
-            buf[0][w] = vx;
-            buf[1][w] = vy;
-            buf[2][w] = vz;
+            buf[0][w] = from_f<S>(vx);
+            buf[1][w] = from_f<S>(vy);
+            buf[2][w] = from_f<S>(vz);
+            if constexpr (!F32) {
+                vf[0][w] = vx;
+                vf[1][w] = vy;
+                vf[2][w] = vz;
+            }
         });
 #pragma unroll
         for (int f = 0; f < 3; ++f) s[f] = t.window(buf[f]);
         __syncthreads();
 
-        // phase S: stresses from the new velocities
-        t.for_each_point<DOM>([&](Pt q, bool inside) {
+        // phase S: stresses from the new velocities (unrounded)
+        t.template for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
 #pragma unroll
-                for (int f = 3; f < 9; ++f) buf[f][w] = 0.f;
+                for (int f = 3; f < 9; ++f) buf[f][w] = from_f<S>(0.f);
                 return;
             }
             const auto fw = [&](int f, int ax) {
-                return t.taps<NT, 1 - R>(s[f], ax, q, cf.c[ax]);
+                return t.template taps<NT, 1 - R>(vv[f], ax, q, cf.c[ax]);
             };
             const auto bw = [&](int f, int ax) {
-                return t.taps<NT, -R>(s[f], ax, q, cf.c[ax]);
+                return t.template taps<NT, -R>(vv[f], ax, q, cf.c[ax]);
             };
             const float dmp = 1.f / (1.f + t.ro(damp, q) * dt);
             const float l = t.ro(lam, q), mu_q = t.ro(mu, q);
@@ -167,28 +193,29 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf)
             const float txy = dmp * (t.ld(s[6], q) + dtmu * (fw(0, 1) + fw(1, 0)));
             const float txz = dmp * (t.ld(s[7], q) + dtmu * (fw(0, 2) + fw(2, 0)));
             const float tyz = dmp * (t.ld(s[8], q) + dtmu * (fw(1, 2) + fw(2, 1)));
-            buf[3][w] = txx;
-            buf[4][w] = tyy;
-            buf[5][w] = tzz;
-            buf[6][w] = txy;
-            buf[7][w] = txz;
-            buf[8][w] = tyz;
+            buf[3][w] = from_f<S>(txx);
+            buf[4][w] = from_f<S>(tyy);
+            buf[5][w] = from_f<S>(tzz);
+            buf[6][w] = from_f<S>(txy);
+            buf[7][w] = from_f<S>(txz);
+            buf[8][w] = from_f<S>(tyz);
         });
 #pragma unroll
         for (int f = 3; f < 9; ++f) s[f] = t.window(buf[f]);
         __syncthreads();
 
-        float* const inj[3] = {buf[3], buf[4], buf[5]};
+        S* const inj[3] = {buf[3], buf[4], buf[5]};
         t.inject(a, k, inj);
         __syncthreads();
-        t.record<2>(a, k, [&](long long w, float* o) {
-            o[0] = buf[2][w];
-            o[1] = -((buf[3][w] + buf[4][w]) + buf[5][w]) / 3.f;
+        t.template record<2>(a, k, [&](long long w, float* o) {
+            o[0] = to_f(buf[2][w]);
+            o[1] = -((to_f(buf[3][w]) + to_f(buf[4][w])) + to_f(buf[5][w]))
+                / 3.f;
         });
         // the next phase V overwrites vz, which the record just read
         __syncthreads();
     }
-    t.write_back<9>(a, s);
+    t.template write_back<9>(a, s);
 }
 
 // ---------------------------------------------------------------------------
@@ -239,9 +266,9 @@ __device__ __forceinline__ void stream_pass(const Blk& b, float* sm,
     __syncthreads();
 }
 
-template <int R, bool DOM>
+template <int R, bool DOM, class S>
 __global__ void __launch_bounds__(STREAM_THREADS, 1)
-tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
+tb_elastic_kernel(const TileArgsT<S> a, const Coefs cf, const StreamArgs s)
 {
     constexpr int NT = 2 * R;              // staggered taps
     extern __shared__ float sm[];
@@ -307,13 +334,15 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
                 const float* tyz = buf + 4 * cap;
                 const float dmp = 1.f / (1.f + damp.ro(x, y, z) * dt);
                 const float bdt = dt * bb.ro(x, y, z);
-                const float vx = dmp * (st[0].at(x, y, z)
+                // the previous step's velocities, rounded where this one
+                // ends (the scratch holds them unrounded for its stresses)
+                const float vx = dmp * (rnd<S>(st[0].at(x, y, z))
                     + bdt * ((tap_x(txx, ci, w0, 1 - R) + tap_y(txy, ci, -R))
                              + tap_z(st[7], x, y, z, -R)));
-                const float vy = dmp * (st[1].at(x, y, z)
+                const float vy = dmp * (rnd<S>(st[1].at(x, y, z))
                     + bdt * ((tap_x(txy, ci, w0, -R) + tap_y(tyy, ci, 1 - R))
                              + tap_z(st[8], x, y, z, -R)));
-                const float vz = dmp * (st[2].at(x, y, z)
+                const float vz = dmp * (rnd<S>(st[2].at(x, y, z))
                     + bdt * ((tap_x(txz, ci, w0, -R) + tap_y(tyz, ci, -R))
                              + tap_z(st[5], x, y, z, 1 - R)));
                 scr[0][wi] = vx;
@@ -358,12 +387,12 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
                     * (tap_z(st[0], x, y, z, 1 - R) + tap_x(vzp, ci, w0, 1 - R)));
                 const float tyz = dmp * (st[8].at(x, y, z) + dtmu
                     * (tap_z(st[1], x, y, z, 1 - R) + tap_y(vzp, ci, 1 - R)));
-                scr[3][wi] = txx;
-                scr[4][wi] = tyy;
-                scr[5][wi] = tzz;
-                scr[6][wi] = txy;
-                scr[7][wi] = txz;
-                scr[8][wi] = tyz;
+                scr[3][wi] = rnd<S>(txx);
+                scr[4][wi] = rnd<S>(tyy);
+                scr[5][wi] = rnd<S>(tzz);
+                scr[6][wi] = rnd<S>(txy);
+                scr[7][wi] = rnd<S>(txz);
+                scr[8][wi] = rnd<S>(tyz);
             });
 #pragma unroll
             for (int f = 3; f < 9; ++f) st[f] = b.scratch_view(scr[f]);
@@ -374,12 +403,13 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
         const int mS = (2 * k + 2) * R;
         for (int p = tid; p < a.src_cap; p += nt) {
             const int* c = a.src_coords + (b.tile * a.src_cap + p) * 3;
-            const float v = a.src_vals[(b.tile * a.T + k) * a.src_cap + p];
+            const float v =
+                to_f(a.src_vals[(b.tile * a.T + k) * a.src_cap + p]);
             int x, y;
             if (v == 0.f || !b.in_region(c, mS, &x, &y)) continue;
             const long long wi = c[2] * bsz + x * bsx + y;
 #pragma unroll
-            for (int f = 3; f < 6; ++f) scr[f][wi] = scr[f][wi] + v;
+            for (int f = 3; f < 6; ++f) scr[f][wi] = rnd<S>(scr[f][wi] + v);
         }
         __syncthreads();
         for (int p = tid; p < a.rec_cap; p += nt) {
@@ -387,10 +417,11 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
             if (!b.owns(c)) continue;
             const long long wi =
                 c[2] * bsz + (c[0] - b.wox) * bsx + (c[1] - b.woy);
-            const float w = a.rec_w[b.tile * a.rec_cap + p];
-            float* o = a.rec_out + ((b.tile * a.T + k) * a.rec_cap + p) * 2;
-            o[0] = w * scr[2][wi];
-            o[1] = w * (-((scr[3][wi] + scr[4][wi]) + scr[5][wi]) / 3.f);
+            const float w = to_f(a.rec_w[b.tile * a.rec_cap + p]);
+            S* o = a.rec_out + ((b.tile * a.T + k) * a.rec_cap + p) * 2;
+            o[0] = from_f<S>(w * rnd<S>(scr[2][wi]));
+            o[1] = from_f<S>(
+                w * (-((scr[3][wi] + scr[4][wi]) + scr[5][wi]) / 3.f));
         }
         // the next phase V overwrites vz, which the record just read
         __syncthreads();
@@ -420,7 +451,7 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
             const int y = y0 + j, z = z0 + lane;
             if (y < b.by && z < nz)
                 a.out[f][base + (gx * b.ny + b.tj * b.ty + b.woy + y) * nz + z]
-                    = tile[lane * 33 + j];
+                    = from_f<S>(tile[lane * 33 + j]);
         }
         __syncwarp();
     }
@@ -468,9 +499,9 @@ struct OpsS {
 // state, z-major over the spec window, each phase writing its fields in
 // place.
 
-template <int R, bool DOM>
+template <int R, bool DOM, class S>
 __global__ void __launch_bounds__(STREAM_THREADS, 1)
-tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
+tb_elastic_kernel(const TileArgsT<S> a, const Coefs cf, const StreamArgs s,
                   const ClusterArgs c)
 {
     constexpr int NT = 2 * R;              // staggered taps
@@ -531,8 +562,11 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
                     if (o.in) {
                         o.damp = damp.ro(x, y, z);
                         o.b = bb.ro(x, y, z);
+                        // the previous step's velocities, rounded where
+                        // this one ends
 #pragma unroll
-                        for (int f = 0; f < 3; ++f) o.v[f] = st[f].at(x, y, z);
+                        for (int f = 0; f < 3; ++f)
+                            o.v[f] = rnd<S>(st[f].at(x, y, z));
                     }
                     return o;
                 },
@@ -623,12 +657,12 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
                         * (tap_z(vxp, zt, 1 - R) + tap_x(vzp, w0, 1 - R)));
                     const float tyz = dmp * (o.t[5] + dtmu
                         * (tap_z(vyp, zt, 1 - R) + tap_y(vzp, 1 - R)));
-                    scr[3][wi] = txx;
-                    scr[4][wi] = tyy;
-                    scr[5][wi] = tzz;
-                    scr[6][wi] = txy;
-                    scr[7][wi] = txz;
-                    scr[8][wi] = tyz;
+                    scr[3][wi] = rnd<S>(txx);
+                    scr[4][wi] = rnd<S>(tyy);
+                    scr[5][wi] = rnd<S>(tzz);
+                    scr[6][wi] = rnd<S>(txy);
+                    scr[7][wi] = rnd<S>(txz);
+                    scr[8][wi] = rnd<S>(tyz);
                 });
 #pragma unroll
             for (int f = 3; f < 9; ++f) st[f] = b.view(scr[f]);
@@ -639,23 +673,25 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
         // at those of the receivers
         for (int p = tid; p < a.src_cap; p += nt) {
             const int* cc = a.src_coords + (b.tile * a.src_cap + p) * 3;
-            const float v = a.src_vals[(b.tile * a.T + k) * a.src_cap + p];
+            const float v =
+                to_f(a.src_vals[(b.tile * a.T + k) * a.src_cap + p]);
             if (v == 0.f || cc[2] < 0 || cc[2] >= nz
                 || !b.holds(n, cc[0], cc[1]))
                 continue;
             const long long wi = cc[2] * bsz + cc[0] * bsx + cc[1];
 #pragma unroll
-            for (int f = 3; f < 6; ++f) scr[f][wi] = scr[f][wi] + v;
+            for (int f = 3; f < 6; ++f) scr[f][wi] = rnd<S>(scr[f][wi] + v);
         }
         __syncthreads();
         for (int p = tid; p < a.rec_cap; p += nt) {
             const int* cc = a.rec_coords + (b.tile * a.rec_cap + p) * 3;
             if (!b.in_centre(cc) || !b.holds(n, cc[0], cc[1])) continue;
             const long long wi = cc[2] * bsz + cc[0] * bsx + cc[1];
-            const float w = a.rec_w[b.tile * a.rec_cap + p];
-            float* o = a.rec_out + ((b.tile * a.T + k) * a.rec_cap + p) * 2;
-            o[0] = w * scr[2][wi];
-            o[1] = w * (-((scr[3][wi] + scr[4][wi]) + scr[5][wi]) / 3.f);
+            const float w = to_f(a.rec_w[b.tile * a.rec_cap + p]);
+            S* o = a.rec_out + ((b.tile * a.T + k) * a.rec_cap + p) * 2;
+            o[0] = from_f<S>(w * rnd<S>(scr[2][wi]));
+            o[1] = from_f<S>(
+                w * (-((scr[3][wi] + scr[4][wi]) + scr[5][wi]) / 3.f));
         }
         // the next phase V reads the stresses from every block's chunks
         // and overwrites vz, which the record just read
@@ -668,8 +704,9 @@ tb_elastic_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
         write_back_chunk<9>(a, b, smc, st, b.chunk(i));
 }
 
-// the params' z-major copies for `repro_tb_tile` with PARAMS_COPIED (see
-// tb_stream.cuh)
+#if TB_F32_PART
+// the params' z-major copies for `repro_tb_tile(_bf16)` and
+// `repro_tb_tile_cluster(_bf16)` with PARAMS_COPIED (see tb_stream.cuh)
 extern "C" int repro_tb_param_copies(int device, const float* const* in,
                                      int nparam, int param_rows, int nshots,
                                      int nx, int ny, int nz, int H,
@@ -678,18 +715,32 @@ extern "C" int repro_tb_param_copies(int device, const float* const* in,
     return param_copies(device, in, nparam, param_rows, nshots, nx, ny, nz,
                         H, out, stream);
 }
+#endif
 
-// (bx, by): the z-streamed schedule's sub-tile, or (0, 0) for the first
-// schedule, whose scratch is then nine windows a tile
-extern "C" int repro_tb_tile(
-    int device, const float* const* in, const int* src_coords,
-    const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, const float* dom,
-    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
-    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
-    float dt2, int bx, int by, void* stream)
+#if TB_BF16_PART
+extern "C" int repro_tb_param_copies_bf16(
+    int device, const __nv_bfloat16* const* in, int nparam, int param_rows,
+    int nshots, int nx, int ny, int nz, int H, float* out, void* stream)
 {
-    TileArgs a;
+    return param_copies(device, in, nparam, param_rows, nshots, nx, ny, nz,
+                        H, out, stream);
+}
+#endif
+
+// fills the arguments and launches, on sub-tile (bx, by), the copies and
+// the z-streamed instantiation of `radius` (and of whether `dom` is
+// given), or with bx = 0 the first schedule's; a radius S is not built at
+// (`radius_built`) is refused
+template <class S>
+static int launch(int device, const S* const* in, const int* src_coords,
+                  const S* src_vals, const int* rec_coords, const S* rec_w,
+                  S* const* out, S* rec_out, S* scratch, const float* dom,
+                  int param_rows, int nshots, int nx, int ny, int nz, int tx,
+                  int ty, int T, int H, int src_cap, int rec_cap, int radius,
+                  const float* coefs, float dt, float dt2, int bx, int by,
+                  void* stream)
+{
+    TileArgsT<S> a;
     Coefs cf;
     const int e = tile_args(&a, &cf, device, 13, 9, in, src_coords,
                             src_vals, rec_coords, rec_w, out, rec_out,
@@ -698,57 +749,112 @@ extern "C" int repro_tb_tile(
                             tx, ty, T, H, src_cap, rec_cap, radius, coefs,
                             2 * radius, dt, dt2);
     if (e) return e;
+    if (!radius_built<S>(radius)) return (int)cudaErrorInvalidValue;
     const cudaStream_t st = (cudaStream_t)stream;
     if (bx == 0) {
         with_radius(radius, dom != nullptr, [&](auto r, auto d) {
-            tb_elastic_kernel<decltype(r)::value, decltype(d)::value>
-                <<<tile_grid(a), THREADS, 0, st>>>(a, cf);
+            if constexpr (radius_built<S>(decltype(r)::value))
+                tb_elastic_kernel<decltype(r)::value, decltype(d)::value, S>
+                    <<<tile_grid(a), THREADS, 0, st>>>(a, cf);
         });
         return (int)cudaGetLastError();
     }
     const long long smem = elastic_smem(H, bx, by);
     if (H != 2 * T * radius || !subtile_ok(tx, ty, bx, by, smem))
         return (int)cudaErrorInvalidValue;
-    const StreamArgs s = stream_args(a, scratch, 9, 4, param_rows, bx, by, 9);
+    const StreamArgs s = stream_args(a, reinterpret_cast<float*>(scratch),
+                                     9, 4, param_rows, bx, by, 9);
     launch_to_zmajor(a, s, 4, param_rows, st);
     int rc = 0;
     with_radius(radius, dom != nullptr, [&](auto r, auto d) {
         constexpr int KR = decltype(r)::value;
         constexpr bool KD = decltype(d)::value;
-        void (*kern)(const TileArgs, const Coefs, const StreamArgs) =
-            tb_elastic_kernel<KR, KD>;
-        rc = (int)cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (rc == 0)
-            kern<<<stream_grid(nx, ny, tx, ty, s, nshots), STREAM_THREADS,
-                   smem, st>>>(a, cf, s);
+        if constexpr (radius_built<S>(KR)) {
+            void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs) =
+                tb_elastic_kernel<KR, KD, S>;
+            rc = (int)cudaFuncSetAttribute(
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (rc == 0)
+                kern<<<stream_grid(nx, ny, tx, ty, s, nshots), STREAM_THREADS,
+                       smem, st>>>(a, cf, s);
+        }
     });
     return rc ? rc : (int)cudaGetLastError();
 }
 
-// B5 (tb_cluster.cuh): `cluster` blocks a spec tile, `table` the chunk
-// table (`stencil_tb.chunk_table`, `len` ints) on the host, checked here,
-// and `table_dev` its copy on the device, `smem` the shared bytes a block;
-// the scratch is the z-major copies and nine spec windows a tile
-extern "C" int repro_tb_tile_cluster(
+#if TB_F32_PART
+// (bx, by): the z-streamed schedule's sub-tile, or (0, 0) for the first
+// schedule, whose scratch is then nine windows a tile (in bf16 nine bf16
+// windows and three float32 ones)
+extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
     float* const* out, float* rec_out, float* scratch, const float* dom,
     int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
     int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
-    float dt2, int cluster, const int* table, const int* table_dev, int len,
-    int smem, void* stream)
+    float dt2, int bx, int by, void* stream)
 {
-    TileArgs a;
+    return launch<float>(device, in, src_coords, src_vals, rec_coords, rec_w,
+                         out, rec_out, scratch, dom, param_rows, nshots, nx,
+                         ny, nz, tx, ty, T, H, src_cap, rec_cap, radius, coefs,
+                         dt, dt2, bx, by, stream);
+}
+#endif
+
+#if TB_BF16_PART
+// B1b-bf16 (B1c-bf16 with `dom`): fields, params, source values, receiver
+// weights and partials in bf16; the z-streamed schedule's scratch (float32
+// copies and windows) is passed as it is
+extern "C" int repro_tb_tile_bf16(
+    int device, const __nv_bfloat16* const* in, const int* src_coords,
+    const __nv_bfloat16* src_vals, const int* rec_coords,
+    const __nv_bfloat16* rec_w, __nv_bfloat16* const* out,
+    __nv_bfloat16* rec_out, __nv_bfloat16* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int bx, int by, void* stream)
+{
+    return launch<__nv_bfloat16>(
+        device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
+        scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
+        rec_cap, radius, coefs, dt, dt2, bx, by, stream);
+}
+
+// whether the bf16 kernel is built at `radius` (`radius_built`, with or
+// without a domain mask): what the wrapper asks before a bf16 launch
+extern "C" int repro_bf16_built(int radius, int dom)
+{
+    (void)dom;
+    return radius >= 1 && radius <= MAX_RADIUS
+        && radius_built<__nv_bfloat16>(radius);
+}
+#endif
+
+// B5 (tb_cluster.cuh): `cluster` blocks a spec tile, `table` the chunk
+// table (`stencil_tb.chunk_table`, `len` ints) on the host, checked here,
+// and `table_dev` its copy on the device, `smem` the shared bytes a block;
+// the scratch is the z-major copies and nine spec windows a tile, float32
+template <class S>
+static int launch_cluster(
+    int device, const S* const* in, const int* src_coords, const S* src_vals,
+    const int* rec_coords, const S* rec_w, S* const* out, S* rec_out,
+    float* scratch, const float* dom, int param_rows, int nshots, int nx,
+    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
+    int radius, const float* coefs, float dt, float dt2, int cluster,
+    const int* table, const int* table_dev, int len, int smem, void* stream)
+{
+    TileArgsT<S> a;
     Coefs cf;
     const int e = tile_args(&a, &cf, device, 13, 9, in, src_coords,
                             src_vals, rec_coords, rec_w, out, rec_out,
-                            scratch, dom, param_rows & PARAM_ROWS, nshots,
-                            nx, ny, nz, tx, ty, T, H, src_cap, rec_cap,
-                            radius, coefs, 2 * radius, dt, dt2);
+                            reinterpret_cast<S*>(scratch), dom,
+                            param_rows & PARAM_ROWS, nshots, nx, ny, nz, tx,
+                            ty, T, H, src_cap, rec_cap, radius, coefs,
+                            2 * radius, dt, dt2);
     if (e) return e;
     if (H != 2 * T * radius || cluster < 1 || cluster > CLUSTER_MAX
-        || smem > STREAM_SMEM || (long long)(nx / tx) * (ny / ty) > 65535)
+        || smem > STREAM_SMEM || (long long)(nx / tx) * (ny / ty) > 65535
+        || !radius_built<S>(radius))
         return (int)cudaErrorInvalidValue;
     const int rc0 = check_chunks(
         table, len, 2 * T, cluster, tx + 2 * H, ty + 2 * H, radius, smem,
@@ -764,32 +870,96 @@ extern "C" int repro_tb_tile_cluster(
     const dim3 grid(cluster, (nx / tx) * (ny / ty), nshots);
     int rc = 0;
     with_radius(radius, dom != nullptr, [&](auto r, auto d) {
-        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
-                     const ClusterArgs) =
-            tb_elastic_kernel<decltype(r)::value, decltype(d)::value>;
-        rc = cluster_launch(kern, cluster, grid, STREAM_THREADS, smem, st,
-                            a, cf, s, c);
+        if constexpr (radius_built<S>(decltype(r)::value)) {
+            void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs,
+                         const ClusterArgs) =
+                tb_elastic_kernel<decltype(r)::value, decltype(d)::value, S>;
+            rc = cluster_launch(kern, cluster, grid, STREAM_THREADS, smem,
+                                st, a, cf, s, c);
+        }
     });
     return rc;
 }
 
-// the clusters of B5 blocks (`cluster` a cluster, `smem` shared bytes a
-// block) the card holds at once, into *active (0: none; a launch raises)
-extern "C" int repro_tb_cluster_occupancy(int radius, int dom, int cluster,
-                                          int smem, int* active)
+#if TB_F32_PART
+extern "C" int repro_tb_tile_cluster(
+    int device, const float* const* in, const int* src_coords,
+    const float* src_vals, const int* rec_coords, const float* rec_w,
+    float* const* out, float* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int cluster, const int* table, const int* table_dev, int len,
+    int smem, void* stream)
+{
+    return launch_cluster<float>(
+        device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
+        scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
+        rec_cap, radius, coefs, dt, dt2, cluster, table, table_dev, len, smem,
+        stream);
+}
+#endif
+
+#if TB_BF16_PART
+// B5 in bf16 (B1b-bf16), as `repro_tb_tile_bf16`: the float32 scratch is
+// passed as it is
+extern "C" int repro_tb_tile_cluster_bf16(
+    int device, const __nv_bfloat16* const* in, const int* src_coords,
+    const __nv_bfloat16* src_vals, const int* rec_coords,
+    const __nv_bfloat16* rec_w, __nv_bfloat16* const* out,
+    __nv_bfloat16* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int cluster, const int* table, const int* table_dev, int len,
+    int smem, void* stream)
+{
+    return launch_cluster<__nv_bfloat16>(
+        device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
+        scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
+        rec_cap, radius, coefs, dt, dt2, cluster, table, table_dev, len, smem,
+        stream);
+}
+#endif
+
+// the clusters of B5 blocks of storage type S (`cluster` a cluster,
+// `smem` shared bytes a block) the card holds at once, into *active (0:
+// none; a launch raises)
+template <class S>
+static int cluster_occupancy(int radius, int dom, int cluster, int smem,
+                             int* active)
 {
     if (radius < 1 || radius > MAX_RADIUS || cluster < 1
-        || cluster > CLUSTER_MAX || smem > STREAM_SMEM)
+        || cluster > CLUSTER_MAX || smem > STREAM_SMEM
+        || !radius_built<S>(radius))
         return (int)cudaErrorInvalidValue;
     int rc = 0;
     with_radius(radius, dom != 0, [&](auto r, auto d) {
-        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
-                     const ClusterArgs) =
-            tb_elastic_kernel<decltype(r)::value, decltype(d)::value>;
-        cudaLaunchAttribute attr;
-        cudaLaunchConfig_t cfg;
-        rc = cluster_config(kern, cluster, dim3(cluster), STREAM_THREADS, smem,
-                            nullptr, &attr, &cfg, active);
+        if constexpr (radius_built<S>(decltype(r)::value)) {
+            void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs,
+                         const ClusterArgs) =
+                tb_elastic_kernel<decltype(r)::value, decltype(d)::value, S>;
+            cudaLaunchAttribute attr;
+            cudaLaunchConfig_t cfg;
+            rc = cluster_config(kern, cluster, dim3(cluster), STREAM_THREADS,
+                                smem, nullptr, &attr, &cfg, active);
+        }
     });
     return rc;
 }
+
+#if TB_F32_PART
+extern "C" int repro_tb_cluster_occupancy(int radius, int dom, int cluster,
+                                          int smem, int* active)
+{
+    return cluster_occupancy<float>(radius, dom, cluster, smem, active);
+}
+#endif
+
+#if TB_BF16_PART
+extern "C" int repro_tb_cluster_occupancy_bf16(int radius, int dom,
+                                               int cluster, int smem,
+                                               int* active)
+{
+    return cluster_occupancy<__nv_bfloat16>(radius, dom, cluster, smem,
+                                            active);
+}
+#endif

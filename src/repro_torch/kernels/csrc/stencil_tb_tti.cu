@@ -3,8 +3,12 @@
 //
 // Replaces the Pallas TPU kernel `_tb_kernel` of
 // src/repro/kernels/stencil_tb.py (launched by `tb_time_tile`) with
-// `tb_physics.TTI`, in float32: state p, p_prev, r, r_prev; params m,
-// damp, epsilon, delta, theta, phi.  Per (x, y) tile, T times
+// `tb_physics.TTI`, in float32 and, as B1b-bf16, in bf16 (the kernels'
+// storage type S: fields, params, source values, receiver weights, outputs
+// and partials in bf16, computed in float32 and rounded at each store of
+// p and r, tb_common.cuh; the inner derivatives stay float32): state p,
+// p_prev, r, r_prev; params m, damp, epsilon, delta, theta, phi.  Per
+// (x, y) tile, T times
 // (src/repro/core/propagators/tti.py:57-116):
 //
 //   phase A: the inner rotated first derivatives the update uses, Dx~p,
@@ -102,7 +106,9 @@
 #include "tb_cluster.cuh"
 
 // ---------------------------------------------------------------------------
-// The first schedule (sub-tile (0, 0)): the first design's kernel, unchanged
+// The first schedule (sub-tile (0, 0)): the first design's kernel; in bf16
+// the windows of p and r in the storage type, those of the inner
+// derivatives float32 (`f32_words`)
 // ---------------------------------------------------------------------------
 
 // direction cosines of the rotated derivatives at one point (tti.py:57-63)
@@ -122,27 +128,30 @@ struct Dirs {
 // two blocks an SM up to radius 4 (at most 64 registers a thread), as
 // ptxas chose for the single-shot kernel; with the shot index it takes
 // 128 and one block an SM, 12% slower at radius 2 (PERF.md)
-template <int R, bool DOM>
+template <int R, bool DOM, class S>
 __global__ void __launch_bounds__(THREADS, R <= 4 ? 2 : 1)
-tb_tti_kernel(const TileArgs a, const Coefs cf)
+tb_tti_kernel(const TileArgsT<S> a, const Coefs cf)
 {
     constexpr int NT = 2 * R + 1;          // central first derivative taps
-    const Tile t(a);
-    float* pbuf[2] = {t.scratch(a, 0, 7), t.scratch(a, 1, 7)};
-    float* rbuf[2] = {t.scratch(a, 2, 7), t.scratch(a, 3, 7)};
-    float* gx = t.scratch(a, 4, 7);        // Dx~p
-    float* gy = t.scratch(a, 5, 7);        // Dy~p
-    float* gz = t.scratch(a, 6, 7);        // Dz~r
-    const View vgx = t.window(gx), vgy = t.window(gy), vgz = t.window(gz);
-    const View m = t.input(a, 4), damp = t.input(a, 5);
-    const View eps = t.input(a, 6), dlt = t.input(a, 7);
-    const View theta = t.input(a, 8), phi = t.input(a, 9);
-    View p = t.input(a, 0), p_prev = t.input(a, 1);
-    View r = t.input(a, 2), r_prev = t.input(a, 3);
+    // a tile's scratch in storage windows: p and r twice, then the three
+    // float32 derivative windows
+    constexpr int FW = f32_words<S>(), NW = 4 + 3 * FW;
+    const TileT<S> t(a);
+    S* pbuf[2] = {t.scratch(a, 0, NW), t.scratch(a, 1, NW)};
+    S* rbuf[2] = {t.scratch(a, 2, NW), t.scratch(a, 3, NW)};
+    float* gx = reinterpret_cast<float*>(t.scratch(a, 4, NW));  // Dx~p
+    float* gy = reinterpret_cast<float*>(t.scratch(a, 4 + FW, NW));  // Dy~p
+    float* gz = reinterpret_cast<float*>(t.scratch(a, 4 + 2 * FW, NW));
+    const View vgx{gx, t.win_sx}, vgy{gy, t.win_sx}, vgz{gz, t.win_sx};
+    const ViewT<S> m = t.input(a, 4), damp = t.input(a, 5);
+    const ViewT<S> eps = t.input(a, 6), dlt = t.input(a, 7);
+    const ViewT<S> theta = t.input(a, 8), phi = t.input(a, 9);
+    ViewT<S> p = t.input(a, 0), p_prev = t.input(a, 1);
+    ViewT<S> r = t.input(a, 2), r_prev = t.input(a, 3);
 
     for (int k = 0; k < a.T; ++k) {
         // phase A: the inner first-derivative fields, masked
-        t.for_each_point<DOM>([&](Pt q, bool inside) {
+        t.template for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
                 gx[w] = 0.f;
@@ -151,12 +160,12 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
                 return;
             }
             const Dirs d(t.ro(theta, q), t.ro(phi, q));
-            const float dxp = t.taps<NT, -R>(p, 0, q, cf.c[0]);
-            const float dyp = t.taps<NT, -R>(p, 1, q, cf.c[1]);
-            const float dzp = t.taps<NT, -R>(p, 2, q, cf.c[2]);
-            const float dxr = t.taps<NT, -R>(r, 0, q, cf.c[0]);
-            const float dyr = t.taps<NT, -R>(r, 1, q, cf.c[1]);
-            const float dzr = t.taps<NT, -R>(r, 2, q, cf.c[2]);
+            const float dxp = t.template taps<NT, -R>(p, 0, q, cf.c[0]);
+            const float dyp = t.template taps<NT, -R>(p, 1, q, cf.c[1]);
+            const float dzp = t.template taps<NT, -R>(p, 2, q, cf.c[2]);
+            const float dxr = t.template taps<NT, -R>(r, 0, q, cf.c[0]);
+            const float dyr = t.template taps<NT, -R>(r, 1, q, cf.c[1]);
+            const float dzr = t.template taps<NT, -R>(r, 2, q, cf.c[2]);
             gx[w] = (d.x0 * dxp + d.x1 * dyp) + d.x2 * dzp;
             gy[w] = d.y0 * dxp + d.y1 * dyp;
             gz[w] = (d.z0 * dxr + d.z1 * dyr) + d.z2 * dzr;
@@ -165,24 +174,27 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
 
         // phase B: the outer derivatives and the update; the new p and r
         // overwrite p_prev and r_prev, read only pointwise by this thread
-        float* pn = pbuf[k & 1];
-        float* rn = rbuf[k & 1];
-        t.for_each_point<DOM>([&](Pt q, bool inside) {
+        S* pn = pbuf[k & 1];
+        S* rn = rbuf[k & 1];
+        t.template for_each_point<DOM>([&](Pt q, bool inside) {
             const long long w = t.at(q);
             if (!inside) {
-                pn[w] = 0.f;
-                rn[w] = 0.f;
+                pn[w] = from_f<S>(0.f);
+                rn[w] = from_f<S>(0.f);
                 return;
             }
             const Dirs d(t.ro(theta, q), t.ro(phi, q));
-            const float gxx = (d.x0 * t.taps<NT, -R>(vgx, 0, q, cf.c[0])
-                               + d.x1 * t.taps<NT, -R>(vgx, 1, q, cf.c[1]))
-                + d.x2 * t.taps<NT, -R>(vgx, 2, q, cf.c[2]);
-            const float gyy = d.y0 * t.taps<NT, -R>(vgy, 0, q, cf.c[0])
-                + d.y1 * t.taps<NT, -R>(vgy, 1, q, cf.c[1]);
-            const float hz_r = (d.z0 * t.taps<NT, -R>(vgz, 0, q, cf.c[0])
-                                + d.z1 * t.taps<NT, -R>(vgz, 1, q, cf.c[1]))
-                + d.z2 * t.taps<NT, -R>(vgz, 2, q, cf.c[2]);
+            const float gxx =
+                (d.x0 * t.template taps<NT, -R>(vgx, 0, q, cf.c[0])
+                 + d.x1 * t.template taps<NT, -R>(vgx, 1, q, cf.c[1]))
+                + d.x2 * t.template taps<NT, -R>(vgx, 2, q, cf.c[2]);
+            const float gyy =
+                d.y0 * t.template taps<NT, -R>(vgy, 0, q, cf.c[0])
+                + d.y1 * t.template taps<NT, -R>(vgy, 1, q, cf.c[1]);
+            const float hz_r =
+                (d.z0 * t.template taps<NT, -R>(vgz, 0, q, cf.c[0])
+                 + d.z1 * t.template taps<NT, -R>(vgz, 1, q, cf.c[1]))
+                + d.z2 * t.template taps<NT, -R>(vgz, 2, q, cf.c[2]);
             const float h0_p = gxx + gyy;
             const float e_fac = 1.f + 2.f * t.ro(eps, q);
             const float d_fac = sqrtf(1.f + 2.f * t.ro(dlt, q));
@@ -192,15 +204,18 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
             const float rhs_r = d_fac * h0_p + hz_r;
             const float pc = t.ld(p, q), pp = t.ld(p_prev, q);
             const float rc = t.ld(r, q), rp = t.ld(r_prev, q);
-            pn[w] = (a.dt2 * rhs_p + mm * (2.f * pc - pp) + dd * a.dt * pc) / den;
-            rn[w] = (a.dt2 * rhs_r + mm * (2.f * rc - rp) + dd * a.dt * rc) / den;
+            pn[w] = from_f<S>(
+                (a.dt2 * rhs_p + mm * (2.f * pc - pp) + dd * a.dt * pc) / den);
+            rn[w] = from_f<S>(
+                (a.dt2 * rhs_r + mm * (2.f * rc - rp) + dd * a.dt * rc) / den);
         });
         __syncthreads();
 
-        float* const inj[2] = {pn, rn};
+        S* const inj[2] = {pn, rn};
         t.inject(a, k, inj);
         __syncthreads();
-        t.record<1>(a, k, [&](long long w, float* s) { s[0] = pn[w]; });
+        t.template record<1>(a, k,
+                             [&](long long w, float* s) { s[0] = to_f(pn[w]); });
         // the next phase A writes only the inner windows; the next phase B
         // (after a barrier) writes the buffers of this step's p and r
         p_prev = p;
@@ -208,8 +223,8 @@ tb_tti_kernel(const TileArgs a, const Coefs cf)
         r_prev = r;
         r = t.window(rn);
     }
-    const View fin[4] = {p, p_prev, r, r_prev};
-    t.write_back<4>(a, fin);
+    const ViewT<S> fin[4] = {p, p_prev, r, r_prev};
+    t.template write_back<4>(a, fin);
 }
 
 // ---------------------------------------------------------------------------
@@ -347,9 +362,9 @@ struct OpsB {
     float th, ph, eps, dlt, m, damp, p, pp, r, rp;
 };
 
-template <int R, bool DOM>
+template <int R, bool DOM, class S>
 __global__ void __launch_bounds__(TTI_THREADS, 1)
-tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
+tb_tti_kernel(const TileArgsT<S> a, const Coefs cf, const StreamArgs s)
 {
     constexpr int NT = 2 * R + 1;          // central first derivative taps
     extern __shared__ __align__(16) float sm[];
@@ -498,10 +513,10 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
                 const float den = mm + dd * a.dt;
                 const float rhs_p = e_fac * h0_p + d_fac * hz_r;
                 const float rhs_r = d_fac * h0_p + hz_r;
-                pn[wi] = qdiv(a.dt2 * rhs_p + mm * (2.f * o.p - o.pp)
-                              + dd * a.dt * o.p, den);
-                rn[wi] = qdiv(a.dt2 * rhs_r + mm * (2.f * o.r - o.rp)
-                              + dd * a.dt * o.r, den);
+                pn[wi] = rnd<S>(qdiv(a.dt2 * rhs_p + mm * (2.f * o.p - o.pp)
+                                     + dd * a.dt * o.p, den));
+                rn[wi] = rnd<S>(qdiv(a.dt2 * rhs_r + mm * (2.f * o.r - o.rp)
+                                     + dd * a.dt * o.r, den));
             });
         }
 
@@ -510,12 +525,13 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
         const int mB = (2 * k + 2) * R;
         for (int q = tid; q < a.src_cap; q += nt) {
             const int* c = a.src_coords + (b.tile * a.src_cap + q) * 3;
-            const float v = a.src_vals[(b.tile * a.T + k) * a.src_cap + q];
+            const float v =
+                to_f(a.src_vals[(b.tile * a.T + k) * a.src_cap + q]);
             int x, y;
             if (v == 0.f || !b.in_region(c, mB, &x, &y)) continue;
             const int wi = c[2] * pl2 + x * row2 + y;
-            pn[wi] = pn[wi] + v;
-            rn[wi] = rn[wi] + v;
+            pn[wi] = rnd<S>(pn[wi] + v);
+            rn[wi] = rnd<S>(rn[wi] + v);
         }
         __syncthreads();
         for (int q = tid; q < a.rec_cap; q += nt) {
@@ -523,8 +539,8 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
             if (!b.owns(c)) continue;
             const int wi =
                 c[2] * pl2 + (c[0] - b.wox) * row2 + (c[1] - b.woy);
-            a.rec_out[(b.tile * a.T + k) * a.rec_cap + q] =
-                a.rec_w[b.tile * a.rec_cap + q] * pn[wi];
+            a.rec_out[(b.tile * a.T + k) * a.rec_cap + q] = from_f<S>(
+                to_f(a.rec_w[b.tile * a.rec_cap + q]) * pn[wi]);
         }
         // the next phase A only reads p and r; the next phase B writes the
         // buffers of this step's p_prev and r_prev, after a barrier
@@ -560,7 +576,7 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s)
             const int y = y0 + j, z = z0 + lane;
             if (y < b.by && z < nz)
                 a.out[f][base + (gxo * b.ny + b.tj * b.ty + b.woy + y) * nz + z]
-                    = tile[lane * 33 + j];
+                    = from_f<S>(tile[lane * 33 + j]);
         }
         __syncwarp();
     }
@@ -589,9 +605,9 @@ static long long tti_chunk_smem(int R, int n, int lh, int lw)
 // time (TTI_POINTS points spilled registers at radius 6 and were 4-7%
 // slower; PERF.md).  The spec tile's windows (7, z-major over the spec
 // window): p and r twice, Dx~p, Dy~p, Dz~r.
-template <int R, bool DOM>
+template <int R, bool DOM, class S>
 __global__ void __launch_bounds__(TTI_THREADS, 1)
-tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
+tb_tti_kernel(const TileArgsT<S> a, const Coefs cf, const StreamArgs s,
               const ClusterArgs c)
 {
     constexpr int NT = 2 * R + 1;          // central first derivative taps
@@ -736,10 +752,12 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
                     const float den = mm + dd * a.dt;
                     const float rhs_p = e_fac * h0_p + d_fac * hz_r;
                     const float rhs_r = d_fac * h0_p + hz_r;
-                    pn[wi] = qdiv(a.dt2 * rhs_p + mm * (2.f * o.p - o.pp)
-                                  + dd * a.dt * o.p, den);
-                    rn[wi] = qdiv(a.dt2 * rhs_r + mm * (2.f * o.r - o.rp)
-                                  + dd * a.dt * o.r, den);
+                    pn[wi] = rnd<S>(qdiv(a.dt2 * rhs_p
+                                         + mm * (2.f * o.p - o.pp)
+                                         + dd * a.dt * o.p, den));
+                    rn[wi] = rnd<S>(qdiv(a.dt2 * rhs_r
+                                         + mm * (2.f * o.r - o.rp)
+                                         + dd * a.dt * o.r, den));
                 });
         }
 
@@ -747,21 +765,22 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
         // chunks of phase B hold, then record p at those of the receivers
         for (int q = tid; q < a.src_cap; q += nt) {
             const int* cc = a.src_coords + (b.tile * a.src_cap + q) * 3;
-            const float v = a.src_vals[(b.tile * a.T + k) * a.src_cap + q];
+            const float v =
+                to_f(a.src_vals[(b.tile * a.T + k) * a.src_cap + q]);
             if (v == 0.f || cc[2] < 0 || cc[2] >= nz
                 || !b.holds(n, cc[0], cc[1]))
                 continue;
             const long long wi = cc[2] * plane + cc[0] * row + cc[1];
-            pn[wi] = pn[wi] + v;
-            rn[wi] = rn[wi] + v;
+            pn[wi] = rnd<S>(pn[wi] + v);
+            rn[wi] = rnd<S>(rn[wi] + v);
         }
         __syncthreads();
         for (int q = tid; q < a.rec_cap; q += nt) {
             const int* cc = a.rec_coords + (b.tile * a.rec_cap + q) * 3;
             if (!b.in_centre(cc) || !b.holds(n, cc[0], cc[1])) continue;
             const long long wi = cc[2] * plane + cc[0] * row + cc[1];
-            a.rec_out[(b.tile * a.T + k) * a.rec_cap + q] =
-                a.rec_w[b.tile * a.rec_cap + q] * pn[wi];
+            a.rec_out[(b.tile * a.T + k) * a.rec_cap + q] = from_f<S>(
+                to_f(a.rec_w[b.tile * a.rec_cap + q]) * pn[wi]);
         }
         // the next phase A reads this step's p and r from every block's
         // chunks; the next phase B overwrites this step's p_prev and r_prev
@@ -779,8 +798,9 @@ tb_tti_kernel(const TileArgs a, const Coefs cf, const StreamArgs s,
         write_back_chunk<4>(a, b, sm, fin, b.chunk(i));
 }
 
-// the params' z-major copies for `repro_tb_tile` with PARAMS_COPIED (see
-// tb_stream.cuh)
+#if TB_F32_PART
+// the params' z-major copies for `repro_tb_tile(_bf16)` and
+// `repro_tb_tile_cluster(_bf16)` with PARAMS_COPIED (see tb_stream.cuh)
 extern "C" int repro_tb_param_copies(int device, const float* const* in,
                                      int nparam, int param_rows, int nshots,
                                      int nx, int ny, int nz, int H,
@@ -789,9 +809,77 @@ extern "C" int repro_tb_param_copies(int device, const float* const* in,
     return param_copies(device, in, nparam, param_rows, nshots, nx, ny, nz,
                         H, out, stream);
 }
+#endif
 
+#if TB_BF16_PART
+extern "C" int repro_tb_param_copies_bf16(
+    int device, const __nv_bfloat16* const* in, int nparam, int param_rows,
+    int nshots, int nx, int ny, int nz, int H, float* out, void* stream)
+{
+    return param_copies(device, in, nparam, param_rows, nshots, nx, ny, nz,
+                        H, out, stream);
+}
+#endif
+
+// fills the arguments and launches, on sub-tile (bx, by), the copies and
+// the z-streamed instantiation of `radius` (and of whether `dom` is
+// given), or with bx = 0 the first schedule's; a radius S is not built at
+// (`radius_built`) is refused
+template <class S>
+static int launch(int device, const S* const* in, const int* src_coords,
+                  const S* src_vals, const int* rec_coords, const S* rec_w,
+                  S* const* out, S* rec_out, S* scratch, const float* dom,
+                  int param_rows, int nshots, int nx, int ny, int nz, int tx,
+                  int ty, int T, int H, int src_cap, int rec_cap, int radius,
+                  const float* coefs, float dt, float dt2, int bx, int by,
+                  void* stream)
+{
+    TileArgsT<S> a;
+    Coefs cf;
+    const int e = tile_args(&a, &cf, device, 10, 4, in, src_coords,
+                            src_vals, rec_coords, rec_w, out, rec_out,
+                            scratch, dom, param_rows & PARAM_ROWS, nshots,
+                            nx, ny, nz, tx, ty, T, H, src_cap, rec_cap,
+                            radius, coefs, 2 * radius + 1, dt, dt2);
+    if (e) return e;
+    if (!radius_built<S>(radius)) return (int)cudaErrorInvalidValue;
+    const cudaStream_t st = (cudaStream_t)stream;
+    if (bx == 0) {
+        with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+            if constexpr (radius_built<S>(decltype(r)::value))
+                tb_tti_kernel<decltype(r)::value, decltype(d)::value, S>
+                    <<<tile_grid(a), THREADS, 0, st>>>(a, cf);
+        });
+        return (int)cudaGetLastError();
+    }
+    const long long smem = tti_smem(H, radius, bx, by);
+    if (H != 2 * T * radius || !subtile_ok(tx, ty, bx, by, smem))
+        return (int)cudaErrorInvalidValue;
+    StreamArgs s = stream_args(a, reinterpret_cast<float*>(scratch), 4, 6,
+                               param_rows, bx, by, 7);
+    s.blk_floats = tti_blk_floats(nz, H, radius, bx, by);
+    launch_to_zmajor(a, s, 6, param_rows, st);
+    int rc = 0;
+    with_radius(radius, dom != nullptr, [&](auto r, auto d) {
+        constexpr int KR = decltype(r)::value;
+        constexpr bool KD = decltype(d)::value;
+        if constexpr (radius_built<S>(KR)) {
+            void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs) =
+                tb_tti_kernel<KR, KD, S>;
+            rc = (int)cudaFuncSetAttribute(
+                kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+            if (rc == 0)
+                kern<<<stream_grid(nx, ny, tx, ty, s, nshots), TTI_THREADS,
+                       smem, st>>>(a, cf, s);
+        }
+    });
+    return rc ? rc : (int)cudaGetLastError();
+}
+
+#if TB_F32_PART
 // (bx, by): the z-streamed schedule's sub-tile, or (0, 0) for the first
-// schedule, whose scratch is then seven windows a tile
+// schedule, whose scratch is then seven windows a tile (float32; in bf16
+// the four of p and r in bf16)
 extern "C" int repro_tb_tile(
     int device, const float* const* in, const int* src_coords,
     const float* src_vals, const int* rec_coords, const float* rec_w,
@@ -800,66 +888,67 @@ extern "C" int repro_tb_tile(
     int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
     float dt2, int bx, int by, void* stream)
 {
-    TileArgs a;
-    Coefs cf;
-    const int e = tile_args(&a, &cf, device, 10, 4, in, src_coords,
-                            src_vals, rec_coords, rec_w, out, rec_out,
-                            scratch, dom, param_rows & PARAM_ROWS, nshots,
-                            nx, ny, nz, tx, ty, T, H, src_cap, rec_cap,
-                            radius, coefs, 2 * radius + 1, dt, dt2);
-    if (e) return e;
-    const cudaStream_t st = (cudaStream_t)stream;
-    if (bx == 0) {
-        with_radius(radius, dom != nullptr, [&](auto r, auto d) {
-            tb_tti_kernel<decltype(r)::value, decltype(d)::value>
-                <<<tile_grid(a), THREADS, 0, st>>>(a, cf);
-        });
-        return (int)cudaGetLastError();
-    }
-    const long long smem = tti_smem(H, radius, bx, by);
-    if (H != 2 * T * radius || !subtile_ok(tx, ty, bx, by, smem))
-        return (int)cudaErrorInvalidValue;
-    StreamArgs s = stream_args(a, scratch, 4, 6, param_rows, bx, by, 7);
-    s.blk_floats = tti_blk_floats(nz, H, radius, bx, by);
-    launch_to_zmajor(a, s, 6, param_rows, st);
-    int rc = 0;
-    with_radius(radius, dom != nullptr, [&](auto r, auto d) {
-        constexpr int KR = decltype(r)::value;
-        constexpr bool KD = decltype(d)::value;
-        void (*kern)(const TileArgs, const Coefs, const StreamArgs) =
-            tb_tti_kernel<KR, KD>;
-        rc = (int)cudaFuncSetAttribute(
-            kern, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-        if (rc == 0)
-            kern<<<stream_grid(nx, ny, tx, ty, s, nshots), TTI_THREADS,
-                   smem, st>>>(a, cf, s);
-    });
-    return rc ? rc : (int)cudaGetLastError();
+    return launch<float>(device, in, src_coords, src_vals, rec_coords, rec_w,
+                         out, rec_out, scratch, dom, param_rows, nshots, nx,
+                         ny, nz, tx, ty, T, H, src_cap, rec_cap, radius, coefs,
+                         dt, dt2, bx, by, stream);
 }
+#endif
+
+#if TB_BF16_PART
+// B1b-bf16 (B1c-bf16 with `dom`): fields, params, source values, receiver
+// weights and partials in bf16; the z-streamed schedule's scratch (float32
+// copies and windows) is passed as it is
+extern "C" int repro_tb_tile_bf16(
+    int device, const __nv_bfloat16* const* in, const int* src_coords,
+    const __nv_bfloat16* src_vals, const int* rec_coords,
+    const __nv_bfloat16* rec_w, __nv_bfloat16* const* out,
+    __nv_bfloat16* rec_out, __nv_bfloat16* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int bx, int by, void* stream)
+{
+    return launch<__nv_bfloat16>(
+        device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
+        scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
+        rec_cap, radius, coefs, dt, dt2, bx, by, stream);
+}
+
+// whether the bf16 kernel is built at `radius` (`radius_built`, with or
+// without a domain mask): what the wrapper asks before a bf16 launch
+extern "C" int repro_bf16_built(int radius, int dom)
+{
+    (void)dom;
+    return radius >= 1 && radius <= MAX_RADIUS
+        && radius_built<__nv_bfloat16>(radius);
+}
+#endif
 
 // B5 (tb_cluster.cuh): `cluster` blocks a spec tile, `table` the chunk
 // table (`stencil_tb.chunk_table`, `len` ints) on the host, checked here,
 // and `table_dev` its copy on the device, `smem` the shared bytes a block;
-// the scratch is the z-major copies and seven spec windows a tile
-extern "C" int repro_tb_tile_cluster(
-    int device, const float* const* in, const int* src_coords,
-    const float* src_vals, const int* rec_coords, const float* rec_w,
-    float* const* out, float* rec_out, float* scratch, const float* dom,
-    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
-    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
-    float dt2, int cluster, const int* table, const int* table_dev, int len,
-    int smem, void* stream)
+// the scratch is the z-major copies and seven spec windows a tile, float32
+template <class S>
+static int launch_cluster(
+    int device, const S* const* in, const int* src_coords, const S* src_vals,
+    const int* rec_coords, const S* rec_w, S* const* out, S* rec_out,
+    float* scratch, const float* dom, int param_rows, int nshots, int nx,
+    int ny, int nz, int tx, int ty, int T, int H, int src_cap, int rec_cap,
+    int radius, const float* coefs, float dt, float dt2, int cluster,
+    const int* table, const int* table_dev, int len, int smem, void* stream)
 {
-    TileArgs a;
+    TileArgsT<S> a;
     Coefs cf;
     const int e = tile_args(&a, &cf, device, 10, 4, in, src_coords,
                             src_vals, rec_coords, rec_w, out, rec_out,
-                            scratch, dom, param_rows & PARAM_ROWS, nshots,
-                            nx, ny, nz, tx, ty, T, H, src_cap, rec_cap,
-                            radius, coefs, 2 * radius + 1, dt, dt2);
+                            reinterpret_cast<S*>(scratch), dom,
+                            param_rows & PARAM_ROWS, nshots, nx, ny, nz, tx,
+                            ty, T, H, src_cap, rec_cap, radius, coefs,
+                            2 * radius + 1, dt, dt2);
     if (e) return e;
     if (H != 2 * T * radius || cluster < 1 || cluster > CLUSTER_MAX
-        || smem > STREAM_SMEM || (long long)(nx / tx) * (ny / ty) > 65535)
+        || smem > STREAM_SMEM || (long long)(nx / tx) * (ny / ty) > 65535
+        || !radius_built<S>(radius))
         return (int)cudaErrorInvalidValue;
     const int rc0 = check_chunks(
         table, len, 2 * T, cluster, tx + 2 * H, ty + 2 * H, radius, smem,
@@ -875,32 +964,96 @@ extern "C" int repro_tb_tile_cluster(
     const dim3 grid(cluster, (nx / tx) * (ny / ty), nshots);
     int rc = 0;
     with_radius(radius, dom != nullptr, [&](auto r, auto d) {
-        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
-                     const ClusterArgs) =
-            tb_tti_kernel<decltype(r)::value, decltype(d)::value>;
-        rc = cluster_launch(kern, cluster, grid, TTI_THREADS, smem, st, a, cf, s,
-                            c);
+        if constexpr (radius_built<S>(decltype(r)::value)) {
+            void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs,
+                         const ClusterArgs) =
+                tb_tti_kernel<decltype(r)::value, decltype(d)::value, S>;
+            rc = cluster_launch(kern, cluster, grid, TTI_THREADS, smem, st,
+                                a, cf, s, c);
+        }
     });
     return rc;
 }
 
-// the clusters of B5 blocks (`cluster` a cluster, `smem` shared bytes a
-// block) the card holds at once, into *active (0: none; a launch raises)
-extern "C" int repro_tb_cluster_occupancy(int radius, int dom, int cluster,
-                                          int smem, int* active)
+#if TB_F32_PART
+extern "C" int repro_tb_tile_cluster(
+    int device, const float* const* in, const int* src_coords,
+    const float* src_vals, const int* rec_coords, const float* rec_w,
+    float* const* out, float* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int cluster, const int* table, const int* table_dev, int len,
+    int smem, void* stream)
+{
+    return launch_cluster<float>(
+        device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
+        scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
+        rec_cap, radius, coefs, dt, dt2, cluster, table, table_dev, len, smem,
+        stream);
+}
+#endif
+
+#if TB_BF16_PART
+// B5 in bf16 (B1b-bf16), as `repro_tb_tile_bf16`: the float32 scratch is
+// passed as it is
+extern "C" int repro_tb_tile_cluster_bf16(
+    int device, const __nv_bfloat16* const* in, const int* src_coords,
+    const __nv_bfloat16* src_vals, const int* rec_coords,
+    const __nv_bfloat16* rec_w, __nv_bfloat16* const* out,
+    __nv_bfloat16* rec_out, float* scratch, const float* dom,
+    int param_rows, int nshots, int nx, int ny, int nz, int tx, int ty, int T,
+    int H, int src_cap, int rec_cap, int radius, const float* coefs, float dt,
+    float dt2, int cluster, const int* table, const int* table_dev, int len,
+    int smem, void* stream)
+{
+    return launch_cluster<__nv_bfloat16>(
+        device, in, src_coords, src_vals, rec_coords, rec_w, out, rec_out,
+        scratch, dom, param_rows, nshots, nx, ny, nz, tx, ty, T, H, src_cap,
+        rec_cap, radius, coefs, dt, dt2, cluster, table, table_dev, len, smem,
+        stream);
+}
+#endif
+
+// the clusters of B5 blocks of storage type S (`cluster` a cluster,
+// `smem` shared bytes a block) the card holds at once, into *active (0:
+// none; a launch raises)
+template <class S>
+static int cluster_occupancy(int radius, int dom, int cluster, int smem,
+                             int* active)
 {
     if (radius < 1 || radius > MAX_RADIUS || cluster < 1
-        || cluster > CLUSTER_MAX || smem > STREAM_SMEM)
+        || cluster > CLUSTER_MAX || smem > STREAM_SMEM
+        || !radius_built<S>(radius))
         return (int)cudaErrorInvalidValue;
     int rc = 0;
     with_radius(radius, dom != 0, [&](auto r, auto d) {
-        void (*kern)(const TileArgs, const Coefs, const StreamArgs,
-                     const ClusterArgs) =
-            tb_tti_kernel<decltype(r)::value, decltype(d)::value>;
-        cudaLaunchAttribute attr;
-        cudaLaunchConfig_t cfg;
-        rc = cluster_config(kern, cluster, dim3(cluster), TTI_THREADS, smem,
-                            nullptr, &attr, &cfg, active);
+        if constexpr (radius_built<S>(decltype(r)::value)) {
+            void (*kern)(const TileArgsT<S>, const Coefs, const StreamArgs,
+                         const ClusterArgs) =
+                tb_tti_kernel<decltype(r)::value, decltype(d)::value, S>;
+            cudaLaunchAttribute attr;
+            cudaLaunchConfig_t cfg;
+            rc = cluster_config(kern, cluster, dim3(cluster), TTI_THREADS,
+                                smem, nullptr, &attr, &cfg, active);
+        }
     });
     return rc;
 }
+
+#if TB_F32_PART
+extern "C" int repro_tb_cluster_occupancy(int radius, int dom, int cluster,
+                                          int smem, int* active)
+{
+    return cluster_occupancy<float>(radius, dom, cluster, smem, active);
+}
+#endif
+
+#if TB_BF16_PART
+extern "C" int repro_tb_cluster_occupancy_bf16(int radius, int dom,
+                                               int cluster, int smem,
+                                               int* active)
+{
+    return cluster_occupancy<__nv_bfloat16>(radius, dom, cluster, smem,
+                                            active);
+}
+#endif

@@ -150,7 +150,8 @@ struct CBlk {
     const int* ch0;             // its chunks
     int C;
 
-    __device__ CBlk(const TileArgs& a, const ClusterArgs& c)
+    template <class S>
+    __device__ CBlk(const TileArgsT<S>& a, const ClusterArgs& c)
         : shot(blockIdx.z), rank(blockIdx.x),
           ti(blockIdx.y / (a.ny / a.ty)), tj(blockIdx.y % (a.ny / a.ty)),
           H(a.H), nx(a.nx), ny(a.ny), nz(a.nz), tx(a.tx), ty(a.ty),
@@ -161,7 +162,8 @@ struct CBlk {
           table(c.table),
           ch0(c.table ? c.table + c.npass * c.C + 1 : nullptr), C(c.C) {}
     // a block of a launch without a chunk table (B6, stencil_tb.cu)
-    __device__ explicit CBlk(const TileArgs& a)
+    template <class S>
+    __device__ explicit CBlk(const TileArgsT<S>& a)
         : CBlk(a, ClusterArgs{nullptr, (int)gridDim.x, 0}) {}
 
     // input i's z-major copy (state i < s.nstate of this row, else param
@@ -282,10 +284,11 @@ __device__ __forceinline__ void chunk_pass(float* sm, const ZView* ring,
 
 // write back chunk (x0, y0, h, w) of the last pass (the tile's centre) of
 // the N fields `fin` to this row's outputs: one warp a 32 x 32 (y, z) tile
-// of one x row, read along y from a z-major field, written along z
-template <int N>
-__device__ void write_back_chunk(const TileArgs& a, const CBlk& b, float* sm,
-                                 const ZView* fin, const int* ch)
+// of one x row, read along y from a z-major field, written along z (a store
+// in the storage type S)
+template <int N, class S>
+__device__ void write_back_chunk(const TileArgsT<S>& a, const CBlk& b,
+                                 float* sm, const ZView* fin, const int* ch)
 {
     const int x0 = __ldg(ch), y0 = __ldg(ch + 1);
     const int h = __ldg(ch + 2), w = __ldg(ch + 3);
@@ -314,7 +317,7 @@ __device__ void write_back_chunk(const TileArgs& a, const CBlk& b, float* sm,
             const int y = yt + j, z = z0 + lane;
             if (y < w && z < nz)
                 a.out[f][base + (gx * b.ny + gy + y) * nz + z] =
-                    tile[lane * 33 + j];
+                    from_f<S>(tile[lane * 33 + j]);
         }
         __syncwarp();
     }

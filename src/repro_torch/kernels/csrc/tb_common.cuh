@@ -48,15 +48,32 @@
 // per slot needs no atomics; padding slots (value 0) are skipped, and a
 // slot outside the window matches no point, as the one-hot mask does.
 //
-// Storage type (B1a-bf16): the pieces below are templates on the type S the
-// fields, tables, partials and scratch are stored in; TileArgs, View and
-// Tile name their float32 instances, which the TTI and elastic kernels
-// use.  A value is read as float (to_f: __bfloat162float for bf16) and
-// stored with from_f (__float2bfloat16), so a bf16 kernel computes in
-// float32 and rounds once a store, as the reference's bf16 tile rounds
-// each step's fields; for float32 both are the identity and the code is
-// the float32 kernels' own.  The domain mask `dom` stays float32.
+// Storage type (B1a-bf16 acoustic, B1b-bf16 TTI and elastic, B1c-bf16 with
+// `dom`): the pieces below are templates on the type S the fields, tables,
+// partials and the first schedule's state windows are stored in; TileArgs,
+// View and Tile name their float32 instances.  A value is read as float
+// (to_f: __bfloat162float for bf16) and stored with from_f
+// (__float2bfloat16), so a bf16 kernel computes in float32 and rounds once
+// a store of a step's state field (again after the injection, and each
+// receiver sample), as `stencil_tb.window_tile_plain` rounds; a value a
+// step only passes on to its own later phase (TTI's inner derivatives,
+// elastic's new velocities before the stresses read them) stays float32,
+// unrounded, as the plain version keeps it.  For float32 both are the
+// identity and the code is the float32 kernels' own.  The domain mask
+// `dom` stays float32.  bf16 builds only the radii its paths launch
+// (`radius_built`).
 #pragma once
+
+// The build (kernels/_build.py) compiles each time-tile source as two
+// objects at once and links them into one library: REPRO_TB_PART 1 holds
+// the float32 entries and the shared C helpers, 2 the bf16 entries, so the
+// bf16 instantiations add nothing to the build's wall time.  A source
+// compiled whole (the tools' own builds) holds both.
+#ifndef REPRO_TB_PART
+#define REPRO_TB_PART 3
+#endif
+#define TB_F32_PART (REPRO_TB_PART & 1)
+#define TB_BF16_PART (REPRO_TB_PART & 2)
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -163,7 +180,8 @@ struct TileT {
         return q.x * win_sx + (long long)q.y * nz + q.z;
     }
 
-    __device__ float ld(const ViewT<S>& v, Pt q) const {
+    template <class E>
+    __device__ float ld(const ViewT<E>& v, Pt q) const {
         return to_f(v.p[q.x * v.sx + (long long)q.y * nz + q.z]);
     }
 
@@ -196,10 +214,10 @@ struct TileT {
     // addresses are the column's (x, y) start plus z: the column is the
     // same for all lanes of a warp (they run along z), which keeps the tap
     // offsets warp-uniform
-    template <int NT, int OFF0>
-    __device__ __forceinline__ float taps(const ViewT<S>& v, int axis, Pt q,
+    template <int NT, int OFF0, class E>
+    __device__ __forceinline__ float taps(const ViewT<E>& v, int axis, Pt q,
                                           const float* c) const {
-        const S* col = v.p + (long long)q.x * v.sx + (long long)q.y * nz;
+        const E* col = v.p + (long long)q.x * v.sx + (long long)q.y * nz;
         float acc = 0.f;
 #pragma unroll
         for (int k = 0; k < NT; ++k) {
@@ -342,6 +360,27 @@ static dim3 tile_grid(const TileArgsT<S>& a)
     return dim3(a.nx / a.tx, a.ny / a.ty, a.nshots);
 }
 
+// float32 elements as storage elements: the first schedule keeps a
+// kernel's float32 windows (TTI's inner derivatives, elastic's unrounded
+// velocities in bf16) in the scratch beside its storage-type windows, each
+// `f32_words<S>()` storage windows long
+template <class S>
+__host__ __device__ constexpr int f32_words()
+{
+    return (int)(sizeof(float) / sizeof(S));
+}
+
+// whether the kernels of storage type S are built at radius r: every
+// radius in float32; in bf16 the radii of space orders 4 and 8, the ones
+// its paths launch (the acoustic kernel without a domain mask, B1a-bf16,
+// takes every radius).  A launch at another is refused; the wrapper asks
+// each library's `repro_bf16_built` before it launches.
+template <class S>
+__host__ __device__ constexpr bool radius_built(int r)
+{
+    return std::is_same<S, float>::value || r == 2 || r == 4;
+}
+
 // f(std::integral_constant<int, radius>{}, std::bool_constant<dom>{}): one
 // kernel instantiation per radius, so the tap loops unroll, and per
 // whether the launch reads a domain mask
@@ -366,9 +405,11 @@ static void with_radius(int radius, bool dom, F f)
     }
 }
 
+#if TB_F32_PART
 extern "C" const char* repro_cuda_error_string(int e)
 {
     return cudaGetErrorString((cudaError_t)e);
 }
 
 extern "C" int repro_max_radius(void) { return MAX_RADIUS; }
+#endif

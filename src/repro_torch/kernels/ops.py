@@ -115,16 +115,22 @@ def _src_vals_for_tile(src_dcmp: torch.Tensor, src_tab, t0: int, T: int):
 def combine_rec_partials(rec_part: torch.Tensor, rec_tab, nrec: int):
     """(B, ntx, nty, T, capr, nchan) partials -> (B, T, nrec, nchan)
     samples (segment sum over receiver ids with `index_add_`, each shot's
-    ids offset into its own segment; paper Fig. 3b)."""
+    ids offset into its own segment; paper Fig. 3b).  The sum is taken in
+    float64 and rounded once to the partials' dtype: a receiver's partials
+    (one a grid point it reads, at most 8) sum exactly there unless they
+    span more than 2^42 (bf16) or 2^26 (float32), so the samples do not
+    hang on the order in which a card's atomic adds land (in bf16 they
+    did, by a few bf16 spacings from run to run)."""
     B, ntx, nty, T, capr, nchan = rec_part.shape
     rid = rec_tab.rid.long()                               # (B, ntiles, capr)
     shot = torch.arange(B, device=rid.device)[:, None, None]
     ids = (torch.where(rid < 0, nrec, rid) + shot * (nrec + 1)).reshape(-1)
     vals = rec_part.reshape(B, ntx * nty, T, capr, nchan)
     vals = vals.permute(0, 1, 3, 2, 4).reshape(-1, T, nchan)
-    seg = torch.zeros((B * (nrec + 1), T, nchan), dtype=rec_part.dtype,
-                      device=rec_part.device).index_add_(0, ids, vals)
-    return seg.reshape(B, nrec + 1, T, nchan)[:, :nrec].permute(0, 2, 1, 3)
+    seg = torch.zeros((B * (nrec + 1), T, nchan), dtype=torch.float64,
+                      device=rec_part.device).index_add_(0, ids, vals.double())
+    return seg.reshape(B, nrec + 1, T, nchan)[:, :nrec].permute(
+        0, 2, 1, 3).to(rec_part.dtype)
 
 
 def tile_operands(spec: ker.TBKernelSpec, state, src_dcmp, src_tab,

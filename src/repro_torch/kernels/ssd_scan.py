@@ -107,14 +107,15 @@ def ssd_scan_plain(spec: SSDSpec, x, dtv, Bm, Cm, A,
                    h0: Optional[torch.Tensor] = None):
     """The TPU kernel's per-(batch, head) program, step by step over the
     chunks, with (batch, head) as the batch axes of each product and the
-    log-decay's prefix sum taken in order.  Inputs are cast to float32; y
-    is written in `spec.dtype`, h_final is float32.  Runs on any device.
+    log-decay's prefix sum taken in order.  Inputs are cast to float32
+    (float64 where x is float64: the kernel takes no float64); y is written
+    in `spec.dtype`, h_final is in the cast dtype.  Runs on any device.
     Shapes as `ssd_scan`."""
     Bsz, S, H, P = x.shape
     G, N = Bm.shape[2], Bm.shape[3]
     rep = H // G
     Q = spec.chunk
-    f32 = torch.float32
+    f32 = torch.promote_types(x.dtype, torch.float32)
     dev = x.device
     # (B, H, S, *): each head with its group's B and C
     xf = x.to(f32).permute(0, 2, 1, 3)

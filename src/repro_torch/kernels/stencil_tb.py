@@ -21,8 +21,9 @@ origin as the fields, in place of the spec's "inside the grid" predicate.
 `tb_time_tile` dispatches on where its tensors lie: CPU tensors run
 `tb_time_tile_plain`; CUDA tensors launch the physics' kernel
 (``csrc/stencil_tb.cu`` acoustic, ``csrc/stencil_tb_tti.cu`` TTI,
-``csrc/stencil_tb_elastic.cu`` elastic; float32, and bf16 for acoustic
-without `dom`: kernel B1a-bf16) or raise.  `launches`
+``csrc/stencil_tb_elastic.cu`` elastic; float32, and bf16: kernels
+B1a-bf16 acoustic, B1b-bf16 TTI and elastic, B1c-bf16 with `dom`) or
+raise.  `launches`
 counts kernel launches, so a run can show it went through the kernel.
 
 Each kernel has two schedules, and `launch_plan` picks one a launch from
@@ -295,14 +296,20 @@ class _CudaKernel:
     wave_from_order: Optional[int] = None
     wave_from_halo: int = 0
     wave_max_cluster: int = 0
+    # the first schedule's scratch windows a tile in bf16 (`_KERNELS`)
+    bf16_first_windows: int = 0
 
 
-# physics name -> its hand-written kernel; all share one C entry point
+# physics name -> its hand-written kernel; all share one C entry point.
+# `bf16_first_windows`: the first schedule's scratch a tile in bf16, in
+# bf16 windows: the state windows, and the float32 ones at two each (TTI's
+# three inner derivatives; elastic's three velocities, unrounded until
+# the step ends, after a spare window that keeps them 4-byte aligned)
 _KERNELS = {
     "acoustic": _CudaKernel("stencil_tb", 2, st.second_derivative_weights,
                             2, stream_windows=(), stream_from_halo=4,
                             wave_from_order=8, wave_from_halo=12,
-                            wave_max_cluster=4),
+                            wave_max_cluster=4, bf16_first_windows=2),
     # p and r twice (ping-pong) from the first step's region, the three
     # inner first derivatives from the first phase A's (`tti_blk_floats`);
     # streamed from the least halo measured, 4 (order 4, T = 1: 14.2
@@ -310,12 +317,12 @@ _KERNELS = {
     "tti": _CudaKernel("stencil_tb_tti", 7, st.first_derivative_weights, 1,
                        stream_windows=(2, 2, 2, 2, 1, 1, 1),
                        stream_from_halo=4, cluster_from_order=8,
-                       cluster_from_halo=16),
+                       cluster_from_halo=16, bf16_first_windows=4 + 3 * 2),
     "elastic": _CudaKernel(
         "stencil_tb_elastic", 9,
         lambda order: st.staggered_first_derivative_weights(order)[1], 1,
         stream_windows=(0,) * 9, stream_from_halo=12, cluster_from_order=8,
-        cluster_from_halo=16),
+        cluster_from_halo=16, bf16_first_windows=9 + 1 + 3 * 2),
 }
 
 
@@ -786,18 +793,20 @@ def _scratch_elems(spec: TBKernelSpec,
     """(scratch elements a row of a launch needs, elements of the params'
     float32 z-major copies (one row of params), the scratch's dtype).  The
     first schedule's scratch is its tiles' windows in the storage dtype
-    and it takes no copies; the z-streamed schedule's is float32: z-major
-    copies of the row's state and its blocks' windows, and the params'
-    copies (`param_copies`, or made by the launch in its scratch); B5's
-    the same copies and `scratch_windows` whole spec windows a tile; B6's
-    the copies alone."""
+    (in bf16 `bf16_first_windows` of them: its float32 windows at two bf16
+    windows each) and it takes no copies; the z-streamed schedule's is
+    float32: z-major copies of the row's state and its blocks' windows,
+    and the params' copies (`param_copies`, or made by the launch in its
+    scratch); B5's the same copies and `scratch_windows` whole spec
+    windows a tile; B6's the copies alone."""
     ntx, nty = spec.ntiles
     kern = _KERNELS[physics.name]
     plan = launch_plan(spec, physics)
     wx, wy, nz = spec.window
     if plan is None:
-        return (ntx * nty * kern.scratch_windows * wx * wy * nz, 0,
-                spec.dtype)
+        windows = (kern.scratch_windows if spec.dtype == torch.float32
+                   else kern.bf16_first_windows)
+        return ntx * nty * windows * wx * wy * nz, 0, spec.dtype
     h = spec.halo
     vol = (spec.nx + 2 * h) * (spec.ny + 2 * h) * spec.nz
     if isinstance(plan, WavePlan):
@@ -860,9 +869,7 @@ def _bind(source: str):
     lib = _build.load(source)
     if lib.repro_tb_tile.argtypes is None:
         p, i = ctypes.c_void_p, ctypes.c_int
-        entries = [lib.repro_tb_tile]
-        if source == _KERNELS["acoustic"].source:
-            entries.append(lib.repro_tb_tile_bf16)
+        entries = [lib.repro_tb_tile, lib.repro_tb_tile_bf16]
         # the sub-tile (bx, by) of the z-streamed schedule, (0, 0) for
         # the first
         for fn in entries:
@@ -872,12 +879,15 @@ def _bind(source: str):
         if hasattr(lib, "repro_tb_tile_cluster"):
             # B5: the cluster size, the chunk table on the host and on the
             # device, its length, the shared bytes a block
-            lib.repro_tb_tile_cluster.argtypes = (
-                [i] + [p] * 9 + [i] * 12 + [p] + [ctypes.c_float] * 2
-                + [i, p, p, i, i, p])
-            lib.repro_tb_tile_cluster.restype = i
-            lib.repro_tb_cluster_occupancy.argtypes = [i, i, i, i, p]
-            lib.repro_tb_cluster_occupancy.restype = i
+            for fn in (lib.repro_tb_tile_cluster,
+                       lib.repro_tb_tile_cluster_bf16):
+                fn.argtypes = ([i] + [p] * 9 + [i] * 12 + [p]
+                               + [ctypes.c_float] * 2 + [i, p, p, i, i, p])
+                fn.restype = i
+            for fn in (lib.repro_tb_cluster_occupancy,
+                       lib.repro_tb_cluster_occupancy_bf16):
+                fn.argtypes = [i, i, i, i, p]
+                fn.restype = i
         if hasattr(lib, "repro_tb_tile_wave"):
             # B6: the cluster size, the parts (px, py), the planes a step,
             # the cut lines in x and in y, the shared bytes a block
@@ -887,12 +897,12 @@ def _bind(source: str):
             lib.repro_tb_tile_wave.restype = i
             lib.repro_tb_wave_occupancy.argtypes = [i, i, i, i, p]
             lib.repro_tb_wave_occupancy.restype = i
-        copies = [lib.repro_tb_param_copies]
-        if hasattr(lib, "repro_tb_param_copies_bf16"):
-            copies.append(lib.repro_tb_param_copies_bf16)
-        for fn in copies:
+        for fn in (lib.repro_tb_param_copies,
+                   lib.repro_tb_param_copies_bf16):
             fn.argtypes = [i, p] + [i] * 7 + [p, p]
             fn.restype = i
+        lib.repro_bf16_built.argtypes = [i, i]
+        lib.repro_bf16_built.restype = i
         lib.repro_cuda_error_string.argtypes = [i]
         lib.repro_cuda_error_string.restype = ctypes.c_char_p
         if lib.repro_max_radius() != _MAX_RADIUS:
@@ -938,17 +948,30 @@ def param_copies(spec: TBKernelSpec, physics: phys.TBPhysics,
 
 def cluster_occupancy(spec: TBKernelSpec, physics: phys.TBPhysics,
                       plan: ClusterPlan, dom: bool = False) -> int:
-    """Clusters of a B5 launch of `plan` the card holds at once
-    (cudaOccupancyMaxActiveClusters; a launch whose clusters number more
-    runs in waves, and one that gets 0 raises).  Needs a card."""
+    """Clusters of a B5 launch of `plan` in `spec.dtype` the card holds at
+    once (cudaOccupancyMaxActiveClusters; a launch whose clusters number
+    more runs in waves, and one that gets 0 raises).  Needs a card."""
     lib = _bind(_KERNELS[physics.name].source)
     out = ctypes.c_int(0)
-    rc = lib.repro_tb_cluster_occupancy(spec.radius, int(dom), plan.cluster,
-                                        plan.smem, ctypes.byref(out))
+    query = (lib.repro_tb_cluster_occupancy if spec.dtype == torch.float32
+             else lib.repro_tb_cluster_occupancy_bf16)
+    rc = query(spec.radius, int(dom), plan.cluster, plan.smem,
+               ctypes.byref(out))
     if rc != 0:
         raise RuntimeError("cluster occupancy query failed: "
                            + lib.repro_cuda_error_string(rc).decode())
     return out.value
+
+
+def bf16_built(spec: TBKernelSpec, physics: phys.TBPhysics,
+               dom: bool = False) -> bool:
+    """Whether `physics`' bf16 kernel is built at `spec`'s space order,
+    without or with (`dom`) a domain mask: its library's answer
+    (`radius_built` in csrc/tb_common.cuh: B1a-bf16 at every order, TTI,
+    elastic and any launch with a mask at the orders their paths launch).
+    Needs the library."""
+    lib = _bind(_KERNELS[physics.name].source)
+    return bool(lib.repro_bf16_built(spec.radius, int(dom)))
 
 
 def wave_occupancy(spec: TBKernelSpec, physics: phys.TBPhysics,
@@ -1006,18 +1029,18 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     ntx, nty = spec.ntiles
     ntiles = ntx * nty
     wx, wy, nz = spec.window
-    if dtype == torch.bfloat16:
-        # B1a-bf16 is the single-device and shot-batched acoustic tile
-        if physics.name != "acoustic":
-            raise TypeError(f"{physics.name}: the bfloat16 TB kernel is "
-                            "acoustic only (B1a-bf16); the TTI and elastic "
-                            "kernels take float32")
-        if dom is not None:
-            raise TypeError("the sharded path's kernel (B1c, with dom) "
-                            "takes float32, not bfloat16")
-    elif dtype != f32:
+    if dtype not in (f32, torch.bfloat16):
         raise TypeError(f"spec.dtype {dtype}: the TB kernels take float32 "
-                        "(and bfloat16 for acoustic)")
+                        "or bfloat16")
+    lib = _bind(kern.source)
+    if dtype == torch.bfloat16 and not bf16_built(spec, physics,
+                                                  dom is not None):
+        # B1a-bf16 (acoustic) at every order; B1b-bf16 (TTI, elastic) and
+        # B1c-bf16 (`dom`) at the orders their paths launch
+        raise ValueError(
+            f"{physics.name}{' with dom' if dom is not None else ''}: the "
+            f"bfloat16 kernel is not built at space order {spec.order} "
+            "(radius_built in csrc/tb_common.cuh)")
     if h != spec.T * physics.step_radius(spec.order):
         raise ValueError(f"spec halo {h} is not T * {physics.name}'s step "
                          f"radius {physics.step_radius(spec.order)}")
@@ -1056,7 +1079,6 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
     dt = st.round_to(spec.dt, f32)
     dt2 = st.round_to(dt * dt, f32)
 
-    lib = _bind(kern.source)
     plan = launch_plan(spec, physics)
     outs = tuple(torch.empty((B, spec.nx, spec.ny, spec.nz), dtype=dtype,
                              device=dev) for _ in physics.state_fields)
@@ -1097,9 +1119,12 @@ def _tb_time_tile_cuda(spec: TBKernelSpec, physics: phys.TBPhysics,
                               device=dev)
     else:
         check_scratch(scratch, (B * per_row + extra) * sdtype.itemsize, dev)
-    entry = (lib.repro_tb_tile_cluster if cluster else
-             lib.repro_tb_tile_wave if wave else
-             lib.repro_tb_tile if dtype == f32 else lib.repro_tb_tile_bf16)
+    if cluster:
+        entry = (lib.repro_tb_tile_cluster if dtype == f32
+                 else lib.repro_tb_tile_cluster_bf16)
+    else:
+        entry = (lib.repro_tb_tile_wave if wave else lib.repro_tb_tile
+                 if dtype == f32 else lib.repro_tb_tile_bf16)
     ptr = lambda t: ctypes.c_void_p(t.data_ptr())  # noqa: E731
     stream = torch.cuda.current_stream(dev).cuda_stream
     rc = entry(
@@ -1257,8 +1282,8 @@ def tb_time_tile(spec: TBKernelSpec, physics: phys.TBPhysics,
     and rec_partials (B, ntx, nty, T, capr, rec_channels).
 
     CPU tensors run `tb_time_tile_plain`; CUDA tensors launch the physics'
-    kernel once for all B shots (contiguous; float32, or bfloat16 for
-    acoustic without `dom`) or raise.  The launch
+    kernel once for all B shots (contiguous; float32, or bfloat16 where
+    `bf16_built`) or raise.  The launch
     goes on the current stream and does not synchronise.
     """
     dev = state_pads[0].device

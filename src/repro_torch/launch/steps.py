@@ -214,7 +214,7 @@ def _sum_grads(grads, partial, data, model, data_split=None):
         split = dict(named_leaves(data_split))
         rest = data.all_reduce_grads({n: g for n, g in named_leaves(grads)
                                       if not split[n]})
-        grads = map_named(lambda n, g: rest.get(n, g.float()), grads)
+        grads = map_named(lambda n, g: rest.get(n, L.upcast(g)), grads)
     parts = {n: g for (n, g), (_, p) in zip(named_leaves(grads),
                                            named_leaves(partial)) if p}
     if model.world == 1 or not parts:

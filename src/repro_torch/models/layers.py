@@ -139,24 +139,37 @@ def index(tree: dict, *idx) -> dict:
     return _map(lambda t: pg.fsdp_whole(t[idx]), tree)
 
 
+def compute_dtype(dtype: torch.dtype) -> torch.dtype:
+    """The dtype the models upcast to: float32 for bf16 and float32 (the
+    reference's ``astype(jnp.float32)``), float64 for float64, so that a
+    float64 model runs in float64 end to end."""
+    return torch.promote_types(dtype, torch.float32)
+
+
+def upcast(x: torch.Tensor) -> torch.Tensor:
+    """x in `compute_dtype(x.dtype)`."""
+    return x.to(compute_dtype(x.dtype))
+
+
 def rms_norm(x: torch.Tensor, w: torch.Tensor, eps: float) -> torch.Tensor:
-    """RMSNorm over the last axis, in float32, cast back to x's dtype."""
-    xf = x.float()
+    """RMSNorm over the last axis, in float32 (float64 for a float64 x),
+    cast back to x's dtype."""
+    xf = upcast(x)
     var = torch.mean(xf * xf, dim=-1, keepdim=True)
     y = xf * torch.rsqrt(var + eps)
-    return (y * w.float()).to(x.dtype)
+    return (y * w.to(xf.dtype)).to(x.dtype)
 
 
 def layer_norm(x: torch.Tensor, w: torch.Tensor, b: torch.Tensor,
                eps: float) -> torch.Tensor:
-    """LayerNorm over the last axis in float32 (the population variance,
-    the mean of the centred squares, as `jnp.var`), cast back to x's
-    dtype once."""
-    xf = x.float()
+    """LayerNorm over the last axis in float32 (float64 for a float64 x;
+    the population variance, the mean of the centred squares, as
+    `jnp.var`), cast back to x's dtype once."""
+    xf = upcast(x)
     centred = xf - torch.mean(xf, dim=-1, keepdim=True)
     var = torch.mean(centred * centred, dim=-1, keepdim=True)
     y = centred * torch.rsqrt(var + eps)
-    return (y * w.float() + b.float()).to(x.dtype)
+    return (y * w.to(xf.dtype) + b.to(xf.dtype)).to(x.dtype)
 
 
 def sigmoid(x):
@@ -179,13 +192,15 @@ def rope(x: torch.Tensor, positions: torch.Tensor,
          theta: float) -> torch.Tensor:
     """Apply RoPE.  x: (B, S, H, hd); positions: (B, S) int.  The
     frequencies are the reference's numpy float32 ones; angles and the
-    rotation are float32, cast back to x's dtype."""
+    rotation are float32 (float64 for a float64 x), cast back to x's
+    dtype."""
     hd = x.shape[-1]
     half = hd // 2
-    freqs = torch.as_tensor(
-        1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half)),
-        device=x.device)
-    ang = positions[..., None].float() * freqs            # (B, S, half)
+    up = compute_dtype(x.dtype)
+    freqs = torch.tensor(
+        (1.0 / (theta ** (np.arange(0, half, dtype=np.float32) / half)))
+        .tolist(), dtype=up, device=x.device)
+    ang = positions[..., None].to(up) * freqs            # (B, S, half)
     cos = torch.cos(ang)[:, :, None, :]
     sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = x[..., :half], x[..., half:]
@@ -322,15 +337,16 @@ def sdpa(q, k, v, *, causal: bool, q_positions=None, kv_len=None):
 
 
 def _scores(q, k):
-    """(B, Hkv, rep, Sq, Skv) float32 scores q.k / sqrt(hd): the product
-    in q's dtype, then float32, a copy in either dtype, so the in-place
+    """(B, Hkv, rep, Sq, Skv) float32 scores q.k / sqrt(hd) (float64 for
+    a float64 q): the product in q's dtype, then upcast, a copy in either
+    dtype, so the in-place
     steps after it touch neither the caller's tensors nor the product
     itself (which `maybe_remat`'s "dots" policy keeps)."""
     B, Sq, H, hd = q.shape
     Hkv = k.shape[2]
     qr = q.reshape(B, Sq, Hkv, H // Hkv, hd)
-    scores = torch.einsum("bqhrd,bkhd->bhrqk", qr, k).to(torch.float32,
-                                                          copy=True)
+    scores = torch.einsum("bqhrd,bkhd->bhrqk", qr, k).to(
+        compute_dtype(q.dtype), copy=True)
     return scores.div_(float(np.float32(np.sqrt(hd))))
 
 
@@ -370,7 +386,7 @@ def sdpa_split(q, k, v, kv_len, first: int, group):
                             op=torch.distributed.ReduceOp.MAX)
     e = torch.exp(scores - top)
     e = torch.where(lmask[:, None, None, None, :], e, 0)
-    o = torch.einsum("bhrqk,bkhd->bhrqd", e, v.float())
+    o = torch.einsum("bhrqk,bkhd->bhrqd", e, upcast(v))
     both = group.all_reduce_(torch.cat([o, e.sum(-1, keepdim=True)], -1))
     out = both[..., :hd] / both[..., hd:]
     return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, H, hd).to(q.dtype)
@@ -618,11 +634,12 @@ def vocab_first(p: dict, cfg: ModelConfig) -> Optional[int]:
 
 
 def unembed(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Logits (..., vocab) in float32; the product is taken in x's dtype,
+    """Logits (..., vocab) in float32 (float64 for a float64 x); the
+    product is taken in x's dtype,
     as the reference's einsum is.  With the vocabulary split over the
     model axis: this rank's block of the logits (from `vocab_first`), x
     through f."""
     w = unembedding(p, cfg)
     if vocab_first(p, cfg) is not None:
         x = pg.copy_to_model(x)
-    return torch.matmul(x, w).float()
+    return upcast(torch.matmul(x, w))

@@ -62,13 +62,14 @@ def dims(cfg: ModelConfig):
 def init_block(gen: torch.Generator, cfg: ModelConfig) -> dict:
     """One block's parameters; the projections are split per tensor (z /
     x / BC / dt, conv likewise), as in the reference.  A_log 0 (A = -1),
-    D 1, dt_bias 0."""
+    D 1, dt_bias 0, float32 as in the reference (float64 in a float64
+    model)."""
     D = cfg.d_model
     d_inner, H, conv_ch = dims(cfg)
     G, N, W = cfg.ssm_ngroups, cfg.ssm_state, cfg.ssm_conv_width
     dt = L.dtype_of(cfg)
     dev = gen.device
-    f32 = torch.float32
+    f32 = L.compute_dtype(dt)
     return {
         "norm": torch.ones((D,), dtype=dt, device=dev),
         "in_z": L.dense_init(gen, D, d_inner, dt),
@@ -130,18 +131,19 @@ def _causal_conv(xbc, w, b, init_state: Optional[torch.Tensor] = None):
     """Depthwise causal conv along S.  xbc: (B, S, C); w: (W, C).
 
     init_state: (B, W-1, C) left context; defaults to zeros.  The taps are
-    summed in float32 in tap order.  Returns (out (B, S, C) in xbc's dtype,
+    summed in float32 (float64 for a float64 xbc) in tap order.  Returns (out (B, S, C) in xbc's dtype,
     new_state (B, W-1, C): the last W-1 inputs)."""
     B, S, C = xbc.shape
     W = w.shape[0]
     if init_state is None:
         init_state = xbc.new_zeros((B, W - 1, C))
     full = torch.cat([init_state.to(xbc.dtype), xbc], dim=1)
-    wf = w.float()
-    out = torch.zeros((B, S, C), dtype=torch.float32, device=xbc.device)
+    up = L.compute_dtype(xbc.dtype)
+    wf = w.to(up)
+    out = torch.zeros((B, S, C), dtype=up, device=xbc.device)
     for k in range(W):
-        out = out + full[:, k:k + S].float() * wf[k]
-    out = out + b.float()
+        out = out + full[:, k:k + S].to(up) * wf[k]
+    out = out + b.to(up)
     return L.silu(out).to(xbc.dtype), full[:, S:]
 
 
@@ -261,22 +263,23 @@ def _head_block(p, cfg: ModelConfig):
 
 def _gated_norm(v, w, eps: float, width: int):
     """`layers.rms_norm` over all `width` channels of d_inner: where v and
-    w hold this rank's block of them, the float32 sum of squares is summed
-    over the model axis."""
+    w hold this rank's block of them, the float32 (float64) sum of squares
+    is summed over the model axis."""
     if v.shape[-1] == width:
         return L.rms_norm(v, w, eps)
-    vf = v.float()
+    vf = L.upcast(v)
     var = pg.sum_over_model(torch.sum(vf * vf, dim=-1, keepdim=True)) / width
     y = vf * torch.rsqrt(var + eps)
-    return (y * w.float()).to(v.dtype)
+    return (y * w.to(vf.dtype)).to(v.dtype)
 
 
 def block_forward(p, cfg: ModelConfig, x,
                   conv_state: Optional[torch.Tensor] = None,
                   ssm_state: Optional[torch.Tensor] = None):
     """One Mamba2 block (pre-norm residual).  x: (B, S, D).  The scan runs
-    through `ssd_scan` with float32 y (kernel B2 on a card), over this
-    rank's heads where the block is split over the model axis.
+    through `ssd_scan` with float32 y (kernel B2 on a card; float64 for a
+    float64 x, which B2 does not take), over this rank's heads where the
+    block is split over the model axis.
 
     Returns (y, (new_conv_state, new_ssm_state)) so prefill can seed decode.
     """
@@ -304,12 +307,13 @@ def block_forward(p, cfg: ModelConfig, x,
     if bc.shape[-1] < 2 * GN:            # B and C split over the model axis
         bc = pg.gather_from_model(bc, -1)
 
-    dtv = _softplus(dt_raw.float() + p["dt_bias"][heads])
+    up = L.compute_dtype(x.dtype)
+    dtv = _softplus(dt_raw.to(up) + p["dt_bias"][heads])
     # in float32 for the scan; A_log is float32 at init, and in the
     # param dtype once an optimizer step has cast every param to it (the
     # reference's exp then rounds to that dtype too, before the products
     # promote it)
-    A = (-torch.exp(p["A_log"][heads])).float()
+    A = (-torch.exp(p["A_log"][heads])).to(up)
     xh = xi.reshape(Bsz, S, H, P)
 
     # pad S to a chunk multiple (padded tokens have dt=0 -> identity decay,
@@ -324,11 +328,11 @@ def block_forward(p, cfg: ModelConfig, x,
     Cm = bcs[..., GN:].unflatten(-1, (-1, N))[:, :, groups].contiguous()
 
     spec = ssd.SSDSpec(seq_len=S + pad, chunk=Q, nheads=H, ngroups=G,
-                       headdim=P, state=N, dtype=torch.float32)
+                       headdim=P, state=N, dtype=up)
     y, h_final = ssd.ssd_scan(spec, xs.contiguous(), dts.contiguous(), Bm,
                               Cm, A.contiguous(), h0=ssm_state)
     y = y[:, :S]
-    y = y + p["D"][heads][None, None, :, None] * xh.float()
+    y = y + p["D"][heads][None, None, :, None] * xh.to(up)
     y = y.reshape(Bsz, S, d_inner).to(x.dtype)
     y = _gated_norm(y * L.silu(z), p["gate_norm"][h0 * P:(h0 + H) * P],
                     cfg.norm_eps, dims(cfg)[0])
@@ -340,7 +344,8 @@ def block_forward(p, cfg: ModelConfig, x,
 
 def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     """One-token recurrent update.  x: (B, 1, D); conv_state (B, W-1, C);
-    ssm_state (B, H, N, P) float32.  Split over the model axis as
+    ssm_state (B, H, N, P) float32 (float64 for a float64 x).  Split over
+    the model axis as
     `block_forward` is: this rank's heads, its x channels and B/C columns
     of the conv state ([x block | B/C block]), B and C gathered, the
     gated norm's sum of squares summed, out_proj then g."""
@@ -357,10 +362,12 @@ def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     z, xi_t, bc_t, dt_raw = _split_proj(p, h, heads)    # (B, 1, *)
     d_inner = xi_t.shape[-1]
 
+    up = L.compute_dtype(x.dtype)
+
     def one_step_conv(state, new_col, w, b):
         window = torch.cat([state, new_col[:, None]], dim=1)
-        out = torch.einsum("bwc,wc->bc", window.float(), w.float()) \
-            + b.float()
+        out = torch.einsum("bwc,wc->bc", window.to(up), w.to(up)) \
+            + b.to(up)
         return L.silu(out), window[:, 1:]
 
     xi, new_conv_x = one_step_conv(conv_state[..., :d_inner], xi_t[:, 0],
@@ -373,7 +380,7 @@ def block_decode(p, cfg: ModelConfig, x, conv_state, ssm_state):
     groups = slice(g0, g0 + G)
     Bm = bc[:, :GN].reshape(Bsz, G_all, N)[:, groups]
     Cm = bc[:, GN:].reshape(Bsz, G_all, N)[:, groups]
-    dtv = _softplus(dt_raw[:, 0].float() + p["dt_bias"][heads])
+    dtv = _softplus(dt_raw[:, 0].to(up) + p["dt_bias"][heads])
     A = -torch.exp(p["A_log"][heads])
     xh = xi.reshape(Bsz, H, P)
     rep = H // G
@@ -398,7 +405,8 @@ class SSMCache(NamedTuple):
     """Stacked-over-layers recurrent cache for decode."""
 
     conv: torch.Tensor    # (L, B, W-1, conv_ch)
-    state: torch.Tensor   # (L, B, H, N, P) float32
+    state: torch.Tensor   # (L, B, H, N, P) float32 (float64 caches:
+                          # float64)
     length: torch.Tensor  # (B,) int32
 
     @classmethod
@@ -410,7 +418,8 @@ class SSMCache(NamedTuple):
             torch.zeros((cfg.num_layers, batch, cfg.ssm_conv_width - 1,
                          conv_ch), dtype=dtype, device=dev),
             torch.zeros((cfg.num_layers, batch, H, cfg.ssm_state,
-                         cfg.ssm_headdim), dtype=torch.float32, device=dev),
+                         cfg.ssm_headdim), dtype=L.compute_dtype(dtype),
+                        device=dev),
             torch.zeros((batch,), dtype=torch.int32, device=dev))
 
 

@@ -34,7 +34,8 @@ class HybridCache(NamedTuple):
     application.  Decode writes k and v in place."""
 
     conv: torch.Tensor     # (L, B, W-1, conv_ch), the cache dtype
-    state: torch.Tensor    # (L, B, H, N, P) float32
+    state: torch.Tensor    # (L, B, H, N, P) float32 (float64 caches:
+                           # float64)
     k: torch.Tensor        # (n_super, B, Smax, Hkv, hd), the cache dtype
     v: torch.Tensor
     length: torch.Tensor   # (B,) int32
@@ -50,7 +51,8 @@ class HybridCache(NamedTuple):
             torch.zeros((cfg.num_layers, batch, cfg.ssm_conv_width - 1,
                          conv_ch), dtype=dtype, device=dev),
             torch.zeros((cfg.num_layers, batch, H, cfg.ssm_state,
-                         cfg.ssm_headdim), dtype=torch.float32, device=dev),
+                         cfg.ssm_headdim), dtype=L.compute_dtype(dtype),
+                        device=dev),
             torch.zeros(kv, dtype=dtype, device=dev),
             torch.zeros(kv, dtype=dtype, device=dev),
             torch.zeros((batch,), dtype=torch.int32, device=dev))

@@ -31,7 +31,11 @@ def _groups(world, rank_sets):
 
 
 def _np(t):
-    return None if t is None else t.detach().numpy()
+    """numpy of `t` (bf16 as float32: numpy has no bf16)."""
+    if t is None:
+        return None
+    t = t.detach()
+    return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
 
 
 def exchange_case(group, pgrid, grid, depth, h):

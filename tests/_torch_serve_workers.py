@@ -28,15 +28,17 @@ def prompts(cfg, batch: int, plen: int, seed: int):
 
 def generate(cfg, params, batch, max_len, n_decode, rules=None):
     """The prefill step and `n_decode` decode steps with logits
-    (`launch.steps`, `with_logits`), float32 caches: ([next tokens],
-    [logits]) each step's as numpy, global over the batch.  (With the
-    default bf16 caches a float32 difference of a rounding flips a cache
-    entry's bf16 rounding now and then, and the logits move by 1e-4 of
-    their max.)"""
+    (`launch.steps`, `with_logits`), float32 caches (float64 for a float64
+    model): ([next tokens], [logits]) each step's as numpy, global over
+    the batch.  (With the default bf16 caches a float32 difference of a
+    rounding flips a cache entry's bf16 rounding now and then, and the
+    logits move by 1e-4 of their max.)"""
     from repro_torch.launch import steps
+    from repro_torch.models import layers as L
 
-    prefill = steps.make_prefill_step(cfg, max_len, rules, with_logits=True,
-                                      cache_dtype=torch.float32)
+    prefill = steps.make_prefill_step(
+        cfg, max_len, rules, with_logits=True,
+        cache_dtype=L.compute_dtype(L.act_dtype_of(cfg)))
     decode = steps.make_decode_step(cfg, rules, with_logits=True)
     tok, cache, logits = prefill(params, batch)
     toks, outs = [tok.numpy()], [logits.numpy()]

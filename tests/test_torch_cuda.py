@@ -162,8 +162,9 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     """The acoustic kernel takes bf16 (B1a-bf16): held to the plain bf16
     version within 2^-6 of each field's and receiver channel's scale, and
     to the float32 kernel within the reference's bf16 bound.
-    A bf16 field under a float32 spec, bf16 TTI, bf16 with a domain mask,
-    a strided field, a wrong shape and a CPU field are refused."""
+    A bf16 field under a float32 spec, bf16 TTI at an order its bf16
+    kernel is not built for (12), a float16 spec, a strided field, a wrong
+    shape and a CPU field are refused."""
     dev = _card()
     c = acoustic_case(shape=(16, 16, 12), nt=4)
     spec, (pads, ppads, sc, sv, rc, rw) = _operands(c, 2, (8, 8), dev)
@@ -185,15 +186,17 @@ def test_wrapper_rejects_what_the_kernel_does_not_take():
     with pytest.raises(TypeError, match="dtype"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, bf, ppads, sc, sv, rc, rw)
     mc = MULTI_CASES["tti"](shape=(16, 16, 12), nt=4)
-    tp, tspec, targs = _mp_operands(mc, 2, (8, 8), dev)
-    with pytest.raises(TypeError, match="acoustic only"):
-        ker.tb_time_tile(dataclasses.replace(tspec, dtype=torch.bfloat16),
+    tp, tspec, targs = _mp_operands(mc, 1, (8, 8), dev)
+    with pytest.raises(ValueError, match="not built at space order 12"):
+        ker.tb_time_tile(dataclasses.replace(tspec, order=12,
+                                             dtype=torch.bfloat16),
                          tp, *(tuple(a.to(torch.bfloat16) for a in t)
                                for t in targs[:2]), *targs[2:])
-    dom = torch.ones((1, 16 + 2 * bspec.halo, 16 + 2 * bspec.halo),
-                     device=dev)
-    with pytest.raises(TypeError, match="B1c"):
-        ker.tb_time_tile(bspec, phys.ACOUSTIC, *bargs, dom=dom)
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        ker.tb_time_tile(dataclasses.replace(spec, dtype=torch.float16),
+                         phys.ACOUSTIC, *(tuple(a.half() for a in t)
+                                          for t in (pads, ppads)),
+                         sc, sv.half(), rc, rw.half())
     strided = (pads[0].transpose(1, 2), pads[1])
     with pytest.raises(ValueError, match="contiguous"):
         ker.tb_time_tile(spec, phys.ACOUSTIC, strided, ppads, sc, sv, rc, rw)

@@ -25,6 +25,12 @@ seeded generator.
     softmax is split over the ranks; the prompt (14 positions) lies in
     rank 0's half and the decode steps cross into rank 1's.  zamba2-2.7b
     and qwen3-1.7b, the same limits.
+(d) ROADMAP C10: zamba2-2.7b at REDUCED widths, 12 layers, in float64
+    (float64 caches, the plain scan as on any CPU tensor) in the two
+    ranks of (a), within F64_TOL of max|logits| of one process's: the
+    ranks' sums in another order move the logits by float64 rounding
+    alone.  And a float64 forward makes no float32 or bf16 tensor on
+    its way (the models' upcasts promote: `layers.compute_dtype`).
 (c) Every case's gathered logits of the prefill and the decode steps
     against the reference's (`repro.models.api.prefill` / `decode_step`,
     float32 caches) on the same params and prompts, fed the same tokens:
@@ -68,6 +74,10 @@ CASES = {"mamba2-130m": ("mamba2-130m", {}),
          "whisper-medium": ("whisper-medium", {})}
 ARCHS = list(CASES)
 SEQ_SPLIT = ["zamba2-2.7b", "qwen3-1.7b"]
+F64 = dict(param_dtype="float64", activation_dtype="float64")
+F64_CASE = ("zamba2-f64", "zamba2-2.7b", BATCH, PLEN,
+            dict(F64, num_layers=12))
+F64_TOL = 1e-9             # max|logits - one process's| / max|one's|
 SEQ_PLEN = 14
 
 _runs = {}
@@ -90,7 +100,7 @@ def runs(tmp_path_factory):
         tmp = tmp_path_factory.mktemp("serve")
         _runs[2] = W.run_ranks(
             W.serve_meshes, 2, str(tmp / "rdzv2"),
-            ([(2, _cases(ARCHS, BATCH, PLEN)),
+            ([(2, _cases(ARCHS, BATCH, PLEN) + [F64_CASE]),
               (1, _cases(SEQ_SPLIT, 1, SEQ_PLEN))], MAX_LEN, N_DECODE),
             timeout=TIMEOUT)
         _runs[4] = W.run_ranks(
@@ -185,6 +195,67 @@ def test_sequence_split_cache_serves_as_one_process(key, runs, monkeypatch):
     assert SEQ_PLEN < MAX_LEN // 2 < SEQ_PLEN + N_DECODE
     _check([r[1] for r in runs[2]], key,
            *_held(key, 1, SEQ_PLEN, 1, monkeypatch))
+
+
+def test_float64_ranks_serve_within_float64_rounding(runs):
+    """C10: the two ranks' float64 logits against one process's, prefill
+    and decode steps, within F64_TOL; the next tokens and the engine's
+    outputs equal."""
+    key, name, batch, plen, over = F64_CASE
+    cfg = dataclasses.replace(W.f32_reduced(name), **over)
+    assert cfg.num_layers >= 12
+    params = api.init(0, cfg, None, device="cpu")
+    toks, logits = W.generate(cfg, params, W.prompts(cfg, batch, plen, 0),
+                              MAX_LEN, N_DECODE)
+    eng = GenerationEngine(params, cfg, MAX_LEN, batch, "cpu")
+    reqs = [Request(prompt=p.numpy(), max_new_tokens=N_DECODE + 1)
+            for p in W.prompts(cfg, batch, plen, 0)["tokens"]]
+    results = [r[2] for r in runs[2]]
+    for r, res in enumerate(results):
+        for step, (g, w) in enumerate(zip(res[key]["tokens"], toks)):
+            np.testing.assert_array_equal(g, w, err_msg=f"rank {r} {step}")
+        for g, w in zip(res[key]["engine"],
+                        [q.output for q in eng.generate(reqs)]):
+            np.testing.assert_array_equal(g, w, err_msg=f"rank {r}")
+    got = results[0][key]["logits"]
+    assert len(got) == len(logits) == N_DECODE + 1
+    for step, (g, w) in enumerate(zip(got, logits)):
+        assert g.dtype == w.dtype == np.float64
+        gap = np.abs(g - w).max() / np.abs(w).max()
+        assert gap <= F64_TOL, (step, gap)
+
+
+@pytest.mark.parametrize("name", ["zamba2-2.7b", "mamba2-130m"])
+def test_float64_forward_makes_no_float32_tensor(name):
+    """A float64 model's prefill and decode step: every tensor an
+    operator makes is float64 (or an integer or bool); no upcast
+    rounds to float32 on the way."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from repro_torch.launch import steps
+
+    made = set()
+
+    class Dtypes(TorchDispatchMode):
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            made.update((str(func), t.dtype) for t in
+                        torch.utils._pytree.tree_leaves(out)
+                        if isinstance(t, torch.Tensor)
+                        and t.is_floating_point())
+            return out
+
+    cfg = dataclasses.replace(W.f32_reduced(name), **F64)
+    params = api.init(0, cfg, None, device="cpu")
+    prefill = steps.make_prefill_step(cfg, MAX_LEN, with_logits=True,
+                                      cache_dtype=torch.float64)
+    decode = steps.make_decode_step(cfg, with_logits=True)
+    with Dtypes():
+        tok, cache, logits = prefill(params, W.prompts(cfg, BATCH, PLEN, 0))
+        tok, cache, logits = decode(params, tok, cache)
+    assert logits.dtype == torch.float64
+    assert made and {d for _, d in made} == {torch.float64}, sorted(
+        (f, str(d)) for f, d in made if d != torch.float64)
 
 
 def test_cache_is_this_ranks_share(monkeypatch):
